@@ -1,0 +1,39 @@
+"""Architecture registry: ``--arch <id>`` -> ArchConfig, ``--quant <name>``
+-> QuantConfig or QuantPolicy.
+
+Counterpart of ``repro/configs/registry.py``.  ``ARCH_IDS`` lists every
+architecture the reference knows; only ``PORTED`` ones have a config here,
+and asking for another raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.core import qpolicy
+from repro_torch.models.config import ArchConfig
+
+ARCH_IDS = ("zamba2-2.7b", "qwen1.5-0.5b", "mistral-nemo-12b", "smollm-135m",
+            "mistral-large-123b", "llava-next-mistral-7b", "mixtral-8x7b",
+            "qwen2-moe-a2.7b", "mamba2-370m", "whisper-large-v3")
+
+#: arch id -> config module of the dense archs this port runs
+PORTED = {
+    "qwen1.5-0.5b": "qwen1p5_0p5b",
+    "smollm-135m": "smollm_135m",
+}
+
+
+def get_config(arch: str) -> ArchConfig:
+    if arch not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch!r}; have {sorted(ARCH_IDS)}")
+    if arch not in PORTED:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported yet; have {sorted(PORTED)}")
+    return importlib.import_module(
+        f"repro_torch.configs.{PORTED[arch]}").CONFIG
+
+
+def get_quant(name: str):
+    """``--quant <name>`` -> QuantConfig (uniform presets) or QuantPolicy
+    (path-scoped presets like ``int8_embed16``)."""
+    return qpolicy.get(name)
