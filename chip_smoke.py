@@ -8,21 +8,40 @@ Phases (each raises on failure; nothing is caught):
 1. Print the card (``nvidia-smi`` name and power limit); build the CUDA
    kernels from ``src/repro_torch/csrc`` and print the build seconds and
    the ``ptxas`` register / shared-memory report.
-2. For each ported kernel, at the shapes the qwen1.5-0.5b serving path
-   gives it: run the kernel and its plain PyTorch version on the card from
-   the same seeded inputs and hold them together (integer outputs exactly,
-   f32 outputs within the stated tolerance); time kernel, plain version and
-   a one-call PyTorch yardstick with CUDA events (median); compute the
-   card's lower bound from the bytes and int8 operations this call needs.
-3. Check the served logits against the port's CPU path on a reduced
-   qwen1.5-0.5b (2 layers) from the same weights.
+2. For each ported kernel, at the shapes its main path gives it (the
+   qwen1.5-0.5b serving path for the forward kernels, the bert-base
+   fine-tuning step — batch 32 x seq 128 — for the backward matmuls and
+   the layer-norm kernels, and for the quantize and NN matmul kernels
+   also the step's gradient quantize and w1 forward): run the kernel and its plain PyTorch version
+   on the card from the same seeded inputs and hold them together (integer
+   outputs and the matmuls exactly, other f32 outputs within the stated
+   tolerance); time kernel, plain version and a one-call PyTorch yardstick
+   with CUDA events (median); compute the card's lower bound from the
+   bytes and the operations this call needs.
+3. On reduced configurations (2 layers), from the same weights, the card
+   against the port's CPU path: qwen1.5-0.5b's served logits; one BERT
+   training step under the paper's integer scope (round to nearest), its
+   loss and every parameter's gradient, for the cls and span heads.
 4. Serve qwen1.5-0.5b at full width (24 layers, d_model 1024, vocab
    151936), int8 (w8·a12), random weights from a seeded generator: 4 slots,
    max_seq 256, 8 requests of 64-token prompts, 16 new tokens each, through
    ``ContinuousBatcher.run_until_drained``.  Every launch counter is set to
-   0 just before and read just after; every kernel must have launched.
-   Prints tokens/s, peak memory and the launches of one decode step.
-5. Print the ``{"kernels": [...]}`` line, then the last line
+   0 just before and read just after; every kernel of the path must have
+   launched.  Prints tokens/s, peak memory and the launches of one decode
+   step.
+5. Fine-tune bert-base at full width (12 layers, d_model 768, d_ff 3072,
+   vocab 30522) through ``train.finetune.finetune`` under the paper's
+   integer scope (int8 linear / layer-norm / embedding, attention FP32)
+   with stochastic gradient rounding from a seeded CUDA generator, AdamW at
+   lr 1e-4: 10 steps of the cls proxy (batch 32 x seq 128) and 4 of the
+   span proxy (batch 12 x seq 384), launch counters set to 0 just before
+   each run and read just after; every kernel of the path must have
+   launched and every loss be finite.  Prints the losses (and the FP32
+   preset's from the same init), the median time of the steps after the
+   first (step 0 also holds the set-up), tokens/s over those steps, peak
+   memory, the launches of one step and a profiled step's device-busy
+   share.
+6. Print the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available or when
@@ -39,9 +58,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, int8 ops/s
+#: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, int8 tensor
+#: ops/s, float32 ops/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+F32_OPS_PER_S = 67e12
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -89,10 +110,12 @@ def timings(kernel, plain, library=None) -> dict:
                 library_device_ms=device_ms(library) if library else None)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple:
+def bound_ms(n_bytes: float, n_ops: float, f32_ops: float = 0.0) -> tuple:
     """Least time the card could take: max(bytes / HBM rate, int8 ops /
-    int8 tensor rate), and which of the two bounds it."""
-    tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / INT8_OPS_PER_S * 1e3
+    int8 tensor rate + f32 ops / f32 rate), and which of the two bounds
+    it."""
+    tb = n_bytes / HBM_BYTES_PER_S * 1e3
+    to = (n_ops / INT8_OPS_PER_S + f32_ops / F32_OPS_PER_S) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -100,31 +123,44 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def check_quantize(torch, dev, gen, V, D):
+def check_quantize(torch, dev, gen, V, D, tokens, F):
     """dfx_quantize at the path's largest call: the whole embedding table
-    (V, D) f32 -> int8 mantissas, re-quantized on every serving step."""
+    (V, D) f32 -> int8 mantissas, re-quantized on every serving step.  Also
+    held exactly at the fine-tuning step's largest gradient quantize: w1's
+    upstream gradient (tokens x F) f32 at 8 bits, rounded stochastically
+    (``u`` from the CUDA generator) into limb planes; that call is timed
+    too (``grad_*`` keys)."""
     from repro_torch.core import dfx
     from repro_torch.kernels import dfx_quant
     table = torch.randn((V, D), generator=gen, device=dev) * 0.02
     exp = dfx.scale_exponent(table) - 7
-    cases = [(table, 8, False),                  # int_embedding table
-             (table, 8, True),                   # tied head's planes
-             (torch.randn((256, 2816), generator=gen, device=dev), 12, True)]
+    grad = torch.randn((tokens, F), generator=gen, device=dev) * 1e-6
+    u_grad = torch.rand((tokens, F), generator=gen, device=dev)
+    act = torch.randn((256, 2816), generator=gen, device=dev)
+    cases = [(table, 8, False, None),            # int_embedding table
+             (table, 8, True, None),             # tied head's planes
+             (act, 12, True, None),              # a12 activation planes
+             (act, 12, False, torch.rand((256, 2816), generator=gen,
+                                         device=dev)),
+             (grad, 8, True, u_grad)]            # g8 gradient planes, SR
     err = 0.0
-    for x, bits, limbs in cases:
+    for x, bits, limbs, u in cases:
         e = dfx.scale_exponent(x) - (bits - 1)
-        got = dfx_quant.dfx_quantize(x, e, bits=bits, limb_planes=limbs)
-        ref = dfx_quant.dfx_quantize_plain(x, e, bits=bits, limb_planes=limbs)
+        got = dfx_quant.dfx_quantize(x, e, bits=bits, u=u, limb_planes=limbs)
+        ref = dfx_quant.dfx_quantize_plain(x, e, bits=bits, u=u,
+                                           limb_planes=limbs)
         if not torch.equal(got, ref):
-            raise AssertionError(f"dfx_quantize differs from its plain "
-                                 f"version at {tuple(x.shape)} bits={bits}")
+            raise AssertionError(
+                f"dfx_quantize differs from its plain version at "
+                f"{tuple(x.shape)} bits={bits} limb_planes={limbs} "
+                f"stochastic={u is not None}")
         err = max(err, (got.float() - ref.float()).abs().max().item())
-    u = torch.rand((256, 2816), generator=gen, device=dev)
-    x = cases[2][0]
-    e = dfx.scale_exponent(x) - 11
-    if not torch.equal(dfx_quant.dfx_quantize(x, e, bits=12, u=u),
-                       dfx_quant.dfx_quantize_plain(x, e, bits=12, u=u)):
-        raise AssertionError("stochastic dfx_quantize differs")
+    ge = dfx.scale_exponent(grad) - 7
+    grad_q = dfx_quant.dfx_quantize(grad, ge, bits=8, u=u_grad,
+                                    limb_planes=True)
+    grad_ms = device_ms(lambda: dfx_quant.dfx_quantize(
+        grad, ge, bits=8, u=u_grad, limb_planes=True))
+    grad_b, _ = bound_ms(nbytes(grad, u_grad, grad_q), 0)
     out = torch.empty((V, D), dtype=torch.int8, device=dev)
     # yardstick: PyTorch's per-tensor int8 quantize at the same power-of-two
     # scale (round half to even; it clamps at -128 where the kernel clamps
@@ -135,12 +171,17 @@ def check_quantize(torch, dev, gen, V, D):
                 lambda: torch.quantize_per_tensor(table, scale, 0,
                                                   torch.qint8))
     b, by = bound_ms(nbytes(table, out), 0)
+    print(f"  dfx_quantize gradient ({tokens},{F}) f32 -> 8-bit planes, "
+          f"stochastic: device {grad_ms:.4f} ms, bound {grad_b:.4f} ms "
+          "(bytes)")
     return dict(name="dfx_quantize", route="cuda",
                 source="src/repro_torch/csrc/dfx_quant.cu",
                 replaces="src/repro/kernels/dfx_quant.py:115",
-                shape=f"x ({V},{D}) f32 -> int8, tolerance exact; "
-                      "library: torch.quantize_per_tensor to qint8",
-                max_abs_err=err, bound_ms=b, bound_by=by, **t)
+                shape=f"x ({V},{D}) f32 -> int8, tolerance exact (also held "
+                      f"exactly: ({tokens},{F}) f32 gradient -> 8-bit planes "
+                      "with u); library: torch.quantize_per_tensor to qint8",
+                max_abs_err=err, bound_ms=b, bound_by=by,
+                grad_device_ms=grad_ms, grad_bound_ms=grad_b, **t)
 
 
 def _planes(torch, gen, dev, L, *shape):
@@ -148,10 +189,12 @@ def _planes(torch, gen, dev, L, *shape):
                          dtype=torch.int8)
 
 
-def check_matmul(torch, dev, gen, cfg, V):
+def check_matmul(torch, dev, gen, cfg, V, bert, tokens):
     """bfp_matmul at the path's shapes: the decode head (4 x 1024 x 152064,
-    W K-major), a decode and a prefill linear; timed at the prefill MLP
-    up-projection (256 x 1024 x 2816, 2x1 limbs)."""
+    W K-major), a decode and a prefill linear, and the bert-base
+    fine-tuning step's w1 forward (tokens x 768 x 3072, 2x1 limbs); timed
+    at the prefill MLP up-projection (256 x 1024 x 2816, 2x1 limbs), the
+    head and w1."""
     from repro_torch.kernels import bfp_matmul as bm
     D, F = cfg.d_model, cfg.d_ff
     exp = torch.tensor(-19, dtype=torch.int32, device=dev)
@@ -159,7 +202,9 @@ def check_matmul(torch, dev, gen, cfg, V):
     cases = [(_planes(torch, gen, dev, 2, 4, D), head_w),
              (_planes(torch, gen, dev, 2, 4, D), _planes(torch, gen, dev, 1, D, 3 * D)),
              (_planes(torch, gen, dev, 2, 256, F), _planes(torch, gen, dev, 1, F, D)),
-             (_planes(torch, gen, dev, 2, 256, D), _planes(torch, gen, dev, 1, D, F))]
+             (_planes(torch, gen, dev, 2, 256, D), _planes(torch, gen, dev, 1, D, F)),
+             (_planes(torch, gen, dev, 2, tokens, bert.d_model),
+              _planes(torch, gen, dev, 1, bert.d_model, bert.d_ff))]
     err = 0.0
     for xm, wm in cases:
         got, ref = bm.bfp_matmul(xm, wm, exp), bm.bfp_matmul_plain(xm, wm, exp)
@@ -183,13 +228,24 @@ def check_matmul(torch, dev, gen, cfg, V):
     print(f"  bfp_matmul decode head 4x{D}x{V} (2x1 limbs, W K-major): "
           f"{head_ms:.4f} ms (device {head_dev:.4f}), bound {head_b:.4f} ms "
           f"({head_by})")
+    wx, ww = cases[4]
+    w1_dev = device_ms(lambda: bm.bfp_matmul(wx, ww, exp))
+    w1_b, w1_by = bound_ms(nbytes(wx, ww) + 4 * tokens * bert.d_ff,
+                           2 * tokens * bert.d_model * bert.d_ff * 2)
+    print(f"  bfp_matmul bert-base w1 forward {tokens}x{bert.d_model}x"
+          f"{bert.d_ff} (2x1 limbs): device {w1_dev:.4f} ms, bound "
+          f"{w1_b:.4f} ms ({w1_by})")
     return dict(name="bfp_matmul", route="cuda",
                 source="src/repro_torch/csrc/bfp_matmul.cu",
                 replaces="src/repro/kernels/bfp_matmul.py:147",
-                shape=f"({M},{K})x({K},{N}), 2x1 limbs, tolerance exact; "
-                      "library: torch._int_mm of one limb pair",
+                shape=f"({M},{K})x({K},{N}), 2x1 limbs, tolerance exact (also "
+                      f"held exactly: decode head, a decode linear, w1 "
+                      f"forward ({tokens},{bert.d_model})x({bert.d_model},"
+                      f"{bert.d_ff})); library: torch._int_mm of one limb "
+                      "pair",
                 max_abs_err=err, bound_ms=b, bound_by=by, head_ms=head_ms,
-                head_device_ms=head_dev, head_bound_ms=head_b, **t)
+                head_device_ms=head_dev, head_bound_ms=head_b,
+                w1_device_ms=w1_dev, w1_bound_ms=w1_b, **t)
 
 
 def check_rmsnorm(torch, dev, gen, D):
@@ -281,6 +337,142 @@ def check_attention(torch, dev, gen, cfg):
                 max_abs_err=err, bound_ms=b, bound_by=by, **t)
 
 
+def check_matmul_bwd(torch, dev, gen, cfg, tokens):
+    """bfp_matmul_nt and bfp_matmul_tn at the bert-base fine-tuning step's
+    shapes (``tokens`` = batch 32 x seq 128): w1's dX, G (4096x3072) ·
+    W (768x3072)ᵀ with 1x1 limbs (g8, w8), and w1's dW, X (4096x768)ᵀ ·
+    G (4096x3072) with 2x1 limbs (a12, g8); also the ragged products of
+    the classifier head (N = 4) and the pooler (M = batch).  Timed at w1."""
+    from repro_torch.kernels import bfp_matmul as bm
+    D, F, B = cfg.d_model, cfg.d_ff, 32
+    e = torch.tensor(-27, dtype=torch.int32, device=dev)
+    g, w = _planes(torch, gen, dev, 1, tokens, F), _planes(torch, gen, dev, 1, D, F)
+    x = _planes(torch, gen, dev, 2, tokens, D)
+    gh, wh = _planes(torch, gen, dev, 1, B, 4), _planes(torch, gen, dev, 1, D, 4)
+    xp = _planes(torch, gen, dev, 2, B, D)
+    out = []
+    for name, fn, plain, cases, lib_args in (
+            ("bfp_matmul_nt", bm.bfp_matmul_nt, bm.bfp_matmul_nt_plain,
+             [(g, w), (gh, wh), (xp[:1], _planes(torch, gen, dev, 1, D, D))],
+             (g[0], w[0].t().contiguous())),
+            ("bfp_matmul_tn", bm.bfp_matmul_tn, bm.bfp_matmul_tn_plain,
+             [(x, g), (xp, gh), (xp, xp[:1])],
+             (x[0].t().contiguous(), g[0]))):
+        err = 0.0
+        for a, b in cases:
+            got, ref = fn(a, b, e), plain(a, b, e)
+            if not torch.equal(got, ref):
+                raise AssertionError(
+                    f"{name} differs from its plain version at "
+                    f"{tuple(a.shape)} x {tuple(b.shape)}: "
+                    f"{(got - ref).abs().max().item()}")
+            err = max(err, (got - ref).abs().max().item())
+        a, b = cases[0]
+        res = fn(a, b, e)
+        t = timings(lambda: fn(a, b, e), lambda: plain(a, b, e),
+                    lambda: torch._int_mm(*lib_args))
+        n_ops = 2 * tokens * D * F * a.shape[0] * b.shape[0]
+        bd, by = bound_ms(nbytes(a, b, e, res), n_ops)
+        what = ("dX: G (%d,%d) . W (%d,%d)^T, 1x1 limbs" % (tokens, F, D, F)
+                if name == "bfp_matmul_nt" else
+                "dW: X (%d,%d)^T . G (%d,%d), 2x1 limbs" % (tokens, D, tokens, F))
+        out.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/bfp_matmul.cu",
+            replaces=("src/repro/kernels/bfp_matmul.py:176"
+                      if name == "bfp_matmul_nt" else
+                      "src/repro/kernels/bfp_matmul.py:210"),
+            shape=f"{what}, tolerance exact; library: torch._int_mm of one "
+                  "limb pair (operands made contiguous beforehand)",
+            max_abs_err=err, bound_ms=bd, bound_by=by, **t))
+    return out
+
+
+def check_layernorm(torch, dev, gen, D, R):
+    """int_layernorm_fwd / _bwd at the bert-base fine-tuning step's shape:
+    R = 4096 rows (batch 32 x seq 128) of D = 768 int16 mantissas (a12),
+    int8 gradient mantissas (g8).
+
+    Tolerances: mu and rstd within 4 ulp and y within 1e-6 of max|y| (the
+    plain version's division by D may be a reciprocal multiply on the
+    card); dβ exactly (exact int sums); dx within 64 ulp of max|dx| and
+    dγ within 64 ulp of the column's Σ|gq·xn| (f32 sums in another
+    order)."""
+    import torch.nn.functional as F
+    from repro_torch.core import dfx
+    from repro_torch.kernels import int_norm
+    ulp = 2.0 ** -23
+    xm = torch.randint(-2047, 2048, (R, D), generator=gen, device=dev,
+                       dtype=torch.int16)
+    gm = torch.randint(-127, 128, (R, D), generator=gen, device=dev,
+                       dtype=torch.int8)
+    xe = torch.tensor(-9, dtype=torch.int32, device=dev)
+    ge = torch.tensor(-27, dtype=torch.int32, device=dev)
+    gamma = 1 + 0.1 * torch.randn((D,), generator=gen, device=dev)
+    beta = 0.1 * torch.randn((D,), generator=gen, device=dev)
+    y, mu, rstd = int_norm.int_layernorm_fwd(xm, xe, gamma, beta)
+    y0, mu0, rstd0 = int_norm.int_layernorm_fwd_plain(xm, xe, gamma, beta)
+    rel = max(((mu - mu0).abs() / mu0.abs().clamp(min=1e-30)).max().item(),
+              ((rstd - rstd0).abs() / rstd0).max().item())
+    ey = ((y - y0).abs().max() / y0.abs().max()).item()
+    if rel > 4 * ulp or ey > 1e-6:
+        raise AssertionError(f"int_layernorm_fwd differs: stats rel {rel}, "
+                             f"y rel {ey}")
+    dx, dg, db = int_norm.int_layernorm_bwd(xm, gm, xe, ge, gamma, mu0,
+                                            rstd0)
+    dx0, dg0, db0 = int_norm.int_layernorm_bwd_plain(xm, gm, xe, ge, gamma,
+                                                     mu0, rstd0)
+    xn = (xm.float() * dfx.pow2(xe) - mu0) * rstd0
+    col = (gm.float() * dfx.pow2(ge) * xn).abs().sum(0)
+    if (not torch.equal(db, db0)
+            or (dx - dx0).abs().max() > 64 * ulp * dx0.abs().max()
+            or ((dg - dg0).abs() > 64 * ulp * col).any()):
+        raise AssertionError(
+            f"int_layernorm_bwd differs: dx {(dx - dx0).abs().max().item()}"
+            f", dgamma {(dg - dg0).abs().max().item()}, dbeta exact "
+            f"{torch.equal(db, db0)}")
+    xv = xm.float() * dfx.pow2(xe)
+    gq = gm.float() * dfx.pow2(ge)
+    _, lmean, lrstd = torch.ops.aten.native_layer_norm(xv, [D], gamma, beta,
+                                                       1e-5)
+    fwd = dict(name="int_layernorm_fwd", route="cuda",
+               source="src/repro_torch/csrc/int_norm.cu",
+               replaces="src/repro/kernels/int_norm.py:113",
+               shape=f"({R},{D}) int16 -> y, mu, rstd; tolerance stats 4 ulp,"
+                     " y 1e-6 of max; library: F.layer_norm on the f32 "
+                     "values",
+               max_abs_err=(y - y0).abs().max().item(),
+               **timings(lambda: int_norm.int_layernorm_fwd(xm, xe, gamma,
+                                                            beta),
+                         lambda: int_norm.int_layernorm_fwd_plain(
+                             xm, xe, gamma, beta),
+                         lambda: F.layer_norm(xv, (D,), gamma, beta, 1e-5)))
+    # per element: 4 digit-sum / moment int ops, then sub, 2 mul, mul, add
+    fwd["bound_ms"], fwd["bound_by"] = bound_ms(
+        nbytes(xm, xe, gamma, beta, y, mu, rstd), 0, 9 * R * D)
+    bwd = dict(name="int_layernorm_bwd", route="cuda",
+               source="src/repro_torch/csrc/int_norm.cu",
+               replaces="src/repro/kernels/int_norm.py:181",
+               shape=f"({R},{D}) int16 x, int8 g -> dx, dgamma, dbeta; "
+                     "tolerance dbeta exact, dx 64 ulp of max, dgamma 64 ulp "
+                     "of the column's sum of |gq xn|; library: "
+                     "aten.native_layer_norm_backward on the f32 values",
+               max_abs_err=max((dx - dx0).abs().max().item(),
+                               (dg - dg0).abs().max().item()),
+               **timings(lambda: int_norm.int_layernorm_bwd(
+                   xm, gm, xe, ge, gamma, mu0, rstd0),
+                   lambda: int_norm.int_layernorm_bwd_plain(
+                       xm, gm, xe, ge, gamma, mu0, rstd0),
+                   lambda: torch.ops.aten.native_layer_norm_backward(
+                       gq, xv, [D], lmean, lrstd, gamma, beta,
+                       [True, True, True])))
+    # per element: xn (3), gq, gg, two row sums (3), dx (4), dgamma (2)
+    bwd["bound_ms"], bwd["bound_by"] = bound_ms(
+        nbytes(xm, gm, xe, ge, gamma, mu0, rstd0, dx, dg, db), 0,
+        14 * R * D)
+    return [fwd, bwd]
+
+
 def check_small_model(torch, dev):
     """Reduced qwen1.5-0.5b (2 layers): prefill + 3 decode steps on the card
     (CUDA kernels) against the port's CPU path (plain versions)."""
@@ -317,16 +509,85 @@ def check_small_model(torch, dev):
         raise AssertionError("card logits disagree with the CPU path")
 
 
-def profile_decode_step(torch, engine, batcher) -> None:
-    """torch.profiler over one decode step: wall time, summed device time
-    (the device's busy share) and the device time by kernel or op."""
+def _leaves(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaves(tree[k], f"{prefix}{k}.")
+        else:
+            yield prefix + k, tree[k]
+
+
+def check_small_bert(torch, dev):
+    """Reduced bert-base (2 layers, d_model 128): one training step under
+    the paper's integer scope, rounding to nearest, on the card (CUDA
+    kernels) against the port's CPU path (plain versions) from the same
+    weights and batch, for the cls and the span heads.
+
+    Tolerances: the loss within 1e-5 relative; every parameter's gradient
+    within 2e-3 of its largest magnitude, the bound the CPU tests hold the
+    port to against the JAX reference.  The FP32 kept ops (softmax, GELU,
+    the attention einsums, the layer-norm's f32 sums) round differently on
+    the two devices, which can move an 8-bit gradient mantissa at a
+    rounding boundary by one step; a faulty integer kernel moves whole
+    gradients."""
+    import dataclasses
+    from repro_torch.configs import bert_base
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.models import paper_models as pm
+    from repro_torch.train import finetune as tf
+    from repro_torch.train import optimizer as topt
+    cfg = bert_base.CONFIG.reduced()
+    pol = tf.paper_scope(dataclasses.replace(QuantConfig.int8(),
+                                             stochastic_grad=False))
+    ocfg = topt.OptimizerConfig(lr=1e-3, weight_decay=0.0)
+    for task, sampler, loss_fn in (
+            ("cls", tf.make_cls_task(vocab=cfg.vocab, seq=32),
+             pm.bert_cls_loss),
+            ("span", tf.make_span_task(vocab=cfg.vocab, seq=48),
+             pm.bert_span_loss)):
+        params = pm.bert_init(torch.Generator().manual_seed(1), cfg,
+                              num_labels=4, span_head=task == "span",
+                              device="cpu")
+        batch = sampler(4, 0)
+        res = {}
+        for device in ("cpu", dev):
+            p = _to(params, device)
+            _, _, loss, grads, _ = tf.train_step(
+                p, topt.init(p), tf.to_device(batch, device), cfg, pol,
+                loss_fn, ocfg, None)
+            res[str(device)] = (float(loss), {n: g.cpu()
+                                              for n, g in _leaves(grads)})
+        (l0, g0), (l1, g1) = res["cpu"], res[str(dev)]
+        dl = abs(l1 - l0) / abs(l0)
+        worst, at = 0.0, ""
+        for name, ref in g0.items():
+            got = g1[name]
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"non-finite gradient {name} on the card")
+            scale = ref.abs().max().item()
+            d = (got - ref).abs().max().item() / scale if scale else \
+                (got - ref).abs().max().item()
+            if d > worst:
+                worst, at = d, name
+        print(f"  reduced bert-base {task} step, card vs CPU: loss {l1:.6f} "
+              f"vs {l0:.6f} (rel {dl:.2e}, tolerance 1e-5); worst gradient "
+              f"{worst:.2e} of its max at {at} (tolerance 2e-3) over "
+              f"{len(g0)} parameters")
+        if dl > 1e-5 or worst > 2e-3:
+            raise AssertionError("card training step disagrees with the CPU "
+                                 "path")
+
+
+def profile_step(torch, fn, what: str) -> float:
+    """torch.profiler over one call of ``fn``: wall time, summed device time
+    (the device's busy share) and the device time by kernel or op.
+    Returns the busy share."""
     from torch.profiler import ProfilerActivity, profile
-    cache = {k: v.clone() for k, v in batcher.cache.items()}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine._decode(engine.params, batcher.last_tok, cache)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -339,11 +600,85 @@ def profile_decode_step(torch, engine, batcher) -> None:
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     launches = sum(r[1] for r in rows)
-    print(f"  profiled decode step: wall {wall_ms:.2f} ms, device busy "
+    print(f"  profiled {what}: wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%) in {launches} "
           "device kernels / copies; top device time:")
     for dev_us, count, key in rows[:14]:
         print(f"    {dev_us / 1e3:8.3f} ms  {count:5d}x  {key[:110]}")
+    return busy_ms / wall_ms
+
+
+def finetune_phase(torch, dev, wrappers) -> dict:
+    """Fine-tune bert-base at full width through ``finetune`` (phase 5).
+    Returns each wrapper's launches over the two integer runs."""
+    from repro_torch.configs import bert_base
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.train import finetune as tf
+    from repro_torch.train import optimizer as topt
+    arch = bert_base.CONFIG
+    total = dict.fromkeys(wrappers, 0)
+    for task, steps, batch, seq in (("cls", 10, 32, 128),
+                                    ("span", 4, 12, 384)):
+        ft = tf.FtConfig(steps=steps, batch=batch, seq=seq, eval_n=batch,
+                         lr=1e-4)
+        stamps, counts = [], []
+
+        def on_step(i, loss):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            counts.append({n: w.launches for n, w in wrappers.items()})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        t_start = time.perf_counter()
+        metric, losses = tf.finetune(task, tf.paper_scope(), ft, device=dev,
+                                     arch=arch, return_losses=True,
+                                     on_step=on_step)
+        torch.cuda.synchronize()
+        launches = {n: w.launches for n, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not all(map(lambda v: v == v and abs(v) != float("inf"),
+                       losses)):
+            raise AssertionError(f"non-finite {task} loss: {losses}")
+        for n, c in launches.items():
+            if c <= 0:
+                raise AssertionError(f"kernel {n} was not launched on the "
+                                     f"{task} fine-tuning path")
+            total[n] += c
+        # steps 1.. are timed between on_step calls; step 0 also holds the
+        # set-up (full-width init, optimizer state) and first-call costs
+        first_ms = 1e3 * (stamps[0] - t_start)
+        step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+        med = statistics.median(step_ms)
+        tok_s = batch * seq * len(step_ms) / sum(step_ms) * 1e3
+        last = {n: counts[-1][n] - counts[-2][n] for n in wrappers}
+        _, losses32 = tf.finetune(task, QuantConfig.fp32(), ft, device=dev,
+                                  arch=arch, return_losses=True)
+        print(f"  {task}: batch {batch} x seq {seq}, {steps} steps; int8 "
+              f"losses {[round(v, 5) for v in losses]}; FP32 losses from the "
+              f"same init {[round(v, 5) for v in losses32]}; eval metric "
+              f"{metric:.1f}% on {batch} samples")
+        print(f"  {task}: set-up + step 0 {first_ms:.2f} ms; steps 1-"
+              f"{steps - 1} ms {[round(v, 2) for v in step_ms]}; median "
+              f"{med:.2f} ms; {tok_s:.1f} tokens/s over those steps; peak "
+              f"memory {peak:.2f} GiB; launches in the run {launches}; in "
+              f"one step {last}")
+        if task == "cls":
+            gen = torch.Generator(device=dev).manual_seed(1)
+            cfg, params, sampler, loss_fn, lr = tf._task_setup(
+                task, gen, ft, arch, dev)
+            ocfg = topt.OptimizerConfig(lr=lr, weight_decay=0.0)
+            state = {"p": params, "o": topt.init(params)}
+            b = tf.to_device(sampler(batch, 0), dev)
+
+            def one_step():
+                state["p"], state["o"], _, _, _ = tf.train_step(
+                    state["p"], state["o"], b, cfg, tf.paper_scope(),
+                    loss_fn, ocfg, gen)
+            one_step()
+            profile_step(torch, one_step, f"bert-base {task} training step")
+    return total
 
 
 def _to(tree, device):
@@ -361,7 +696,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import registry
+    from repro_torch.configs import bert_base, registry
     from repro_torch.kernels import _lib, bfp_matmul, dfx_quant, int_attention, int_norm
     from repro_torch.models import lm
     from repro_torch.serve.engine import ContinuousBatcher, Engine, ServeConfig
@@ -386,10 +721,14 @@ def main() -> int:
     V = lm.padded_vocab(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     print("[2] kernels against their plain versions, full-width shapes")
-    kernels = [check_quantize(torch, dev, gen, V, cfg.d_model),
-               check_matmul(torch, dev, gen, cfg, V),
+    bert, tokens = bert_base.CONFIG, 32 * 128
+    kernels = [check_quantize(torch, dev, gen, V, cfg.d_model, tokens,
+                              bert.d_ff),
+               check_matmul(torch, dev, gen, cfg, V, bert, tokens),
                check_rmsnorm(torch, dev, gen, cfg.d_model),
                check_attention(torch, dev, gen, cfg)]
+    kernels += check_matmul_bwd(torch, dev, gen, bert, tokens)
+    kernels += check_layernorm(torch, dev, gen, bert.d_model, tokens)
     for k in kernels:
         print(f"  {k['name']}: max_abs_err {k['max_abs_err']:.3e}; call "
               f"{k['ms']:.4f} ms, device {k['device_ms']:.4f} ms; plain "
@@ -397,8 +736,9 @@ def main() -> int:
               f"{k['library_ms']} / {k['library_device_ms']}; bound "
               f"{k['bound_ms']:.4f} by {k['bound_by']} [{k['shape']}]")
 
-    print("[3] reduced model, card vs CPU path")
+    print("[3] reduced models, card vs CPU path")
     check_small_model(torch, dev)
+    check_small_bert(torch, dev)
 
     print("[4] serve qwen1.5-0.5b, full width, int8")
     wrappers = {"dfx_quantize": dfx_quant.dfx_quantize,
@@ -458,9 +798,23 @@ def main() -> int:
         {k: v.clone() for k, v in batcher.cache.items()}), reps=3, warmup=1)
     print(f"  one {prompt_len}-token prefill (4-slot batch): "
           f"{prefill_ms:.2f} ms")
-    profile_decode_step(torch, engine, batcher)
+    profile_step(torch, lambda: engine._decode(
+        engine.params, batcher.last_tok,
+        {k: v.clone() for k, v in batcher.cache.items()}), "decode step")
+    print("[5] fine-tune bert-base, full width, paper scope (int8 linear / "
+          "layer-norm / embedding), stochastic gradient rounding")
+    ft_launches = finetune_phase(torch, dev, {
+        "dfx_quantize": dfx_quant.dfx_quantize,
+        "bfp_matmul": bfp_matmul.bfp_matmul,
+        "bfp_matmul_nt": bfp_matmul.bfp_matmul_nt,
+        "bfp_matmul_tn": bfp_matmul.bfp_matmul_tn,
+        "int_layernorm_fwd": int_norm.int_layernorm_fwd,
+        "int_layernorm_bwd": int_norm.int_layernorm_bwd})
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        by_path = {"serve": launches.get(k["name"], 0),
+                   "finetune": ft_launches.get(k["name"], 0)}
+        k["launches"] = sum(by_path.values())
+        k["launches_by_path"] = by_path
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -71,6 +71,23 @@ def scale_exponent(x: torch.Tensor) -> torch.Tensor:
     return torch.where(absmax > 0, e, torch.zeros_like(e)).to(torch.int32)
 
 
+def uniform(key, shape, device) -> torch.Tensor:
+    """Noise ``u`` in [0, 1) for stochastic rounding, f32 of ``shape`` on
+    ``device``.
+
+    ``key`` is the port's counterpart of a JAX PRNG key: a
+    ``torch.Generator`` on ``device`` (each call draws the next numbers of
+    its stream), or a callable ``key(shape, device) -> u``, through which a
+    caller hands in noise of its own (the parity tests feed the
+    reference's ``jax.random.uniform`` draws this way).
+    """
+    if isinstance(key, torch.Generator):
+        return torch.rand(shape, generator=key, device=device,
+                          dtype=torch.float32)
+    u = key(tuple(shape), device)
+    return torch.as_tensor(u, dtype=torch.float32, device=device)
+
+
 def quantize(x: torch.Tensor, bits: int, *, u: torch.Tensor | None = None,
              limb_planes: bool = False) -> DfxTensor:
     """Per-tensor linear fixed-point mapping: the exponent from the

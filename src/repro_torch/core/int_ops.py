@@ -1,21 +1,37 @@
-"""Integer layers, forward only: linear / embedding / RMS-norm / attention.
+"""Integer layers: linear / embedding / layer-norm with integer forward
+and backward, RMS-norm / attention forward.
 
-Counterpart of the forward halves of ``repro/core/int_ops.py`` on the
-reference's ``pallas`` route: every quantization goes through the quantize
-kernel (the max-abs exponent stays plain PyTorch), every matmul through the
-limb-plane matmul kernel, the norm through the integer RMS-norm kernel and
-attention through the integer flash-attention kernel.  The kernels run on
-the card for CUDA tensors and as their plain PyTorch versions for CPU
-tensors.  With ``cfg.enabled`` False each layer is its FP32 reference.
+Counterpart of ``repro/core/int_ops.py`` on the reference's ``pallas``
+route: every quantization goes through the quantize kernel (the max-abs
+exponent stays plain PyTorch), every matmul through the limb-plane matmul
+kernels, the norms through the integer norm kernels and attention through
+the integer flash-attention kernel.  The kernels run on the card for CUDA
+tensors and as their plain PyTorch versions for CPU tensors.  With
+``cfg.enabled`` False each layer is its FP32 reference (plain autograd).
 
-Weights are re-quantized on every call, as in the reference (including the
-whole embedding table in ``int_embedding`` and the tied head).
+``int_linear``, ``int_embedding`` and ``int_layernorm`` are
+``torch.autograd.Function``s, the counterparts of the reference's
+``custom_vjp``s (paper, Fig. 2):
 
-These are forward-only functions: with grad mode on and an input that
-requires grad they raise — the backward kernels (``torch.autograd.Function``
-wrappers) are not ported yet.  ``kept_ops="integer"`` is not ported yet
-either.  ``key`` (stochastic forward rounding) must be None: serving rounds
-to nearest.
+    forward:   q(X)·q(W)              NN limb matmul
+    backward:  dX = q(G)·q(W)ᵀ        NT limb matmul
+               dW = q(X)ᵀ·q(G)        TN limb matmul
+
+The residuals are the quantized limb planes / mantissas and their
+exponents, never the f32 inputs.  Each backward quantizes the upstream
+gradient once, at ``grad_bits``, and uses it for every product; it rounds
+stochastically (``floor(y + u)``, the paper's Assumption 2) when
+``cfg.stochastic_grad`` is set and a ``key`` is given, else to nearest.
+``key`` stands where the reference has a PRNG key: None, a
+``torch.Generator`` on the tensors' device, or a callable handing in the
+noise (``core/dfx.py::uniform``).  Weights are re-quantized on every call,
+as in the reference.
+
+``int_rmsnorm`` and ``int_attention`` are still forward-only: with grad
+mode on and an input that requires grad they raise (their backward kernels
+come with later slices of the port).  ``kept_ops="integer"`` and
+stochastic forward rounding (``stochastic_fwd`` with a key) are not ported
+yet and raise.
 """
 from __future__ import annotations
 
@@ -26,15 +42,16 @@ import torch.nn.functional as F
 
 from repro_torch.core import dfx
 from repro_torch.core.qconfig import QuantConfig
+from repro_torch.kernels import int_norm
 from repro_torch.kernels import ops as kops
 
 
-def _forward_only(what: str, *tensors) -> None:
+def _forward_only(what: str, backward_in: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{what} is forward-only in this port (no backward kernels "
-            "yet); run it under torch.no_grad()")
+            f"{what} is forward-only in this port: its backward kernels are "
+            f"ported with {backward_in}; run it under torch.no_grad()")
 
 
 def _no_integer_kept_ops(cfg: QuantConfig, what: str) -> None:
@@ -49,47 +66,166 @@ def _no_stochastic(cfg: QuantConfig, key) -> None:
             "stochastic forward rounding is not ported yet")
 
 
+def _quant_grad(g: torch.Tensor, cfg: QuantConfig, key,
+                limb_planes: bool = False) -> dfx.DfxTensor:
+    """The upstream gradient at ``grad_bits``: stochastic rounding with
+    noise from ``key`` when ``cfg.stochastic_grad`` and a key is given
+    (over the 2-D view, as the reference draws it), else to nearest."""
+    u = None
+    if cfg.stochastic_grad and key is not None:
+        u = dfx.uniform(key, (g.numel() // g.shape[-1], g.shape[-1]),
+                        g.device)
+    return dfx.quantize(g, cfg.grad_bits, u=u, limb_planes=limb_planes)
+
+
+# =========================================================================
+# Linear
+# =========================================================================
+
+class _IntLinear(torch.autograd.Function):
+    """Integer linear: residuals are the (L, M, K) activation planes and the
+    weight planes, with their exponents."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, key, cfg: QuantConfig, transposed_w: bool):
+        qx = dfx.quantize(x, cfg.act_bits, limb_planes=True)
+        qw = dfx.quantize(w, cfg.weight_bits, limb_planes=True)
+        wm = qw.m.transpose(-1, -2) if transposed_w else qw.m
+        K = x.shape[-1]
+        xm = qx.m.reshape(qx.m.shape[0], -1, K)
+        y2 = kops.dfx_matmul_tiled(xm, qx.exp, cfg.act_bits, wm, qw.exp,
+                                   cfg.weight_bits)
+        y = y2.reshape(tuple(x.shape[:-1]) + (wm.shape[-1],))
+        ctx.save_for_backward(xm, qx.exp, qw.m, qw.exp)
+        ctx.cfg, ctx.key = cfg, key
+        ctx.x_shape, ctx.has_b = tuple(x.shape), b is not None
+        return y + b if b is not None else y   # O(N) bias add, kept FP32
+
+    @staticmethod
+    def backward(ctx, g):
+        xm, x_exp, wm, w_exp = ctx.saved_tensors
+        cfg = ctx.cfg
+        N = g.shape[-1]
+        qg = _quant_grad(g, cfg, ctx.key, limb_planes=True)
+        g2 = qg.m.reshape(qg.m.shape[0], -1, N)
+        gb = cfg.grad_bits
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = kops.dfx_matmul_tiled_nt(g2, qg.exp, gb, wm, w_exp,
+                                          cfg.weight_bits).reshape(ctx.x_shape)
+        if ctx.needs_input_grad[1]:
+            dw = kops.dfx_matmul_tiled_tn(xm, x_exp, cfg.act_bits, g2,
+                                          qg.exp, gb)
+        if ctx.has_b and ctx.needs_input_grad[2]:
+            db = g.reshape(-1, N).sum(0)
+        return dx, dw, db, None, None, None
+
+
 def int_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                key, cfg: QuantConfig, *,
                transposed_w: bool = False) -> torch.Tensor:
-    """``y = x @ w (+ b)`` with integer forward.  x: (..., K), w: (K, N).
+    """``y = x @ w (+ b)`` with integer forward and backward.  x: (..., K),
+    w: (K, N), b: (N,) or None.
 
     ``transposed_w``: ``w`` is given as its (N, K) transpose — the tied
     head's embedding table.  It is quantized in that layout (the op is
     elementwise under one scale) and its planes reach the matmul as the
-    K-major view, so the table is never copied or transposed."""
-    _forward_only("int_linear", x, w, b)
+    K-major view, so the table is never copied or transposed.  That head
+    is forward-only (its backward belongs to LM training)."""
     if not cfg.enabled:
         y = torch.matmul(x, w.t() if transposed_w else w)
         return y + b if b is not None else y
+    if transposed_w:
+        _forward_only("int_linear(transposed_w=True)", "LM training", x, w)
     _no_stochastic(cfg, key)
-    qx = dfx.quantize(x, cfg.act_bits, limb_planes=True)
-    qw = dfx.quantize(w, cfg.weight_bits, limb_planes=True)
-    wm = qw.m.transpose(-1, -2) if transposed_w else qw.m
-    K = x.shape[-1]
-    y2 = kops.dfx_matmul_tiled(qx.m.reshape(qx.m.shape[0], -1, K), qx.exp,
-                               cfg.act_bits, wm, qw.exp, cfg.weight_bits)
-    y = y2.reshape(tuple(x.shape[:-1]) + (wm.shape[-1],))
-    return y + b if b is not None else y   # O(N) bias add, kept FP32
+    return _IntLinear.apply(x, w, b, key, cfg, transposed_w)
+
+
+# =========================================================================
+# Embedding
+# =========================================================================
+
+class _IntEmbedding(torch.autograd.Function):
+    """Lookup from the quantized table; the backward scatter-adds the
+    dequantized, grad-bit quantized gradient into a zero table."""
+
+    @staticmethod
+    def forward(ctx, table, ids, key, cfg: QuantConfig):
+        qt = dfx.quantize(table, cfg.weight_bits)
+        ctx.save_for_backward(ids)
+        ctx.cfg, ctx.key, ctx.table_shape = cfg, key, tuple(table.shape)
+        return qt.m[ids].to(torch.float32) * dfx.pow2(qt.exp)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        gq = dfx.dequantize(_quant_grad(g, ctx.cfg, ctx.key))
+        D = ctx.table_shape[-1]
+        dt = torch.zeros(ctx.table_shape, dtype=torch.float32,
+                         device=g.device)
+        dt.index_add_(0, ids.reshape(-1), gq.reshape(-1, D))
+        return dt, None, None, None
 
 
 def int_embedding(table: torch.Tensor, ids: torch.Tensor, key,
                   cfg: QuantConfig) -> torch.Tensor:
     """Embedding lookup from the b-bit quantized table: gather the integer
     mantissas, then the inverse mapping."""
-    _forward_only("int_embedding", table)
     if not cfg.enabled or not cfg.int_embedding:
         return table[ids]
     _no_stochastic(cfg, key)
-    qt = dfx.quantize(table, cfg.weight_bits)
-    return qt.m[ids].to(torch.float32) * dfx.pow2(qt.exp)
+    return _IntEmbedding.apply(table, ids, key, cfg)
+
+
+# =========================================================================
+# Layer norm (and RMS norm)
+# =========================================================================
+
+class _IntLayerNorm(torch.autograd.Function):
+    """Layer-norm over the act-bit mantissas through the fused kernels.
+    The residuals are the mantissas, the dequantized γ and the (mu, rstd)
+    the forward kernel normalised with; the backward kernel rebuilds xn
+    from them, so it differentiates exactly the forward that ran."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, key, cfg: QuantConfig, eps: float):
+        xq = dfx.quantize(x, cfg.act_bits)
+        gv = dfx.dequantize(dfx.quantize(gamma, cfg.weight_bits))
+        D = x.shape[-1]
+        xm = xq.m.reshape(-1, D)
+        y, mu, rstd = int_norm.int_layernorm_fwd(xm, xq.exp, gv, beta,
+                                                 eps=eps)
+        ctx.save_for_backward(xm, xq.exp, gv, mu, rstd)
+        ctx.cfg, ctx.key = cfg, key
+        return y.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        xm, x_exp, gv, mu, rstd = ctx.saved_tensors
+        qg = _quant_grad(g, ctx.cfg, ctx.key)
+        dx, dgamma, dbeta = int_norm.int_layernorm_bwd(
+            xm, qg.m.reshape(xm.shape), x_exp, qg.exp, gv, mu, rstd)
+        return dx.reshape(g.shape), dgamma, dbeta, None, None, None
+
+
+def int_layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                  key, cfg: QuantConfig, eps: float = 1e-5) -> torch.Tensor:
+    """Layer-norm with integer statistics forward and backward (the
+    weight-bit fake-quantized γ; β and the rsqrt stay FP32)."""
+    if cfg.enabled and cfg.int_layernorm:
+        _no_integer_kept_ops(cfg, "int_layernorm")
+        _no_stochastic(cfg, key)
+        return _IntLayerNorm.apply(x, gamma, beta, key, cfg, eps)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * gamma + beta
 
 
 def int_rmsnorm(x: torch.Tensor, gamma: torch.Tensor, key, cfg: QuantConfig,
                 eps: float = 1e-6) -> torch.Tensor:
     """RMS-norm over the act-bit mantissas of ``x`` with the weight-bit
     fake-quantized ``gamma``, through the integer RMS-norm kernel."""
-    _forward_only("int_rmsnorm", x, gamma)
+    _forward_only("int_rmsnorm", "LM training (int_rmsnorm_bwd)", x, gamma)
     if cfg.enabled and cfg.int_layernorm:
         _no_integer_kept_ops(cfg, "int_rmsnorm")
         _no_stochastic(cfg, key)
@@ -128,7 +264,8 @@ def int_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     whole tensor (for a KV cache: every slot and every empty position).
     Returns (B, Sq, KV, G, hd) f32.
     """
-    _forward_only("int_attention", q, k, v)
+    _forward_only("int_attention", "slice 3 (int_attn_bwd_dq/_dkv)", q, k,
+                  v)
     _no_integer_kept_ops(cfg_qk, "int_attention")
     _no_stochastic(cfg_qk, key)
     B = q.shape[0]

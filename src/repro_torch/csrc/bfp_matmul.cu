@@ -1,28 +1,51 @@
-// Block-floating-point integer matmul over int8 limb planes (NN layout).
+// Block-floating-point integer matmul over int8 limb planes, in the three
+// layouts of the integer layers' forward and backward products.
 //
-// Replaces the TPU kernel repro/kernels/bfp_matmul.py::bfp_matmul
-// (:147; _bfp_call :122, pallas_call :127; body _bfp_matmul_kernel :89,
-// epilogue _combine_partials :66):
+// Replaces the TPU kernels of repro/kernels/bfp_matmul.py (body
+// _bfp_matmul_kernel :89, epilogue _combine_partials :66, _bfp_call :122,
+// pallas_call :127):
 //
-//   acc[jx, jw] = X[jx] (M,K) . W[jw] (K,N)        exact int32 per limb pair
-//   out = sum_{jx outer, jw inner} (f32(acc) * 2^exp) * 2^(7(jx+jw))
+//   bfp_matmul    (:147)  NN  out (M,N) = X (M,K) . W (K,N)     forward
+//   bfp_matmul_nt (:176)  NT  dX  (M,K) = G (M,N) . W (K,N)^T   backward dX
+//   bfp_matmul_tn (:210)  TN  dW  (K,N) = X (M,K)^T . G (M,N)   backward dW
+//
+// Written here for one output tile out (M,N) = A (M,K) . B (K,N):
+//
+//   acc[ja, jb] = A[ja] . B[jb]                    exact int32 per limb pair
+//   out = sum_{ja outer, jb inner} (f32(acc) * 2^exp) * 2^(7(ja+jb))
 //
 // The f32 combine runs in that fixed order with the same two exact
 // power-of-two multiplies, so every int32 partial and every rounding of the
 // sum is the reference's (the scale itself is built exactly, see pow2f).
 //
-// W may arrive N-contiguous ((K,N) row-major, every linear layer) or
-// K-contiguous (the tied LM head, W = embed^T, whose planes are quantized in
-// the table's own (N,K) layout).  An int8 dot wants both operands
-// K-contiguous, so an N-contiguous W tile is transposed while it is staged
-// into shared memory — never in a separate pass over device memory.
+// An int8 dot wants both operands contraction-contiguous in shared memory.
+// Each operand arrives in the layout its producer wrote and is transposed,
+// where it must be, while its tile is staged into shared memory — never in
+// a separate pass over device memory:
+//   A: (M,K) row-major (NN, NT: X or G as they are), or stored (K,M)
+//      row-major, i.e. M-contiguous (TN: the saved activation X, whose
+//      feature axis is dW's row axis), staged transposed (XT).
+//   B: (K,N) row-major (NN: a linear layer's weight; TN: the gradient G),
+//      staged transposed; or stored (N,K) row-major, i.e. K-contiguous (WK:
+//      the tied LM head's planes, quantized in the table's own layout, and
+//      NT's weight W (K,N), whose contraction axis N is contiguous), staged
+//      as it is.  So NT is the tied head's instantiation, and TN stages both
+//      operands transposed.
+//
+// int32 stays exact: a non-final limb digit lies in [-64, 63] and the final
+// plane holds the carry (|carry| <= 64 for b <= 16 bits), and an 8-bit
+// mantissa plane holds |m| <= 127, so one product is < 2^13 and a sum over
+// a contraction of length C is < 2^13 * C: exact for C < 2^18.  TN
+// contracts the token axis M = batch x sequence (4,096 at batch 32 x seq
+// 128, 4,608 at 12 x 384), far inside that.
 //
 // Bound on the H100: at decode (M = batch slots, 4 rows) the kernel reads
 // each W byte once for ~8 operations, so it is bound by bytes (the tied head
-// alone is 156 MB of int8 planes); at prefill (M = slots x prompt) it reads
-// each W tile for 64 rows and the int8 work grows with M.  Design (the
-// simple first version): 64x64 output tiles, 32-deep K steps staged through
-// shared memory, 256 threads each holding a 4x4 block of int32
+// alone is 156 MB of int8 planes); at prefill and in training (M = slots x
+// prompt, or batch x sequence) it reads each tile for 64 rows and the int8
+// work grows with M, so it is bound by operations.  Design (the simple
+// first version): 64x64 output tiles, 32-deep contraction steps staged
+// through shared memory, 256 threads each holding a 4x4 block of int32
 // accumulators per limb pair, __dp4a for four int8 products per
 // instruction.  Tensor-core MMA (wgmma), TMA and a double-buffered pipeline
 // are later work.
@@ -58,7 +81,8 @@ __device__ __forceinline__ void stage_kmajor(int8_t (*dst)[KP],
 }
 
 // Stage the BK x 64 tile (k0.., n0..) of an N-contiguous (K,N) int8 matrix
-// transposed into smem[64][KP] (row = n, K-contiguous).
+// transposed into smem[64][KP] (row = n, K-contiguous).  Stages B of NN and
+// TN, and (with N = M) TN's A, the activation stored (K,M).
 __device__ __forceinline__ void stage_nmajor(int8_t (*dst)[KP],
                                              const int8_t* __restrict__ src,
                                              int n0, int N, int k0, int K,
@@ -80,7 +104,9 @@ __device__ __forceinline__ void stage_nmajor(int8_t (*dst)[KP],
   }
 }
 
-template <int LX, int LW, bool WK>
+// XT: A stored (K,M) M-contiguous (else (M,K) K-contiguous).  WK: B stored
+// (N,K) K-contiguous (else (K,N) N-contiguous).
+template <int LX, int LW, bool XT, bool WK>
 __global__ void __launch_bounds__(kThreads)
 bfp_matmul_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ W,
                   const int* __restrict__ exp, float* __restrict__ out, int M,
@@ -90,7 +116,7 @@ bfp_matmul_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ W,
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const long long xplane = (long long)M * K, wplane = (long long)K * N;
-  const bool vx = (K % 4) == 0;
+  const bool vx = XT ? (M % 4) == 0 : (K % 4) == 0;
   const bool vw = WK ? (K % 4) == 0 : (N % 4) == 0;
 
   int acc[LX * LW][4][4];
@@ -103,8 +129,12 @@ bfp_matmul_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ W,
 
   for (int k0 = 0; k0 < K; k0 += BK) {
 #pragma unroll
-    for (int j = 0; j < LX; ++j)
-      stage_kmajor(xs[j], X + j * xplane, m0, M, k0, K, K, vx);
+    for (int j = 0; j < LX; ++j) {
+      if (XT)
+        stage_nmajor(xs[j], X + j * xplane, m0, M, k0, K, vx);
+      else
+        stage_kmajor(xs[j], X + j * xplane, m0, M, k0, K, K, vx);
+    }
 #pragma unroll
     for (int j = 0; j < LW; ++j) {
       if (WK)
@@ -167,39 +197,55 @@ bfp_matmul_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ W,
 }
 
 template <int LX, int LW>
-void launch(const int8_t* X, const int8_t* W, const int* exp, float* out,
-            int M, int N, int K, int w_kmajor, cudaStream_t stream) {
+int launch(const int8_t* X, const int8_t* W, const int* exp, float* out,
+           int M, int N, int K, int layout, cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  if (w_kmajor)
-    bfp_matmul_kernel<LX, LW, true>
-        <<<grid, kThreads, 0, stream>>>(X, W, exp, out, M, N, K);
-  else
-    bfp_matmul_kernel<LX, LW, false>
-        <<<grid, kThreads, 0, stream>>>(X, W, exp, out, M, N, K);
+  switch (layout) {
+    case 0:
+      bfp_matmul_kernel<LX, LW, false, false>
+          <<<grid, kThreads, 0, stream>>>(X, W, exp, out, M, N, K);
+      break;
+    case 1:
+      bfp_matmul_kernel<LX, LW, false, true>
+          <<<grid, kThreads, 0, stream>>>(X, W, exp, out, M, N, K);
+      break;
+    case 2:
+      bfp_matmul_kernel<LX, LW, true, false>
+          <<<grid, kThreads, 0, stream>>>(X, W, exp, out, M, N, K);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return 0;
 }
 
 }  // namespace
 
-// X: (lx, M, K) int8 planes, row-major.  W: (lw, K, N) int8 planes, either
-// N-contiguous (w_kmajor = 0) or stored as (lw, N, K) (w_kmajor = 1).
-// exp: one int32 in device memory (x_exp + w_exp).  out: (M, N) f32.
-extern "C" int bfp_matmul_launch(const int8_t* X, const int8_t* W,
+// out (M, N) f32 = A (M, K) . B (K, N) over int8 limb planes (la of A, lb of
+// B, plane-major), with A and B stored as `layout` says:
+//   0  A (M,K) row-major, B (K,N) row-major         NN: X . W
+//   1  A (M,K) row-major, B stored (N,K) row-major   NN tied head; NT: G . W^T
+//   2  A stored (K,M) row-major, B (K,N) row-major   TN: X^T . G
+// exp: one int32 in device memory (the two operands' exponents summed).
+extern "C" int bfp_matmul_launch(const int8_t* A, const int8_t* B,
                                  const int* exp, float* out, int M, int N,
-                                 int K, int lx, int lw, int w_kmajor,
+                                 int K, int la, int lb, int layout,
                                  cudaStream_t stream) {
   if (M <= 0 || N <= 0) return 0;
   if (M > 65535 * BM) return (int)cudaErrorInvalidValue;
-  switch (lx * 4 + lw) {
-    case 5: launch<1, 1>(X, W, exp, out, M, N, K, w_kmajor, stream); break;
-    case 6: launch<1, 2>(X, W, exp, out, M, N, K, w_kmajor, stream); break;
-    case 7: launch<1, 3>(X, W, exp, out, M, N, K, w_kmajor, stream); break;
-    case 9: launch<2, 1>(X, W, exp, out, M, N, K, w_kmajor, stream); break;
-    case 10: launch<2, 2>(X, W, exp, out, M, N, K, w_kmajor, stream); break;
-    case 11: launch<2, 3>(X, W, exp, out, M, N, K, w_kmajor, stream); break;
-    case 13: launch<3, 1>(X, W, exp, out, M, N, K, w_kmajor, stream); break;
-    case 14: launch<3, 2>(X, W, exp, out, M, N, K, w_kmajor, stream); break;
-    case 15: launch<3, 3>(X, W, exp, out, M, N, K, w_kmajor, stream); break;
+  int err;
+  switch (la * 4 + lb) {
+    case 5: err = launch<1, 1>(A, B, exp, out, M, N, K, layout, stream); break;
+    case 6: err = launch<1, 2>(A, B, exp, out, M, N, K, layout, stream); break;
+    case 7: err = launch<1, 3>(A, B, exp, out, M, N, K, layout, stream); break;
+    case 9: err = launch<2, 1>(A, B, exp, out, M, N, K, layout, stream); break;
+    case 10: err = launch<2, 2>(A, B, exp, out, M, N, K, layout, stream); break;
+    case 11: err = launch<2, 3>(A, B, exp, out, M, N, K, layout, stream); break;
+    case 13: err = launch<3, 1>(A, B, exp, out, M, N, K, layout, stream); break;
+    case 14: err = launch<3, 2>(A, B, exp, out, M, N, K, layout, stream); break;
+    case 15: err = launch<3, 3>(A, B, exp, out, M, N, K, layout, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  if (err) return err;
   return (int)cudaGetLastError();
 }

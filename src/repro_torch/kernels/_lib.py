@@ -36,6 +36,11 @@ SIGNATURES = {
     "dfx_quantize_launch": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
     "bfp_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "int_rmsnorm_fwd_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _F, _P],
+    "int_layernorm_fwd_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F,
+                                 _P],
+    "int_layernorm_bwd_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _I, _I, _P],
+    "int_layernorm_bwd_rows": [],
     "int_attn_fwd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _F, _P],
 }

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.bfp_matmul import bfp_matmul
+from repro_torch.kernels.bfp_matmul import (bfp_matmul, bfp_matmul_nt,
+                                            bfp_matmul_tn)
 from repro_torch.kernels.dfx_quant import (dfx_quantize, n_limbs,
                                            split_limbs_stacked)
 from repro_torch.kernels.int_attention import int_attn_fwd
@@ -47,6 +48,28 @@ def dfx_matmul_tiled(xm: torch.Tensor, x_exp: torch.Tensor, x_bits: int,
     xm = _as_planes(xm, x_bits, 2)
     wm = _as_planes(wm, w_bits, 2)
     return bfp_matmul(xm, wm, (x_exp + w_exp).to(torch.int32))
+
+
+def dfx_matmul_tiled_nt(gm: torch.Tensor, g_exp: torch.Tensor, g_bits: int,
+                        wm: torch.Tensor, w_exp: torch.Tensor,
+                        w_bits: int) -> torch.Tensor:
+    """Backward dX product ``q(G)·q(W)ᵀ`` with W in its forward (K, N)
+    layout.  gm: (Lg, M, N) planes or a logical (M, N) mantissa; wm:
+    (Lw, K, N) or (K, N).  Returns the dequantized f32 (M, K)."""
+    gm = _as_planes(gm, g_bits, 2)
+    wm = _as_planes(wm, w_bits, 2)
+    return bfp_matmul_nt(gm, wm, (g_exp + w_exp).to(torch.int32))
+
+
+def dfx_matmul_tiled_tn(xm: torch.Tensor, x_exp: torch.Tensor, x_bits: int,
+                        gm: torch.Tensor, g_exp: torch.Tensor,
+                        g_bits: int) -> torch.Tensor:
+    """Backward dW product ``q(X)ᵀ·q(G)`` with X in its forward (M, K)
+    layout.  xm: (Lx, M, K) planes or (M, K); gm: (Lg, M, N) or (M, N).
+    Returns the dequantized f32 (K, N)."""
+    xm = _as_planes(xm, x_bits, 2)
+    gm = _as_planes(gm, g_bits, 2)
+    return bfp_matmul_tn(xm, gm, (x_exp + g_exp).to(torch.int32))
 
 
 def rmsnorm(xm: torch.Tensor, x_exp: torch.Tensor, gamma: torch.Tensor,

@@ -1,15 +1,18 @@
-"""Transformer blocks built on the integer layers (dense family).
+"""Transformer blocks built on the integer layers.
 
-Counterpart of ``repro/models/blocks.py``: RoPE, GQA attention with a KV
-cache, the SwiGLU MLP and the RMS-norm wrapper, as plain functions over
-dicts of tensors.  Every projection goes through ``core.int_ops``; RoPE and
-the activation stay FP32.  When the policy enables quantization at the
-``attn.qk`` leaf, attention is ``int_ops.int_attention``; otherwise the FP32
-reference path below (a plain masked softmax) runs.
+Counterpart of ``repro/models/blocks.py``: RoPE, GQA attention (causal with
+a KV cache, or bidirectional for the encoder), the SwiGLU and GELU MLPs and
+the RMS-norm / layer-norm wrappers, as plain functions over dicts of
+tensors.  Every projection and norm goes through ``core.int_ops``; RoPE,
+the softmax and the activations stay FP32.  When the policy enables
+quantization at the ``attn.qk`` leaf, attention is
+``int_ops.int_attention``; otherwise the FP32 reference path below (a plain
+masked softmax, differentiable) runs.
 
-The reference's ``health.probe`` calls are identities on the serving path
-(its serve scan runs under ``health.suspend()``) and are left out; so is
-``subkey``, since serving draws no randomness (every key is None).
+The reference's ``health.probe`` calls are identities with probes
+suspended and are left out.  Its ``subkey`` (a distinct PRNG key per call
+site) has no counterpart: every call site gets the same ``key``, and a
+``torch.Generator`` hands each draw the next numbers of its one stream.
 """
 from __future__ import annotations
 
@@ -31,10 +34,11 @@ def _init(gen: torch.Generator, shape, device, scale: float = 0.02):
                        dtype=torch.float32) * scale
 
 
-def mlp_leaves(prefix: str = "mlp") -> list:
-    """Integer-layer leaf paths of one SwiGLU MLP (policy-resolution probe
-    set)."""
-    return [f"{prefix}.{n}" for n in ("wg", "wu", "wd", "act")]
+def mlp_leaves(cfg: ArchConfig, prefix: str = "mlp") -> list:
+    """Integer-layer leaf paths of one MLP (policy-resolution probe set);
+    ``act`` is the non-linearity's kept-ops leaf."""
+    names = ("wg", "wu", "wd") if cfg.act == "silu" else ("w1", "w2")
+    return [f"{prefix}.{n}" for n in names + ("act",)]
 
 
 # =========================================================================
@@ -55,24 +59,32 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def _fp32_attention(q, k, v, *, q_offset,
+def _fp32_attention(q, k, v, *, causal: bool, q_offset,
                     window: Optional[int]) -> torch.Tensor:
-    """FP32 reference attention (quantization disabled): causal masked
-    softmax.
+    """FP32 reference attention (quantization disabled): masked softmax,
+    causal or bidirectional; plain differentiable ops (the reference's XLA
+    ``flash_attention`` at one KV chunk, which is no Pallas kernel).
     q: (B, Sq, KV, G, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, KV, G, hd)."""
     B, Sq, KV, G, hd = q.shape
     Sk = k.shape[1]
     s = torch.einsum("bqhgd,bkhd->bhgqk", q.float() / hd ** 0.5, k.float())
+    if causal:
+        s = _causal_mask(s, q, Sq, Sk, q_offset, window)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", torch.softmax(s, dim=-1),
+                     v.float())
+    return o.permute(0, 3, 1, 2, 4)
+
+
+def _causal_mask(s, q, Sq, Sk, q_offset, window):
+    """Scores of keys after each query's position (or outside its window)
+    set to -1e30."""
     qpos = (torch.as_tensor(q_offset, device=q.device).reshape(-1, 1)
             + torch.arange(Sq, device=q.device))               # (1|B, Sq)
     kpos = torch.arange(Sk, device=q.device)
     ok = kpos <= qpos[..., None]
     if window is not None:
         ok = ok & (kpos > qpos[..., None] - window)
-    s = torch.where(ok[:, None, None], s, _BIG_NEG)
-    o = torch.einsum("bhgqk,bkhd->bhgqd", torch.softmax(s, dim=-1),
-                     v.float())
-    return o.permute(0, 3, 1, 2, 4)
+    return torch.where(ok[:, None, None], s, _BIG_NEG)
 
 
 # =========================================================================
@@ -112,11 +124,14 @@ def write_cache(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor,
 def attention_apply(
     p: Params, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantLike, key,
     *,
+    causal: bool = True,
     kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cache_index=0,
+    use_rope: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
-    """Causal GQA self-attention with RoPE.  Returns (out, cache).
-    x: (B, S, D) at positions ``cache_index + [0, S)``.  A given
+    """GQA self-attention, causal with RoPE (the LM) or bidirectional
+    without (``causal=False, use_rope=False``: the encoder).  Returns (out,
+    cache).  x: (B, S, D) at positions ``cache_index + [0, S)``.  A given
     ``kv_cache`` (k, v) of shape (B, Smax, KV, hd) is updated in place (the
     reference returns an updated copy) and attention then runs over the
     whole cache."""
@@ -132,11 +147,12 @@ def attention_apply(
     v = v.reshape(B, S, KV, hd)
 
     idx = torch.as_tensor(cache_index, device=x.device)
-    positions = (idx.reshape(-1, 1)
-                 + torch.arange(S, device=x.device)).expand(B, S)
-    q = rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta).reshape(
-        B, S, KV, G, hd)
-    k = rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        positions = (idx.reshape(-1, 1)
+                     + torch.arange(S, device=x.device)).expand(B, S)
+        q = rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta).reshape(
+            B, S, KV, G, hd)
+        k = rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     q_offset = 0
@@ -149,12 +165,13 @@ def attention_apply(
 
     leaf_qk = sc.leaf("qk")
     leaf_pv = sc.leaf("pv")
-    win = cfg.sliding_window
+    win = cfg.sliding_window if causal else None
     if leaf_qk.enabled:
         o = int_ops.int_attention(q, k, v, q_offset, key, leaf_qk, leaf_pv,
-                                  True, win)
+                                  causal, win)
     else:
-        o = _fp32_attention(q, k, v, q_offset=q_offset, window=win)
+        o = _fp32_attention(q, k, v, causal=causal, q_offset=q_offset,
+                            window=win)
     o = o.reshape(B, S, H * hd)
     out = int_ops.int_linear(o, p["wo"], None, key, sc.leaf("wo"))
     return out, new_cache
@@ -166,22 +183,30 @@ def attention_apply(
 
 def mlp_init(gen: torch.Generator, cfg: ArchConfig, device,
              lead: Tuple[int, ...] = ()) -> Params:
-    if cfg.act != "silu":
-        raise NotImplementedError("only the SwiGLU MLP is ported")
     D, F = cfg.d_model, cfg.d_ff
-    return {"wg": _init(gen, lead + (D, F), device),
-            "wu": _init(gen, lead + (D, F), device),
-            "wd": _init(gen, lead + (F, D), device)}
+    if cfg.act == "silu":
+        return {"wg": _init(gen, lead + (D, F), device),
+                "wu": _init(gen, lead + (D, F), device),
+                "wd": _init(gen, lead + (F, D), device)}
+    return {"w1": _init(gen, lead + (D, F), device),
+            "b1": torch.zeros(lead + (F,), device=device),
+            "w2": _init(gen, lead + (F, D), device),
+            "b2": torch.zeros(lead + (D,), device=device)}
 
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantLike,
               key) -> torch.Tensor:
-    """SwiGLU: wd(silu(wg x) * wu x)."""
+    """SwiGLU ``wd(silu(wg x) * wu x)`` or GELU ``w2 gelu(w1 x + b1) + b2``
+    (the activation a kept FP32 op)."""
     sc = ensure_scope(qcfg)
-    g = int_ops.int_linear(x, p["wg"], None, key, sc.leaf("wg"))
-    u = int_ops.int_linear(x, p["wu"], None, key, sc.leaf("wu"))
-    h = int_ops.int_activation(g, sc.leaf("act"), "silu") * u
-    return int_ops.int_linear(h, p["wd"], None, key, sc.leaf("wd"))
+    if "wg" in p:
+        g = int_ops.int_linear(x, p["wg"], None, key, sc.leaf("wg"))
+        u = int_ops.int_linear(x, p["wu"], None, key, sc.leaf("wu"))
+        h = int_ops.int_activation(g, sc.leaf("act"), "silu") * u
+        return int_ops.int_linear(h, p["wd"], None, key, sc.leaf("wd"))
+    h = int_ops.int_linear(x, p["w1"], p["b1"], key, sc.leaf("w1"))
+    h = int_ops.int_activation(h, sc.leaf("act"), "gelu")
+    return int_ops.int_linear(h, p["w2"], p["b2"], key, sc.leaf("w2"))
 
 
 # =========================================================================
@@ -189,11 +214,15 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantLike,
 # =========================================================================
 
 def norm_init(cfg: ArchConfig, device, lead: Tuple[int, ...] = ()) -> Params:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError("only RMS-norm is ported")
-    return {"g": torch.ones(lead + (cfg.d_model,), device=device)}
+    p = {"g": torch.ones(lead + (cfg.d_model,), device=device)}
+    if cfg.norm == "layernorm":
+        p["b"] = torch.zeros(lead + (cfg.d_model,), device=device)
+    return p
 
 
 def norm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantLike,
                key) -> torch.Tensor:
-    return int_ops.int_rmsnorm(x, p["g"], key, ensure_scope(qcfg).cfg())
+    leaf = ensure_scope(qcfg).cfg()      # the scope path IS the norm's path
+    if "b" in p:
+        return int_ops.int_layernorm(x, p["g"], p["b"], key, leaf)
+    return int_ops.int_rmsnorm(x, p["g"], key, leaf)

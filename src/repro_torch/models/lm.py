@@ -36,7 +36,7 @@ def _block_leaves(cfg: ArchConfig) -> list:
     """Every integer-layer leaf path inside one dense block."""
     return (["ln1", "ln2"]
             + [f"attn.{n}" for n in ("wq", "wk", "wv", "wo", "qk", "pv")]
-            + blocks.mlp_leaves())
+            + blocks.mlp_leaves(cfg))
 
 
 def padded_vocab(cfg: ArchConfig) -> int:

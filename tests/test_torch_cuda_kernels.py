@@ -6,10 +6,14 @@ runs on the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances: integer outputs and the matmul (same int32 sums, same ordered
-f32 combine) exactly; RMS-norm within 2 ulp (rstd) and 4 ulp (y), for
-PyTorch's own sqrt / reciprocal; attention within 1e-5 of max|o| and 1e-4
-on lse — the same expf on both sides, only the row-sum order of l differs.
+Tolerances: integer outputs and the matmuls, NN, NT and TN (same int32
+sums, same ordered f32 combine) exactly; RMS-norm within 2 ulp (rstd) and 4
+ulp (y), for PyTorch's own sqrt / reciprocal; layer-norm forward within 2
+ulp of mu and 4 ulp of rstd and y within 8 ulp of its row's max|y| plus
+rstd's difference times the row's max|xn·γ|; layer-norm backward dβ
+exactly, dx within 64 ulp of its row's max|dx| and dγ within 64 ulp of the
+column's Σ|gq·xn| (f32 sums in another order); attention within 1e-5 of max|o| and 1e-4 on lse — the same expf on
+both sides, only the row-sum order of l differs.
 """
 import pytest
 
@@ -62,6 +66,64 @@ def test_bfp_matmul(dev, shape):
             for w in (wm.transpose(1, 2), wm.transpose(1, 2).contiguous()):
                 assert torch.equal(bm.bfp_matmul(xm, w, e),
                                    bm.bfp_matmul_plain(xm, w, e))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4096, 768, 3072), (77, 130, 61),
+                                   (32, 768, 4), (5, 768, 2)])
+def test_bfp_matmul_nt_tn(dev, shape):
+    """NT (dX = G·Wᵀ) and TN (dW = Xᵀ·G) at the BERT shapes (M tokens,
+    K features, N outputs), ragged ones too."""
+    M, K, N = shape
+    gen = torch.Generator(device=dev).manual_seed(M + N)
+    e = torch.tensor(-21, dtype=torch.int32, device=dev)
+
+    def planes(L, *s):
+        return torch.randint(-64, 65, (L,) + s, generator=gen, device=dev,
+                             dtype=torch.int8)
+    for la, lb in ((1, 1), (2, 1), (1, 2), (3, 3)):
+        gm, wm = planes(la, M, N), planes(lb, K, N)
+        assert torch.equal(bm.bfp_matmul_nt(gm, wm, e),
+                           bm.bfp_matmul_nt_plain(gm, wm, e))
+        xm, g2 = planes(la, M, K), planes(lb, M, N)
+        assert torch.equal(bm.bfp_matmul_tn(xm, g2, e),
+                           bm.bfp_matmul_tn_plain(xm, g2, e))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xt,xlim,gt,glim", [
+    (torch.int16, 2047, torch.int8, 127), (torch.int8, 127, torch.int8, 127),
+    (torch.int16, 32767, torch.int16, 32767)])
+def test_int_layernorm(dev, xt, xlim, gt, glim):
+    gen = torch.Generator(device=dev).manual_seed(xlim + glim)
+    for R, D in ((4096, 768), (37, 1000), (1, 7)):
+        xm = torch.randint(-xlim, xlim + 1, (R, D), generator=gen,
+                           device=dev).to(xt)
+        xm[0] = xm[0, 0]                          # variance clamped at 0
+        gm = torch.randint(-glim, glim + 1, (R, D), generator=gen,
+                           device=dev).to(gt)
+        gamma = 1 + 0.2 * torch.randn((D,), generator=gen, device=dev)
+        beta = 0.1 * torch.randn((D,), generator=gen, device=dev)
+        xe = torch.tensor(-10, dtype=torch.int32, device=dev)
+        ge = torch.tensor(-20, dtype=torch.int32, device=dev)
+        y, mu, r = int_norm.int_layernorm_fwd(xm, xe, gamma, beta)
+        y0, mu0, r0 = int_norm.int_layernorm_fwd_plain(xm, xe, gamma, beta)
+        torch.testing.assert_close(mu, mu0, rtol=2 * ULP, atol=1e-30)
+        torch.testing.assert_close(r, r0, rtol=4 * ULP, atol=0)
+        xn = ((xm.float() * 2.0 ** -10 - mu0) * r0 * gamma).abs()
+        bound = (8 * ULP * y0.abs().amax(-1, keepdim=True)
+                 + ((r - r0).abs() / r0) * xn.amax(-1, keepdim=True))
+        assert ((y - y0).abs() <= bound + 1e-30).all()
+        dx, dg, db = int_norm.int_layernorm_bwd(xm, gm, xe, ge, gamma, mu0,
+                                                r0)
+        dx0, dg0, db0 = int_norm.int_layernorm_bwd_plain(xm, gm, xe, ge,
+                                                         gamma, mu0, r0)
+        assert torch.equal(db, db0)
+        row = dx0.abs().amax(-1, keepdim=True)
+        assert ((dx - dx0).abs() <= 64 * ULP * row + 1e-30).all()
+        col = (gm.float() * 2.0 ** -20
+               * (xm.float() * 2.0 ** -10 - mu0) * r0).abs().sum(0)
+        assert ((dg - dg0).abs() <= 64 * ULP * col + 1e-30).all()
 
 
 @pytest.mark.cuda

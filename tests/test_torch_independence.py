@@ -1,6 +1,6 @@
 """The port (src/repro_torch) and chip_smoke.py import neither ``jax`` nor
-anything of the JAX package ``repro``: the machine with the card has no
-JAX."""
+anything of the JAX package ``repro`` or of ``benchmarks``: the machine
+with the card has no JAX, and the port keeps its own copies."""
 import ast
 import subprocess
 import sys
@@ -27,13 +27,13 @@ def _top_level_imports(path: Path) -> set:
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import_in_source(path):
-    bad = _top_level_imports(path) & {"jax", "jaxlib", "repro"}
+    bad = _top_level_imports(path) & {"jax", "jaxlib", "repro", "benchmarks"}
     assert not bad, f"{path} imports {bad}"
 
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
-BLOCK = ("jax", "jaxlib", "repro")
+BLOCK = ("jax", "jaxlib", "repro", "benchmarks")
 
 class Block:
     def find_spec(self, name, path=None, target=None):

@@ -172,9 +172,8 @@ def test_nonfinite_slot_is_evicted():
 
 def test_forward_only_and_unported_paths_raise():
     x = torch.randn(3, 8, requires_grad=True)
-    w = torch.randn(8, 4)
-    with pytest.raises(NotImplementedError):
-        int_ops.int_linear(x, w, None, None, QuantConfig.int8())
+    with pytest.raises(NotImplementedError):   # RMS-norm is forward-only
+        int_ops.int_rmsnorm(x, torch.ones(8), None, QuantConfig.int8())
     with pytest.raises(NotImplementedError):
         int_ops.int_activation(x.detach(), QuantConfig(kept_ops="integer"),
                                "silu")
