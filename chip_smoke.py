@@ -12,7 +12,10 @@ Phases (each raises on failure; nothing is caught):
    qwen1.5-0.5b serving path for the forward kernels, the bert-base
    fine-tuning step — batch 32 x seq 128 — for the backward matmuls and
    the layer-norm kernels, and for the quantize and NN matmul kernels
-   also the step's gradient quantize and w1 forward): run the kernel and its plain PyTorch version
+   also the step's gradient quantize and w1 forward; the qwen1.5-0.5b
+   training step — batch 8 x seq 256 — for the RMS-norm backward, and it,
+   bert-base cls, smollm-135m's GQA and a ragged windowed case for the
+   attention backward): run the kernel and its plain PyTorch version
    on the card from the same seeded inputs and hold them together (integer
    outputs and the matmuls exactly, other f32 outputs within the stated
    tolerance); time kernel, plain version and a one-call PyTorch yardstick
@@ -21,7 +24,9 @@ Phases (each raises on failure; nothing is caught):
 3. On reduced configurations (2 layers), from the same weights, the card
    against the port's CPU path: qwen1.5-0.5b's served logits; one BERT
    training step under the paper's integer scope (round to nearest), its
-   loss and every parameter's gradient, for the cls and span heads.
+   loss and every parameter's gradient, for the cls and span heads, and
+   for cls under the plain int8 preset; one ``lm_loss`` step of
+   qwen1.5-0.5b and of smollm-135m under int8.
 4. Serve qwen1.5-0.5b at full width (24 layers, d_model 1024, vocab
    151936), int8 (w8·a12), random weights from a seeded generator: 4 slots,
    max_seq 256, 8 requests of 64-token prompts, 16 new tokens each, through
@@ -40,8 +45,17 @@ Phases (each raises on failure; nothing is caught):
    preset's from the same init), the median time of the steps after the
    first (step 0 also holds the set-up), tokens/s over those steps, peak
    memory, the launches of one step and a profiled step's device-busy
-   share.
-6. Print the ``{"kernels": [...]}`` line, then the last line
+   share.  Also cls under the plain int8 preset (integer attention forward
+   and backward), its losses printed beside the paper-scope and FP32 ones.
+6. Train qwen1.5-0.5b at full width through the port's training launcher
+   (``launch.train``): int8, batch 8 x seq 256, 6 AdamW steps at lr 1e-4,
+   launch counters set to 0 just before and read just after; every kernel
+   of the path must have launched (RMS-norm and attention backward
+   included), every loss be finite and the first near ln 151936.  Prints
+   the median step time of steps 1.., tokens/s, peak memory, the launches
+   of one step, a profiled step's device-busy share and the FP32 losses
+   from the same init.
+7. Print the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available or when
@@ -473,6 +487,195 @@ def check_layernorm(torch, dev, gen, D, R):
     return [fwd, bwd]
 
 
+def check_rmsnorm_bwd(torch, dev, gen, R, D):
+    """int_rmsnorm_bwd at the qwen1.5-0.5b training step's shape: R = 2048
+    rows (batch 8 x seq 256) of D = 1024 int16 mantissas (a12), int8
+    gradient mantissas (g8).  Tolerances: dx within 64 ulp of its row's
+    max|dx|, dγ within 64 ulp of the column's Σ|gq·xn| (f32 sums in
+    another order)."""
+    import torch.nn.functional as F
+    from repro_torch.core import dfx
+    from repro_torch.kernels import int_norm
+    ulp = 2.0 ** -23
+    xm = torch.randint(-2047, 2048, (R, D), generator=gen, device=dev,
+                       dtype=torch.int16)
+    gm = torch.randint(-127, 128, (R, D), generator=gen, device=dev,
+                       dtype=torch.int8)
+    xe = torch.tensor(-9, dtype=torch.int32, device=dev)
+    ge = torch.tensor(-27, dtype=torch.int32, device=dev)
+    gamma = 1 + 0.1 * torch.randn((D,), generator=gen, device=dev)
+    _, rstd = int_norm.int_rmsnorm_fwd(xm, xe, gamma)
+    dx, dg = int_norm.int_rmsnorm_bwd(xm, gm, xe, ge, gamma, rstd)
+    dx0, dg0 = int_norm.int_rmsnorm_bwd_plain(xm, gm, xe, ge, gamma, rstd)
+    xv = xm.float() * dfx.pow2(xe)
+    gq = gm.float() * dfx.pow2(ge)
+    col = (gq * xv * rstd).abs().sum(0)
+    row = dx0.abs().amax(-1, keepdim=True)
+    if (((dx - dx0).abs() > 64 * ulp * row).any()
+            or ((dg - dg0).abs() > 64 * ulp * col).any()):
+        raise AssertionError(
+            f"int_rmsnorm_bwd differs: dx {(dx - dx0).abs().max().item()}, "
+            f"dgamma {(dg - dg0).abs().max().item()}")
+    # yardstick: the backward of F.rms_norm on the f32 values (autograd,
+    # the graph built once and its backward timed)
+    xr = xv.clone().requires_grad_(True)
+    gr = gamma.clone().requires_grad_(True)
+    yr = F.rms_norm(xr, (D,), gr, 1e-6)
+    t = timings(lambda: int_norm.int_rmsnorm_bwd(xm, gm, xe, ge, gamma,
+                                                  rstd),
+                lambda: int_norm.int_rmsnorm_bwd_plain(xm, gm, xe, ge,
+                                                       gamma, rstd),
+                lambda: torch.autograd.grad(yr, (xr, gr), gq,
+                                            retain_graph=True))
+    # per element: xn (2), gq, gg, the row sum (2), dx (3), dgamma (2)
+    b, by = bound_ms(nbytes(xm, gm, xe, ge, gamma, rstd, dx, dg), 0,
+                     11 * R * D)
+    return dict(name="int_rmsnorm_bwd", route="cuda",
+                source="src/repro_torch/csrc/int_norm.cu",
+                replaces="src/repro/kernels/int_norm.py:298",
+                shape=f"({R},{D}) int16 x, int8 g -> dx, dgamma; tolerance "
+                      "dx 64 ulp of its row's max, dgamma 64 ulp of the "
+                      "column's sum of |gq xn|; library: F.rms_norm backward"
+                      " (autograd) on the f32 values",
+                max_abs_err=max((dx - dx0).abs().max().item(),
+                                (dg - dg0).abs().max().item()),
+                bound_ms=b, bound_by=by, **t)
+
+
+#: attention backward shapes held on the card: name -> (B, Sq, Sk, KV, G,
+#: hd, offsets, causal, window)
+ATTN_BWD_SHAPES = {
+    "bert-base cls": (32, 128, 128, 12, 1, 64, 0, False, None),
+    "qwen1.5-0.5b train": (8, 256, 256, 16, 1, 64, 0, True, None),
+    "smollm-135m gqa": (8, 256, 256, 3, 3, 64, 0, True, None),
+    "ragged + window": (2, 20, 150, 2, 2, 16, [100, 37], True, 40),
+}
+
+
+def _attn_bwd_inputs(torch, dev, gen, shape):
+    """int8-preset operands: q/k/v 2 planes (a12), g 1 plane (g8), dS 8 bits,
+    P 12 bits; lse from the forward kernel, delta = rowsum(g·o) and dS's
+    exponent from the dequantized values, as ``int_attention`` makes
+    them; exponents [q, k, v, g, dS]."""
+    from repro_torch.core import int_ops
+    from repro_torch.kernels import int_attention as ia
+    B, Sq, Sk, KV, G, hd, off, causal, window = shape
+    q = _planes(torch, gen, dev, 2, B, Sq, KV, G, hd)
+    k = _planes(torch, gen, dev, 2, B, Sk, KV, hd)
+    v = _planes(torch, gen, dev, 2, B, Sk, KV, hd)
+    g = _planes(torch, gen, dev, 1, B, Sq, KV, G, hd)
+    qo = torch.tensor(off if isinstance(off, list) else [off] * B,
+                      dtype=torch.int32, device=dev)
+    qe, ke, ve, ge = -12, -12, -9, -20
+    o, lse = ia.int_attn_fwd(
+        q, k, v, qo, torch.tensor([qe, ke, ve], dtype=torch.int32,
+                                  device=dev),
+        p_bits=12, causal=causal, window=window, sc=1.0 / hd ** 0.5)
+    gd = g[0].float() * 2.0 ** ge
+    vd = (v[0].float() + 128 * v[1].float()) * 2.0 ** ve
+    delta = (gd * o).sum(-1)
+    dse = int_ops._ds_exp(int_ops._max_row_norm(gd),
+                          int_ops._max_row_norm(vd), 8)
+    exps = torch.tensor([qe, ke, ve, ge, int(dse)], dtype=torch.int32,
+                        device=dev)
+    return q, k, v, g, lse, delta, qo, exps
+
+
+def check_attention_bwd(torch, dev, gen):
+    """int_attn_bwd_dq and int_attn_bwd_dkv against their plain versions at
+    ATTN_BWD_SHAPES (int8 preset), timed at the qwen1.5-0.5b training
+    shape.  Tolerance: dq, dk and dv within 1e-4 of max|ref| (the same
+    expf and the same ordered f32 sums on both sides; the count of
+    elements that differ at all is printed).  Bound: the bytes of the
+    planes, rows and outputs, or the int8 operations of the limb-pair
+    products over the (query, key) pairs the mask lets through, whichever
+    is larger."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import int_attention as ia
+    errs = {"int_attn_bwd_dq": 0.0, "int_attn_bwd_dkv": 0.0}
+    timed = None
+    for label, shape in ATTN_BWD_SHAPES.items():
+        B, Sq, Sk, KV, G, hd, off, causal, window = shape
+        q, k, v, g, lse, delta, qo, exps = _attn_bwd_inputs(torch, dev, gen,
+                                                            shape)
+        kw = dict(ds_bits=8, causal=causal, window=window,
+                  sc=1.0 / hd ** 0.5)
+        dq = ia.int_attn_bwd_dq(q, k, v, g, lse, delta, qo, exps,
+                                p_bits=12, **kw)
+        dk, dv = ia.int_attn_bwd_dkv(q, k, v, g, lse, delta, qo, exps,
+                                     p_bits=12, **kw)
+        dq0 = ia.int_attn_bwd_dq_plain(q, k, v, g, lse, delta, qo, exps,
+                                       **kw)
+        dk0, dv0 = ia.int_attn_bwd_dkv_plain(q, k, v, g, lse, delta, qo,
+                                             exps, p_bits=12, **kw)
+        line = []
+        for name, got, ref in (("dq", dq, dq0), ("dk", dk, dk0),
+                               ("dv", dv, dv0)):
+            scale = ref.abs().max().item()
+            err = (got - ref).abs().max().item()
+            if not scale > 0 or err > 1e-4 * scale:
+                raise AssertionError(f"int_attn_bwd {name} differs at "
+                                     f"{label}: {err} of max {scale}")
+            key = "int_attn_bwd_dq" if name == "dq" else "int_attn_bwd_dkv"
+            errs[key] = max(errs[key], err)
+            line.append(f"{name} max|err| {err:.3e} of max {scale:.3e}, "
+                        f"{int((got != ref).sum())} elements differ")
+        print(f"  attention backward at {label} {shape[:6]}: "
+              + "; ".join(line))
+        if label == "qwen1.5-0.5b train":
+            timed = (shape, q, k, v, g, lse, delta, qo, exps, kw, dq, dk, dv)
+    shape, q, k, v, g, lse, delta, qo, exps, kw, dq, dk, dv = timed
+    B, Sq, Sk, KV, G, hd, off, causal, window = shape
+    # yardstick: SDPA's backward in f32 through autograd at the same shape
+    # (the graph built once, its backward timed; it computes dq, dk and dv)
+    H = KV * G
+    qs, ks, vs = (torch.randn((B, H, S, hd), generator=gen, device=dev)
+                  .requires_grad_(True) for S in (Sq, Sk, Sk))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+    gout = torch.randn_like(out)
+
+    def library():
+        return torch.autograd.grad(out, (qs, ks, vs), gout,
+                                   retain_graph=True)
+    lib_t = dict(library_ms=cuda_ms(library),
+                 library_device_ms=device_ms(library))
+    pairs = B * KV * G * Sq * (Sq + 1) // 2 if causal else B * KV * G * Sq * Sk
+    rows = nbytes(lse, delta)
+    out_k = []
+    for name, fn, plain, outs, limb_pairs in (
+            ("int_attn_bwd_dq",
+             lambda: ia.int_attn_bwd_dq(q, k, v, g, lse, delta, qo, exps,
+                                        p_bits=12, **kw),
+             lambda: ia.int_attn_bwd_dq_plain(q, k, v, g, lse, delta, qo,
+                                              exps, **kw),
+             (dq,), 4 + 2 + 2),
+            ("int_attn_bwd_dkv",
+             lambda: ia.int_attn_bwd_dkv(q, k, v, g, lse, delta, qo, exps,
+                                         p_bits=12, **kw),
+             lambda: ia.int_attn_bwd_dkv_plain(q, k, v, g, lse, delta, qo,
+                                               exps, p_bits=12, **kw),
+             (dk, dv), 4 + 2 + 2 + 2)):
+        t = {**timings(fn, plain), **lib_t}
+        # s (2x2 limb pairs), dp (1x2), and dq (1x2) or dk (1x2) + dv (2x1)
+        b, by = bound_ms(nbytes(q, k, v, g, qo, exps, *outs) + rows,
+                         2 * hd * pairs * limb_pairs)
+        out_k.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/int_attention_bwd.cu",
+            replaces=("src/repro/kernels/int_attention.py:328"
+                      if name == "int_attn_bwd_dq" else
+                      "src/repro/kernels/int_attention.py:441"),
+            shape=f"qwen1.5-0.5b training: q/g ({B},{Sq},{KV},{G},{hd}), "
+                  f"k/v ({B},{Sk},{KV},{hd}), 2 planes (g 1), causal, dS 8 "
+                  "bits, P 12 bits; also held at "
+                  + ", ".join(k_ for k_ in ATTN_BWD_SHAPES
+                              if k_ != "qwen1.5-0.5b train")
+                  + "; tolerance 1e-4 of max|ref|; library: SDPA backward "
+                  "(f32, autograd, dq + dk + dv)",
+            max_abs_err=errs[name], bound_ms=b, bound_by=by, **t))
+    return out_k
+
+
 def check_small_model(torch, dev):
     """Reduced qwen1.5-0.5b (2 layers): prefill + 3 decode steps on the card
     (CUDA kernels) against the port's CPU path (plain versions)."""
@@ -517,11 +720,27 @@ def _leaves(tree, prefix=""):
             yield prefix + k, tree[k]
 
 
+def _grad_agreement(torch, g0: dict, g1: dict):
+    """Worst |card - CPU| / max|CPU| over the gradients, and where."""
+    worst, at = 0.0, ""
+    for name, ref in g0.items():
+        got = g1[name]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"non-finite gradient {name} on the card")
+        scale = ref.abs().max().item()
+        d = (got - ref).abs().max().item() / scale if scale else \
+            (got - ref).abs().max().item()
+        if d > worst:
+            worst, at = d, name
+    return worst, at
+
+
 def check_small_bert(torch, dev):
-    """Reduced bert-base (2 layers, d_model 128): one training step under
-    the paper's integer scope, rounding to nearest, on the card (CUDA
-    kernels) against the port's CPU path (plain versions) from the same
-    weights and batch, for the cls and the span heads.
+    """Reduced bert-base (2 layers, d_model 128): one training step, rounding
+    to nearest, on the card (CUDA kernels) against the port's CPU path
+    (plain versions) from the same weights and batch: cls and span under
+    the paper's integer scope, and cls under the plain int8 preset
+    (integer attention forward and backward).
 
     Tolerances: the loss within 1e-5 relative; every parameter's gradient
     within 2e-3 of its largest magnitude, the bound the CPU tests hold the
@@ -537,14 +756,15 @@ def check_small_bert(torch, dev):
     from repro_torch.train import finetune as tf
     from repro_torch.train import optimizer as topt
     cfg = bert_base.CONFIG.reduced()
-    pol = tf.paper_scope(dataclasses.replace(QuantConfig.int8(),
-                                             stochastic_grad=False))
+    rn = dataclasses.replace(QuantConfig.int8(), stochastic_grad=False)
     ocfg = topt.OptimizerConfig(lr=1e-3, weight_decay=0.0)
-    for task, sampler, loss_fn in (
-            ("cls", tf.make_cls_task(vocab=cfg.vocab, seq=32),
-             pm.bert_cls_loss),
-            ("span", tf.make_span_task(vocab=cfg.vocab, seq=48),
-             pm.bert_span_loss)):
+    for task, label, qcfg, sampler, loss_fn in (
+            ("cls", "paper scope", tf.paper_scope(rn),
+             tf.make_cls_task(vocab=cfg.vocab, seq=32), pm.bert_cls_loss),
+            ("span", "paper scope", tf.paper_scope(rn),
+             tf.make_span_task(vocab=cfg.vocab, seq=48), pm.bert_span_loss),
+            ("cls", "int8", rn, tf.make_cls_task(vocab=cfg.vocab, seq=32),
+             pm.bert_cls_loss)):
         params = pm.bert_init(torch.Generator().manual_seed(1), cfg,
                               num_labels=4, span_head=task == "span",
                               device="cpu")
@@ -553,29 +773,140 @@ def check_small_bert(torch, dev):
         for device in ("cpu", dev):
             p = _to(params, device)
             _, _, loss, grads, _ = tf.train_step(
-                p, topt.init(p), tf.to_device(batch, device), cfg, pol,
+                p, topt.init(p), tf.to_device(batch, device), cfg, qcfg,
                 loss_fn, ocfg, None)
             res[str(device)] = (float(loss), {n: g.cpu()
                                               for n, g in _leaves(grads)})
         (l0, g0), (l1, g1) = res["cpu"], res[str(dev)]
         dl = abs(l1 - l0) / abs(l0)
-        worst, at = 0.0, ""
-        for name, ref in g0.items():
-            got = g1[name]
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"non-finite gradient {name} on the card")
-            scale = ref.abs().max().item()
-            d = (got - ref).abs().max().item() / scale if scale else \
-                (got - ref).abs().max().item()
-            if d > worst:
-                worst, at = d, name
-        print(f"  reduced bert-base {task} step, card vs CPU: loss {l1:.6f} "
-              f"vs {l0:.6f} (rel {dl:.2e}, tolerance 1e-5); worst gradient "
-              f"{worst:.2e} of its max at {at} (tolerance 2e-3) over "
-              f"{len(g0)} parameters")
+        worst, at = _grad_agreement(torch, g0, g1)
+        print(f"  reduced bert-base {task} step ({label}), card vs CPU: loss "
+              f"{l1:.6f} vs {l0:.6f} (rel {dl:.2e}, tolerance 1e-5); worst "
+              f"gradient {worst:.2e} of its max at {at} (tolerance 2e-3) "
+              f"over {len(g0)} parameters")
         if dl > 1e-5 or worst > 2e-3:
             raise AssertionError("card training step disagrees with the CPU "
                                  "path")
+
+
+class _Recorder:
+    """While active, records each integer layer call of the model (its
+    inputs, detached, and the upstream gradient its output receives)."""
+
+    NAMES = ("int_rmsnorm", "int_linear", "int_attention")
+
+    def __init__(self, torch):
+        from repro_torch.core import int_ops
+        self.torch, self.int_ops, self.calls = torch, int_ops, []
+        self.orig = {n: getattr(int_ops, n) for n in self.NAMES}
+
+    def _wrap(self, name):
+        torch, fn = self.torch, self.orig[name]
+
+        def call(*args, **kw):
+            entry = {"name": name, "kw": kw, "g": None, "args": [
+                a.detach().clone() if isinstance(a, torch.Tensor) else a
+                for a in args]}
+            out = fn(*args, **kw)
+            self.calls.append(entry)
+            if out.requires_grad:
+                out.register_hook(
+                    lambda g, e=entry: e.__setitem__("g", g.detach().clone()))
+            return out
+        return call
+
+    def __enter__(self):
+        for n in self.NAMES:
+            setattr(self.int_ops, n, self._wrap(n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.orig.items():
+            setattr(self.int_ops, n, f)
+
+    def replay(self, entry, device):
+        """The layer's output and input gradients on ``device`` from the
+        recorded inputs and upstream gradient."""
+        torch = self.torch
+        args = [(a.to(device).requires_grad_(a.is_floating_point())
+                 if isinstance(a, torch.Tensor) else a)
+                for a in entry["args"]]
+        y = self.orig[entry["name"]](*args, **entry["kw"])
+        ts = [a for a in args if isinstance(a, torch.Tensor)
+              and a.requires_grad]
+        gs = torch.autograd.grad(y, ts, entry["g"].to(device))
+        return y.detach().cpu(), [g.cpu() for g in gs]
+
+
+def check_small_lm_train(torch, dev):
+    """Reduced qwen1.5-0.5b and smollm-135m (2 layers, d_model 128, 4 query
+    heads over 2 kv heads): one ``lm_loss`` step under int8, rounding to
+    nearest, on the card and on the port's CPU path from the same weights
+    and batch.
+
+    The whole step: the loss within 1e-5 relative and every gradient
+    finite; the gradients' agreement is printed, not bounded.  The FP32
+    kept ops (RoPE's cos / sin, the softmax's exp, SiLU) round differently
+    on the two devices; an ulp there moves an a12 or g8 mantissa now and
+    then, and the 8-bit dS of attention's backward, quantized against the
+    reference's loose norm bound (mostly 0 and ±1), turns that into
+    gradients of the q / k projections that differ by tens of per cent
+    between two equally valid runs (measured 19% of the max for wq).  So
+    each integer layer is held on its own: every call of the CPU step is
+    replayed on both devices from its recorded inputs and upstream
+    gradient, and its output (within 2^-11 of max, one P step of the
+    attention forward) and input gradients (within 2e-3 of max, as
+    check_small_bert) must agree."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.train import finetune as tf
+    from repro_torch.train import trainer
+    rn = dataclasses.replace(QuantConfig.int8(), stochastic_grad=False)
+    for arch in ("qwen1.5-0.5b", "smollm-135m"):
+        cfg = registry.get_config(arch).reduced()
+        params = lm.lm_init(torch.Generator().manual_seed(1), cfg,
+                            device="cpu")
+        batch = next(SyntheticLM(DataConfig(batch_size=4, seq_len=64,
+                                            vocab=cfg.vocab)))
+        res = {}
+        rec = _Recorder(torch)
+        for device in ("cpu", dev):
+            with rec:
+                loss, _, grads = trainer.loss_and_grads(
+                    lm.lm_loss, _to(params, device),
+                    tf.to_device(batch, device), cfg, rn, None)
+            res[str(device)] = (float(loss), {n: g.cpu()
+                                              for n, g in _leaves(grads)})
+        (l0, g0), (l1, g1) = res["cpu"], res[str(dev)]
+        dl = abs(l1 - l0) / abs(l0)
+        worst, at = _grad_agreement(torch, g0, g1)
+        calls = rec.calls[:len(rec.calls) // 2]          # the CPU step's
+        worst_y = worst_g = 0.0
+        for entry in calls:
+            (y0, gs0), (y1, gs1) = (rec.replay(entry, "cpu"),
+                                    rec.replay(entry, dev))
+            worst_y = max(worst_y, ((y1 - y0).abs().max()
+                                    / y0.abs().max()).item())
+            for a, b in zip(gs0, gs1):
+                if not torch.isfinite(b).all():
+                    raise AssertionError(f"non-finite {entry['name']} "
+                                         "gradient on the card")
+                scale = a.abs().max().item()
+                worst_g = max(worst_g, (b - a).abs().max().item()
+                              / (scale if scale else 1.0))
+        print(f"  reduced {arch} lm_loss step (int8), card vs CPU: loss "
+              f"{l1:.6f} vs {l0:.6f} (rel {dl:.2e}, tolerance 1e-5); whole-"
+              f"step gradients finite, worst {worst:.2e} of its max at {at}"
+              f"; {len(calls)} integer layer calls replayed from the same "
+              f"inputs: outputs within {worst_y:.2e} of max (tolerance "
+              f"2^-11), input gradients within {worst_g:.2e} (tolerance "
+              "2e-3)")
+        if dl > 1e-5 or worst_y > 2.0 ** -11 or worst_g > 2e-3:
+            raise AssertionError("card LM training step disagrees with the "
+                                 "CPU path")
 
 
 def profile_step(torch, fn, what: str) -> float:
@@ -608,9 +939,12 @@ def profile_step(torch, fn, what: str) -> float:
     return busy_ms / wall_ms
 
 
-def finetune_phase(torch, dev, wrappers) -> dict:
-    """Fine-tune bert-base at full width through ``finetune`` (phase 5).
-    Returns each wrapper's launches over the two integer runs."""
+def finetune_phase(torch, dev, wrappers, int8_wrappers) -> tuple:
+    """Fine-tune bert-base at full width through ``finetune`` (phase 5):
+    cls and span under the paper's scope (``wrappers`` must all launch),
+    cls also under the plain int8 preset (``int8_wrappers``, integer
+    attention included) and FP32.  Returns each wrapper's launches over the
+    two paper-scope runs, and over the int8 run."""
     from repro_torch.configs import bert_base
     from repro_torch.core.qconfig import QuantConfig
     from repro_torch.train import finetune as tf
@@ -655,10 +989,33 @@ def finetune_phase(torch, dev, wrappers) -> dict:
         last = {n: counts[-1][n] - counts[-2][n] for n in wrappers}
         _, losses32 = tf.finetune(task, QuantConfig.fp32(), ft, device=dev,
                                   arch=arch, return_losses=True)
-        print(f"  {task}: batch {batch} x seq {seq}, {steps} steps; int8 "
-              f"losses {[round(v, 5) for v in losses]}; FP32 losses from the "
-              f"same init {[round(v, 5) for v in losses32]}; eval metric "
-              f"{metric:.1f}% on {batch} samples")
+        print(f"  {task}: batch {batch} x seq {seq}, {steps} steps; paper-"
+              f"scope losses {[round(v, 5) for v in losses]}; FP32 losses "
+              f"from the same init {[round(v, 5) for v in losses32]}; eval "
+              f"metric {metric:.1f}% on {batch} samples")
+        if task == "cls":
+            # the plain int8 preset: attention's QK^T and PV integer too
+            for w in int8_wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            t8 = time.perf_counter()
+            _, losses8 = tf.finetune(task, QuantConfig.int8(), ft,
+                                     device=dev, arch=arch,
+                                     return_losses=True)
+            torch.cuda.synchronize()
+            t8 = time.perf_counter() - t8
+            int8_launches = {n: w.launches for n, w in int8_wrappers.items()}
+            if not all(v == v and abs(v) != float("inf") for v in losses8):
+                raise AssertionError(f"non-finite int8 {task} loss: "
+                                     f"{losses8}")
+            for n, c in int8_launches.items():
+                if c <= 0:
+                    raise AssertionError(f"kernel {n} was not launched on "
+                                         "the int8 fine-tuning path")
+            print(f"  {task} under the plain int8 preset (integer "
+                  f"attention): losses {[round(v, 5) for v in losses8]} "
+                  f"({steps} steps, set-up included {t8:.2f} s); launches "
+                  f"{int8_launches}")
         print(f"  {task}: set-up + step 0 {first_ms:.2f} ms; steps 1-"
               f"{steps - 1} ms {[round(v, 2) for v in step_ms]}; median "
               f"{med:.2f} ms; {tok_s:.1f} tokens/s over those steps; peak "
@@ -678,7 +1035,65 @@ def finetune_phase(torch, dev, wrappers) -> dict:
                     loss_fn, ocfg, gen)
             one_step()
             profile_step(torch, one_step, f"bert-base {task} training step")
-    return total
+    return total, int8_launches
+
+
+def train_phase(torch, dev, wrappers, steps: int = 6,
+                lr: float = 1e-4) -> dict:
+    """Train qwen1.5-0.5b at full width (24 layers, d_model 1024, vocab
+    151936) through the port's training launcher (phase 6): int8, batch 8
+    x seq 256, ``steps`` AdamW steps at ``lr`` (the launcher's default is
+    the reference's 1e-3), random weights and stochastic gradient rounding
+    from one seeded CUDA generator.  The launch counters are set to 0 just
+    before the int8 run and read just after; every kernel of the path must
+    have launched, every loss be finite and the first near ln 151936.  Then
+    the same steps under FP32 from the same init, and one profiled int8
+    step.  Returns the int8 run's launches."""
+    import math
+    from repro_torch.launch import train as lt
+    argv = ["--arch", "qwen1.5-0.5b", "--batch", "8", "--seq", "256",
+            "--steps", str(steps), "--lr", str(lr), "--log-every",
+            str(steps), "--device", str(dev)]
+    stamps, counts = [], []
+
+    def on_step(i, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        counts.append({n: w.launches for n, w in wrappers.items()})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t_start = time.perf_counter()
+    losses = lt.main(argv + ["--quant", "int8"], on_step=on_step)
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite qwen training loss: {losses}")
+    if abs(losses[0] - math.log(151936)) > 1.5:
+        raise AssertionError(f"first loss {losses[0]} is not near ln 151936")
+    for n, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"kernel {n} was not launched on the "
+                                 "training path")
+    tokens = 8 * 256
+    first_ms = 1e3 * (stamps[0] - t_start)
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    med = statistics.median(step_ms)
+    tok_s = tokens * len(step_ms) / sum(step_ms) * 1e3
+    last = {n: counts[-1][n] - counts[-2][n] for n in wrappers}
+    losses32 = lt.main(argv + ["--quant", "fp32"])
+    print(f"  lr {lr}; int8 losses {[round(v, 5) for v in losses]}; FP32 "
+          f"losses from the same init {[round(v, 5) for v in losses32]}")
+    print(f"  set-up + step 0 {first_ms:.2f} ms; steps 1-{steps - 1} ms "
+          f"{[round(v, 2) for v in step_ms]}; median {med:.2f} ms; "
+          f"{tok_s:.1f} tokens/s over those steps; peak memory {peak:.2f} "
+          f"GiB; launches in the run {launches}; in one step {last}")
+    run = lt.build(lt.parse_args(argv + ["--quant", "int8"]))
+    run.step()
+    profile_step(torch, run.step, "qwen1.5-0.5b training step (int8)")
+    return launches
 
 
 def _to(tree, device):
@@ -729,6 +1144,8 @@ def main() -> int:
                check_attention(torch, dev, gen, cfg)]
     kernels += check_matmul_bwd(torch, dev, gen, bert, tokens)
     kernels += check_layernorm(torch, dev, gen, bert.d_model, tokens)
+    kernels.append(check_rmsnorm_bwd(torch, dev, gen, 8 * 256, cfg.d_model))
+    kernels += check_attention_bwd(torch, dev, gen)
     for k in kernels:
         print(f"  {k['name']}: max_abs_err {k['max_abs_err']:.3e}; call "
               f"{k['ms']:.4f} ms, device {k['device_ms']:.4f} ms; plain "
@@ -739,6 +1156,7 @@ def main() -> int:
     print("[3] reduced models, card vs CPU path")
     check_small_model(torch, dev)
     check_small_bert(torch, dev)
+    check_small_lm_train(torch, dev)
 
     print("[4] serve qwen1.5-0.5b, full width, int8")
     wrappers = {"dfx_quantize": dfx_quant.dfx_quantize,
@@ -803,16 +1221,31 @@ def main() -> int:
         {k: v.clone() for k, v in batcher.cache.items()}), "decode step")
     print("[5] fine-tune bert-base, full width, paper scope (int8 linear / "
           "layer-norm / embedding), stochastic gradient rounding")
-    ft_launches = finetune_phase(torch, dev, {
+    paper = {"dfx_quantize": dfx_quant.dfx_quantize,
+             "bfp_matmul": bfp_matmul.bfp_matmul,
+             "bfp_matmul_nt": bfp_matmul.bfp_matmul_nt,
+             "bfp_matmul_tn": bfp_matmul.bfp_matmul_tn,
+             "int_layernorm_fwd": int_norm.int_layernorm_fwd,
+             "int_layernorm_bwd": int_norm.int_layernorm_bwd}
+    attn = {"int_attn_fwd": int_attention.int_attn_fwd,
+            "int_attn_bwd_dq": int_attention.int_attn_bwd_dq,
+            "int_attn_bwd_dkv": int_attention.int_attn_bwd_dkv}
+    ft_launches, ft8_launches = finetune_phase(torch, dev, paper,
+                                               {**paper, **attn})
+    print("[6] train qwen1.5-0.5b, full width, int8, batch 8 x seq 256, "
+          "through launch.train")
+    tr_launches = train_phase(torch, dev, {
         "dfx_quantize": dfx_quant.dfx_quantize,
         "bfp_matmul": bfp_matmul.bfp_matmul,
         "bfp_matmul_nt": bfp_matmul.bfp_matmul_nt,
         "bfp_matmul_tn": bfp_matmul.bfp_matmul_tn,
-        "int_layernorm_fwd": int_norm.int_layernorm_fwd,
-        "int_layernorm_bwd": int_norm.int_layernorm_bwd})
+        "int_rmsnorm_fwd": int_norm.int_rmsnorm_fwd,
+        "int_rmsnorm_bwd": int_norm.int_rmsnorm_bwd, **attn})
     for k in kernels:
         by_path = {"serve": launches.get(k["name"], 0),
-                   "finetune": ft_launches.get(k["name"], 0)}
+                   "finetune": ft_launches.get(k["name"], 0),
+                   "finetune_int8": ft8_launches.get(k["name"], 0),
+                   "train": tr_launches.get(k["name"], 0)}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     print(json.dumps({"kernels": kernels}))

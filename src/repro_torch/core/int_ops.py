@@ -1,5 +1,5 @@
-"""Integer layers: linear / embedding / layer-norm with integer forward
-and backward, RMS-norm / attention forward.
+"""Integer layers: linear (the tied head included), embedding, layer-norm,
+RMS-norm and attention, each with integer forward and backward.
 
 Counterpart of ``repro/core/int_ops.py`` on the reference's ``pallas``
 route: every quantization goes through the quantize kernel (the max-abs
@@ -9,9 +9,9 @@ the integer flash-attention kernel.  The kernels run on the card for CUDA
 tensors and as their plain PyTorch versions for CPU tensors.  With
 ``cfg.enabled`` False each layer is its FP32 reference (plain autograd).
 
-``int_linear``, ``int_embedding`` and ``int_layernorm`` are
-``torch.autograd.Function``s, the counterparts of the reference's
-``custom_vjp``s (paper, Fig. 2):
+``int_linear``, ``int_embedding``, ``int_layernorm``, ``int_rmsnorm`` and
+``int_attention`` are ``torch.autograd.Function``s, the counterparts of
+the reference's ``custom_vjp``s (paper, Fig. 2):
 
     forward:   q(X)·q(W)              NN limb matmul
     backward:  dX = q(G)·q(W)ᵀ        NT limb matmul
@@ -27,11 +27,13 @@ stochastically (``floor(y + u)``, the paper's Assumption 2) when
 noise (``core/dfx.py::uniform``).  Weights are re-quantized on every call,
 as in the reference.
 
-``int_rmsnorm`` and ``int_attention`` are still forward-only: with grad
-mode on and an input that requires grad they raise (their backward kernels
-come with later slices of the port).  ``kept_ops="integer"`` and
-stochastic forward rounding (``stochastic_fwd`` with a key) are not ported
-yet and raise.
+Attention's backward (flash-attention-2 form, the reference's
+``_int_attention_bwd``) runs the dq and dk + dv kernels over the saved
+q / k / v planes, o and lse; ``delta`` and the dS exponent (from the row
+norms of the raw upstream gradient and of v) are plain PyTorch, as the
+reference leaves them to XLA.  ``kept_ops="integer"`` and stochastic
+forward rounding (``stochastic_fwd`` with a key) are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -44,14 +46,6 @@ from repro_torch.core import dfx
 from repro_torch.core.qconfig import QuantConfig
 from repro_torch.kernels import int_norm
 from repro_torch.kernels import ops as kops
-
-
-def _forward_only(what: str, backward_in: str, *tensors) -> None:
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{what} is forward-only in this port: its backward kernels are "
-            f"ported with {backward_in}; run it under torch.no_grad()")
 
 
 def _no_integer_kept_ops(cfg: QuantConfig, what: str) -> None:
@@ -97,7 +91,7 @@ class _IntLinear(torch.autograd.Function):
                                    cfg.weight_bits)
         y = y2.reshape(tuple(x.shape[:-1]) + (wm.shape[-1],))
         ctx.save_for_backward(xm, qx.exp, qw.m, qw.exp)
-        ctx.cfg, ctx.key = cfg, key
+        ctx.cfg, ctx.key, ctx.transposed_w = cfg, key, transposed_w
         ctx.x_shape, ctx.has_b = tuple(x.shape), b is not None
         return y + b if b is not None else y   # O(N) bias add, kept FP32
 
@@ -110,12 +104,24 @@ class _IntLinear(torch.autograd.Function):
         g2 = qg.m.reshape(qg.m.shape[0], -1, N)
         gb = cfg.grad_bits
         dx = dw = db = None
-        if ctx.needs_input_grad[0]:
-            dx = kops.dfx_matmul_tiled_nt(g2, qg.exp, gb, wm, w_exp,
-                                          cfg.weight_bits).reshape(ctx.x_shape)
-        if ctx.needs_input_grad[1]:
-            dw = kops.dfx_matmul_tiled_tn(xm, x_exp, cfg.act_bits, g2,
-                                          qg.exp, gb)
+        if ctx.transposed_w:
+            # the (V, D) table's planes as quantized: dX = q(G)·table is NN,
+            # dTable = q(G)ᵀ·q(X) is TN landing in (V, D); no transposed copy
+            if ctx.needs_input_grad[0]:
+                dx = kops.dfx_matmul_tiled(g2, qg.exp, gb, wm, w_exp,
+                                           cfg.weight_bits)
+            if ctx.needs_input_grad[1]:
+                dw = kops.dfx_matmul_tiled_tn(g2, qg.exp, gb, xm, x_exp,
+                                              cfg.act_bits)
+        else:
+            if ctx.needs_input_grad[0]:
+                dx = kops.dfx_matmul_tiled_nt(g2, qg.exp, gb, wm, w_exp,
+                                              cfg.weight_bits)
+            if ctx.needs_input_grad[1]:
+                dw = kops.dfx_matmul_tiled_tn(xm, x_exp, cfg.act_bits, g2,
+                                              qg.exp, gb)
+        if dx is not None:
+            dx = dx.reshape(ctx.x_shape)
         if ctx.has_b and ctx.needs_input_grad[2]:
             db = g.reshape(-1, N).sum(0)
         return dx, dw, db, None, None, None
@@ -130,13 +136,12 @@ def int_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     ``transposed_w``: ``w`` is given as its (N, K) transpose — the tied
     head's embedding table.  It is quantized in that layout (the op is
     elementwise under one scale) and its planes reach the matmul as the
-    K-major view, so the table is never copied or transposed.  That head
-    is forward-only (its backward belongs to LM training)."""
+    K-major view, so the table is never copied or transposed; the backward
+    reads the same planes (dX an NN product, the table's gradient a TN
+    product in the table's own layout)."""
     if not cfg.enabled:
         y = torch.matmul(x, w.t() if transposed_w else w)
         return y + b if b is not None else y
-    if transposed_w:
-        _forward_only("int_linear(transposed_w=True)", "LM training", x, w)
     _no_stochastic(cfg, key)
     return _IntLinear.apply(x, w, b, key, cfg, transposed_w)
 
@@ -221,19 +226,40 @@ def int_layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return (x - mu) * torch.rsqrt(var + eps) * gamma + beta
 
 
-def int_rmsnorm(x: torch.Tensor, gamma: torch.Tensor, key, cfg: QuantConfig,
-                eps: float = 1e-6) -> torch.Tensor:
-    """RMS-norm over the act-bit mantissas of ``x`` with the weight-bit
-    fake-quantized ``gamma``, through the integer RMS-norm kernel."""
-    _forward_only("int_rmsnorm", "LM training (int_rmsnorm_bwd)", x, gamma)
-    if cfg.enabled and cfg.int_layernorm:
-        _no_integer_kept_ops(cfg, "int_rmsnorm")
-        _no_stochastic(cfg, key)
+class _IntRmsNorm(torch.autograd.Function):
+    """RMS-norm over the act-bit mantissas through the fused kernels.  The
+    residuals are the mantissas and their exponent, the dequantized γ and
+    the rstd the forward kernel normalised with."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, key, cfg: QuantConfig, eps: float):
         xq = dfx.quantize(x, cfg.act_bits)
         gv = dfx.dequantize(dfx.quantize(gamma, cfg.weight_bits))
         D = x.shape[-1]
-        y, _ = kops.rmsnorm(xq.m.reshape(-1, D), xq.exp, gv, eps=eps)
+        xm = xq.m.reshape(-1, D)
+        y, rstd = kops.rmsnorm(xm, xq.exp, gv, eps=eps)
+        ctx.save_for_backward(xm, xq.exp, gv, rstd)
+        ctx.cfg, ctx.key = cfg, key
         return y.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        xm, x_exp, gv, rstd = ctx.saved_tensors
+        qg = _quant_grad(g, ctx.cfg, ctx.key)
+        dx, dgamma = kops.rmsnorm_bwd(xm, x_exp, qg.m.reshape(xm.shape),
+                                      qg.exp, gv, rstd)
+        return dx.reshape(g.shape), dgamma, None, None, None
+
+
+def int_rmsnorm(x: torch.Tensor, gamma: torch.Tensor, key, cfg: QuantConfig,
+                eps: float = 1e-6) -> torch.Tensor:
+    """RMS-norm over the act-bit mantissas of ``x`` with the weight-bit
+    fake-quantized ``gamma``, through the integer RMS-norm kernels forward
+    and backward."""
+    if cfg.enabled and cfg.int_layernorm:
+        _no_integer_kept_ops(cfg, "int_rmsnorm")
+        _no_stochastic(cfg, key)
+        return _IntRmsNorm.apply(x, gamma, key, cfg, eps)
     ms = torch.mean(torch.square(x), dim=-1, keepdim=True)
     return x * torch.rsqrt(ms + eps) * gamma
 
@@ -253,27 +279,75 @@ def int_activation(x: torch.Tensor, cfg: QuantConfig,
     return _ACT_FNS[kind](x)
 
 
+def _max_row_norm(x: torch.Tensor) -> torch.Tensor:
+    """max over rows of ‖x_row‖₂ along the trailing (head) dim: f32 0-d."""
+    return torch.sqrt(torch.amax(torch.sum(torch.square(x.float()), dim=-1)))
+
+
+def _ds_exp(g_norm: torch.Tensor, v_norm: torch.Tensor,
+            ds_bits: int) -> torch.Tensor:
+    """dS's scale exponent (int32 0-d), the reference's bound: |dS| <=
+    2·max‖dO_row‖·max‖v_row‖, so ``ceil(log2(bound)) - (ds_bits - 1)``."""
+    bound = 2.0 * g_norm * v_norm
+    e = torch.ceil(torch.log2(torch.clamp(bound, min=1e-30))) - (ds_bits - 1)
+    return e.to(torch.int32)
+
+
+class _IntAttention(torch.autograd.Function):
+    """Integer flash attention.  Residuals: the q / k / v limb planes and
+    exponents, o, lse and max‖v_row‖ (for dS's exponent)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, off, key, cfg_qk: QuantConfig,
+                cfg_pv: QuantConfig, causal: bool, window):
+        qq = dfx.quantize(q, cfg_qk.act_bits, limb_planes=True)
+        qk = dfx.quantize(k, cfg_qk.act_bits, limb_planes=True)
+        qv = dfx.quantize(v, cfg_pv.act_bits, limb_planes=True)
+        o, lse = kops.attention_fwd(qq.m, qq.exp, qk.m, qk.exp, qv.m, qv.exp,
+                                    off, cfg_pv.act_bits, causal=causal,
+                                    window=window)
+        v_norm = _max_row_norm(v) if any(ctx.needs_input_grad[:3]) else None
+        ctx.save_for_backward(qq.m, qq.exp, qk.m, qk.exp, qv.m, qv.exp, o,
+                              lse, v_norm, off)
+        ctx.cfg_qk, ctx.cfg_pv, ctx.key = cfg_qk, cfg_pv, key
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        qm, q_exp, km, k_exp, vm, v_exp, o, lse, v_norm, off = \
+            ctx.saved_tensors
+        cfg_qk, cfg_pv = ctx.cfg_qk, ctx.cfg_pv
+        qg = _quant_grad(g, cfg_pv, ctx.key, limb_planes=True)
+        # delta = rowsum(dO ∘ o) over the RAW upstream gradient (a kept op)
+        delta = torch.sum(g * o, dim=-1)                      # (B, Sq, KV, G)
+        ds_bits = cfg_qk.grad_bits
+        ds_exp = _ds_exp(_max_row_norm(g), v_norm, ds_bits)
+        dq, dk, dv = kops.attention_bwd(
+            qm, q_exp, km, k_exp, vm, v_exp, qg.m, qg.exp, lse, delta,
+            ds_exp, off, cfg_pv.act_bits, ds_bits, causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 def int_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   q_offset, key, cfg_qk: QuantConfig, cfg_pv: QuantConfig,
                   causal: bool, window: Optional[int]) -> torch.Tensor:
-    """Scaled-dot-product attention with integer QKᵀ and PV products.
+    """Scaled-dot-product attention with integer QKᵀ and PV products,
+    forward and backward.
 
     q: (B, Sq, KV, G, hd); k, v: (B, Sk, KV, hd) (GQA layout); q_offset a
-    scalar or (B,) query position offset.  q and k quantize at
-    ``cfg_qk.act_bits``, v and P at ``cfg_pv.act_bits``, each over the
-    whole tensor (for a KV cache: every slot and every empty position).
-    Returns (B, Sq, KV, G, hd) f32.
+    scalar or (B,) query position offset (not differentiated).  q and k
+    quantize at ``cfg_qk.act_bits``, v and P at ``cfg_pv.act_bits``, each
+    over the whole tensor (for a KV cache: every slot and every empty
+    position).  The backward quantizes the upstream gradient at
+    ``cfg_pv.grad_bits`` and dS at ``cfg_qk.grad_bits``.  Returns
+    (B, Sq, KV, G, hd) f32.
     """
-    _forward_only("int_attention", "slice 3 (int_attn_bwd_dq/_dkv)", q, k,
-                  v)
     _no_integer_kept_ops(cfg_qk, "int_attention")
     _no_stochastic(cfg_qk, key)
     B = q.shape[0]
     off = torch.as_tensor(q_offset, device=q.device).to(torch.int32)
     off = torch.broadcast_to(off.reshape(-1), (B,)).contiguous()
-    qq = dfx.quantize(q, cfg_qk.act_bits, limb_planes=True)
-    qk = dfx.quantize(k, cfg_qk.act_bits, limb_planes=True)
-    qv = dfx.quantize(v, cfg_pv.act_bits, limb_planes=True)
-    o, _ = kops.attention_fwd(qq.m, qq.exp, qk.m, qk.exp, qv.m, qv.exp, off,
-                              cfg_pv.act_bits, causal=causal, window=window)
-    return o
+    return _IntAttention.apply(q, k, v, off, key, cfg_qk, cfg_pv, causal,
+                               window)

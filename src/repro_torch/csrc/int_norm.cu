@@ -1,4 +1,4 @@
-// Integer layer-norm (forward and backward) and RMS-norm forward over DFX
+// Integer layer-norm and RMS-norm, forward and backward, over DFX
 // mantissas.
 //
 // Replaces the TPU kernels of repro/kernels/int_norm.py (moments
@@ -17,6 +17,10 @@
 //   int_rmsnorm_fwd (:246, body _rms_fwd_kernel :231)
 //     ms = (s2 / D) * (2^exp)^2;  rstd = 1 / sqrt(ms + eps)
 //     y  = ((x * 2^exp) * rstd) * gamma
+//   int_rmsnorm_bwd (:298, body _rms_bwd_kernel :282)
+//     xn = (x * 2^xe) * rstd;  gq = g * 2^ge;  gg = gq * gamma
+//     dx = rstd * (gg - xn * mean(gg * xn))                    per row
+//     dgamma = sum_rows gq * xn
 //
 // The digit sums and s1 are exact int32 in any order (14 + log2 D <= 31
 // and (b-1) + log2 D < 31 for D < 2^16); the f32 arithmetic is the
@@ -27,17 +31,19 @@
 // residuals, so the backward differentiates exactly the forward that ran.
 //
 // Bound on the H100: bytes (2 bytes in and 4 out per element for the
-// forwards, 3 in and 4 out for the backward, a few dozen operations each).
+// forwards, 3 in and 4 out for the backwards, a few dozen operations each).
 // Design: the forwards run one 256-thread block per row, a shared-memory
 // tree reduction of the int32 sums, then one coalesced pass writing y.  The
-// backward's blocks run in no order, so the column sums dgamma / dbeta
+// backwards' blocks run in no order, so the column sums dgamma / dbeta
 // cannot be carried from block to block as the TPU grid carries them:
 // each block of kLnRows rows writes its own column partials (f32 for
 // dgamma, exact int32 for dbeta) and a second kernel sums them over the
 // blocks in block order — no float atomics, the same result on every run.
-// Within a block a first pass reduces each row's two f32 sums in shared
-// memory; a second, column-major pass (neighbouring threads on neighbouring
-// columns) writes dx and accumulates the column partials in registers.
+// Within a block a first pass reduces each row's f32 sums (two for the
+// layer-norm, one for the RMS-norm) in shared memory; a second,
+// column-major pass (neighbouring threads on neighbouring columns) writes
+// dx and accumulates the column partials in registers.  The RMS-norm
+// backward is the layer-norm's with mu = 0 and without mean(gg) and dbeta.
 #include "dfx_common.cuh"
 
 namespace {
@@ -167,7 +173,54 @@ ln_bwd_kernel(const XT* __restrict__ x, const GT* __restrict__ g,
   }
 }
 
-// Column sums of the per-block partials, in block order.
+// One block per kLnRows rows: dx, and this block's column partials of
+// dgamma in row blockIdx.x of dg_part.
+template <typename XT, typename GT>
+__global__ void __launch_bounds__(kThreads)
+rms_bwd_kernel(const XT* __restrict__ x, const GT* __restrict__ g,
+               const int* __restrict__ xexp, const int* __restrict__ gexp,
+               const float* __restrict__ gamma,
+               const float* __restrict__ rstd, float* __restrict__ dx,
+               float* __restrict__ dg_part, int R, int D) {
+  __shared__ float red[1][kThreads];
+  __shared__ float mean_ggxn[kLnRows];
+  const int t = threadIdx.x;
+  const int r0 = blockIdx.x * kLnRows;
+  const int nr = min(kLnRows, R - r0);
+  const float xs = dfx::pow2f(xexp[0]), gs = dfx::pow2f(gexp[0]);
+  const float d = (float)D;
+  for (int r = 0; r < nr; ++r) {
+    const long long off = (long long)(r0 + r) * D;
+    const float rs = rstd[r0 + r];
+    float sgx = 0.0f;
+    for (int i = t; i < D; i += kThreads) {
+      const float xn = __fmul_rn(__fmul_rn((float)x[off + i], xs), rs);
+      const float gg = __fmul_rn(__fmul_rn((float)g[off + i], gs), gamma[i]);
+      sgx = __fadd_rn(sgx, __fmul_rn(gg, xn));
+    }
+    red[0][t] = sgx;
+    block_sum<float, 1>(red);
+    if (t == 0) mean_ggxn[r] = __fdiv_rn(red[0][0], d);
+    __syncthreads();
+  }
+  for (int i = t; i < D; i += kThreads) {
+    float dg = 0.0f;
+    const float gam = gamma[i];
+    for (int r = 0; r < nr; ++r) {
+      const long long off = (long long)(r0 + r) * D + i;
+      const float rs = rstd[r0 + r];
+      const float xn = __fmul_rn(__fmul_rn((float)x[off], xs), rs);
+      const float gq = __fmul_rn((float)g[off], gs);
+      const float gg = __fmul_rn(gq, gam);
+      dx[off] = __fmul_rn(rs, __fsub_rn(gg, __fmul_rn(xn, mean_ggxn[r])));
+      dg = __fadd_rn(dg, __fmul_rn(gq, xn));
+    }
+    dg_part[(long long)blockIdx.x * D + i] = dg;
+  }
+}
+
+// Column sums of the per-block partials, in block order (db_part null: no
+// dbeta, the RMS-norm).
 __global__ void __launch_bounds__(kThreads)
 ln_bwd_reduce_kernel(const float* __restrict__ dg_part,
                      const int* __restrict__ db_part,
@@ -179,10 +232,10 @@ ln_bwd_reduce_kernel(const float* __restrict__ dg_part,
   int db = 0;
   for (int b = 0; b < nb; ++b) {
     dg = __fadd_rn(dg, dg_part[(long long)b * D + i]);
-    db += db_part[(long long)b * D + i];
+    if (db_part) db += db_part[(long long)b * D + i];
   }
   dgamma[i] = dg;
-  dbeta[i] = __fmul_rn((float)db, dfx::pow2f(gexp[0]));
+  if (db_part) dbeta[i] = __fmul_rn((float)db, dfx::pow2f(gexp[0]));
 }
 
 template <typename InT>
@@ -295,5 +348,39 @@ extern "C" int int_layernorm_bwd_launch(
   }
   ln_bwd_reduce_kernel<<<(D + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
       dg_part, db_part, gexp, dgamma, dbeta, nb, D);
+  return (int)cudaGetLastError();
+}
+
+// xm (R, D) and gm (R, D): int8 or int16 mantissas (x_bytes, g_bytes);
+// xexp, gexp one int32 each in device memory; gamma (D,) f32; rstd (R,)
+// f32.  Writes dx (R, D) and dgamma (D,) f32, using dg_part (nb, D) f32 as
+// scratch (nb = ceil(R / int_layernorm_bwd_rows())).
+extern "C" int int_rmsnorm_bwd_launch(
+    const void* xm, int x_bytes, const void* gm, int g_bytes,
+    const int* xexp, const int* gexp, const float* gamma, const float* rstd,
+    float* dx, float* dgamma, float* dg_part, int R, int D,
+    cudaStream_t stream) {
+  if (D <= 0) return 0;
+  const int nb = (R + kLnRows - 1) / kLnRows;
+  if (nb > 0) {
+    auto run = [&](auto x, auto g) {
+      using X = decltype(x);
+      using G = decltype(g);
+      rms_bwd_kernel<X, G><<<nb, kThreads, 0, stream>>>(
+          (const X*)xm, (const G*)gm, xexp, gexp, gamma, rstd, dx, dg_part,
+          R, D);
+    };
+    switch (x_bytes * 4 + g_bytes) {
+      case 5: run(int8_t(), int8_t()); break;
+      case 6: run(int8_t(), int16_t()); break;
+      case 9: run(int16_t(), int8_t()); break;
+      case 10: run(int16_t(), int16_t()); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  ln_bwd_reduce_kernel<<<(D + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      dg_part, nullptr, gexp, dgamma, nullptr, nb, D);
   return (int)cudaGetLastError();
 }

@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("dfx_quant.cu", "bfp_matmul.cu", "int_norm.cu",
-           "int_attention.cu")
+           "int_attention.cu", "int_attention_bwd.cu")
 HEADERS = ("dfx_common.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
@@ -41,8 +41,12 @@ SIGNATURES = {
     "int_layernorm_bwd_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _I, _I, _P],
     "int_layernorm_bwd_rows": [],
+    "int_rmsnorm_bwd_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _P],
     "int_attn_fwd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _F, _P],
+    "int_attn_bwd_dq_launch": [_P] * 9 + [_I] * 13 + [_F, _P],
+    "int_attn_bwd_dkv_launch": [_P] * 10 + [_I] * 15 + [_F, _P],
 }
 
 _loaded: dict = {}

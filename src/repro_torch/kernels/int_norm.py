@@ -1,14 +1,15 @@
-"""Integer layer-norm (forward and backward) and RMS-norm forward over DFX
+"""Integer layer-norm and RMS-norm, forward and backward, over DFX
 mantissas.
 
 Counterpart of ``repro/kernels/int_norm.py::int_layernorm_fwd``,
-``int_layernorm_bwd`` and ``int_rmsnorm_fwd``; the CUDA kernels are in
+``int_layernorm_bwd``, ``int_rmsnorm_fwd`` and ``int_rmsnorm_bwd``; the
+CUDA kernels are in
 ``csrc/int_norm.cu``.  Σx is an exact int sum and Σx² is exact too: the
 mantissa is split into balanced base-2⁸ digits ``x = hi·2⁸ + lo`` and the
 three int32 digit sums recombine in f32 as ``a·65536 + b·512 + c`` (the
 reference's ``_exact_moments``).  The rsqrt is ``1 / sqrt`` with IEEE sqrt
 and division.  The forwards return the per-row statistics they normalised
-with; the layer-norm backward takes them back as its residuals.
+with; the backwards take them back as their residuals.
 """
 from __future__ import annotations
 
@@ -225,5 +226,59 @@ def int_layernorm_bwd(xm: torch.Tensor, gm: torch.Tensor,
     return out
 
 
+def int_rmsnorm_bwd_plain(xm: torch.Tensor, gm: torch.Tensor,
+                          x_exp: torch.Tensor, g_exp: torch.Tensor,
+                          gamma: torch.Tensor, rstd: torch.Tensor):
+    """Plain PyTorch version of the RMS-norm backward kernel.  Returns
+    ``(dx, dgamma)``."""
+    d = xm.shape[-1]
+    xn = (xm.to(torch.float32) * pow2(x_exp)) * rstd
+    gq = gm.to(torch.float32) * pow2(g_exp)
+    gg = gq * gamma
+    mean_ggxn = _div((gg * xn).sum(-1, keepdim=True), d)
+    dx = rstd * (gg - xn * mean_ggxn)
+    return dx, (gq * xn).sum(0)
+
+
+def _launch_rms_bwd(lib, xm, gm, x_exp, g_exp, gamma, rstd, stream):
+    R, D = xm.shape
+    nb = -(-R // lib.int_layernorm_bwd_rows())
+    dev = xm.device
+    dx = torch.empty((R, D), dtype=torch.float32, device=dev)
+    dgamma = torch.empty((D,), dtype=torch.float32, device=dev)
+    dg_part = torch.empty((nb, D), dtype=torch.float32, device=dev)
+    err = lib.int_rmsnorm_bwd_launch(
+        xm.data_ptr(), xm.element_size(), gm.data_ptr(), gm.element_size(),
+        x_exp.data_ptr(), g_exp.data_ptr(), gamma.data_ptr(),
+        rstd.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
+        dg_part.data_ptr(), R, D, stream)
+    _lib.check(err, "int_rmsnorm_bwd")
+    return dx, dgamma
+
+
+def int_rmsnorm_bwd(xm: torch.Tensor, gm: torch.Tensor, x_exp: torch.Tensor,
+                    g_exp: torch.Tensor, gamma: torch.Tensor,
+                    rstd: torch.Tensor):
+    """Fused RMS-norm backward -> ``(dx, dgamma)``.
+
+    xm: (R, D) activation mantissas (the forward's residual); gm: (R, D)
+    quantized upstream-gradient mantissas; rstd: (R, 1) the forward's
+    statistic; gamma: (D,) the dequantized weight.  dgamma comes out whole
+    (per-block partials summed on the card in block order).  CUDA kernels
+    for CUDA tensors, the plain version for CPU tensors."""
+    R, D = xm.shape
+    if gamma.shape != (D,) or rstd.shape != (R, 1):
+        raise ValueError("int_rmsnorm_bwd: gamma (D,) and rstd (R, 1) "
+                         "expected")
+    if _check_ln("int_rmsnorm_bwd", xm, gm):
+        return int_rmsnorm_bwd_plain(xm, gm, x_exp, g_exp, gamma, rstd)
+    out = _launch_rms_bwd(_lib.load(), xm.contiguous(), gm.contiguous(),
+                          _exp(x_exp, xm), _exp(g_exp, xm), _vec(gamma, xm),
+                          _vec(rstd, xm), _lib.stream_of(xm))
+    int_rmsnorm_bwd.launches += 1
+    return out
+
+
 int_layernorm_fwd.launches = 0
 int_layernorm_bwd.launches = 0
+int_rmsnorm_bwd.launches = 0

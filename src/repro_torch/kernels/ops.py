@@ -14,8 +14,9 @@ from repro_torch.kernels.bfp_matmul import (bfp_matmul, bfp_matmul_nt,
                                             bfp_matmul_tn)
 from repro_torch.kernels.dfx_quant import (dfx_quantize, n_limbs,
                                            split_limbs_stacked)
-from repro_torch.kernels.int_attention import int_attn_fwd
-from repro_torch.kernels.int_norm import int_rmsnorm_fwd
+from repro_torch.kernels.int_attention import (int_attn_bwd_dkv,
+                                               int_attn_bwd_dq, int_attn_fwd)
+from repro_torch.kernels.int_norm import int_rmsnorm_bwd, int_rmsnorm_fwd
 
 
 def _as_planes(m: torch.Tensor, bits: int, base_ndim: int) -> torch.Tensor:
@@ -78,6 +79,13 @@ def rmsnorm(xm: torch.Tensor, x_exp: torch.Tensor, gamma: torch.Tensor,
     return int_rmsnorm_fwd(xm, x_exp, gamma, eps=eps)
 
 
+def rmsnorm_bwd(xm: torch.Tensor, x_exp: torch.Tensor, gm: torch.Tensor,
+                g_exp: torch.Tensor, gamma: torch.Tensor, rstd: torch.Tensor):
+    """Fused RMS-norm backward over (R, D) mantissas -> ``(dx, dgamma)``
+    (dgamma summed over the row blocks)."""
+    return int_rmsnorm_bwd(xm, gm, x_exp, g_exp, gamma, rstd)
+
+
 def attention_fwd(qm: torch.Tensor, q_exp: torch.Tensor,
                   km: torch.Tensor, k_exp: torch.Tensor,
                   vm: torch.Tensor, v_exp: torch.Tensor,
@@ -93,3 +101,24 @@ def attention_fwd(qm: torch.Tensor, q_exp: torch.Tensor,
                         causal=causal, window=window,
                         sc=1.0 / float(hd) ** 0.5)
 
+
+def attention_bwd(qm: torch.Tensor, q_exp: torch.Tensor,
+                  km: torch.Tensor, k_exp: torch.Tensor,
+                  vm: torch.Tensor, v_exp: torch.Tensor,
+                  gm: torch.Tensor, g_exp: torch.Tensor,
+                  lse: torch.Tensor, delta: torch.Tensor,
+                  ds_exp: torch.Tensor, q_off: torch.Tensor, p_bits: int,
+                  ds_bits: int, *, causal: bool, window: int | None = None):
+    """Fused integer attention backward: the dq kernel and the dk + dv
+    kernel.  gm: the quantized upstream gradient's planes in q's layout;
+    lse (B, KV, G, Sq) and delta (B, Sq, KV, G) the forward-saved rows;
+    ds_exp the dS scale exponent.  Returns ``(dq, dk, dv)`` in the model
+    layout."""
+    hd = qm.shape[-1]
+    exps = torch.stack([e.reshape(()) for e in (q_exp, k_exp, v_exp, g_exp,
+                                                ds_exp)]).to(torch.int32)
+    kw = dict(p_bits=p_bits, ds_bits=ds_bits, causal=causal, window=window,
+              sc=1.0 / float(hd) ** 0.5)
+    dq = int_attn_bwd_dq(qm, km, vm, gm, lse, delta, q_off, exps, **kw)
+    dk, dv = int_attn_bwd_dkv(qm, km, vm, gm, lse, delta, q_off, exps, **kw)
+    return dq, dk, dv

@@ -34,6 +34,15 @@ def _init(gen: torch.Generator, shape, device, scale: float = 0.02):
                        dtype=torch.float32) * scale
 
 
+def unstack(tree: Params, n: int) -> list:
+    """The stacked ``(L, ...)`` block params as ``n`` per-layer trees of
+    views (``unbind``: under autograd each stacked leaf's gradient is
+    assembled once, a stack, not summed from ``n`` zero-padded slices)."""
+    per = {k: unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+           for k, v in tree.items()}
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
 def mlp_leaves(cfg: ArchConfig, prefix: str = "mlp") -> list:
     """Integer-layer leaf paths of one MLP (policy-resolution probe set);
     ``act`` is the non-linearity's kept-ops leaf."""

@@ -1,13 +1,16 @@
-"""Decoder-only language model, dense family: init, KV cache, chunked
-prefill and decode.
+"""Decoder-only language model, dense family: init, the training loss,
+KV cache, chunked prefill and decode.
 
 Counterpart of the dense path of ``repro/models/lm.py``.  Parameters are a
 nested dict of tensors with the layer stack stacked on a leading
 ``(L, ...)`` axis, as in the reference's ``lm_init``, so the reference's
 params carry across one to one (``repro_torch.convert``).  The reference's
-``lax.scan`` over the stack is a Python loop here.  Its sharding
-constraints (``sharding.constrain*``) and ``health.probe`` calls are
-identities on one device with probes suspended, and are left out.
+``lax.scan`` over the stack is a Python loop here, and its remat
+(``utils.checkpoint`` around each layer of the training stack) is left
+out: the backward keeps every layer's residuals (the quantized planes the
+integer layers save), trading device memory for no recompute.  Its
+sharding constraints (``sharding.constrain*``) and ``health.probe`` calls
+are identities on one device with probes suspended, and are left out.
 
 MoE, SSM, hybrid and VLM families are not ported yet.
 """
@@ -76,12 +79,6 @@ def lm_init(gen: torch.Generator, cfg: ArchConfig, device="cuda") -> Params:
     return params
 
 
-def _layer(tree: Params, i: int) -> Params:
-    """Layer ``i`` of the stacked block params (views, no copy)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
-
-
 def _attn_block(bp: Params, x: torch.Tensor, cfg: ArchConfig,
                 qcfg: QuantLike, key, *, cache=None, cache_index=0):
     sc = ensure_scope(qcfg)
@@ -115,6 +112,39 @@ def _logits(params: Params, x: torch.Tensor, cfg: ArchConfig,
                               transposed_w=tied)
 
 
+def _backbone_train(params: Params, x: torch.Tensor, cfg: ArchConfig,
+                    qcfg: QuantLike, key) -> torch.Tensor:
+    """All layers, no cache (training): a Python loop over the stack, each
+    run of identically resolved layers under its scope."""
+    sc = ensure_scope(qcfg)
+    layers = blocks.unstack(params["blocks"], cfg.n_layers)
+    for start, stop, bsc in layer_groups(sc, cfg.n_layers,
+                                         _block_leaves(cfg)):
+        for i in range(start, stop):
+            x, _ = _attn_block(layers[i], x, cfg, bsc, key)
+    return x
+
+
+def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+            qcfg: QuantLike, key) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Next-token cross entropy.  batch: tokens (B, S) and labels (B, S)
+    integer tensors (label -1: masked).  Returns ``(loss, {"ce", "aux"})``;
+    ``aux`` is 0 (the dense family has no MoE balance loss)."""
+    _require_dense(cfg)
+    x = _embed(params, batch["tokens"], cfg, qcfg, key)
+    x = _backbone_train(params, x, cfg, qcfg, key)
+    logits = _logits(params, x, cfg, qcfg, key)
+    labels = batch["labels"]
+    valid = labels >= 0
+    lab = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = torch.gather(logp, -1, lab[..., None])[..., 0]
+    n = torch.clamp(valid.sum(), min=1).to(torch.float32)
+    loss = -torch.sum(ll * valid) / n
+    return loss, {"ce": loss.detach(),
+                  "aux": torch.zeros((), device=loss.device)}
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype=torch.float32, device="cuda") -> Params:
     """KV cache: k/v (L, B, max_seq, KV, hd) and a per-row (B,) int32
@@ -142,10 +172,11 @@ def lm_prefill_cache(params: Params, tokens: torch.Tensor, cache: Params,
     index = cache["index"]
     sc = ensure_scope(qcfg)
     x = _embed(params, tokens, cfg, sc, key)
+    layers = blocks.unstack(params["blocks"], cfg.n_layers)
     groups = layer_groups(sc, cfg.n_layers, _block_leaves(cfg))
     for start, stop, bsc in groups:
         for i in range(start, stop):
-            x, _ = _attn_block(_layer(params["blocks"], i), x, cfg, bsc, key,
+            x, _ = _attn_block(layers[i], x, cfg, bsc, key,
                                cache=(cache["k"][i], cache["v"][i]),
                                cache_index=index)
     logits = _logits(params, x[:, -1:], cfg, sc, key)

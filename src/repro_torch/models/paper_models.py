@@ -50,21 +50,13 @@ def _enc_block_init(gen: torch.Generator, cfg: ArchConfig, device,
             "mlp": blocks.mlp_init(gen, cfg, device, lead)}
 
 
-def _unstack(tree: Params, n: int) -> list:
-    """The stacked ``(L, ...)`` block params as ``n`` per-layer trees of
-    views (``unbind``: under autograd the gradients stack back in one op)."""
-    per = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
-           for k, v in tree.items()}
-    return [{k: v[i] for k, v in per.items()} for i in range(n)]
-
-
 def _encoder(params: Params, x: torch.Tensor, cfg: ArchConfig,
              qcfg: QuantLike, key) -> torch.Tensor:
     """Pre-LN encoder stack, bidirectional attention without RoPE; the
     policy may resolve runs of layers differently (``layer_groups``)."""
     sc = ensure_scope(qcfg)
     L = cfg.n_layers
-    layers = _unstack(params["blocks"], L)
+    layers = blocks.unstack(params["blocks"], L)
     for start, stop, bsc in layer_groups(sc, L, _ENC_BLOCK_LEAVES):
         for bp in layers[start:stop]:
             h = blocks.norm_apply(bp["ln1"], x, cfg, bsc.child("ln1"), key)

@@ -27,6 +27,7 @@ from repro_torch.models import paper_models as pm
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.lm import resolve_device
 from repro_torch.train import optimizer as opt_lib
+from repro_torch.train.trainer import loss_and_grads
 
 
 def paper_scope(base: Optional[QuantConfig] = None) -> QuantPolicy:
@@ -136,16 +137,10 @@ def train_step(params: dict, opt_state: opt_lib.OptState, batch: dict,
     backward), then the AdamW update.  A parameter the loss does not reach
     (the span task's classifier head) gets a zero gradient, as under
     ``jax.grad``.  Returns ``(params, opt_state, loss, grads, metrics)``."""
-    live = opt_lib.tree_map(lambda p: p.detach().requires_grad_(True),
-                            params)
-    leaves = opt_lib.tree_leaves(live)
-    loss, _ = loss_fn(live, batch, cfg, qcfg, key)
-    gs = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = opt_lib.tree_unflatten(params, [
-        torch.zeros_like(p) if g is None else g for p, g in zip(leaves, gs)])
+    loss, _, grads = loss_and_grads(loss_fn, params, batch, cfg, qcfg, key)
     new_params, opt_state, metrics = opt_lib.update(opt_cfg, grads,
                                                     opt_state, params)
-    return new_params, opt_state, loss.detach(), grads, metrics
+    return new_params, opt_state, loss, grads, metrics
 
 
 def evaluate(task: str, params: dict, cfg: ArchConfig, qcfg: QuantLike,

@@ -106,16 +106,24 @@ def test_int_linear_grads_match_reference(preset, stochastic, bias):
 
 
 def test_tied_head_is_forward_only():
-    """``transposed_w`` (the LM's tied head) has no backward yet."""
-    x = torch.randn(3, 16, requires_grad=True)
-    table = torch.randn(12, 16)
+    """``transposed_w`` (the LM's tied head) is no longer forward-only: its
+    gradients flow, are finite, and equal those of the same product with
+    the table transposed beforehand (dX by NN over the table's own planes,
+    the table's gradient by TN landing in its (V, D) layout)."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((3, 16)).astype(np.float32)
+    table = (0.5 * rng.standard_normal((12, 16))).astype(np.float32)
+    cot = rng.standard_normal((3, 12)).astype(np.float32)
     cfg = QuantConfig.int8()
-    with pytest.raises(NotImplementedError, match="LM training"):
-        int_ops.int_linear(x, table, None, None, cfg, transposed_w=True)
-    with torch.no_grad():
-        y = int_ops.int_linear(x, table, None, None, cfg, transposed_w=True)
-    assert torch.equal(y, int_ops.int_linear(x.detach(), table.t(), None,
-                                             None, cfg).detach())
+    y, (dx, dt) = _grads(lambda a, t: int_ops.int_linear(
+        a, t, None, None, cfg, transposed_w=True), (x, table), cot)
+    y2, (dx2, dw2) = _grads(lambda a, w: int_ops.int_linear(
+        a, w, None, None, cfg), (x, np.ascontiguousarray(table.T)), cot)
+    assert np.all(np.isfinite(dx)) and np.all(np.isfinite(dt))
+    assert np.abs(dx).max() > 0 and np.abs(dt).max() > 0
+    np.testing.assert_array_equal(y, y2)
+    np.testing.assert_array_equal(dx, dx2)
+    np.testing.assert_array_equal(dt, dw2.T)
 
 
 def test_int_linear_grads_at_training_scales():
@@ -251,15 +259,29 @@ def test_fp32_layers_are_plain_autograd():
 
 
 def test_integer_attention_and_rmsnorm_stay_forward_only():
-    x = torch.randn(1, 4, 2, 1, 8, requires_grad=True)
-    k = torch.randn(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        int_ops.int_attention(x, k, k, 0, None, QuantConfig.int8(),
+    """Integer attention and RMS-norm now have their backward: under grad
+    the gradients flow and are finite (their parity with JAX is in
+    test_torch_int_attention_bwd.py / test_torch_int_rmsnorm_bwd.py);
+    ``kept_ops="integer"`` still raises."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 4, 2, 1, 8, generator=gen, requires_grad=True)
+    k = torch.randn(1, 4, 2, 8, generator=gen, requires_grad=True)
+    o = int_ops.int_attention(x, k, k, 0, None, QuantConfig.int8(),
                               QuantConfig.int8(), False, None)
-    with torch.no_grad():
-        assert int_ops.int_attention(x, k, k, 0, None, QuantConfig.int8(),
-                                     QuantConfig.int8(), False,
-                                     None).shape == x.shape
+    assert o.shape == x.shape
+    o.square().sum().backward()
+    for t in (x, k):
+        assert torch.isfinite(t.grad).all() and t.grad.abs().max() > 0
+    h = torch.randn(3, 8, generator=gen, requires_grad=True)
+    g = torch.ones(8, requires_grad=True)
+    (int_ops.int_rmsnorm(h, g, None, QuantConfig.int8())
+     * torch.arange(8.0)).sum().backward()
+    for t in (h, g):
+        assert torch.isfinite(t.grad).all() and t.grad.abs().max() > 0
+    with pytest.raises(NotImplementedError):
+        int_ops.int_attention(x, k, k, 0, None,
+                              QuantConfig(kept_ops="integer"),
+                              QuantConfig.int8(), False, None)
 
 
 def test_uniform_key_kinds():

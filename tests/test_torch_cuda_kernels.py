@@ -12,8 +12,11 @@ ulp (y), for PyTorch's own sqrt / reciprocal; layer-norm forward within 2
 ulp of mu and 4 ulp of rstd and y within 8 ulp of its row's max|y| plus
 rstd's difference times the row's max|xn·γ|; layer-norm backward dβ
 exactly, dx within 64 ulp of its row's max|dx| and dγ within 64 ulp of the
-column's Σ|gq·xn| (f32 sums in another order); attention within 1e-5 of max|o| and 1e-4 on lse — the same expf on
-both sides, only the row-sum order of l differs.
+column's Σ|gq·xn| (f32 sums in another order), and the same for the
+RMS-norm backward; attention within 1e-5 of max|o| and 1e-4 on lse — the
+same expf on both sides, only the row-sum order of l differs; the
+attention backward's dq, dk and dv within 1e-4 of their max|ref| (the
+same expf and the same ordered f32 sums on both sides).
 """
 import pytest
 
@@ -170,6 +173,73 @@ def test_int_attn_fwd(dev, case, lqk, lpv, pb):
     o0, lse0 = ia.int_attn_fwd_plain(qm, km, vm, qo, exps, **kw)
     assert (o - o0).abs().max() <= 1e-5 * o0.abs().max()
     assert (lse - lse0).abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xt,xlim,gt,glim", [
+    (torch.int16, 2047, torch.int8, 127), (torch.int8, 127, torch.int8, 127),
+    (torch.int16, 32767, torch.int16, 32767)])
+def test_int_rmsnorm_bwd(dev, xt, xlim, gt, glim):
+    gen = torch.Generator(device=dev).manual_seed(xlim + 3 * glim)
+    for R, D in ((2048, 1024), (37, 1000), (1, 7)):
+        xm = torch.randint(-xlim, xlim + 1, (R, D), generator=gen,
+                           device=dev).to(xt)
+        gm = torch.randint(-glim, glim + 1, (R, D), generator=gen,
+                           device=dev).to(gt)
+        gamma = 1 + 0.2 * torch.randn((D,), generator=gen, device=dev)
+        xe = torch.tensor(-10, dtype=torch.int32, device=dev)
+        ge = torch.tensor(-20, dtype=torch.int32, device=dev)
+        _, r0 = int_norm.int_rmsnorm_fwd_plain(xm, xe, gamma)
+        dx, dg = int_norm.int_rmsnorm_bwd(xm, gm, xe, ge, gamma, r0)
+        dx0, dg0 = int_norm.int_rmsnorm_bwd_plain(xm, gm, xe, ge, gamma, r0)
+        row = dx0.abs().amax(-1, keepdim=True)
+        assert ((dx - dx0).abs() <= 64 * ULP * row + 1e-30).all()
+        col = (gm.float() * 2.0 ** -20 * xm.float() * 2.0 ** -10
+               * r0).abs().sum(0)
+        assert ((dg - dg0).abs() <= 64 * ULP * col + 1e-30).all()
+
+
+ATTN_BWD = {
+    # name: (B, Sq, Sk, KV, G, hd, offsets, causal, window)
+    "bert_cls": (2, 128, 128, 12, 1, 64, [0, 0], False, None),
+    "qwen_train": (1, 256, 256, 4, 1, 64, [0], True, None),
+    "smollm_gqa3": (2, 130, 130, 3, 3, 64, [0, 0], True, None),
+    "ragged_window": (2, 20, 150, 2, 2, 16, [100, 37], True, 40),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ATTN_BWD))
+@pytest.mark.parametrize("lqk,lpv,lg,ds_bits,pb", [
+    (2, 2, 1, 8, 12), (1, 1, 1, 8, 8), (3, 3, 3, 16, 16), (2, 2, 2, 12, 12)])
+def test_int_attn_bwd(dev, case, lqk, lpv, lg, ds_bits, pb):
+    B, Sq, Sk, KV, G, hd, off, causal, window = ATTN_BWD[case]
+    gen = torch.Generator(device=dev).manual_seed(lqk * 100 + lg * 10 + pb)
+
+    def planes(L, *shape):
+        return torch.randint(-64, 65, (L,) + shape, generator=gen,
+                             device=dev, dtype=torch.int8)
+    qm, km = planes(lqk, B, Sq, KV, G, hd), planes(lqk, B, Sk, KV, hd)
+    vm, gm = planes(lpv, B, Sk, KV, hd), planes(lg, B, Sq, KV, G, hd)
+    qo = torch.tensor(off, dtype=torch.int32, device=dev)
+    exps = torch.tensor([-11, -10, -8, -12, -13], dtype=torch.int32,
+                        device=dev)
+    sc = 1.0 / hd ** 0.5
+    _, lse = ia.int_attn_fwd_plain(qm, km, vm, qo, exps[:3], p_bits=pb,
+                                   causal=causal, window=window, sc=sc)
+    delta = 0.05 * torch.randn((B, Sq, KV, G), generator=gen, device=dev)
+    kw = dict(p_bits=pb, ds_bits=ds_bits, causal=causal, window=window,
+              sc=sc)
+    dq = ia.int_attn_bwd_dq(qm, km, vm, gm, lse, delta, qo, exps, **kw)
+    dk, dv = ia.int_attn_bwd_dkv(qm, km, vm, gm, lse, delta, qo, exps, **kw)
+    kw.pop("p_bits")
+    dq0 = ia.int_attn_bwd_dq_plain(qm, km, vm, gm, lse, delta, qo, exps,
+                                   **kw)
+    dk0, dv0 = ia.int_attn_bwd_dkv_plain(qm, km, vm, gm, lse, delta, qo,
+                                         exps, p_bits=pb, **kw)
+    for got, ref in ((dq, dq0), (dk, dk0), (dv, dv0)):
+        assert ref.abs().max() > 0
+        assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
 
 
 def test_cpu_tensors_take_the_plain_version():

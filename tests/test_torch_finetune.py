@@ -149,21 +149,32 @@ def test_bert_losses_track_reference(task):
 
 
 def test_integer_attention_under_grad_raises():
-    """The plain int8 preset quantizes attention's products too; their
-    backward kernels are not ported, so a training step must raise (never
-    fall back to FP32 attention)."""
+    """The plain int8 preset quantizes attention's products too.  Their
+    backward is ported now, so a training step runs with integer attention
+    under grad (never FP32 attention in its place): every gradient is
+    finite and the attention projections' are not zero; its parity with
+    JAX is in test_torch_lm_train.py.  Kept ops ``"integer"`` still
+    raise."""
     cfg = pm.bert_config(**_SMALL)
     gen = torch.Generator().manual_seed(0)
     params = pm.bert_init(gen, cfg, num_labels=4, device="cpu")
     batch = tf.to_device(_TASKS["cls"][0](2, 0), "cpu")
-    with pytest.raises(NotImplementedError, match="int_attention"):
-        tf.train_step(params, topt.init(params), batch, cfg,
-                      QuantConfig.int8(), pm.bert_cls_loss,
-                      topt.OptimizerConfig(), gen)
+    _, _, loss, grads, _ = tf.train_step(
+        params, topt.init(params), batch, cfg, QuantConfig.int8(),
+        pm.bert_cls_loss, topt.OptimizerConfig(), gen)
+    assert torch.isfinite(loss)
+    for name, g in _leaves(grads):
+        assert torch.isfinite(g).all(), name
+    assert all(float(grads["blocks"]["attn"][w].abs().max()) > 0
+               for w in ("wq", "wk", "wv"))
     with torch.no_grad():                     # forward alone runs
         logits = pm.bert_apply(params, batch["tokens"], cfg,
                                QuantConfig.int8(), None)
     assert logits.shape == (2, 4) and torch.isfinite(logits).all()
+    with pytest.raises(NotImplementedError):
+        tf.train_step(params, topt.init(params), batch, cfg,
+                      QuantConfig(kept_ops="integer"), pm.bert_cls_loss,
+                      topt.OptimizerConfig(), gen)
 
 
 def test_paper_scope_resolves_attention_fp32():

@@ -172,8 +172,10 @@ def test_nonfinite_slot_is_evicted():
 
 def test_forward_only_and_unported_paths_raise():
     x = torch.randn(3, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError):   # RMS-norm is forward-only
-        int_ops.int_rmsnorm(x, torch.ones(8), None, QuantConfig.int8())
+    # RMS-norm is no longer forward-only: the gradient flows and is finite
+    (int_ops.int_rmsnorm(x, torch.ones(8), None, QuantConfig.int8())
+     * torch.arange(8.0)).sum().backward()
+    assert torch.isfinite(x.grad).all() and x.grad.abs().max() > 0
     with pytest.raises(NotImplementedError):
         int_ops.int_activation(x.detach(), QuantConfig(kept_ops="integer"),
                                "silu")
