@@ -15,18 +15,23 @@ Phases (each raises on failure; nothing is caught):
    also the step's gradient quantize and w1 forward; the qwen1.5-0.5b
    training step — batch 8 x seq 256 — for the RMS-norm backward, and it,
    bert-base cls, smollm-135m's GQA and a ragged windowed case for the
-   attention backward): run the kernel and its plain PyTorch version
-   on the card from the same seeded inputs and hold them together (integer
+   attention backward; the qwen2-moe-a2.7b paths — E = 60 experts, 256
+   capacity rows each in training, 16 at decode — for the grouped
+   quantize and the batched NN / NT / TN matmuls): run the kernel and its
+   plain PyTorch version on the card from the same seeded inputs and hold them together (integer
    outputs and the matmuls exactly, other f32 outputs within the stated
-   tolerance); time kernel, plain version and a one-call PyTorch yardstick
-   with CUDA events (median); compute the card's lower bound from the
+   tolerance); time kernel, plain version and a PyTorch yardstick (one
+   call; for a batched matmul 60 calls of ``torch._int_mm``) with CUDA
+   events (median); compute the card's lower bound from the
    bytes and the operations this call needs.
 3. On reduced configurations (2 layers), from the same weights, the card
    against the port's CPU path: qwen1.5-0.5b's served logits; one BERT
    training step under the paper's integer scope (round to nearest), its
    loss and every parameter's gradient, for the cls and span heads, and
    for cls under the plain int8 preset; one ``lm_loss`` step of
-   qwen1.5-0.5b and of smollm-135m under int8.
+   qwen1.5-0.5b and of smollm-135m under int8; qwen2-moe-a2.7b's served
+   logits and one ``lm_loss`` step, with the tokens routed to another
+   expert set on the two devices counted and set aside.
 4. Serve qwen1.5-0.5b at full width (24 layers, d_model 1024, vocab
    151936), int8 (w8·a12), random weights from a seeded generator: 4 slots,
    max_seq 256, 8 requests of 64-token prompts, 16 new tokens each, through
@@ -55,7 +60,19 @@ Phases (each raises on failure; nothing is caught):
    the median step time of steps 1.., tokens/s, peak memory, the launches
    of one step, a profiled step's device-busy share and the FP32 losses
    from the same init.
-7. Print the ``{"kernels": [...]}`` line, then the last line
+7. Serve qwen2-moe-a2.7b at full width and depth (24 layers, d_model
+   2048, 60 experts top-4 of d_ff 1408, a shared expert of 5632, vocab
+   151936; FP32 weights ~57 GB) under int8 with phase 4's request mix,
+   after the earlier phases' tensors are freed: the grouped quantize and
+   the batched NN matmul must have launched.  Prints what phase 4 prints.
+8. Train qwen2-moe-a2.7b at full width with the depth cut to 2 layers
+   (the out-of-place AdamW update holds eight FP32 copies of the
+   parameters; 4 layers would need ~87 GiB) through ``lm_loss`` +
+   ``make_train_step``: int8, batch 8 x seq 256 (the capacity dispatch at
+   256 rows per expert), 6 AdamW steps at lr 1e-4, stochastic gradient
+   rounding from a seeded CUDA generator; all four MoE kernels must have
+   launched.  Prints what phase 6 prints.
+9. Print the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available or when
@@ -63,6 +80,7 @@ the script is not inside a checkout of the repository.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -676,6 +694,150 @@ def check_attention_bwd(torch, dev, gen):
     return out_k
 
 
+#: qwen2-moe-a2.7b training step's capacity rows per expert (batch 8 x seq
+#: 256, top-4 of 60: ceil128(1.25 * 8192 / 60)) and its decode's (4 slots
+#: x top-4, drop-free)
+MOE_TRAIN_ROWS, MOE_DECODE_ROWS = 256, 16
+
+
+def check_quantize_grouped(torch, dev, gen, moe):
+    """dfx_quantize_grouped at the MoE path's shapes (qwen2-moe-a2.7b, E =
+    60): timed at its largest call, one expert weight stack (60, 2048, 1408)
+    f32 -> 8-bit planes, quantized before every product; also held exactly:
+    the training step's expert input (60, 256, 2048) at a12 into 2 planes
+    and as the logical int16 mantissa, one expert empty (an all-zero slice),
+    its upstream gradient (60, 256, 1408) at g8 with ``u``, and the weight
+    stack's logical int8 mantissa."""
+    from repro_torch.core import dfx
+    from repro_torch.kernels import dfx_quant as dq
+    E, D, F, C = moe.moe_experts, moe.d_model, moe.d_ff, MOE_TRAIN_ROWS
+    w = torch.randn((E, D, F), generator=gen, device=dev) * 0.02
+    act = torch.randn((E, C, D), generator=gen, device=dev)
+    act[5] = 0
+    grad = torch.randn((E, C, F), generator=gen, device=dev) * 1e-6
+    u = torch.rand((E, C, F), generator=gen, device=dev)
+    err = 0.0
+    for x, bits, limbs, uu in ((w, 8, True, None), (w, 8, False, None),
+                               (act, 12, True, None), (act, 12, False, None),
+                               (grad, 8, True, u)):
+        e = dfx.slice_exponents(x) - (bits - 1)
+        got = dq.dfx_quantize_grouped(x, e, bits=bits, u=uu,
+                                      limb_planes=limbs)
+        ref = dq.dfx_quantize_grouped_plain(x, e, bits=bits, u=uu,
+                                            limb_planes=limbs)
+        if not torch.equal(got, ref):
+            raise AssertionError(
+                f"dfx_quantize_grouped differs from its plain version at "
+                f"{tuple(x.shape)} bits={bits} limb_planes={limbs} "
+                f"stochastic={uu is not None}")
+        err = max(err, (got.float() - ref.float()).abs().max().item())
+    we = dfx.slice_exponents(w) - 7
+    out = dq.dfx_quantize_grouped(w, we, bits=8, limb_planes=True)
+    # yardstick: PyTorch's per-channel int8 quantize along the expert axis
+    # at the same power-of-two scales (it clamps at -128, the kernel at
+    # -127)
+    scales = dfx.pow2(we).double()
+    zeros = torch.zeros(E, dtype=torch.int64, device=dev)
+    t = timings(lambda: dq.dfx_quantize_grouped(w, we, bits=8,
+                                                limb_planes=True),
+                lambda: dq.dfx_quantize_grouped_plain(w, we, bits=8,
+                                                      limb_planes=True),
+                lambda: torch.quantize_per_channel(w, scales, zeros, 0,
+                                                   torch.qint8))
+    b, by = bound_ms(nbytes(w, we, out), 0)
+    return dict(name="dfx_quantize_grouped", route="cuda",
+                source="src/repro_torch/csrc/dfx_quant.cu",
+                replaces="src/repro/kernels/dfx_quant.py:201",
+                shape=f"expert weight stack ({E},{D},{F}) f32 -> one 8-bit "
+                      f"plane, per-expert exponents; tolerance exact (also "
+                      f"held exactly: ({E},{C},{D}) a12 planes and int16 "
+                      f"with an empty expert, ({E},{C},{F}) g8 planes with "
+                      "u); library: torch.quantize_per_channel to qint8 "
+                      "along the expert axis",
+                max_abs_err=err, bound_ms=b, bound_by=by, **t)
+
+
+def check_matmul_batched(torch, dev, gen, moe):
+    """bfp_matmul_batched{,_nt,_tn} at the MoE path's shapes (qwen2-moe-
+    a2.7b: E = 60, d_model 2048, expert d_ff 1408), per-expert exponents:
+    NN timed at the training step's wg_e forward (60 x 256 x 2048 x 1408,
+    2x1 limbs) and its decode (16 rows per expert), also held at wd_e's
+    forward; NT at wg_e's dX (1x1) and wd_e's; TN at wg_e's dW (2x1,
+    contracting the 256 capacity rows) and wd_e's.  Library: 60 calls of
+    torch._int_mm over one limb pair (operands made contiguous
+    beforehand), summed."""
+    from repro_torch.kernels import bfp_matmul as bm
+    E, D, F, C = moe.moe_experts, moe.d_model, moe.d_ff, MOE_TRAIN_ROWS
+    e = torch.arange(E, dtype=torch.int32, device=dev) - 40
+
+    def pl(L, *shape):
+        return _planes(torch, gen, dev, L, *shape)
+    x, wg, g = pl(2, E, C, D), pl(1, E, D, F), pl(1, E, C, F)
+    xd = pl(2, E, MOE_DECODE_ROWS, D)
+    h, wd, gd = pl(2, E, C, F), pl(1, E, F, D), pl(1, E, C, D)
+    x0, w0, g0 = x[0].contiguous(), wg[0].contiguous(), g[0].contiguous()
+    w0t = wg[0].transpose(1, 2).contiguous()
+    x0t = x[0].transpose(1, 2).contiguous()
+    out = []
+    for name, fn, plain, cases, lib, line, contract in (
+            ("bfp_matmul_batched", bm.bfp_matmul_batched,
+             bm.bfp_matmul_batched_plain, [(x, wg), (xd, wg), (h, wd)],
+             lambda: [torch._int_mm(x0[i], w0[i]) for i in range(E)],
+             "302", D),
+            ("bfp_matmul_batched_nt", bm.bfp_matmul_batched_nt,
+             bm.bfp_matmul_batched_nt_plain, [(g, wg), (gd, wd)],
+             lambda: [torch._int_mm(g0[i], w0t[i]) for i in range(E)],
+             "332", F),
+            ("bfp_matmul_batched_tn", bm.bfp_matmul_batched_tn,
+             bm.bfp_matmul_batched_tn_plain, [(x, g), (h, gd)],
+             lambda: [torch._int_mm(x0t[i], g0[i]) for i in range(E)],
+             "362", C)):
+        err = 0.0
+        for a, b in cases:
+            got, ref = fn(a, b, e), plain(a, b, e)
+            if not torch.equal(got, ref):
+                raise AssertionError(
+                    f"{name} differs from its plain version at "
+                    f"{tuple(a.shape)} x {tuple(b.shape)}: "
+                    f"{(got - ref).abs().max().item()}")
+            err = max(err, (got - ref).abs().max().item())
+        a, b = cases[0]
+        res = fn(a, b, e)
+        t = timings(lambda: fn(a, b, e), lambda: plain(a, b, e), lib)
+        n_ops = 2 * res.numel() * contract * a.shape[0] * b.shape[0]
+        bd, by = bound_ms(nbytes(a, b, e, res), n_ops)
+        k = dict(name=name, route="cuda",
+                 source="src/repro_torch/csrc/bfp_matmul.cu",
+                 replaces=f"src/repro/kernels/bfp_matmul.py:{line}",
+                 max_abs_err=err, bound_ms=bd, bound_by=by, **t)
+        if name == "bfp_matmul_batched":
+            k["shape"] = (f"wg_e forward ({E},{C},{D})x({E},{D},{F}), 2x1 "
+                          f"limbs, tolerance exact (also held exactly: "
+                          f"decode {MOE_DECODE_ROWS} rows per expert, wd_e "
+                          f"({E},{C},{F})x({E},{F},{D})); library: {E} x "
+                          "torch._int_mm of one limb pair, summed")
+            xd_ms = device_ms(lambda: fn(xd, wg, e))
+            dres = fn(xd, wg, e)
+            db, dby = bound_ms(nbytes(xd, wg, e, dres),
+                               2 * dres.numel() * D * 2)
+            k.update(decode_ms=cuda_ms(lambda: fn(xd, wg, e)),
+                     decode_device_ms=xd_ms, decode_bound_ms=db)
+            print(f"  bfp_matmul_batched decode ({E},{MOE_DECODE_ROWS},{D})"
+                  f"x({E},{D},{F}), 2x1 limbs: device {xd_ms:.4f} ms, bound "
+                  f"{db:.4f} ms ({dby})")
+        elif name == "bfp_matmul_batched_nt":
+            k["shape"] = (f"wg_e dX: G ({E},{C},{F}) . W ({E},{D},{F})^T, "
+                          f"1x1 limbs, tolerance exact (also held: wd_e's "
+                          f"dX); library: {E} x torch._int_mm, summed")
+        else:
+            k["shape"] = (f"wg_e dW: X ({E},{C},{D})^T . G ({E},{C},{F}), "
+                          f"2x1 limbs, tolerance exact (also held: wd_e's "
+                          f"dW); library: {E} x torch._int_mm of one limb "
+                          "pair, summed")
+        out.append(k)
+    return out
+
+
 def check_small_model(torch, dev):
     """Reduced qwen1.5-0.5b (2 layers): prefill + 3 decode steps on the card
     (CUDA kernels) against the port's CPU path (plain versions)."""
@@ -795,9 +957,10 @@ class _Recorder:
 
     NAMES = ("int_rmsnorm", "int_linear", "int_attention")
 
-    def __init__(self, torch):
+    def __init__(self, torch, names=NAMES):
         from repro_torch.core import int_ops
         self.torch, self.int_ops, self.calls = torch, int_ops, []
+        self.NAMES = names
         self.orig = {n: getattr(int_ops, n) for n in self.NAMES}
 
     def _wrap(self, name):
@@ -907,6 +1070,148 @@ def check_small_lm_train(torch, dev):
         if dl > 1e-5 or worst_y > 2.0 ** -11 or worst_g > 2e-3:
             raise AssertionError("card LM training step disagrees with the "
                                  "CPU path")
+
+
+class _Routes:
+    """While active, records the experts each MoE router call chose for
+    every token (``blocks.top_k``'s indices, sorted, on the host)."""
+
+    def __init__(self):
+        from repro_torch.models import blocks
+        self.blocks, self.orig, self.sel = blocks, blocks.top_k, []
+
+    def __enter__(self):
+        def top_k(probs, k):
+            vals, idx = self.orig(probs, k)
+            self.sel.append(idx.detach().sort(-1).values.cpu())
+            return vals, idx
+        self.blocks.top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.blocks.top_k = self.orig
+
+
+def _rerouted(torch, a: list, b: list, rows: int):
+    """Tokens whose expert set differs between two runs' router calls
+    (summed over the calls), and the batch rows holding one."""
+    n, bad = 0, torch.zeros(rows, dtype=torch.bool)
+    for x, y in zip(a, b):
+        diff = (x != y).any(-1)
+        n += int(diff.sum())
+        bad |= diff.reshape(rows, -1).any(-1)
+    return n, bad
+
+
+def check_small_moe(torch, dev):
+    """Reduced qwen2-moe-a2.7b (2 layers, d_model 128, 4 experts top-2, a
+    shared expert of 128) on the card against the port's CPU path from the
+    same weights: the served logits (prefill + 3 decode steps, 4 rows) and
+    one ``lm_loss`` step under int8, rounding to nearest.
+
+    Routing is discontinuous: the card's exp in the router softmax and the
+    CPU's differ in the last ulp, and a token whose k-th and (k+1)-th
+    probabilities lie within ulps can pick another expert on each, which
+    moves its row by O(1).  So the re-routed tokens are counted and
+    printed, the logits are held (within 5e-3 of max, as the dense model's)
+    over the rows none of whose tokens re-routed, and the loss within 1e-5
+    relative when no token re-routed (else within 1e-5 plus the re-routed
+    share of the tokens).  Each integer layer call of the CPU step,
+    ``int_batched_linear`` included, is replayed on both devices from its
+    recorded inputs and upstream gradient: outputs within 2^-11 of max,
+    input gradients within 2e-3 of max (as check_small_lm_train)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.train import finetune as tf
+    from repro_torch.train import trainer
+    cfg = registry.get_config("qwen2-moe-a2.7b").reduced()
+    params = lm.lm_init(torch.Generator().manual_seed(1), cfg, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    B = 4
+    toks = torch.randint(0, cfg.vocab, (B, 9), generator=gen)
+    dec = torch.randint(0, cfg.vocab, (3, B, 1), generator=gen)
+    outs, routes = {}, {}
+    for device in ("cpu", dev):
+        p = _to(params, device)
+        cache = lm.init_cache(cfg, B, 64, device=device)
+        rows = []
+        with torch.no_grad(), _Routes() as r:
+            logits, cache = lm.lm_prefill_cache(p, toks.to(device), cache,
+                                                cfg, QuantConfig.int8())
+            rows.append(logits.cpu())
+            for i in range(3):
+                logits, cache = lm.lm_decode_step(p, dec[i].to(device),
+                                                  cache, cfg,
+                                                  QuantConfig.int8())
+                rows.append(logits.cpu())
+        outs[str(device)], routes[str(device)] = rows, r.sel
+    n_rr, bad = _rerouted(torch, routes["cpu"], routes[str(dev)], B)
+    ok = ~bad
+    if not ok.any():
+        raise AssertionError("every served row re-routed a token")
+    worst = 0.0
+    for a, b in zip(outs["cpu"], outs[str(dev)]):
+        if not torch.isfinite(b).all():
+            raise AssertionError("non-finite MoE logits on the card")
+        worst = max(worst, ((a[ok] - b[ok]).abs().max()
+                            / a[ok].abs().max()).item())
+    print(f"  reduced qwen2-moe-a2.7b served, card vs CPU: {n_rr} token "
+          f"routings of {sum(x.shape[0] for x in routes['cpu'])} differ "
+          f"({int(bad.sum())} of {B} rows set aside); logits of the other "
+          f"rows max |diff| / max|ref| = {worst:.3e} (tolerance 5e-3)")
+    if worst > 5e-3:
+        raise AssertionError("card MoE logits disagree with the CPU path")
+
+    rn = dataclasses.replace(QuantConfig.int8(), stochastic_grad=False)
+    batch = next(SyntheticLM(DataConfig(batch_size=4, seq_len=64,
+                                        vocab=cfg.vocab)))
+    res, routes = {}, {}
+    rec = _Recorder(torch, _Recorder.NAMES + ("int_batched_linear",))
+    for device in ("cpu", dev):
+        with rec, _Routes() as r:
+            loss, metrics, grads = trainer.loss_and_grads(
+                lm.lm_loss, _to(params, device), tf.to_device(batch, device),
+                cfg, rn, None)
+        res[str(device)] = (float(loss), float(metrics["aux"]),
+                            {n: g.cpu() for n, g in _leaves(grads)})
+        routes[str(device)] = r.sel
+    (l0, a0, g0), (l1, a1, g1) = res["cpu"], res[str(dev)]
+    n_tok = 4 * 64
+    n_rr, _ = _rerouted(torch, routes["cpu"], routes[str(dev)], 4)
+    dl = abs(l1 - l0) / abs(l0)
+    worst, at = _grad_agreement(torch, g0, g1)
+    calls = rec.calls[:len(rec.calls) // 2]              # the CPU step's
+    worst_y = worst_g = 0.0
+    worst_at = ""
+    for entry in calls:
+        (y0, gs0), (y1, gs1) = (rec.replay(entry, "cpu"),
+                                rec.replay(entry, dev))
+        worst_y = max(worst_y, ((y1 - y0).abs().max()
+                                / y0.abs().max()).item())
+        for a, b in zip(gs0, gs1):
+            if not torch.isfinite(b).all():
+                raise AssertionError(f"non-finite {entry['name']} gradient "
+                                     "on the card")
+            scale = a.abs().max().item()
+            d = (b - a).abs().max().item() / (scale if scale else 1.0)
+            if d > worst_g:
+                worst_g, worst_at = d, entry["name"]
+    n_moe = sum(e["name"] == "int_batched_linear" for e in calls)
+    print(f"  reduced qwen2-moe-a2.7b lm_loss step (int8), card vs CPU: "
+          f"loss {l1:.6f} vs {l0:.6f} (rel {dl:.2e}), aux {a1:.6f} vs "
+          f"{a0:.6f}; {n_rr} token routings of {n_tok * 2} differ; whole-"
+          f"step gradients finite, worst {worst:.2e} of its max at {at}; "
+          f"{len(calls)} integer layer calls ({n_moe} int_batched_linear) "
+          f"replayed from the same inputs: outputs within {worst_y:.2e} of "
+          f"max (tolerance 2^-11), input gradients within {worst_g:.2e} "
+          f"(at {worst_at}; tolerance 2e-3)")
+    if (dl > 1e-5 + n_rr / n_tok or worst_y > 2.0 ** -11
+            or worst_g > 2e-3):
+        raise AssertionError("card MoE training step disagrees with the "
+                             "CPU path")
 
 
 def profile_step(torch, fn, what: str) -> float:
@@ -1096,73 +1401,19 @@ def train_phase(torch, dev, wrappers, steps: int = 6,
     return launches
 
 
-def _to(tree, device):
-    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
-
-
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
-    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
-        print("chip_smoke: run from the root of a checkout of the repository",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import bert_base, registry
-    from repro_torch.kernels import _lib, bfp_matmul, dfx_quant, int_attention, int_norm
+def serve_phase(torch, dev, cfg, wrappers, n_req: int = 8,
+                prompt_len: int = 64, new: int = 16) -> dict:
+    """Serve ``cfg`` at full width, int8 (w8·a12), random weights from a
+    seeded generator: 4 slots, max_seq 256, ``n_req`` requests of
+    ``prompt_len``-token prompts, ``new`` new tokens each, through
+    ``ContinuousBatcher.run_until_drained``.  The launch counters are set
+    to 0 just before the run and read just after; every kernel in
+    ``wrappers`` must have launched.  Prints tokens/s, peak memory, one
+    decode step's time and launches, one prefill's time and a profiled
+    decode step.  Returns the run's launches."""
+    from repro_torch.configs import registry
     from repro_torch.models import lm
     from repro_torch.serve.engine import ContinuousBatcher, Engine, ServeConfig
-
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout
-    card = smi.strip().splitlines()[0]
-    print(f"[1] card: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}")
-    t0 = time.perf_counter()
-    _lib.build()
-    build_s = time.perf_counter() - t0
-    print(f"[1] built the CUDA kernels in {build_s:.1f} s")
-    for line in _lib.ptxas_report().splitlines():
-        if "Used" in line or "spill" in line:
-            print("    ptxas:", line.strip())
-    print(card)
-
-    cfg = registry.get_config("qwen1.5-0.5b")
-    V = lm.padded_vocab(cfg)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    print("[2] kernels against their plain versions, full-width shapes")
-    bert, tokens = bert_base.CONFIG, 32 * 128
-    kernels = [check_quantize(torch, dev, gen, V, cfg.d_model, tokens,
-                              bert.d_ff),
-               check_matmul(torch, dev, gen, cfg, V, bert, tokens),
-               check_rmsnorm(torch, dev, gen, cfg.d_model),
-               check_attention(torch, dev, gen, cfg)]
-    kernels += check_matmul_bwd(torch, dev, gen, bert, tokens)
-    kernels += check_layernorm(torch, dev, gen, bert.d_model, tokens)
-    kernels.append(check_rmsnorm_bwd(torch, dev, gen, 8 * 256, cfg.d_model))
-    kernels += check_attention_bwd(torch, dev, gen)
-    for k in kernels:
-        print(f"  {k['name']}: max_abs_err {k['max_abs_err']:.3e}; call "
-              f"{k['ms']:.4f} ms, device {k['device_ms']:.4f} ms; plain "
-              f"{k['plain_ms']:.4f} / {k['plain_device_ms']:.4f}; library "
-              f"{k['library_ms']} / {k['library_device_ms']}; bound "
-              f"{k['bound_ms']:.4f} by {k['bound_by']} [{k['shape']}]")
-
-    print("[3] reduced models, card vs CPU path")
-    check_small_model(torch, dev)
-    check_small_bert(torch, dev)
-    check_small_lm_train(torch, dev)
-
-    print("[4] serve qwen1.5-0.5b, full width, int8")
-    wrappers = {"dfx_quantize": dfx_quant.dfx_quantize,
-                "bfp_matmul": bfp_matmul.bfp_matmul,
-                "int_rmsnorm_fwd": int_norm.int_rmsnorm_fwd,
-                "int_attn_fwd": int_attention.int_attn_fwd}
     t0 = time.perf_counter()
     params = lm.lm_init(torch.Generator(device=dev).manual_seed(0), cfg,
                         device=dev)
@@ -1170,7 +1421,6 @@ def main() -> int:
                     ServeConfig(max_seq=256, batch_slots=4), device=dev)
     batcher = ContinuousBatcher(engine)
     rng = torch.Generator().manual_seed(0)
-    n_req, prompt_len, new = 8, 64, 16
     for _ in range(n_req):
         batcher.submit(torch.randint(0, cfg.vocab, (prompt_len,),
                                      generator=rng).numpy(), new)
@@ -1219,6 +1469,174 @@ def main() -> int:
     profile_step(torch, lambda: engine._decode(
         engine.params, batcher.last_tok,
         {k: v.clone() for k, v in batcher.cache.items()}), "decode step")
+    return launches
+
+
+def train_moe_phase(torch, dev, wrappers, layers: int = 2, steps: int = 6,
+                    lr: float = 1e-4) -> dict:
+    """Train qwen2-moe-a2.7b at full width (d_model 2048, 60 experts top-4
+    of d_ff 1408, the shared expert of 5632, vocab 151936, untied head)
+    with the depth cut to ``layers``: int8, batch 8 x seq 256 of
+    ``SyntheticLM`` (T·K = 8192 > 4096, so the capacity dispatch runs at
+    256 rows per expert), ``steps`` AdamW steps at ``lr`` through
+    ``lm_loss`` + ``make_train_step`` (what ``launch.train`` wires; the
+    launcher has no depth flag, as the reference's has none), random
+    weights and stochastic gradient rounding from one seeded CUDA
+    generator.  Two layers: the optimizer's update is out of place (old
+    and new parameters and moments, the gradients and their clipped copy
+    live together, eight FP32 copies of the parameters), which at four
+    layers (2.9 B parameters) would need ~87 GiB; at two (1.76 B) ~57 GiB.
+    The launch counters are set to 0 just before the int8 run and read just
+    after; every kernel in ``wrappers`` must have launched, every loss be
+    finite and the first near ln 151936.  Then one profiled int8 step, and
+    the same steps under FP32 from the same init.  Returns the int8 run's
+    launches."""
+    import dataclasses
+    import math
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import trainer
+    from repro_torch.train.finetune import to_device
+    cfg = dataclasses.replace(registry.get_config("qwen2-moe-a2.7b"),
+                              n_layers=layers)
+    B, S = 8, 256
+
+    def start(quant):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = lm.lm_init(gen, cfg, device=dev)
+        step = trainer.make_train_step(
+            lm.lm_loss, cfg, registry.get_quant(quant),
+            opt_lib.OptimizerConfig(lr=lr, total_steps=steps))
+        data = SyntheticLM(DataConfig(batch_size=B, seq_len=S,
+                                      vocab=cfg.vocab, seed=0))
+        run = {"p": params, "o": opt_lib.init(params)}
+        del params
+
+        def one_step():
+            batch = to_device(next(data), dev)
+            run["p"], run["o"], m = step(run["p"], run["o"], batch, gen)
+            return float(m["loss"])
+        return one_step, run
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    one_step, run = start("int8")
+    n_params = sum(p.numel() for _, p in _leaves(run["p"]))
+    for w in wrappers.values():
+        w.launches = 0
+    losses, stamps, counts = [], [], []
+    for _ in range(steps):
+        losses.append(one_step())
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        counts.append({n: w.launches for n, w in wrappers.items()})
+    launches = {n: w.launches for n, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite MoE training loss: {losses}")
+    if abs(losses[0] - math.log(151936)) > 1.5:
+        raise AssertionError(f"first loss {losses[0]} is not near ln 151936")
+    for n, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"kernel {n} was not launched on the MoE "
+                                 "training path")
+    first_ms = 1e3 * (stamps[0] - t_start)
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    med = statistics.median(step_ms)
+    tok_s = B * S * len(step_ms) / sum(step_ms) * 1e3
+    last = {n: counts[-1][n] - counts[-2][n] for n in wrappers}
+    print(f"  {layers} layers, {n_params / 1e9:.3f} B parameters; set-up + "
+          f"step 0 {first_ms:.2f} ms; steps 1-{steps - 1} ms "
+          f"{[round(v, 2) for v in step_ms]}; median {med:.2f} ms; "
+          f"{tok_s:.1f} tokens/s over those steps; peak memory {peak:.2f} "
+          f"GiB; launches in the run {launches}; in one step {last}")
+    profile_step(torch, one_step, f"qwen2-moe-a2.7b training step ({layers}"
+                 " layers, int8)")
+    del one_step, run
+    torch.cuda.empty_cache()
+    one_step, run = start("fp32")
+    losses32 = [one_step() for _ in range(steps)]
+    del one_step, run
+    torch.cuda.empty_cache()
+    print(f"  lr {lr}; int8 losses {[round(v, 5) for v in losses]}; FP32 "
+          f"losses from the same init {[round(v, 5) for v in losses32]}")
+    return launches
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print("chip_smoke: run from the root of a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import bert_base, registry
+    from repro_torch.kernels import _lib, bfp_matmul, dfx_quant, int_attention, int_norm
+    from repro_torch.models import lm
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    card = smi.strip().splitlines()[0]
+    print(f"[1] card: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    _lib.build()
+    build_s = time.perf_counter() - t0
+    print(f"[1] built the CUDA kernels in {build_s:.1f} s")
+    for line in _lib.ptxas_report().splitlines():
+        if "Used" in line or "spill" in line:
+            print("    ptxas:", line.strip())
+    print(card)
+
+    cfg = registry.get_config("qwen1.5-0.5b")
+    V = lm.padded_vocab(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    print("[2] kernels against their plain versions, full-width shapes")
+    bert, tokens = bert_base.CONFIG, 32 * 128
+    kernels = [check_quantize(torch, dev, gen, V, cfg.d_model, tokens,
+                              bert.d_ff),
+               check_matmul(torch, dev, gen, cfg, V, bert, tokens),
+               check_rmsnorm(torch, dev, gen, cfg.d_model),
+               check_attention(torch, dev, gen, cfg)]
+    kernels += check_matmul_bwd(torch, dev, gen, bert, tokens)
+    kernels += check_layernorm(torch, dev, gen, bert.d_model, tokens)
+    kernels.append(check_rmsnorm_bwd(torch, dev, gen, 8 * 256, cfg.d_model))
+    kernels += check_attention_bwd(torch, dev, gen)
+    moe = registry.get_config("qwen2-moe-a2.7b")
+    kernels.append(check_quantize_grouped(torch, dev, gen, moe))
+    kernels += check_matmul_batched(torch, dev, gen, moe)
+    for k in kernels:
+        print(f"  {k['name']}: max_abs_err {k['max_abs_err']:.3e}; call "
+              f"{k['ms']:.4f} ms, device {k['device_ms']:.4f} ms; plain "
+              f"{k['plain_ms']:.4f} / {k['plain_device_ms']:.4f}; library "
+              f"{k['library_ms']} / {k['library_device_ms']}; bound "
+              f"{k['bound_ms']:.4f} by {k['bound_by']} [{k['shape']}]")
+
+    print("[3] reduced models, card vs CPU path")
+    check_small_model(torch, dev)
+    check_small_bert(torch, dev)
+    check_small_lm_train(torch, dev)
+    check_small_moe(torch, dev)
+
+    print("[4] serve qwen1.5-0.5b, full width, int8")
+    wrappers = {"dfx_quantize": dfx_quant.dfx_quantize,
+                "bfp_matmul": bfp_matmul.bfp_matmul,
+                "int_rmsnorm_fwd": int_norm.int_rmsnorm_fwd,
+                "int_attn_fwd": int_attention.int_attn_fwd}
+    launches = serve_phase(torch, dev, cfg, wrappers)
     print("[5] fine-tune bert-base, full width, paper scope (int8 linear / "
           "layer-norm / embedding), stochastic gradient rounding")
     paper = {"dfx_quantize": dfx_quant.dfx_quantize,
@@ -1241,11 +1659,36 @@ def main() -> int:
         "bfp_matmul_tn": bfp_matmul.bfp_matmul_tn,
         "int_rmsnorm_fwd": int_norm.int_rmsnorm_fwd,
         "int_rmsnorm_bwd": int_norm.int_rmsnorm_bwd, **attn})
+    moe_fwd = {"dfx_quantize_grouped": dfx_quant.dfx_quantize_grouped,
+               "bfp_matmul_batched": bfp_matmul.bfp_matmul_batched}
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[7] serve qwen2-moe-a2.7b, full width and depth (24 layers, 60 "
+          "experts top-4 + shared expert), int8; device memory allocated "
+          f"before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    moe_serve = serve_phase(torch, dev, registry.get_config(
+        "qwen2-moe-a2.7b"), {**wrappers, **moe_fwd})
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[8] train qwen2-moe-a2.7b, full width, 2 layers, int8, batch 8 x "
+          "seq 256, lm_loss + make_train_step; device memory allocated "
+          f"before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    moe_train = train_moe_phase(torch, dev, {
+        "dfx_quantize": dfx_quant.dfx_quantize,
+        "bfp_matmul": bfp_matmul.bfp_matmul,
+        "bfp_matmul_nt": bfp_matmul.bfp_matmul_nt,
+        "bfp_matmul_tn": bfp_matmul.bfp_matmul_tn,
+        "int_rmsnorm_fwd": int_norm.int_rmsnorm_fwd,
+        "int_rmsnorm_bwd": int_norm.int_rmsnorm_bwd, **attn, **moe_fwd,
+        "bfp_matmul_batched_nt": bfp_matmul.bfp_matmul_batched_nt,
+        "bfp_matmul_batched_tn": bfp_matmul.bfp_matmul_batched_tn})
     for k in kernels:
         by_path = {"serve": launches.get(k["name"], 0),
                    "finetune": ft_launches.get(k["name"], 0),
                    "finetune_int8": ft8_launches.get(k["name"], 0),
-                   "train": tr_launches.get(k["name"], 0)}
+                   "train": tr_launches.get(k["name"], 0),
+                   "serve_moe": moe_serve.get(k["name"], 0),
+                   "train_moe": moe_train.get(k["name"], 0)}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     print(json.dumps({"kernels": kernels}))

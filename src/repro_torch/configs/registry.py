@@ -16,10 +16,11 @@ ARCH_IDS = ("zamba2-2.7b", "qwen1.5-0.5b", "mistral-nemo-12b", "smollm-135m",
             "mistral-large-123b", "llava-next-mistral-7b", "mixtral-8x7b",
             "qwen2-moe-a2.7b", "mamba2-370m", "whisper-large-v3")
 
-#: arch id -> config module of the dense archs this port runs
+#: arch id -> config module of the archs this port runs (dense and MoE)
 PORTED = {
     "qwen1.5-0.5b": "qwen1p5_0p5b",
     "smollm-135m": "smollm_135m",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2p7b",
 }
 
 

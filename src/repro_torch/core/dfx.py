@@ -30,7 +30,9 @@ class DfxTensor(NamedTuple):
     """Dynamic fixed-point tensor: ``value = m * 2.0**exp``.
 
     ``m``   — integer mantissa, or stacked int8 limb planes ``(L, *shape)``
-    ``exp`` — int32 scale exponent, a 0-d tensor on ``m``'s device.
+    ``exp`` — int32 scale exponent on ``m``'s device: a 0-d tensor, or the
+              ``(E, 1, ..., 1)`` keep-dims per-slice exponents of
+              ``quantize_stacked``.
     """
 
     m: torch.Tensor
@@ -71,6 +73,15 @@ def scale_exponent(x: torch.Tensor) -> torch.Tensor:
     return torch.where(absmax > 0, e, torch.zeros_like(e)).to(torch.int32)
 
 
+def slice_exponents(x: torch.Tensor) -> torch.Tensor:
+    """``scale_exponent`` of every leading slice ``x[e]``: an (E,) int32
+    tensor, 0 for an all-zero slice (an expert that receives no token)."""
+    lo, hi = torch.aminmax(x.reshape(x.shape[0], -1), dim=1)
+    absmax = torch.maximum(-lo, hi)
+    _, e = torch.frexp(absmax)
+    return torch.where(absmax > 0, e, torch.zeros_like(e)).to(torch.int32)
+
+
 def uniform(key, shape, device) -> torch.Tensor:
     """Noise ``u`` in [0, 1) for stochastic rounding, f32 of ``shape`` on
     ``device``.
@@ -105,6 +116,28 @@ def quantize(x: torch.Tensor, bits: int, *, u: torch.Tensor | None = None,
     m = ops.quantize(x2, exp, bits, u=u, limb_planes=limb_planes)
     shape = (m.shape[0],) + tuple(x.shape) if limb_planes else x.shape
     return DfxTensor(m=m.reshape(shape), exp=exp)
+
+
+def quantize_stacked(x: torch.Tensor, bits: int, *,
+                     u: torch.Tensor | None = None,
+                     limb_planes: bool = False) -> DfxTensor:
+    """Per-slice (leading-axis) mapping, one scale per expert: the
+    reference's ``_stacked_pallas_quantize``.  The exponents come from each
+    slice's max-abs (plain PyTorch), then one grouped quantize launch
+    covers the whole ``(E, ..., N)`` stack.  ``u`` is one draw over the
+    whole stack.  ``exp`` is ``(E, 1, ..., 1)``; with ``limb_planes`` ``m``
+    is the plane-major ``(L,) + x.shape`` int8 stack."""
+    from repro_torch.kernels import ops   # the kernels import this module
+    x = x.to(torch.float32)
+    E = x.shape[0]
+    exp = slice_exponents(x) - (bits - 1)
+    x3 = x.reshape(E, -1, x.shape[-1])
+    if u is not None:
+        u = u.reshape(x3.shape)
+    m = ops.quantize_batched(x3, exp, bits, u=u, limb_planes=limb_planes)
+    shape = (m.shape[0],) + tuple(x.shape) if limb_planes else x.shape
+    return DfxTensor(m=m.reshape(shape),
+                     exp=exp.reshape((E,) + (1,) * (x.dim() - 1)))
 
 
 def dequantize(t: DfxTensor) -> torch.Tensor:

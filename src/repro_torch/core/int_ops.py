@@ -1,5 +1,6 @@
-"""Integer layers: linear (the tied head included), embedding, layer-norm,
-RMS-norm and attention, each with integer forward and backward.
+"""Integer layers: linear (the tied head included), the MoE experts'
+batched linear, embedding, layer-norm, RMS-norm and attention, each with
+integer forward and backward.
 
 Counterpart of ``repro/core/int_ops.py`` on the reference's ``pallas``
 route: every quantization goes through the quantize kernel (the max-abs
@@ -9,9 +10,10 @@ the integer flash-attention kernel.  The kernels run on the card for CUDA
 tensors and as their plain PyTorch versions for CPU tensors.  With
 ``cfg.enabled`` False each layer is its FP32 reference (plain autograd).
 
-``int_linear``, ``int_embedding``, ``int_layernorm``, ``int_rmsnorm`` and
-``int_attention`` are ``torch.autograd.Function``s, the counterparts of
-the reference's ``custom_vjp``s (paper, Fig. 2):
+``int_linear``, ``int_batched_linear``, ``int_embedding``,
+``int_layernorm``, ``int_rmsnorm`` and ``int_attention`` are
+``torch.autograd.Function``s, the counterparts of the reference's
+``custom_vjp``s (paper, Fig. 2):
 
     forward:   q(X)·q(W)              NN limb matmul
     backward:  dX = q(G)·q(W)ᵀ        NT limb matmul
@@ -147,6 +149,61 @@ def int_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
 
 
 # =========================================================================
+# Batched (per-expert) linear
+# =========================================================================
+
+class _IntBatchedLinear(torch.autograd.Function):
+    """``y[e] = x[e] @ w[e]`` with one DFX scale per expert.  Residuals: the
+    plane-major activation and weight planes and their (E, 1, 1)
+    exponents."""
+
+    @staticmethod
+    def forward(ctx, x, w, key, cfg: QuantConfig):
+        qx = dfx.quantize_stacked(x, cfg.act_bits, limb_planes=True)
+        qw = dfx.quantize_stacked(w, cfg.weight_bits, limb_planes=True)
+        y = kops.dfx_matmul_tiled_batched(qx.m, qx.exp, cfg.act_bits, qw.m,
+                                          qw.exp, cfg.weight_bits)
+        ctx.save_for_backward(qx.m, qx.exp, qw.m, qw.exp)
+        ctx.cfg, ctx.key = cfg, key
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        xm, x_exp, wm, w_exp = ctx.saved_tensors
+        cfg = ctx.cfg
+        u = None
+        if cfg.stochastic_grad and ctx.key is not None:
+            u = dfx.uniform(ctx.key, g.shape, g.device)   # the whole stack
+        qg = dfx.quantize_stacked(g, cfg.grad_bits, u=u, limb_planes=True)
+        gb = cfg.grad_bits
+        dx = dw = None
+        # one batched launch per direction covers every expert and limb pair
+        if ctx.needs_input_grad[0]:
+            dx = kops.dfx_matmul_tiled_batched_nt(qg.m, qg.exp, gb, wm, w_exp,
+                                                  cfg.weight_bits)
+        if ctx.needs_input_grad[1]:
+            dw = kops.dfx_matmul_tiled_batched_tn(xm, x_exp, cfg.act_bits,
+                                                  qg.m, qg.exp, gb)
+        return dx, dw, None, None
+
+
+def int_batched_linear(x: torch.Tensor, w: torch.Tensor, key,
+                       cfg: QuantConfig) -> torch.Tensor:
+    """``y[e] = x[e] @ w[e]`` with integer forward and backward and a DFX
+    scale per expert.  x: (E, C, K), w: (E, K, N) -> (E, C, N).
+
+    Forward: x and w quantized per expert (grouped quantize launches), one
+    batched NN launch.  Backward: the upstream gradient quantized per
+    expert at ``grad_bits`` (stochastically from ``key``, one draw over the
+    stack), then one batched NT launch (dX) and one TN launch (dW).  With
+    ``cfg.enabled`` False: FP32 einsums."""
+    if not cfg.enabled:
+        return torch.einsum("eck,ekn->ecn", x, w)
+    _no_stochastic(cfg, key)
+    return _IntBatchedLinear.apply(x, w, key, cfg)
+
+
+# =========================================================================
 # Embedding
 # =========================================================================
 
@@ -277,6 +334,14 @@ def int_activation(x: torch.Tensor, cfg: QuantConfig,
                        f"{sorted(_ACT_FNS)}")
     _no_integer_kept_ops(cfg, "int_activation")
     return _ACT_FNS[kind](x)
+
+
+def int_softmax(x: torch.Tensor, cfg: QuantConfig,
+                dim: int = -1) -> torch.Tensor:
+    """Softmax outside attention (the MoE router's gate): the FP32 op
+    (``kept_ops="integer"`` is not ported yet)."""
+    _no_integer_kept_ops(cfg, "int_softmax")
+    return torch.softmax(x, dim=dim)
 
 
 def _max_row_norm(x: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,19 @@
 //   acc[ja, jb] = A[ja] . B[jb]                    exact int32 per limb pair
 //   out = sum_{ja outer, jb inner} (f32(acc) * 2^exp) * 2^(7(ja+jb))
 //
+// The batched (expert-axis) kernels of the same file are the same kernel
+// with the expert on blockIdx.z (body _bfp_matmul_batched_kernel :244,
+// _bfp_batched_call :276, pallas_call :281):
+//
+//   bfp_matmul_batched    (:302)  NN  out[e] = X[e] . W[e]     MoE forward
+//   bfp_matmul_batched_nt (:332)  NT  dX[e]  = G[e] . W[e]^T   MoE dX
+//   bfp_matmul_batched_tn (:362)  TN  dW[e]  = X[e]^T . G[e]   MoE dW
+//
+// Operands are plane-major (L, E, rows, cols): plane j of expert e starts at
+// (j*E + e) * rows*cols.  Expert e scales by out_exp[e] and writes out[e];
+// one launch covers every expert and every limb pair.  The unbatched
+// products are the E = 1 case.
+//
 // The f32 combine runs in that fixed order with the same two exact
 // power-of-two multiplies, so every int32 partial and every rounding of the
 // sum is the reference's (the scale itself is built exactly, see pow2f).
@@ -38,6 +51,13 @@
 // a contraction of length C is < 2^13 * C: exact for C < 2^18.  TN
 // contracts the token axis M = batch x sequence (4,096 at batch 32 x seq
 // 128, 4,608 at 12 x 384), far inside that.
+//
+// Bound on the H100 (batched): at MoE decode each expert's W planes are
+// read once for the few rows routed to it (bytes: 173 MB of planes per
+// expert matrix of qwen2-moe-a2.7b); in training, capacity Cg = 256 rows
+// per expert, operations.  The drop-free dispatch of a prefill (Cg = T*K
+// rows per expert, most of them zero) multiplies zero tiles too: skipping
+// the tiles past an expert's fill count is later work.
 //
 // Bound on the H100: at decode (M = batch slots, 4 rows) the kernel reads
 // each W byte once for ~8 operations, so it is bound by bytes (the tied head
@@ -115,7 +135,14 @@ bfp_matmul_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ W,
   __shared__ __align__(16) int8_t ws[LW][BN][KP];
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const long long xplane = (long long)M * K, wplane = (long long)K * N;
+  // expert e = blockIdx.z of gridDim.z: its slice of every plane, its
+  // exponent and its output block
+  const int e = blockIdx.z;
+  const long long xmat = (long long)M * K, wmat = (long long)K * N;
+  const long long xplane = xmat * gridDim.z, wplane = wmat * gridDim.z;
+  X += e * xmat;
+  W += e * wmat;
+  out += e * (long long)M * N;
   const bool vx = XT ? (M % 4) == 0 : (K % 4) == 0;
   const bool vw = WK ? (K % 4) == 0 : (N % 4) == 0;
 
@@ -172,7 +199,7 @@ bfp_matmul_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ W,
 
   // Epilogue: ordered f32 combine of the per-pair partials (x-limbs outer,
   // w-limbs inner), each term (f32(acc) * 2^exp) * 2^(7(jx+jw)).
-  const float s0 = dfx::pow2f(exp[0]);
+  const float s0 = dfx::pow2f(exp[e]);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty + 16 * i;
@@ -198,8 +225,8 @@ bfp_matmul_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ W,
 
 template <int LX, int LW>
 int launch(const int8_t* X, const int8_t* W, const int* exp, float* out,
-           int M, int N, int K, int layout, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+           int M, int N, int K, int E, int layout, cudaStream_t stream) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
   switch (layout) {
     case 0:
       bfp_matmul_kernel<LX, LW, false, false>
@@ -221,31 +248,52 @@ int launch(const int8_t* X, const int8_t* W, const int* exp, float* out,
 
 }  // namespace
 
-// out (M, N) f32 = A (M, K) . B (K, N) over int8 limb planes (la of A, lb of
-// B, plane-major), with A and B stored as `layout` says:
+// out (E, M, N) f32, out[e] = A[e] (M, K) . B[e] (K, N) over int8 limb
+// planes (la of A, lb of B, plane-major: (la, E, ...) and (lb, E, ...)),
+// each expert's matrices stored as `layout` says:
 //   0  A (M,K) row-major, B (K,N) row-major         NN: X . W
 //   1  A (M,K) row-major, B stored (N,K) row-major   NN tied head; NT: G . W^T
 //   2  A stored (K,M) row-major, B (K,N) row-major   TN: X^T . G
-// exp: one int32 in device memory (the two operands' exponents summed).
+// exp: E int32 in device memory (each expert's two operands' exponents
+// summed).  The unbatched products are E = 1.
 extern "C" int bfp_matmul_launch(const int8_t* A, const int8_t* B,
                                  const int* exp, float* out, int M, int N,
-                                 int K, int la, int lb, int layout,
+                                 int K, int E, int la, int lb, int layout,
                                  cudaStream_t stream) {
-  if (M <= 0 || N <= 0) return 0;
-  if (M > 65535 * BM) return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0 || E <= 0) return 0;
+  if (M > 65535 * BM || E > 65535) return (int)cudaErrorInvalidValue;
   int err;
   switch (la * 4 + lb) {
-    case 5: err = launch<1, 1>(A, B, exp, out, M, N, K, layout, stream); break;
-    case 6: err = launch<1, 2>(A, B, exp, out, M, N, K, layout, stream); break;
-    case 7: err = launch<1, 3>(A, B, exp, out, M, N, K, layout, stream); break;
-    case 9: err = launch<2, 1>(A, B, exp, out, M, N, K, layout, stream); break;
-    case 10: err = launch<2, 2>(A, B, exp, out, M, N, K, layout, stream); break;
-    case 11: err = launch<2, 3>(A, B, exp, out, M, N, K, layout, stream); break;
-    case 13: err = launch<3, 1>(A, B, exp, out, M, N, K, layout, stream); break;
-    case 14: err = launch<3, 2>(A, B, exp, out, M, N, K, layout, stream); break;
-    case 15: err = launch<3, 3>(A, B, exp, out, M, N, K, layout, stream); break;
+    case 5:
+      err = launch<1, 1>(A, B, exp, out, M, N, K, E, layout, stream);
+      break;
+    case 6:
+      err = launch<1, 2>(A, B, exp, out, M, N, K, E, layout, stream);
+      break;
+    case 7:
+      err = launch<1, 3>(A, B, exp, out, M, N, K, E, layout, stream);
+      break;
+    case 9:
+      err = launch<2, 1>(A, B, exp, out, M, N, K, E, layout, stream);
+      break;
+    case 10:
+      err = launch<2, 2>(A, B, exp, out, M, N, K, E, layout, stream);
+      break;
+    case 11:
+      err = launch<2, 3>(A, B, exp, out, M, N, K, E, layout, stream);
+      break;
+    case 13:
+      err = launch<3, 1>(A, B, exp, out, M, N, K, E, layout, stream);
+      break;
+    case 14:
+      err = launch<3, 2>(A, B, exp, out, M, N, K, E, layout, stream);
+      break;
+    case 15:
+      err = launch<3, 3>(A, B, exp, out, M, N, K, E, layout, stream);
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err) return err;
   return (int)cudaGetLastError();
 }
+

@@ -33,8 +33,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 #: C entry point -> argument types (every pointer and the stream are
 #: ``c_void_p``; each returns a ``cudaError_t`` as int)
 SIGNATURES = {
-    "dfx_quantize_launch": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
-    "bfp_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dfx_quantize_launch": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P],
+    "bfp_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "int_rmsnorm_fwd_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _F, _P],
     "int_layernorm_fwd_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F,
                                  _P],

@@ -2,8 +2,10 @@
 product (NN) and the two backward products (NT for dX, TN for dW).
 
 Counterpart of ``repro/kernels/bfp_matmul.py::bfp_matmul``,
-``bfp_matmul_nt`` and ``bfp_matmul_tn``; one CUDA kernel source,
-``csrc/bfp_matmul.cu``, serves all three layouts.
+``bfp_matmul_nt`` and ``bfp_matmul_tn`` and of their batched (expert-axis)
+twins ``bfp_matmul_batched{,_nt,_tn}``; one CUDA kernel source,
+``csrc/bfp_matmul.cu``, serves all six (the batched ones put the expert on
+the grid and scale expert ``e`` by its own ``out_exp[e]``).
 
     acc[ja, jb] = A[ja] · B[jb]                      exact int32 per limb pair
     out = Σ_{ja outer, jb inner} (f32(acc) · 2^exp) · 2^(7(ja+jb))
@@ -14,7 +16,8 @@ keeps the layout its producer wrote: the transposes happen while the
 kernel stages its tiles into shared memory.  NN's ``wm`` is ``(Lw, K, N)``;
 its storage may be N-contiguous (a linear layer's weight) or K-contiguous
 (``wm.transpose(1, 2)`` contiguous: the tied LM head's planes, quantized in
-the embedding table's own layout).
+the embedding table's own layout).  The batched operands are plane-major
+``(L, E, rows, cols)``, as the grouped quantize writes them.
 """
 from __future__ import annotations
 
@@ -67,13 +70,18 @@ def _w_kmajor(wm: torch.Tensor) -> bool:
 
 
 def _launch(lib, a: torch.Tensor, b: torch.Tensor, out_exp: torch.Tensor,
-            M: int, N: int, K: int, layout: int, stream: int) -> torch.Tensor:
+            M: int, N: int, K: int, layout: int, stream: int,
+            E: int = 0) -> torch.Tensor:
     """out (M, N) = A (M, K) · B (K, N), A and B stored as ``layout`` says
-    (see ``bfp_matmul_launch``); allocates the output."""
-    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    (see ``bfp_matmul_launch``); with ``E`` experts out (E, M, N), out[e] =
+    A[e] · B[e] at exponent ``out_exp[e]`` over plane-major (L, E, ...)
+    operands.  Allocates the output."""
+    out = torch.empty((E, M, N) if E else (M, N), dtype=torch.float32,
+                      device=a.device)
     err = lib.bfp_matmul_launch(a.data_ptr(), b.data_ptr(),
                                 out_exp.data_ptr(), out.data_ptr(), M, N, K,
-                                a.shape[0], b.shape[0], layout, stream)
+                                max(E, 1), a.shape[0], b.shape[0], layout,
+                                stream)
     _lib.check(err, "bfp_matmul")
     return out
 
@@ -161,3 +169,117 @@ def bfp_matmul_tn(xm: torch.Tensor, gm: torch.Tensor,
 bfp_matmul.launches = 0
 bfp_matmul_nt.launches = 0
 bfp_matmul_tn.launches = 0
+
+
+# =========================================================================
+# Batched (expert-axis) products: one launch for every expert and limb pair
+# =========================================================================
+
+#: longest contraction the int32 limb-pair sums hold exactly: |product| <=
+#: 127 * 127 < 2^14 for two 8-bit planes, so 2^17 terms stay below 2^31
+MAX_CONTRACTION = 1 << 17
+
+
+def bfp_matmul_batched_plain(xm: torch.Tensor, wm: torch.Tensor,
+                             out_exp: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the batched NN kernel (same arithmetic)."""
+    return _combine_plain(xm, wm, out_exp.reshape(-1, 1, 1), torch.bmm)
+
+
+def bfp_matmul_batched_nt_plain(gm: torch.Tensor, wm: torch.Tensor,
+                                out_exp: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the batched NT kernel: ``g[e] @ w[e]ᵀ``."""
+    return _combine_plain(gm, wm, out_exp.reshape(-1, 1, 1),
+                          lambda g, w: torch.bmm(g, w.transpose(1, 2)))
+
+
+def bfp_matmul_batched_tn_plain(xm: torch.Tensor, gm: torch.Tensor,
+                                out_exp: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the batched TN kernel: ``x[e]ᵀ @ g[e]``."""
+    return _combine_plain(xm, gm, out_exp.reshape(-1, 1, 1),
+                          lambda x, g: torch.bmm(x.transpose(1, 2), g))
+
+
+def _check_batched(name: str, a: torch.Tensor, b: torch.Tensor,
+                   contract: tuple, out_exp: torch.Tensor) -> bool:
+    """Argument checks of the batched wrappers; True when the plain version
+    should run."""
+    if (a.dim() != 4 or b.dim() != 4 or a.shape[1] != b.shape[1]
+            or a.shape[contract[0]] != b.shape[contract[1]]
+            or out_exp.numel() != a.shape[1]):
+        raise ValueError(f"{name} shapes {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}, out_exp {tuple(out_exp.shape)}")
+    if a.shape[contract[0]] > MAX_CONTRACTION:
+        raise ValueError(f"{name}: contraction of {a.shape[contract[0]]} "
+                         f"terms overflows the int32 limb-pair sums")
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"{name} takes int8 limb planes")
+    if not (1 <= a.shape[0] <= 3 and 1 <= b.shape[0] <= 3):
+        raise ValueError(f"{name} supports 1..3 limb planes per operand")
+    if a.device.type == "cpu":
+        return True
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"{name}: unsupported devices {a.device}, "
+                         f"{b.device}")
+    return False
+
+
+def _launch_batched(a: torch.Tensor, b: torch.Tensor, out_exp: torch.Tensor,
+                    M: int, N: int, K: int, layout: int) -> torch.Tensor:
+    a, b = a.contiguous(), b.contiguous()
+    exp = out_exp.to(device=a.device, dtype=torch.int32).reshape(-1)
+    return _launch(_lib.load(), a, b, exp.contiguous(), M, N, K, layout,
+                   _lib.stream_of(a), E=a.shape[1])
+
+
+def bfp_matmul_batched(xm: torch.Tensor, wm: torch.Tensor,
+                       out_exp: torch.Tensor) -> torch.Tensor:
+    """Batched NN: ``(x[e] @ w[e]) * 2**out_exp[e]`` -> (E, M, N) f32, every
+    expert and limb pair in one launch — the MoE experts' forward.
+
+    xm: (Lx, E, M, K) int8 planes; wm: (Lw, E, K, N); out_exp: (E,) int32
+    (x_exp[e] + w_exp[e]).  CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if _check_batched("bfp_matmul_batched", xm, wm, (3, 2), out_exp):
+        return bfp_matmul_batched_plain(xm, wm, out_exp)
+    out = _launch_batched(xm, wm, out_exp, xm.shape[2], wm.shape[3],
+                          xm.shape[3], _NN)
+    bfp_matmul_batched.launches += 1
+    return out
+
+
+def bfp_matmul_batched_nt(gm: torch.Tensor, wm: torch.Tensor,
+                          out_exp: torch.Tensor) -> torch.Tensor:
+    """Batched NT: ``(g[e] @ w[e]ᵀ) * 2**out_exp[e]`` -> (E, M, K) f32 — the
+    MoE experts' dX.
+
+    gm: (Lg, E, M, N) gradient planes; wm: (Lw, E, K, N) weight planes in
+    their forward layout (the contraction axis N contiguous in both, W
+    staged as it is).  out_exp: (E,) g_exp + w_exp."""
+    if _check_batched("bfp_matmul_batched_nt", gm, wm, (3, 3), out_exp):
+        return bfp_matmul_batched_nt_plain(gm, wm, out_exp)
+    out = _launch_batched(gm, wm, out_exp, gm.shape[2], wm.shape[2],
+                          gm.shape[3], _B_KMAJOR)
+    bfp_matmul_batched_nt.launches += 1
+    return out
+
+
+def bfp_matmul_batched_tn(xm: torch.Tensor, gm: torch.Tensor,
+                          out_exp: torch.Tensor) -> torch.Tensor:
+    """Batched TN: ``(x[e]ᵀ @ g[e]) * 2**out_exp[e]`` -> (E, K, N) f32 — the
+    MoE experts' dW, contracting each expert's capacity rows M.
+
+    xm: (Lx, E, M, K) activation planes saved by the forward; gm: (Lg, E,
+    M, N) gradient planes; both staged transposed.  out_exp: (E,) x_exp +
+    g_exp."""
+    if _check_batched("bfp_matmul_batched_tn", xm, gm, (2, 2), out_exp):
+        return bfp_matmul_batched_tn_plain(xm, gm, out_exp)
+    out = _launch_batched(xm, gm, out_exp, xm.shape[3], gm.shape[3],
+                          xm.shape[2], _TN)
+    bfp_matmul_batched_tn.launches += 1
+    return out
+
+
+bfp_matmul_batched.launches = 0
+bfp_matmul_batched_nt.launches = 0
+bfp_matmul_batched_tn.launches = 0

@@ -1,7 +1,7 @@
 """DFX quantize: shift-round-clip, optionally fused with the limb split.
 
-Counterpart of ``repro/kernels/dfx_quant.py::dfx_quantize``; the CUDA
-kernel is ``csrc/dfx_quant.cu``.
+Counterpart of ``repro/kernels/dfx_quant.py::dfx_quantize`` and
+``dfx_quantize_grouped``; the CUDA kernels are in ``csrc/dfx_quant.cu``.
 
     m = clip(round(x * 2^-exp), ±(2^(b-1)-1))          (half to even)
     m = clip(floor(x * 2^-exp + u), ±(2^(b-1)-1))      (noise u given)
@@ -10,6 +10,9 @@ kernel is ``csrc/dfx_quant.cu``.
 base-2⁷ digits ``m = Σ_j plane_j · 2^(7j)`` (non-final digits in
 [-64, 63], the final plane the raw carry), which the matmul and attention
 kernels take.  The scale exponent is an int32 0-d tensor on ``x``'s device.
+The grouped form takes an (E, M, N) stack and one exponent per leading
+slice (the MoE experts' per-expert scales) and writes plane-major
+``(L, E, M, N)`` limb planes.
 """
 from __future__ import annotations
 
@@ -64,7 +67,9 @@ def dfx_quantize_plain(x: torch.Tensor, exp: torch.Tensor, *, bits: int,
 
 def _launch(lib, x: torch.Tensor, exp: torch.Tensor, bits: int,
             u: torch.Tensor | None, limb_planes: bool, stream: int):
-    """Launch the kernel on a contiguous f32 ``x``; allocates the output."""
+    """Launch the kernel on a contiguous f32 ``x`` whose ``exp.numel()``
+    leading slices take one exponent each (one for the per-tensor form);
+    allocates the output."""
     if limb_planes:
         out = torch.empty((n_limbs(bits),) + tuple(x.shape), dtype=torch.int8,
                           device=x.device)
@@ -72,11 +77,12 @@ def _launch(lib, x: torch.Tensor, exp: torch.Tensor, bits: int,
     else:
         out = torch.empty(x.shape, dtype=storage_dtype(bits), device=x.device)
         kind = {torch.int8: 0, torch.int16: 1, torch.int32: 2}[out.dtype]
+    groups = exp.numel()
     err = lib.dfx_quantize_launch(
         x.data_ptr(), exp.data_ptr(), u.data_ptr() if u is not None else None,
-        out.data_ptr(), x.numel(), bits, kind, n_limbs(bits), stream)
+        out.data_ptr(), groups, x.numel() // groups, bits, kind,
+        n_limbs(bits), stream)
     _lib.check(err, "dfx_quantize")
-    dfx_quantize.launches += 1
     return out
 
 
@@ -103,8 +109,57 @@ def dfx_quantize(x: torch.Tensor, exp: torch.Tensor, *, bits: int,
     x = x.contiguous()
     if u is not None:
         u = u.contiguous()
-    return _launch(_lib.load(), x, exp, bits, u, limb_planes,
-                   _lib.stream_of(x))
+    out = _launch(_lib.load(), x, exp, bits, u, limb_planes,
+                  _lib.stream_of(x))
+    dfx_quantize.launches += 1
+    return out
 
 
 dfx_quantize.launches = 0
+
+
+def dfx_quantize_grouped_plain(x: torch.Tensor, exp: torch.Tensor, *,
+                               bits: int, u: torch.Tensor | None = None,
+                               limb_planes: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the grouped kernel: slice ``e`` of the
+    (E, M, N) ``x`` at exponent ``exp[e]`` (same arithmetic)."""
+    return dfx_quantize_plain(x, exp.reshape(-1, 1, 1), bits=bits, u=u,
+                              limb_planes=limb_planes)
+
+
+def dfx_quantize_grouped(x: torch.Tensor, exp: torch.Tensor, *, bits: int,
+                         u: torch.Tensor | None = None,
+                         limb_planes: bool = False) -> torch.Tensor:
+    """Grouped-scale shift-round-clip over an (E, M, N) f32 stack with an
+    (E,) int32 exponent vector: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor.  Returns the (E, M, N) int8/int16/int32
+    mantissa, or with ``limb_planes`` the plane-major ``(L, E, M, N)`` int8
+    planes.  ``u``: optional (E, M, N) noise in [0, 1)."""
+    if not 1 <= bits <= 24:
+        raise ValueError(f"bits={bits} outside [1, 24]")
+    if x.dim() != 3 or exp.numel() != x.shape[0]:
+        raise ValueError(f"dfx_quantize_grouped takes (E, M, N) and (E,) "
+                         f"exponents, got {tuple(x.shape)} and "
+                         f"{tuple(exp.shape)}")
+    if u is not None and u.shape != x.shape:
+        raise ValueError("u must have x's shape")
+    if x.device.type == "cpu":
+        return dfx_quantize_grouped_plain(x, exp, bits=bits, u=u,
+                                          limb_planes=limb_planes)
+    if x.device.type != "cuda":
+        raise ValueError(f"dfx_quantize_grouped: unsupported device "
+                         f"{x.device}")
+    if x.dtype != torch.float32 or (u is not None
+                                    and u.dtype != torch.float32):
+        raise TypeError("dfx_quantize_grouped takes float32 x and u")
+    exp = exp.to(device=x.device, dtype=torch.int32).reshape(-1)
+    x = x.contiguous()
+    if u is not None:
+        u = u.to(x.device).contiguous()
+    out = _launch(_lib.load(), x, exp.contiguous(), bits, u, limb_planes,
+                  _lib.stream_of(x))
+    dfx_quantize_grouped.launches += 1
+    return out
+
+
+dfx_quantize_grouped.launches = 0

@@ -10,10 +10,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.bfp_matmul import (bfp_matmul, bfp_matmul_nt,
-                                            bfp_matmul_tn)
-from repro_torch.kernels.dfx_quant import (dfx_quantize, n_limbs,
-                                           split_limbs_stacked)
+from repro_torch.kernels.bfp_matmul import (bfp_matmul, bfp_matmul_batched,
+                                            bfp_matmul_batched_nt,
+                                            bfp_matmul_batched_tn,
+                                            bfp_matmul_nt, bfp_matmul_tn)
+from repro_torch.kernels.dfx_quant import (dfx_quantize, dfx_quantize_grouped,
+                                           n_limbs, split_limbs_stacked)
 from repro_torch.kernels.int_attention import (int_attn_bwd_dkv,
                                                int_attn_bwd_dq, int_attn_fwd)
 from repro_torch.kernels.int_norm import int_rmsnorm_bwd, int_rmsnorm_fwd
@@ -71,6 +73,64 @@ def dfx_matmul_tiled_tn(xm: torch.Tensor, x_exp: torch.Tensor, x_bits: int,
     xm = _as_planes(xm, x_bits, 2)
     gm = _as_planes(gm, g_bits, 2)
     return bfp_matmul_tn(xm, gm, (x_exp + g_exp).to(torch.int32))
+
+
+def quantize_batched(x: torch.Tensor, exp: torch.Tensor, bits: int,
+                     u: torch.Tensor | None = None,
+                     limb_planes: bool = False) -> torch.Tensor:
+    """3-D (E, M, N) quantize with one exponent per leading slice (``exp``
+    (E,) or any (E,)-broadcastable keep-dims layout): the (E, M, N) logical
+    mantissa or the plane-major (L, E, M, N) planes."""
+    if x.dim() != 3:
+        raise ValueError(f"quantize_batched takes an (E, M, N) tensor, got "
+                         f"{tuple(x.shape)}")
+    return dfx_quantize_grouped(x, exp.reshape(x.shape[0]), bits=bits, u=u,
+                                limb_planes=limb_planes)
+
+
+def _expert_exp(a_exp: torch.Tensor, b_exp: torch.Tensor,
+                E: int) -> torch.Tensor:
+    return (a_exp.reshape(E) + b_exp.reshape(E)).to(torch.int32)
+
+
+def dfx_matmul_tiled_batched(xm: torch.Tensor, x_exp: torch.Tensor,
+                             x_bits: int, wm: torch.Tensor,
+                             w_exp: torch.Tensor,
+                             w_bits: int) -> torch.Tensor:
+    """Batched NN ``q(X[e])·q(W[e])`` for every expert and limb pair in one
+    launch.  xm: (Lx, E, M, K) planes or a logical (E, M, K) mantissa; wm:
+    (Lw, E, K, N) or (E, K, N); exponents (E,)-broadcastable (the (E, 1, 1)
+    keep-dims layout of the per-expert quantize too).  Returns the
+    dequantized f32 (E, M, N)."""
+    xm = _as_planes(xm, x_bits, 3)
+    wm = _as_planes(wm, w_bits, 3)
+    return bfp_matmul_batched(xm, wm, _expert_exp(x_exp, w_exp, xm.shape[1]))
+
+
+def dfx_matmul_tiled_batched_nt(gm: torch.Tensor, g_exp: torch.Tensor,
+                                g_bits: int, wm: torch.Tensor,
+                                w_exp: torch.Tensor,
+                                w_bits: int) -> torch.Tensor:
+    """Batched NT ``dX[e] = q(G[e])·q(W[e])ᵀ`` with W in its forward layout.
+    gm: (Lg, E, M, N) planes or (E, M, N); wm: (Lw, E, K, N) or (E, K, N).
+    Returns the dequantized f32 (E, M, K)."""
+    gm = _as_planes(gm, g_bits, 3)
+    wm = _as_planes(wm, w_bits, 3)
+    return bfp_matmul_batched_nt(gm, wm,
+                                 _expert_exp(g_exp, w_exp, gm.shape[1]))
+
+
+def dfx_matmul_tiled_batched_tn(xm: torch.Tensor, x_exp: torch.Tensor,
+                                x_bits: int, gm: torch.Tensor,
+                                g_exp: torch.Tensor,
+                                g_bits: int) -> torch.Tensor:
+    """Batched TN ``dW[e] = q(X[e])ᵀ·q(G[e])`` with X in its forward layout.
+    xm: (Lx, E, M, K) planes or (E, M, K); gm: (Lg, E, M, N) or (E, M, N).
+    Returns the dequantized f32 (E, K, N)."""
+    xm = _as_planes(xm, x_bits, 3)
+    gm = _as_planes(gm, g_bits, 3)
+    return bfp_matmul_batched_tn(xm, gm,
+                                 _expert_exp(x_exp, g_exp, xm.shape[1]))
 
 
 def rmsnorm(xm: torch.Tensor, x_exp: torch.Tensor, gamma: torch.Tensor,

@@ -1,10 +1,12 @@
 """Transformer blocks built on the integer layers.
 
 Counterpart of ``repro/models/blocks.py``: RoPE, GQA attention (causal with
-a KV cache, or bidirectional for the encoder), the SwiGLU and GELU MLPs and
-the RMS-norm / layer-norm wrappers, as plain functions over dicts of
-tensors.  Every projection and norm goes through ``core.int_ops``; RoPE,
-the softmax and the activations stay FP32.  When the policy enables
+a KV cache, or bidirectional for the encoder), the SwiGLU and GELU MLPs, the
+mixture of experts (top-k router, capacity dispatch, per-expert integer
+SwiGLU, optional shared expert) and the RMS-norm / layer-norm wrappers, as
+plain functions over dicts of tensors.  Every projection and norm goes
+through ``core.int_ops``; RoPE, the softmaxes and the activations stay
+FP32.  When the policy enables
 quantization at the ``attn.qk`` leaf, attention is
 ``int_ops.int_attention``; otherwise the FP32 reference path below (a plain
 masked softmax, differentiable) runs.
@@ -30,8 +32,10 @@ _BIG_NEG = -1e30
 
 
 def _init(gen: torch.Generator, shape, device, scale: float = 0.02):
+    # scaled in place: no second copy of the largest stacks (a full-depth
+    # MoE expert stack is 16.6 GB)
     return torch.randn(shape, generator=gen, device=device,
-                       dtype=torch.float32) * scale
+                       dtype=torch.float32).mul_(scale)
 
 
 def unstack(tree: Params, n: int) -> list:
@@ -191,8 +195,9 @@ def attention_apply(
 # =========================================================================
 
 def mlp_init(gen: torch.Generator, cfg: ArchConfig, device,
-             lead: Tuple[int, ...] = ()) -> Params:
-    D, F = cfg.d_model, cfg.d_ff
+             lead: Tuple[int, ...] = (), d_ff: Optional[int] = None
+             ) -> Params:
+    D, F = cfg.d_model, d_ff or cfg.d_ff
     if cfg.act == "silu":
         return {"wg": _init(gen, lead + (D, F), device),
                 "wu": _init(gen, lead + (D, F), device),
@@ -216,6 +221,106 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantLike,
     h = int_ops.int_linear(x, p["w1"], p["b1"], key, sc.leaf("w1"))
     h = int_ops.int_activation(h, sc.leaf("act"), "gelu")
     return int_ops.int_linear(h, p["w2"], p["b2"], key, sc.leaf("w2"))
+
+
+# =========================================================================
+# Mixture of experts (top-k, capacity dispatch, optional always-on shared
+# expert — qwen2-moe style)
+# =========================================================================
+
+def moe_init(gen: torch.Generator, cfg: ArchConfig, device,
+             lead: Tuple[int, ...] = ()) -> Params:
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.moe_experts
+    p = {
+        "router": _init(gen, lead + (D, E), device),
+        "wg_e": _init(gen, lead + (E, D, F), device),
+        "wu_e": _init(gen, lead + (E, D, F), device),
+        "wd_e": _init(gen, lead + (E, F, D), device),
+    }
+    if cfg.moe_shared_dff:
+        p["shared"] = mlp_init(gen, cfg, device, lead,
+                               d_ff=cfg.moe_shared_dff)
+    return p
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest entries of each row and their indices, the lower
+    index first among equal values (``jax.lax.top_k``'s order; a stable
+    descending sort, where ``torch.topk`` promises no order on ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def capacity(cfg: ArchConfig, tokens: int) -> int:
+    """Rows per expert of the capacity dispatch: drop-free (``T·K``) for
+    ``T·K <= 4096`` (decode, so decode == prefill), else ``capacity_factor
+    · T·K / E`` rounded up to a multiple of 128."""
+    tk = tokens * cfg.moe_topk
+    if tk <= 4096:
+        return tk
+    c = int(cfg.moe_capacity_factor * tk / cfg.moe_experts) or 1
+    return ((c + 127) // 128) * 128
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantLike,
+              key) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (out, aux_loss).  x: (B, S, D).
+
+    Router: ``int_linear`` (D -> E), FP32 softmax, top-k with the gates
+    renormalised, the Switch-style load-balancing loss over each token's
+    first choice.  Dispatch: the reference's capacity dispatch with one
+    group (one device): token-choice ``j`` of expert ``e`` takes row
+    ``pos`` = the count of earlier choices of ``e``; choices past the
+    capacity write a spill row, which is dropped (with duplicate writes
+    there, whichever lands is never read).  The reference keeps one spill
+    row per expert (``Cg + 1`` rows each); here one spill row follows all
+    ``E·Cg`` rows, so the experts' (E, Cg, D) input is a view of the
+    buffer, not a copy — the same rows either way.  Experts: the per-expert
+    integer SwiGLU through ``int_batched_linear`` over the (E, Cg, D)
+    stack — its per-expert scales span every row of an expert's slice,
+    empty rows included, as in the reference.  Combine: each choice
+    gathers row ``min(pos, Cg - 1)`` of its expert, times ``keep · gate``.
+    The shared expert's MLP is added without a gate, as in the
+    reference."""
+    B, S, D = x.shape
+    E, K = cfg.moe_experts, cfg.moe_topk
+    T = B * S
+    sc = ensure_scope(qcfg)
+    xf = x.reshape(T, D)
+    logits = int_ops.int_linear(xf, p["router"], None, key, sc.leaf("router"))
+    probs = int_ops.int_softmax(logits.to(torch.float32), sc.leaf("router"))
+    gate, sel = top_k(probs, K)                                  # (T, K)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+
+    density = torch.mean(
+        torch.nn.functional.one_hot(sel[:, 0], E).to(torch.float32), dim=0)
+    aux = E * torch.sum(density * torch.mean(probs, dim=0))
+
+    Cg = capacity(cfg, T)
+    sel_f, gate_f = sel.reshape(T * K), gate.reshape(T * K)
+    onehot = torch.nn.functional.one_hot(sel_f, E)               # (TK, E)
+    pos_all = torch.cumsum(onehot, dim=0) - onehot
+    pos = torch.gather(pos_all, 1, sel_f[:, None])[:, 0]
+    keep = pos < Cg
+    spill = E * Cg
+    flat_idx = torch.where(keep, sel_f * Cg + pos, torch.full_like(pos, spill))
+    upd = xf[torch.arange(T * K, device=x.device) // K]          # (TK, D)
+    buf = torch.zeros((spill + 1, D), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((flat_idx,), upd)
+    ex_in = buf[:spill].reshape(E, Cg, D)
+
+    g = int_ops.int_batched_linear(ex_in, p["wg_e"], key, sc.leaf("wg_e"))
+    u = int_ops.int_batched_linear(ex_in, p["wu_e"], key, sc.leaf("wu_e"))
+    h = int_ops.int_activation(g, sc.leaf("act"), "silu") * u
+    ex_out = int_ops.int_batched_linear(h, p["wd_e"], key, sc.leaf("wd_e"))
+
+    take = sel_f * Cg + torch.clamp(pos, max=Cg - 1)
+    y = ex_out.reshape(E * Cg, D)[take]                          # (TK, D)
+    y = y * (keep[:, None] * gate_f[:, None])
+    y = y.reshape(T, K, D).sum(dim=1)
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], xf, cfg, sc.child("shared"), key)
+    return y.reshape(B, S, D), aux
 
 
 # =========================================================================

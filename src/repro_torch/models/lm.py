@@ -1,9 +1,10 @@
-"""Decoder-only language model, dense family: init, the training loss,
-KV cache, chunked prefill and decode.
+"""Decoder-only language model, dense and MoE families: init, the training
+loss, KV cache, chunked prefill and decode.
 
-Counterpart of the dense path of ``repro/models/lm.py``.  Parameters are a
-nested dict of tensors with the layer stack stacked on a leading
-``(L, ...)`` axis, as in the reference's ``lm_init``, so the reference's
+Counterpart of the dense and MoE paths of ``repro/models/lm.py``.
+Parameters are a nested dict of tensors with the layer stack stacked on a
+leading ``(L, ...)`` axis, as in the reference's ``lm_init``, so the
+reference's
 params carry across one to one (``repro_torch.convert``).  The reference's
 ``lax.scan`` over the stack is a Python loop here, and its remat
 (``utils.checkpoint`` around each layer of the training stack) is left
@@ -12,7 +13,10 @@ integer layers save), trading device memory for no recompute.  Its
 sharding constraints (``sharding.constrain*``) and ``health.probe`` calls
 are identities on one device with probes suspended, and are left out.
 
-MoE, SSM, hybrid and VLM families are not ported yet.
+A MoE block's ``moe`` sublayer (``blocks.moe_apply``) takes the MLP's
+place; its load-balancing loss is summed over the layers and ``lm_loss``
+adds ``0.01 · aux / n_layers``, as the reference does.  The SSM, hybrid
+and VLM families are not ported yet.
 """
 from __future__ import annotations
 
@@ -28,18 +32,28 @@ from repro_torch.models.config import ArchConfig
 Params = Dict[str, Any]
 
 
-def _require_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.moe_experts or cfg.vlm_prefix:
+def _require_ported(cfg: ArchConfig) -> None:
+    if (cfg.family not in ("dense", "moe")
+            or bool(cfg.moe_experts) != (cfg.family == "moe")
+            or cfg.vlm_prefix):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family is ported (got "
+            f"{cfg.name}: only the dense and MoE families are ported (got "
             f"family={cfg.family!r})")
 
 
 def _block_leaves(cfg: ArchConfig) -> list:
-    """Every integer-layer leaf path inside one dense block."""
-    return (["ln1", "ln2"]
-            + [f"attn.{n}" for n in ("wq", "wk", "wv", "wo", "qk", "pv")]
-            + blocks.mlp_leaves(cfg))
+    """Every integer-layer leaf path inside one block (the probe set
+    ``layer_groups`` uses to prove two layers resolve equal)."""
+    leaves = ["ln1", "ln2"] + [
+        f"attn.{n}" for n in ("wq", "wk", "wv", "wo", "qk", "pv")]
+    if cfg.moe_experts:
+        leaves += ["moe.router", "moe.wg_e", "moe.wu_e", "moe.wd_e",
+                   "moe.act"]
+        if cfg.moe_shared_dff:
+            leaves += blocks.mlp_leaves(cfg, "moe.shared")
+    else:
+        leaves += blocks.mlp_leaves(cfg)
+    return leaves
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -60,7 +74,7 @@ def resolve_device(device) -> torch.device:
 def lm_init(gen: torch.Generator, cfg: ArchConfig, device="cuda") -> Params:
     """Random params (normal · 0.02 matrices, zero biases, unit norms) drawn
     from ``gen``, a generator on ``device``."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     device = resolve_device(device)
     L = (cfg.n_layers,)
     params: Params = {
@@ -74,8 +88,11 @@ def lm_init(gen: torch.Generator, cfg: ArchConfig, device="cuda") -> Params:
         "ln1": blocks.norm_init(cfg, device, L),
         "attn": blocks.attention_init(gen, cfg, device, L),
         "ln2": blocks.norm_init(cfg, device, L),
-        "mlp": blocks.mlp_init(gen, cfg, device, L),
     }
+    if cfg.moe_experts:
+        params["blocks"]["moe"] = blocks.moe_init(gen, cfg, device, L)
+    else:
+        params["blocks"]["mlp"] = blocks.mlp_init(gen, cfg, device, L)
     return params
 
 
@@ -88,8 +105,12 @@ def _attn_block(bp: Params, x: torch.Tensor, cfg: ArchConfig,
         kv_cache=cache, cache_index=cache_index)
     x = x + h
     h = blocks.norm_apply(bp["ln2"], x, cfg, sc.child("ln2"), key)
-    h = blocks.mlp_apply(bp["mlp"], h, cfg, sc.child("mlp"), key)
-    return x + h, new_cache
+    aux = torch.zeros((), device=x.device)
+    if "moe" in bp:
+        h, aux = blocks.moe_apply(bp["moe"], h, cfg, sc.child("moe"), key)
+    else:
+        h = blocks.mlp_apply(bp["mlp"], h, cfg, sc.child("mlp"), key)
+    return x + h, aux, new_cache
 
 
 def _embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
@@ -113,26 +134,31 @@ def _logits(params: Params, x: torch.Tensor, cfg: ArchConfig,
 
 
 def _backbone_train(params: Params, x: torch.Tensor, cfg: ArchConfig,
-                    qcfg: QuantLike, key) -> torch.Tensor:
+                    qcfg: QuantLike, key) -> Tuple[torch.Tensor, torch.Tensor]:
     """All layers, no cache (training): a Python loop over the stack, each
-    run of identically resolved layers under its scope."""
+    run of identically resolved layers under its scope.  Returns (x, the
+    MoE aux losses summed over the layers)."""
     sc = ensure_scope(qcfg)
     layers = blocks.unstack(params["blocks"], cfg.n_layers)
+    aux = torch.zeros((), device=x.device)
     for start, stop, bsc in layer_groups(sc, cfg.n_layers,
                                          _block_leaves(cfg)):
         for i in range(start, stop):
-            x, _ = _attn_block(layers[i], x, cfg, bsc, key)
-    return x
+            x, a, _ = _attn_block(layers[i], x, cfg, bsc, key)
+            aux = aux + a
+    return x, aux
 
 
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             qcfg: QuantLike, key) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Next-token cross entropy.  batch: tokens (B, S) and labels (B, S)
-    integer tensors (label -1: masked).  Returns ``(loss, {"ce", "aux"})``;
-    ``aux`` is 0 (the dense family has no MoE balance loss)."""
-    _require_dense(cfg)
+    integer tensors (label -1: masked).  Returns ``(loss, {"ce", "aux"})``:
+    for a MoE config the loss includes ``0.01 · aux / n_layers`` and ``aux``
+    is the layers' summed balance loss (0 for the dense family); ``ce`` is
+    the returned loss, as the reference reports it."""
+    _require_ported(cfg)
     x = _embed(params, batch["tokens"], cfg, qcfg, key)
-    x = _backbone_train(params, x, cfg, qcfg, key)
+    x, aux = _backbone_train(params, x, cfg, qcfg, key)
     logits = _logits(params, x, cfg, qcfg, key)
     labels = batch["labels"]
     valid = labels >= 0
@@ -141,15 +167,16 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     ll = torch.gather(logp, -1, lab[..., None])[..., 0]
     n = torch.clamp(valid.sum(), min=1).to(torch.float32)
     loss = -torch.sum(ll * valid) / n
-    return loss, {"ce": loss.detach(),
-                  "aux": torch.zeros((), device=loss.device)}
+    if cfg.moe_experts:
+        loss = loss + 0.01 * aux / cfg.n_layers
+    return loss, {"ce": loss.detach(), "aux": aux.detach()}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype=torch.float32, device="cuda") -> Params:
     """KV cache: k/v (L, B, max_seq, KV, hd) and a per-row (B,) int32
     ``index`` (continuous batching admits slots at different times)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     device = resolve_device(device)
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -167,7 +194,7 @@ def lm_prefill_cache(params: Params, tokens: torch.Tensor, cache: Params,
     The cache's k/v tensors are updated in place; returns (last-position
     logits (B, 1, V), cache with the advanced index).
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     key = None                                   # no stochastic rounding
     index = cache["index"]
     sc = ensure_scope(qcfg)
@@ -176,9 +203,9 @@ def lm_prefill_cache(params: Params, tokens: torch.Tensor, cache: Params,
     groups = layer_groups(sc, cfg.n_layers, _block_leaves(cfg))
     for start, stop, bsc in groups:
         for i in range(start, stop):
-            x, _ = _attn_block(layers[i], x, cfg, bsc, key,
-                               cache=(cache["k"][i], cache["v"][i]),
-                               cache_index=index)
+            x, _, _ = _attn_block(layers[i], x, cfg, bsc, key,
+                                  cache=(cache["k"][i], cache["v"][i]),
+                                  cache_index=index)
     logits = _logits(params, x[:, -1:], cfg, sc, key)
     return logits, {"k": cache["k"], "v": cache["v"],
                     "index": index + tokens.shape[1]}

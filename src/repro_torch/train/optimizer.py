@@ -48,13 +48,16 @@ def tree_leaves(tree: Any) -> list:
 def tree_unflatten(tree: Any, leaves) -> Any:
     """A nested dict shaped like ``tree`` holding ``leaves`` in
     ``tree_leaves`` order."""
-    it = iter(leaves)
+    return _build(tree, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
-    return build(tree)
+
+def _build(tree: Any, it) -> Any:
+    # a module-level function, not a recursive closure: a closure that
+    # calls itself is a reference cycle, which kept the ``leaves`` (a whole
+    # gradient tree) alive until the cyclic garbage collector ran
+    if isinstance(tree, dict):
+        return {k: _build(tree[k], it) for k in sorted(tree)}
+    return next(it)
 
 
 def tree_map(fn, tree: Any, *rest: Any) -> Any:

@@ -6,8 +6,9 @@ runs on the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances: integer outputs and the matmuls, NN, NT and TN (same int32
-sums, same ordered f32 combine) exactly; RMS-norm within 2 ulp (rstd) and 4
+Tolerances: integer outputs and the matmuls, NN, NT and TN and their
+batched (MoE expert-axis) twins (same int32 sums, same ordered f32
+combine) exactly, the grouped quantize too; RMS-norm within 2 ulp (rstd) and 4
 ulp (y), for PyTorch's own sqrt / reciprocal; layer-norm forward within 2
 ulp of mu and 4 ulp of rstd and y within 8 ulp of its row's max|y| plus
 rstd's difference times the row's max|xn·γ|; layer-norm backward dβ
@@ -240,6 +241,52 @@ def test_int_attn_bwd(dev, case, lqk, lpv, lg, ds_bits, pb):
     for got, ref in ((dq, dq0), (dk, dk0), (dv, dv0)):
         assert ref.abs().max() > 0
         assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 12, 16])
+def test_dfx_quantize_grouped(dev, bits):
+    """(E, M, N) stacks at per-slice exponents, slice 2 all zero (an expert
+    that receives no token); the MoE shapes' E = 60 with a ragged slice."""
+    gen = torch.Generator(device=dev).manual_seed(bits)
+    for E, M, N in ((5, 77, 130), (60, 16, 2048), (1, 3, 5)):
+        x = torch.randn((E, M, N), generator=gen, device=dev)
+        x *= 2.0 ** torch.arange(E, device=dev)[:, None, None] / 8
+        if E > 2:
+            x[2] = 0
+        u = torch.rand((E, M, N), generator=gen, device=dev)
+        exp = dfx.slice_exponents(x) - (bits - 1)
+        for kw in (dict(), dict(u=u), dict(limb_planes=True),
+                   dict(u=u, limb_planes=True)):
+            got = dfx_quant.dfx_quantize_grouped(x, exp, bits=bits, **kw)
+            ref = dfx_quant.dfx_quantize_grouped_plain(x, exp, bits=bits,
+                                                       **kw)
+            assert torch.equal(got, ref), (E, M, N, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(60, 16, 2048, 1408), (4, 77, 130, 61),
+                                   (3, 5, 768, 4), (1, 256, 1408, 2048)])
+def test_bfp_matmul_batched(dev, shape):
+    """Batched NN, NT (dX) and TN (dW) over plane-major (L, E, ...) planes
+    with one exponent per expert, at MoE decode and training shapes and
+    ragged ones."""
+    E, M, K, N = shape
+    gen = torch.Generator(device=dev).manual_seed(E + M)
+    e = torch.arange(E, dtype=torch.int32, device=dev) - 21
+
+    def planes(L, *s):
+        return torch.randint(-64, 65, (L,) + s, generator=gen, device=dev,
+                             dtype=torch.int8)
+    for la, lb in ((1, 1), (2, 1), (1, 2), (3, 3)):
+        xm, wm = planes(la, E, M, K), planes(lb, E, K, N)
+        assert torch.equal(bm.bfp_matmul_batched(xm, wm, e),
+                           bm.bfp_matmul_batched_plain(xm, wm, e))
+        gm = planes(la, E, M, N)
+        assert torch.equal(bm.bfp_matmul_batched_nt(gm, wm, e),
+                           bm.bfp_matmul_batched_nt_plain(gm, wm, e))
+        assert torch.equal(bm.bfp_matmul_batched_tn(xm, gm[:lb], e),
+                           bm.bfp_matmul_batched_tn_plain(xm, gm[:lb], e))
 
 
 def test_cpu_tensors_take_the_plain_version():
