@@ -14,15 +14,19 @@ Phases (each raises on failure; nothing is caught):
    the layer-norm kernels, and for the quantize and NN matmul kernels
    also the step's gradient quantize and w1 forward; the qwen1.5-0.5b
    training step — batch 8 x seq 256 — for the RMS-norm backward, and it,
-   bert-base cls, smollm-135m's GQA and a ragged windowed case for the
-   attention backward; the qwen2-moe-a2.7b paths — E = 60 experts, 256
-   capacity rows each in training, 16 at decode — for the grouped
-   quantize and the batched NN / NT / TN matmuls): run the kernel and its
-   plain PyTorch version on the card from the same seeded inputs and hold them together (integer
-   outputs and the matmuls exactly, other f32 outputs within the stated
-   tolerance); time kernel, plain version and a PyTorch yardstick (one
-   call; for a batched matmul 60 calls of ``torch._int_mm``) with CUDA
-   events (median); compute the card's lower bound from the
+   bert-base cls, smollm-135m's GQA, a ragged windowed case and
+   qwen2-moe-a2.7b's head dim 128 for the attention backward (timed at
+   the qwen1.5-0.5b and qwen2-moe-a2.7b training shapes), and the
+   attention forward also at the qwen1.5-0.5b training shape; the
+   qwen2-moe-a2.7b paths — E = 60 experts, 256 capacity rows each in
+   training, 16 at decode — for the grouped quantize and the batched NN /
+   NT / TN matmuls): run the kernel and its plain PyTorch version on the
+   card from the same seeded inputs and hold them together (integer
+   outputs, the matmuls and the attention backward exactly, other f32
+   outputs within the stated tolerance); time kernel, plain version and a
+   PyTorch yardstick (one call; for a matmul one ``torch._int_mm`` per
+   limb pair the kernel computes, 60 of them per pair for a batched one)
+   with CUDA events (median); compute the card's lower bound from the
    bytes and the operations this call needs.
 3. On reduced configurations (2 layers), from the same weights, the card
    against the port's CPU path: qwen1.5-0.5b's served logits; one BERT
@@ -82,6 +86,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -149,6 +154,26 @@ def bound_ms(n_bytes: float, n_ops: float, f32_ops: float = 0.0) -> tuple:
     tb = n_bytes / HBM_BYTES_PER_S * 1e3
     to = (n_ops / INT8_OPS_PER_S + f32_ops / F32_OPS_PER_S) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _kernel_name(mangled: str) -> str:
+    """'dq_kernel<2>' from an Itanium-mangled kernel name: the first
+    length-prefixed identifier ending in '_kernel', with its integer and
+    bool template arguments."""
+    i = 0
+    while i < len(mangled):
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            i += 1
+            continue
+        j = i + len(m.group())
+        ident = mangled[j:j + int(m.group())]
+        if ident.endswith("_kernel"):
+            t = re.match(r"I((?:L[ib]\d+E)+)E", mangled[j + len(ident):])
+            args = re.findall(r"L[ib](\d+)E", t.group(1)) if t else []
+            return ident + (f"<{', '.join(args)}>" if args else "")
+        i = j + max(len(ident), 1)
+    return mangled
 
 
 def nbytes(*ts) -> int:
@@ -248,10 +273,10 @@ def check_matmul(torch, dev, gen, cfg, V, bert, tokens):
     xm, wm = cases[3]
     M, K, N = xm.shape[1], xm.shape[2], wm.shape[2]
     out = torch.empty((M, N), device=dev)
-    x0, w0 = xm[0].contiguous(), wm[0].contiguous()
+    xs, w0 = [x.contiguous() for x in xm], wm[0].contiguous()
     t = timings(lambda: bm.bfp_matmul(xm, wm, exp),
                 lambda: bm.bfp_matmul_plain(xm, wm, exp),
-                lambda: torch._int_mm(x0, w0))
+                lambda: [torch._int_mm(x, w0) for x in xs])
     b, by = bound_ms(nbytes(xm, wm, out), 2 * M * K * N * xm.shape[0])
     hx, hw = cases[0]
     head_ms = cuda_ms(lambda: bm.bfp_matmul(hx, hw, exp))
@@ -273,8 +298,8 @@ def check_matmul(torch, dev, gen, cfg, V, bert, tokens):
                 shape=f"({M},{K})x({K},{N}), 2x1 limbs, tolerance exact (also "
                       f"held exactly: decode head, a decode linear, w1 "
                       f"forward ({tokens},{bert.d_model})x({bert.d_model},"
-                      f"{bert.d_ff})); library: torch._int_mm of one limb "
-                      "pair",
+                      f"{bert.d_ff})); library: torch._int_mm per limb pair "
+                      "(2 calls)",
                 max_abs_err=err, bound_ms=b, bound_by=by, head_ms=head_ms,
                 head_device_ms=head_dev, head_bound_ms=head_b,
                 w1_device_ms=w1_dev, w1_bound_ms=w1_b, **t)
@@ -313,7 +338,9 @@ def check_rmsnorm(torch, dev, gen, D):
 def check_attention(torch, dev, gen, cfg):
     """int_attn_fwd at decode (4 slots, one query each at positions 64..67,
     over the 256-deep cache) and at prefill (64 queries from position 0);
-    timed at decode."""
+    timed at decode and at the training step's shape (batch 8 x seq 256,
+    causal; 24 calls a qwen1.5-0.5b step), each beside SDPA's f32
+    forward on the dequantized values with the same mask."""
     import torch.nn.functional as F
     from repro_torch.core import dfx
     from repro_torch.kernels import int_attention as ia
@@ -360,13 +387,47 @@ def check_attention(torch, dev, gen, cfg):
                + (k.shape[0] + v.shape[0]) * need * KV * hd)
     n_ops = 2 * 2 * need * KV * G * hd * 4       # QK and PV, 2x2 limb pairs
     b, by = bound_ms(n_bytes, n_ops)
+    # the training step's call: batch 8 x seq 256, causal, from position 0
+    Bt, St = 8, 256
+    qt, kt, vt = (_planes(torch, gen, dev, 2, Bt, St, KV, *rest)
+                  for rest in ((G, hd), (hd,), (hd,)))
+    qo_t = torch.zeros(Bt, dtype=torch.int32, device=dev)
+    ot, lset = ia.int_attn_fwd(qt, kt, vt, qo_t, exps, **kw)
+    ot0, lset0 = ia.int_attn_fwd_plain(qt, kt, vt, qo_t, exps, **kw)
+    rel = ((ot - ot0).abs().max() / ot0.abs().max()).item()
+    dl = (lset - lset0).abs().max().item()
+    if rel > 1e-5 or dl > 1e-4:
+        raise AssertionError(f"int_attn_fwd differs at the training shape: "
+                             f"o rel {rel}, lse abs {dl}")
+    err = max(err, (ot - ot0).abs().max().item())
+
+    def deq(x, e):
+        return (x[0].float() + 128 * x[1].float()) * dfx.pow2(e)
+    qf = deq(qt, exps[0]).reshape(Bt, St, KV * G, hd).transpose(1, 2)
+    kf, vf = (deq(x, e).repeat_interleave(G, dim=2).transpose(1, 2)
+              for x, e in ((kt, exps[1]), (vt, exps[2])))
+    tt = timings(lambda: ia.int_attn_fwd(qt, kt, vt, qo_t, exps, **kw),
+                 lambda: ia.int_attn_fwd_plain(qt, kt, vt, qo_t, exps, **kw),
+                 lambda: F.scaled_dot_product_attention(qf, kf, vf,
+                                                        is_causal=True))
+    pairs = Bt * KV * G * St * (St + 1) // 2
+    tb, tby = bound_ms(nbytes(qt, kt, vt, qo_t, exps, ot, lset),
+                       2 * 2 * pairs * hd * 4)
+    print(f"  int_attn_fwd training shape q ({Bt},{St},{KV},{G},{hd}), "
+          f"causal: call {tt['ms']:.4f} ms, device {tt['device_ms']:.4f} "
+          f"ms; plain device {tt['plain_device_ms']:.4f}; SDPA forward (f32) "
+          f"device {tt['library_device_ms']:.4f}; bound {tb:.4f} ms ({tby})")
     return dict(name="int_attn_fwd", route="cuda",
                 source="src/repro_torch/csrc/int_attention.cu",
                 replaces="src/repro/kernels/int_attention.py:217",
                 shape=f"decode q ({B},1,{KV},{G},{hd}) over k/v ({B},{Smax},"
-                      f"{KV},{hd}), 2 limbs; tolerance o 1e-5 relative, lse "
-                      "1e-4 absolute",
-                max_abs_err=err, bound_ms=b, bound_by=by, **t)
+                      f"{KV},{hd}), 2 limbs; also held and timed at the "
+                      f"training shape ({Bt},{St}) causal (train_*); "
+                      "tolerance o 1e-5 relative, lse 1e-4 absolute; "
+                      "library: SDPA forward (f32)",
+                max_abs_err=err, bound_ms=b, bound_by=by, **t,
+                **{f"train_{k_}": v_ for k_, v_ in tt.items()},
+                train_bound_ms=tb, train_bound_by=tby)
 
 
 def check_matmul_bwd(torch, dev, gen, cfg, tokens):
@@ -386,10 +447,10 @@ def check_matmul_bwd(torch, dev, gen, cfg, tokens):
     for name, fn, plain, cases, lib_args in (
             ("bfp_matmul_nt", bm.bfp_matmul_nt, bm.bfp_matmul_nt_plain,
              [(g, w), (gh, wh), (xp[:1], _planes(torch, gen, dev, 1, D, D))],
-             (g[0], w[0].t().contiguous())),
+             [(g[0], w[0].t().contiguous())]),
             ("bfp_matmul_tn", bm.bfp_matmul_tn, bm.bfp_matmul_tn_plain,
              [(x, g), (xp, gh), (xp, xp[:1])],
-             (x[0].t().contiguous(), g[0]))):
+             [(xj.t().contiguous(), g[0]) for xj in x])):
         err = 0.0
         for a, b in cases:
             got, ref = fn(a, b, e), plain(a, b, e)
@@ -402,7 +463,7 @@ def check_matmul_bwd(torch, dev, gen, cfg, tokens):
         a, b = cases[0]
         res = fn(a, b, e)
         t = timings(lambda: fn(a, b, e), lambda: plain(a, b, e),
-                    lambda: torch._int_mm(*lib_args))
+                    lambda: [torch._int_mm(*ab) for ab in lib_args])
         n_ops = 2 * tokens * D * F * a.shape[0] * b.shape[0]
         bd, by = bound_ms(nbytes(a, b, e, res), n_ops)
         what = ("dX: G (%d,%d) . W (%d,%d)^T, 1x1 limbs" % (tokens, F, D, F)
@@ -414,7 +475,7 @@ def check_matmul_bwd(torch, dev, gen, cfg, tokens):
             replaces=("src/repro/kernels/bfp_matmul.py:176"
                       if name == "bfp_matmul_nt" else
                       "src/repro/kernels/bfp_matmul.py:210"),
-            shape=f"{what}, tolerance exact; library: torch._int_mm of one "
+            shape=f"{what}, tolerance exact; library: torch._int_mm per "
                   "limb pair (operands made contiguous beforehand)",
             max_abs_err=err, bound_ms=bd, bound_by=by, **t))
     return out
@@ -567,6 +628,7 @@ ATTN_BWD_SHAPES = {
     "qwen1.5-0.5b train": (8, 256, 256, 16, 1, 64, 0, True, None),
     "smollm-135m gqa": (8, 256, 256, 3, 3, 64, 0, True, None),
     "ragged + window": (2, 20, 150, 2, 2, 16, [100, 37], True, 40),
+    "qwen2-moe-a2.7b train": (8, 256, 256, 16, 1, 128, 0, True, None),
 }
 
 
@@ -602,16 +664,17 @@ def _attn_bwd_inputs(torch, dev, gen, shape):
 def check_attention_bwd(torch, dev, gen):
     """int_attn_bwd_dq and int_attn_bwd_dkv against their plain versions at
     ATTN_BWD_SHAPES (int8 preset), timed at the qwen1.5-0.5b training
-    shape.  Tolerance: dq, dk and dv within 1e-4 of max|ref| (the same
-    expf and the same ordered f32 sums on both sides; the count of
-    elements that differ at all is printed).  Bound: the bytes of the
-    planes, rows and outputs, or the int8 operations of the limb-pair
-    products over the (query, key) pairs the mask lets through, whichever
-    is larger."""
+    shape and, beside it, at qwen2-moe-a2.7b's (head dim 128; moe_*).
+    Tolerance: exact (the same expf, the same exact int32 limb-pair dots
+    and the same ordered f32 sums on both sides).  Library: SDPA's f32
+    backward at the same shape (dq, dk and dv together).  Bound: the bytes
+    of the planes, rows and outputs, or the int8 operations of the
+    limb-pair products over the (query, key) pairs the mask lets through,
+    whichever is larger."""
     import torch.nn.functional as F
     from repro_torch.kernels import int_attention as ia
     errs = {"int_attn_bwd_dq": 0.0, "int_attn_bwd_dkv": 0.0}
-    timed = None
+    timed = {}
     for label, shape in ATTN_BWD_SHAPES.items():
         B, Sq, Sk, KV, G, hd, off, causal, window = shape
         q, k, v, g, lse, delta, qo, exps = _attn_bwd_inputs(torch, dev, gen,
@@ -631,52 +694,72 @@ def check_attention_bwd(torch, dev, gen):
                                ("dv", dv, dv0)):
             scale = ref.abs().max().item()
             err = (got - ref).abs().max().item()
-            if not scale > 0 or err > 1e-4 * scale:
-                raise AssertionError(f"int_attn_bwd {name} differs at "
-                                     f"{label}: {err} of max {scale}")
+            if not scale > 0 or not torch.equal(got, ref):
+                raise AssertionError(
+                    f"int_attn_bwd {name} differs at {label}: "
+                    f"{int((got != ref).sum())} elements, max {err} of max "
+                    f"{scale}")
             key = "int_attn_bwd_dq" if name == "dq" else "int_attn_bwd_dkv"
             errs[key] = max(errs[key], err)
             line.append(f"{name} max|err| {err:.3e} of max {scale:.3e}, "
                         f"{int((got != ref).sum())} elements differ")
         print(f"  attention backward at {label} {shape[:6]}: "
               + "; ".join(line))
-        if label == "qwen1.5-0.5b train":
-            timed = (shape, q, k, v, g, lse, delta, qo, exps, kw, dq, dk, dv)
-    shape, q, k, v, g, lse, delta, qo, exps, kw, dq, dk, dv = timed
-    B, Sq, Sk, KV, G, hd, off, causal, window = shape
-    # yardstick: SDPA's backward in f32 through autograd at the same shape
-    # (the graph built once, its backward timed; it computes dq, dk and dv)
-    H = KV * G
-    qs, ks, vs = (torch.randn((B, H, S, hd), generator=gen, device=dev)
-                  .requires_grad_(True) for S in (Sq, Sk, Sk))
-    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
-    gout = torch.randn_like(out)
+        if label in ("qwen1.5-0.5b train", "qwen2-moe-a2.7b train"):
+            timed[label] = (shape, q, k, v, g, lse, delta, qo, exps, kw, dq,
+                            dk, dv)
 
-    def library():
-        return torch.autograd.grad(out, (qs, ks, vs), gout,
-                                   retain_graph=True)
-    lib_t = dict(library_ms=cuda_ms(library),
-                 library_device_ms=device_ms(library))
-    pairs = B * KV * G * Sq * (Sq + 1) // 2 if causal else B * KV * G * Sq * Sk
-    rows = nbytes(lse, delta)
+    def measure(shape, q, k, v, g, lse, delta, qo, exps, kw, dq, dk, dv):
+        """{name: timings and bound} of both kernels at one shape, with
+        SDPA's f32 backward (autograd, its graph built once) beside them."""
+        B, Sq, Sk, KV, G, hd, off, causal, window = shape
+        H = KV * G
+        qs, ks, vs = (torch.randn((B, H, S, hd), generator=gen, device=dev)
+                      .requires_grad_(True) for S in (Sq, Sk, Sk))
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+        gout = torch.randn_like(out)
+
+        def library():
+            return torch.autograd.grad(out, (qs, ks, vs), gout,
+                                       retain_graph=True)
+        lib_t = dict(library_ms=cuda_ms(library),
+                     library_device_ms=device_ms(library))
+        pairs = (B * KV * G * Sq * (Sq + 1) // 2 if causal
+                 else B * KV * G * Sq * Sk)
+        rows = nbytes(lse, delta)
+        res = {}
+        for name, fn, plain, outs, limb_pairs in (
+                ("int_attn_bwd_dq",
+                 lambda: ia.int_attn_bwd_dq(q, k, v, g, lse, delta, qo, exps,
+                                            p_bits=12, **kw),
+                 lambda: ia.int_attn_bwd_dq_plain(q, k, v, g, lse, delta, qo,
+                                                  exps, **kw),
+                 (dq,), 4 + 2 + 2),
+                ("int_attn_bwd_dkv",
+                 lambda: ia.int_attn_bwd_dkv(q, k, v, g, lse, delta, qo,
+                                             exps, p_bits=12, **kw),
+                 lambda: ia.int_attn_bwd_dkv_plain(q, k, v, g, lse, delta,
+                                                   qo, exps, p_bits=12, **kw),
+                 (dk, dv), 4 + 2 + 2 + 2)):
+            # s (2x2 limb pairs), dp (1x2), and dq (1x2) or dk (1x2) + dv
+            # (2x1)
+            b, by = bound_ms(nbytes(q, k, v, g, qo, exps, *outs) + rows,
+                             2 * hd * pairs * limb_pairs)
+            res[name] = {**timings(fn, plain), **lib_t, "bound_ms": b,
+                         "bound_by": by}
+        return res
+
+    main = measure(*timed["qwen1.5-0.5b train"])
+    moe = measure(*timed["qwen2-moe-a2.7b train"])
+    shape = ATTN_BWD_SHAPES["qwen1.5-0.5b train"]
+    B, Sq, Sk, KV, G, hd = shape[:6]
     out_k = []
-    for name, fn, plain, outs, limb_pairs in (
-            ("int_attn_bwd_dq",
-             lambda: ia.int_attn_bwd_dq(q, k, v, g, lse, delta, qo, exps,
-                                        p_bits=12, **kw),
-             lambda: ia.int_attn_bwd_dq_plain(q, k, v, g, lse, delta, qo,
-                                              exps, **kw),
-             (dq,), 4 + 2 + 2),
-            ("int_attn_bwd_dkv",
-             lambda: ia.int_attn_bwd_dkv(q, k, v, g, lse, delta, qo, exps,
-                                         p_bits=12, **kw),
-             lambda: ia.int_attn_bwd_dkv_plain(q, k, v, g, lse, delta, qo,
-                                               exps, p_bits=12, **kw),
-             (dk, dv), 4 + 2 + 2 + 2)):
-        t = {**timings(fn, plain), **lib_t}
-        # s (2x2 limb pairs), dp (1x2), and dq (1x2) or dk (1x2) + dv (2x1)
-        b, by = bound_ms(nbytes(q, k, v, g, qo, exps, *outs) + rows,
-                         2 * hd * pairs * limb_pairs)
+    for name in ("int_attn_bwd_dq", "int_attn_bwd_dkv"):
+        m = moe[name]
+        print(f"  {name} at qwen2-moe-a2.7b train (hd 128): call "
+              f"{m['ms']:.4f} ms, device {m['device_ms']:.4f} ms; SDPA "
+              f"backward device {m['library_device_ms']:.4f}; bound "
+              f"{m['bound_ms']:.4f} ms ({m['bound_by']})")
         out_k.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/csrc/int_attention_bwd.cu",
@@ -685,12 +768,13 @@ def check_attention_bwd(torch, dev, gen):
                       "src/repro/kernels/int_attention.py:441"),
             shape=f"qwen1.5-0.5b training: q/g ({B},{Sq},{KV},{G},{hd}), "
                   f"k/v ({B},{Sk},{KV},{hd}), 2 planes (g 1), causal, dS 8 "
-                  "bits, P 12 bits; also held at "
-                  + ", ".join(k_ for k_ in ATTN_BWD_SHAPES
-                              if k_ != "qwen1.5-0.5b train")
-                  + "; tolerance 1e-4 of max|ref|; library: SDPA backward "
-                  "(f32, autograd, dq + dk + dv)",
-            max_abs_err=errs[name], bound_ms=b, bound_by=by, **t))
+                  "bits, P 12 bits; also timed at qwen2-moe-a2.7b's head "
+                  "dim 128 (moe_*); held at "
+                  + ", ".join(ATTN_BWD_SHAPES)
+                  + "; tolerance exact; library: SDPA backward (f32, "
+                  "autograd, dq + dk + dv)",
+            max_abs_err=errs[name], **main[name],
+            **{f"moe_{k_}": v_ for k_, v_ in m.items()}))
     return out_k
 
 
@@ -764,8 +848,8 @@ def check_matmul_batched(torch, dev, gen, moe):
     2x1 limbs) and its decode (16 rows per expert), also held at wd_e's
     forward; NT at wg_e's dX (1x1) and wd_e's; TN at wg_e's dW (2x1,
     contracting the 256 capacity rows) and wd_e's.  Library: 60 calls of
-    torch._int_mm over one limb pair (operands made contiguous
-    beforehand), summed."""
+    torch._int_mm for each limb pair the kernel computes (operands made
+    contiguous beforehand), summed."""
     from repro_torch.kernels import bfp_matmul as bm
     E, D, F, C = moe.moe_experts, moe.d_model, moe.d_ff, MOE_TRAIN_ROWS
     e = torch.arange(E, dtype=torch.int32, device=dev) - 40
@@ -775,14 +859,16 @@ def check_matmul_batched(torch, dev, gen, moe):
     x, wg, g = pl(2, E, C, D), pl(1, E, D, F), pl(1, E, C, F)
     xd = pl(2, E, MOE_DECODE_ROWS, D)
     h, wd, gd = pl(2, E, C, F), pl(1, E, F, D), pl(1, E, C, D)
-    x0, w0, g0 = x[0].contiguous(), wg[0].contiguous(), g[0].contiguous()
+    xs = [xj.contiguous() for xj in x]
+    w0, g0 = wg[0].contiguous(), g[0].contiguous()
     w0t = wg[0].transpose(1, 2).contiguous()
-    x0t = x[0].transpose(1, 2).contiguous()
+    xts = [xj.transpose(1, 2).contiguous() for xj in x]
     out = []
     for name, fn, plain, cases, lib, line, contract in (
             ("bfp_matmul_batched", bm.bfp_matmul_batched,
              bm.bfp_matmul_batched_plain, [(x, wg), (xd, wg), (h, wd)],
-             lambda: [torch._int_mm(x0[i], w0[i]) for i in range(E)],
+             lambda: [torch._int_mm(xj[i], w0[i]) for xj in xs
+                      for i in range(E)],
              "302", D),
             ("bfp_matmul_batched_nt", bm.bfp_matmul_batched_nt,
              bm.bfp_matmul_batched_nt_plain, [(g, wg), (gd, wd)],
@@ -790,7 +876,8 @@ def check_matmul_batched(torch, dev, gen, moe):
              "332", F),
             ("bfp_matmul_batched_tn", bm.bfp_matmul_batched_tn,
              bm.bfp_matmul_batched_tn_plain, [(x, g), (h, gd)],
-             lambda: [torch._int_mm(x0t[i], g0[i]) for i in range(E)],
+             lambda: [torch._int_mm(xj[i], g0[i]) for xj in xts
+                      for i in range(E)],
              "362", C)):
         err = 0.0
         for a, b in cases:
@@ -814,8 +901,8 @@ def check_matmul_batched(torch, dev, gen, moe):
             k["shape"] = (f"wg_e forward ({E},{C},{D})x({E},{D},{F}), 2x1 "
                           f"limbs, tolerance exact (also held exactly: "
                           f"decode {MOE_DECODE_ROWS} rows per expert, wd_e "
-                          f"({E},{C},{F})x({E},{F},{D})); library: {E} x "
-                          "torch._int_mm of one limb pair, summed")
+                          f"({E},{C},{F})x({E},{F},{D})); library: 2 x {E} x "
+                          "torch._int_mm (one per limb pair), summed")
             xd_ms = device_ms(lambda: fn(xd, wg, e))
             dres = fn(xd, wg, e)
             db, dby = bound_ms(nbytes(xd, wg, e, dres),
@@ -832,8 +919,8 @@ def check_matmul_batched(torch, dev, gen, moe):
         else:
             k["shape"] = (f"wg_e dW: X ({E},{C},{D})^T . G ({E},{C},{F}), "
                           f"2x1 limbs, tolerance exact (also held: wd_e's "
-                          f"dW); library: {E} x torch._int_mm of one limb "
-                          "pair, summed")
+                          f"dW); library: 2 x {E} x torch._int_mm (one per "
+                          "limb pair), summed")
         out.append(k)
     return out
 
@@ -1596,9 +1683,15 @@ def main() -> int:
     _lib.build()
     build_s = time.perf_counter() - t0
     print(f"[1] built the CUDA kernels in {build_s:.1f} s")
+    name, spill = "?", ""
     for line in _lib.ptxas_report().splitlines():
-        if "Used" in line or "spill" in line:
-            print("    ptxas:", line.strip())
+        if "Compiling entry function" in line:
+            name = _kernel_name(line.split("'")[1])
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line:
+            print(f"    ptxas: {name}: {line.split(':', 1)[1].strip()}; "
+                  f"{spill}")
     print(card)
 
     cfg = registry.get_config("qwen1.5-0.5b")

@@ -22,50 +22,86 @@
 //   dk  = sc * sum_qblocks   sum_pairs (f32(dsm_limb . q_limb) * 2^(dse+qe))
 //                                      * 2^(7(ja+jb))
 //
-// Integer dots are exact int32; each f32 expression is the reference's, in
-// its order (no FMA contraction).  The f32 sums over blocks are part of the
-// result, so the blocks are the reference's: dq sums over 128-key blocks
-// (its bk), dk and dv over blocks of bq query rows (its bq = min(128,
-// Sq rounded up to 8)) of each group head in turn, group-major, so for GQA
-// dk and dv are the sums over the G query heads of the kv head, in a fixed
-// order (bit-identical from run to run).  A key block (dq) or a query
-// sub-tile (dkv) that the mask hides from every row of the tile
-// contributes exactly 0 and is skipped.
+// Each limb pair is its own exact int32 dot, converted and combined in f32
+// in pair order (first operand's limbs outer); each f32 expression is the
+// reference's, in its order (explicit _rn intrinsics, no FMA contraction;
+// expf, not __expf).  The f32 sums over blocks are part of the result, so
+// the blocks are the reference's: dq sums over 128-key blocks (its bk), dk
+// and dv over blocks of bq query rows (its bq = min(128, Sq rounded up to
+// 8)) of each group head in turn, group-major, so for GQA dk and dv are the
+// sums over the G query heads of the kv head, in a fixed order.  A 32-wide
+// sub-tile that the mask hides from every row of a warp contributes exactly
+// 0 to the block's int32 sums and is skipped.
 //
 // Layout: the model layout, as the forward: q and g (L, B, Sq, KV, G, hd),
 // k and v (L, B, Sk, KV, hd); lse (B, KV, G, Sq); delta (B, Sq, KV, G); dq
-// (B, Sq, KV, G, hd), dk and dv (B, Sk, KV, hd) f32.  No rows-layout
-// transpose or padding pass runs in device memory.  __dp4a wants both
-// operands contiguous along the contraction: s = q.k^T and dp = g.v^T
-// contract over hd and read rows as they lie; dq += dS.k, dk += dS^T.q and
-// dv += P^T.g contract over keys or query rows, so their operands are
-// staged transposed into shared memory (as the forward does for V), and
-// dS and P are written transposed there, split into limb planes in
-// registers (the digit split of csrc/dfx_common.cuh).
+// (B, Sq, KV, G, hd), dk and dv (B, Sk, KV, hd) f32.  No transpose or
+// padding pass runs in device memory: hd is zero-padded to the MMA depth
+// (32) in shared memory.
 //
-// Bound on the H100: bytes at the training shapes (each CTA re-reads its
-// tile's K/V or Q/dO planes from L2, but the card needs to move each plane
-// once); int8 operations only for sequences of many hundreds of rows.
-// Design (the simple first version): dq: a CTA of 128 threads owns 16 query
-// rows of one (batch, kv head, group head) and walks the 128-key blocks;
-// one thread per key column computes s, p, dp, dS for all 16 rows (no
-// reduction is needed), then the threads accumulate dq in shared memory.
-// dkv: a CTA owns 32 keys (16 where shared memory is short) of one (batch,
-// kv head) and walks the query rows of every group head in sub-tiles of 32;
-// the limb-pair products of one reference q block accumulate in int32 in
-// shared memory and are combined into the f32 sums at the block's end.
-// Tensor-core MMA and a pipelined stream are later work.
+// Bound on the H100 at the qwen1.5-0.5b training shape (8 x 256, 16 heads
+// of 64, causal, int8 preset): bytes, 7.0 us (dq) and 9.5 us (dkv) for each
+// plane, row and output moved once, against 4.3 / 5.4 G int8 operations
+// (2.2 / 2.7 us at 1,979 TOP/s) and the f32 recompute of 4.2 M visible
+// scores at ~70 operations each (~4.4 us at 67 TFLOP/s).
+//
+// Design.  Every integer product is a tensor-core mma.sync m16n8k32
+// (s8 x s8 -> s32, sm90_ptx.cuh), its fragments read with ldmatrix; 8-bit
+// MMA takes both operands K-major, so each product is arranged to contract
+// along a contiguous axis:
+//   dq:  a CTA of nw warps (4 where shared memory allows) owns 16 nw query
+//        rows of one (batch, kv head, group head); Q and dO rows stay
+//        resident.  K and V stream through a two-stage cp.async ring of
+//        32-key sub-tiles.  Per sub-tile each warp computes S = Q K^T and
+//        dP = dO V^T (16 x 32, one limb pair at a time over hd), then p and
+//        dS in the accumulator registers, and packs dS's digits straight
+//        into A fragments (warp-private shared memory).  K is transposed
+//        into K^T rows by word loads and a 4x4 byte transpose
+//        (__byte_perm).  At a 128-key block's end, dQ's pairs over the
+//        block's keys (one pair at a time, int32 carried over its four
+//        sub-tiles) are combined and added to the warp's f32 sums
+//        (registers).
+//   dkv: a CTA owns 16 nw keys of one (batch, kv head); K and V rows stay
+//        resident.  Q, dO, lse and delta stream through the ring in 32-row
+//        sub-tiles, group head by group head.  Each warp computes the
+//        transposed S^T = K Q^T and dP^T = V dO^T (A = K / V rows, B = Q /
+//        dO rows, both natively K-major), so P^T and dS^T come out with
+//        keys as rows: the A operand of dV = P^T dO and dK = dS^T Q.  Q and
+//        dO are transposed into Q^T / dO^T rows of the reference's q block;
+//        at the block's end the pairs contract over its rows and are
+//        combined into the warp's f32 dk / dv sums (registers up to hd 64,
+//        shared memory beyond).
+// C-layout scores become A fragments without a shuffle: a thread holds
+// columns 8j + 2t, 8j + 2t + 1 of each 8-wide tile j, so the k order of the
+// second contraction is permuted within each 32-wide step (kpos below) and
+// the transposed B rows are written in that same order.  Int32 sums are
+// exact, so the permutation changes no bit.  Accumulator registers do not
+// grow with the limb-pair count: each pair's contraction completes before
+// the next starts.  A smaller CTA (2 or 1 warps) is taken at launch where
+// the limb counts and hd need more shared memory than 227 KB.  hd <= 128
+// (one instantiation per 32-column chunk count).
+//
+// What the card measured (chip_smoke.py phase 2, PERF.md): with the MMAs
+// in place the f32 recompute per score is the larger cost, so it avoids
+// the quarter-rate conversion pipe (int <-> float by magic-number
+// arithmetic, one exact fma per pair combine where the scales allow) and
+// runs branch-free per element (masks as selects, and no mask at all on a
+// tile every row of which sees every key).
 #include "dfx_common.cuh"
+#include "sm90_ptx.cuh"
+
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int BQ = 16;           // dq: query rows per CTA
-constexpr int BKV = 128;         // dq: keys per block (the reference's bk)
-constexpr int PS = BKV + 4;      // dq: byte stride of a dS / K^T smem row
-constexpr int QS = 32;           // dkv: query rows per staged sub-tile
-constexpr int QP = QS + 4;       // dkv: byte stride of a transposed row
-constexpr float kBigNeg = -1e30f;
+constexpr int KS = 32;                      // sub-tile rows: one MMA k-step
+constexpr int KSB = 4;                      // k-steps of a 128-row block
+constexpr int TP = KS * KSB + 16;           // byte stride of a transposed row
+constexpr int kStages = 2;                  // depth of the cp.async ring
+constexpr int kMaxChunks = 4;               // hd <= 32 * kMaxChunks
+constexpr int kLimbWords = KSB * 32 * 4;    // a warp's A fragments of one
+                                            // limb over a block, in words
+constexpr size_t kSmemMax = 227 * 1024;
 
 struct Params {
   const int8_t* q;
@@ -81,106 +117,415 @@ struct Params {
   float* dv;
   int B, Sq, Sk, KV, G, hd;
   int lqk, lv, lg, lds;  // limb planes of q/k, v (and P), g, dS
-  int p_bits, ds_bits, causal, window, bq, kt;
+  int p_bits, ds_bits, causal, window, bq;
   float sc;
+  int nw, hdp, vec;  // warps per CTA, hd rounded up to 32, copy bytes
 };
 
-__device__ __forceinline__ int word_at(const int8_t* base, int byte_off) {
-  return *reinterpret_cast<const int*>(base + byte_off);
+// dkv keeps its f32 dk / dv sums in registers up to hd 64 (two 32-column
+// chunks: 64 registers), in shared memory beyond; dq always in registers.
+__host__ __device__ constexpr bool dkv_sums_in_regs(int chunks) {
+  return chunks <= 2;
 }
 
+// Shared-memory carve-up (byte offsets, each a multiple of 16).
+struct Smem {
+  int hp;        // byte stride of a staged row (hdp + 16: conflict-free)
+  size_t res;    // resident rows: dq Q + dO (16 nw rows); dkv K + V
+  size_t stage;  // one ring stage: dq K + V of 32 keys; dkv Q + dO of 32
+                 // query rows, then their lse and delta (f32)
+  size_t ring, tr, priv, acc, end;
+};
+
+__host__ __device__ inline Smem smem_layout(const Params& p, bool dkv) {
+  Smem m;
+  m.hp = p.hdp + 16;
+  const size_t R = 16 * p.nw;
+  size_t o = 0;
+  m.res = o;
+  o += (size_t)(dkv ? p.lqk + p.lv : p.lqk + p.lg) * R * m.hp;
+  m.stage = (size_t)(dkv ? p.lqk + p.lg : p.lqk + p.lv) * KS * m.hp +
+            (dkv ? 2 * KS * sizeof(float) : 0);
+  m.ring = o;
+  o += kStages * m.stage;
+  m.tr = o;  // dq K^T [lqk][hdp][TP]; dkv Q^T [lqk] then dO^T [lg]
+  o += (size_t)(dkv ? p.lqk + p.lg : p.lqk) * p.hdp * TP;
+  m.priv = o;  // per warp: A fragments, dq dS limbs; dkv P then dS limbs
+  o += (size_t)p.nw * (dkv ? p.lv + p.lds : p.lds) * kLimbWords * 4;
+  m.acc = o;  // per warp: dkv's f32 dk then dv sums where not in registers
+  if (dkv && !dkv_sums_in_regs(p.hdp / KS))
+    o += (size_t)p.nw * 2 * p.hdp * 16 * sizeof(float);
+  m.end = o;
+  return m;
+}
+
+__device__ __forceinline__ unsigned ld32(const int8_t* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+__device__ __forceinline__ void st32(int8_t* p, unsigned x) {
+  *reinterpret_cast<unsigned*>(p) = x;
+}
+
+// Branch-free (& and |), so the element loops below stay straight-line
+// code the compiler can interleave.
 __device__ __forceinline__ bool visible(const Params& p, int qpos,
                                         int kpos) {
-  return kpos < p.Sk && (!p.causal || kpos <= qpos) &&
-         (p.window < 0 || kpos > qpos - p.window);
+  return (kpos < p.Sk) & (!p.causal | (kpos <= qpos)) &
+         ((p.window < 0) | (kpos > qpos - p.window));
 }
 
-// Ordered limb-pair dot of two int8 plane stacks, each row contiguous over
-// the contraction (n4 bytes, a multiple of 4), planes a_plane / b_plane
-// bytes apart; combined in f32 as the reference's _limb_dot / _plane_dot:
-// sum_{ja, jb} (f32(a_ja . b_jb) * s0) * 2^(7(ja+jb) + shift).
-__device__ __forceinline__ float limb_dot(const int8_t* a, int la,
-                                          int a_plane, const int8_t* b,
-                                          int lb, int b_plane, int n4,
-                                          float s0, int shift) {
-  float out = 0.0f;
-  for (int ja = 0; ja < la; ++ja)
-    for (int jb = 0; jb < lb; ++jb) {
-      const int8_t* ar = a + ja * a_plane;
-      const int8_t* br = b + jb * b_plane;
-      int dot = 0;
-      for (int c = 0; c < n4; c += 4)
-        dot = __dp4a(word_at(ar, c), word_at(br, c), dot);
-      const float part =
-          __fmul_rn(__fmul_rn((float)dot, s0),
-                    dfx::pow2f(dfx::kLimbBits * (ja + jb) + shift));
-      out = (ja == 0 && jb == 0) ? part : __fadd_rn(out, part);
-    }
-  return out;
+// The conversions between int and float go through the FMA pipe (I2F,
+// F2I and FRND run at a quarter of its rate, and were this kernel's
+// bottleneck): 1.5 * 2^23 + x has the float bits 0x4B400000 + x for
+// |x| < 2^22, and adding 1.5 * 2^23 rounds to an integer half to even,
+// as rintf does.  Exact here: every dot is below 127^2 * 128 < 2^21 (hd and
+// the blocks are at most 128 deep; digits at most 127), and a mantissa is
+// clipped to 2^15 before it is rounded.
+constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23
+constexpr int kMagicBits = 0x4B400000;
+
+__device__ __forceinline__ float i2f(int x) {
+  return __fsub_rn(__int_as_float(kMagicBits + x), kMagic);
 }
 
+// clip(rint(y), +-(2^(bits-1) - 1)); lim is an integer, so clipping first
+// gives the same value.
 __device__ __forceinline__ int round_clip(float y, int bits) {
   const float lim = (float)((1 << (bits - 1)) - 1);
-  return (int)fminf(fmaxf(rintf(y), -lim), lim);
+  return __float_as_int(__fadd_rn(fminf(fmaxf(y, -lim), lim), kMagic)) -
+         kMagicBits;
 }
 
-// Copy `rows` rows of `n` int8 values (row r at src + r * src_stride) into
-// smem rows of `dst_stride` bytes, zero past `valid` rows and past n (up to
-// n4 bytes).  Word loads where a whole aligned word lies inside the row.
-__device__ __forceinline__ void stage_rows(int8_t* dst, int dst_stride,
-                                           const int8_t* src,
-                                           long long src_stride, int rows,
-                                           int valid, int n, int n4) {
-  const int w = n4 / 4;
-  for (int e = threadIdx.x; e < rows * w; e += kThreads) {
-    const int r = e / w, c = (e % w) * 4;
-    unsigned int word = 0;
-    if (r < valid) {
-      const int8_t* s = src + r * src_stride + c;
-      if (c + 4 <= n && (reinterpret_cast<uintptr_t>(s) & 3) == 0) {
-        word = *reinterpret_cast<const unsigned int*>(s);
-      } else {
-        for (int i = 0; i < 4; ++i)
-          if (c + i < n) word |= (unsigned int)(uint8_t)s[i] << (8 * i);
-      }
+// This lane's ldmatrix row address, relative to a 16-row x 32-byte tile
+// with rows `stride` bytes apart, for an A fragment (matrices: rows 0-7
+// bytes 0-15, rows 8-15 bytes 0-15, rows 0-7 bytes 16-31, rows 8-15 bytes
+// 16-31) and for the B fragments of two 8-row n-tiles (rows 0-7 bytes
+// 0-15 and 16-31, then rows 8-15).
+__device__ __forceinline__ int a_lane(int lane, int stride) {
+  return ((lane & 7) + 8 * ((lane >> 3) & 1)) * stride + 16 * (lane >> 4);
+}
+
+__device__ __forceinline__ int b_lane(int lane, int stride) {
+  return ((lane & 7) + 8 * (lane >> 4)) * stride + 16 * ((lane >> 3) & 1);
+}
+
+// Issue the copies of `rows` rows of hd int8 values (row r of plane j at
+// src + j * plane + r * row) into shared rows of hp bytes (plane j at
+// dst + j * rows * hp); rows at or past `valid` are zero-filled.
+template <int V>
+__device__ __forceinline__ void copy_rows(int8_t* dst, int hp,
+                                          const int8_t* src, long long plane,
+                                          long long row, int planes, int rows,
+                                          int valid, int hd) {
+  const int cpr = hd / V, nt = blockDim.x;
+  const int dc = nt % cpr, dr = nt / cpr;
+  int c = threadIdx.x % cpr, r = threadIdx.x / cpr, j = 0;
+  while (r >= rows) {
+    r -= rows;
+    ++j;
+  }
+  while (j < planes) {
+    const bool ok = r < valid;
+    ptx::cp_async<V>(dst + (j * rows + r) * hp + c * V,
+                     ok ? src + j * plane + r * row + c * V : src, ok);
+    c += dc;
+    r += dr;
+    if (c >= cpr) {
+      c -= cpr;
+      ++r;
     }
-    *reinterpret_cast<unsigned int*>(dst + r * dst_stride + c) = word;
+    while (r >= rows) {
+      r -= rows;
+      ++j;
+    }
   }
 }
 
-// Copy `rows` rows of `n` int8 values transposed: dst[d * dst_stride + r] =
-// src[r * src_stride + d], zero past `valid` rows.
-__device__ __forceinline__ void stage_cols(int8_t* dst, int dst_stride,
-                                           const int8_t* src,
-                                           long long src_stride, int rows,
-                                           int valid, int n) {
-  for (int e = threadIdx.x; e < rows * n; e += kThreads) {
-    const int r = e / n, d = e % n;
-    dst[d * dst_stride + r] = r < valid ? src[r * src_stride + d] : 0;
+__device__ __forceinline__ void stage_rows(const Params& p, int hp,
+                                           int8_t* dst, const int8_t* src,
+                                           long long plane, long long row,
+                                           int planes, int rows, int valid) {
+  switch (p.vec) {
+    case 16:
+      copy_rows<16>(dst, hp, src, plane, row, planes, rows, valid, p.hd);
+      break;
+    case 8:
+      copy_rows<8>(dst, hp, src, plane, row, planes, rows, valid, p.hd);
+      break;
+    case 4:
+      copy_rows<4>(dst, hp, src, plane, row, planes, rows, valid, p.hd);
+      break;
+    default:  // hd or a base pointer not 4-byte aligned: synchronous bytes
+      for (int e = threadIdx.x; e < planes * rows * p.hd; e += blockDim.x) {
+        const int c = e % p.hd, r = (e / p.hd) % rows, j = e / (p.hd * rows);
+        dst[(j * rows + r) * hp + c] =
+            r < valid ? src[j * plane + r * row + c] : 0;
+      }
+  }
+}
+
+// Zero bytes hd..hdp-1 of n staged rows (the copies never write them).
+__device__ __forceinline__ void zero_pad(int8_t* rows, int n, int hp,
+                                         int hd, int hdp) {
+  const int w = hdp - hd;
+  for (int e = threadIdx.x; e < n * w; e += blockDim.x)
+    rows[(e / w) * hp + hd + e % w] = 0;
+}
+
+// Transpose a staged 32-row sub-tile of `planes` planes (plane j at
+// src + j * 32 * HP) into transposed rows (plane j, column d at
+// tr + (j * HDP + d) * TP), at bytes ks * 32 + kpos(r) for sub-tile row r,
+// where kpos(16h + 8a + 2t + b) = 16h + 4t + 2a + b: the k order in which
+// a thread's C-layout columns 8j + 2t + b form its A fragment (pack4).
+// Each unit reads one word of rows 16h+2t, +1, +8, +9 and writes the 4x4
+// byte transpose as one word to each of 4 transposed rows.
+template <int HDP>
+__device__ __forceinline__ void transpose_tile(int8_t* tr, const int8_t* src,
+                                               int planes, int ks) {
+  constexpr int HP = HDP + 16, W = HDP / 4;
+  for (int u = threadIdx.x; u < planes * W * 8; u += blockDim.x) {
+    const int grp = u & 7, w = (u >> 3) % W, j = (u >> 3) / W;
+    const int h = grp >> 2, t = grp & 3;
+    const int8_t* s = src + (j * KS + 16 * h + 2 * t) * HP + 4 * w;
+    const unsigned r0 = ld32(s), r1 = ld32(s + HP), r2 = ld32(s + 8 * HP),
+                   r3 = ld32(s + 9 * HP);
+    const unsigned t0 = __byte_perm(r0, r1, 0x5140),
+                   t1 = __byte_perm(r0, r1, 0x7362),
+                   t2 = __byte_perm(r2, r3, 0x5140),
+                   t3 = __byte_perm(r2, r3, 0x7362);
+    int8_t* d = tr + (j * HDP + 4 * w) * TP + ks * KS + 16 * h + 4 * t;
+    st32(d, __byte_perm(t0, t2, 0x5410));
+    st32(d + TP, __byte_perm(t0, t2, 0x7632));
+    st32(d + 2 * TP, __byte_perm(t1, t3, 0x5410));
+    st32(d + 3 * TP, __byte_perm(t1, t3, 0x7632));
+  }
+}
+
+// The combine of a pair's dots: out (+)= (f32(c) * s0) * w, s0 = 2^e and
+// w = 2^(7n + shift).  Where every scale 2^e and 2^(e + 7n + shift) (n <= 4
+// for at most 3 limbs a side) is a normal power of two with room for
+// |c| < 2^22, both products are exact and equal c * (s0 * w), which one
+// fma yields exactly from the magic-number bits: fma(1.5 * 2^23 + c, sw,
+// -1.5 * 2^23 * sw) = c * sw before its single rounding.  `fast` says so
+// (fma_exact); else the two rounded products are taken as written.
+__device__ __forceinline__ bool fma_exact(int e, int shift) {
+  return e >= -120 && e + shift >= -120 && e + 28 + max(shift, 0) <= 100;
+}
+
+__device__ __forceinline__ void combine(float (&out)[4][4],
+                                        const int (&c)[4][4], float s0,
+                                        float w, bool first, bool fast) {
+  if (fast) {
+    const float sw = __fmul_rn(s0, w), nm = __fmul_rn(-kMagic, sw);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float part =
+            __fmaf_rn(__int_as_float(kMagicBits + c[j][e]), sw, nm);
+        out[j][e] = first ? part : __fadd_rn(out[j][e], part);
+      }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float part = __fmul_rn(__fmul_rn(i2f(c[j][e]), s0), w);
+      out[j][e] = first ? part : __fadd_rn(out[j][e], part);
+    }
+}
+
+// c[j] += A . B over 32 k for the four n-tiles j of a 16 x 32 tile: A's
+// fragment af, B's 32 rows at b (ldmatrix lane address, rows `stride`
+// bytes apart).
+__device__ __forceinline__ void mma_row(int (&c)[4][4], const unsigned (&af)[4],
+                                        const int8_t* b, int stride) {
+  unsigned b01[4], b23[4];
+  ptx::ldmatrix_x4(b01, b);
+  ptx::ldmatrix_x4(b23, b + 16 * stride);
+  ptx::mma_s8(c[0], af, b01[0], b01[1]);
+  ptx::mma_s8(c[1], af, b01[2], b01[3]);
+  ptx::mma_s8(c[2], af, b23[0], b23[1]);
+  ptx::mma_s8(c[3], af, b23[2], b23[3]);
+}
+
+// 16 x 32 scores in C layout (out[j][e]: row g + 8(e/2), column
+// 8j + 2t + e%2): the ordered limb-pair sum of (f32(dot) * s0) *
+// 2^(7(jo+ji)) over the HDP columns of 16 A rows (la planes a_plane bytes
+// apart; a at this lane's a_lane address) and 32 B rows (lb planes; b at
+// its b_lane address), rows HDP + 16 bytes apart.  AOuter: the A
+// operand's limbs are the outer loop of the pair order, else B's.
+template <int NDC, bool AOuter>
+__device__ __forceinline__ void pair_scores(float (&out)[4][4],
+                                            const int8_t* a, int la,
+                                            int a_plane, const int8_t* b,
+                                            int lb, int b_plane, float s0,
+                                            bool fast) {
+  constexpr int HP = KS * NDC + 16;
+  const int no = AOuter ? la : lb, ni = AOuter ? lb : la;
+  for (int jo = 0; jo < no; ++jo)
+    for (int ji = 0; ji < ni; ++ji) {
+      const int8_t* ap = a + (AOuter ? jo : ji) * a_plane;
+      const int8_t* bp = b + (AOuter ? ji : jo) * b_plane;
+      int c[4][4] = {};
+#pragma unroll
+      for (int kc = 0; kc < NDC; ++kc) {
+        unsigned af[4];
+        ptx::ldmatrix_x4(af, ap + kc * KS);
+        mma_row(c, af, bp + kc * KS, HP);
+      }
+      combine(out, c, s0, dfx::pow2f(dfx::kLimbBits * (jo + ji)),
+              jo == 0 && ji == 0, fast);
+    }
+}
+
+// The low bytes of x0..x3 as one word, x0 lowest.
+__device__ __forceinline__ unsigned pack4(int x0, int x1, int x2, int x3) {
+  return __byte_perm(__byte_perm(x0, x1, 0x0040), __byte_perm(x2, x3, 0x0040),
+                     0x5410);
+}
+
+// Split C-layout mantissas m into n limb digits (dfx::split_limbs) and
+// store each limb's A fragment (k order kpos) at k-step ks of the warp's
+// fragments fa ([limb][KSB][32 lanes] x 16 bytes; each lane its own).
+__device__ __forceinline__ void store_limbs(uint4* fa, int (&m)[4][4], int n,
+                                            int ks, int lane) {
+  for (int l = 0; l < n; ++l) {
+    int d[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (l < n - 1) {
+          const int carry = (m[j][e] + 64) >> dfx::kLimbBits;
+          d[j][e] = m[j][e] - carry * (1 << dfx::kLimbBits);
+          m[j][e] = carry;
+        } else {
+          d[j][e] = m[j][e];
+        }
+      }
+    fa[(l * KSB + ks) * 32 + lane] =
+        make_uint4(pack4(d[0][0], d[0][1], d[1][0], d[1][1]),
+                   pack4(d[0][2], d[0][3], d[1][2], d[1][3]),
+                   pack4(d[2][0], d[2][1], d[3][0], d[3][1]),
+                   pack4(d[2][2], d[2][3], d[3][2], d[3][3]));
+  }
+}
+
+// A block's partial of output columns 32dc..32dc+31 (16 x 32, C layout):
+// the ordered limb-pair sum (A limbs outer: the warp's fragments fa; B
+// limbs inner: transposed rows tr, at this lane's b_lane address) of
+// (f32(dot) * s0) * 2^(7(ja+jb) + shift), each dot an int32 sum over the
+// block's k-steps in `live`.
+template <int NDC>
+__device__ __forceinline__ void block_partial(float (&out)[4][4],
+                                              const uint4* fa, int la,
+                                              const int8_t* tr, int lb,
+                                              int dc, unsigned live, float s0,
+                                              int shift, bool fast, int lane) {
+  for (int ja = 0; ja < la; ++ja)
+    for (int jb = 0; jb < lb; ++jb) {
+      const int8_t* bp = tr + (jb * KS * NDC + dc * KS) * TP;
+      int c[4][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < KSB; ++ks) {
+        if (!(live >> ks & 1)) continue;
+        const uint4 f = fa[(ja * KSB + ks) * 32 + lane];
+        const unsigned af[4] = {f.x, f.y, f.z, f.w};
+        mma_row(c, af, bp + ks * KS, TP);
+      }
+      combine(out, c, s0, dfx::pow2f(dfx::kLimbBits * (ja + jb) + shift),
+              ja == 0 && jb == 0, fast);
+    }
+}
+
+// A lane's f32 sums over 16 rows x 32 NDC columns (C layout), in registers
+// or in the warp's shared memory ([NDC][4][32 lanes][4]).
+template <int NDC, bool InRegs>
+struct Sums;
+
+template <int NDC>
+struct Sums<NDC, true> {
+  float v[NDC][4][4];
+  __device__ __forceinline__ Sums(float*, int) {
+#pragma unroll
+    for (int dc = 0; dc < NDC; ++dc)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[dc][j][e] = 0.0f;
+  }
+  __device__ __forceinline__ void add(int dc, const float (&part)[4][4]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[dc][j][e] = __fadd_rn(v[dc][j][e], part[j][e]);
+  }
+  __device__ __forceinline__ float get(int dc, int j, int e) const {
+    return v[dc][j][e];
+  }
+};
+
+template <int NDC>
+struct Sums<NDC, false> {
+  float4* s;
+  __device__ __forceinline__ Sums(float* base, int lane)
+      : s(reinterpret_cast<float4*>(base) + lane) {
+    for (int i = 0; i < NDC * 4; ++i) s[i * 32] = make_float4(0, 0, 0, 0);
+  }
+  __device__ __forceinline__ void add(int dc, const float (&part)[4][4]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float4 x = s[(dc * 4 + j) * 32];
+      x.x = __fadd_rn(x.x, part[j][0]);
+      x.y = __fadd_rn(x.y, part[j][1]);
+      x.z = __fadd_rn(x.z, part[j][2]);
+      x.w = __fadd_rn(x.w, part[j][3]);
+      s[(dc * 4 + j) * 32] = x;
+    }
+  }
+  __device__ __forceinline__ float get(int dc, int j, int e) const {
+    const float4 x = s[(dc * 4 + j) * 32];
+    return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+  }
+};
+
+// Store columns d and d+1 of a row (at o) where they lie inside hd: one
+// 8-byte store for an even hd (d is even).
+__device__ __forceinline__ void store_pair(float* o, float x0, float x1,
+                                           bool row_ok, int d, int hd) {
+  if (!row_ok || d >= hd) return;
+  if (hd % 2 == 0) {
+    *reinterpret_cast<float2*>(o) = make_float2(x0, x1);
+  } else {
+    o[0] = x0;
+    if (d + 1 < hd) o[1] = x1;
   }
 }
 
 // ---------------------------------------------------------------- dq ----
 
-__global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
+template <int NDC>
+__global__ void __launch_bounds__(128) dq_kernel(const Params p) {
+  constexpr int HDP = KS * NDC, HP = HDP + 16;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int hd = p.hd, hd4 = (hd + 3) & ~3, HP = hd4 + 4;
-  int8_t* qs = reinterpret_cast<int8_t*>(smem);  // [lqk][BQ][HP]
-  int8_t* gs = qs + p.lqk * BQ * HP;             // [lg][BQ][HP]
-  int8_t* ks = gs + p.lg * BQ * HP;              // [lqk][BKV][HP]
-  int8_t* vs = ks + p.lqk * BKV * HP;            // [lv][BKV][HP]
-  int8_t* kt = vs + p.lv * BKV * HP;             // [lqk][hd][PS]
-  int8_t* dss = kt + p.lqk * hd * PS;            // [lds][BQ][PS]
-  float* acc = reinterpret_cast<float*>(dss + p.lds * BQ * PS);  // [BQ][hd]
-  float* lse_s = acc + BQ * hd;                  // [BQ]
-  float* del_s = lse_s + BQ;                     // [BQ]
-
-  const int t = threadIdx.x;
-  const int qt = blockIdx.x, g = blockIdx.y, bh = blockIdx.z;
+  const Smem m = smem_layout(p, false);
+  const int hd = p.hd, R = 16 * p.nw;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = blockIdx.y, bh = blockIdx.z;
   const int b = bh / p.KV, h = bh % p.KV;
   const int off = p.off[b];
-  const int sq0 = qt * BQ;
-  const int rows = min(BQ, p.Sq - sq0);
+  const int sq0 = blockIdx.x * R;
+  const int rows = min(R, p.Sq - sq0);
+  int8_t* res = reinterpret_cast<int8_t*>(smem + m.res);  // Q, then dO
+  int8_t* gres = res + p.lqk * R * HP;
+  int8_t* ring = reinterpret_cast<int8_t*>(smem + m.ring);
+  int8_t* kt = reinterpret_cast<int8_t*>(smem + m.tr);
+  uint4* fa = reinterpret_cast<uint4*>(smem + m.priv) +
+              warp * p.lds * kLimbWords / 4;
   const long long qplane = (long long)p.B * p.Sq * p.KV * p.G * hd;
   const long long kplane = (long long)p.B * p.Sk * p.KV * hd;
   const long long qrow = (long long)p.KV * p.G * hd;  // q row stride
@@ -190,140 +535,172 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
   const int dse = p.exps[4];
   const float sdq = dfx::pow2f(dse + p.exps[1]);
   const float inv_ds = dfx::pow2f(-dse);
+  const bool fast = fma_exact(p.exps[0] + p.exps[1], 0) &&
+                    fma_exact(p.exps[3] + p.exps[2], 0) &&
+                    fma_exact(dse + p.exps[1], 0);
+  const int a_off = 16 * warp * HP + a_lane(lane, HP);
+  const int b_off = b_lane(lane, HP), t_off = b_lane(lane, TP);
 
+  zero_pad(res, (p.lqk + p.lg) * R, HP, hd, HDP);
+  zero_pad(ring, kStages * (p.lqk + p.lv) * KS, HP, hd, HDP);
   const long long q_base = (((long long)b * p.Sq + sq0) * p.KV + h) * p.G * hd +
                            (long long)g * hd;
-  for (int j = 0; j < p.lqk; ++j)
-    stage_rows(qs + j * BQ * HP, HP, p.q + j * qplane + q_base, qrow, BQ,
-               rows, hd, hd4);
-  for (int j = 0; j < p.lg; ++j)
-    stage_rows(gs + j * BQ * HP, HP, p.g + j * qplane + q_base, qrow, BQ,
-               rows, hd, hd4);
-  for (int e = t; e < BQ * hd; e += kThreads) acc[e] = 0.0f;
-  if (t < rows) {
-    lse_s[t] = p.lse[(((long long)b * p.KV + h) * p.G + g) * p.Sq + sq0 + t];
-    del_s[t] = p.delta[(((long long)b * p.Sq + sq0 + t) * p.KV + h) * p.G + g];
+  stage_rows(p, HP, res, p.q + q_base, qplane, qrow, p.lqk, R, rows);
+  stage_rows(p, HP, gres, p.g + q_base, qplane, qrow, p.lg, R, rows);
+
+  // This lane's rows r_lo and r_lo + 8 (of the CTA's), their lse, delta.
+  const int r_lo = 16 * warp + (lane >> 2);
+  float lse_r[2], del_r[2];
+  bool row_ok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = sq0 + r_lo + 8 * i;
+    row_ok[i] = r < p.Sq;
+    lse_r[i] = row_ok[i]
+        ? p.lse[(((long long)b * p.KV + h) * p.G + g) * p.Sq + r] : 0.0f;
+    del_r[i] = row_ok[i]
+        ? p.delta[(((long long)b * p.Sq + r) * p.KV + h) * p.G + g] : 0.0f;
   }
   const int q_lo = off + sq0, q_hi = off + sq0 + rows - 1;
+  const int wrows = min(16, p.Sq - sq0 - 16 * warp);
+  const int wq_lo = q_lo + 16 * warp, wq_hi = wq_lo + wrows - 1;
+  const int n_st = (p.Sk + KS - 1) / KS;
+  // Sub-tile st (keys 32st..) visible to some query position in lo..hi?
+  auto live = [&](int st, int lo, int hi) {
+    const int k0 = st * KS, k1 = min(k0 + KS, p.Sk) - 1;
+    return !(p.causal && k0 > hi) && !(p.window >= 0 && k1 <= lo - p.window);
+  };
+  auto next = [&](int st) {
+    while (st < n_st && !live(st, q_lo, q_hi)) ++st;
+    return st;
+  };
+  auto issue = [&](int st, int stage) {
+    const int k0 = st * KS;
+    int8_t* dst = ring + stage * m.stage;
+    const long long k_base = (((long long)b * p.Sk + k0) * p.KV + h) * hd;
+    const int nk = min(KS, p.Sk - k0);
+    stage_rows(p, HP, dst, p.k + k_base, kplane, krow, p.lqk, KS, nk);
+    stage_rows(p, HP, dst + p.lqk * KS * HP, p.v + k_base, kplane, krow,
+               p.lv, KS, nk);
+  };
 
-  const int n_kb = (p.Sk + BKV - 1) / BKV;
-  for (int kb = 0; kb < n_kb; ++kb) {
-    const int k_lo = kb * BKV;
-    const int k_hi = min(k_lo + BKV, p.Sk) - 1;
-    if (p.causal && k_lo > q_hi) continue;                   // all k > q
-    if (p.window >= 0 && k_hi <= q_lo - p.window) continue;  // all outside
-    __syncthreads();  // the previous block's smem reads are done
-    const int nk = k_hi - k_lo + 1;
-    const long long k_base = (((long long)b * p.Sk + k_lo) * p.KV + h) * hd;
-    for (int j = 0; j < p.lqk; ++j) {
-      stage_rows(ks + j * BKV * HP, HP, p.k + j * kplane + k_base, krow, BKV,
-                 nk, hd, hd4);
-      stage_cols(kt + j * hd * PS, PS, p.k + j * kplane + k_base, krow, BKV,
-                 nk, hd);
+  int prod = next(0);
+  for (int s = 0; s < kStages - 1; ++s) {  // group 0 holds Q and dO too
+    if (prod < n_st) {
+      issue(prod, s);
+      prod = next(prod + 1);
     }
-    for (int j = 0; j < p.lv; ++j)
-      stage_rows(vs + j * BKV * HP, HP, p.v + j * kplane + k_base, krow, BKV,
-                 nk, hd, hd4);
-    __syncthreads();
-
-    // Thread t owns key column t: s, p, dp, dS for every row of the tile.
-    {
-      const int kpos = k_lo + t;
-      for (int r = 0; r < BQ; ++r) {
-        int dsm = 0;
-        if (r < rows && visible(p, off + sq0 + r, kpos)) {
-          const float s = __fmul_rn(
-              limb_dot(qs + r * HP, p.lqk, BQ * HP, ks + t * HP, p.lqk,
-                       BKV * HP, hd4, s0, 0),
-              p.sc);
-          const float pr = expf(__fsub_rn(s, lse_s[r]));
-          const float dp = limb_dot(gs + r * HP, p.lg, BQ * HP, vs + t * HP,
-                                    p.lv, BKV * HP, hd4, sdp, 0);
-          const float ds = __fmul_rn(pr, __fsub_rn(dp, del_s[r]));
-          dsm = round_clip(__fmul_rn(ds, inv_ds), p.ds_bits);
-        }
-        dfx::split_limbs(dsm, p.lds, [&](int j, int dgt) {
-          dss[(j * BQ + r) * PS + t] = (int8_t)dgt;
-        });
+    ptx::cp_async_commit();
+  }
+  Sums<NDC, true> acc(nullptr, lane);
+  unsigned live_ks = 0;  // the warp's k-steps of the current key block
+  for (int cur = next(0), it = 0; cur < n_st; ++it) {
+    if (prod < n_st) {
+      issue(prod, (it + kStages - 1) % kStages);
+      prod = next(prod + 1);
+    }
+    ptx::cp_async_commit();
+    ptx::cp_async_wait<kStages - 1>();
+    __syncthreads();  // sub-tile `cur` landed; the last block's dQ is done
+    const int8_t* kst = ring + (it % kStages) * m.stage;
+    const int ks = cur % KSB;
+    transpose_tile<HDP>(kt, kst, p.lqk, ks);
+    if (wrows > 0 && live(cur, wq_lo, wq_hi)) {
+      float s[4][4], dp[4][4];
+      pair_scores<NDC, true>(s, res + a_off, p.lqk, R * HP, kst + b_off,
+                             p.lqk, KS * HP, s0, fast);
+      pair_scores<NDC, true>(dp, gres + a_off, p.lg, R * HP,
+                             kst + p.lqk * KS * HP + b_off, p.lv, KS * HP,
+                             sdp, fast);
+      int dsm[4][4];
+      // p and dS per element, computed everywhere and selected (no branch
+      // per element); the mask only where the warp's tile is not all
+      // visible.
+      auto to_ds = [&](auto masked) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            bool ok = true;
+            if constexpr (decltype(masked)::value)
+              ok = row_ok[i] & visible(p, q_lo + r_lo + 8 * i,
+                                       cur * KS + 8 * j + 2 * (lane & 3) +
+                                           (e & 1));
+            const float ex =
+                expf(__fsub_rn(__fmul_rn(s[j][e], p.sc), lse_r[i]));
+            const float pr = ok ? ex : 0.0f;
+            const float ds = __fmul_rn(pr, __fsub_rn(dp[j][e], del_r[i]));
+            const int m = round_clip(__fmul_rn(ds, inv_ds), p.ds_bits);
+            dsm[j][e] = ok ? m : 0;
+          }
+      };
+      const int k1 = cur * KS + KS - 1;
+      if (wrows == 16 && k1 < p.Sk && (!p.causal || k1 <= wq_lo) &&
+          (p.window < 0 || cur * KS > wq_hi - p.window))
+        to_ds(std::false_type());
+      else
+        to_ds(std::true_type());
+      store_limbs(fa, dsm, p.lds, ks, lane);
+      live_ks |= 1u << ks;
+    }
+    __syncthreads();  // K^T of the sub-tile written; its stage read
+    const int nxt = next(cur + 1);
+    if (live_ks && (nxt >= n_st || nxt / KSB != cur / KSB)) {  // block end
+#pragma unroll
+      for (int dc = 0; dc < NDC; ++dc) {
+        float part[4][4];
+        block_partial<NDC>(part, fa, p.lds, kt + t_off, p.lqk, dc, live_ks,
+                           sdq, 0, fast, lane);
+        acc.add(dc, part);
       }
+      live_ks = 0;
     }
-    __syncthreads();
+    cur = nxt;
+  }
+  ptx::cp_async_wait<0>();
 
-    // dq[r][d] += ordered sum over (dS limb, K limb) of dS . K over keys.
-    for (int e = t; e < BQ * hd; e += kThreads) {
-      const int r = e / hd, d = e % hd;
-      const float part = limb_dot(dss + r * PS, p.lds, BQ * PS, kt + d * PS,
-                                  p.lqk, hd * PS, BKV, sdq, 0);
-      acc[e] = __fadd_rn(acc[e], part);
-    }
-  }
-  __syncthreads();
-  for (int e = t; e < rows * hd; e += kThreads) {
-    const int r = e / hd, d = e % hd;
-    p.dq[(((long long)b * p.Sq + sq0 + r) * p.KV + h) * p.G * hd +
-         (long long)g * hd + d] = __fmul_rn(acc[e], p.sc);
-  }
+#pragma unroll
+  for (int dc = 0; dc < NDC; ++dc)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // rows r_lo, r_lo + 8: columns d, d+1
+        const int r = sq0 + r_lo + 8 * i;
+        const int d = dc * KS + 8 * j + 2 * (lane & 3);
+        float* o = p.dq + (((long long)b * p.Sq + r) * p.KV + h) * p.G * hd +
+                   (long long)g * hd + d;
+        store_pair(o, __fmul_rn(acc.get(dc, j, 2 * i), p.sc),
+                   __fmul_rn(acc.get(dc, j, 2 * i + 1), p.sc), r < p.Sq,
+                   d, hd);
+      }
 }
 
 // --------------------------------------------------------------- dkv ----
 
-struct DkvSmem {
-  int HP, kt;
-  size_t ks, vs, qr, gr, qt, gt, dst, pmt, idk, idv, fdk, fdv, lse, del, end;
-};
-
-// Shared-memory carve-up of the dkv kernel (byte offsets; every region is a
-// multiple of 4 bytes).
-__host__ __device__ inline DkvSmem dkv_smem(const Params& p, int kt) {
-  DkvSmem m;
-  const int hd4 = (p.hd + 3) & ~3;
-  m.HP = hd4 + 4;
-  m.kt = kt;
-  size_t o = 0;
-  m.ks = o;  o += (size_t)p.lqk * kt * m.HP;        // K rows [lqk][kt][HP]
-  m.vs = o;  o += (size_t)p.lv * kt * m.HP;         // V rows [lv][kt][HP]
-  m.qr = o;  o += (size_t)p.lqk * QS * m.HP;        // Q rows [lqk][QS][HP]
-  m.gr = o;  o += (size_t)p.lg * QS * m.HP;         // dO rows [lg][QS][HP]
-  m.qt = o;  o += (size_t)p.lqk * p.hd * QP;        // Q^T [lqk][hd][QP]
-  m.gt = o;  o += (size_t)p.lg * p.hd * QP;         // dO^T [lg][hd][QP]
-  m.dst = o; o += (size_t)p.lds * kt * QP;          // dS^T [lds][kt][QP]
-  m.pmt = o; o += (size_t)p.lv * kt * QP;           // P^T [lv][kt][QP]
-  m.idk = o; o += 4 * (size_t)p.lds * p.lqk * kt * p.hd;  // int32 dk pairs
-  m.idv = o; o += 4 * (size_t)p.lv * p.lg * kt * p.hd;    // int32 dv pairs
-  m.fdk = o; o += 4 * (size_t)kt * p.hd;            // f32 dk
-  m.fdv = o; o += 4 * (size_t)kt * p.hd;            // f32 dv
-  m.lse = o; o += 4 * QS;
-  m.del = o; o += 4 * QS;
-  m.end = o;
-  return m;
-}
-
-__global__ void __launch_bounds__(kThreads) dkv_kernel(const Params p) {
+template <int NDC>
+__global__ void __launch_bounds__(128) dkv_kernel(const Params p) {
+  constexpr int HDP = KS * NDC, HP = HDP + 16;
+  constexpr bool kRegSums = dkv_sums_in_regs(NDC);
   extern __shared__ __align__(16) unsigned char smem[];
-  const DkvSmem m = dkv_smem(p, p.kt);
-  const int hd = p.hd, hd4 = (hd + 3) & ~3, HP = m.HP, KT = p.kt;
-  int8_t* ks = reinterpret_cast<int8_t*>(smem + m.ks);
-  int8_t* vs = reinterpret_cast<int8_t*>(smem + m.vs);
-  int8_t* qr = reinterpret_cast<int8_t*>(smem + m.qr);
-  int8_t* gr = reinterpret_cast<int8_t*>(smem + m.gr);
-  int8_t* qtr = reinterpret_cast<int8_t*>(smem + m.qt);
-  int8_t* gtr = reinterpret_cast<int8_t*>(smem + m.gt);
-  int8_t* dst = reinterpret_cast<int8_t*>(smem + m.dst);
-  int8_t* pmt = reinterpret_cast<int8_t*>(smem + m.pmt);
-  int* idk = reinterpret_cast<int*>(smem + m.idk);
-  int* idv = reinterpret_cast<int*>(smem + m.idv);
-  float* fdk = reinterpret_cast<float*>(smem + m.fdk);
-  float* fdv = reinterpret_cast<float*>(smem + m.fdv);
-  float* lse_s = reinterpret_cast<float*>(smem + m.lse);
-  float* del_s = reinterpret_cast<float*>(smem + m.del);
-
-  const int t = threadIdx.x;
+  const Smem m = smem_layout(p, true);
+  const int hd = p.hd, R = 16 * p.nw;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int bh = blockIdx.y;
   const int b = bh / p.KV, h = bh % p.KV;
   const int off = p.off[b];
-  const int k_lo = blockIdx.x * KT;
-  const int nk = min(KT, p.Sk - k_lo);
+  const int k_lo = blockIdx.x * R;
+  const int nk = min(R, p.Sk - k_lo);
   const int k_hi = k_lo + nk - 1;
+  int8_t* res = reinterpret_cast<int8_t*>(smem + m.res);  // K, then V
+  int8_t* vres = res + p.lqk * R * HP;
+  int8_t* ring = reinterpret_cast<int8_t*>(smem + m.ring);
+  int8_t* qt = reinterpret_cast<int8_t*>(smem + m.tr);  // Q^T, then dO^T
+  int8_t* gt = qt + p.lqk * HDP * TP;
+  uint4* fa = reinterpret_cast<uint4*>(smem + m.priv) +
+              warp * (p.lv + p.lds) * kLimbWords / 4;  // P, then dS
+  uint4* fds = fa + p.lv * kLimbWords / 4;
+  float* sums = reinterpret_cast<float*>(smem + m.acc) + warp * 2 * HDP * 16;
   const long long qplane = (long long)p.B * p.Sq * p.KV * p.G * hd;
   const long long kplane = (long long)p.B * p.Sk * p.KV * hd;
   const long long qrow = (long long)p.KV * p.G * hd;
@@ -335,147 +712,159 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Params p) {
   const float sdk = dfx::pow2f(dse + p.exps[0]);
   const float sdv = dfx::pow2f(p.exps[3]);
   const float pscale = dfx::pow2f(p.p_bits - 1);
-  const int ndk = p.lds * p.lqk, ndv = p.lv * p.lg;
-  const int n_out = KT * hd;
+  const bool fast = fma_exact(p.exps[0] + p.exps[1], 0) &&
+                    fma_exact(p.exps[3] + p.exps[2], 0) &&
+                    fma_exact(p.exps[3], -(p.p_bits - 1)) &&
+                    fma_exact(dse + p.exps[0], 0);
+  const int lse_at = (p.lqk + p.lg) * KS * HP;  // in a stage
+  const int a_off = 16 * warp * HP + a_lane(lane, HP);
+  const int b_off = b_lane(lane, HP), t_off = b_lane(lane, TP);
 
+  zero_pad(res, (p.lqk + p.lv) * R, HP, hd, HDP);
+  for (int s = 0; s < kStages; ++s)
+    zero_pad(ring + s * m.stage, (p.lqk + p.lg) * KS, HP, hd, HDP);
   const long long k_base = (((long long)b * p.Sk + k_lo) * p.KV + h) * hd;
-  for (int j = 0; j < p.lqk; ++j)
-    stage_rows(ks + j * KT * HP, HP, p.k + j * kplane + k_base, krow, KT, nk,
-               hd, hd4);
-  for (int j = 0; j < p.lv; ++j)
-    stage_rows(vs + j * KT * HP, HP, p.v + j * kplane + k_base, krow, KT, nk,
-               hd, hd4);
-  for (int e = t; e < n_out; e += kThreads) {
-    fdk[e] = 0.0f;
-    fdv[e] = 0.0f;
-    for (int i = 0; i < ndk; ++i) idk[i * n_out + e] = 0;
-    for (int i = 0; i < ndv; ++i) idv[i * n_out + e] = 0;
-  }
+  stage_rows(p, HP, res, p.k + k_base, kplane, krow, p.lqk, R, nk);
+  stage_rows(p, HP, vres, p.v + k_base, kplane, krow, p.lv, R, nk);
 
-  for (int g = 0; g < p.G; ++g) {
-    for (int qb0 = 0; qb0 < p.Sq; qb0 += p.bq) {
-      const int qb_end = min(qb0 + p.bq, p.Sq);
-      for (int r0 = qb0; r0 < qb_end; r0 += QS) {
-        const int nr = min(QS, qb_end - r0);
-        const int q_lo = off + r0, q_hi = off + r0 + nr - 1;
-        if (p.causal && k_lo > q_hi) continue;                   // k > q
-        if (p.window >= 0 && k_hi <= q_lo - p.window) continue;  // outside
-        __syncthreads();  // the previous sub-tile's smem reads are done
-        const long long q_base =
-            (((long long)b * p.Sq + r0) * p.KV + h) * p.G * hd +
-            (long long)g * hd;
-        for (int j = 0; j < p.lqk; ++j) {
-          stage_rows(qr + j * QS * HP, HP, p.q + j * qplane + q_base, qrow,
-                     QS, nr, hd, hd4);
-          stage_cols(qtr + j * hd * QP, QP, p.q + j * qplane + q_base, qrow,
-                     QS, nr, hd);
-        }
-        for (int j = 0; j < p.lg; ++j) {
-          stage_rows(gr + j * QS * HP, HP, p.g + j * qplane + q_base, qrow,
-                     QS, nr, hd, hd4);
-          stage_cols(gtr + j * hd * QP, QP, p.g + j * qplane + q_base, qrow,
-                     QS, nr, hd);
-        }
-        if (t < nr) {
-          lse_s[t] =
-              p.lse[(((long long)b * p.KV + h) * p.G + g) * p.Sq + r0 + t];
-          del_s[t] =
-              p.delta[(((long long)b * p.Sq + r0 + t) * p.KV + h) * p.G + g];
-        }
-        __syncthreads();
-
-        // s, p, dp, dS for every (row, key) of the sub-tile; P and dS limb
-        // digits written transposed (row-contiguous per key).
-        for (int e = t; e < QS * KT; e += kThreads) {
-          const int r = e / KT, c = e % KT;
-          int pm = 0, dsm = 0;
-          if (r < nr && visible(p, off + r0 + r, k_lo + c)) {
-            const float s = __fmul_rn(
-                limb_dot(qr + r * HP, p.lqk, QS * HP, ks + c * HP, p.lqk,
-                         KT * HP, hd4, s0, 0),
-                p.sc);
-            const float pr = expf(__fsub_rn(s, lse_s[r]));
-            pm = round_clip(__fmul_rn(pr, pscale), p.p_bits);
-            const float dp = limb_dot(gr + r * HP, p.lg, QS * HP,
-                                      vs + c * HP, p.lv, KT * HP, hd4, sdp,
-                                      0);
-            const float ds = __fmul_rn(pr, __fsub_rn(dp, del_s[r]));
-            dsm = round_clip(__fmul_rn(ds, inv_ds), p.ds_bits);
-          }
-          dfx::split_limbs(pm, p.lv, [&](int j, int dgt) {
-            pmt[(j * KT + c) * QP + r] = (int8_t)dgt;
-          });
-          dfx::split_limbs(dsm, p.lds, [&](int j, int dgt) {
-            dst[(j * KT + c) * QP + r] = (int8_t)dgt;
-          });
-        }
-        __syncthreads();
-
-        // int32 limb-pair sums over the sub-tile's rows, per (key, d).
-        for (int e = t; e < n_out; e += kThreads) {
-          const int c = e / hd, d = e % hd;
-          for (int ja = 0; ja < p.lv; ++ja)
-            for (int jb = 0; jb < p.lg; ++jb) {
-              const int8_t* a = pmt + (ja * KT + c) * QP;
-              const int8_t* bb = gtr + (jb * hd + d) * QP;
-              int dot = idv[(ja * p.lg + jb) * n_out + e];
-              for (int i = 0; i < QS; i += 4)
-                dot = __dp4a(word_at(a, i), word_at(bb, i), dot);
-              idv[(ja * p.lg + jb) * n_out + e] = dot;
-            }
-          for (int ja = 0; ja < p.lds; ++ja)
-            for (int jb = 0; jb < p.lqk; ++jb) {
-              const int8_t* a = dst + (ja * KT + c) * QP;
-              const int8_t* bb = qtr + (jb * hd + d) * QP;
-              int dot = idk[(ja * p.lqk + jb) * n_out + e];
-              for (int i = 0; i < QS; i += 4)
-                dot = __dp4a(word_at(a, i), word_at(bb, i), dot);
-              idk[(ja * p.lqk + jb) * n_out + e] = dot;
-            }
-        }
-      }
-      // End of a reference q block: the ordered f32 combine of its
-      // limb-pair sums, added to the running dk / dv (each thread its own
-      // elements, as in the loop above).
-      for (int e = t; e < n_out; e += kThreads) {
-        float pv = 0.0f;
-        for (int ja = 0; ja < p.lv; ++ja)
-          for (int jb = 0; jb < p.lg; ++jb) {
-            int* cell = idv + (ja * p.lg + jb) * n_out + e;
-            const float part = __fmul_rn(
-                __fmul_rn((float)*cell, sdv),
-                dfx::pow2f(dfx::kLimbBits * (ja + jb) - (p.p_bits - 1)));
-            pv = (ja == 0 && jb == 0) ? part : __fadd_rn(pv, part);
-            *cell = 0;
-          }
-        fdv[e] = __fadd_rn(fdv[e], pv);
-        float pk = 0.0f;
-        for (int ja = 0; ja < p.lds; ++ja)
-          for (int jb = 0; jb < p.lqk; ++jb) {
-            int* cell = idk + (ja * p.lqk + jb) * n_out + e;
-            const float part =
-                __fmul_rn(__fmul_rn((float)*cell, sdk),
-                          dfx::pow2f(dfx::kLimbBits * (ja + jb)));
-            pk = (ja == 0 && jb == 0) ? part : __fadd_rn(pk, part);
-            *cell = 0;
-          }
-        fdk[e] = __fadd_rn(fdk[e], pk);
-      }
+  const int wk0 = k_lo + 16 * warp;  // this warp's keys wk0..wk1
+  const int wk1 = min(wk0 + 16, p.Sk) - 1;
+  const int n_st = (p.Sq + KS - 1) / KS;
+  const int n_t = p.G * n_st;  // sub-tiles, group head major
+  // Tile i (group head i / n_st, query rows 32 (i % n_st)..) visible to
+  // some key of klo..khi?
+  auto live = [&](int i, int klo, int khi) {
+    const int r0 = (i % n_st) * KS, r1 = min(r0 + KS, p.Sq) - 1;
+    return !(p.causal && klo > off + r1) &&
+           !(p.window >= 0 && khi <= off + r0 - p.window);
+  };
+  auto next = [&](int i) {
+    while (i < n_t && !live(i, k_lo, k_hi)) ++i;
+    return i;
+  };
+  auto issue = [&](int i, int stage) {
+    const int g = i / n_st, r0 = (i % n_st) * KS;
+    const int nr = min(KS, p.Sq - r0);
+    int8_t* dst = ring + stage * m.stage;
+    const long long q_base =
+        (((long long)b * p.Sq + r0) * p.KV + h) * p.G * hd + (long long)g * hd;
+    stage_rows(p, HP, dst, p.q + q_base, qplane, qrow, p.lqk, KS, nr);
+    stage_rows(p, HP, dst + p.lqk * KS * HP, p.g + q_base, qplane, qrow,
+               p.lg, KS, nr);
+    float* rows = reinterpret_cast<float*>(dst + lse_at);  // lse, delta
+    for (int e = threadIdx.x; e < 2 * KS; e += blockDim.x) {
+      const int r = e % KS;
+      const bool ok = r < nr;
+      const float* src =
+          e < KS
+              ? p.lse + (((long long)b * p.KV + h) * p.G + g) * p.Sq + r0 + r
+              : p.delta + (((long long)b * p.Sq + r0 + r) * p.KV + h) * p.G +
+                    g;
+      ptx::cp_async<4>(rows + e, ok ? src : p.lse, ok);
     }
-  }
+  };
 
-  for (int e = t; e < nk * hd; e += kThreads) {
-    const int c = e / hd, d = e % hd;
-    const long long o = (((long long)b * p.Sk + k_lo + c) * p.KV + h) * hd + d;
-    p.dk[o] = __fmul_rn(fdk[e], p.sc);
-    p.dv[o] = fdv[e];
+  int prod = next(0);
+  for (int s = 0; s < kStages - 1; ++s) {  // group 0 holds K and V too
+    if (prod < n_t) {
+      issue(prod, s);
+      prod = next(prod + 1);
+    }
+    ptx::cp_async_commit();
   }
+  Sums<NDC, kRegSums> sk(sums, lane), sv(sums + HDP * 16, lane);
+  unsigned live_ks = 0;  // the warp's k-steps of the current q block
+  for (int cur = next(0), it = 0; cur < n_t; ++it) {
+    if (prod < n_t) {
+      issue(prod, (it + kStages - 1) % kStages);
+      prod = next(prod + 1);
+    }
+    ptx::cp_async_commit();
+    ptx::cp_async_wait<kStages - 1>();
+    __syncthreads();  // sub-tile `cur` landed; the last block's dK/dV done
+    const int8_t* qst = ring + (it % kStages) * m.stage;
+    const float* lse_s = reinterpret_cast<const float*>(qst + lse_at);
+    const float* del_s = lse_s + KS;
+    const int r0 = (cur % n_st) * KS;
+    const int ks = r0 % p.bq / KS;
+    transpose_tile<HDP>(qt, qst, p.lqk + p.lg, ks);
+    if (wk0 <= wk1 && live(cur, wk0, wk1)) {
+      float s[4][4], dp[4][4];
+      pair_scores<NDC, false>(s, res + a_off, p.lqk, R * HP, qst + b_off,
+                              p.lqk, KS * HP, s0, fast);
+      pair_scores<NDC, false>(dp, vres + a_off, p.lv, R * HP,
+                              qst + p.lqk * KS * HP + b_off, p.lg, KS * HP,
+                              sdp, fast);
+      int pm[4][4], dsm[4][4];
+      // p, P and dS per element, as in dq_kernel
+      auto to_pds = [&](auto masked) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int rl = 8 * j + 2 * (lane & 3) + (e & 1);
+            bool ok = true;
+            if constexpr (decltype(masked)::value)
+              ok = (r0 + rl < p.Sq) &
+                   visible(p, off + r0 + rl, wk0 + (lane >> 2) + 8 * (e >> 1));
+            const float ex =
+                expf(__fsub_rn(__fmul_rn(s[j][e], p.sc), lse_s[rl]));
+            const float pr = ok ? ex : 0.0f;
+            const int pmv = round_clip(__fmul_rn(pr, pscale), p.p_bits);
+            const float ds = __fmul_rn(pr, __fsub_rn(dp[j][e], del_s[rl]));
+            const int m = round_clip(__fmul_rn(ds, inv_ds), p.ds_bits);
+            pm[j][e] = ok ? pmv : 0;
+            dsm[j][e] = ok ? m : 0;
+          }
+      };
+      const int wk15 = wk0 + 15;
+      if (r0 + KS <= p.Sq && wk15 < p.Sk && (!p.causal || wk15 <= off + r0) &&
+          (p.window < 0 || wk0 > off + r0 + KS - 1 - p.window))
+        to_pds(std::false_type());
+      else
+        to_pds(std::true_type());
+      store_limbs(fa, pm, p.lv, ks, lane);
+      store_limbs(fds, dsm, p.lds, ks, lane);
+      live_ks |= 1u << ks;
+    }
+    __syncthreads();  // Q^T / dO^T of the sub-tile written; its stage read
+    const int nxt = next(cur + 1);
+    if (live_ks && (nxt >= n_t || nxt / n_st != cur / n_st ||
+                    (nxt % n_st) * KS / p.bq != r0 / p.bq)) {  // block end
+#pragma unroll
+      for (int dc = 0; dc < NDC; ++dc) {
+        float part[4][4];
+        block_partial<NDC>(part, fa, p.lv, gt + t_off, p.lg, dc, live_ks,
+                           sdv, -(p.p_bits - 1), fast, lane);
+        sv.add(dc, part);
+        block_partial<NDC>(part, fds, p.lds, qt + t_off, p.lqk, dc, live_ks,
+                           sdk, 0, fast, lane);
+        sk.add(dc, part);
+      }
+      live_ks = 0;
+    }
+    cur = nxt;
+  }
+  ptx::cp_async_wait<0>();
+
+#pragma unroll
+  for (int dc = 0; dc < NDC; ++dc)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // keys wk0 + g + 8i: columns d, d+1
+        const int kpos = wk0 + (lane >> 2) + 8 * i;
+        const int d = dc * KS + 8 * j + 2 * (lane & 3);
+        const long long o = (((long long)b * p.Sk + kpos) * p.KV + h) * hd + d;
+        store_pair(p.dk + o, __fmul_rn(sk.get(dc, j, 2 * i), p.sc),
+                   __fmul_rn(sk.get(dc, j, 2 * i + 1), p.sc), kpos < p.Sk, d,
+                   hd);
+        store_pair(p.dv + o, sv.get(dc, j, 2 * i), sv.get(dc, j, 2 * i + 1),
+                   kpos < p.Sk, d, hd);
+      }
 }
 
-constexpr size_t kSmemMax = 227 * 1024;
-
 int set_smem(const void* kernel, size_t smem, size_t* granted) {
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   if (smem > *granted) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -485,9 +874,46 @@ int set_smem(const void* kernel, size_t smem, size_t* granted) {
   return 0;
 }
 
-bool bad_limbs(const Params& p) {
-  return p.lqk < 1 || p.lqk > 3 || p.lv < 1 || p.lv > 3 || p.lg < 1 ||
-         p.lg > 3 || p.lds < 1 || p.lds > 3;
+// Limb counts and hd in range; then the widest CTA (4, 2 or 1 warps)
+// whose shared memory fits, and the widest copy the alignment allows.
+int configure(Params& p, bool dkv, size_t* smem) {
+  if (p.lqk < 1 || p.lqk > 3 || p.lv < 1 || p.lv > 3 || p.lg < 1 ||
+      p.lg > 3 || p.lds < 1 || p.lds > 3 || p.hd > KS * kMaxChunks)
+    return (int)cudaErrorInvalidValue;
+  p.hdp = (p.hd + KS - 1) / KS * KS;
+  const uintptr_t base = (uintptr_t)p.q | (uintptr_t)p.k | (uintptr_t)p.v |
+                         (uintptr_t)p.g;
+  p.vec = 1;
+  for (int v = 16; v >= 4; v /= 2)
+    if (p.hd % v == 0 && base % v == 0) {
+      p.vec = v;
+      break;
+    }
+  for (p.nw = 4; p.nw >= 1; p.nw /= 2) {
+    *smem = smem_layout(p, dkv).end;
+    if (*smem <= kSmemMax) return 0;
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int NDC>
+int launch_dq(const Params& p, size_t smem, cudaStream_t stream) {
+  static size_t granted = 48 * 1024;
+  const int err = set_smem((const void*)dq_kernel<NDC>, smem, &granted);
+  if (err) return err;
+  const dim3 grid((p.Sq + 16 * p.nw - 1) / (16 * p.nw), p.G, p.B * p.KV);
+  dq_kernel<NDC><<<grid, 32 * p.nw, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int NDC>
+int launch_dkv(const Params& p, size_t smem, cudaStream_t stream) {
+  static size_t granted = 48 * 1024;
+  const int err = set_smem((const void*)dkv_kernel<NDC>, smem, &granted);
+  if (err) return err;
+  const dim3 grid((p.Sk + 16 * p.nw - 1) / (16 * p.nw), p.B * p.KV);
+  dkv_kernel<NDC><<<grid, 32 * p.nw, smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -496,6 +922,7 @@ bool bad_limbs(const Params& p) {
 // limb planes; lse (B, KV, G, Sq) and delta (B, Sq, KV, G) f32; off (B,)
 // int32 query offsets; exps (5,) int32 [q, k, v, g, dS] exponents (device
 // memory).  dq: (B, Sq, KV, G, hd) f32.  window < 0: no sliding window.
+// hd <= 128.
 extern "C" int int_attn_bwd_dq_launch(
     const int8_t* q, const int8_t* k, const int8_t* v, const int8_t* g,
     const float* lse, const float* delta, const int* off, const int* exps,
@@ -504,21 +931,18 @@ extern "C" int int_attn_bwd_dq_launch(
     cudaStream_t stream) {
   if (B <= 0 || Sq <= 0 || KV <= 0 || G <= 0 || hd <= 0) return 0;
   if (G > 65535 || (long long)B * KV > 65535) return (int)cudaErrorInvalidValue;
-  const Params p{q, k, v, g, lse, delta, off, exps, dq, nullptr, nullptr,
-                 B, Sq, Sk, KV, G, hd, lqk, lv, lg, lds, 0, ds_bits, causal,
-                 window, 0, 0, sc};
-  if (bad_limbs(p)) return (int)cudaErrorInvalidValue;
-  const int hd4 = (hd + 3) & ~3, HP = hd4 + 4;
-  const size_t smem = (size_t)(lqk + lg) * BQ * HP +
-                      (size_t)(lqk + lv) * BKV * HP + (size_t)lqk * hd * PS +
-                      (size_t)lds * BQ * PS +
-                      sizeof(float) * ((size_t)BQ * hd + 2 * BQ);
-  static size_t granted = 48 * 1024;
-  const int err = set_smem((const void*)dq_kernel, smem, &granted);
+  Params p{q, k, v, g, lse, delta, off, exps, dq, nullptr, nullptr,
+           B, Sq, Sk, KV, G, hd, lqk, lv, lg, lds, 0, ds_bits, causal,
+           window, 0, sc, 0, 0, 0};
+  size_t smem = 0;
+  const int err = configure(p, false, &smem);
   if (err) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, G, B * KV);
-  dq_kernel<<<grid, kThreads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+  switch (p.hdp / KS) {
+    case 1: return launch_dq<1>(p, smem, stream);
+    case 2: return launch_dq<2>(p, smem, stream);
+    case 3: return launch_dq<3>(p, smem, stream);
+    default: return launch_dq<4>(p, smem, stream);
+  }
 }
 
 // Arguments as int_attn_bwd_dq_launch; bq is the reference's query block
@@ -531,21 +955,19 @@ extern "C" int int_attn_bwd_dkv_launch(
     int lqk, int lv, int lg, int lds, int p_bits, int ds_bits, int bq,
     int causal, int window, float sc, cudaStream_t stream) {
   if (B <= 0 || Sk <= 0 || KV <= 0 || G <= 0 || hd <= 0) return 0;
-  if ((long long)B * KV > 65535 || bq <= 0) return (int)cudaErrorInvalidValue;
+  // the q blocks are whole 32-row sub-tiles (bq = 128) or all of Sq
+  if ((long long)B * KV > 65535 || bq <= 0 || (bq % KS && bq < Sq))
+    return (int)cudaErrorInvalidValue;
   Params p{q, k, v, g, lse, delta, off, exps, nullptr, dk, dv,
            B, Sq, Sk, KV, G, hd, lqk, lv, lg, lds, p_bits, ds_bits, causal,
-           window, bq, 32, sc};
-  if (bad_limbs(p)) return (int)cudaErrorInvalidValue;
-  // 32 keys per CTA, 16 where the int32 pair sums would not fit.
-  size_t smem = dkv_smem(p, 32).end;
-  if (smem > kSmemMax) {
-    p.kt = 16;
-    smem = dkv_smem(p, 16).end;
-  }
-  static size_t granted = 48 * 1024;
-  const int err = set_smem((const void*)dkv_kernel, smem, &granted);
+           window, bq, sc, 0, 0, 0};
+  size_t smem = 0;
+  const int err = configure(p, true, &smem);
   if (err) return err;
-  const dim3 grid((Sk + p.kt - 1) / p.kt, B * KV);
-  dkv_kernel<<<grid, kThreads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+  switch (p.hdp / KS) {
+    case 1: return launch_dkv<1>(p, smem, stream);
+    case 2: return launch_dkv<2>(p, smem, stream);
+    case 3: return launch_dkv<3>(p, smem, stream);
+    default: return launch_dkv<4>(p, smem, stream);
+  }
 }
