@@ -15,9 +15,10 @@ Phases (each raises on failure; nothing is caught):
    also the step's gradient quantize and w1 forward; the qwen1.5-0.5b
    training step — batch 8 x seq 256 — for the RMS-norm backward, and it,
    bert-base cls, smollm-135m's GQA, a ragged windowed case and
-   qwen2-moe-a2.7b's head dim 128 for the attention backward (timed at
-   the qwen1.5-0.5b and qwen2-moe-a2.7b training shapes), and the
-   attention forward also at the qwen1.5-0.5b training shape; the
+   qwen2-moe-a2.7b's head dim 128 and head dim 256 (the widest body) for
+   the attention backward (timed at the qwen1.5-0.5b and qwen2-moe-a2.7b
+   training shapes and at head dim 256), and the attention forward also
+   at the qwen1.5-0.5b training shape; the
    qwen2-moe-a2.7b paths — E = 60 experts, 256 capacity rows each in
    training, 16 at decode — for the grouped quantize and the batched NN /
    NT / TN matmuls): run the kernel and its plain PyTorch version on the
@@ -27,7 +28,13 @@ Phases (each raises on failure; nothing is caught):
    PyTorch yardstick (one call; for a matmul one ``torch._int_mm`` per
    limb pair the kernel computes, 60 of them per pair for a batched one)
    with CUDA events (median); compute the card's lower bound from the
-   bytes and the operations this call needs.
+   bytes and the operations this call needs.  The five kernels with a
+   ``kept_ops="integer"`` body (the norm forwards' ``integer_rsqrt``, the
+   attention forward's and backward's ``integer_exp``) are held and
+   timed with it too, against their plain versions with the same flag
+   (``int_*`` keys), beside their FP32 body in the same run.  Also the
+   library yardsticks of the decode tied head, bert-base's w1 forward and
+   the MoE decode product.
 3. On reduced configurations (2 layers), from the same weights, the card
    against the port's CPU path: qwen1.5-0.5b's served logits; one BERT
    training step under the paper's integer scope (round to nearest), its
@@ -35,7 +42,9 @@ Phases (each raises on failure; nothing is caught):
    for cls under the plain int8 preset; one ``lm_loss`` step of
    qwen1.5-0.5b and of smollm-135m under int8; qwen2-moe-a2.7b's served
    logits and one ``lm_loss`` step, with the tokens routed to another
-   expert set on the two devices counted and set aside.
+   expert set on the two devices counted and set aside.  Under int8 +
+   ``kept_ops="integer"``: the BERT cls step, the qwen1.5-0.5b step and
+   the MoE step, whose router gradient must be zero on both devices.
 4. Serve qwen1.5-0.5b at full width (24 layers, d_model 1024, vocab
    151936), int8 (w8·a12), random weights from a seeded generator: 4 slots,
    max_seq 256, 8 requests of 64-token prompts, 16 new tokens each, through
@@ -64,18 +73,25 @@ Phases (each raises on failure; nothing is caught):
    the median step time of steps 1.., tokens/s, peak memory, the launches
    of one step, a profiled step's device-busy share and the FP32 losses
    from the same init.
+6b. ``kept_ops="integer"`` at full width (``kept_int_phase``): bert-base
+   cls (phase 5's int8 run) and qwen1.5-0.5b training (phase 6's) under
+   int8 and int8 + kept-int from the same seeds; each kernel's launches
+   per step must equal the int8 run's.  Prints losses beside int8 and
+   FP32, median step ms, tokens/s, peak memory, busy share and the
+   element-wise launches the iapprox activations add.
 7. Serve qwen2-moe-a2.7b at full width and depth (24 layers, d_model
    2048, 60 experts top-4 of d_ff 1408, a shared expert of 5632, vocab
    151936; FP32 weights ~57 GB) under int8 with phase 4's request mix,
    after the earlier phases' tensors are freed: the grouped quantize and
    the batched NN matmul must have launched.  Prints what phase 4 prints.
-8. Train qwen2-moe-a2.7b at full width with the depth cut to 2 layers
-   (the out-of-place AdamW update holds eight FP32 copies of the
-   parameters; 4 layers would need ~87 GiB) through ``lm_loss`` +
+8. Train qwen2-moe-a2.7b at full width with the depth cut to
+   ``MOE_TRAIN_LAYERS`` (the deepest that leaves 10% of the card's memory
+   spare; the AdamW update runs in place) through ``lm_loss`` +
    ``make_train_step``: int8, batch 8 x seq 256 (the capacity dispatch at
    256 rows per expert), 6 AdamW steps at lr 1e-4, stochastic gradient
    rounding from a seeded CUDA generator; all four MoE kernels must have
-   launched.  Prints what phase 6 prints.
+   launched, and the peak must leave 10% of the card's memory.  Prints
+   what phase 6 prints.
 9. Print the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -145,6 +161,22 @@ def timings(kernel, plain, library=None) -> dict:
                 library_ms=cuda_ms(library) if library else None,
                 device_ms=device_ms(kernel), plain_device_ms=device_ms(plain),
                 library_device_ms=device_ms(library) if library else None)
+
+
+def int_body(t: dict, **extra) -> dict:
+    """A kernel's kept_ops="integer" body's timings (``timings`` of its
+    wrapper and plain version, flag set) under ``int_`` keys."""
+    return {f"int_{k}": v for k, v in {**t, **extra}.items()}
+
+
+def body_line(name: str, k: dict, prefix: str = "") -> str:
+    """One line: the integer body's device time beside the FP32 body's."""
+    return (f"  {name} kept-int body{prefix and ' ' + prefix}: call "
+            f"{k[prefix + 'int_ms']:.4f} ms, device "
+            f"{k[prefix + 'int_device_ms']:.4f} ms; FP32 body call "
+            f"{k[prefix + 'ms']:.4f} ms, device {k[prefix + 'device_ms']:.4f}"
+            f" ms; plain (flag set) device "
+            f"{k[prefix + 'int_plain_device_ms']:.4f} ms")
 
 
 def bound_ms(n_bytes: float, n_ops: float, f32_ops: float = 0.0) -> tuple:
@@ -282,16 +314,26 @@ def check_matmul(torch, dev, gen, cfg, V, bert, tokens):
     head_ms = cuda_ms(lambda: bm.bfp_matmul(hx, hw, exp))
     head_dev = device_ms(lambda: bm.bfp_matmul(hx, hw, exp))
     head_b, head_by = bound_ms(nbytes(hx, hw) + 4 * 4 * V, 2 * 4 * D * V * 2)
+    # yardstick: torch._int_mm per limb pair; it needs more than 16 rows,
+    # so the 4 decode rows are zero-padded to 17
+    hxs = [torch.nn.functional.pad(x, (0, 0, 0, 13)).contiguous()
+           for x in hx]
+    hw0 = hw[0].contiguous()
+    head_lib = device_ms(lambda: [torch._int_mm(x, hw0) for x in hxs])
     print(f"  bfp_matmul decode head 4x{D}x{V} (2x1 limbs, W K-major): "
           f"{head_ms:.4f} ms (device {head_dev:.4f}), bound {head_b:.4f} ms "
-          f"({head_by})")
+          f"({head_by}); library 2 x torch._int_mm (17 rows) device "
+          f"{head_lib:.4f} ms")
     wx, ww = cases[4]
     w1_dev = device_ms(lambda: bm.bfp_matmul(wx, ww, exp))
     w1_b, w1_by = bound_ms(nbytes(wx, ww) + 4 * tokens * bert.d_ff,
                            2 * tokens * bert.d_model * bert.d_ff * 2)
+    wxs, ww0 = [x.contiguous() for x in wx], ww[0].contiguous()
+    w1_lib = device_ms(lambda: [torch._int_mm(x, ww0) for x in wxs])
     print(f"  bfp_matmul bert-base w1 forward {tokens}x{bert.d_model}x"
           f"{bert.d_ff} (2x1 limbs): device {w1_dev:.4f} ms, bound "
-          f"{w1_b:.4f} ms ({w1_by})")
+          f"{w1_b:.4f} ms ({w1_by}); library 2 x torch._int_mm device "
+          f"{w1_lib:.4f} ms")
     return dict(name="bfp_matmul", route="cuda",
                 source="src/repro_torch/csrc/bfp_matmul.cu",
                 replaces="src/repro/kernels/bfp_matmul.py:147",
@@ -302,7 +344,8 @@ def check_matmul(torch, dev, gen, cfg, V, bert, tokens):
                       "(2 calls)",
                 max_abs_err=err, bound_ms=b, bound_by=by, head_ms=head_ms,
                 head_device_ms=head_dev, head_bound_ms=head_b,
-                w1_device_ms=w1_dev, w1_bound_ms=w1_b, **t)
+                head_library_device_ms=head_lib, w1_device_ms=w1_dev,
+                w1_bound_ms=w1_b, w1_library_device_ms=w1_lib, **t)
 
 
 def check_rmsnorm(torch, dev, gen, D):
@@ -322,17 +365,34 @@ def check_rmsnorm(torch, dev, gen, D):
               ((rstd - rstd0).abs().max() / rstd0.abs().max()).item())
     if rel > 1e-6:
         raise AssertionError(f"int_rmsnorm_fwd differs: rel {rel}")
+    # the kept-int body: the Q.14 Newton rsqrt on the same mean square
+    yi, ri = int_norm.int_rmsnorm_fwd(xm, exp, gamma, integer_rsqrt=True)
+    yi0, ri0 = int_norm.int_rmsnorm_fwd_plain(xm, exp, gamma,
+                                              integer_rsqrt=True)
+    ey = ((yi - yi0).abs().max() / yi0.abs().max()).item()
+    if not torch.equal(ri, ri0) or ey > 1e-6:
+        raise AssertionError(f"int_rmsnorm_fwd integer body differs: rstd "
+                             f"exact {torch.equal(ri, ri0)}, y rel {ey}")
     xv = xm.float() * dfx.pow2(exp)
     t = timings(lambda: int_norm.int_rmsnorm_fwd(xm, exp, gamma),
                 lambda: int_norm.int_rmsnorm_fwd_plain(xm, exp, gamma),
                 lambda: F.rms_norm(xv, (D,), gamma, 1e-6))
+    ti = timings(lambda: int_norm.int_rmsnorm_fwd(xm, exp, gamma,
+                                                  integer_rsqrt=True),
+                 lambda: int_norm.int_rmsnorm_fwd_plain(xm, exp, gamma,
+                                                        integer_rsqrt=True))
     b, by = bound_ms(nbytes(xm, gamma, y, rstd), 0)
-    return dict(name="int_rmsnorm_fwd", route="cuda",
-                source="src/repro_torch/csrc/int_norm.cu",
-                replaces="src/repro/kernels/int_norm.py:246",
-                shape=f"({R},{D}) int16, tolerance 1e-6 relative",
-                max_abs_err=(y - y0).abs().max().item(), bound_ms=b,
-                bound_by=by, **t)
+    k = dict(name="int_rmsnorm_fwd", route="cuda",
+             source="src/repro_torch/csrc/int_norm.cu",
+             replaces="src/repro/kernels/int_norm.py:246",
+             shape=f"({R},{D}) int16, tolerance 1e-6 relative; kept-int "
+                   "body (int_*): rstd exact, y 1e-6 relative",
+             max_abs_err=(y - y0).abs().max().item(), bound_ms=b,
+             bound_by=by, **t,
+             **int_body(ti, max_abs_err=(yi - yi0).abs().max().item(),
+                        bound_ms=b, bound_by=by))
+    print(body_line("int_rmsnorm_fwd", k))
+    return k
 
 
 def check_attention(torch, dev, gen, cfg):
@@ -350,21 +410,29 @@ def check_attention(torch, dev, gen, cfg):
     sc = 1.0 / hd ** 0.5
     k = _planes(torch, gen, dev, 2, B, Smax, KV, hd)
     v = _planes(torch, gen, dev, 2, B, Smax, KV, hd)
-    err = 0.0
+    err = {False: 0.0, True: 0.0}
     timed = None
-    for Sq, off in ((1, [64, 65, 66, 67]), (64, [0, 0, 0, 0])):
-        q = _planes(torch, gen, dev, 2, B, Sq, KV, G, hd)
-        qo = torch.tensor(off, dtype=torch.int32, device=dev)
-        o, lse = ia.int_attn_fwd(q, k, v, qo, exps, p_bits=12, causal=True,
-                                 window=None, sc=sc)
-        o0, lse0 = ia.int_attn_fwd_plain(q, k, v, qo, exps, p_bits=12,
-                                         causal=True, window=None, sc=sc)
+
+    def hold(q, qo, k, v, what, iexp):
+        """The kernel against its plain version (o within 1e-5 of max|o|,
+        lse 1e-4), FP32 or kept-int body."""
+        kw_ = dict(p_bits=12, causal=True, window=None, sc=sc,
+                   integer_exp=iexp)
+        o, lse = ia.int_attn_fwd(q, k, v, qo, exps, **kw_)
+        o0, lse0 = ia.int_attn_fwd_plain(q, k, v, qo, exps, **kw_)
         rel = ((o - o0).abs().max() / o0.abs().max()).item()
         dl = (lse - lse0).abs().max().item()
         if rel > 1e-5 or dl > 1e-4:
-            raise AssertionError(f"int_attn_fwd differs at Sq={Sq}: o rel "
-                                 f"{rel}, lse abs {dl}")
-        err = max(err, (o - o0).abs().max().item())
+            raise AssertionError(f"int_attn_fwd (integer_exp={iexp}) differs"
+                                 f" at {what}: o rel {rel}, lse abs {dl}")
+        err[iexp] = max(err[iexp], (o - o0).abs().max().item())
+        return o, lse
+
+    for Sq, off in ((1, [64, 65, 66, 67]), (64, [0, 0, 0, 0])):
+        q = _planes(torch, gen, dev, 2, B, Sq, KV, G, hd)
+        qo = torch.tensor(off, dtype=torch.int32, device=dev)
+        hold(q, qo, k, v, f"Sq={Sq}", True)
+        o, lse = hold(q, qo, k, v, f"Sq={Sq}", False)
         if timed is None:
             timed = (q, qo, o, lse)
     q, qo, o, lse = timed
@@ -377,10 +445,13 @@ def check_attention(torch, dev, gen, cfg):
     vs = vd.repeat_interleave(G, dim=2).transpose(1, 2)
     mask = (torch.arange(Smax, device=dev) <= qo[:, None])[:, None, None, :]
     kw = dict(p_bits=12, causal=True, window=None, sc=sc)
+    ki = dict(kw, integer_exp=True)
     t = timings(lambda: ia.int_attn_fwd(q, k, v, qo, exps, **kw),
                 lambda: ia.int_attn_fwd_plain(q, k, v, qo, exps, **kw),
                 lambda: F.scaled_dot_product_attention(qs, ks, vs,
                                                        attn_mask=mask))
+    ti = timings(lambda: ia.int_attn_fwd(q, k, v, qo, exps, **ki),
+                 lambda: ia.int_attn_fwd_plain(q, k, v, qo, exps, **ki))
     # bytes and int8 ops the data needs: keys 0..q_off[b] of each row
     need = sum(int(x) + 1 for x in qo.cpu())
     n_bytes = (nbytes(q, qo, exps, o, lse)
@@ -392,14 +463,8 @@ def check_attention(torch, dev, gen, cfg):
     qt, kt, vt = (_planes(torch, gen, dev, 2, Bt, St, KV, *rest)
                   for rest in ((G, hd), (hd,), (hd,)))
     qo_t = torch.zeros(Bt, dtype=torch.int32, device=dev)
-    ot, lset = ia.int_attn_fwd(qt, kt, vt, qo_t, exps, **kw)
-    ot0, lset0 = ia.int_attn_fwd_plain(qt, kt, vt, qo_t, exps, **kw)
-    rel = ((ot - ot0).abs().max() / ot0.abs().max()).item()
-    dl = (lset - lset0).abs().max().item()
-    if rel > 1e-5 or dl > 1e-4:
-        raise AssertionError(f"int_attn_fwd differs at the training shape: "
-                             f"o rel {rel}, lse abs {dl}")
-    err = max(err, (ot - ot0).abs().max().item())
+    hold(qt, qo_t, kt, vt, "the training shape", True)
+    ot, lset = hold(qt, qo_t, kt, vt, "the training shape", False)
 
     def deq(x, e):
         return (x[0].float() + 128 * x[1].float()) * dfx.pow2(e)
@@ -410,6 +475,9 @@ def check_attention(torch, dev, gen, cfg):
                  lambda: ia.int_attn_fwd_plain(qt, kt, vt, qo_t, exps, **kw),
                  lambda: F.scaled_dot_product_attention(qf, kf, vf,
                                                         is_causal=True))
+    tti = timings(lambda: ia.int_attn_fwd(qt, kt, vt, qo_t, exps, **ki),
+                  lambda: ia.int_attn_fwd_plain(qt, kt, vt, qo_t, exps,
+                                                **ki))
     pairs = Bt * KV * G * St * (St + 1) // 2
     tb, tby = bound_ms(nbytes(qt, kt, vt, qo_t, exps, ot, lset),
                        2 * 2 * pairs * hd * 4)
@@ -417,17 +485,25 @@ def check_attention(torch, dev, gen, cfg):
           f"causal: call {tt['ms']:.4f} ms, device {tt['device_ms']:.4f} "
           f"ms; plain device {tt['plain_device_ms']:.4f}; SDPA forward (f32) "
           f"device {tt['library_device_ms']:.4f}; bound {tb:.4f} ms ({tby})")
-    return dict(name="int_attn_fwd", route="cuda",
-                source="src/repro_torch/csrc/int_attention.cu",
-                replaces="src/repro/kernels/int_attention.py:217",
-                shape=f"decode q ({B},1,{KV},{G},{hd}) over k/v ({B},{Smax},"
-                      f"{KV},{hd}), 2 limbs; also held and timed at the "
-                      f"training shape ({Bt},{St}) causal (train_*); "
-                      "tolerance o 1e-5 relative, lse 1e-4 absolute; "
-                      "library: SDPA forward (f32)",
-                max_abs_err=err, bound_ms=b, bound_by=by, **t,
-                **{f"train_{k_}": v_ for k_, v_ in tt.items()},
-                train_bound_ms=tb, train_bound_by=tby)
+    out = dict(name="int_attn_fwd", route="cuda",
+               source="src/repro_torch/csrc/int_attention.cu",
+               replaces="src/repro/kernels/int_attention.py:217",
+               shape=f"decode q ({B},1,{KV},{G},{hd}) over k/v ({B},{Smax},"
+                     f"{KV},{hd}), 2 limbs; also held and timed at the "
+                     f"training shape ({Bt},{St}) causal (train_*); the "
+                     "kept-int body (int_*, train_int_*) held and timed at "
+                     "both; tolerance o 1e-5 relative, lse 1e-4 absolute; "
+                     "library: SDPA forward (f32)",
+               max_abs_err=err[False], bound_ms=b, bound_by=by, **t,
+               **{f"train_{k_}": v_ for k_, v_ in tt.items()},
+               train_bound_ms=tb, train_bound_by=tby,
+               **int_body(ti, max_abs_err=err[True], bound_ms=b,
+                          bound_by=by),
+               **{f"train_{k_}": v_ for k_, v_ in int_body(
+                   tti, bound_ms=tb, bound_by=tby).items()})
+    print(body_line("int_attn_fwd", out))
+    print(body_line("int_attn_fwd", out, "train_"))
+    return out
 
 
 def check_matmul_bwd(torch, dev, gen, cfg, tokens):
@@ -511,6 +587,15 @@ def check_layernorm(torch, dev, gen, D, R):
     if rel > 4 * ulp or ey > 1e-6:
         raise AssertionError(f"int_layernorm_fwd differs: stats rel {rel}, "
                              f"y rel {ey}")
+    yi, mui, ri = int_norm.int_layernorm_fwd(xm, xe, gamma, beta,
+                                             integer_rsqrt=True)
+    yi0, mui0, ri0 = int_norm.int_layernorm_fwd_plain(xm, xe, gamma, beta,
+                                                      integer_rsqrt=True)
+    eyi = ((yi - yi0).abs().max() / yi0.abs().max()).item()
+    if not (torch.equal(mui, mui0) and torch.equal(ri, ri0)) or eyi > 1e-6:
+        raise AssertionError(f"int_layernorm_fwd integer body differs: mu, "
+                             f"rstd exact {torch.equal(mui, mui0)}, "
+                             f"{torch.equal(ri, ri0)}; y rel {eyi}")
     dx, dg, db = int_norm.int_layernorm_bwd(xm, gm, xe, ge, gamma, mu0,
                                             rstd0)
     dx0, dg0, db0 = int_norm.int_layernorm_bwd_plain(xm, gm, xe, ge, gamma,
@@ -532,8 +617,9 @@ def check_layernorm(torch, dev, gen, D, R):
                source="src/repro_torch/csrc/int_norm.cu",
                replaces="src/repro/kernels/int_norm.py:113",
                shape=f"({R},{D}) int16 -> y, mu, rstd; tolerance stats 4 ulp,"
-                     " y 1e-6 of max; library: F.layer_norm on the f32 "
-                     "values",
+                     " y 1e-6 of max; kept-int body (int_*): mu and rstd "
+                     "exact, y 1e-6 of max; library: F.layer_norm on the "
+                     "f32 values",
                max_abs_err=(y - y0).abs().max().item(),
                **timings(lambda: int_norm.int_layernorm_fwd(xm, xe, gamma,
                                                             beta),
@@ -543,6 +629,14 @@ def check_layernorm(torch, dev, gen, D, R):
     # per element: 4 digit-sum / moment int ops, then sub, 2 mul, mul, add
     fwd["bound_ms"], fwd["bound_by"] = bound_ms(
         nbytes(xm, xe, gamma, beta, y, mu, rstd), 0, 9 * R * D)
+    fwd.update(int_body(
+        timings(lambda: int_norm.int_layernorm_fwd(xm, xe, gamma, beta,
+                                                   integer_rsqrt=True),
+                lambda: int_norm.int_layernorm_fwd_plain(
+                    xm, xe, gamma, beta, integer_rsqrt=True)),
+        max_abs_err=(yi - yi0).abs().max().item(),
+        bound_ms=fwd["bound_ms"], bound_by=fwd["bound_by"]))
+    print(body_line("int_layernorm_fwd", fwd))
     bwd = dict(name="int_layernorm_bwd", route="cuda",
                source="src/repro_torch/csrc/int_norm.cu",
                replaces="src/repro/kernels/int_norm.py:181",
@@ -629,6 +723,7 @@ ATTN_BWD_SHAPES = {
     "smollm-135m gqa": (8, 256, 256, 3, 3, 64, 0, True, None),
     "ragged + window": (2, 20, 150, 2, 2, 16, [100, 37], True, 40),
     "qwen2-moe-a2.7b train": (8, 256, 256, 16, 1, 128, 0, True, None),
+    "head dim 256 (widest body)": (8, 256, 256, 4, 1, 256, 0, True, None),
 }
 
 
@@ -663,10 +758,12 @@ def _attn_bwd_inputs(torch, dev, gen, shape):
 
 def check_attention_bwd(torch, dev, gen):
     """int_attn_bwd_dq and int_attn_bwd_dkv against their plain versions at
-    ATTN_BWD_SHAPES (int8 preset), timed at the qwen1.5-0.5b training
-    shape and, beside it, at qwen2-moe-a2.7b's (head dim 128; moe_*).
-    Tolerance: exact (the same expf, the same exact int32 limb-pair dots
-    and the same ordered f32 sums on both sides).  Library: SDPA's f32
+    ATTN_BWD_SHAPES (int8 preset), FP32 and kept-int bodies, timed at the
+    qwen1.5-0.5b training shape (the kept-int body too: int_*) and,
+    beside it, at qwen2-moe-a2.7b's (head dim 128; moe_*) and at head dim
+    256 (the widest body; hd256_*).  Tolerance: exact (the same expf or
+    i_exp, the same exact int32 limb-pair dots and the same ordered f32
+    sums on both sides).  Library: SDPA's f32
     backward at the same shape (dq, dk and dv together).  Bound: the bytes
     of the planes, rows and outputs, or the int8 operations of the
     limb-pair products over the (query, key) pairs the mask lets through,
@@ -679,39 +776,45 @@ def check_attention_bwd(torch, dev, gen):
         B, Sq, Sk, KV, G, hd, off, causal, window = shape
         q, k, v, g, lse, delta, qo, exps = _attn_bwd_inputs(torch, dev, gen,
                                                             shape)
-        kw = dict(ds_bits=8, causal=causal, window=window,
-                  sc=1.0 / hd ** 0.5)
-        dq = ia.int_attn_bwd_dq(q, k, v, g, lse, delta, qo, exps,
-                                p_bits=12, **kw)
-        dk, dv = ia.int_attn_bwd_dkv(q, k, v, g, lse, delta, qo, exps,
-                                     p_bits=12, **kw)
-        dq0 = ia.int_attn_bwd_dq_plain(q, k, v, g, lse, delta, qo, exps,
-                                       **kw)
-        dk0, dv0 = ia.int_attn_bwd_dkv_plain(q, k, v, g, lse, delta, qo,
-                                             exps, p_bits=12, **kw)
-        line = []
-        for name, got, ref in (("dq", dq, dq0), ("dk", dk, dk0),
-                               ("dv", dv, dv0)):
-            scale = ref.abs().max().item()
-            err = (got - ref).abs().max().item()
-            if not scale > 0 or not torch.equal(got, ref):
-                raise AssertionError(
-                    f"int_attn_bwd {name} differs at {label}: "
-                    f"{int((got != ref).sum())} elements, max {err} of max "
-                    f"{scale}")
-            key = "int_attn_bwd_dq" if name == "dq" else "int_attn_bwd_dkv"
-            errs[key] = max(errs[key], err)
-            line.append(f"{name} max|err| {err:.3e} of max {scale:.3e}, "
-                        f"{int((got != ref).sum())} elements differ")
-        print(f"  attention backward at {label} {shape[:6]}: "
-              + "; ".join(line))
-        if label in ("qwen1.5-0.5b train", "qwen2-moe-a2.7b train"):
-            timed[label] = (shape, q, k, v, g, lse, delta, qo, exps, kw, dq,
-                            dk, dv)
+        for iexp in (False, True):
+            kw = dict(ds_bits=8, causal=causal, window=window,
+                      sc=1.0 / hd ** 0.5, integer_exp=iexp)
+            dq = ia.int_attn_bwd_dq(q, k, v, g, lse, delta, qo, exps,
+                                    p_bits=12, **kw)
+            dk, dv = ia.int_attn_bwd_dkv(q, k, v, g, lse, delta, qo, exps,
+                                         p_bits=12, **kw)
+            dq0 = ia.int_attn_bwd_dq_plain(q, k, v, g, lse, delta, qo, exps,
+                                           **kw)
+            dk0, dv0 = ia.int_attn_bwd_dkv_plain(q, k, v, g, lse, delta, qo,
+                                                 exps, p_bits=12, **kw)
+            line = []
+            for name, got, ref in (("dq", dq, dq0), ("dk", dk, dk0),
+                                   ("dv", dv, dv0)):
+                scale = ref.abs().max().item()
+                err = (got - ref).abs().max().item()
+                if not scale > 0 or not torch.equal(got, ref):
+                    raise AssertionError(
+                        f"int_attn_bwd {name} (integer_exp={iexp}) differs "
+                        f"at {label}: {int((got != ref).sum())} elements, "
+                        f"max {err} of max {scale}")
+                key = ("int_attn_bwd_dq" if name == "dq" else
+                       "int_attn_bwd_dkv") + (" int" if iexp else "")
+                errs[key] = max(errs.get(key, 0.0), err)
+                line.append(f"{name} max|err| {err:.3e} of max {scale:.3e}, "
+                            f"{int((got != ref).sum())} elements differ")
+            print(f"  attention backward ({'kept-int' if iexp else 'FP32'} "
+                  f"body) at {label} {shape[:6]}: " + "; ".join(line))
+            if not iexp and label in ("qwen1.5-0.5b train",
+                                      "qwen2-moe-a2.7b train",
+                                      "head dim 256 (widest body)"):
+                timed[label] = (shape, q, k, v, g, lse, delta, qo, exps, kw,
+                                dq, dk, dv)
 
-    def measure(shape, q, k, v, g, lse, delta, qo, exps, kw, dq, dk, dv):
+    def measure(shape, q, k, v, g, lse, delta, qo, exps, kw, dq, dk, dv,
+                kept_int=False):
         """{name: timings and bound} of both kernels at one shape, with
-        SDPA's f32 backward (autograd, its graph built once) beside them."""
+        SDPA's f32 backward (autograd, its graph built once) beside them;
+        with ``kept_int`` also the kept-int bodies' timings (int_*)."""
         B, Sq, Sk, KV, G, hd, off, causal, window = shape
         H = KV * G
         qs, ks, vs = (torch.randn((B, H, S, hd), generator=gen, device=dev)
@@ -747,19 +850,38 @@ def check_attention_bwd(torch, dev, gen):
                              2 * hd * pairs * limb_pairs)
             res[name] = {**timings(fn, plain), **lib_t, "bound_ms": b,
                          "bound_by": by}
+        if kept_int:
+            ki = dict(kw, integer_exp=True)
+            res["int_attn_bwd_dq"].update(int_body(timings(
+                lambda: ia.int_attn_bwd_dq(q, k, v, g, lse, delta, qo, exps,
+                                           p_bits=12, **ki),
+                lambda: ia.int_attn_bwd_dq_plain(q, k, v, g, lse, delta, qo,
+                                                 exps, **ki)),
+                bound_ms=res["int_attn_bwd_dq"]["bound_ms"],
+                bound_by=res["int_attn_bwd_dq"]["bound_by"]))
+            res["int_attn_bwd_dkv"].update(int_body(timings(
+                lambda: ia.int_attn_bwd_dkv(q, k, v, g, lse, delta, qo,
+                                            exps, p_bits=12, **ki),
+                lambda: ia.int_attn_bwd_dkv_plain(q, k, v, g, lse, delta, qo,
+                                                  exps, p_bits=12, **ki)),
+                bound_ms=res["int_attn_bwd_dkv"]["bound_ms"],
+                bound_by=res["int_attn_bwd_dkv"]["bound_by"]))
         return res
 
-    main = measure(*timed["qwen1.5-0.5b train"])
+    main = measure(*timed["qwen1.5-0.5b train"], kept_int=True)
     moe = measure(*timed["qwen2-moe-a2.7b train"])
+    wide = measure(*timed["head dim 256 (widest body)"])
     shape = ATTN_BWD_SHAPES["qwen1.5-0.5b train"]
     B, Sq, Sk, KV, G, hd = shape[:6]
     out_k = []
     for name in ("int_attn_bwd_dq", "int_attn_bwd_dkv"):
-        m = moe[name]
-        print(f"  {name} at qwen2-moe-a2.7b train (hd 128): call "
-              f"{m['ms']:.4f} ms, device {m['device_ms']:.4f} ms; SDPA "
-              f"backward device {m['library_device_ms']:.4f}; bound "
-              f"{m['bound_ms']:.4f} ms ({m['bound_by']})")
+        for what, m in (("qwen2-moe-a2.7b train (hd 128)", moe[name]),
+                        ("head dim 256", wide[name])):
+            print(f"  {name} at {what}: call {m['ms']:.4f} ms, device "
+                  f"{m['device_ms']:.4f} ms; SDPA backward device "
+                  f"{m['library_device_ms']:.4f}; bound {m['bound_ms']:.4f} "
+                  f"ms ({m['bound_by']})")
+        print(body_line(name, main[name]))
         out_k.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/csrc/int_attention_bwd.cu",
@@ -768,15 +890,22 @@ def check_attention_bwd(torch, dev, gen):
                       "src/repro/kernels/int_attention.py:441"),
             shape=f"qwen1.5-0.5b training: q/g ({B},{Sq},{KV},{G},{hd}), "
                   f"k/v ({B},{Sk},{KV},{hd}), 2 planes (g 1), causal, dS 8 "
-                  "bits, P 12 bits; also timed at qwen2-moe-a2.7b's head "
-                  "dim 128 (moe_*); held at "
-                  + ", ".join(ATTN_BWD_SHAPES)
+                  "bits, P 12 bits; the kept-int body timed there too "
+                  "(int_*); also timed at qwen2-moe-a2.7b's head dim 128 "
+                  "(moe_*) and at head dim 256 (hd256_*); both bodies held "
+                  "at " + ", ".join(ATTN_BWD_SHAPES)
                   + "; tolerance exact; library: SDPA backward (f32, "
                   "autograd, dq + dk + dv)",
-            max_abs_err=errs[name], **main[name],
-            **{f"moe_{k_}": v_ for k_, v_ in m.items()}))
+            max_abs_err=errs[name], int_max_abs_err=errs[name + " int"],
+            **main[name],
+            **{f"moe_{k_}": v_ for k_, v_ in moe[name].items()},
+            **{f"hd256_{k_}": v_ for k_, v_ in wide[name].items()}))
     return out_k
 
+
+#: qwen2-moe-a2.7b training depth in phase 8 (of 24 layers): the deepest
+#: that leaves 10% of the card's memory spare
+MOE_TRAIN_LAYERS = 6
 
 #: qwen2-moe-a2.7b training step's capacity rows per expert (batch 8 x seq
 #: 256, top-4 of 60: ceil128(1.25 * 8192 / 60)) and its decode's (4 slots
@@ -907,11 +1036,19 @@ def check_matmul_batched(torch, dev, gen, moe):
             dres = fn(xd, wg, e)
             db, dby = bound_ms(nbytes(xd, wg, e, dres),
                                2 * dres.numel() * D * 2)
+            # yardstick: torch._int_mm per expert and limb pair, the 16
+            # decode rows zero-padded to 17 (it needs more than 16)
+            xds = [torch.nn.functional.pad(xj, (0, 0, 0, 1)).contiguous()
+                   for xj in xd]
+            d_lib = device_ms(lambda: [torch._int_mm(xj[i], w0[i])
+                                       for xj in xds for i in range(E)])
             k.update(decode_ms=cuda_ms(lambda: fn(xd, wg, e)),
-                     decode_device_ms=xd_ms, decode_bound_ms=db)
+                     decode_device_ms=xd_ms, decode_bound_ms=db,
+                     decode_library_device_ms=d_lib)
             print(f"  bfp_matmul_batched decode ({E},{MOE_DECODE_ROWS},{D})"
                   f"x({E},{D},{F}), 2x1 limbs: device {xd_ms:.4f} ms, bound "
-                  f"{db:.4f} ms ({dby})")
+                  f"{db:.4f} ms ({dby}); library 2 x {E} x torch._int_mm "
+                  f"(17 rows) device {d_lib:.4f} ms")
         elif name == "bfp_matmul_batched_nt":
             k["shape"] = (f"wg_e dX: G ({E},{C},{F}) . W ({E},{D},{F})^T, "
                           f"1x1 limbs, tolerance exact (also held: wd_e's "
@@ -989,7 +1126,9 @@ def check_small_bert(torch, dev):
     to nearest, on the card (CUDA kernels) against the port's CPU path
     (plain versions) from the same weights and batch: cls and span under
     the paper's integer scope, and cls under the plain int8 preset
-    (integer attention forward and backward).
+    (integer attention forward and backward) and under int8 with
+    ``kept_ops="integer"`` (the kernels' integer bodies, the iapprox
+    GELU and pooler tanh).
 
     Tolerances: the loss within 1e-5 relative; every parameter's gradient
     within 2e-3 of its largest magnitude, the bound the CPU tests hold the
@@ -1013,7 +1152,10 @@ def check_small_bert(torch, dev):
             ("span", "paper scope", tf.paper_scope(rn),
              tf.make_span_task(vocab=cfg.vocab, seq=48), pm.bert_span_loss),
             ("cls", "int8", rn, tf.make_cls_task(vocab=cfg.vocab, seq=32),
-             pm.bert_cls_loss)):
+             pm.bert_cls_loss),
+            ("cls", "int8 + kept-int", dataclasses.replace(
+                rn, kept_ops="integer"),
+             tf.make_cls_task(vocab=cfg.vocab, seq=32), pm.bert_cls_loss)):
         params = pm.bert_init(torch.Generator().manual_seed(1), cfg,
                               num_labels=4, span_head=task == "span",
                               device="cpu")
@@ -1092,7 +1234,7 @@ def check_small_lm_train(torch, dev):
     """Reduced qwen1.5-0.5b and smollm-135m (2 layers, d_model 128, 4 query
     heads over 2 kv heads): one ``lm_loss`` step under int8, rounding to
     nearest, on the card and on the port's CPU path from the same weights
-    and batch.
+    and batch; qwen also under int8 + ``kept_ops="integer"``.
 
     The whole step: the loss within 1e-5 relative and every gradient
     finite; the gradients' agreement is printed, not bounded.  The FP32
@@ -1115,7 +1257,10 @@ def check_small_lm_train(torch, dev):
     from repro_torch.train import finetune as tf
     from repro_torch.train import trainer
     rn = dataclasses.replace(QuantConfig.int8(), stochastic_grad=False)
-    for arch in ("qwen1.5-0.5b", "smollm-135m"):
+    for arch, label, qcfg in (
+            ("qwen1.5-0.5b", "int8", rn), ("smollm-135m", "int8", rn),
+            ("qwen1.5-0.5b", "int8 + kept-int",
+             dataclasses.replace(rn, kept_ops="integer"))):
         cfg = registry.get_config(arch).reduced()
         params = lm.lm_init(torch.Generator().manual_seed(1), cfg,
                             device="cpu")
@@ -1127,7 +1272,7 @@ def check_small_lm_train(torch, dev):
             with rec:
                 loss, _, grads = trainer.loss_and_grads(
                     lm.lm_loss, _to(params, device),
-                    tf.to_device(batch, device), cfg, rn, None)
+                    tf.to_device(batch, device), cfg, qcfg, None)
             res[str(device)] = (float(loss), {n: g.cpu()
                                               for n, g in _leaves(grads)})
         (l0, g0), (l1, g1) = res["cpu"], res[str(dev)]
@@ -1147,7 +1292,7 @@ def check_small_lm_train(torch, dev):
                 scale = a.abs().max().item()
                 worst_g = max(worst_g, (b - a).abs().max().item()
                               / (scale if scale else 1.0))
-        print(f"  reduced {arch} lm_loss step (int8), card vs CPU: loss "
+        print(f"  reduced {arch} lm_loss step ({label}), card vs CPU: loss "
               f"{l1:.6f} vs {l0:.6f} (rel {dl:.2e}, tolerance 1e-5); whole-"
               f"step gradients finite, worst {worst:.2e} of its max at {at}"
               f"; {len(calls)} integer layer calls replayed from the same "
@@ -1301,10 +1446,60 @@ def check_small_moe(torch, dev):
                              "CPU path")
 
 
-def profile_step(torch, fn, what: str) -> float:
+def check_small_moe_kept_int(torch, dev):
+    """Reduced qwen2-moe-a2.7b (as check_small_moe): one ``lm_loss`` step
+    under int8 + ``kept_ops="integer"``, rounding to nearest, card vs the
+    port's CPU path.  The router's ``i_softmax`` passes no gradient (its
+    integer casts, as the reference's), so the router weight's gradient
+    must be all zeros on both devices, every other gradient finite.  The
+    tokens routed to another expert set on the two devices are counted
+    and set aside as in check_small_moe: the loss within 1e-5 relative
+    plus the re-routed share of the tokens."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.train import finetune as tf
+    from repro_torch.train import trainer
+    cfg = registry.get_config("qwen2-moe-a2.7b").reduced()
+    params = lm.lm_init(torch.Generator().manual_seed(1), cfg, device="cpu")
+    qcfg = dataclasses.replace(QuantConfig.int8(), stochastic_grad=False,
+                               kept_ops="integer")
+    batch = next(SyntheticLM(DataConfig(batch_size=4, seq_len=64,
+                                        vocab=cfg.vocab)))
+    res, routes = {}, {}
+    for device in ("cpu", dev):
+        with _Routes() as r:
+            loss, _, grads = trainer.loss_and_grads(
+                lm.lm_loss, _to(params, device), tf.to_device(batch, device),
+                cfg, qcfg, None)
+        res[str(device)] = (float(loss), {n: g.cpu()
+                                          for n, g in _leaves(grads)})
+        routes[str(device)] = r.sel
+    (l0, g0), (l1, g1) = res["cpu"], res[str(dev)]
+    n_tok = 4 * 64
+    n_rr, _ = _rerouted(torch, routes["cpu"], routes[str(dev)], 4)
+    dl = abs(l1 - l0) / abs(l0)
+    router = "blocks.moe.router"
+    nz = [int(torch.count_nonzero(g[router])) for g in (g0, g1)]
+    for name, g in g1.items():
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"non-finite kept-int MoE gradient {name}")
+    print(f"  reduced qwen2-moe-a2.7b lm_loss step (int8 + kept-int), card "
+          f"vs CPU: loss {l1:.6f} vs {l0:.6f} (rel {dl:.2e}); {n_rr} token "
+          f"routings of {n_tok * 2} differ; router gradient nonzero entries "
+          f"CPU {nz[0]}, card {nz[1]} of {g0[router].numel()} (must be 0); "
+          "every gradient finite")
+    if nz != [0, 0] or dl > 1e-5 + n_rr / n_tok:
+        raise AssertionError("kept-int MoE step: router gradient not zero, "
+                             "or the card's loss disagrees with the CPU's")
+
+
+def profile_step(torch, fn, what: str) -> tuple:
     """torch.profiler over one call of ``fn``: wall time, summed device time
     (the device's busy share) and the device time by kernel or op.
-    Returns the busy share."""
+    Returns the busy share and the count of device kernels and copies."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1328,7 +1523,7 @@ def profile_step(torch, fn, what: str) -> float:
           "device kernels / copies; top device time:")
     for dev_us, count, key in rows[:14]:
         print(f"    {dev_us / 1e3:8.3f} ms  {count:5d}x  {key[:110]}")
-    return busy_ms / wall_ms
+    return busy_ms / wall_ms, launches
 
 
 def finetune_phase(torch, dev, wrappers, int8_wrappers) -> tuple:
@@ -1488,6 +1683,175 @@ def train_phase(torch, dev, wrappers, steps: int = 6,
     return launches
 
 
+def _step_stats(torch, stamps: list, t_start: float, tokens: int) -> dict:
+    """Set-up + step 0 ms, steps 1.. ms, their median and tokens/s."""
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    return dict(first_ms=1e3 * (stamps[0] - t_start), step_ms=step_ms,
+                median_ms=statistics.median(step_ms),
+                tok_s=tokens * len(step_ms) / sum(step_ms) * 1e3)
+
+
+def _per_step(counts: list) -> list:
+    """Each step's launches by wrapper, from the counts after each step."""
+    zero = dict.fromkeys(counts[0], 0)
+    return [{n: c[n] - p[n] for n in c} for p, c in zip([zero] + counts,
+                                                       counts)]
+
+
+def kept_int_phase(torch, dev, bert_wrappers, lm_wrappers) -> tuple:
+    """Phase 6b: ``kept_ops="integer"`` at full width, beside the same
+    model's int8 run from the same seeds.
+
+    bert-base cls through ``finetune`` (phase 5's int8 run: batch 32 x seq
+    128, 10 steps, lr 1e-4, stochastic gradient rounding from the seeded
+    CUDA generator) under int8 and int8 + kept-int (the kernels' integer
+    bodies, iapprox GELU and pooler tanh); qwen1.5-0.5b training through
+    ``lm_loss`` + ``make_train_step`` (phase 6's seeds, data and
+    optimizer: batch 8 x seq 256, 6 steps, lr 1e-4; the launcher has no
+    kept-ops flag, as the reference's has none) under int8 and int8 +
+    kept-int (integer bodies, iapprox SiLU).  Launch counters set to 0 just
+    before each run and read just after each step: every kernel of the
+    path must have launched, and each step's launches of every kernel must
+    equal the int8 run's (the reference pins keptint == int8 dispatch
+    counts).  Prints losses beside the int8 and FP32 ones, median step ms,
+    tokens/s, peak memory, one profiled step's busy share, and the device
+    launches the iapprox activations add (plain element-wise PyTorch ops,
+    no kernel wrapper): the profiled step's kernels and copies, kept-int
+    minus int8.  Returns each kept-int run's wrapper launches."""
+    import dataclasses
+    import math
+    from repro_torch.configs import bert_base, registry
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.train import finetune as tf
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import trainer
+    int8 = QuantConfig.int8()
+    kept = dataclasses.replace(int8, kept_ops="integer")
+    fp32 = QuantConfig.fp32()
+    out = {}
+
+    def check(model, runs, wrappers):
+        r8, rk = runs["int8"], runs["int8 + kept-int"]
+        for n in wrappers:
+            if rk["launches"][n] <= 0:
+                raise AssertionError(f"kernel {n} was not launched on the "
+                                     f"kept-int {model} path")
+        if r8["per_step"] != rk["per_step"]:
+            raise AssertionError(f"kept-int {model} launches per step "
+                                 f"{rk['per_step']} != int8 "
+                                 f"{r8['per_step']}")
+        for label, r in runs.items():
+            if not all(math.isfinite(v) for v in r["losses"]):
+                raise AssertionError(f"non-finite {model} {label} loss")
+        for label in ("int8", "int8 + kept-int"):
+            r = runs[label]
+            print(f"  {model} {label}: losses "
+                  f"{[round(v, 5) for v in r['losses']]}; set-up + step 0 "
+                  f"{r['first_ms']:.2f} ms; steps 1.. ms "
+                  f"{[round(v, 2) for v in r['step_ms']]}; median "
+                  f"{r['median_ms']:.2f} ms; {r['tok_s']:.1f} tokens/s; "
+                  f"peak memory {r['peak']:.2f} GiB; busy share "
+                  f"{100 * r['busy']:.1f}%, {r['kernels']} device kernels "
+                  "and copies in the profiled step")
+        print(f"  {model} FP32 losses from the same init "
+              f"{[round(v, 5) for v in runs['FP32']['losses']]}")
+        print(f"  {model} kept-int launches per step equal the int8 run's "
+              f"at every step: {rk['per_step'][-1]}; the iapprox "
+              f"activations add {rk['kernels'] - r8['kernels']} plain "
+              "element-wise device launches per profiled step")
+
+    # ---- bert-base cls
+    arch = bert_base.CONFIG
+    B, S, steps = 32, 128, 10
+    ft = tf.FtConfig(steps=steps, batch=B, seq=S, eval_n=B, lr=1e-4)
+    runs = {}
+    for label, q in (("int8", int8), ("int8 + kept-int", kept),
+                     ("FP32", fp32)):
+        stamps, counts = [], []
+
+        def on_step(i, loss):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            counts.append({n: w.launches for n, w in bert_wrappers.items()})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in bert_wrappers.values():
+            w.launches = 0
+        t_start = time.perf_counter()
+        _, losses = tf.finetune("cls", q, ft, device=dev, arch=arch,
+                                return_losses=True, on_step=on_step)
+        torch.cuda.synchronize()
+        r = dict(losses=losses, peak=torch.cuda.max_memory_allocated()
+                 / 2**30, per_step=_per_step(counts),
+                 launches={n: w.launches for n, w in bert_wrappers.items()},
+                 **_step_stats(torch, stamps, t_start, B * S))
+        if label != "FP32":
+            gen = torch.Generator(device=dev).manual_seed(1)
+            cfg, params, sampler, loss_fn, lr = tf._task_setup(
+                "cls", gen, ft, arch, dev)
+            ocfg = opt_lib.OptimizerConfig(lr=lr, weight_decay=0.0)
+            state = {"p": params, "o": opt_lib.init(params)}
+            b = tf.to_device(sampler(B, 0), dev)
+
+            def one_step(q=q):
+                state["p"], state["o"], _, _, _ = tf.train_step(
+                    state["p"], state["o"], b, cfg, q, loss_fn, ocfg, gen)
+            one_step()
+            r["busy"], r["kernels"] = profile_step(
+                torch, one_step, f"bert-base cls training step ({label})")
+            del state
+        runs[label] = r
+    check("bert-base cls", runs, bert_wrappers)
+    out["finetune_keptint"] = runs["int8 + kept-int"]["launches"]
+
+    # ---- qwen1.5-0.5b training
+    cfg = registry.get_config("qwen1.5-0.5b")
+    B, S, steps = 8, 256, 6
+    runs = {}
+    for label, q in (("int8", int8), ("int8 + kept-int", kept),
+                     ("FP32", fp32)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_start = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        run = {"p": lm.lm_init(gen, cfg, device=dev)}
+        run["o"] = opt_lib.init(run["p"])
+        step = trainer.make_train_step(
+            lm.lm_loss, cfg, q, opt_lib.OptimizerConfig(lr=1e-4,
+                                                        total_steps=steps))
+        data = SyntheticLM(DataConfig(batch_size=B, seq_len=S,
+                                      vocab=cfg.vocab, seed=0))
+
+        def one_step():
+            batch = tf.to_device(next(data), dev)
+            run["p"], run["o"], m = step(run["p"], run["o"], batch, gen)
+            return float(m["loss"])
+        for w in lm_wrappers.values():
+            w.launches = 0
+        losses, stamps, counts = [], [], []
+        for _ in range(steps):
+            losses.append(one_step())
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            counts.append({n: w.launches for n, w in lm_wrappers.items()})
+        r = dict(losses=losses, peak=torch.cuda.max_memory_allocated()
+                 / 2**30, per_step=_per_step(counts),
+                 launches={n: w.launches for n, w in lm_wrappers.items()},
+                 **_step_stats(torch, stamps, t_start, B * S))
+        if label != "FP32":
+            r["busy"], r["kernels"] = profile_step(
+                torch, one_step, f"qwen1.5-0.5b training step ({label})")
+        runs[label] = r
+        del run, one_step
+        gc.collect()
+        torch.cuda.empty_cache()
+    check("qwen1.5-0.5b train", runs, lm_wrappers)
+    out["train_keptint"] = runs["int8 + kept-int"]["launches"]
+    return out
+
+
 def serve_phase(torch, dev, cfg, wrappers, n_req: int = 8,
                 prompt_len: int = 64, new: int = 16) -> dict:
     """Serve ``cfg`` at full width, int8 (w8·a12), random weights from a
@@ -1559,8 +1923,8 @@ def serve_phase(torch, dev, cfg, wrappers, n_req: int = 8,
     return launches
 
 
-def train_moe_phase(torch, dev, wrappers, layers: int = 2, steps: int = 6,
-                    lr: float = 1e-4) -> dict:
+def train_moe_phase(torch, dev, wrappers, layers: int = MOE_TRAIN_LAYERS,
+                    steps: int = 6, lr: float = 1e-4) -> dict:
     """Train qwen2-moe-a2.7b at full width (d_model 2048, 60 experts top-4
     of d_ff 1408, the shared expert of 5632, vocab 151936, untied head)
     with the depth cut to ``layers``: int8, batch 8 x seq 256 of
@@ -1569,11 +1933,10 @@ def train_moe_phase(torch, dev, wrappers, layers: int = 2, steps: int = 6,
     ``lm_loss`` + ``make_train_step`` (what ``launch.train`` wires; the
     launcher has no depth flag, as the reference's has none), random
     weights and stochastic gradient rounding from one seeded CUDA
-    generator.  Two layers: the optimizer's update is out of place (old
-    and new parameters and moments, the gradients and their clipped copy
-    live together, eight FP32 copies of the parameters), which at four
-    layers (2.9 B parameters) would need ~87 GiB; at two (1.76 B) ~57 GiB.
-    The launch counters are set to 0 just before the int8 run and read just
+    generator.  The depth: the deepest that leaves 10% of the card's
+    memory spare, with parameters, AdamW moments and gradients (16 bytes a
+    parameter: the update runs in place) and the step's activations.  The
+    launch counters are set to 0 just before the int8 run and read just
     after; every kernel in ``wrappers`` must have launched, every loss be
     finite and the first near ln 151936.  Then one profiled int8 step, and
     the same steps under FP32 from the same init.  Returns the int8 run's
@@ -1635,11 +1998,16 @@ def train_moe_phase(torch, dev, wrappers, layers: int = 2, steps: int = 6,
     med = statistics.median(step_ms)
     tok_s = B * S * len(step_ms) / sum(step_ms) * 1e3
     last = {n: counts[-1][n] - counts[-2][n] for n in wrappers}
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    if peak > 0.9 * total:
+        raise AssertionError(f"peak {peak:.2f} GiB leaves less than 10% of "
+                             f"the card's {total:.2f} GiB")
     print(f"  {layers} layers, {n_params / 1e9:.3f} B parameters; set-up + "
           f"step 0 {first_ms:.2f} ms; steps 1-{steps - 1} ms "
           f"{[round(v, 2) for v in step_ms]}; median {med:.2f} ms; "
           f"{tok_s:.1f} tokens/s over those steps; peak memory {peak:.2f} "
-          f"GiB; launches in the run {launches}; in one step {last}")
+          f"GiB of {total:.2f} GiB ({100 * peak / total:.1f}%); launches in "
+          f"the run {launches}; in one step {last}")
     profile_step(torch, one_step, f"qwen2-moe-a2.7b training step ({layers}"
                  " layers, int8)")
     del one_step, run
@@ -1654,8 +2022,10 @@ def train_moe_phase(torch, dev, wrappers, layers: int = 2, steps: int = 6,
 
 
 def _to(tree, device):
-    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
+    """A copy of the tree on ``device`` (a copy on the CPU too: a training
+    step updates its parameters in place)."""
+    return {k: _to(v, device) if isinstance(v, dict)
+            else v.to(device, copy=True) for k, v in tree.items()}
 
 
 def main() -> int:
@@ -1723,6 +2093,7 @@ def main() -> int:
     check_small_bert(torch, dev)
     check_small_lm_train(torch, dev)
     check_small_moe(torch, dev)
+    check_small_moe_kept_int(torch, dev)
 
     print("[4] serve qwen1.5-0.5b, full width, int8")
     wrappers = {"dfx_quantize": dfx_quant.dfx_quantize,
@@ -1752,6 +2123,18 @@ def main() -> int:
         "bfp_matmul_tn": bfp_matmul.bfp_matmul_tn,
         "int_rmsnorm_fwd": int_norm.int_rmsnorm_fwd,
         "int_rmsnorm_bwd": int_norm.int_rmsnorm_bwd, **attn})
+    print("[6b] kept_ops=\"integer\" at full width beside int8: bert-base "
+          "cls (batch 32 x seq 128, 10 steps) and qwen1.5-0.5b training "
+          "(batch 8 x seq 256, 6 steps)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    kept = kept_int_phase(torch, dev, {**paper, **attn}, {
+        "dfx_quantize": dfx_quant.dfx_quantize,
+        "bfp_matmul": bfp_matmul.bfp_matmul,
+        "bfp_matmul_nt": bfp_matmul.bfp_matmul_nt,
+        "bfp_matmul_tn": bfp_matmul.bfp_matmul_tn,
+        "int_rmsnorm_fwd": int_norm.int_rmsnorm_fwd,
+        "int_rmsnorm_bwd": int_norm.int_rmsnorm_bwd, **attn})
     moe_fwd = {"dfx_quantize_grouped": dfx_quant.dfx_quantize_grouped,
                "bfp_matmul_batched": bfp_matmul.bfp_matmul_batched}
     gc.collect()
@@ -1763,9 +2146,10 @@ def main() -> int:
         "qwen2-moe-a2.7b"), {**wrappers, **moe_fwd})
     gc.collect()
     torch.cuda.empty_cache()
-    print("[8] train qwen2-moe-a2.7b, full width, 2 layers, int8, batch 8 x "
-          "seq 256, lm_loss + make_train_step; device memory allocated "
-          f"before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    print(f"[8] train qwen2-moe-a2.7b, full width, {MOE_TRAIN_LAYERS} layers, "
+          "int8, batch 8 x seq 256, lm_loss + make_train_step; device memory "
+          f"allocated before: {torch.cuda.memory_allocated() / 2**30:.2f} "
+          "GiB")
     moe_train = train_moe_phase(torch, dev, {
         "dfx_quantize": dfx_quant.dfx_quantize,
         "bfp_matmul": bfp_matmul.bfp_matmul,
@@ -1781,9 +2165,15 @@ def main() -> int:
                    "finetune_int8": ft8_launches.get(k["name"], 0),
                    "train": tr_launches.get(k["name"], 0),
                    "serve_moe": moe_serve.get(k["name"], 0),
-                   "train_moe": moe_train.get(k["name"], 0)}
+                   "train_moe": moe_train.get(k["name"], 0),
+                   "finetune_keptint": kept["finetune_keptint"].get(
+                       k["name"], 0),
+                   "train_keptint": kept["train_keptint"].get(k["name"], 0)}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
+        if "int_ms" in k:        # the kept-int paths run its integer body
+            k["int_launches"] = (by_path["finetune_keptint"]
+                                 + by_path["train_keptint"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

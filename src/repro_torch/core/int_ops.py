@@ -33,9 +33,21 @@ Attention's backward (flash-attention-2 form, the reference's
 ``_int_attention_bwd``) runs the dq and dk + dv kernels over the saved
 q / k / v planes, o and lse; ``delta`` and the dS exponent (from the row
 norms of the raw upstream gradient and of v) are plain PyTorch, as the
-reference leaves them to XLA.  ``kept_ops="integer"`` and stochastic
-forward rounding (``stochastic_fwd`` with a key) are not ported yet and
-raise.
+reference leaves them to XLA.
+
+``kept_ops="integer"`` (DESIGN.md §10) swaps the kept FP32 ops for the
+Q.14 forms of ``core/iapprox.py``, as the reference routes them: the
+norms' rsqrt and attention's softmax exp / normalizer inside the same
+kernel launches (their ``integer_rsqrt`` / ``integer_exp`` bodies), the
+activations as an autograd Function whose backward is the iapprox
+derivative, and the standalone softmax (the MoE router) as ``i_softmax``,
+through whose integer casts no gradient flows (the reference's cotangent
+there is zero too).
+
+``stochastic_fwd`` with a key rounds each layer's activation quantization
+stochastically too (not the weights').  As the reference splits its key,
+the activation noise is drawn first (attention: q, k, then v), the
+gradient noise later, in the backward.
 """
 from __future__ import annotations
 
@@ -44,22 +56,25 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import dfx
+from repro_torch.core import dfx, iapprox
 from repro_torch.core.qconfig import QuantConfig
 from repro_torch.kernels import int_norm
 from repro_torch.kernels import ops as kops
 
 
-def _no_integer_kept_ops(cfg: QuantConfig, what: str) -> None:
-    if cfg.enabled and cfg.kept_ops == "integer":
-        raise NotImplementedError(
-            f"{what}: kept_ops='integer' is not ported yet")
+def _kept_int(cfg: QuantConfig) -> bool:
+    return cfg.enabled and cfg.kept_ops == "integer"
 
 
-def _no_stochastic(cfg: QuantConfig, key) -> None:
-    if cfg.enabled and cfg.stochastic_fwd and key is not None:
-        raise NotImplementedError(
-            "stochastic forward rounding is not ported yet")
+def _act_noise(x: torch.Tensor, cfg: QuantConfig, key, stacked=False):
+    """Noise ``u`` for the activation's forward quantization when
+    ``cfg.stochastic_fwd`` and a key is given (over the 2-D view, or the
+    whole (E, C, K) stack), else None."""
+    if not (cfg.stochastic_fwd and key is not None):
+        return None
+    shape = tuple(x.shape) if stacked else (x.numel() // x.shape[-1],
+                                            x.shape[-1])
+    return dfx.uniform(key, shape, x.device)
 
 
 def _quant_grad(g: torch.Tensor, cfg: QuantConfig, key,
@@ -84,7 +99,8 @@ class _IntLinear(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, b, key, cfg: QuantConfig, transposed_w: bool):
-        qx = dfx.quantize(x, cfg.act_bits, limb_planes=True)
+        qx = dfx.quantize(x, cfg.act_bits, u=_act_noise(x, cfg, key),
+                          limb_planes=True)
         qw = dfx.quantize(w, cfg.weight_bits, limb_planes=True)
         wm = qw.m.transpose(-1, -2) if transposed_w else qw.m
         K = x.shape[-1]
@@ -144,7 +160,6 @@ def int_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     if not cfg.enabled:
         y = torch.matmul(x, w.t() if transposed_w else w)
         return y + b if b is not None else y
-    _no_stochastic(cfg, key)
     return _IntLinear.apply(x, w, b, key, cfg, transposed_w)
 
 
@@ -159,7 +174,9 @@ class _IntBatchedLinear(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, key, cfg: QuantConfig):
-        qx = dfx.quantize_stacked(x, cfg.act_bits, limb_planes=True)
+        qx = dfx.quantize_stacked(x, cfg.act_bits,
+                                  u=_act_noise(x, cfg, key, stacked=True),
+                                  limb_planes=True)
         qw = dfx.quantize_stacked(w, cfg.weight_bits, limb_planes=True)
         y = kops.dfx_matmul_tiled_batched(qx.m, qx.exp, cfg.act_bits, qw.m,
                                           qw.exp, cfg.weight_bits)
@@ -199,7 +216,6 @@ def int_batched_linear(x: torch.Tensor, w: torch.Tensor, key,
     ``cfg.enabled`` False: FP32 einsums."""
     if not cfg.enabled:
         return torch.einsum("eck,ekn->ecn", x, w)
-    _no_stochastic(cfg, key)
     return _IntBatchedLinear.apply(x, w, key, cfg)
 
 
@@ -232,10 +248,10 @@ class _IntEmbedding(torch.autograd.Function):
 def int_embedding(table: torch.Tensor, ids: torch.Tensor, key,
                   cfg: QuantConfig) -> torch.Tensor:
     """Embedding lookup from the b-bit quantized table: gather the integer
-    mantissas, then the inverse mapping."""
+    mantissas, then the inverse mapping (no activation to round
+    stochastically: ``stochastic_fwd`` leaves it as the reference does)."""
     if not cfg.enabled or not cfg.int_embedding:
         return table[ids]
-    _no_stochastic(cfg, key)
     return _IntEmbedding.apply(table, ids, key, cfg)
 
 
@@ -251,12 +267,12 @@ class _IntLayerNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, key, cfg: QuantConfig, eps: float):
-        xq = dfx.quantize(x, cfg.act_bits)
+        xq = dfx.quantize(x, cfg.act_bits, u=_act_noise(x, cfg, key))
         gv = dfx.dequantize(dfx.quantize(gamma, cfg.weight_bits))
         D = x.shape[-1]
         xm = xq.m.reshape(-1, D)
-        y, mu, rstd = int_norm.int_layernorm_fwd(xm, xq.exp, gv, beta,
-                                                 eps=eps)
+        y, mu, rstd = int_norm.int_layernorm_fwd(
+            xm, xq.exp, gv, beta, eps=eps, integer_rsqrt=_kept_int(cfg))
         ctx.save_for_backward(xm, xq.exp, gv, mu, rstd)
         ctx.cfg, ctx.key = cfg, key
         return y.reshape(x.shape)
@@ -273,10 +289,9 @@ class _IntLayerNorm(torch.autograd.Function):
 def int_layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                   key, cfg: QuantConfig, eps: float = 1e-5) -> torch.Tensor:
     """Layer-norm with integer statistics forward and backward (the
-    weight-bit fake-quantized γ; β and the rsqrt stay FP32)."""
+    weight-bit fake-quantized γ; β stays FP32, the rsqrt too unless
+    ``kept_ops="integer"``)."""
     if cfg.enabled and cfg.int_layernorm:
-        _no_integer_kept_ops(cfg, "int_layernorm")
-        _no_stochastic(cfg, key)
         return _IntLayerNorm.apply(x, gamma, beta, key, cfg, eps)
     mu = torch.mean(x, dim=-1, keepdim=True)
     var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
@@ -290,11 +305,12 @@ class _IntRmsNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, key, cfg: QuantConfig, eps: float):
-        xq = dfx.quantize(x, cfg.act_bits)
+        xq = dfx.quantize(x, cfg.act_bits, u=_act_noise(x, cfg, key))
         gv = dfx.dequantize(dfx.quantize(gamma, cfg.weight_bits))
         D = x.shape[-1]
         xm = xq.m.reshape(-1, D)
-        y, rstd = kops.rmsnorm(xm, xq.exp, gv, eps=eps)
+        y, rstd = kops.rmsnorm(xm, xq.exp, gv, eps=eps,
+                               integer_rsqrt=_kept_int(cfg))
         ctx.save_for_backward(xm, xq.exp, gv, rstd)
         ctx.cfg, ctx.key = cfg, key
         return y.reshape(x.shape)
@@ -314,33 +330,55 @@ def int_rmsnorm(x: torch.Tensor, gamma: torch.Tensor, key, cfg: QuantConfig,
     fake-quantized ``gamma``, through the integer RMS-norm kernels forward
     and backward."""
     if cfg.enabled and cfg.int_layernorm:
-        _no_integer_kept_ops(cfg, "int_rmsnorm")
-        _no_stochastic(cfg, key)
         return _IntRmsNorm.apply(x, gamma, key, cfg, eps)
     ms = torch.mean(torch.square(x), dim=-1, keepdim=True)
     return x * torch.rsqrt(ms + eps) * gamma
 
 
-_ACT_FNS = {"gelu": lambda x: F.gelu(x, approximate="tanh"),
-            "silu": F.silu, "tanh": torch.tanh}
+#: kind -> (FP32 op, integer forward, integer derivative)
+_ACT_FNS = {"gelu": (lambda x: F.gelu(x, approximate="tanh"),
+                     iapprox.i_gelu, iapprox.d_gelu),
+            "silu": (F.silu, iapprox.i_silu, iapprox.d_silu),
+            "tanh": (torch.tanh, iapprox.i_tanh, iapprox.d_tanh)}
+
+
+class _IntAct(torch.autograd.Function):
+    """The iapprox activation; its backward is ``g · d_<kind>(x)`` (the
+    reference's custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, x, kind: str):
+        ctx.save_for_backward(x)
+        ctx.kind = kind
+        return _ACT_FNS[kind][1](x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * _ACT_FNS[ctx.kind][2](x), None
 
 
 def int_activation(x: torch.Tensor, cfg: QuantConfig,
                    kind: str) -> torch.Tensor:
     """Kept-op activation, ``kind`` in {"gelu", "silu", "tanh"}: the FP32
-    op (``kept_ops="integer"`` is not ported yet)."""
+    op, or under an enabled ``kept_ops="integer"`` config the iapprox form
+    with the iapprox derivative as its backward."""
     if kind not in _ACT_FNS:
         raise KeyError(f"int_activation kind {kind!r} not in "
                        f"{sorted(_ACT_FNS)}")
-    _no_integer_kept_ops(cfg, "int_activation")
-    return _ACT_FNS[kind](x)
+    if _kept_int(cfg):
+        return _IntAct.apply(x, kind)
+    return _ACT_FNS[kind][0](x)
 
 
 def int_softmax(x: torch.Tensor, cfg: QuantConfig,
                 dim: int = -1) -> torch.Tensor:
-    """Softmax outside attention (the MoE router's gate): the FP32 op
-    (``kept_ops="integer"`` is not ported yet)."""
-    _no_integer_kept_ops(cfg, "int_softmax")
+    """Softmax outside attention (the MoE router's gate): the FP32 op, or
+    under an enabled ``kept_ops="integer"`` config ``i_softmax``, which
+    carries no gradient (the router then learns nothing through it, as in
+    the reference)."""
+    if _kept_int(cfg):
+        return iapprox.i_softmax(x, dim=dim)
     return torch.softmax(x, dim=dim)
 
 
@@ -365,17 +403,22 @@ class _IntAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, off, key, cfg_qk: QuantConfig,
                 cfg_pv: QuantConfig, causal: bool, window):
-        qq = dfx.quantize(q, cfg_qk.act_bits, limb_planes=True)
-        qk = dfx.quantize(k, cfg_qk.act_bits, limb_planes=True)
-        qv = dfx.quantize(v, cfg_pv.act_bits, limb_planes=True)
+        # q, k, v noise in that order (the reference's split of its key);
+        # all three follow cfg_qk.stochastic_fwd, as there
+        qq, qk, qv = (dfx.quantize(t, bits, u=_act_noise(t, cfg_qk, key),
+                                   limb_planes=True)
+                      for t, bits in ((q, cfg_qk.act_bits),
+                                      (k, cfg_qk.act_bits),
+                                      (v, cfg_pv.act_bits)))
+        iexp = _kept_int(cfg_qk)
         o, lse = kops.attention_fwd(qq.m, qq.exp, qk.m, qk.exp, qv.m, qv.exp,
                                     off, cfg_pv.act_bits, causal=causal,
-                                    window=window)
+                                    window=window, integer_exp=iexp)
         v_norm = _max_row_norm(v) if any(ctx.needs_input_grad[:3]) else None
         ctx.save_for_backward(qq.m, qq.exp, qk.m, qk.exp, qv.m, qv.exp, o,
                               lse, v_norm, off)
         ctx.cfg_qk, ctx.cfg_pv, ctx.key = cfg_qk, cfg_pv, key
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.iexp = causal, window, iexp
         return o
 
     @staticmethod
@@ -391,7 +434,7 @@ class _IntAttention(torch.autograd.Function):
         dq, dk, dv = kops.attention_bwd(
             qm, q_exp, km, k_exp, vm, v_exp, qg.m, qg.exp, lse, delta,
             ds_exp, off, cfg_pv.act_bits, ds_bits, causal=ctx.causal,
-            window=ctx.window)
+            window=ctx.window, integer_exp=ctx.iexp)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -406,11 +449,10 @@ def int_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     quantize at ``cfg_qk.act_bits``, v and P at ``cfg_pv.act_bits``, each
     over the whole tensor (for a KV cache: every slot and every empty
     position).  The backward quantizes the upstream gradient at
-    ``cfg_pv.grad_bits`` and dS at ``cfg_qk.grad_bits``.  Returns
-    (B, Sq, KV, G, hd) f32.
+    ``cfg_pv.grad_bits`` and dS at ``cfg_qk.grad_bits``.  Under an enabled
+    ``cfg_qk.kept_ops="integer"`` the softmax's exp and normalizer are the
+    Q.14 forms, forward and backward.  Returns (B, Sq, KV, G, hd) f32.
     """
-    _no_integer_kept_ops(cfg_qk, "int_attention")
-    _no_stochastic(cfg_qk, key)
     B = q.shape[0]
     off = torch.as_tensor(q_offset, device=q.device).to(torch.int32)
     off = torch.broadcast_to(off.reshape(-1), (B,)).contiguous()

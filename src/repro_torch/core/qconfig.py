@@ -43,8 +43,8 @@ class QuantConfig:
     #: quantize embedding tables / lookups (paper: yes).
     int_embedding: bool = True
     #: "fp32" keeps softmax exp / SiLU / rsqrt in FP32 (the paper's
-    #: setting); "integer" (the fixed-point forms) is not ported yet and
-    #: raises ``NotImplementedError`` where an op would use it.
+    #: setting); "integer" swaps them for the Q.14 fixed-point forms of
+    #: ``core/iapprox.py`` (in-kernel for the norms and attention).
     kept_ops: str = "fp32"
     warn_stability: bool = True
 

@@ -14,12 +14,19 @@
 //                                   * 2^(7(ja+jb) - (pb-1))
 //   o = acc / max(l, 1e-20),  lse = m + log(max(l, 1e-37))
 //
+// kept_ops="integer" (template flag IntExp, the same launch): both exps
+// are iapprox::i_exp (Q.14, iapprox.cuh; the reference's _p_exp :147) and
+// the epilogue is o = acc * i_recip(max(l, 1e-20)); the lse keeps logf,
+// as the reference's (:209).
+//
 // The running max, l and the P quantization move per 128-key block, as on
 // the TPU: P is quantized against the running max, so the block width is
 // part of the result.  Integer dots are exact int32; each f32 expression
 // is the reference's, in its order (no FMA contraction).  A key block that
 // is masked for every row of the tile is skipped: there it would leave m,
 // l and acc unchanged (p = 0, alpha = exp(0) = 1), so skipping it is exact.
+// Not so under IntExp, where i_exp(0) = 16381 / 2^14: a skipped block
+// still scales l and acc by it, as the reference's grid step does.
 //
 // Layout: the planes arrive in the model layout, q (Lq, B, Sq, KV, G, hd)
 // and k/v (L, B, Sk, KV, hd), and the kernel computes its own offsets, so
@@ -39,6 +46,7 @@
 // the PV product accumulates in shared memory.  Tensor-core MMA and a
 // pipelined K/V stream are later work.
 #include "dfx_common.cuh"
+#include "iapprox.cuh"
 
 namespace {
 
@@ -65,7 +73,14 @@ __device__ __forceinline__ int word_at(const int8_t* base, int byte_off) {
   return *reinterpret_cast<const int*>(base + byte_off);
 }
 
-template <int LQK, int LPV>
+// The online softmax's exp: FP32, or the Q.14 form.
+template <bool IntExp>
+__device__ __forceinline__ float p_exp(float x) {
+  if constexpr (IntExp) return iapprox::i_exp(x);
+  return expf(x);
+}
+
+template <int LQK, int LPV, bool IntExp>
 __global__ void __launch_bounds__(kThreads)
 int_attn_fwd_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -118,8 +133,18 @@ int_attn_fwd_kernel(const Params p) {
   for (int kb = 0; kb < n_kb; ++kb) {
     const int k_lo = kb * BKV;
     const int k_hi = min(k_lo + BKV, p.Sk) - 1;
-    if (p.causal && k_lo > q_hi) continue;                   // all k > q
-    if (p.window >= 0 && k_hi <= q_lo - p.window) continue;  // all outside
+    if ((p.causal && k_lo > q_hi) ||                   // all k > q
+        (p.window >= 0 && k_hi <= q_lo - p.window)) {  // all outside
+      if constexpr (IntExp) {
+        // m stays, p = 0: l = l * i_exp(0) + 0, acc = acc * i_exp(0) + 0
+        const float a0 = iapprox::i_exp(0.0f);
+        for (int e = t; e < BQ * hd; e += kThreads)
+          acc[e] = __fadd_rn(__fmul_rn(acc[e], a0), 0.0f);
+        if (t < BQ) lrow[t] = __fadd_rn(__fmul_rn(lrow[t], a0), 0.0f);
+        __syncthreads();
+      }
+      continue;
+    }
 
     // Stage K (row-major, K-contiguous rows) and V transposed (d-major).
     for (int e = t; e < LPV * BKV * (hd4 / 4); e += kThreads) {
@@ -199,7 +224,8 @@ int_attn_fwd_kernel(const Params p) {
       const bool ok = r < rows && kpos < p.Sk &&
                       (!p.causal || kpos <= qpos) &&
                       (p.window < 0 || kpos > qpos - p.window);
-      const float pv = ok ? expf(__fsub_rn(srow[col], m_new)) : 0.0f;
+      const float pv =
+          ok ? p_exp<IntExp>(__fsub_rn(srow[col], m_new)) : 0.0f;
       lsum = i == 0 ? pv : __fadd_rn(lsum, pv);
       const int pm = (int)fminf(fmaxf(rintf(__fmul_rn(pv, pscale)), -plim),
                                 plim);
@@ -212,7 +238,7 @@ int_attn_fwd_kernel(const Params p) {
     if (part == 0) {
       float rs = red[r * RPT];
       for (int i = 1; i < RPT; ++i) rs = __fadd_rn(rs, red[r * RPT + i]);
-      const float alpha = expf(__fsub_rn(m_prev, m_new));
+      const float alpha = p_exp<IntExp>(__fsub_rn(m_prev, m_new));
       arow[r] = alpha;
       lrow[r] = __fadd_rn(__fmul_rn(lrow[r], alpha), rs);
       mrow[r] = m_new;
@@ -244,15 +270,16 @@ int_attn_fwd_kernel(const Params p) {
 
   for (int e = t; e < rows * hd; e += kThreads) {
     const int r = e / hd, d = e % hd;
+    const float l = fmaxf(lrow[r], 1e-20f);
     p.o[((((long long)b * p.Sq + sq0 + r) * p.KV + h) * p.G + g) * hd + d] =
-        __fdiv_rn(acc[e], fmaxf(lrow[r], 1e-20f));
+        IntExp ? __fmul_rn(acc[e], iapprox::i_recip(l)) : __fdiv_rn(acc[e], l);
   }
   if (t < rows)
     p.lse[(((long long)b * p.KV + h) * p.G + g) * p.Sq + sq0 + t] =
         __fadd_rn(mrow[t], logf(fmaxf(lrow[t], 1e-37f)));
 }
 
-template <int LQK, int LPV>
+template <int LQK, int LPV, bool IntExp>
 int launch(const Params& p, cudaStream_t stream) {
   const int hd4 = (p.hd + 3) & ~3, HP = hd4 + 4;
   const size_t smem = (size_t)LQK * BQ * HP + (size_t)LQK * BKV * HP +
@@ -263,14 +290,20 @@ int launch(const Params& p, cudaStream_t stream) {
   static size_t granted = 48 * 1024;
   if (smem > granted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        int_attn_fwd_kernel<LQK, LPV>,
+        int_attn_fwd_kernel<LQK, LPV, IntExp>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     granted = smem;
   }
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.G, p.B * p.KV);
-  int_attn_fwd_kernel<LQK, LPV><<<grid, kThreads, smem, stream>>>(p);
+  int_attn_fwd_kernel<LQK, LPV, IntExp><<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <int LQK, int LPV>
+int dispatch(const Params& p, int integer_exp, cudaStream_t stream) {
+  return integer_exp ? launch<LQK, LPV, true>(p, stream)
+                     : launch<LQK, LPV, false>(p, stream);
 }
 
 }  // namespace
@@ -278,28 +311,29 @@ int launch(const Params& p, cudaStream_t stream) {
 // q: (lqk, B, Sq, KV, G, hd), k: (lqk, B, Sk, KV, hd), v: (lpv, B, Sk, KV,
 // hd) int8 limb planes; off: (B,) int32 query offsets; exps: (3,) int32
 // [q, k, v] exponents (device memory).  o: (B, Sq, KV, G, hd) f32; lse:
-// (B, KV, G, Sq) f32.  window < 0 means no sliding window.
+// (B, KV, G, Sq) f32.  window < 0 means no sliding window; integer_exp
+// != 0 takes the kept_ops="integer" body.
 extern "C" int int_attn_fwd_launch(const int8_t* q, const int8_t* k,
                                    const int8_t* v, const int* off,
                                    const int* exps, float* o, float* lse,
                                    int B, int Sq, int Sk, int KV, int G,
                                    int hd, int lqk, int lpv, int p_bits,
                                    int causal, int window, float sc,
-                                   cudaStream_t stream) {
+                                   int integer_exp, cudaStream_t stream) {
   if (B <= 0 || Sq <= 0 || KV <= 0 || G <= 0 || hd <= 0) return 0;
   if (G > 65535 || (long long)B * KV > 65535) return (int)cudaErrorInvalidValue;
   const Params p{q, k, v, off, exps, o, lse, B, Sq, Sk, KV, G, hd, p_bits,
                  causal, window, sc};
   switch (lqk * 4 + lpv) {
-    case 5: return launch<1, 1>(p, stream);
-    case 6: return launch<1, 2>(p, stream);
-    case 7: return launch<1, 3>(p, stream);
-    case 9: return launch<2, 1>(p, stream);
-    case 10: return launch<2, 2>(p, stream);
-    case 11: return launch<2, 3>(p, stream);
-    case 13: return launch<3, 1>(p, stream);
-    case 14: return launch<3, 2>(p, stream);
-    case 15: return launch<3, 3>(p, stream);
+    case 5: return dispatch<1, 1>(p, integer_exp, stream);
+    case 6: return dispatch<1, 2>(p, integer_exp, stream);
+    case 7: return dispatch<1, 3>(p, integer_exp, stream);
+    case 9: return dispatch<2, 1>(p, integer_exp, stream);
+    case 10: return dispatch<2, 2>(p, integer_exp, stream);
+    case 11: return dispatch<2, 3>(p, integer_exp, stream);
+    case 13: return dispatch<3, 1>(p, integer_exp, stream);
+    case 14: return dispatch<3, 2>(p, integer_exp, stream);
+    case 15: return dispatch<3, 3>(p, integer_exp, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

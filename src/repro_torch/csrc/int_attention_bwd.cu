@@ -22,6 +22,9 @@
 //   dk  = sc * sum_qblocks   sum_pairs (f32(dsm_limb . q_limb) * 2^(dse+qe))
 //                                      * 2^(7(ja+jb))
 //
+// kept_ops="integer" (template flag IntExp, the same launch): p's exp is
+// iapprox::i_exp (Q.14, iapprox.cuh), as the reference's _p_exp :147.
+//
 // Each limb pair is its own exact int32 dot, converted and combined in f32
 // in pair order (first operand's limbs outer); each f32 expression is the
 // reference's, in its order (explicit _rn intrinsics, no FMA contraction;
@@ -78,8 +81,11 @@
 // exact, so the permutation changes no bit.  Accumulator registers do not
 // grow with the limb-pair count: each pair's contraction completes before
 // the next starts.  A smaller CTA (2 or 1 warps) is taken at launch where
-// the limb counts and hd need more shared memory than 227 KB.  hd <= 128
-// (one instantiation per 32-column chunk count).
+// the limb counts and hd need more shared memory than 227 KB.  hd <= 256:
+// one instantiation per 32-column chunk count up to 4 (hd 128), and one of
+// 8 chunks for 128 < hd <= 256 (zero-padded to 256 in shared memory),
+// whose f32 sums live in shared memory (dq too) and whose CTA is narrower
+// (dkv: 1 warp at the int8 preset's limb counts).
 //
 // What the card measured (chip_smoke.py phase 2, PERF.md): with the MMAs
 // in place the f32 recompute per score is the larger cost, so it avoids
@@ -88,6 +94,7 @@
 // runs branch-free per element (masks as selects, and no mask at all on a
 // tile every row of which sees every key).
 #include "dfx_common.cuh"
+#include "iapprox.cuh"
 #include "sm90_ptx.cuh"
 
 #include <type_traits>
@@ -98,7 +105,7 @@ constexpr int KS = 32;                      // sub-tile rows: one MMA k-step
 constexpr int KSB = 4;                      // k-steps of a 128-row block
 constexpr int TP = KS * KSB + 16;           // byte stride of a transposed row
 constexpr int kStages = 2;                  // depth of the cp.async ring
-constexpr int kMaxChunks = 4;               // hd <= 32 * kMaxChunks
+constexpr int kMaxChunks = 8;               // hd <= 32 * kMaxChunks
 constexpr int kLimbWords = KSB * 32 * 4;    // a warp's A fragments of one
                                             // limb over a block, in words
 constexpr size_t kSmemMax = 227 * 1024;
@@ -123,9 +130,10 @@ struct Params {
 };
 
 // dkv keeps its f32 dk / dv sums in registers up to hd 64 (two 32-column
-// chunks: 64 registers), in shared memory beyond; dq always in registers.
-__host__ __device__ constexpr bool dkv_sums_in_regs(int chunks) {
-  return chunks <= 2;
+// chunks: 64 registers), dq its dq sums up to hd 128 (64 registers); in
+// shared memory beyond.
+__host__ __device__ constexpr bool sums_in_regs(bool dkv, int chunks) {
+  return chunks <= (dkv ? 2 : 4);
 }
 
 // Shared-memory carve-up (byte offsets, each a multiple of 16).
@@ -152,9 +160,9 @@ __host__ __device__ inline Smem smem_layout(const Params& p, bool dkv) {
   o += (size_t)(dkv ? p.lqk + p.lg : p.lqk) * p.hdp * TP;
   m.priv = o;  // per warp: A fragments, dq dS limbs; dkv P then dS limbs
   o += (size_t)p.nw * (dkv ? p.lv + p.lds : p.lds) * kLimbWords * 4;
-  m.acc = o;  // per warp: dkv's f32 dk then dv sums where not in registers
-  if (dkv && !dkv_sums_in_regs(p.hdp / KS))
-    o += (size_t)p.nw * 2 * p.hdp * 16 * sizeof(float);
+  m.acc = o;  // per warp: the f32 sums (dkv: dk then dv) not in registers
+  if (!sums_in_regs(dkv, p.hdp / KS))
+    o += (size_t)p.nw * (dkv ? 2 : 1) * p.hdp * 16 * sizeof(float);
   m.end = o;
   return m;
 }
@@ -179,9 +187,11 @@ __device__ __forceinline__ bool visible(const Params& p, int qpos,
 // F2I and FRND run at a quarter of its rate, and were this kernel's
 // bottleneck): 1.5 * 2^23 + x has the float bits 0x4B400000 + x for
 // |x| < 2^22, and adding 1.5 * 2^23 rounds to an integer half to even,
-// as rintf does.  Exact here: every dot is below 127^2 * 128 < 2^21 (hd and
-// the blocks are at most 128 deep; digits at most 127), and a mantissa is
-// clipped to 2^15 before it is rounded.
+// as rintf does.  Exact here: every dot is below 127^2 * 256 = 4,129,024
+// < 2^22 (the hd contractions at most 256 deep, the block contractions 128;
+// every limb digit, the top limb's raw carry included, at most 127 in
+// magnitude: a 12-bit mantissa's carry is at most 16, a 16-bit one's 2),
+// and a mantissa is clipped to 2^15 before it is rounded.
 constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23
 constexpr int kMagicBits = 0x4B400000;
 
@@ -506,11 +516,19 @@ __device__ __forceinline__ void store_pair(float* o, float x0, float x1,
   }
 }
 
+// p's exp: FP32 (expf, not __expf), or the Q.14 form.
+template <bool IntExp>
+__device__ __forceinline__ float p_exp(float x) {
+  if constexpr (IntExp) return iapprox::i_exp(x);
+  return expf(x);
+}
+
 // ---------------------------------------------------------------- dq ----
 
-template <int NDC>
+template <int NDC, bool IntExp>
 __global__ void __launch_bounds__(128) dq_kernel(const Params p) {
   constexpr int HDP = KS * NDC, HP = HDP + 16;
+  constexpr bool kRegSums = sums_in_regs(false, NDC);
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem m = smem_layout(p, false);
   const int hd = p.hd, R = 16 * p.nw;
@@ -526,6 +544,7 @@ __global__ void __launch_bounds__(128) dq_kernel(const Params p) {
   int8_t* kt = reinterpret_cast<int8_t*>(smem + m.tr);
   uint4* fa = reinterpret_cast<uint4*>(smem + m.priv) +
               warp * p.lds * kLimbWords / 4;
+  float* sums = reinterpret_cast<float*>(smem + m.acc) + warp * HDP * 16;
   const long long qplane = (long long)p.B * p.Sq * p.KV * p.G * hd;
   const long long kplane = (long long)p.B * p.Sk * p.KV * hd;
   const long long qrow = (long long)p.KV * p.G * hd;  // q row stride
@@ -592,7 +611,7 @@ __global__ void __launch_bounds__(128) dq_kernel(const Params p) {
     }
     ptx::cp_async_commit();
   }
-  Sums<NDC, true> acc(nullptr, lane);
+  Sums<NDC, kRegSums> acc(sums, lane);
   unsigned live_ks = 0;  // the warp's k-steps of the current key block
   for (int cur = next(0), it = 0; cur < n_st; ++it) {
     if (prod < n_st) {
@@ -628,7 +647,7 @@ __global__ void __launch_bounds__(128) dq_kernel(const Params p) {
                                        cur * KS + 8 * j + 2 * (lane & 3) +
                                            (e & 1));
             const float ex =
-                expf(__fsub_rn(__fmul_rn(s[j][e], p.sc), lse_r[i]));
+                p_exp<IntExp>(__fsub_rn(__fmul_rn(s[j][e], p.sc), lse_r[i]));
             const float pr = ok ? ex : 0.0f;
             const float ds = __fmul_rn(pr, __fsub_rn(dp[j][e], del_r[i]));
             const int m = round_clip(__fmul_rn(ds, inv_ds), p.ds_bits);
@@ -678,10 +697,10 @@ __global__ void __launch_bounds__(128) dq_kernel(const Params p) {
 
 // --------------------------------------------------------------- dkv ----
 
-template <int NDC>
+template <int NDC, bool IntExp>
 __global__ void __launch_bounds__(128) dkv_kernel(const Params p) {
   constexpr int HDP = KS * NDC, HP = HDP + 16;
-  constexpr bool kRegSums = dkv_sums_in_regs(NDC);
+  constexpr bool kRegSums = sums_in_regs(true, NDC);
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem m = smem_layout(p, true);
   const int hd = p.hd, R = 16 * p.nw;
@@ -808,7 +827,7 @@ __global__ void __launch_bounds__(128) dkv_kernel(const Params p) {
               ok = (r0 + rl < p.Sq) &
                    visible(p, off + r0 + rl, wk0 + (lane >> 2) + 8 * (e >> 1));
             const float ex =
-                expf(__fsub_rn(__fmul_rn(s[j][e], p.sc), lse_s[rl]));
+                p_exp<IntExp>(__fsub_rn(__fmul_rn(s[j][e], p.sc), lse_s[rl]));
             const float pr = ok ? ex : 0.0f;
             const int pmv = round_clip(__fmul_rn(pr, pscale), p.p_bits);
             const float ds = __fmul_rn(pr, __fsub_rn(dp[j][e], del_s[rl]));
@@ -881,6 +900,7 @@ int configure(Params& p, bool dkv, size_t* smem) {
       p.lg > 3 || p.lds < 1 || p.lds > 3 || p.hd > KS * kMaxChunks)
     return (int)cudaErrorInvalidValue;
   p.hdp = (p.hd + KS - 1) / KS * KS;
+  if (p.hdp > KS * 4) p.hdp = KS * kMaxChunks;  // the one wide body
   const uintptr_t base = (uintptr_t)p.q | (uintptr_t)p.k | (uintptr_t)p.v |
                          (uintptr_t)p.g;
   p.vec = 1;
@@ -896,24 +916,52 @@ int configure(Params& p, bool dkv, size_t* smem) {
   return (int)cudaErrorInvalidValue;
 }
 
-template <int NDC>
+template <int NDC, bool IntExp>
 int launch_dq(const Params& p, size_t smem, cudaStream_t stream) {
   static size_t granted = 48 * 1024;
-  const int err = set_smem((const void*)dq_kernel<NDC>, smem, &granted);
+  const int err =
+      set_smem((const void*)dq_kernel<NDC, IntExp>, smem, &granted);
   if (err) return err;
   const dim3 grid((p.Sq + 16 * p.nw - 1) / (16 * p.nw), p.G, p.B * p.KV);
-  dq_kernel<NDC><<<grid, 32 * p.nw, smem, stream>>>(p);
+  dq_kernel<NDC, IntExp><<<grid, 32 * p.nw, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int NDC>
+template <int NDC, bool IntExp>
 int launch_dkv(const Params& p, size_t smem, cudaStream_t stream) {
   static size_t granted = 48 * 1024;
-  const int err = set_smem((const void*)dkv_kernel<NDC>, smem, &granted);
+  const int err =
+      set_smem((const void*)dkv_kernel<NDC, IntExp>, smem, &granted);
   if (err) return err;
   const dim3 grid((p.Sk + 16 * p.nw - 1) / (16 * p.nw), p.B * p.KV);
-  dkv_kernel<NDC><<<grid, 32 * p.nw, smem, stream>>>(p);
+  dkv_kernel<NDC, IntExp><<<grid, 32 * p.nw, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The instantiation for the chunk count (1-4, or 8) and the exp body.
+template <bool Dkv, bool IntExp>
+int launch_body(const Params& p, size_t smem, cudaStream_t stream) {
+  switch (p.hdp / KS) {
+    case 1: return Dkv ? launch_dkv<1, IntExp>(p, smem, stream)
+                       : launch_dq<1, IntExp>(p, smem, stream);
+    case 2: return Dkv ? launch_dkv<2, IntExp>(p, smem, stream)
+                       : launch_dq<2, IntExp>(p, smem, stream);
+    case 3: return Dkv ? launch_dkv<3, IntExp>(p, smem, stream)
+                       : launch_dq<3, IntExp>(p, smem, stream);
+    case 4: return Dkv ? launch_dkv<4, IntExp>(p, smem, stream)
+                       : launch_dq<4, IntExp>(p, smem, stream);
+    case kMaxChunks:
+      return Dkv ? launch_dkv<kMaxChunks, IntExp>(p, smem, stream)
+                 : launch_dq<kMaxChunks, IntExp>(p, smem, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool Dkv>
+int launch(const Params& p, int integer_exp, size_t smem,
+           cudaStream_t stream) {
+  return integer_exp ? launch_body<Dkv, true>(p, smem, stream)
+                     : launch_body<Dkv, false>(p, smem, stream);
 }
 
 }  // namespace
@@ -922,13 +970,13 @@ int launch_dkv(const Params& p, size_t smem, cudaStream_t stream) {
 // limb planes; lse (B, KV, G, Sq) and delta (B, Sq, KV, G) f32; off (B,)
 // int32 query offsets; exps (5,) int32 [q, k, v, g, dS] exponents (device
 // memory).  dq: (B, Sq, KV, G, hd) f32.  window < 0: no sliding window.
-// hd <= 128.
+// hd <= 256.  integer_exp != 0 takes the kept_ops="integer" body.
 extern "C" int int_attn_bwd_dq_launch(
     const int8_t* q, const int8_t* k, const int8_t* v, const int8_t* g,
     const float* lse, const float* delta, const int* off, const int* exps,
     float* dq, int B, int Sq, int Sk, int KV, int G, int hd, int lqk, int lv,
     int lg, int lds, int ds_bits, int causal, int window, float sc,
-    cudaStream_t stream) {
+    int integer_exp, cudaStream_t stream) {
   if (B <= 0 || Sq <= 0 || KV <= 0 || G <= 0 || hd <= 0) return 0;
   if (G > 65535 || (long long)B * KV > 65535) return (int)cudaErrorInvalidValue;
   Params p{q, k, v, g, lse, delta, off, exps, dq, nullptr, nullptr,
@@ -937,12 +985,7 @@ extern "C" int int_attn_bwd_dq_launch(
   size_t smem = 0;
   const int err = configure(p, false, &smem);
   if (err) return err;
-  switch (p.hdp / KS) {
-    case 1: return launch_dq<1>(p, smem, stream);
-    case 2: return launch_dq<2>(p, smem, stream);
-    case 3: return launch_dq<3>(p, smem, stream);
-    default: return launch_dq<4>(p, smem, stream);
-  }
+  return launch<false>(p, integer_exp, smem, stream);
 }
 
 // Arguments as int_attn_bwd_dq_launch; bq is the reference's query block
@@ -953,7 +996,7 @@ extern "C" int int_attn_bwd_dkv_launch(
     const float* lse, const float* delta, const int* off, const int* exps,
     float* dk, float* dv, int B, int Sq, int Sk, int KV, int G, int hd,
     int lqk, int lv, int lg, int lds, int p_bits, int ds_bits, int bq,
-    int causal, int window, float sc, cudaStream_t stream) {
+    int causal, int window, float sc, int integer_exp, cudaStream_t stream) {
   if (B <= 0 || Sk <= 0 || KV <= 0 || G <= 0 || hd <= 0) return 0;
   // the q blocks are whole 32-row sub-tiles (bq = 128) or all of Sq
   if ((long long)B * KV > 65535 || bq <= 0 || (bq % KS && bq < Sq))
@@ -964,10 +1007,5 @@ extern "C" int int_attn_bwd_dkv_launch(
   size_t smem = 0;
   const int err = configure(p, true, &smem);
   if (err) return err;
-  switch (p.hdp / KS) {
-    case 1: return launch_dkv<1>(p, smem, stream);
-    case 2: return launch_dkv<2>(p, smem, stream);
-    case 3: return launch_dkv<3>(p, smem, stream);
-    default: return launch_dkv<4>(p, smem, stream);
-  }
+  return launch<true>(p, integer_exp, smem, stream);
 }

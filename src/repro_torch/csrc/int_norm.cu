@@ -9,13 +9,15 @@
 //     |hi|, |lo| <= 128); s2 = f32(sum hi^2) * 65536 + f32(sum hi*lo) * 512
 //     + f32(sum lo^2); mu_m = f32(s1) / D; var_m = max(s2 / D - mu_m^2, 0)
 //     mu = mu_m * 2^exp;  rstd = 1 / sqrt(var_m * (2^exp)^2 + eps)
+//     (kept_ops="integer", the reference's _rstd :79: rstd = i_rsqrt(...)
+//     in Q.14, iapprox.cuh; template flag IntRsqrt, the same launch)
 //     y  = ((x * 2^exp - mu) * rstd) * gamma + beta       -> y, mu, rstd
 //   int_layernorm_bwd (:181, body _ln_bwd_kernel :152)
 //     xn = (x * 2^xe - mu) * rstd;  gq = g * 2^ge;  gg = gq * gamma
 //     dx = rstd * ((gg - mean(gg)) - xn * mean(gg * xn))       per row
 //     dgamma = sum_rows gq * xn;  dbeta = f32(sum_rows g) * 2^ge
 //   int_rmsnorm_fwd (:246, body _rms_fwd_kernel :231)
-//     ms = (s2 / D) * (2^exp)^2;  rstd = 1 / sqrt(ms + eps)
+//     ms = (s2 / D) * (2^exp)^2;  rstd = 1 / sqrt(ms + eps)  (or i_rsqrt)
 //     y  = ((x * 2^exp) * rstd) * gamma
 //   int_rmsnorm_bwd (:298, body _rms_bwd_kernel :282)
 //     xn = (x * 2^xe) * rstd;  gq = g * 2^ge;  gg = gq * gamma
@@ -45,11 +47,23 @@
 // dx and accumulates the column partials in registers.  The RMS-norm
 // backward is the layer-norm's with mu = 0 and without mean(gg) and dbeta.
 #include "dfx_common.cuh"
+#include "iapprox.cuh"
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kLnRows = 16;  // rows per backward block (dgamma partials)
+
+// rstd = 1 / sqrt(ms + eps) with IEEE sqrt and division, or the Q.14
+// Newton form.
+template <bool IntRsqrt>
+__device__ __forceinline__ float rstd_of(float ms, float eps) {
+  const float y = __fadd_rn(ms, eps);
+  if constexpr (IntRsqrt) return iapprox::i_rsqrt(y);
+  return __fdiv_rn(1.0f, __fsqrt_rn(y));
+}
 
 // Shared-memory tree sum, in a fixed order, of NS arrays of per-thread
 // values: red[i][t] summed into red[i][0].
@@ -64,7 +78,7 @@ __device__ __forceinline__ void block_sum(T (*red)[kThreads]) {
   }
 }
 
-template <typename InT>
+template <typename InT, bool IntRsqrt>
 __global__ void __launch_bounds__(kThreads)
 ln_fwd_kernel(const InT* __restrict__ x, const int* __restrict__ exp,
               const float* __restrict__ gamma, const float* __restrict__ beta,
@@ -99,9 +113,8 @@ ln_fwd_kernel(const InT* __restrict__ x, const int* __restrict__ exp,
       fmaxf(__fsub_rn(__fdiv_rn(s2, d), __fmul_rn(mu_m, mu_m)), 0.0f);
   const float scale = dfx::pow2f(exp[0]);
   const float mu = __fmul_rn(mu_m, scale);
-  const float rs = __fdiv_rn(
-      1.0f, __fsqrt_rn(__fadd_rn(__fmul_rn(var_m, __fmul_rn(scale, scale)),
-                                 eps)));
+  const float rs =
+      rstd_of<IntRsqrt>(__fmul_rn(var_m, __fmul_rn(scale, scale)), eps);
   float* yr = y + row * D;
   for (int i = t; i < D; i += kThreads) {
     const float xn = __fmul_rn(__fsub_rn(__fmul_rn((float)xr[i], scale), mu),
@@ -238,7 +251,7 @@ ln_bwd_reduce_kernel(const float* __restrict__ dg_part,
   if (db_part) dbeta[i] = __fmul_rn((float)db, dfx::pow2f(gexp[0]));
 }
 
-template <typename InT>
+template <typename InT, bool IntRsqrt>
 __global__ void __launch_bounds__(kThreads)
 rms_fwd_kernel(const InT* __restrict__ x, const int* __restrict__ exp,
                const float* __restrict__ gamma, float* __restrict__ y,
@@ -266,50 +279,60 @@ rms_fwd_kernel(const InT* __restrict__ x, const int* __restrict__ exp,
                 (float)red[2][0]);
   const float scale = dfx::pow2f(exp[0]);
   const float ms = __fmul_rn(__fdiv_rn(s2, (float)D), __fmul_rn(scale, scale));
-  const float rs = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(ms, eps)));
+  const float rs = rstd_of<IntRsqrt>(ms, eps);
   float* yr = y + row * D;
   for (int i = t; i < D; i += kThreads)
     yr[i] = __fmul_rn(__fmul_rn(__fmul_rn((float)xr[i], scale), rs), gamma[i]);
   if (t == 0) rstd[row] = rs;
 }
 
+// Launch the forward for the mantissa type (in_bytes 1 or 2) and the
+// rsqrt body (tags x, r).
+template <typename Run>
+int run_fwd(int in_bytes, int integer_rsqrt, Run run) {
+  switch (in_bytes * 2 + (integer_rsqrt != 0)) {
+    case 2: run(int8_t(), std::false_type()); break;
+    case 3: run(int8_t(), std::true_type()); break;
+    case 4: run(int16_t(), std::false_type()); break;
+    case 5: run(int16_t(), std::true_type()); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // xm: (R, D) int8 (in_bytes = 1) or int16 (in_bytes = 2) mantissas; exp one
 // int32 in device memory; gamma (D,) f32; y (R, D) f32; rstd (R,) f32.
+// integer_rsqrt != 0: the rsqrt's Q.14 Newton body.
 extern "C" int int_rmsnorm_fwd_launch(const void* xm, int in_bytes,
                                       const int* exp, const float* gamma,
                                       float* y, float* rstd, int R, int D,
-                                      float eps, cudaStream_t stream) {
+                                      float eps, int integer_rsqrt,
+                                      cudaStream_t stream) {
   if (R <= 0 || D <= 0) return 0;
-  if (in_bytes == 1)
-    rms_fwd_kernel<int8_t><<<R, kThreads, 0, stream>>>(
-        (const int8_t*)xm, exp, gamma, y, rstd, D, eps);
-  else if (in_bytes == 2)
-    rms_fwd_kernel<int16_t><<<R, kThreads, 0, stream>>>(
-        (const int16_t*)xm, exp, gamma, y, rstd, D, eps);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return run_fwd(in_bytes, integer_rsqrt, [&](auto x, auto r) {
+    using X = decltype(x);
+    rms_fwd_kernel<X, decltype(r)::value><<<R, kThreads, 0, stream>>>(
+        (const X*)xm, exp, gamma, y, rstd, D, eps);
+  });
 }
 
 // xm: (R, D) int8 (in_bytes = 1) or int16 (2) mantissas; exp one int32 in
 // device memory; gamma, beta (D,) f32; y (R, D) f32; mu, rstd (R,) f32.
+// integer_rsqrt != 0: the rsqrt's Q.14 Newton body.
 extern "C" int int_layernorm_fwd_launch(const void* xm, int in_bytes,
                                         const int* exp, const float* gamma,
                                         const float* beta, float* y,
                                         float* mu, float* rstd, int R, int D,
-                                        float eps, cudaStream_t stream) {
+                                        float eps, int integer_rsqrt,
+                                        cudaStream_t stream) {
   if (R <= 0 || D <= 0) return 0;
-  if (in_bytes == 1)
-    ln_fwd_kernel<int8_t><<<R, kThreads, 0, stream>>>(
-        (const int8_t*)xm, exp, gamma, beta, y, mu, rstd, D, eps);
-  else if (in_bytes == 2)
-    ln_fwd_kernel<int16_t><<<R, kThreads, 0, stream>>>(
-        (const int16_t*)xm, exp, gamma, beta, y, mu, rstd, D, eps);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return run_fwd(in_bytes, integer_rsqrt, [&](auto x, auto r) {
+    using X = decltype(x);
+    ln_fwd_kernel<X, decltype(r)::value><<<R, kThreads, 0, stream>>>(
+        (const X*)xm, exp, gamma, beta, y, mu, rstd, D, eps);
+  });
 }
 
 // Rows per backward block: the wrapper sizes the partials (nb, D) with

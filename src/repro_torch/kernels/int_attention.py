@@ -38,19 +38,33 @@ with ``pm`` the forward's P mantissa.  The f32 sums run over the
 reference's blocks: 128 keys for dq, ``bq`` query rows of each group head
 in turn (group-major) for dk and dv, which for GQA are the sums over the
 G query heads of a kv head.  Outputs dq in q's model layout, dk and dv
-``(B, Sk, KV, hd)`` f32.
+``(B, Sk, KV, hd)`` f32.  The backward kernels take hd <= 256
+(``MAX_BWD_HEAD_DIM``); the wrappers refuse more on every device.
+
+``integer_exp`` (``kept_ops="integer"``, the reference's ``_p_exp``) takes
+each kernel's other body, in the same launch: every ``exp`` above is
+``core/iapprox.py::i_exp`` and the forward's ``acc / max(l, 1e-20)`` is
+``acc · i_recip(max(l, 1e-20))``; the lse keeps ``log``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.dfx import pow2
+from repro_torch.core.iapprox import i_exp, i_recip
 from repro_torch.kernels import _lib
 from repro_torch.kernels.dfx_quant import LIMB_BITS, n_limbs, split_planes
 
 #: keys per online-softmax update (the reference kernel's bk)
 BLOCK_K = 128
+#: widest head the backward kernels take (8 chunks of 32 columns)
+MAX_BWD_HEAD_DIM = 256
 _BIG_NEG = -1e30
+
+
+def _p_exp(x: torch.Tensor, integer_exp: bool) -> torch.Tensor:
+    """The softmax's exp: FP32, or ``i_exp``."""
+    return i_exp(x) if integer_exp else torch.exp(x)
 
 
 def q_block(Sq: int) -> int:
@@ -74,6 +88,21 @@ def _limb_sum(a, b, eq: str, s0, shift: int = 0):
     return out
 
 
+def _block_row_sum(p: torch.Tensor) -> torch.Tensor:
+    """Row sums of a key block's p in the forward kernel's f32 order: 8
+    runs of 16 consecutive columns (the block zero-padded to 128), each
+    summed left to right, then the 8 partials in order."""
+    p = torch.nn.functional.pad(p, (0, BLOCK_K - p.shape[-1]))
+    runs = p.reshape(p.shape[:-1] + (8, BLOCK_K // 8))
+    part = runs[..., 0]
+    for i in range(1, BLOCK_K // 8):
+        part = part + runs[..., i]
+    total = part[..., 0]
+    for i in range(1, 8):
+        total = total + part[..., i]
+    return total[..., None]
+
+
 def _mask(qpos, kpos, Sk: int, causal: bool, window):
     """Validity of (query position, key position) pairs: qpos (..., Sq, 1),
     kpos (Sk',)."""
@@ -91,7 +120,8 @@ def _round_clip(y, bits: int):
 
 
 def int_attn_fwd_plain(qm, km, vm, q_off, exps, *, p_bits: int,
-                       causal: bool, window: int | None, sc: float):
+                       causal: bool, window: int | None, sc: float,
+                       integer_exp: bool = False):
     """Plain PyTorch version: the same blocked recurrence, vectorized over
     (B, KV, G, Sq); integer limb dots in float64 (exact), then the ordered
     f32 combines."""
@@ -128,9 +158,9 @@ def int_attn_fwd_plain(qm, km, vm, q_off, exps, *, p_bits: int,
                 s = part if s is None else s + part
         s = torch.where(ok, s * sc, _BIG_NEG)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        p = torch.where(ok, torch.exp(s - m_new), 0.0)
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(-1, keepdim=True)
+        p = torch.where(ok, _p_exp(s - m_new, integer_exp), 0.0)
+        alpha = _p_exp(m - m_new, integer_exp)
+        l = l * alpha + _block_row_sum(p)
         pm = torch.clamp(torch.round(p * float(2 ** (p_bits - 1))), -lim, lim)
         pv = None
         for ja, plane in enumerate(split_planes(pm, n_limbs(p_bits))):
@@ -142,13 +172,15 @@ def int_attn_fwd_plain(qm, km, vm, q_off, exps, *, p_bits: int,
                 pv = part if pv is None else pv + part
         acc = acc * alpha + pv
         m = m_new
-    o = (acc / torch.clamp(l, min=1e-20)).permute(0, 3, 1, 2, 4)
+    lc = torch.clamp(l, min=1e-20)
+    o = (acc * i_recip(lc) if integer_exp else acc / lc).permute(0, 3, 1, 2,
+                                                                 4)
     lse = (m + torch.log(torch.clamp(l, min=1e-37)))[..., 0]
     return o.contiguous(), lse
 
 
 def _launch(lib, qm, km, vm, q_off, exps, p_bits, causal, window, sc,
-            stream):
+            integer_exp, stream):
     Lq, B, Sq, KV, G, hd = qm.shape
     Sk = km.shape[2]
     o = torch.empty((B, Sq, KV, G, hd), dtype=torch.float32, device=qm.device)
@@ -157,7 +189,8 @@ def _launch(lib, qm, km, vm, q_off, exps, p_bits, causal, window, sc,
         qm.data_ptr(), km.data_ptr(), vm.data_ptr(), q_off.data_ptr(),
         exps.data_ptr(), o.data_ptr(), lse.data_ptr(), B, Sq, Sk, KV, G, hd,
         Lq, vm.shape[0], p_bits, int(causal),
-        -1 if window is None else int(window), float(sc), stream)
+        -1 if window is None else int(window), float(sc), int(integer_exp),
+        stream)
     _lib.check(err, "int_attn_fwd")
     int_attn_fwd.launches += 1
     return o, lse
@@ -165,10 +198,11 @@ def _launch(lib, qm, km, vm, q_off, exps, p_bits, causal, window, sc,
 
 def int_attn_fwd(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
                  q_off: torch.Tensor, exps: torch.Tensor, *, p_bits: int,
-                 causal: bool, window: int | None, sc: float):
+                 causal: bool, window: int | None, sc: float,
+                 integer_exp: bool = False):
     """Fused forward ``(o, lse)``.  q_off: (B,) int32 query offsets; exps:
-    (3,) int32 [q_exp, k_exp, v_exp].  CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    (3,) int32 [q_exp, k_exp, v_exp]; ``integer_exp`` the kept-int body.
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
     Lq, B, Sq, KV, G, hd = qm.shape
     if (km.dim() != 5 or km.shape[1] != B or km.shape[3:] != (KV, hd)
             or vm.shape[1:] != km.shape[1:]):
@@ -181,7 +215,8 @@ def int_attn_fwd(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
         raise ValueError("int_attn_fwd supports 1..3 limb planes")
     if qm.device.type == "cpu":
         return int_attn_fwd_plain(qm, km, vm, q_off, exps, p_bits=p_bits,
-                                  causal=causal, window=window, sc=sc)
+                                  causal=causal, window=window, sc=sc,
+                                  integer_exp=integer_exp)
     if qm.device.type != "cuda":
         raise ValueError(f"int_attn_fwd: unsupported device {qm.device}")
     dev = qm.device
@@ -189,7 +224,7 @@ def int_attn_fwd(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
     exps = exps.to(device=dev, dtype=torch.int32).contiguous()
     return _launch(_lib.load(), qm.contiguous(), km.contiguous(),
                    vm.contiguous(), q_off, exps, p_bits, causal, window, sc,
-                   _lib.stream_of(qm))
+                   integer_exp, _lib.stream_of(qm))
 
 
 int_attn_fwd.launches = 0
@@ -197,7 +232,7 @@ int_attn_fwd.launches = 0
 
 def int_attn_bwd_dq_plain(qm, km, vm, gm, lse, delta, q_off, exps, *,
                           ds_bits: int, causal: bool, window: int | None,
-                          sc: float):
+                          sc: float, integer_exp: bool = False):
     """Plain PyTorch version of the dq kernel: the same 128-key blocked
     recurrence, vectorized over (B, KV, G, Sq)."""
     Lq, B, Sq, KV, G, hd = qm.shape
@@ -220,7 +255,7 @@ def int_attn_bwd_dq_plain(qm, km, vm, gm, lse, delta, q_off, exps, *,
                    causal, window)
         s = _limb_sum(qm, kb, "bqhgd,bkhd->bhgqk", s0)
         s = torch.where(ok, s * sc, _BIG_NEG)
-        p = torch.where(ok, torch.exp(s - lse_r), 0.0)
+        p = torch.where(ok, _p_exp(s - lse_r, integer_exp), 0.0)
         dp = _limb_sum(gm, vb, "bqhgd,bkhd->bhgqk", sdp)
         dsm = _round_clip((p * (dp - del_r)) * inv_ds, ds_bits)
         acc = acc + _limb_sum(split_planes(dsm, n_limbs(ds_bits)), kb,
@@ -230,7 +265,8 @@ def int_attn_bwd_dq_plain(qm, km, vm, gm, lse, delta, q_off, exps, *,
 
 def int_attn_bwd_dkv_plain(qm, km, vm, gm, lse, delta, q_off, exps, *,
                            p_bits: int, ds_bits: int, causal: bool,
-                           window: int | None, sc: float):
+                           window: int | None, sc: float,
+                           integer_exp: bool = False):
     """Plain PyTorch version of the dk / dv kernel: the same recurrence
     over blocks of ``q_block(Sq)`` query rows, group head by group head,
     vectorized over (B, KV, Sk).  Returns ``(dk, dv)``."""
@@ -258,7 +294,7 @@ def int_attn_bwd_dkv_plain(qm, km, vm, gm, lse, delta, q_off, exps, *,
             s = _limb_sum(qb, km, "bqhd,bkhd->bhqk", s0)
             s = torch.where(ok, s * sc, _BIG_NEG)
             lse_b = lse[:, :, g, q0:q0 + nr, None]        # (B, KV, nr, 1)
-            p = torch.where(ok, torch.exp(s - lse_b), 0.0)
+            p = torch.where(ok, _p_exp(s - lse_b, integer_exp), 0.0)
             pm = _round_clip(p * float(2 ** (p_bits - 1)), p_bits)
             dv = dv + _limb_sum(split_planes(pm, n_limbs(p_bits)), gb,
                                 "bhqk,bqhd->bhkd", sdv, -(p_bits - 1))
@@ -287,6 +323,9 @@ def _check_bwd(name, qm, km, vm, gm, lse, delta, p_bits, ds_bits):
     if not all(1 <= n <= 3 for n in (Lq, vm.shape[0], gm.shape[0],
                                      n_limbs(ds_bits))):
         raise ValueError(f"{name} supports 1..3 limb planes")
+    if hd > MAX_BWD_HEAD_DIM:
+        raise ValueError(f"{name} takes head dim <= {MAX_BWD_HEAD_DIM}, got "
+                         f"{hd}")
     for t in (qm, km, vm, gm):
         if t.dtype != torch.int8:
             raise TypeError(f"{name} takes int8 limb planes, got {t.dtype}")
@@ -308,7 +347,7 @@ def _bwd_args(qm, km, vm, gm, lse, delta, q_off, exps):
 
 
 def _launch_dq(lib, q, k, v, g, lse, delta, off, exps, ds_bits, causal,
-               window, sc, stream):
+               window, sc, integer_exp, stream):
     Lq, B, Sq, KV, G, hd = q.shape
     dq = torch.empty((B, Sq, KV, G, hd), dtype=torch.float32, device=q.device)
     err = lib.int_attn_bwd_dq_launch(
@@ -316,14 +355,15 @@ def _launch_dq(lib, q, k, v, g, lse, delta, off, exps, ds_bits, causal,
         lse.data_ptr(), delta.data_ptr(), off.data_ptr(), exps.data_ptr(),
         dq.data_ptr(), B, Sq, k.shape[2], KV, G, hd, Lq, v.shape[0],
         g.shape[0], n_limbs(ds_bits), ds_bits, int(causal),
-        -1 if window is None else int(window), float(sc), stream)
+        -1 if window is None else int(window), float(sc), int(integer_exp),
+        stream)
     _lib.check(err, "int_attn_bwd_dq")
     int_attn_bwd_dq.launches += 1
     return dq
 
 
 def _launch_dkv(lib, q, k, v, g, lse, delta, off, exps, p_bits, ds_bits,
-                causal, window, sc, stream):
+                causal, window, sc, integer_exp, stream):
     Lq, B, Sq, KV, G, hd = q.shape
     Sk = k.shape[2]
     dk = torch.empty((B, Sk, KV, hd), dtype=torch.float32, device=q.device)
@@ -333,7 +373,8 @@ def _launch_dkv(lib, q, k, v, g, lse, delta, off, exps, p_bits, ds_bits,
         lse.data_ptr(), delta.data_ptr(), off.data_ptr(), exps.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, KV, G, hd, Lq, v.shape[0],
         g.shape[0], n_limbs(ds_bits), p_bits, ds_bits, q_block(Sq),
-        int(causal), -1 if window is None else int(window), float(sc), stream)
+        int(causal), -1 if window is None else int(window), float(sc),
+        int(integer_exp), stream)
     _lib.check(err, "int_attn_bwd_dkv")
     int_attn_bwd_dkv.launches += 1
     return dk, dv
@@ -343,27 +384,28 @@ def int_attn_bwd_dq(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
                     gm: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                     q_off: torch.Tensor, exps: torch.Tensor, *, p_bits: int,
                     ds_bits: int, causal: bool, window: int | None,
-                    sc: float) -> torch.Tensor:
+                    sc: float, integer_exp: bool = False) -> torch.Tensor:
     """Fused dq (B, Sq, KV, G, hd) f32.  gm: the quantized upstream
     gradient's planes in q's layout; lse (B, KV, G, Sq) and delta
     (B, Sq, KV, G) f32; q_off (B,) int32; exps (5,) int32 [q, k, v, g, dS]
-    exponents.  CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    exponents; ``integer_exp`` the kept-int body; hd <= 256.  CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors."""
     if _check_bwd("int_attn_bwd_dq", qm, km, vm, gm, lse, delta, p_bits,
                   ds_bits):
         return int_attn_bwd_dq_plain(qm, km, vm, gm, lse, delta, q_off,
                                      exps, ds_bits=ds_bits, causal=causal,
-                                     window=window, sc=sc)
+                                     window=window, sc=sc,
+                                     integer_exp=integer_exp)
     return _launch_dq(_lib.load(), *_bwd_args(qm, km, vm, gm, lse, delta,
                                               q_off, exps), ds_bits, causal,
-                      window, sc, _lib.stream_of(qm))
+                      window, sc, integer_exp, _lib.stream_of(qm))
 
 
 def int_attn_bwd_dkv(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
                      gm: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                      q_off: torch.Tensor, exps: torch.Tensor, *, p_bits: int,
                      ds_bits: int, causal: bool, window: int | None,
-                     sc: float):
+                     sc: float, integer_exp: bool = False):
     """Fused ``(dk, dv)``, each (B, Sk, KV, hd) f32, summed over the G
     query heads of each kv head.  Arguments as ``int_attn_bwd_dq``.  CUDA
     kernel for CUDA tensors, the plain version for CPU tensors."""
@@ -371,10 +413,11 @@ def int_attn_bwd_dkv(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
                   ds_bits):
         return int_attn_bwd_dkv_plain(qm, km, vm, gm, lse, delta, q_off,
                                       exps, p_bits=p_bits, ds_bits=ds_bits,
-                                      causal=causal, window=window, sc=sc)
+                                      causal=causal, window=window, sc=sc,
+                                      integer_exp=integer_exp)
     return _launch_dkv(_lib.load(), *_bwd_args(qm, km, vm, gm, lse, delta,
                                                q_off, exps), p_bits, ds_bits,
-                       causal, window, sc, _lib.stream_of(qm))
+                       causal, window, sc, integer_exp, _lib.stream_of(qm))
 
 
 int_attn_bwd_dq.launches = 0

@@ -8,14 +8,18 @@ CUDA kernels are in
 mantissa is split into balanced base-2⁸ digits ``x = hi·2⁸ + lo`` and the
 three int32 digit sums recombine in f32 as ``a·65536 + b·512 + c`` (the
 reference's ``_exact_moments``).  The rsqrt is ``1 / sqrt`` with IEEE sqrt
-and division.  The forwards return the per-row statistics they normalised
-with; the backwards take them back as their residuals.
+and division, or under ``integer_rsqrt`` (``kept_ops="integer"``, the
+reference's ``_rstd``) the Q.14 Newton form ``core/iapprox.py::i_rsqrt``:
+the same launch with another body.  The forwards return the per-row
+statistics they normalised with; the backwards take them back as their
+residuals, so they need no flag.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.dfx import pow2
+from repro_torch.core.iapprox import i_rsqrt
 from repro_torch.kernels import _lib
 
 
@@ -43,9 +47,16 @@ def _div(a: torch.Tensor, d: int) -> torch.Tensor:
     return a / torch.full((), float(d), dtype=a.dtype, device=a.device)
 
 
+def _rstd(ms: torch.Tensor, eps: float, integer_rsqrt: bool):
+    """``1 / sqrt(ms + eps)``, or ``i_rsqrt(ms + eps)``."""
+    if integer_rsqrt:
+        return i_rsqrt(ms + eps)
+    return 1.0 / torch.sqrt(ms + eps)
+
+
 def int_layernorm_fwd_plain(xm: torch.Tensor, x_exp: torch.Tensor,
                             gamma: torch.Tensor, beta: torch.Tensor, *,
-                            eps: float = 1e-5):
+                            eps: float = 1e-5, integer_rsqrt: bool = False):
     """Plain PyTorch version of the layer-norm forward kernel (same
     arithmetic).  Returns ``(y, mu, rstd)``."""
     d = xm.shape[-1]
@@ -53,7 +64,7 @@ def int_layernorm_fwd_plain(xm: torch.Tensor, x_exp: torch.Tensor,
     mu_m = _div(exact_sum(xm), d)
     var_m = torch.clamp(_div(exact_sq_sum(xm), d) - mu_m * mu_m, min=0.0)
     mu = mu_m * scale
-    rstd = 1.0 / torch.sqrt(var_m * (scale * scale) + eps)
+    rstd = _rstd(var_m * (scale * scale), eps, integer_rsqrt)
     y = ((xm.to(torch.float32) * scale - mu) * rstd) * gamma + beta
     return y, mu, rstd
 
@@ -78,34 +89,37 @@ def int_layernorm_bwd_plain(xm: torch.Tensor, gm: torch.Tensor,
 
 
 def int_rmsnorm_fwd_plain(xm: torch.Tensor, x_exp: torch.Tensor,
-                          gamma: torch.Tensor, *, eps: float = 1e-6):
+                          gamma: torch.Tensor, *, eps: float = 1e-6,
+                          integer_rsqrt: bool = False):
     """Plain PyTorch version of the kernel (same arithmetic)."""
     d = xm.shape[-1]
     scale = pow2(x_exp)
-    ms = (exact_sq_sum(xm) / d) * (scale * scale)
-    rstd = 1.0 / torch.sqrt(ms + eps)
+    ms = _div(exact_sq_sum(xm), d) * (scale * scale)
+    rstd = _rstd(ms, eps, integer_rsqrt)
     y = ((xm.to(torch.float32) * scale) * rstd) * gamma
     return y, rstd
 
 
 def _launch(lib, xm: torch.Tensor, x_exp: torch.Tensor, gamma: torch.Tensor,
-            eps: float, stream: int):
+            eps: float, integer_rsqrt: bool, stream: int):
     R, D = xm.shape
     y = torch.empty((R, D), dtype=torch.float32, device=xm.device)
     rstd = torch.empty((R, 1), dtype=torch.float32, device=xm.device)
     err = lib.int_rmsnorm_fwd_launch(xm.data_ptr(), xm.element_size(),
                                      x_exp.data_ptr(), gamma.data_ptr(),
                                      y.data_ptr(), rstd.data_ptr(), R, D,
-                                     float(eps), stream)
+                                     float(eps), int(integer_rsqrt), stream)
     _lib.check(err, "int_rmsnorm_fwd")
     int_rmsnorm_fwd.launches += 1
     return y, rstd
 
 
 def int_rmsnorm_fwd(xm: torch.Tensor, x_exp: torch.Tensor,
-                    gamma: torch.Tensor, *, eps: float = 1e-6):
-    """Fused RMS-norm forward over (R, D) int8/int16 mantissas.  CUDA
-    kernel for a CUDA tensor, the plain version for a CPU tensor."""
+                    gamma: torch.Tensor, *, eps: float = 1e-6,
+                    integer_rsqrt: bool = False):
+    """Fused RMS-norm forward over (R, D) int8/int16 mantissas ->
+    ``(y, rstd)``; ``integer_rsqrt`` takes the rsqrt's Q.14 Newton body.
+    CUDA kernel for a CUDA tensor, the plain version for a CPU tensor."""
     if xm.dim() != 2 or gamma.shape != (xm.shape[1],):
         raise ValueError(f"int_rmsnorm_fwd shapes {tuple(xm.shape)}, "
                          f"{tuple(gamma.shape)}")
@@ -113,13 +127,14 @@ def int_rmsnorm_fwd(xm: torch.Tensor, x_exp: torch.Tensor,
         raise TypeError(f"int_rmsnorm_fwd takes int8/int16 mantissas, got "
                         f"{xm.dtype}")
     if xm.device.type == "cpu":
-        return int_rmsnorm_fwd_plain(xm, x_exp, gamma, eps=eps)
+        return int_rmsnorm_fwd_plain(xm, x_exp, gamma, eps=eps,
+                                     integer_rsqrt=integer_rsqrt)
     if xm.device.type != "cuda":
         raise ValueError(f"int_rmsnorm_fwd: unsupported device {xm.device}")
     x_exp = x_exp.to(device=xm.device, dtype=torch.int32).reshape(())
     gamma = gamma.to(device=xm.device, dtype=torch.float32).contiguous()
     return _launch(_lib.load(), xm.contiguous(), x_exp, gamma, eps,
-                   _lib.stream_of(xm))
+                   integer_rsqrt, _lib.stream_of(xm))
 
 
 int_rmsnorm_fwd.launches = 0
@@ -149,7 +164,7 @@ def _exp(e: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return e.to(device=like.device, dtype=torch.int32).reshape(())
 
 
-def _launch_ln_fwd(lib, xm, x_exp, gamma, beta, eps, stream):
+def _launch_ln_fwd(lib, xm, x_exp, gamma, beta, eps, integer_rsqrt, stream):
     R, D = xm.shape
     y = torch.empty((R, D), dtype=torch.float32, device=xm.device)
     mu = torch.empty((R, 1), dtype=torch.float32, device=xm.device)
@@ -157,26 +172,28 @@ def _launch_ln_fwd(lib, xm, x_exp, gamma, beta, eps, stream):
     err = lib.int_layernorm_fwd_launch(
         xm.data_ptr(), xm.element_size(), x_exp.data_ptr(), gamma.data_ptr(),
         beta.data_ptr(), y.data_ptr(), mu.data_ptr(), rstd.data_ptr(), R, D,
-        float(eps), stream)
+        float(eps), int(integer_rsqrt), stream)
     _lib.check(err, "int_layernorm_fwd")
     return y, mu, rstd
 
 
 def int_layernorm_fwd(xm: torch.Tensor, x_exp: torch.Tensor,
                       gamma: torch.Tensor, beta: torch.Tensor, *,
-                      eps: float = 1e-5):
+                      eps: float = 1e-5, integer_rsqrt: bool = False):
     """Fused layer-norm forward over (R, D) int8/int16 mantissas ->
     ``(y, mu, rstd)``: y (R, D) f32 and the (R, 1) value-domain statistics
-    it normalised with.  CUDA kernel for a CUDA tensor, the plain version
-    for a CPU tensor."""
+    it normalised with; ``integer_rsqrt`` takes the rsqrt's Q.14 Newton
+    body.  CUDA kernel for a CUDA tensor, the plain version for a CPU
+    tensor."""
     D = xm.shape[-1]
     if gamma.shape != (D,) or beta.shape != (D,):
         raise ValueError(f"int_layernorm_fwd gamma/beta {tuple(gamma.shape)}"
                          f", {tuple(beta.shape)} for D={D}")
     if _check_ln("int_layernorm_fwd", xm):
-        return int_layernorm_fwd_plain(xm, x_exp, gamma, beta, eps=eps)
+        return int_layernorm_fwd_plain(xm, x_exp, gamma, beta, eps=eps,
+                                       integer_rsqrt=integer_rsqrt)
     out = _launch_ln_fwd(_lib.load(), xm.contiguous(), _exp(x_exp, xm),
-                         _vec(gamma, xm), _vec(beta, xm), eps,
+                         _vec(gamma, xm), _vec(beta, xm), eps, integer_rsqrt,
                          _lib.stream_of(xm))
     int_layernorm_fwd.launches += 1
     return out

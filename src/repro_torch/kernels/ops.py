@@ -134,9 +134,11 @@ def dfx_matmul_tiled_batched_tn(xm: torch.Tensor, x_exp: torch.Tensor,
 
 
 def rmsnorm(xm: torch.Tensor, x_exp: torch.Tensor, gamma: torch.Tensor,
-            eps: float = 1e-6):
-    """Fused RMS-norm forward over (R, D) mantissas -> ``(y, rstd)``."""
-    return int_rmsnorm_fwd(xm, x_exp, gamma, eps=eps)
+            eps: float = 1e-6, integer_rsqrt: bool = False):
+    """Fused RMS-norm forward over (R, D) mantissas -> ``(y, rstd)``;
+    ``integer_rsqrt`` takes the kept-int body."""
+    return int_rmsnorm_fwd(xm, x_exp, gamma, eps=eps,
+                           integer_rsqrt=integer_rsqrt)
 
 
 def rmsnorm_bwd(xm: torch.Tensor, x_exp: torch.Tensor, gm: torch.Tensor,
@@ -150,16 +152,17 @@ def attention_fwd(qm: torch.Tensor, q_exp: torch.Tensor,
                   km: torch.Tensor, k_exp: torch.Tensor,
                   vm: torch.Tensor, v_exp: torch.Tensor,
                   q_off: torch.Tensor, p_bits: int, *, causal: bool,
-                  window: int | None = None):
+                  window: int | None = None, integer_exp: bool = False):
     """Fused integer attention forward.  qm: (Lq, B, Sq, KV, G, hd) planes;
-    km/vm: (L, B, Sk, KV, hd); q_off (B,) int32.  Returns ``(o, lse)``:
-    o (B, Sq, KV, G, hd) f32, lse (B, KV, G, Sq) f32."""
+    km/vm: (L, B, Sk, KV, hd); q_off (B,) int32; ``integer_exp`` the
+    kept-int body.  Returns ``(o, lse)``: o (B, Sq, KV, G, hd) f32, lse
+    (B, KV, G, Sq) f32."""
     hd = qm.shape[-1]
     exps = torch.stack([q_exp.reshape(()), k_exp.reshape(()),
                         v_exp.reshape(())]).to(torch.int32)
     return int_attn_fwd(qm, km, vm, q_off, exps, p_bits=p_bits,
                         causal=causal, window=window,
-                        sc=1.0 / float(hd) ** 0.5)
+                        sc=1.0 / float(hd) ** 0.5, integer_exp=integer_exp)
 
 
 def attention_bwd(qm: torch.Tensor, q_exp: torch.Tensor,
@@ -168,17 +171,18 @@ def attention_bwd(qm: torch.Tensor, q_exp: torch.Tensor,
                   gm: torch.Tensor, g_exp: torch.Tensor,
                   lse: torch.Tensor, delta: torch.Tensor,
                   ds_exp: torch.Tensor, q_off: torch.Tensor, p_bits: int,
-                  ds_bits: int, *, causal: bool, window: int | None = None):
+                  ds_bits: int, *, causal: bool, window: int | None = None,
+                  integer_exp: bool = False):
     """Fused integer attention backward: the dq kernel and the dk + dv
     kernel.  gm: the quantized upstream gradient's planes in q's layout;
     lse (B, KV, G, Sq) and delta (B, Sq, KV, G) the forward-saved rows;
-    ds_exp the dS scale exponent.  Returns ``(dq, dk, dv)`` in the model
-    layout."""
+    ds_exp the dS scale exponent; ``integer_exp`` the kept-int body (the
+    forward's).  Returns ``(dq, dk, dv)`` in the model layout."""
     hd = qm.shape[-1]
     exps = torch.stack([e.reshape(()) for e in (q_exp, k_exp, v_exp, g_exp,
                                                 ds_exp)]).to(torch.int32)
     kw = dict(p_bits=p_bits, ds_bits=ds_bits, causal=causal, window=window,
-              sc=1.0 / float(hd) ** 0.5)
+              sc=1.0 / float(hd) ** 0.5, integer_exp=integer_exp)
     dq = int_attn_bwd_dq(qm, km, vm, gm, lse, delta, q_off, exps, **kw)
     dk, dv = int_attn_bwd_dkv(qm, km, vm, gm, lse, delta, q_off, exps, **kw)
     return dq, dk, dv

@@ -5,8 +5,10 @@ a KV cache, or bidirectional for the encoder), the SwiGLU and GELU MLPs, the
 mixture of experts (top-k router, capacity dispatch, per-expert integer
 SwiGLU, optional shared expert) and the RMS-norm / layer-norm wrappers, as
 plain functions over dicts of tensors.  Every projection and norm goes
-through ``core.int_ops``; RoPE, the softmaxes and the activations stay
-FP32.  When the policy enables
+through ``core.int_ops``; RoPE stays FP32, and the softmaxes and the
+activations are FP32 unless the leaf's ``kept_ops="integer"`` swaps them
+for the iapprox forms (``int_ops.int_activation`` / ``int_softmax``, and
+attention's in-kernel exp).  When the policy enables
 quantization at the ``attn.qk`` leaf, attention is
 ``int_ops.int_attention``; otherwise the FP32 reference path below (a plain
 masked softmax, differentiable) runs.

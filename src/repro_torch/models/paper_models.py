@@ -4,7 +4,8 @@ span head.
 Counterpart of the BERT half of ``repro/models/paper_models.py`` (ViT is
 not ported yet).  Every linear, layer-norm and embedding goes through the
 integer layers of ``core.int_ops``; softmax, GELU and the pooler's tanh
-are the paper's kept FP32 ops.  Parameters are a nested dict of tensors
+are the paper's kept FP32 ops (the iapprox integer forms under
+``kept_ops="integer"``).  Parameters are a nested dict of tensors
 with the layer stack on a leading ``(L, ...)`` axis, as in the reference,
 so its params carry across one to one (``repro_torch.convert``).  The
 reference's ``lax.scan`` over the stack (under activation recompute) is a

@@ -134,13 +134,15 @@ def train_step(params: dict, opt_state: opt_lib.OptState, batch: dict,
                cfg: ArchConfig, qcfg: QuantLike, loss_fn: Callable,
                opt_cfg: opt_lib.OptimizerConfig, key):
     """One step: loss and gradients of every parameter (integer forward and
-    backward), then the AdamW update.  A parameter the loss does not reach
-    (the span task's classifier head) gets a zero gradient, as under
-    ``jax.grad``.  Returns ``(params, opt_state, loss, grads, metrics)``."""
+    backward), then the AdamW update, in place.  A parameter the loss does
+    not reach (the span task's classifier head) gets a zero gradient, as
+    under ``jax.grad``.  Returns ``(params, opt_state, loss, grads,
+    metrics)``: params and opt_state are the trees passed in, updated;
+    grads are the unclipped gradients."""
     loss, _, grads = loss_and_grads(loss_fn, params, batch, cfg, qcfg, key)
-    new_params, opt_state, metrics = opt_lib.update(opt_cfg, grads,
-                                                    opt_state, params)
-    return new_params, opt_state, loss, grads, metrics
+    params, opt_state, metrics = opt_lib.update(opt_cfg, grads, opt_state,
+                                                params)
+    return params, opt_state, loss, grads, metrics
 
 
 def evaluate(task: str, params: dict, cfg: ArchConfig, qcfg: QuantLike,

@@ -116,14 +116,19 @@ def global_norm(tree: Any) -> torch.Tensor:
 @torch.no_grad()
 def update(cfg: OptimizerConfig, grads: Any, state: OptState, params: Any
            ) -> Tuple[Any, OptState, dict]:
-    """Returns ``(new_params, new_state, metrics)``; nothing is updated in
-    place."""
+    """Returns ``(params, state, metrics)``: the same parameter and moment
+    tensors it was given, updated in place, leaf by leaf (the reference
+    donates their buffers to its jitted step).  The gradients are left as
+    they are: each leaf's clipped copy lives in a leaf-sized temporary.
+    Two such temporaries are all the update allocates, so p, m, v and the
+    gradients are the only whole trees alive; every product and sum is the
+    out-of-place formula's, in its order (no fused multiply-add)."""
     _no_quantized_state(cfg)
     gnorm = global_norm(grads)
+    scale = None
     if cfg.grad_clip > 0:
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
-        grads = tree_map(lambda g: g * scale, grads)
     step = state.step + 1
     lr = _schedule(cfg, state.step)
     b1, b2 = cfg.beta1, cfg.beta2
@@ -133,15 +138,22 @@ def update(cfg: OptimizerConfig, grads: Any, state: OptState, params: Any
 
     def upd(p, g, m, v):
         g = g.to(torch.float32)
-        m_new = b1 * m + (1 - b1) * g
-        v_new = b2 * v + (1 - b2) * torch.square(g)
-        mhat = m_new / bc1
-        vhat = v_new / bc2
-        # FP32 master weight update (paper-kept op)
-        newp = p - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
-                         + cfg.weight_decay * p)
-        return newp.to(p.dtype), m_new, v_new
+        ta, tb = torch.empty_like(m), torch.empty_like(m)
+        if scale is not None:
+            g = torch.mul(g, scale, out=ta)
+        # m = b1 * m + (1 - b1) * g;  v = b2 * v + (1 - b2) * g²
+        torch.mul(g, 1 - b1, out=tb)
+        m.mul_(b1).add_(tb)
+        torch.square(g, out=tb).mul_(1 - b2)
+        v.mul_(b2).add_(tb)
+        # FP32 master weight update (paper-kept op):
+        # p = p - lr * (m / bc1 / (sqrt(v / bc2) + eps) + wd * p)
+        torch.div(m, bc1, out=ta)
+        torch.div(v, bc2, out=tb).sqrt_().add_(cfg.eps)
+        ta.div_(tb)
+        ta.add_(torch.mul(p, cfg.weight_decay, out=tb))
+        p.sub_(ta.mul_(lr))
 
-    out = tree_map(upd, params, grads, state.m, state.v)
-    p, m, v = (tree_map(lambda o, i=i: o[i], out) for i in range(3))
-    return p, OptState(step, m, v), {"grad_norm": gnorm, "lr": lr}
+    tree_map(upd, params, grads, state.m, state.v)
+    state = OptState(step, state.m, state.v)
+    return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -4,7 +4,8 @@ Counterpart of the single-device path of ``repro/train/trainer.py``:
 ``TrainConfig``, ``make_grads_fn`` (gradients by autograd, with
 microbatch accumulation) and ``make_train_step`` (gradients, then the
 AdamW update).  PyTorch runs the step eagerly, so there is no
-``jit_train_step`` and no buffer donation.  The reference's quantized
+``jit_train_step``; the AdamW update writes the parameters and moments in
+place, which is what the reference's buffer donation buys it.  The reference's quantized
 parameter gather (``gather_bits > 0``, the state plane), its compressed
 cross-pod step and its mesh set-up (the distributed slice) are not
 ported yet and raise ``NotImplementedError``.  The reference folds a fresh PRNG key into each
@@ -91,7 +92,8 @@ def make_train_step(loss_fn: LossFn, cfg, qcfg: QuantLike,
                     mesh=None, param_specs=None):
     """``step(params, opt_state, batch, key) -> (params, opt_state,
     metrics)``: gradients (integer forward and backward through the
-    model's autograd Functions), then the AdamW update."""
+    model's autograd Functions), then the AdamW update, in place: the
+    returned trees are the tensors passed in."""
     if mesh is not None or param_specs is not None:
         raise NotImplementedError(
             "mesh set-up belongs to the distributed slice, not ported yet")

@@ -262,7 +262,9 @@ def test_integer_attention_and_rmsnorm_stay_forward_only():
     """Integer attention and RMS-norm now have their backward: under grad
     the gradients flow and are finite (their parity with JAX is in
     test_torch_int_attention_bwd.py / test_torch_int_rmsnorm_bwd.py);
-    ``kept_ops="integer"`` still raises."""
+    ``kept_ops="integer"`` runs too (its parity with JAX is in
+    test_torch_kept_ops.py): finite, and another result than the FP32
+    softmax's."""
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(1, 4, 2, 1, 8, generator=gen, requires_grad=True)
     k = torch.randn(1, 4, 2, 8, generator=gen, requires_grad=True)
@@ -278,10 +280,10 @@ def test_integer_attention_and_rmsnorm_stay_forward_only():
      * torch.arange(8.0)).sum().backward()
     for t in (h, g):
         assert torch.isfinite(t.grad).all() and t.grad.abs().max() > 0
-    with pytest.raises(NotImplementedError):
-        int_ops.int_attention(x, k, k, 0, None,
-                              QuantConfig(kept_ops="integer"),
-                              QuantConfig.int8(), False, None)
+    oi = int_ops.int_attention(x, k, k, 0, None,
+                               QuantConfig(kept_ops="integer"),
+                               QuantConfig.int8(), False, None)
+    assert torch.isfinite(oi).all() and not torch.equal(oi, o)
 
 
 def test_uniform_key_kinds():

@@ -15,9 +15,12 @@ rstd's difference times the row's max|xn·γ|; layer-norm backward dβ
 exactly, dx within 64 ulp of its row's max|dx| and dγ within 64 ulp of the
 column's Σ|gq·xn| (f32 sums in another order), and the same for the
 RMS-norm backward; attention within 1e-5 of max|o| and 1e-4 on lse — the
-same expf on both sides, only the row-sum order of l differs; the
-attention backward's dq, dk and dv within 1e-4 of their max|ref| (the
-same expf and the same ordered f32 sums on both sides).
+same expf on both sides (the plain version sums l in the kernel's order);
+the attention backward's dq, dk and dv within 1e-4 of their max|ref| (the
+same expf and the same ordered f32 sums on both sides).  The kept-int
+bodies (``integer_rsqrt`` / ``integer_exp``): the norms' rstd and mu bit
+for bit, the attention forward as the FP32 body, the attention backward
+(and its head-dim-256 body) bit for bit at the int8 preset's limbs.
 """
 import pytest
 
@@ -291,6 +294,99 @@ def test_bfp_matmul_batched(dev, shape):
                            bm.bfp_matmul_batched_nt_plain(gm, wm, e))
         assert torch.equal(bm.bfp_matmul_batched_tn(xm, gm[:lb], e),
                            bm.bfp_matmul_batched_tn_plain(xm, gm[:lb], e))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
+def test_int_norm_integer_rsqrt(dev, kind):
+    """The kept-int body (``integer_rsqrt``): the same moments, then the
+    Q.14 Newton rsqrt, so rstd and mu are bit for bit the plain version's
+    and y within 4 ulp of its row's max|y|."""
+    gen = torch.Generator(device=dev).manual_seed(len(kind))
+    for R, D in ((4096, 768), (2048, 1024), (37, 1000), (1, 7)):
+        xm = torch.randint(-2047, 2048, (R, D), generator=gen,
+                           device=dev).to(torch.int16)
+        xm[0] = xm[0, 0]
+        gamma = 1 + 0.2 * torch.randn((D,), generator=gen, device=dev)
+        beta = 0.1 * torch.randn((D,), generator=gen, device=dev)
+        xe = torch.tensor(-10, dtype=torch.int32, device=dev)
+        if kind == "layernorm":
+            got = int_norm.int_layernorm_fwd(xm, xe, gamma, beta,
+                                             integer_rsqrt=True)
+            ref = int_norm.int_layernorm_fwd_plain(xm, xe, gamma, beta,
+                                                   integer_rsqrt=True)
+        else:
+            got = int_norm.int_rmsnorm_fwd(xm, xe, gamma, integer_rsqrt=True)
+            ref = int_norm.int_rmsnorm_fwd_plain(xm, xe, gamma,
+                                                 integer_rsqrt=True)
+        for a, b in zip(got[1:], ref[1:]):
+            assert torch.equal(a, b)
+        row = ref[0].abs().amax(-1, keepdim=True)
+        assert ((got[0] - ref[0]).abs() <= 4 * ULP * row + 1e-30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ATTN) + ["train_causal"])
+def test_int_attn_fwd_integer_exp(dev, case):
+    """The kept-int body (``integer_exp``): i_exp, the skipped key blocks'
+    i_exp(0) scaling and the i_recip epilogue; within the FP32 body's
+    tolerances (1e-5 of max|o|, 1e-4 on lse)."""
+    B, Sq, Sk, KV, G, hd, off, causal, window = ATTN.get(
+        case, (2, 256, 256, 4, 1, 64, [0, 0], True, None))
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+
+    def planes(L, *shape):
+        return torch.randint(-64, 65, (L,) + shape, generator=gen,
+                             device=dev, dtype=torch.int8)
+    qm, km = planes(2, B, Sq, KV, G, hd), planes(2, B, Sk, KV, hd)
+    vm = planes(2, B, Sk, KV, hd)
+    qo = torch.tensor(off, dtype=torch.int32, device=dev)
+    exps = torch.tensor([-11, -10, -8], dtype=torch.int32, device=dev)
+    kw = dict(p_bits=12, causal=causal, window=window, sc=1.0 / hd ** 0.5,
+              integer_exp=True)
+    o, lse = ia.int_attn_fwd(qm, km, vm, qo, exps, **kw)
+    o0, lse0 = ia.int_attn_fwd_plain(qm, km, vm, qo, exps, **kw)
+    assert (o - o0).abs().max() <= 1e-5 * o0.abs().max()
+    assert (lse - lse0).abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,integer_exp", [
+    (c, True) for c in sorted(ATTN_BWD)] + [("hd256_gqa2", True),
+                                           ("hd256_gqa2", False)])
+def test_int_attn_bwd_integer_exp_and_hd256(dev, case, integer_exp):
+    """The kept-int body of dq / dkv, and the 8-chunk body (head dim 256),
+    at the int8 preset's limb counts: bit for bit."""
+    B, Sq, Sk, KV, G, hd, off, causal, window = ATTN_BWD.get(
+        case, (2, 200, 200, 2, 2, 256, [0, 0], True, None))
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+
+    def planes(L, *shape):
+        return torch.randint(-64, 65, (L,) + shape, generator=gen,
+                             device=dev, dtype=torch.int8)
+    qm, km = planes(2, B, Sq, KV, G, hd), planes(2, B, Sk, KV, hd)
+    vm, gm = planes(2, B, Sk, KV, hd), planes(1, B, Sq, KV, G, hd)
+    qo = torch.tensor(off, dtype=torch.int32, device=dev)
+    exps = torch.tensor([-11, -10, -8, -12, -13], dtype=torch.int32,
+                        device=dev)
+    sc = 1.0 / hd ** 0.5
+    _, lse = ia.int_attn_fwd_plain(qm, km, vm, qo, exps[:3], p_bits=12,
+                                   causal=causal, window=window, sc=sc,
+                                   integer_exp=integer_exp)
+    delta = 0.05 * torch.randn((B, Sq, KV, G), generator=gen, device=dev)
+    kw = dict(ds_bits=8, causal=causal, window=window, sc=sc,
+              integer_exp=integer_exp)
+    dq = ia.int_attn_bwd_dq(qm, km, vm, gm, lse, delta, qo, exps,
+                            p_bits=12, **kw)
+    dk, dv = ia.int_attn_bwd_dkv(qm, km, vm, gm, lse, delta, qo, exps,
+                                 p_bits=12, **kw)
+    dq0 = ia.int_attn_bwd_dq_plain(qm, km, vm, gm, lse, delta, qo, exps,
+                                   **kw)
+    dk0, dv0 = ia.int_attn_bwd_dkv_plain(qm, km, vm, gm, lse, delta, qo,
+                                         exps, p_bits=12, **kw)
+    for got, ref in ((dq, dq0), (dk, dk0), (dv, dv0)):
+        assert ref.abs().max() > 0
+        assert torch.equal(got, ref)
 
 
 def test_cpu_tensors_take_the_plain_version():

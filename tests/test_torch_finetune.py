@@ -153,8 +153,9 @@ def test_integer_attention_under_grad_raises():
     backward is ported now, so a training step runs with integer attention
     under grad (never FP32 attention in its place): every gradient is
     finite and the attention projections' are not zero; its parity with
-    JAX is in test_torch_lm_train.py.  Kept ops ``"integer"`` still
-    raise."""
+    JAX is in test_torch_lm_train.py.  Kept ops ``"integer"`` train too
+    (their parity with JAX is in test_torch_kept_ops.py): finite loss and
+    gradients."""
     cfg = pm.bert_config(**_SMALL)
     gen = torch.Generator().manual_seed(0)
     params = pm.bert_init(gen, cfg, num_labels=4, device="cpu")
@@ -171,10 +172,13 @@ def test_integer_attention_under_grad_raises():
         logits = pm.bert_apply(params, batch["tokens"], cfg,
                                QuantConfig.int8(), None)
     assert logits.shape == (2, 4) and torch.isfinite(logits).all()
-    with pytest.raises(NotImplementedError):
-        tf.train_step(params, topt.init(params), batch, cfg,
-                      QuantConfig(kept_ops="integer"), pm.bert_cls_loss,
-                      topt.OptimizerConfig(), gen)
+    _, _, loss_i, grads_i, _ = tf.train_step(
+        params, topt.init(params), batch, cfg,
+        QuantConfig(kept_ops="integer"), pm.bert_cls_loss,
+        topt.OptimizerConfig(), gen)
+    assert torch.isfinite(loss_i)
+    for name, g in _leaves(grads_i):
+        assert torch.isfinite(g).all(), name
 
 
 def test_paper_scope_resolves_attention_fp32():
@@ -233,6 +237,71 @@ def test_optimizer_matches_reference():
     assert int(ts.step) == 3
     with pytest.raises(NotImplementedError):
         topt.init(tp, topt.OptimizerConfig(state_bits=8))
+
+
+def _update_out_of_place(cfg, grads, state, params):
+    """The AdamW update as it was before it ran in place (PR 14's
+    formula): new params, m and v built beside the old ones."""
+    gnorm = topt.global_norm(grads)
+    if cfg.grad_clip > 0:
+        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
+        grads = topt.tree_map(lambda g: g * scale, grads)
+    step = state.step + 1
+    lr = topt._schedule(cfg, state.step)
+    b1, b2 = cfg.beta1, cfg.beta2
+    sf = step.to(torch.float32)
+    bc1 = 1 - torch.pow(torch.tensor(b1), sf)
+    bc2 = 1 - torch.pow(torch.tensor(b2), sf)
+
+    def upd(p, g, m, v):
+        m_new = b1 * m + (1 - b1) * g
+        v_new = b2 * v + (1 - b2) * torch.square(g)
+        newp = p - lr * ((m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
+                         + cfg.weight_decay * p)
+        return newp, m_new, v_new
+
+    out = topt.tree_map(upd, params, grads, state.m, state.v)
+    p, m, v = (topt.tree_map(lambda o, i=i: o[i], out) for i in range(3))
+    return p, topt.OptState(step, m, v)
+
+
+def test_inplace_update_is_bit_exact():
+    """The in-place AdamW update against the out-of-place formula it
+    replaced, 4 steps with clipping active (global norm ~10 against a clip
+    of 1) and weight decay on, warmup + cosine: every parameter and moment
+    bit for bit; the update returns the very tensors it was given and
+    leaves the gradients as they were."""
+    rng = np.random.default_rng(7)
+    tree = {"a": rng.standard_normal((33, 17)).astype(np.float32),
+            "b": {"c": rng.standard_normal(129).astype(np.float32),
+                  "d": rng.standard_normal((2, 3, 5)).astype(np.float32)}}
+    kw = dict(lr=3e-3, weight_decay=0.1, grad_clip=1.0, warmup_steps=2,
+              total_steps=6, schedule="cosine")
+    cfg = topt.OptimizerConfig(**kw)
+    p_ref = params_from_jax(tree)
+    s_ref = topt.init(p_ref)
+    p = params_from_jax(tree)
+    s = topt.init(p)
+    for i in range(4):
+        g_np = {"a": 3 * rng.standard_normal((33, 17)).astype(np.float32),
+                "b": {"c": rng.standard_normal(129).astype(np.float32),
+                      "d": rng.standard_normal((2, 3, 5)).astype(
+                          np.float32)}}
+        grads = params_from_jax(g_np)
+        assert float(topt.global_norm(grads)) > 5 * cfg.grad_clip
+        p_ref, s_ref = _update_out_of_place(cfg, params_from_jax(g_np),
+                                            s_ref, p_ref)
+        ids = [id(t) for tr in (p, s.m, s.v) for t in topt.tree_leaves(tr)]
+        p, s, _ = topt.update(cfg, grads, s, p)
+        assert [id(t) for tr in (p, s.m, s.v)
+                for t in topt.tree_leaves(tr)] == ids
+        for name, g in _leaves(grads):
+            assert torch.equal(g, dict(_leaves(params_from_jax(g_np)))[name])
+        for got, ref in ((p, p_ref), (s.m, s_ref.m), (s.v, s_ref.v)):
+            for (name, a), (_, b) in zip(_leaves(got), _leaves(ref)):
+                assert torch.equal(a, b), (i, name)
+    assert int(s.step) == 4
 
 
 def test_samplers_are_the_reference_samplers():

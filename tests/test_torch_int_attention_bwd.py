@@ -51,6 +51,8 @@ CASES = {
     # last, so the seeds of the cases above stay as they were)
     "xl_head_dim_128": (1, 72, 72, 1, 1, 128, [0], True, None),
     "xl_q_block_split_gqa2": (1, 200, 200, 1, 2, 32, [0], True, None),
+    # the widest head the backward kernels take (their 8-chunk body)
+    "y_head_dim_256": (1, 40, 40, 1, 2, 256, [0], True, None),
 }
 
 
@@ -177,6 +179,30 @@ def test_bwd_wrappers_check_their_arguments():
     with pytest.raises(TypeError):
         ia.int_attn_bwd_dq(planes[0].to(torch.int16), planes[1], planes[2],
                            planes[3], lse, delta, offt, exps, **kw)
+
+
+def test_bwd_wrappers_refuse_head_dim_above_256():
+    """hd <= 256 (``MAX_BWD_HEAD_DIM``) on every device: above it the
+    wrappers raise a ValueError naming the bound, never running another
+    version in the kernel's place."""
+    rng = np.random.default_rng(0)
+    B, S, KV, G, hd = 1, 8, 1, 1, 288
+    q, k, v, g = (ops.split_limbs_stacked(torch.from_numpy(
+        _mantissas(rng, 12, shape)), 12) for shape in (
+        (B, S, KV, G, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, KV, G, hd)))
+    lse = torch.zeros((B, KV, G, S))
+    delta = torch.zeros((B, S, KV, G))
+    exps = torch.tensor(_EXPS, dtype=torch.int32)
+    offt = torch.zeros(B, dtype=torch.int32)
+    kw = dict(p_bits=12, ds_bits=12, causal=True, window=None,
+              sc=1 / hd ** 0.5)
+    for fn in (ia.int_attn_bwd_dq, ia.int_attn_bwd_dkv):
+        with pytest.raises(ValueError, match="head dim <= 256"):
+            fn(q, k, v, g, lse, delta, offt, exps, **kw)
+    # the plain versions themselves take any head dim, as the reference
+    dq = ia.int_attn_bwd_dq_plain(q, k, v, g, lse, delta, offt, exps,
+                                  **{n: kw[n] for n in kw if n != "p_bits"})
+    assert dq.shape == (B, S, KV, G, hd)
 
 
 def _keys(seed, shape, stochastic):
