@@ -14,11 +14,15 @@ Phases (each raises on failure; nothing is caught):
    the layer-norm kernels, and for the quantize and NN matmul kernels
    also the step's gradient quantize and w1 forward; the qwen1.5-0.5b
    training step — batch 8 x seq 256 — for the RMS-norm backward, and it,
-   bert-base cls, smollm-135m's GQA, a ragged windowed case and
-   qwen2-moe-a2.7b's head dim 128 and head dim 256 (the widest body) for
-   the attention backward (timed at the qwen1.5-0.5b and qwen2-moe-a2.7b
-   training shapes and at head dim 256), and the attention forward also
-   at the qwen1.5-0.5b training shape; the
+   bert-base cls, smollm-135m's GQA, a ragged windowed case,
+   qwen2-moe-a2.7b's head dim 128, head dim 256 (the widest staged body)
+   and head dim 384 (the direct body) for the attention backward (timed
+   at the qwen1.5-0.5b and qwen2-moe-a2.7b training shapes and at head
+   dims 256 and 384), and for the attention forward decode, prefill, the
+   qwen1.5-0.5b training shape, smollm-135m's GQA, a ragged windowed
+   case, head dim 128, and head dim 256 at 3 limbs and 384 (the direct
+   body; timed at decode, the training shape, head dims 128 and 384, with
+   each instantiation's registers and spills); the
    qwen2-moe-a2.7b paths — E = 60 experts, 256 capacity rows each in
    training, 16 at decode — for the grouped quantize and the batched NN /
    NT / TN matmuls): run the kernel and its plain PyTorch version on the
@@ -395,112 +399,162 @@ def check_rmsnorm(torch, dev, gen, D):
     return k
 
 
-def check_attention(torch, dev, gen, cfg):
-    """int_attn_fwd at decode (4 slots, one query each at positions 64..67,
-    over the 256-deep cache) and at prefill (64 queries from position 0);
-    timed at decode and at the training step's shape (batch 8 x seq 256,
-    causal; 24 calls a qwen1.5-0.5b step), each beside SDPA's f32
-    forward on the dequantized values with the same mask."""
-    import torch.nn.functional as F
+#: attention forward shapes held on the card: name -> (B, Sq, Sk, KV, G,
+#: hd, offsets, causal, window, q/k planes, v planes); v planes 2 means P
+#: at 12 bits, 3 at 16
+ATTN_FWD_SHAPES = {
+    "decode": (4, 1, 256, 16, 1, 64, [64, 65, 66, 67], True, None, 2, 2),
+    "prefill": (4, 64, 256, 16, 1, 64, 0, True, None, 2, 2),
+    "qwen1.5-0.5b train": (8, 256, 256, 16, 1, 64, 0, True, None, 2, 2),
+    "smollm-135m gqa": (8, 256, 256, 3, 3, 64, 0, True, None, 2, 2),
+    "ragged + window": (2, 20, 150, 2, 2, 16, [100, 37], True, 40, 2, 2),
+    "qwen2-moe-a2.7b train (hd 128)": (8, 256, 256, 16, 1, 128, 0, True,
+                                       None, 2, 2),
+    "head dim 256, 3 limbs": (8, 256, 256, 4, 1, 256, 0, True, None, 3, 3),
+    "head dim 384": (8, 256, 256, 4, 1, 384, 0, True, None, 2, 2),
+}
+
+
+def ptxas_entries(pattern: str = "") -> list:
+    """(kernel, registers / shared memory line, spill line) of each
+    instantiation in the build's ptxas report whose name matches."""
+    from repro_torch.kernels import _lib
+    out, name, spill = [], "?", ""
+    for line in _lib.ptxas_report().splitlines():
+        if "Compiling entry function" in line:
+            name = _kernel_name(line.split("'")[1])
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and re.match(pattern, name):
+            out.append((name, line.split(":", 1)[1].strip(), spill))
+    return out
+
+
+def _dequant(x, e):
+    """Σ_j plane_j · 2^(7j) · 2^e in f32 (the value the planes encode)."""
     from repro_torch.core import dfx
+    return sum(x[j].float() * 128.0 ** j for j in range(x.shape[0])) * \
+        dfx.pow2(e)
+
+
+def check_attention(torch, dev, gen, cfg):
+    """int_attn_fwd against its plain version at ATTN_FWD_SHAPES (decode: 4
+    slots, one query each at positions 64..67 over a 256-deep cache;
+    prefill: 64 queries from position 0 over it; the training steps' calls,
+    causal from position 0; a ragged windowed case; head dim 256 at 3
+    limbs and head dim 384, the direct body), FP32 and kept-int bodies:
+    o within 1e-5 of max|o| and lse within 1e-4 (the same expf and the same
+    ordered f32 sums on both sides; the max abs errors are reported).
+    Timed at decode, the qwen1.5-0.5b training shape (24 calls a step; both
+    bodies), qwen2-moe-a2.7b's head dim 128 and head dim 384, each beside
+    SDPA's f32 forward on the dequantized values with the same mask (its
+    kv heads repeated for GQA).  Bound: the bytes of the planes and
+    outputs, or the int8 operations of the limb-pair products over the
+    (query, key) pairs the mask lets through, whichever is larger."""
+    import torch.nn.functional as F
     from repro_torch.kernels import int_attention as ia
-    B, KV, G, hd, Smax = 4, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
-        cfg.head_dim, 256
     exps = torch.tensor([-9, -9, -8], dtype=torch.int32, device=dev)
-    sc = 1.0 / hd ** 0.5
-    k = _planes(torch, gen, dev, 2, B, Smax, KV, hd)
-    v = _planes(torch, gen, dev, 2, B, Smax, KV, hd)
     err = {False: 0.0, True: 0.0}
-    timed = None
+    runs = {}
+    for label, shape in ATTN_FWD_SHAPES.items():
+        B, Sq, Sk, KV, G, hd, off, causal, window, lqk, lv = shape
+        q = _planes(torch, gen, dev, lqk, B, Sq, KV, G, hd)
+        k = _planes(torch, gen, dev, lqk, B, Sk, KV, hd)
+        v = _planes(torch, gen, dev, lv, B, Sk, KV, hd)
+        qo = torch.tensor(off if isinstance(off, list) else [off] * B,
+                          dtype=torch.int32, device=dev)
+        kw = dict(p_bits=12 if lv == 2 else 16, causal=causal, window=window,
+                  sc=1.0 / hd ** 0.5)
+        line = []
+        for iexp in (False, True):
+            o, lse = ia.int_attn_fwd(q, k, v, qo, exps, **kw,
+                                     integer_exp=iexp)
+            o0, lse0 = ia.int_attn_fwd_plain(q, k, v, qo, exps, **kw,
+                                             integer_exp=iexp)
+            e_o = (o - o0).abs().max().item()
+            e_l = (lse - lse0).abs().max().item()
+            scale = o0.abs().max().item()
+            if not (scale > 0 and e_o <= 1e-5 * scale and e_l <= 1e-4):
+                raise AssertionError(
+                    f"int_attn_fwd (integer_exp={iexp}) differs at {label}: "
+                    f"o max|err| {e_o} of max {scale}, lse {e_l}")
+            err[iexp] = max(err[iexp], e_o)
+            line.append(f"{'kept-int' if iexp else 'FP32'} o max|err| "
+                        f"{e_o:.3e} of {scale:.3e}, lse {e_l:.3e}")
+            if not iexp:
+                runs[label] = (shape, q, k, v, qo, kw, o, lse)
+        print(f"  attention forward at {label} {shape[:6]}, {lqk}/{lv} "
+              "planes: " + "; ".join(line))
+    for name, used, spill in ptxas_entries(r"fwd_"):
+        print(f"  ptxas {name}: {used}; {spill}")
 
-    def hold(q, qo, k, v, what, iexp):
-        """The kernel against its plain version (o within 1e-5 of max|o|,
-        lse 1e-4), FP32 or kept-int body."""
-        kw_ = dict(p_bits=12, causal=True, window=None, sc=sc,
-                   integer_exp=iexp)
-        o, lse = ia.int_attn_fwd(q, k, v, qo, exps, **kw_)
-        o0, lse0 = ia.int_attn_fwd_plain(q, k, v, qo, exps, **kw_)
-        rel = ((o - o0).abs().max() / o0.abs().max()).item()
-        dl = (lse - lse0).abs().max().item()
-        if rel > 1e-5 or dl > 1e-4:
-            raise AssertionError(f"int_attn_fwd (integer_exp={iexp}) differs"
-                                 f" at {what}: o rel {rel}, lse abs {dl}")
-        err[iexp] = max(err[iexp], (o - o0).abs().max().item())
-        return o, lse
+    def measure(label, kept_int=False):
+        """Timings (kernel, plain, SDPA) and the bound at one shape; with
+        ``kept_int`` also the integer body's (int_*)."""
+        shape, q, k, v, qo, kw, o, lse = runs[label]
+        B, Sq, Sk, KV, G, hd, off, causal, window, lqk, lv = shape
+        qs = _dequant(q, exps[0]).reshape(B, Sq, KV * G, hd).transpose(1, 2)
+        ks, vs = (_dequant(x, e).repeat_interleave(G, dim=2).transpose(1, 2)
+                  for x, e in ((k, exps[1]), (v, exps[2])))
+        qpos = qo[:, None] + torch.arange(Sq, device=dev)        # (B, Sq)
+        kpos = torch.arange(Sk, device=dev)
+        seen = kpos <= qpos[..., None] if causal else \
+            torch.ones((B, Sq, Sk), dtype=torch.bool, device=dev)
+        if window is not None:
+            seen = seen & (kpos > qpos[..., None] - window)
+        # the library's fastest form of the same mask: is_causal where the
+        # mask is the plain causal one, else the boolean mask itself
+        plain_causal = (causal and window is None and Sq == Sk
+                        and not bool(qo.any()))
+        mask = None if plain_causal else seen[:, None]
 
-    for Sq, off in ((1, [64, 65, 66, 67]), (64, [0, 0, 0, 0])):
-        q = _planes(torch, gen, dev, 2, B, Sq, KV, G, hd)
-        qo = torch.tensor(off, dtype=torch.int32, device=dev)
-        hold(q, qo, k, v, f"Sq={Sq}", True)
-        o, lse = hold(q, qo, k, v, f"Sq={Sq}", False)
-        if timed is None:
-            timed = (q, qo, o, lse)
-    q, qo, o, lse = timed
-    # yardstick: SDPA on the dequantized f32 values with the same mask
-    qd = (q[0].float() + 128 * q[1].float()) * dfx.pow2(exps[0])
-    kd = (k[0].float() + 128 * k[1].float()) * dfx.pow2(exps[1])
-    vd = (v[0].float() + 128 * v[1].float()) * dfx.pow2(exps[2])
-    qs = qd.reshape(B, 1, KV * G, hd).transpose(1, 2)
-    ks = kd.repeat_interleave(G, dim=2).transpose(1, 2)
-    vs = vd.repeat_interleave(G, dim=2).transpose(1, 2)
-    mask = (torch.arange(Smax, device=dev) <= qo[:, None])[:, None, None, :]
-    kw = dict(p_bits=12, causal=True, window=None, sc=sc)
-    ki = dict(kw, integer_exp=True)
-    t = timings(lambda: ia.int_attn_fwd(q, k, v, qo, exps, **kw),
-                lambda: ia.int_attn_fwd_plain(q, k, v, qo, exps, **kw),
-                lambda: F.scaled_dot_product_attention(qs, ks, vs,
-                                                       attn_mask=mask))
-    ti = timings(lambda: ia.int_attn_fwd(q, k, v, qo, exps, **ki),
-                 lambda: ia.int_attn_fwd_plain(q, k, v, qo, exps, **ki))
-    # bytes and int8 ops the data needs: keys 0..q_off[b] of each row
-    need = sum(int(x) + 1 for x in qo.cpu())
-    n_bytes = (nbytes(q, qo, exps, o, lse)
-               + (k.shape[0] + v.shape[0]) * need * KV * hd)
-    n_ops = 2 * 2 * need * KV * G * hd * 4       # QK and PV, 2x2 limb pairs
-    b, by = bound_ms(n_bytes, n_ops)
-    # the training step's call: batch 8 x seq 256, causal, from position 0
-    Bt, St = 8, 256
-    qt, kt, vt = (_planes(torch, gen, dev, 2, Bt, St, KV, *rest)
-                  for rest in ((G, hd), (hd,), (hd,)))
-    qo_t = torch.zeros(Bt, dtype=torch.int32, device=dev)
-    hold(qt, qo_t, kt, vt, "the training shape", True)
-    ot, lset = hold(qt, qo_t, kt, vt, "the training shape", False)
+        def library():
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                  is_causal=plain_causal)
+        t = timings(lambda: ia.int_attn_fwd(q, k, v, qo, exps, **kw),
+                    lambda: ia.int_attn_fwd_plain(q, k, v, qo, exps, **kw),
+                    library)
+        # bytes and int8 ops these inputs need: each (query, key) pair the
+        # mask lets through, every limb pair of QK^T and of PV
+        pairs = int(seen.sum()) * KV * G
+        need_keys = int(seen.any(1).sum()) * KV                  # K/V rows
+        n_bytes = (nbytes(q, qo, exps, o, lse)
+                   + (k.shape[0] + v.shape[0]) * need_keys * hd)
+        b, by = bound_ms(n_bytes, 2 * pairs * hd * (lqk * lqk + lv * lv))
+        t.update(bound_ms=b, bound_by=by)
+        if kept_int:
+            ki = dict(kw, integer_exp=True)
+            t.update(int_body(timings(
+                lambda: ia.int_attn_fwd(q, k, v, qo, exps, **ki),
+                lambda: ia.int_attn_fwd_plain(q, k, v, qo, exps, **ki),
+                library), bound_ms=b, bound_by=by))
+        print(f"  int_attn_fwd at {label}: call {t['ms']:.4f} ms, device "
+              f"{t['device_ms']:.4f} ms; plain device "
+              f"{t['plain_device_ms']:.4f}; SDPA forward (f32) device "
+              f"{t['library_device_ms']:.4f}; bound {b:.4f} ms ({by})")
+        return t
 
-    def deq(x, e):
-        return (x[0].float() + 128 * x[1].float()) * dfx.pow2(e)
-    qf = deq(qt, exps[0]).reshape(Bt, St, KV * G, hd).transpose(1, 2)
-    kf, vf = (deq(x, e).repeat_interleave(G, dim=2).transpose(1, 2)
-              for x, e in ((kt, exps[1]), (vt, exps[2])))
-    tt = timings(lambda: ia.int_attn_fwd(qt, kt, vt, qo_t, exps, **kw),
-                 lambda: ia.int_attn_fwd_plain(qt, kt, vt, qo_t, exps, **kw),
-                 lambda: F.scaled_dot_product_attention(qf, kf, vf,
-                                                        is_causal=True))
-    tti = timings(lambda: ia.int_attn_fwd(qt, kt, vt, qo_t, exps, **ki),
-                  lambda: ia.int_attn_fwd_plain(qt, kt, vt, qo_t, exps,
-                                                **ki))
-    pairs = Bt * KV * G * St * (St + 1) // 2
-    tb, tby = bound_ms(nbytes(qt, kt, vt, qo_t, exps, ot, lset),
-                       2 * 2 * pairs * hd * 4)
-    print(f"  int_attn_fwd training shape q ({Bt},{St},{KV},{G},{hd}), "
-          f"causal: call {tt['ms']:.4f} ms, device {tt['device_ms']:.4f} "
-          f"ms; plain device {tt['plain_device_ms']:.4f}; SDPA forward (f32) "
-          f"device {tt['library_device_ms']:.4f}; bound {tb:.4f} ms ({tby})")
+    t = measure("decode", kept_int=True)
+    tt = measure("qwen1.5-0.5b train", kept_int=True)
+    tm = measure("qwen2-moe-a2.7b train (hd 128)")
+    tw = measure("head dim 384")
+    B, Sq, Sk, KV, G, hd = ATTN_FWD_SHAPES["decode"][:6]
     out = dict(name="int_attn_fwd", route="cuda",
                source="src/repro_torch/csrc/int_attention.cu",
                replaces="src/repro/kernels/int_attention.py:217",
-               shape=f"decode q ({B},1,{KV},{G},{hd}) over k/v ({B},{Smax},"
-                     f"{KV},{hd}), 2 limbs; also held and timed at the "
-                     f"training shape ({Bt},{St}) causal (train_*); the "
-                     "kept-int body (int_*, train_int_*) held and timed at "
-                     "both; tolerance o 1e-5 relative, lse 1e-4 absolute; "
-                     "library: SDPA forward (f32)",
-               max_abs_err=err[False], bound_ms=b, bound_by=by, **t,
+               shape=f"decode q ({B},{Sq},{KV},{G},{hd}) over k/v ({B},{Sk},"
+                     f"{KV},{hd}), 2 limbs; also timed at the qwen1.5-0.5b "
+                     "training shape (8,256) causal (train_*), qwen2-moe's "
+                     "head dim 128 (moe_*) and head dim 384 (hd384_*, the "
+                     "direct body); the kept-int body (int_*, train_int_*) "
+                     "at decode and the training shape; both bodies held at "
+                     + ", ".join(ATTN_FWD_SHAPES) + "; tolerance o 1e-5 "
+                     "relative, lse 1e-4 absolute; library: SDPA forward "
+                     "(f32)",
+               max_abs_err=err[False], int_max_abs_err=err[True], **t,
                **{f"train_{k_}": v_ for k_, v_ in tt.items()},
-               train_bound_ms=tb, train_bound_by=tby,
-               **int_body(ti, max_abs_err=err[True], bound_ms=b,
-                          bound_by=by),
-               **{f"train_{k_}": v_ for k_, v_ in int_body(
-                   tti, bound_ms=tb, bound_by=tby).items()})
+               **{f"moe_{k_}": v_ for k_, v_ in tm.items()},
+               **{f"hd384_{k_}": v_ for k_, v_ in tw.items()})
     print(body_line("int_attn_fwd", out))
     print(body_line("int_attn_fwd", out, "train_"))
     return out
@@ -724,6 +778,7 @@ ATTN_BWD_SHAPES = {
     "ragged + window": (2, 20, 150, 2, 2, 16, [100, 37], True, 40),
     "qwen2-moe-a2.7b train": (8, 256, 256, 16, 1, 128, 0, True, None),
     "head dim 256 (widest body)": (8, 256, 256, 4, 1, 256, 0, True, None),
+    "head dim 384": (8, 256, 256, 4, 1, 384, 0, True, None),
 }
 
 
@@ -806,7 +861,8 @@ def check_attention_bwd(torch, dev, gen):
                   f"body) at {label} {shape[:6]}: " + "; ".join(line))
             if not iexp and label in ("qwen1.5-0.5b train",
                                       "qwen2-moe-a2.7b train",
-                                      "head dim 256 (widest body)"):
+                                      "head dim 256 (widest body)",
+                                      "head dim 384"):
                 timed[label] = (shape, q, k, v, g, lse, delta, qo, exps, kw,
                                 dq, dk, dv)
 
@@ -871,12 +927,14 @@ def check_attention_bwd(torch, dev, gen):
     main = measure(*timed["qwen1.5-0.5b train"], kept_int=True)
     moe = measure(*timed["qwen2-moe-a2.7b train"])
     wide = measure(*timed["head dim 256 (widest body)"])
+    wide384 = measure(*timed["head dim 384"])
     shape = ATTN_BWD_SHAPES["qwen1.5-0.5b train"]
     B, Sq, Sk, KV, G, hd = shape[:6]
     out_k = []
     for name in ("int_attn_bwd_dq", "int_attn_bwd_dkv"):
         for what, m in (("qwen2-moe-a2.7b train (hd 128)", moe[name]),
-                        ("head dim 256", wide[name])):
+                        ("head dim 256", wide[name]),
+                        ("head dim 384 (direct body)", wide384[name])):
             print(f"  {name} at {what}: call {m['ms']:.4f} ms, device "
                   f"{m['device_ms']:.4f} ms; SDPA backward device "
                   f"{m['library_device_ms']:.4f}; bound {m['bound_ms']:.4f} "
@@ -892,14 +950,16 @@ def check_attention_bwd(torch, dev, gen):
                   f"k/v ({B},{Sk},{KV},{hd}), 2 planes (g 1), causal, dS 8 "
                   "bits, P 12 bits; the kept-int body timed there too "
                   "(int_*); also timed at qwen2-moe-a2.7b's head dim 128 "
-                  "(moe_*) and at head dim 256 (hd256_*); both bodies held "
+                  "(moe_*), at head dim 256 (hd256_*) and at head dim 384 "
+                  "(hd384_*, the direct body); both bodies held "
                   "at " + ", ".join(ATTN_BWD_SHAPES)
                   + "; tolerance exact; library: SDPA backward (f32, "
                   "autograd, dq + dk + dv)",
             max_abs_err=errs[name], int_max_abs_err=errs[name + " int"],
             **main[name],
             **{f"moe_{k_}": v_ for k_, v_ in moe[name].items()},
-            **{f"hd256_{k_}": v_ for k_, v_ in wide[name].items()}))
+            **{f"hd256_{k_}": v_ for k_, v_ in wide[name].items()},
+            **{f"hd384_{k_}": v_ for k_, v_ in wide384[name].items()}))
     return out_k
 
 
@@ -2053,15 +2113,8 @@ def main() -> int:
     _lib.build()
     build_s = time.perf_counter() - t0
     print(f"[1] built the CUDA kernels in {build_s:.1f} s")
-    name, spill = "?", ""
-    for line in _lib.ptxas_report().splitlines():
-        if "Compiling entry function" in line:
-            name = _kernel_name(line.split("'")[1])
-        elif "spill" in line:
-            spill = line.strip()
-        elif "Used" in line:
-            print(f"    ptxas: {name}: {line.split(':', 1)[1].strip()}; "
-                  f"{spill}")
+    for name, used, spill in ptxas_entries():
+        print(f"    ptxas: {name}: {used}; {spill}")
     print(card)
 
     cfg = registry.get_config("qwen1.5-0.5b")

@@ -81,11 +81,16 @@
 // exact, so the permutation changes no bit.  Accumulator registers do not
 // grow with the limb-pair count: each pair's contraction completes before
 // the next starts.  A smaller CTA (2 or 1 warps) is taken at launch where
-// the limb counts and hd need more shared memory than 227 KB.  hd <= 256:
-// one instantiation per 32-column chunk count up to 4 (hd 128), and one of
-// 8 chunks for 128 < hd <= 256 (zero-padded to 256 in shared memory),
-// whose f32 sums live in shared memory (dq too) and whose CTA is narrower
-// (dkv: 1 warp at the int8 preset's limb counts).
+// the limb counts and hd need more shared memory than 227 KB.  These
+// staged bodies take hd <= 256: one instantiation per 32-column chunk
+// count up to 4 (hd 128), and one of 8 chunks for 128 < hd <= 256
+// (zero-padded to 256 in shared memory), whose f32 sums live in shared
+// memory (dq too) and whose CTA is narrower (dkv: 1 warp at the int8
+// preset's limb counts).  Every other shape (hd > 256, or 2-3 limb planes
+// at 128 < hd <= 256, over 227 KB even for one warp) takes the direct
+// bodies at the end of this file: fragments straight from global memory,
+// each dot converted exactly (cvt.rn) however deep, shared memory bounded
+// at any hd (attn_mma.cuh).
 //
 // What the card measured (chip_smoke.py phase 2, PERF.md): with the MMAs
 // in place the f32 recompute per score is the larger cost, so it avoids
@@ -93,22 +98,11 @@
 // arithmetic, one exact fma per pair combine where the scales allow) and
 // runs branch-free per element (masks as selects, and no mask at all on a
 // tile every row of which sees every key).
-#include "dfx_common.cuh"
-#include "iapprox.cuh"
-#include "sm90_ptx.cuh"
+#include "attn_mma.cuh"
 
 #include <type_traits>
 
 namespace {
-
-constexpr int KS = 32;                      // sub-tile rows: one MMA k-step
-constexpr int KSB = 4;                      // k-steps of a 128-row block
-constexpr int TP = KS * KSB + 16;           // byte stride of a transposed row
-constexpr int kStages = 2;                  // depth of the cp.async ring
-constexpr int kMaxChunks = 8;               // hd <= 32 * kMaxChunks
-constexpr int kLimbWords = KSB * 32 * 4;    // a warp's A fragments of one
-                                            // limb over a block, in words
-constexpr size_t kSmemMax = 227 * 1024;
 
 struct Params {
   const int8_t* q;
@@ -165,362 +159,6 @@ __host__ __device__ inline Smem smem_layout(const Params& p, bool dkv) {
     o += (size_t)p.nw * (dkv ? 2 : 1) * p.hdp * 16 * sizeof(float);
   m.end = o;
   return m;
-}
-
-__device__ __forceinline__ unsigned ld32(const int8_t* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-__device__ __forceinline__ void st32(int8_t* p, unsigned x) {
-  *reinterpret_cast<unsigned*>(p) = x;
-}
-
-// Branch-free (& and |), so the element loops below stay straight-line
-// code the compiler can interleave.
-__device__ __forceinline__ bool visible(const Params& p, int qpos,
-                                        int kpos) {
-  return (kpos < p.Sk) & (!p.causal | (kpos <= qpos)) &
-         ((p.window < 0) | (kpos > qpos - p.window));
-}
-
-// The conversions between int and float go through the FMA pipe (I2F,
-// F2I and FRND run at a quarter of its rate, and were this kernel's
-// bottleneck): 1.5 * 2^23 + x has the float bits 0x4B400000 + x for
-// |x| < 2^22, and adding 1.5 * 2^23 rounds to an integer half to even,
-// as rintf does.  Exact here: every dot is below 127^2 * 256 = 4,129,024
-// < 2^22 (the hd contractions at most 256 deep, the block contractions 128;
-// every limb digit, the top limb's raw carry included, at most 127 in
-// magnitude: a 12-bit mantissa's carry is at most 16, a 16-bit one's 2),
-// and a mantissa is clipped to 2^15 before it is rounded.
-constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23
-constexpr int kMagicBits = 0x4B400000;
-
-__device__ __forceinline__ float i2f(int x) {
-  return __fsub_rn(__int_as_float(kMagicBits + x), kMagic);
-}
-
-// clip(rint(y), +-(2^(bits-1) - 1)); lim is an integer, so clipping first
-// gives the same value.
-__device__ __forceinline__ int round_clip(float y, int bits) {
-  const float lim = (float)((1 << (bits - 1)) - 1);
-  return __float_as_int(__fadd_rn(fminf(fmaxf(y, -lim), lim), kMagic)) -
-         kMagicBits;
-}
-
-// This lane's ldmatrix row address, relative to a 16-row x 32-byte tile
-// with rows `stride` bytes apart, for an A fragment (matrices: rows 0-7
-// bytes 0-15, rows 8-15 bytes 0-15, rows 0-7 bytes 16-31, rows 8-15 bytes
-// 16-31) and for the B fragments of two 8-row n-tiles (rows 0-7 bytes
-// 0-15 and 16-31, then rows 8-15).
-__device__ __forceinline__ int a_lane(int lane, int stride) {
-  return ((lane & 7) + 8 * ((lane >> 3) & 1)) * stride + 16 * (lane >> 4);
-}
-
-__device__ __forceinline__ int b_lane(int lane, int stride) {
-  return ((lane & 7) + 8 * (lane >> 4)) * stride + 16 * ((lane >> 3) & 1);
-}
-
-// Issue the copies of `rows` rows of hd int8 values (row r of plane j at
-// src + j * plane + r * row) into shared rows of hp bytes (plane j at
-// dst + j * rows * hp); rows at or past `valid` are zero-filled.
-template <int V>
-__device__ __forceinline__ void copy_rows(int8_t* dst, int hp,
-                                          const int8_t* src, long long plane,
-                                          long long row, int planes, int rows,
-                                          int valid, int hd) {
-  const int cpr = hd / V, nt = blockDim.x;
-  const int dc = nt % cpr, dr = nt / cpr;
-  int c = threadIdx.x % cpr, r = threadIdx.x / cpr, j = 0;
-  while (r >= rows) {
-    r -= rows;
-    ++j;
-  }
-  while (j < planes) {
-    const bool ok = r < valid;
-    ptx::cp_async<V>(dst + (j * rows + r) * hp + c * V,
-                     ok ? src + j * plane + r * row + c * V : src, ok);
-    c += dc;
-    r += dr;
-    if (c >= cpr) {
-      c -= cpr;
-      ++r;
-    }
-    while (r >= rows) {
-      r -= rows;
-      ++j;
-    }
-  }
-}
-
-__device__ __forceinline__ void stage_rows(const Params& p, int hp,
-                                           int8_t* dst, const int8_t* src,
-                                           long long plane, long long row,
-                                           int planes, int rows, int valid) {
-  switch (p.vec) {
-    case 16:
-      copy_rows<16>(dst, hp, src, plane, row, planes, rows, valid, p.hd);
-      break;
-    case 8:
-      copy_rows<8>(dst, hp, src, plane, row, planes, rows, valid, p.hd);
-      break;
-    case 4:
-      copy_rows<4>(dst, hp, src, plane, row, planes, rows, valid, p.hd);
-      break;
-    default:  // hd or a base pointer not 4-byte aligned: synchronous bytes
-      for (int e = threadIdx.x; e < planes * rows * p.hd; e += blockDim.x) {
-        const int c = e % p.hd, r = (e / p.hd) % rows, j = e / (p.hd * rows);
-        dst[(j * rows + r) * hp + c] =
-            r < valid ? src[j * plane + r * row + c] : 0;
-      }
-  }
-}
-
-// Zero bytes hd..hdp-1 of n staged rows (the copies never write them).
-__device__ __forceinline__ void zero_pad(int8_t* rows, int n, int hp,
-                                         int hd, int hdp) {
-  const int w = hdp - hd;
-  for (int e = threadIdx.x; e < n * w; e += blockDim.x)
-    rows[(e / w) * hp + hd + e % w] = 0;
-}
-
-// Transpose a staged 32-row sub-tile of `planes` planes (plane j at
-// src + j * 32 * HP) into transposed rows (plane j, column d at
-// tr + (j * HDP + d) * TP), at bytes ks * 32 + kpos(r) for sub-tile row r,
-// where kpos(16h + 8a + 2t + b) = 16h + 4t + 2a + b: the k order in which
-// a thread's C-layout columns 8j + 2t + b form its A fragment (pack4).
-// Each unit reads one word of rows 16h+2t, +1, +8, +9 and writes the 4x4
-// byte transpose as one word to each of 4 transposed rows.
-template <int HDP>
-__device__ __forceinline__ void transpose_tile(int8_t* tr, const int8_t* src,
-                                               int planes, int ks) {
-  constexpr int HP = HDP + 16, W = HDP / 4;
-  for (int u = threadIdx.x; u < planes * W * 8; u += blockDim.x) {
-    const int grp = u & 7, w = (u >> 3) % W, j = (u >> 3) / W;
-    const int h = grp >> 2, t = grp & 3;
-    const int8_t* s = src + (j * KS + 16 * h + 2 * t) * HP + 4 * w;
-    const unsigned r0 = ld32(s), r1 = ld32(s + HP), r2 = ld32(s + 8 * HP),
-                   r3 = ld32(s + 9 * HP);
-    const unsigned t0 = __byte_perm(r0, r1, 0x5140),
-                   t1 = __byte_perm(r0, r1, 0x7362),
-                   t2 = __byte_perm(r2, r3, 0x5140),
-                   t3 = __byte_perm(r2, r3, 0x7362);
-    int8_t* d = tr + (j * HDP + 4 * w) * TP + ks * KS + 16 * h + 4 * t;
-    st32(d, __byte_perm(t0, t2, 0x5410));
-    st32(d + TP, __byte_perm(t0, t2, 0x7632));
-    st32(d + 2 * TP, __byte_perm(t1, t3, 0x5410));
-    st32(d + 3 * TP, __byte_perm(t1, t3, 0x7632));
-  }
-}
-
-// The combine of a pair's dots: out (+)= (f32(c) * s0) * w, s0 = 2^e and
-// w = 2^(7n + shift).  Where every scale 2^e and 2^(e + 7n + shift) (n <= 4
-// for at most 3 limbs a side) is a normal power of two with room for
-// |c| < 2^22, both products are exact and equal c * (s0 * w), which one
-// fma yields exactly from the magic-number bits: fma(1.5 * 2^23 + c, sw,
-// -1.5 * 2^23 * sw) = c * sw before its single rounding.  `fast` says so
-// (fma_exact); else the two rounded products are taken as written.
-__device__ __forceinline__ bool fma_exact(int e, int shift) {
-  return e >= -120 && e + shift >= -120 && e + 28 + max(shift, 0) <= 100;
-}
-
-__device__ __forceinline__ void combine(float (&out)[4][4],
-                                        const int (&c)[4][4], float s0,
-                                        float w, bool first, bool fast) {
-  if (fast) {
-    const float sw = __fmul_rn(s0, w), nm = __fmul_rn(-kMagic, sw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float part =
-            __fmaf_rn(__int_as_float(kMagicBits + c[j][e]), sw, nm);
-        out[j][e] = first ? part : __fadd_rn(out[j][e], part);
-      }
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float part = __fmul_rn(__fmul_rn(i2f(c[j][e]), s0), w);
-      out[j][e] = first ? part : __fadd_rn(out[j][e], part);
-    }
-}
-
-// c[j] += A . B over 32 k for the four n-tiles j of a 16 x 32 tile: A's
-// fragment af, B's 32 rows at b (ldmatrix lane address, rows `stride`
-// bytes apart).
-__device__ __forceinline__ void mma_row(int (&c)[4][4], const unsigned (&af)[4],
-                                        const int8_t* b, int stride) {
-  unsigned b01[4], b23[4];
-  ptx::ldmatrix_x4(b01, b);
-  ptx::ldmatrix_x4(b23, b + 16 * stride);
-  ptx::mma_s8(c[0], af, b01[0], b01[1]);
-  ptx::mma_s8(c[1], af, b01[2], b01[3]);
-  ptx::mma_s8(c[2], af, b23[0], b23[1]);
-  ptx::mma_s8(c[3], af, b23[2], b23[3]);
-}
-
-// 16 x 32 scores in C layout (out[j][e]: row g + 8(e/2), column
-// 8j + 2t + e%2): the ordered limb-pair sum of (f32(dot) * s0) *
-// 2^(7(jo+ji)) over the HDP columns of 16 A rows (la planes a_plane bytes
-// apart; a at this lane's a_lane address) and 32 B rows (lb planes; b at
-// its b_lane address), rows HDP + 16 bytes apart.  AOuter: the A
-// operand's limbs are the outer loop of the pair order, else B's.
-template <int NDC, bool AOuter>
-__device__ __forceinline__ void pair_scores(float (&out)[4][4],
-                                            const int8_t* a, int la,
-                                            int a_plane, const int8_t* b,
-                                            int lb, int b_plane, float s0,
-                                            bool fast) {
-  constexpr int HP = KS * NDC + 16;
-  const int no = AOuter ? la : lb, ni = AOuter ? lb : la;
-  for (int jo = 0; jo < no; ++jo)
-    for (int ji = 0; ji < ni; ++ji) {
-      const int8_t* ap = a + (AOuter ? jo : ji) * a_plane;
-      const int8_t* bp = b + (AOuter ? ji : jo) * b_plane;
-      int c[4][4] = {};
-#pragma unroll
-      for (int kc = 0; kc < NDC; ++kc) {
-        unsigned af[4];
-        ptx::ldmatrix_x4(af, ap + kc * KS);
-        mma_row(c, af, bp + kc * KS, HP);
-      }
-      combine(out, c, s0, dfx::pow2f(dfx::kLimbBits * (jo + ji)),
-              jo == 0 && ji == 0, fast);
-    }
-}
-
-// The low bytes of x0..x3 as one word, x0 lowest.
-__device__ __forceinline__ unsigned pack4(int x0, int x1, int x2, int x3) {
-  return __byte_perm(__byte_perm(x0, x1, 0x0040), __byte_perm(x2, x3, 0x0040),
-                     0x5410);
-}
-
-// Split C-layout mantissas m into n limb digits (dfx::split_limbs) and
-// store each limb's A fragment (k order kpos) at k-step ks of the warp's
-// fragments fa ([limb][KSB][32 lanes] x 16 bytes; each lane its own).
-__device__ __forceinline__ void store_limbs(uint4* fa, int (&m)[4][4], int n,
-                                            int ks, int lane) {
-  for (int l = 0; l < n; ++l) {
-    int d[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (l < n - 1) {
-          const int carry = (m[j][e] + 64) >> dfx::kLimbBits;
-          d[j][e] = m[j][e] - carry * (1 << dfx::kLimbBits);
-          m[j][e] = carry;
-        } else {
-          d[j][e] = m[j][e];
-        }
-      }
-    fa[(l * KSB + ks) * 32 + lane] =
-        make_uint4(pack4(d[0][0], d[0][1], d[1][0], d[1][1]),
-                   pack4(d[0][2], d[0][3], d[1][2], d[1][3]),
-                   pack4(d[2][0], d[2][1], d[3][0], d[3][1]),
-                   pack4(d[2][2], d[2][3], d[3][2], d[3][3]));
-  }
-}
-
-// A block's partial of output columns 32dc..32dc+31 (16 x 32, C layout):
-// the ordered limb-pair sum (A limbs outer: the warp's fragments fa; B
-// limbs inner: transposed rows tr, at this lane's b_lane address) of
-// (f32(dot) * s0) * 2^(7(ja+jb) + shift), each dot an int32 sum over the
-// block's k-steps in `live`.
-template <int NDC>
-__device__ __forceinline__ void block_partial(float (&out)[4][4],
-                                              const uint4* fa, int la,
-                                              const int8_t* tr, int lb,
-                                              int dc, unsigned live, float s0,
-                                              int shift, bool fast, int lane) {
-  for (int ja = 0; ja < la; ++ja)
-    for (int jb = 0; jb < lb; ++jb) {
-      const int8_t* bp = tr + (jb * KS * NDC + dc * KS) * TP;
-      int c[4][4] = {};
-#pragma unroll
-      for (int ks = 0; ks < KSB; ++ks) {
-        if (!(live >> ks & 1)) continue;
-        const uint4 f = fa[(ja * KSB + ks) * 32 + lane];
-        const unsigned af[4] = {f.x, f.y, f.z, f.w};
-        mma_row(c, af, bp + ks * KS, TP);
-      }
-      combine(out, c, s0, dfx::pow2f(dfx::kLimbBits * (ja + jb) + shift),
-              ja == 0 && jb == 0, fast);
-    }
-}
-
-// A lane's f32 sums over 16 rows x 32 NDC columns (C layout), in registers
-// or in the warp's shared memory ([NDC][4][32 lanes][4]).
-template <int NDC, bool InRegs>
-struct Sums;
-
-template <int NDC>
-struct Sums<NDC, true> {
-  float v[NDC][4][4];
-  __device__ __forceinline__ Sums(float*, int) {
-#pragma unroll
-    for (int dc = 0; dc < NDC; ++dc)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) v[dc][j][e] = 0.0f;
-  }
-  __device__ __forceinline__ void add(int dc, const float (&part)[4][4]) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        v[dc][j][e] = __fadd_rn(v[dc][j][e], part[j][e]);
-  }
-  __device__ __forceinline__ float get(int dc, int j, int e) const {
-    return v[dc][j][e];
-  }
-};
-
-template <int NDC>
-struct Sums<NDC, false> {
-  float4* s;
-  __device__ __forceinline__ Sums(float* base, int lane)
-      : s(reinterpret_cast<float4*>(base) + lane) {
-    for (int i = 0; i < NDC * 4; ++i) s[i * 32] = make_float4(0, 0, 0, 0);
-  }
-  __device__ __forceinline__ void add(int dc, const float (&part)[4][4]) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float4 x = s[(dc * 4 + j) * 32];
-      x.x = __fadd_rn(x.x, part[j][0]);
-      x.y = __fadd_rn(x.y, part[j][1]);
-      x.z = __fadd_rn(x.z, part[j][2]);
-      x.w = __fadd_rn(x.w, part[j][3]);
-      s[(dc * 4 + j) * 32] = x;
-    }
-  }
-  __device__ __forceinline__ float get(int dc, int j, int e) const {
-    const float4 x = s[(dc * 4 + j) * 32];
-    return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
-  }
-};
-
-// Store columns d and d+1 of a row (at o) where they lie inside hd: one
-// 8-byte store for an even hd (d is even).
-__device__ __forceinline__ void store_pair(float* o, float x0, float x1,
-                                           bool row_ok, int d, int hd) {
-  if (!row_ok || d >= hd) return;
-  if (hd % 2 == 0) {
-    *reinterpret_cast<float2*>(o) = make_float2(x0, x1);
-  } else {
-    o[0] = x0;
-    if (d + 1 < hd) o[1] = x1;
-  }
-}
-
-// p's exp: FP32 (expf, not __expf), or the Q.14 form.
-template <bool IntExp>
-__device__ __forceinline__ float p_exp(float x) {
-  if constexpr (IntExp) return iapprox::i_exp(x);
-  return expf(x);
 }
 
 // ---------------------------------------------------------------- dq ----
@@ -883,6 +521,278 @@ __global__ void __launch_bounds__(128) dkv_kernel(const Params p) {
       }
 }
 
+// ------------------------------------------------------------ direct ----
+// The bodies for any hd and limb count ("direct", attn_mma.cuh), taken
+// where the staged bodies above do not fit: hd > 256, or a CTA of one warp
+// over 227 KB (128 < hd <= 256 at 2-3 limbs).  Each warp of a CTA owns 16
+// rows alone, loads its fragments straight from global memory and keeps
+// its f32 sums in the output (each element read and written by one lane),
+// so shared memory holds only its digit fragments.  Same recurrence,
+// blocks, pair orders and f32 expressions as the staged bodies, and the
+// exact conversion of every dot.
+
+template <bool IntExp>
+__global__ void __launch_bounds__(128) dq_direct_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hd = p.hd;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = blockIdx.y, bh = blockIdx.z;
+  const int b = bh / p.KV, h = bh % p.KV;
+  const int off = p.off[b];
+  const int sq0 = (blockIdx.x * 4 + warp) * 16;  // the warp's query rows
+  if (sq0 >= p.Sq) return;
+  uint4* fa = reinterpret_cast<uint4*>(smem) + warp * p.lds * kLimbWords / 4;
+  const long long qplane = (long long)p.B * p.Sq * p.KV * p.G * hd;
+  const long long kplane = (long long)p.B * p.Sk * p.KV * hd;
+  const float s0 = dfx::pow2f(p.exps[0] + p.exps[1]);
+  const float sdp = dfx::pow2f(p.exps[3] + p.exps[2]);
+  const float sdq = dfx::pow2f(p.exps[4] + p.exps[1]);
+  const float inv_ds = dfx::pow2f(-p.exps[4]);
+  const bool vec = p.vec >= 4;
+  const int r_lo = lane >> 2, t2 = 2 * (lane & 3);
+  float lse_r[2], del_r[2];
+  bool row_ok[2];
+  long long qo[2];  // rows r_lo, r_lo + 8: offsets in a q / g plane and dq
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = sq0 + r_lo + 8 * i;
+    row_ok[i] = r < p.Sq;
+    qo[i] = row_ok[i]
+        ? ((((long long)b * p.Sq + r) * p.KV + h) * p.G + g) * hd : 0;
+    lse_r[i] = row_ok[i]
+        ? p.lse[(((long long)b * p.KV + h) * p.G + g) * p.Sq + r] : 0.0f;
+    del_r[i] = row_ok[i]
+        ? p.delta[(((long long)b * p.Sq + r) * p.KV + h) * p.G + g] : 0.0f;
+  }
+  auto each = [&](auto f) {  // f(pointer at column d, row i, d, j)
+    for (int d0 = 0; d0 < hd; d0 += KS)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int d = d0 + 8 * j + t2;
+          f(p.dq + qo[i] + d, i, d, j);
+        }
+  };
+  each([&](float* x, int i, int d, int) {
+    update_pair(x, row_ok[i], d, hd, [](int, float) { return 0.0f; });
+  });
+  const int wq_lo = off + sq0, wq_hi = wq_lo + min(16, p.Sq - sq0) - 1;
+  const int n_st = (p.Sk + KS - 1) / KS;
+  auto key_row = [&](const int8_t* base, int key) -> const int8_t* {
+    return key < p.Sk ? base + (((long long)b * p.Sk + key) * p.KV + h) * hd
+                      : nullptr;
+  };
+  for (int kb = 0; kb * KSB < n_st; ++kb) {
+    unsigned live_ks = 0;
+#pragma unroll
+    for (int ks = 0; ks < KSB; ++ks) {
+      const int st = kb * KSB + ks, k0 = st * KS;
+      if (st >= n_st || (p.causal && k0 > wq_hi) ||
+          (p.window >= 0 && min(k0 + KS, p.Sk) - 1 <= wq_lo - p.window))
+        continue;
+      const int8_t* kr[4];
+      const int8_t* vr[4];
+      bool kok[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kok[j] = k0 + 8 * j + r_lo < p.Sk;
+        kr[j] = kok[j] ? key_row(p.k, k0 + 8 * j + r_lo) : p.k;
+        vr[j] = kok[j] ? key_row(p.v, k0 + 8 * j + r_lo) : p.v;
+      }
+      float s[4][4], dp[4][4];
+      direct_scores<true>(s, p.q + qo[0], p.q + qo[1], row_ok[0], row_ok[1],
+                          qplane, p.lqk, kr, kok, kplane, p.lqk, hd, vec, s0,
+                          lane);
+      direct_scores<true>(dp, p.g + qo[0], p.g + qo[1], row_ok[0],
+                          row_ok[1], qplane, p.lg, vr, kok, kplane, p.lv, hd,
+                          vec, sdp, lane);
+      int dsm[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const bool ok = row_ok[i] & visible(p, wq_lo + r_lo + 8 * i,
+                                              k0 + 8 * j + t2 + (e & 1));
+          const float ex =
+              p_exp<IntExp>(__fsub_rn(__fmul_rn(s[j][e], p.sc), lse_r[i]));
+          const float pr = ok ? ex : 0.0f;
+          const float ds = __fmul_rn(pr, __fsub_rn(dp[j][e], del_r[i]));
+          const int m = round_clip(__fmul_rn(ds, inv_ds), p.ds_bits);
+          dsm[j][e] = ok ? m : 0;
+        }
+      store_limbs(fa, dsm, p.lds, ks, lane);
+      live_ks |= 1u << ks;
+    }
+    if (!live_ks) continue;
+    for (int d0 = 0; d0 < hd; d0 += KS) {
+      float part[4][4];
+      direct_partial(part, fa, p.lds, kplane, p.lqk, d0, hd, live_ks,
+                     [&](int ks, int r) {
+                       return key_row(p.k, (kb * KSB + ks) * KS + r);
+                     },
+                     sdq, 0, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int d = d0 + 8 * j + t2;
+          update_pair(p.dq + qo[i] + d, row_ok[i], d, hd, [&](int e, float x) {
+            return __fadd_rn(x, part[j][2 * i + e]);
+          });
+        }
+    }
+  }
+  each([&](float* x, int i, int d, int) {
+    update_pair(x, row_ok[i], d, hd,
+                [&](int, float v) { return __fmul_rn(v, p.sc); });
+  });
+}
+
+template <bool IntExp>
+__global__ void __launch_bounds__(128) dkv_direct_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hd = p.hd;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int bh = blockIdx.y;
+  const int b = bh / p.KV, h = bh % p.KV;
+  const int off = p.off[b];
+  const int wk0 = (blockIdx.x * 4 + warp) * 16;  // the warp's keys
+  if (wk0 >= p.Sk) return;
+  const int wk1 = min(wk0 + 16, p.Sk) - 1;
+  uint4* fa = reinterpret_cast<uint4*>(smem) +
+              warp * (p.lv + p.lds) * kLimbWords / 4;  // P, then dS
+  uint4* fds = fa + p.lv * kLimbWords / 4;
+  const long long qplane = (long long)p.B * p.Sq * p.KV * p.G * hd;
+  const long long kplane = (long long)p.B * p.Sk * p.KV * hd;
+  const float s0 = dfx::pow2f(p.exps[0] + p.exps[1]);
+  const float sdp = dfx::pow2f(p.exps[3] + p.exps[2]);
+  const float inv_ds = dfx::pow2f(-p.exps[4]);
+  const float sdk = dfx::pow2f(p.exps[4] + p.exps[0]);
+  const float sdv = dfx::pow2f(p.exps[3]);
+  const float pscale = dfx::pow2f(p.p_bits - 1);
+  const bool vec = p.vec >= 4;
+  const int r_lo = lane >> 2, t2 = 2 * (lane & 3);
+  bool key_ok[2];
+  long long ko[2];  // keys wk0 + r_lo (+ 8): offsets in a k / v plane, dk, dv
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = wk0 + r_lo + 8 * i;
+    key_ok[i] = key < p.Sk;
+    ko[i] = key_ok[i] ? (((long long)b * p.Sk + key) * p.KV + h) * hd : 0;
+  }
+  auto each = [&](auto f) {  // f(offset at column d, key i, d)
+    for (int d0 = 0; d0 < hd; d0 += KS)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int d = d0 + 8 * j + t2;
+          f(ko[i] + d, i, d);
+        }
+  };
+  each([&](long long o, int i, int d) {
+    update_pair(p.dk + o, key_ok[i], d, hd, [](int, float) { return 0.0f; });
+    update_pair(p.dv + o, key_ok[i], d, hd, [](int, float) { return 0.0f; });
+  });
+  for (int g = 0; g < p.G; ++g) {
+    auto q_row = [&](const int8_t* base, int row) -> const int8_t* {
+      return row < p.Sq
+          ? base + ((((long long)b * p.Sq + row) * p.KV + h) * p.G + g) * hd
+          : nullptr;
+    };
+    for (int qb0 = 0; qb0 < p.Sq; qb0 += p.bq) {  // the reference's q blocks
+      unsigned live_ks = 0;
+#pragma unroll
+      for (int ks = 0; ks < KSB; ++ks) {
+        const int r0 = qb0 + ks * KS;
+        if (ks * KS >= p.bq || r0 >= p.Sq) continue;
+        const int r1 = min(r0 + KS, p.Sq) - 1;
+        if ((p.causal && wk0 > off + r1) ||
+            (p.window >= 0 && wk1 <= off + r0 - p.window))
+          continue;
+        const int8_t* qr[4];
+        const int8_t* gr[4];
+        bool rok[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          rok[j] = r0 + 8 * j + r_lo < p.Sq;
+          qr[j] = rok[j] ? q_row(p.q, r0 + 8 * j + r_lo) : p.q;
+          gr[j] = rok[j] ? q_row(p.g, r0 + 8 * j + r_lo) : p.g;
+        }
+        float s[4][4], dp[4][4];
+        direct_scores<false>(s, p.k + ko[0], p.k + ko[1], key_ok[0],
+                             key_ok[1], kplane, p.lqk, qr, rok, qplane,
+                             p.lqk, hd, vec, s0, lane);
+        direct_scores<false>(dp, p.v + ko[0], p.v + ko[1], key_ok[0],
+                             key_ok[1], kplane, p.lv, gr, rok, qplane, p.lg,
+                             hd, vec, sdp, lane);
+        int pm[4][4], dsm[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = r0 + 8 * j + t2 + (e & 1);
+            const bool rv = row < p.Sq;
+            const bool ok =
+                rv & visible(p, off + row, wk0 + r_lo + 8 * (e >> 1));
+            const float lse_v =
+                rv ? p.lse[(((long long)b * p.KV + h) * p.G + g) * p.Sq + row]
+                   : 0.0f;
+            const float del_v =
+                rv ? p.delta[(((long long)b * p.Sq + row) * p.KV + h) * p.G +
+                             g]
+                   : 0.0f;
+            const float ex =
+                p_exp<IntExp>(__fsub_rn(__fmul_rn(s[j][e], p.sc), lse_v));
+            const float pr = ok ? ex : 0.0f;
+            const int pmv = round_clip(__fmul_rn(pr, pscale), p.p_bits);
+            const float ds = __fmul_rn(pr, __fsub_rn(dp[j][e], del_v));
+            const int m = round_clip(__fmul_rn(ds, inv_ds), p.ds_bits);
+            pm[j][e] = ok ? pmv : 0;
+            dsm[j][e] = ok ? m : 0;
+          }
+        store_limbs(fa, pm, p.lv, ks, lane);
+        store_limbs(fds, dsm, p.lds, ks, lane);
+        live_ks |= 1u << ks;
+      }
+      if (!live_ks) continue;
+      for (int d0 = 0; d0 < hd; d0 += KS) {
+        float pv[4][4], pk[4][4];
+        direct_partial(pv, fa, p.lv, qplane, p.lg, d0, hd, live_ks,
+                       [&](int ks, int r) {
+                         return q_row(p.g, qb0 + ks * KS + r);
+                       },
+                       sdv, -(p.p_bits - 1), lane);
+        direct_partial(pk, fds, p.lds, qplane, p.lqk, d0, hd, live_ks,
+                       [&](int ks, int r) {
+                         return q_row(p.q, qb0 + ks * KS + r);
+                       },
+                       sdk, 0, lane);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int d = d0 + 8 * j + t2;
+            update_pair(p.dv + ko[i] + d, key_ok[i], d, hd,
+                        [&](int e, float x) {
+                          return __fadd_rn(x, pv[j][2 * i + e]);
+                        });
+            update_pair(p.dk + ko[i] + d, key_ok[i], d, hd,
+                        [&](int e, float x) {
+                          return __fadd_rn(x, pk[j][2 * i + e]);
+                        });
+          }
+      }
+    }
+  }
+  each([&](long long o, int i, int d) {
+    update_pair(p.dk + o, key_ok[i], d, hd,
+                [&](int, float v) { return __fmul_rn(v, p.sc); });
+  });
+}
+
 int set_smem(const void* kernel, size_t smem, size_t* granted) {
   if (smem > *granted) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -893,14 +803,16 @@ int set_smem(const void* kernel, size_t smem, size_t* granted) {
   return 0;
 }
 
-// Limb counts and hd in range; then the widest CTA (4, 2 or 1 warps)
-// whose shared memory fits, and the widest copy the alignment allows.
+// Limb counts in range and the widest copy the alignment allows; then the
+// staged body (hd <= 256) with the widest CTA (4, 2 or 1 warps) whose
+// shared memory fits, or else the direct body (p.nw = 0: CTAs of 4
+// independent warps, their digit fragments in shared memory).
 int configure(Params& p, bool dkv, size_t* smem) {
   if (p.lqk < 1 || p.lqk > 3 || p.lv < 1 || p.lv > 3 || p.lg < 1 ||
-      p.lg > 3 || p.lds < 1 || p.lds > 3 || p.hd > KS * kMaxChunks)
+      p.lg > 3 || p.lds < 1 || p.lds > 3)
     return (int)cudaErrorInvalidValue;
   p.hdp = (p.hd + KS - 1) / KS * KS;
-  if (p.hdp > KS * 4) p.hdp = KS * kMaxChunks;  // the one wide body
+  if (p.hdp > KS * 4) p.hdp = KS * kMaxChunks;  // the one wide staged body
   const uintptr_t base = (uintptr_t)p.q | (uintptr_t)p.k | (uintptr_t)p.v |
                          (uintptr_t)p.g;
   p.vec = 1;
@@ -909,11 +821,14 @@ int configure(Params& p, bool dkv, size_t* smem) {
       p.vec = v;
       break;
     }
-  for (p.nw = 4; p.nw >= 1; p.nw /= 2) {
-    *smem = smem_layout(p, dkv).end;
-    if (*smem <= kSmemMax) return 0;
-  }
-  return (int)cudaErrorInvalidValue;
+  if (p.hd <= KS * kMaxChunks)
+    for (p.nw = 4; p.nw >= 1; p.nw /= 2) {
+      *smem = smem_layout(p, dkv).end;
+      if (*smem <= kSmemMax) return 0;
+    }
+  p.nw = 0;
+  *smem = (size_t)4 * (dkv ? p.lv + p.lds : p.lds) * kLimbWords * 4;
+  return 0;
 }
 
 template <int NDC, bool IntExp>
@@ -938,9 +853,31 @@ int launch_dkv(const Params& p, size_t smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The instantiation for the chunk count (1-4, or 8) and the exp body.
+template <bool IntExp>
+int launch_direct(const Params& p, bool dkv, size_t smem,
+                  cudaStream_t stream) {
+  int err;
+  if (dkv) {
+    static size_t granted = 48 * 1024;
+    err = set_smem((const void*)dkv_direct_kernel<IntExp>, smem, &granted);
+    if (err) return err;
+    const dim3 grid((p.Sk + 63) / 64, p.B * p.KV);
+    dkv_direct_kernel<IntExp><<<grid, 128, smem, stream>>>(p);
+  } else {
+    static size_t granted = 48 * 1024;
+    err = set_smem((const void*)dq_direct_kernel<IntExp>, smem, &granted);
+    if (err) return err;
+    const dim3 grid((p.Sq + 63) / 64, p.G, p.B * p.KV);
+    dq_direct_kernel<IntExp><<<grid, 128, smem, stream>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The instantiation for the chunk count (1-4, or 8) and the exp body, or
+// the direct body.
 template <bool Dkv, bool IntExp>
 int launch_body(const Params& p, size_t smem, cudaStream_t stream) {
+  if (p.nw == 0) return launch_direct<IntExp>(p, Dkv, smem, stream);
   switch (p.hdp / KS) {
     case 1: return Dkv ? launch_dkv<1, IntExp>(p, smem, stream)
                        : launch_dq<1, IntExp>(p, smem, stream);
@@ -970,7 +907,7 @@ int launch(const Params& p, int integer_exp, size_t smem,
 // limb planes; lse (B, KV, G, Sq) and delta (B, Sq, KV, G) f32; off (B,)
 // int32 query offsets; exps (5,) int32 [q, k, v, g, dS] exponents (device
 // memory).  dq: (B, Sq, KV, G, hd) f32.  window < 0: no sliding window.
-// hd <= 256.  integer_exp != 0 takes the kept_ops="integer" body.
+// Any hd.  integer_exp != 0 takes the kept_ops="integer" body.
 extern "C" int int_attn_bwd_dq_launch(
     const int8_t* q, const int8_t* k, const int8_t* v, const int8_t* g,
     const float* lse, const float* delta, const int* off, const int* exps,

@@ -38,8 +38,9 @@ with ``pm`` the forward's P mantissa.  The f32 sums run over the
 reference's blocks: 128 keys for dq, ``bq`` query rows of each group head
 in turn (group-major) for dk and dv, which for GQA are the sums over the
 G query heads of a kv head.  Outputs dq in q's model layout, dk and dv
-``(B, Sk, KV, hd)`` f32.  The backward kernels take hd <= 256
-(``MAX_BWD_HEAD_DIM``); the wrappers refuse more on every device.
+``(B, Sk, KV, hd)`` f32.  Every kernel takes any hd and 1..3 limb planes
+of each operand, as the reference's: a staged tensor-core body where its
+tiles fit in shared memory (hd <= 256), a direct one beyond.
 
 ``integer_exp`` (``kept_ops="integer"``, the reference's ``_p_exp``) takes
 each kernel's other body, in the same launch: every ``exp`` above is
@@ -57,8 +58,6 @@ from repro_torch.kernels.dfx_quant import LIMB_BITS, n_limbs, split_planes
 
 #: keys per online-softmax update (the reference kernel's bk)
 BLOCK_K = 128
-#: widest head the backward kernels take (8 chunks of 32 columns)
-MAX_BWD_HEAD_DIM = 256
 _BIG_NEG = -1e30
 
 
@@ -89,17 +88,17 @@ def _limb_sum(a, b, eq: str, s0, shift: int = 0):
 
 
 def _block_row_sum(p: torch.Tensor) -> torch.Tensor:
-    """Row sums of a key block's p in the forward kernel's f32 order: 8
-    runs of 16 consecutive columns (the block zero-padded to 128), each
-    summed left to right, then the 8 partials in order."""
+    """Row sums of a key block's p in the forward kernel's f32 order (the
+    block zero-padded to 128 keys): column c = 8j + 2t + e (j < 16, t < 4,
+    e < 2) goes to partial t, each partial summed in column order (the
+    columns an MMA lane holds), then the four as (p0 + p1) + (p2 + p3)."""
     p = torch.nn.functional.pad(p, (0, BLOCK_K - p.shape[-1]))
-    runs = p.reshape(p.shape[:-1] + (8, BLOCK_K // 8))
-    part = runs[..., 0]
-    for i in range(1, BLOCK_K // 8):
-        part = part + runs[..., i]
-    total = part[..., 0]
-    for i in range(1, 8):
-        total = total + part[..., i]
+    runs = p.reshape(p.shape[:-1] + (BLOCK_K // 8, 4, 2)).transpose(-3, -2)
+    runs = runs.reshape(p.shape[:-1] + (4, BLOCK_K // 4))
+    part = torch.zeros_like(runs[..., 0])
+    for c in range(BLOCK_K // 4):
+        part = part + runs[..., c]
+    total = (part[..., 0] + part[..., 1]) + (part[..., 2] + part[..., 3])
     return total[..., None]
 
 
@@ -323,9 +322,6 @@ def _check_bwd(name, qm, km, vm, gm, lse, delta, p_bits, ds_bits):
     if not all(1 <= n <= 3 for n in (Lq, vm.shape[0], gm.shape[0],
                                      n_limbs(ds_bits))):
         raise ValueError(f"{name} supports 1..3 limb planes")
-    if hd > MAX_BWD_HEAD_DIM:
-        raise ValueError(f"{name} takes head dim <= {MAX_BWD_HEAD_DIM}, got "
-                         f"{hd}")
     for t in (qm, km, vm, gm):
         if t.dtype != torch.int8:
             raise TypeError(f"{name} takes int8 limb planes, got {t.dtype}")
@@ -388,8 +384,8 @@ def int_attn_bwd_dq(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
     """Fused dq (B, Sq, KV, G, hd) f32.  gm: the quantized upstream
     gradient's planes in q's layout; lse (B, KV, G, Sq) and delta
     (B, Sq, KV, G) f32; q_off (B,) int32; exps (5,) int32 [q, k, v, g, dS]
-    exponents; ``integer_exp`` the kept-int body; hd <= 256.  CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    exponents; ``integer_exp`` the kept-int body.  CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     if _check_bwd("int_attn_bwd_dq", qm, km, vm, gm, lse, delta, p_bits,
                   ds_bits):
         return int_attn_bwd_dq_plain(qm, km, vm, gm, lse, delta, q_off,

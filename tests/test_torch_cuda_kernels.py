@@ -20,7 +20,9 @@ the attention backward's dq, dk and dv within 1e-4 of their max|ref| (the
 same expf and the same ordered f32 sums on both sides).  The kept-int
 bodies (``integer_rsqrt`` / ``integer_exp``): the norms' rstd and mu bit
 for bit, the attention forward as the FP32 body, the attention backward
-(and its head-dim-256 body) bit for bit at the int8 preset's limbs.
+(and its head-dim-256 body) bit for bit at the int8 preset's limbs.  The
+attention kernels at any head dim (their direct bodies past the staged
+ones' shared memory): the forward as above, the backward bit for bit.
 """
 import pytest
 
@@ -384,6 +386,80 @@ def test_int_attn_bwd_integer_exp_and_hd256(dev, case, integer_exp):
                                    **kw)
     dk0, dv0 = ia.int_attn_bwd_dkv_plain(qm, km, vm, gm, lse, delta, qo,
                                          exps, p_bits=12, **kw)
+    for got, ref in ((dq, dq0), (dk, dk0), (dv, dv0)):
+        assert ref.abs().max() > 0
+        assert torch.equal(got, ref)
+
+
+ATTN_MMA = {
+    # name: (B, Sq, Sk, KV, G, hd, offsets, causal, window, planes q/k, v)
+    "train_shape": (2, 256, 256, 4, 1, 64, [0, 0], True, None, 2, 2),
+    "smollm_gqa3": (2, 256, 256, 3, 3, 64, [0, 0], True, None, 2, 2),
+    "ragged_window": (2, 20, 150, 2, 2, 16, [100, 37], True, 40, 2, 2),
+    "hd128": (1, 256, 256, 4, 1, 128, [0], True, None, 2, 2),
+    "hd256_3limbs": (1, 64, 200, 2, 1, 256, [136], True, None, 3, 3),
+    "hd384": (1, 64, 200, 2, 2, 384, [136], True, None, 2, 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ATTN_MMA))
+@pytest.mark.parametrize("integer_exp", [False, True])
+def test_int_attn_fwd_mma(dev, case, integer_exp):
+    """The tensor-core forward (the staged body; the direct one at head
+    dim 384 and at head dim 256 with 3 limbs), both exp bodies: within 1e-5
+    of max|o| and 1e-4 on lse, as the tests above."""
+    B, Sq, Sk, KV, G, hd, off, causal, window, lqk, lv = ATTN_MMA[case]
+    gen = torch.Generator(device=dev).manual_seed(len(case) + integer_exp)
+
+    def planes(L, *shape):
+        return torch.randint(-64, 65, (L,) + shape, generator=gen,
+                             device=dev, dtype=torch.int8)
+    qm, km = planes(lqk, B, Sq, KV, G, hd), planes(lqk, B, Sk, KV, hd)
+    vm = planes(lv, B, Sk, KV, hd)
+    qo = torch.tensor(off, dtype=torch.int32, device=dev)
+    exps = torch.tensor([-11, -10, -8], dtype=torch.int32, device=dev)
+    kw = dict(p_bits=12 if lv == 2 else 16, causal=causal, window=window,
+              sc=1.0 / hd ** 0.5, integer_exp=integer_exp)
+    o, lse = ia.int_attn_fwd(qm, km, vm, qo, exps, **kw)
+    o0, lse0 = ia.int_attn_fwd_plain(qm, km, vm, qo, exps, **kw)
+    assert o0.abs().max() > 0
+    assert (o - o0).abs().max() <= 1e-5 * o0.abs().max()
+    assert (lse - lse0).abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,lqk,lpv,lg,ds_bits,pb", [
+    (288, 2, 2, 1, 8, 12), (384, 2, 2, 1, 8, 12), (384, 2, 2, 2, 12, 12),
+    (256, 3, 3, 3, 16, 16), (200, 3, 3, 3, 16, 16)])
+def test_int_attn_bwd_any_head_dim(dev, hd, lqk, lpv, lg, ds_bits, pb):
+    """dq / dkv past the staged bodies' shared memory (the direct body: hd
+    > 256, or 3-limb operands at 128 < hd <= 256): bit for bit, GQA and a
+    ragged causal edge."""
+    B, Sq, Sk, KV, G, off = 2, 72, 150, 1, 2, [78, 0]
+    gen = torch.Generator(device=dev).manual_seed(hd + lg)
+
+    def planes(L, *shape):
+        return torch.randint(-64, 65, (L,) + shape, generator=gen,
+                             device=dev, dtype=torch.int8)
+    qm, km = planes(lqk, B, Sq, KV, G, hd), planes(lqk, B, Sk, KV, hd)
+    vm, gm = planes(lpv, B, Sk, KV, hd), planes(lg, B, Sq, KV, G, hd)
+    qo = torch.tensor(off, dtype=torch.int32, device=dev)
+    exps = torch.tensor([-11, -10, -8, -12, -13], dtype=torch.int32,
+                        device=dev)
+    sc = 1.0 / hd ** 0.5
+    _, lse = ia.int_attn_fwd_plain(qm, km, vm, qo, exps[:3], p_bits=pb,
+                                   causal=True, window=None, sc=sc)
+    delta = 0.05 * torch.randn((B, Sq, KV, G), generator=gen, device=dev)
+    kw = dict(ds_bits=ds_bits, causal=True, window=None, sc=sc)
+    dq = ia.int_attn_bwd_dq(qm, km, vm, gm, lse, delta, qo, exps,
+                            p_bits=pb, **kw)
+    dk, dv = ia.int_attn_bwd_dkv(qm, km, vm, gm, lse, delta, qo, exps,
+                                 p_bits=pb, **kw)
+    dq0 = ia.int_attn_bwd_dq_plain(qm, km, vm, gm, lse, delta, qo, exps,
+                                   **kw)
+    dk0, dv0 = ia.int_attn_bwd_dkv_plain(qm, km, vm, gm, lse, delta, qo,
+                                         exps, p_bits=pb, **kw)
     for got, ref in ((dq, dq0), (dk, dk0), (dv, dv0)):
         assert ref.abs().max() > 0
         assert torch.equal(got, ref)

@@ -62,6 +62,10 @@ CASES = {
     "chunked_prefill_gqa": (2, 20, 300, 2, 2, 16, [100, 37], True, None),
     "window": (1, 17, 260, 1, 2, 24, [200], True, 40),
     "bidirectional": (2, 9, 9, 1, 3, 8, [0, 0], False, None),
+    # heads wider than the CUDA kernel's staged body takes (its direct
+    # body); named to sort last, so the seeds of the cases above stay
+    "x_head_dim_256": (1, 9, 140, 1, 1, 256, [131], True, None),
+    "x_head_dim_384": (1, 9, 140, 1, 2, 384, [131], True, None),
 }
 
 
@@ -80,6 +84,44 @@ def test_attention_matches_pallas(case, qk_bits, pv_bits):
     vmax = np.abs(vm).max() * 2.0 ** _EXPS[2]
     assert np.abs(o - o_ref).max() <= 2.0 ** -(pv_bits - 1) * vmax
     np.testing.assert_allclose(lse, lse_ref, rtol=0, atol=1e-5)
+
+
+def test_head_dim_256_three_limbs_matches_pallas():
+    """16-bit q, k, v and P (3 limb planes each, the int16 preset's) at head
+    dim 256: the shape whose tiles passed the old kernel's shared memory."""
+    B, Sq, Sk, KV, G, hd, off, causal, window = CASES["x_head_dim_256"]
+    rng = np.random.default_rng(1616)
+    qm = _mantissas(rng, 16, (B, Sq, KV, G, hd))
+    km = _mantissas(rng, 16, (B, Sk, KV, hd))
+    vm = _mantissas(rng, 16, (B, Sk, KV, hd))
+    (o, lse), (o_ref, lse_ref) = _run(qm, km, vm, off, 16, 16, causal,
+                                      window)
+    vmax = np.abs(vm).max() * 2.0 ** _EXPS[2]
+    assert np.abs(o - o_ref).max() <= 2.0 ** -15 * vmax
+    np.testing.assert_allclose(lse, lse_ref, rtol=0, atol=1e-5)
+
+
+def test_block_row_sum_takes_the_kernels_order():
+    """``_block_row_sum`` adds column 8j + 2t + e to partial t in column
+    order, then (p0 + p1) + (p2 + p3): the order of the CUDA kernel's MMA
+    lanes and quad shuffles, here spelled out in float32 one add at a time;
+    and it stays within a few ulps of an f64 sum."""
+    from repro_torch.kernels import int_attention as ia
+    rng = np.random.default_rng(7)
+    for n in (128, 77, 1):
+        p = rng.random((3, n)).astype(np.float32) ** 4
+        got = ia._block_row_sum(torch.from_numpy(p)).numpy()[:, 0]
+        for row, g in zip(np.pad(p, ((0, 0), (0, 128 - n))), got):
+            part = [np.float32(0)] * 4
+            for j in range(16):
+                for t in range(4):
+                    for e in range(2):
+                        part[t] = np.float32(part[t] + row[8 * j + 2 * t + e])
+            want = np.float32(np.float32(part[0] + part[1])
+                              + np.float32(part[2] + part[3]))
+            assert g == want
+            assert abs(float(g) - row.astype(np.float64).sum()) <= \
+                8 * np.spacing(np.float32(g))
 
 
 def test_single_block_matches_f64_oracle():

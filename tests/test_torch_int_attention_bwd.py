@@ -51,8 +51,11 @@ CASES = {
     # last, so the seeds of the cases above stay as they were)
     "xl_head_dim_128": (1, 72, 72, 1, 1, 128, [0], True, None),
     "xl_q_block_split_gqa2": (1, 200, 200, 1, 2, 32, [0], True, None),
-    # the widest head the backward kernels take (their 8-chunk body)
+    # the widest head of the CUDA kernels' staged bodies (8 chunks), and
+    # heads past it (their direct bodies)
     "y_head_dim_256": (1, 40, 40, 1, 2, 256, [0], True, None),
+    "z_head_dim_288": (1, 20, 40, 1, 2, 288, [20], True, None),
+    "z_head_dim_384": (1, 20, 40, 1, 1, 384, [20], True, None),
 }
 
 
@@ -181,28 +184,44 @@ def test_bwd_wrappers_check_their_arguments():
                            planes[3], lse, delta, offt, exps, **kw)
 
 
-def test_bwd_wrappers_refuse_head_dim_above_256():
-    """hd <= 256 (``MAX_BWD_HEAD_DIM``) on every device: above it the
-    wrappers raise a ValueError naming the bound, never running another
-    version in the kernel's place."""
-    rng = np.random.default_rng(0)
-    B, S, KV, G, hd = 1, 8, 1, 1, 288
-    q, k, v, g = (ops.split_limbs_stacked(torch.from_numpy(
-        _mantissas(rng, 12, shape)), 12) for shape in (
-        (B, S, KV, G, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, KV, G, hd)))
-    lse = torch.zeros((B, KV, G, S))
-    delta = torch.zeros((B, S, KV, G))
+@pytest.mark.parametrize("hd", [288, 384])
+def test_bwd_wrappers_take_any_head_dim(hd, monkeypatch):
+    """The public dq / dkv wrappers past head dim 256, at the int8 preset's
+    limbs (q, k, v 12 bits: 2 planes; g 8 bits: 1 plane; dS 8 bits), as
+    the reference's Pallas kernels take any head dim; within 1e-4 of
+    max|ref|, XLA's exp on both sides as above."""
+    rng = np.random.default_rng(hd)
+    B, Sq, Sk, KV, G, off = 1, 12, 40, 1, 2, [28]
+    m = [_mantissas(rng, b, shape) for b, shape in (
+        (12, (B, Sq, KV, G, hd)), (12, (B, Sk, KV, hd)),
+        (12, (B, Sk, KV, hd)), (8, (B, Sq, KV, G, hd)))]
+    q, k, v, g = (ops.split_limbs_stacked(torch.from_numpy(x), b)
+                  for x, b in zip(m, (12, 12, 12, 8)))
     exps = torch.tensor(_EXPS, dtype=torch.int32)
-    offt = torch.zeros(B, dtype=torch.int32)
-    kw = dict(p_bits=12, ds_bits=12, causal=True, window=None,
+    offt = torch.tensor(off, dtype=torch.int32)
+    _, lse = ops.attention_fwd(q, exps[0], k, exps[1], v, exps[2], offt, 12,
+                               causal=True, window=None)
+    delta = torch.from_numpy(
+        (0.05 * rng.standard_normal((B, Sq, KV, G))).astype(np.float32))
+    kw = dict(p_bits=12, ds_bits=8, causal=True, window=None,
               sc=1 / hd ** 0.5)
-    for fn in (ia.int_attn_bwd_dq, ia.int_attn_bwd_dkv):
-        with pytest.raises(ValueError, match="head dim <= 256"):
-            fn(q, k, v, g, lse, delta, offt, exps, **kw)
-    # the plain versions themselves take any head dim, as the reference
-    dq = ia.int_attn_bwd_dq_plain(q, k, v, g, lse, delta, offt, exps,
-                                  **{n: kw[n] for n in kw if n != "p_bits"})
-    assert dq.shape == (B, S, KV, G, hd)
+    with monkeypatch.context() as mp:
+        mp.setattr(torch, "exp", _xla_exp)
+        dq = ia.int_attn_bwd_dq(q, k, v, g, lse, delta, offt, exps, **kw)
+        dk, dv = ia.int_attn_bwd_dkv(q, k, v, g, lse, delta, offt, exps,
+                                     **kw)
+    refs = jops.attention_bwd(
+        *(jnp.asarray(t.numpy()) if i % 2 == 0 else jnp.int32(t)
+          for i, t in enumerate((q, _EXPS[0], k, _EXPS[1], v, _EXPS[2], g,
+                                 _EXPS[3]))),
+        jnp.asarray(lse.numpy()), jnp.asarray(delta.numpy()),
+        jnp.int32(_EXPS[4]), jnp.asarray(off, jnp.int32), 12, 8,
+        causal=True, window=None, interpret=True)
+    assert dq.shape == (B, Sq, KV, G, hd) and dk.shape == (B, Sk, KV, hd)
+    for got, ref in zip((dq, dk, dv), refs):
+        ref = np.asarray(ref)
+        assert np.abs(ref).max() > 0
+        assert np.abs(got.numpy() - ref).max() <= 1e-4 * np.abs(ref).max()
 
 
 def _keys(seed, shape, stochastic):
