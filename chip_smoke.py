@@ -22,7 +22,10 @@ Phases (each raises on failure; nothing is caught):
    qwen1.5-0.5b training shape, smollm-135m's GQA, a ragged windowed
    case, head dim 128, and head dim 256 at 3 limbs and 384 (the direct
    body; timed at decode, the training shape, head dims 128 and 384, with
-   each instantiation's registers and spills); the
+   each instantiation's registers and spills); the qwen1.5-0.5b training
+   step's matmuls — the MLP's NN / NT / TN at 2048 x 1024 x 2816, the tied
+   head's logits, dX over the vocabulary and dE — and int16's 3x3 limbs at
+   bert-base's w1 shape; the
    qwen2-moe-a2.7b paths — E = 60 experts, 256 capacity rows each in
    training, 16 at decode — for the grouped quantize and the batched NN /
    NT / TN matmuls): run the kernel and its plain PyTorch version on the
@@ -32,7 +35,10 @@ Phases (each raises on failure; nothing is caught):
    PyTorch yardstick (one call; for a matmul one ``torch._int_mm`` per
    limb pair the kernel computes, 60 of them per pair for a batched one)
    with CUDA events (median); compute the card's lower bound from the
-   bytes and the operations this call needs.  The five kernels with a
+   bytes and the operations this call needs.  Each matmul row also prints
+   its int8 TOP/s, its share of the bound and ``torch._int_mm`` with B
+   column-major beside the row-major yardstick (the factor held against
+   the faster).  The five kernels with a
    ``kept_ops="integer"`` body (the norm forwards' ``integer_rsqrt``, the
    attention forward's and backward's ``integer_exp``) are held and
    timed with it too, against their plain versions with the same flag
@@ -140,22 +146,35 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10, windows: int = 6) -> float:
     """Device time of ``fn()`` in ms: the summed duration of the kernels and
     copies it runs (torch.profiler), per call — the host time between
-    launches, which ``cuda_ms`` includes for small kernels, left out."""
+    launches, which ``cuda_ms`` includes for small kernels, left out.
+
+    The profiler now and then loses some or all of a window's device
+    events (a window of ``reps`` calls then reads low, or 0).  So windows
+    are repeated until one records as many device events as an earlier
+    one, and that window's time is taken; no agreement within ``windows``
+    windows raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0)
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / reps / 1e3
+    seen = []                        # (device events, device us) per window
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        n = sum(e.count for e in events)
+        us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+        if n and any(n == m for m, _ in seen):
+            return us / reps / 1e3
+        seen.append((n, us))
+    raise RuntimeError("the profiler's device event counts disagreed in "
+                       f"every window: (events, us) {seen}")
 
 
 def timings(kernel, plain, library=None) -> dict:
@@ -214,6 +233,41 @@ def _kernel_name(mangled: str) -> str:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def mm_row(label, call, n_ops, n_bytes, libs) -> dict:
+    """One matmul row of phase 2: the wrapper call's device time beside its
+    bound, its int8 TOP/s and share of the bound, and each ``torch._int_mm``
+    yardstick's device time (``libs``: name -> call; ``int_mm`` with B
+    row-major, ``int_mm_colmajor`` with B column-major, the layout
+    cuBLASLt's int8 path prefers, operands made outside the timed region),
+    the factor held against the faster."""
+    d = device_ms(call)
+    b, by = bound_ms(n_bytes, n_ops)
+    lib = {k: device_ms(f) for k, f in libs.items()}
+    best = min(lib.values()) if lib else None
+    row = dict(label=label, device_ms=d, bound_ms=b, bound_by=by,
+               tops=n_ops / d / 1e9, bound_share=b / d,
+               factor=d / best if best else None,
+               **{f"{k}_device_ms": v for k, v in lib.items()})
+    print(f"  {label}: device {d:.4f} ms, {row['tops']:.0f} TOP/s, "
+          f"{100 * b / d:.1f}% of its bound {b:.4f} ms ({by}); "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in lib.items())
+          + (f"; factor {row['factor']:.2f} against the faster" if best
+             else ""), flush=True)
+    return row
+
+
+def _colmajor(t):
+    """The same matrix stored column-major (a copy made outside any timed
+    region): cuBLASLt's preferred int8 B layout for torch._int_mm."""
+    return t.t().contiguous().t()
+
+
+def _held(name, got, ref, what):
+    if got.shape != ref.shape or not bool((got == ref).all()):
+        raise AssertionError(f"{name} differs from its plain version at "
+                             f"{what}: {(got - ref).abs().max().item()}")
 
 
 def check_quantize(torch, dev, gen, V, D, tokens, F):
@@ -310,6 +364,7 @@ def check_matmul(torch, dev, gen, cfg, V, bert, tokens):
     M, K, N = xm.shape[1], xm.shape[2], wm.shape[2]
     out = torch.empty((M, N), device=dev)
     xs, w0 = [x.contiguous() for x in xm], wm[0].contiguous()
+    w0c = _colmajor(w0)
     t = timings(lambda: bm.bfp_matmul(xm, wm, exp),
                 lambda: bm.bfp_matmul_plain(xm, wm, exp),
                 lambda: [torch._int_mm(x, w0) for x in xs])
@@ -333,11 +388,31 @@ def check_matmul(torch, dev, gen, cfg, V, bert, tokens):
     w1_b, w1_by = bound_ms(nbytes(wx, ww) + 4 * tokens * bert.d_ff,
                            2 * tokens * bert.d_model * bert.d_ff * 2)
     wxs, ww0 = [x.contiguous() for x in wx], ww[0].contiguous()
+    ww0c = _colmajor(ww0)
     w1_lib = device_ms(lambda: [torch._int_mm(x, ww0) for x in wxs])
     print(f"  bfp_matmul bert-base w1 forward {tokens}x{bert.d_model}x"
           f"{bert.d_ff} (2x1 limbs): device {w1_dev:.4f} ms, bound "
           f"{w1_b:.4f} ms ({w1_by}); library 2 x torch._int_mm device "
           f"{w1_lib:.4f} ms")
+    rows = [mm_row(f"3 prefill MLP {M}x{K}x{N} 2x1", lambda: bm.bfp_matmul(
+                       xm, wm, exp), 2 * M * K * N * 2, nbytes(xm, wm, out),
+                   {"int_mm": lambda: [torch._int_mm(x, w0) for x in xs],
+                    "int_mm_colmajor": lambda: [torch._int_mm(x, w0c)
+                                                for x in xs]}),
+            mm_row(f"3b decode tied head 4x{D}x{V} (W K-major)",
+                   lambda: bm.bfp_matmul(hx, hw, exp), 2 * 4 * D * V * 2,
+                   nbytes(hx, hw) + 4 * 4 * V,
+                   {"int_mm": lambda: [torch._int_mm(x, hw0) for x in hxs],
+                    "int_mm_colmajor": lambda: [torch._int_mm(x, hw[0])
+                                                for x in hxs]}),
+            mm_row(f"3c bert-base w1 forward {tokens}x{bert.d_model}x"
+                   f"{bert.d_ff} 2x1", lambda: bm.bfp_matmul(wx, ww, exp),
+                   2 * tokens * bert.d_model * bert.d_ff * 2,
+                   nbytes(wx, ww) + 4 * tokens * bert.d_ff,
+                   {"int_mm": lambda: [torch._int_mm(x, ww0) for x in wxs],
+                    "int_mm_colmajor": lambda: [torch._int_mm(x, ww0c)
+                                                for x in wxs]})]
+    rows += _matmul_train_rows(torch, dev, gen, cfg, V, bert, tokens, exp)
     return dict(name="bfp_matmul", route="cuda",
                 source="src/repro_torch/csrc/bfp_matmul.cu",
                 replaces="src/repro/kernels/bfp_matmul.py:147",
@@ -349,7 +424,68 @@ def check_matmul(torch, dev, gen, cfg, V, bert, tokens):
                 max_abs_err=err, bound_ms=b, bound_by=by, head_ms=head_ms,
                 head_device_ms=head_dev, head_bound_ms=head_b,
                 head_library_device_ms=head_lib, w1_device_ms=w1_dev,
-                w1_bound_ms=w1_b, w1_library_device_ms=w1_lib, **t)
+                w1_bound_ms=w1_b, w1_library_device_ms=w1_lib, rows=rows,
+                **t)
+
+
+def _matmul_train_rows(torch, dev, gen, cfg, V, bert, tokens, exp):
+    """bfp_matmul (NN) held exactly and timed at qwen1.5-0.5b's training
+    shapes (batch 8 x seq 256): the MLP up-projection 2048 x 1024 x 2816
+    (a12 x w8, 2x1 limbs), the tied head's logits 2048 x 1024 x V (W
+    K-major) and its dX over V (g8 x w8, 1x1); and int16's 3x3 limbs at
+    bert-base's w1 shape."""
+    from repro_torch.kernels import bfp_matmul as bm
+    D, F, T = cfg.d_model, cfg.d_ff, 8 * 256
+    rows = []
+    x, w = _planes(torch, gen, dev, 2, T, D), _planes(torch, gen, dev, 1, D, F)
+    _held("bfp_matmul", bm.bfp_matmul(x, w, exp),
+          bm.bfp_matmul_plain(x, w, exp), "the qwen MLP up-projection")
+    w0 = w[0].contiguous()
+    w0c = _colmajor(w0)
+    rows.append(mm_row(
+        f"qwen train NN {T}x{D}x{F} 2x1", lambda: bm.bfp_matmul(x, w, exp),
+        2 * T * D * F * 2, nbytes(x, w) + 4 * T * F,
+        {"int_mm": lambda: [torch._int_mm(xj, w0) for xj in x],
+         "int_mm_colmajor": lambda: [torch._int_mm(xj, w0c) for xj in x]}))
+    emb = _planes(torch, gen, dev, 1, V, D)         # the head's planes (V, D)
+    hw = emb.transpose(1, 2)                         # (1, D, V), K-major
+    _held("bfp_matmul", bm.bfp_matmul(x, hw, exp),
+          bm.bfp_matmul_plain(x, hw, exp), "the tied head's logits")
+    e_rows = emb[0].t().contiguous()
+    rows.append(mm_row(
+        f"tied head logits {T}x{D}x{V} 2x1 (W K-major)",
+        lambda: bm.bfp_matmul(x, hw, exp), 2 * T * D * V * 2,
+        nbytes(x, emb) + 4 * T * V,
+        {"int_mm": lambda: [torch._int_mm(xj, e_rows) for xj in x],
+         "int_mm_colmajor": lambda: [torch._int_mm(xj, emb[0].t())
+                                     for xj in x]}))
+    del e_rows
+    g = _planes(torch, gen, dev, 1, T, V)
+    _held("bfp_matmul", bm.bfp_matmul(g, emb, exp),
+          bm.bfp_matmul_plain(g, emb, exp), "the tied head's dX over V")
+    emb_c = _colmajor(emb[0])
+    rows.append(mm_row(
+        f"tied head dX {T}x{V}x{D} 1x1 (NN over V)",
+        lambda: bm.bfp_matmul(g, emb, exp), 2 * T * V * D,
+        nbytes(g, emb) + 4 * T * D,
+        {"int_mm": lambda: torch._int_mm(g[0], emb[0]),
+         "int_mm_colmajor": lambda: torch._int_mm(g[0], emb_c)}))
+    del g, emb, emb_c, hw
+    x3, w3 = (_planes(torch, gen, dev, 3, tokens, bert.d_model),
+              _planes(torch, gen, dev, 3, bert.d_model, bert.d_ff))
+    _held("bfp_matmul", bm.bfp_matmul(x3, w3, exp),
+          bm.bfp_matmul_plain(x3, w3, exp), "int16 3x3 limbs")
+    w3s = [wj.contiguous() for wj in w3]
+    w3c = [_colmajor(wj) for wj in w3]
+    rows.append(mm_row(
+        f"int16 3x3 bert w1 {tokens}x{bert.d_model}x{bert.d_ff}",
+        lambda: bm.bfp_matmul(x3, w3, exp),
+        2 * tokens * bert.d_model * bert.d_ff * 9,
+        nbytes(x3, w3) + 4 * tokens * bert.d_ff,
+        {"int_mm": lambda: [torch._int_mm(xi, wj) for xi in x3 for wj in w3s],
+         "int_mm_colmajor": lambda: [torch._int_mm(xi, wj) for xi in x3
+                                     for wj in w3c]}))
+    return rows
 
 
 def check_rmsnorm(torch, dev, gen, D):
@@ -599,6 +735,14 @@ def check_matmul_bwd(torch, dev, gen, cfg, tokens):
         what = ("dX: G (%d,%d) . W (%d,%d)^T, 1x1 limbs" % (tokens, F, D, F)
                 if name == "bfp_matmul_nt" else
                 "dW: X (%d,%d)^T . G (%d,%d), 2x1 limbs" % (tokens, D, tokens, F))
+        col = [(x, _colmajor(y)) for x, y in lib_args]
+        rows = [mm_row(("4 " if name == "bfp_matmul_nt" else "5 ") + what,
+                       lambda: fn(a, b, e), n_ops, nbytes(a, b, e, res),
+                       {"int_mm": lambda: [torch._int_mm(*ab)
+                                           for ab in lib_args],
+                        "int_mm_colmajor": lambda: [torch._int_mm(*ab)
+                                                    for ab in col]})]
+        rows += _matmul_bwd_train_rows(torch, dev, gen, name, fn, plain, e)
         out.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/csrc/bfp_matmul.cu",
@@ -607,8 +751,53 @@ def check_matmul_bwd(torch, dev, gen, cfg, tokens):
                       "src/repro/kernels/bfp_matmul.py:210"),
             shape=f"{what}, tolerance exact; library: torch._int_mm per "
                   "limb pair (operands made contiguous beforehand)",
-            max_abs_err=err, bound_ms=bd, bound_by=by, **t))
+            max_abs_err=err, bound_ms=bd, bound_by=by, rows=rows, **t))
     return out
+
+
+def _matmul_bwd_train_rows(torch, dev, gen, name, fn, plain, e):
+    """NT / TN held exactly and timed at qwen1.5-0.5b's training shapes
+    (batch 8 x seq 256, d_model 1024, d_ff 2816): the MLP's dX, G (2048 x
+    2816) . W (1024 x 2816)^T at 1x1, and its dW, X (2048 x 1024)^T . G
+    (2048 x 2816) at 2x1; for TN also the tied head's dE, G (2048 x V)^T .
+    X (2048 x 1024) at 1x2."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    cfg = registry.get_config("qwen1.5-0.5b")
+    D, F, T, V = cfg.d_model, cfg.d_ff, 8 * 256, lm.padded_vocab(cfg)
+
+    def pl(L, *shape):
+        return _planes(torch, gen, dev, L, *shape)
+    rows = []
+    if name == "bfp_matmul_nt":
+        g, w = pl(1, T, F), pl(1, D, F)
+        _held(name, fn(g, w, e), plain(g, w, e), "the qwen MLP dX")
+        wt = w[0].t().contiguous()
+        rows.append(mm_row(
+            f"qwen train NT {T}x{F} . ({D}x{F})^T 1x1", lambda: fn(g, w, e),
+            2 * T * F * D, nbytes(g, w) + 4 * T * D,
+            {"int_mm": lambda: torch._int_mm(g[0], wt),
+             "int_mm_colmajor": lambda: torch._int_mm(g[0], w[0].t())}))
+        return rows
+    x, g = pl(2, T, D), pl(1, T, F)
+    _held(name, fn(x, g, e), plain(x, g, e), "the qwen MLP dW")
+    xt = [xj.t().contiguous() for xj in x]
+    gc = _colmajor(g[0])
+    rows.append(mm_row(
+        f"qwen train TN ({T}x{D})^T . {T}x{F} 2x1", lambda: fn(x, g, e),
+        2 * T * D * F * 2, nbytes(x, g) + 4 * D * F,
+        {"int_mm": lambda: [torch._int_mm(xj, g[0]) for xj in xt],
+         "int_mm_colmajor": lambda: [torch._int_mm(xj, gc) for xj in xt]}))
+    gh = pl(1, T, V)
+    _held(name, fn(gh, x, e), plain(gh, x, e), "the tied head's dE")
+    ght = gh[0].t().contiguous()
+    xc = [_colmajor(xj) for xj in x]
+    rows.append(mm_row(
+        f"tied head dE ({T}x{V})^T . {T}x{D} 1x2", lambda: fn(gh, x, e),
+        2 * T * V * D * 2, nbytes(gh, x) + 4 * V * D,
+        {"int_mm": lambda: [torch._int_mm(ght, xj) for xj in x],
+         "int_mm_colmajor": lambda: [torch._int_mm(ght, xj) for xj in xc]}))
+    return rows
 
 
 def check_layernorm(torch, dev, gen, D, R):
@@ -1053,19 +1242,26 @@ def check_matmul_batched(torch, dev, gen, moe):
     w0t = wg[0].transpose(1, 2).contiguous()
     xts = [xj.transpose(1, 2).contiguous() for xj in x]
     out = []
-    for name, fn, plain, cases, lib, line, contract in (
+    w0c = [_colmajor(w0[i]) for i in range(E)]
+    g0c = [_colmajor(g0[i]) for i in range(E)]
+    for name, fn, plain, cases, lib, lib_col, line, contract in (
             ("bfp_matmul_batched", bm.bfp_matmul_batched,
              bm.bfp_matmul_batched_plain, [(x, wg), (xd, wg), (h, wd)],
              lambda: [torch._int_mm(xj[i], w0[i]) for xj in xs
+                      for i in range(E)],
+             lambda: [torch._int_mm(xj[i], w0c[i]) for xj in xs
                       for i in range(E)],
              "302", D),
             ("bfp_matmul_batched_nt", bm.bfp_matmul_batched_nt,
              bm.bfp_matmul_batched_nt_plain, [(g, wg), (gd, wd)],
              lambda: [torch._int_mm(g0[i], w0t[i]) for i in range(E)],
+             lambda: [torch._int_mm(g0[i], w0[i].t()) for i in range(E)],
              "332", F),
             ("bfp_matmul_batched_tn", bm.bfp_matmul_batched_tn,
              bm.bfp_matmul_batched_tn_plain, [(x, g), (h, gd)],
              lambda: [torch._int_mm(xj[i], g0[i]) for xj in xts
+                      for i in range(E)],
+             lambda: [torch._int_mm(xj[i], g0c[i]) for xj in xts
                       for i in range(E)],
              "362", C)):
         err = 0.0
@@ -1082,10 +1278,17 @@ def check_matmul_batched(torch, dev, gen, moe):
         t = timings(lambda: fn(a, b, e), lambda: plain(a, b, e), lib)
         n_ops = 2 * res.numel() * contract * a.shape[0] * b.shape[0]
         bd, by = bound_ms(nbytes(a, b, e, res), n_ops)
+        label = {"bfp_matmul_batched": "6 batched NN, MoE train",
+                 "bfp_matmul_batched_nt": "7 batched NT, MoE dX",
+                 "bfp_matmul_batched_tn": "8 batched TN, MoE dW"}[name]
         k = dict(name=name, route="cuda",
                  source="src/repro_torch/csrc/bfp_matmul.cu",
                  replaces=f"src/repro/kernels/bfp_matmul.py:{line}",
-                 max_abs_err=err, bound_ms=bd, bound_by=by, **t)
+                 max_abs_err=err, bound_ms=bd, bound_by=by,
+                 rows=[mm_row(label, lambda: fn(a, b, e), n_ops,
+                              nbytes(a, b, e, res),
+                              {"int_mm": lib, "int_mm_colmajor": lib_col})],
+                 **t)
         if name == "bfp_matmul_batched":
             k["shape"] = (f"wg_e forward ({E},{C},{D})x({E},{D},{F}), 2x1 "
                           f"limbs, tolerance exact (also held exactly: "
@@ -1105,6 +1308,15 @@ def check_matmul_batched(torch, dev, gen, moe):
             k.update(decode_ms=cuda_ms(lambda: fn(xd, wg, e)),
                      decode_device_ms=xd_ms, decode_bound_ms=db,
                      decode_library_device_ms=d_lib)
+            k["rows"].append(mm_row(
+                f"6b batched NN, MoE decode ({E},{MOE_DECODE_ROWS},{D})x"
+                f"({E},{D},{F}) 2x1", lambda: fn(xd, wg, e),
+                2 * dres.numel() * D * 2, nbytes(xd, wg, e, dres),
+                {"int_mm": lambda: [torch._int_mm(xj[i], w0[i])
+                                    for xj in xds for i in range(E)],
+                 "int_mm_colmajor": lambda: [torch._int_mm(xj[i], w0c[i])
+                                             for xj in xds
+                                             for i in range(E)]}))
             print(f"  bfp_matmul_batched decode ({E},{MOE_DECODE_ROWS},{D})"
                   f"x({E},{D},{F}), 2x1 limbs: device {xd_ms:.4f} ms, bound "
                   f"{db:.4f} ms ({dby}); library 2 x {E} x torch._int_mm "

@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("dfx_quant.cu", "bfp_matmul.cu", "int_norm.cu",
            "int_attention.cu", "int_attention_bwd.cu")
-HEADERS = ("dfx_common.cuh", "sm90_ptx.cuh", "iapprox.cuh", "attn_mma.cuh")
+HEADERS = ("dfx_common.cuh", "sm90_ptx.cuh", "sm90_wgmma.cuh", "iapprox.cuh",
+           "attn_mma.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 

@@ -1,0 +1,78 @@
+"""``chip_smoke.device_ms`` against a profiler that loses a window's events.
+
+On the card, torch.profiler now and then records only part of a window's
+device events, or none, so a kernel's device time read 0 and the script
+divided by it.  Here the profiler is replaced by a stand-in that drops
+events on chosen windows, so the repair runs on the CPU: a window counts
+only once another one recorded as many device events, and windows that
+never agree raise instead of returning a low time.
+"""
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+import chip_smoke  # noqa: E402
+
+
+class _Event:
+    def __init__(self, device_type, count, us):
+        self.device_type, self.count = device_type, count
+        self.self_device_time_total = us
+
+
+def _fake_profiler(monkeypatch, windows):
+    """Replace torch.profiler.profile: window i records the device events
+    ``windows[i]`` (a list of (count, us)), plus one host event."""
+    seen = []
+
+    class Profile:
+        def __init__(self, activities):
+            self.i = len(seen)
+            seen.append(self.i)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            cuda = torch.autograd.DeviceType.CUDA
+            return ([_Event(cuda, n, us) for n, us in windows[self.i]]
+                    + [_Event(torch.autograd.DeviceType.CPU, 7, 999.0)])
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    return seen
+
+
+@pytest.mark.parametrize("windows,ms", [
+    # every window whole: the second one, agreeing with the first, counts
+    ([[(10, 500.0), (10, 300.0)], [(10, 520.0), (10, 300.0)]], 0.082),
+    # the first window lost everything (a 0 reading before the repair)
+    ([[], [(10, 500.0), (10, 300.0)], [(10, 510.0), (10, 300.0)]], 0.081),
+    # the first lost part of its events: its count disagrees
+    ([[(10, 500.0), (4, 120.0)], [(10, 500.0), (10, 300.0)],
+      [(10, 500.0), (10, 310.0)]], 0.081),
+    # one lossy window between two whole ones: the third agrees with the first
+    ([[(10, 500.0), (10, 300.0)], [(6, 300.0)], [(10, 490.0), (10, 300.0)]],
+     0.079),
+])
+def test_device_ms_waits_for_two_agreeing_windows(monkeypatch, windows, ms):
+    seen = _fake_profiler(monkeypatch, windows)
+    calls = []
+    got = chip_smoke.device_ms(lambda: calls.append(1), reps=10)
+    assert got == pytest.approx(ms)
+    assert len(seen) == len(windows)
+    assert len(calls) == 1 + 10 * len(windows)   # one warm-up call
+
+
+def test_device_ms_raises_when_no_windows_agree(monkeypatch):
+    windows = [[]] + [[(i, 100.0 * i)] for i in range(1, 6)]
+    _fake_profiler(monkeypatch, windows)
+    with pytest.raises(RuntimeError, match="disagreed in every window"):
+        chip_smoke.device_ms(lambda: None, reps=10, windows=6)

@@ -23,6 +23,13 @@ for bit, the attention forward as the FP32 body, the attention backward
 (and its head-dim-256 body) bit for bit at the int8 preset's limbs.  The
 attention kernels at any head dim (their direct bodies past the staged
 ones' shared memory): the forward as above, the backward bit for bit.
+The wgmma matmul body (one CUDA body behind all six matmul
+wrappers) bit for bit at the qwen1.5-0.5b training shapes, every limb pair
+in every layout (NN with W N- or K-major, NT, TN, and batched at E = 60 x
+16 rows and E = 1), decode-sized and tile-straddling row counts, ragged K
+(not a multiple of 16, nor of 4: the threads' staging instead of TMA) and
+N (not a multiple of 8), full-range planes, and int32 sums that wrap past 2^31
+(no saturation).
 """
 import pytest
 
@@ -97,6 +104,142 @@ def test_bfp_matmul_nt_tn(dev, shape):
         xm, g2 = planes(la, M, K), planes(lb, M, N)
         assert torch.equal(bm.bfp_matmul_tn(xm, g2, e),
                            bm.bfp_matmul_tn_plain(xm, g2, e))
+
+
+#: the matmul layouts: NN (W N-major, a linear layer; K-major, the tied
+#: head), NT (dX) and TN (dW); a case (M, K, N) is out (M, N) contracting K
+MM_LAYOUTS = ("nn", "nn_wk", "nt", "tn")
+
+
+def _mm_planes(gen, dev, L, *shape, full=False):
+    """L int8 limb planes: digits in [-64, 64], or full range — ±127 for one
+    plane, digits in [-64, 63] under a final carry plane in [-64, 64] — with
+    the extremes present."""
+    if not full:
+        return torch.randint(-64, 65, (L,) + shape, generator=gen,
+                             device=dev, dtype=torch.int8)
+    if L == 1:
+        p = torch.randint(-127, 128, (1,) + shape, generator=gen, device=dev)
+        p[0, :1], p[0, -1:] = 127, -127
+    else:
+        p = torch.randint(-64, 64, (L,) + shape, generator=gen, device=dev)
+        p[-1] = torch.randint(-64, 65, shape, generator=gen, device=dev)
+        p[:, :1], p[:, -1:] = 63, -64
+        p[-1, :1], p[-1, -1:] = 64, -64
+    return p.to(torch.int8)
+
+
+def _mm_case(dev, layout, M, K, N, lx, lw, seed, full=False):
+    """(kernel, plain) outputs of one wrapper call: out (M, N), contraction
+    K, lx planes of the left operand and lw of the right."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    e = torch.tensor(-23, dtype=torch.int32, device=dev)
+
+    def pl(L, *s):
+        return _mm_planes(gen, dev, L, *s, full=full)
+    if layout == "nn":
+        a, b = pl(lx, M, K), pl(lw, K, N)
+        fn, plain = bm.bfp_matmul, bm.bfp_matmul_plain
+    elif layout == "nn_wk":
+        a, b = pl(lx, M, K), pl(lw, N, K).transpose(1, 2)
+        fn, plain = bm.bfp_matmul, bm.bfp_matmul_plain
+    elif layout == "nt":
+        a, b = pl(lx, M, K), pl(lw, N, K)
+        fn, plain = bm.bfp_matmul_nt, bm.bfp_matmul_nt_plain
+    else:
+        a, b = pl(lx, K, M), pl(lw, K, N)
+        fn, plain = bm.bfp_matmul_tn, bm.bfp_matmul_tn_plain
+    got, ref = fn(a, b, e), plain(a, b, e)
+    assert got.shape == (M, N) and ref.abs().max() > 0
+    return got, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,lx,lw", [("nn", 2, 1), ("nt", 1, 1),
+                                          ("tn", 2, 1), ("nn_wk", 2, 1)])
+def test_bfp_matmul_qwen_training_shapes(dev, layout, lx, lw):
+    """qwen1.5-0.5b's MLP products at batch 8 x seq 256: the up-projection
+    2048 x 1024 x 2816 (a12 x w8), its dX 2048 x 2816 -> 1024 (g8 x w8) and
+    its dW 1024 x 2048 -> 2816 (a12 x g8)."""
+    M, K, N = {"nt": (2048, 2816, 1024),
+               "tn": (1024, 2048, 2816)}.get(layout, (2048, 1024, 2816))
+    assert torch.equal(*_mm_case(dev, layout, M, K, N, lx, lw, seed=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", MM_LAYOUTS)
+@pytest.mark.parametrize("lx,lw", [(a, b) for a in (1, 2, 3)
+                                   for b in (1, 2, 3)])
+def test_bfp_matmul_every_limb_pair(dev, layout, lx, lw):
+    """Each of the nine instantiations per layout (tile width 128, 64 or 32
+    by the pair count), at an aligned shape and a ragged one."""
+    for M, K, N in ((200, 384, 320), (65, 130, 61)):
+        assert torch.equal(*_mm_case(dev, layout, M, K, N, lx, lw,
+                                     seed=10 * lx + lw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", MM_LAYOUTS)
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 63, 65, 129])
+def test_bfp_matmul_rows(dev, layout, M):
+    """Row counts around the tile: one consumer warpgroup (M <= 64), two,
+    and partial tiles of each."""
+    assert torch.equal(*_mm_case(dev, layout, M, 1024, 1408, 2, 1, seed=M))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", MM_LAYOUTS)
+@pytest.mark.parametrize("K,N", [(40, 200), (61, 77), (130, 203), (2, 5),
+                                 (1000, 1004)])
+def test_bfp_matmul_ragged(dev, layout, K, N):
+    """K not a multiple of 16 (no TMA) nor of 4 (byte loads), N not a
+    multiple of 8 (a partial MMA column block, odd rows)."""
+    assert torch.equal(*_mm_case(dev, layout, 96, K, N, 2, 1, seed=K + N))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", MM_LAYOUTS)
+@pytest.mark.parametrize("lx,lw", [(1, 1), (2, 1), (3, 3)])
+def test_bfp_matmul_full_range(dev, layout, lx, lw):
+    """Full-range planes: ±127 mantissas, ±64 carries."""
+    assert torch.equal(*_mm_case(dev, layout, 130, 3072, 768, lx, lw,
+                                 seed=lx + lw, full=True))
+
+
+@pytest.mark.cuda
+def test_bfp_matmul_int32_wraps(dev):
+    """Past 2^31 the int32 sums wrap (no saturation): 140,000 terms of
+    127 x 127 in the tied head's layout, whose dX contracts 152,064."""
+    K = 140_000
+    x = torch.full((1, 4, K), 127, dtype=torch.int8, device=dev)
+    w = torch.full((1, 8, K), 127, dtype=torch.int8, device=dev)
+    e = torch.tensor(-30, dtype=torch.int32, device=dev)
+    got = bm.bfp_matmul(x, w.transpose(1, 2), e)
+    acc = (K * 127 * 127 + 2 ** 31) % 2 ** 32 - 2 ** 31
+    assert acc < 0
+    assert torch.equal(got, torch.full((4, 8), float(acc) * 2.0 ** -30,
+                                       device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,M", [(60, 16), (1, 256)])
+@pytest.mark.parametrize("lx,lw", [(a, b) for a in (1, 2, 3)
+                                   for b in (1, 2, 3)])
+def test_bfp_matmul_batched_every_limb_pair(dev, E, M, lx, lw):
+    """Batched NN, NT and TN at every limb pair: the MoE decode (60 experts
+    x 16 rows) and one expert of 256 rows, per-expert exponents."""
+    K, N = 2048, 1408
+    gen = torch.Generator(device=dev).manual_seed(E * lx + lw)
+    e = torch.arange(E, dtype=torch.int32, device=dev) - 30
+    xm, wm = _mm_planes(gen, dev, lx, E, M, K), _mm_planes(gen, dev, lw, E, K, N)
+    gm = _mm_planes(gen, dev, lx, E, M, N)
+    gt = _mm_planes(gen, dev, lw, E, M, N)
+    assert torch.equal(bm.bfp_matmul_batched(xm, wm, e),
+                       bm.bfp_matmul_batched_plain(xm, wm, e))
+    assert torch.equal(bm.bfp_matmul_batched_nt(gm, wm, e),
+                       bm.bfp_matmul_batched_nt_plain(gm, wm, e))
+    assert torch.equal(bm.bfp_matmul_batched_tn(xm, gt, e),
+                       bm.bfp_matmul_batched_tn_plain(xm, gt, e))
 
 
 @pytest.mark.cuda
