@@ -12,8 +12,11 @@ Phases (each raises on failure; nothing is caught):
    qwen1.5-0.5b serving path for the forward kernels, the bert-base
    fine-tuning step — batch 32 x seq 128 — for the backward matmuls and
    the layer-norm kernels, and for the quantize and NN matmul kernels
-   also the step's gradient quantize and w1 forward; the qwen1.5-0.5b
-   training step — batch 8 x seq 256 — for the RMS-norm backward, and it,
+   also the step's gradient quantize and w1 forward, and the span step —
+   batch 12 x seq 384 — for the layer-norm backward too; the qwen1.5-0.5b
+   training step — batch 8 x seq 256 — for the RMS-norm backward, also at
+   qwen2-moe-a2.7b's d_model 2048, each norm backward called twice on the
+   same inputs (bit for bit) and its device kernels per call printed; it,
    bert-base cls, smollm-135m's GQA, a ragged windowed case,
    qwen2-moe-a2.7b's head dim 128, head dim 256 (the widest staged body)
    and head dim 384 (the direct body) for the attention backward (timed
@@ -175,6 +178,43 @@ def device_ms(fn, reps: int = 10, windows: int = 6) -> float:
         seen.append((n, us))
     raise RuntimeError("the profiler's device event counts disagreed in "
                        f"every window: (events, us) {seen}")
+
+
+def device_kernels(fn, reps: int = 5, windows: int = 6) -> tuple:
+    """(device kernels and copies per call of ``fn()``, their names) from
+    torch.profiler; windows are repeated until two record the same count,
+    as in ``device_ms``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        n = sum(e.count for e in events)
+        if n and n in seen:
+            return n / reps, sorted(_kernel_name(e.key) for e in events)
+        seen.append(n)
+    raise RuntimeError(f"the profiler's device event counts disagreed in "
+                       f"every window: {seen}")
+
+
+def norm_bwd_timings(torch, name, kernel, plain, library) -> dict:
+    """A norm backward's ``timings`` after two checks: a second call on the
+    same inputs gives the same bits, and the kernels it runs per call
+    (printed; one cooperative launch)."""
+    a, b = kernel(), kernel()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+    n, names = device_kernels(kernel)
+    print(f"  {name}: {n:g} device kernels per call {names}; two calls "
+          "bit for bit")
+    return dict(timings(kernel, plain, library), kernels_per_call=n)
 
 
 def timings(kernel, plain, library=None) -> dict:
@@ -803,23 +843,19 @@ def _matmul_bwd_train_rows(torch, dev, gen, name, fn, plain, e):
 def check_layernorm(torch, dev, gen, D, R):
     """int_layernorm_fwd / _bwd at the bert-base fine-tuning step's shape:
     R = 4096 rows (batch 32 x seq 128) of D = 768 int16 mantissas (a12),
-    int8 gradient mantissas (g8).
+    int8 gradient mantissas (g8); the backward also at the span step's
+    4608 rows (``ln_bwd_case``).
 
     Tolerances: mu and rstd within 4 ulp and y within 1e-6 of max|y| (the
     plain version's division by D may be a reciprocal multiply on the
-    card); dβ exactly (exact int sums); dx within 64 ulp of max|dx| and
-    dγ within 64 ulp of the column's Σ|gq·xn| (f32 sums in another
-    order)."""
+    card)."""
     import torch.nn.functional as F
     from repro_torch.core import dfx
     from repro_torch.kernels import int_norm
     ulp = 2.0 ** -23
     xm = torch.randint(-2047, 2048, (R, D), generator=gen, device=dev,
                        dtype=torch.int16)
-    gm = torch.randint(-127, 128, (R, D), generator=gen, device=dev,
-                       dtype=torch.int8)
     xe = torch.tensor(-9, dtype=torch.int32, device=dev)
-    ge = torch.tensor(-27, dtype=torch.int32, device=dev)
     gamma = 1 + 0.1 * torch.randn((D,), generator=gen, device=dev)
     beta = 0.1 * torch.randn((D,), generator=gen, device=dev)
     y, mu, rstd = int_norm.int_layernorm_fwd(xm, xe, gamma, beta)
@@ -839,23 +875,7 @@ def check_layernorm(torch, dev, gen, D, R):
         raise AssertionError(f"int_layernorm_fwd integer body differs: mu, "
                              f"rstd exact {torch.equal(mui, mui0)}, "
                              f"{torch.equal(ri, ri0)}; y rel {eyi}")
-    dx, dg, db = int_norm.int_layernorm_bwd(xm, gm, xe, ge, gamma, mu0,
-                                            rstd0)
-    dx0, dg0, db0 = int_norm.int_layernorm_bwd_plain(xm, gm, xe, ge, gamma,
-                                                     mu0, rstd0)
-    xn = (xm.float() * dfx.pow2(xe) - mu0) * rstd0
-    col = (gm.float() * dfx.pow2(ge) * xn).abs().sum(0)
-    if (not torch.equal(db, db0)
-            or (dx - dx0).abs().max() > 64 * ulp * dx0.abs().max()
-            or ((dg - dg0).abs() > 64 * ulp * col).any()):
-        raise AssertionError(
-            f"int_layernorm_bwd differs: dx {(dx - dx0).abs().max().item()}"
-            f", dgamma {(dg - dg0).abs().max().item()}, dbeta exact "
-            f"{torch.equal(db, db0)}")
     xv = xm.float() * dfx.pow2(xe)
-    gq = gm.float() * dfx.pow2(ge)
-    _, lmean, lrstd = torch.ops.aten.native_layer_norm(xv, [D], gamma, beta,
-                                                       1e-5)
     fwd = dict(name="int_layernorm_fwd", route="cuda",
                source="src/repro_torch/csrc/int_norm.cu",
                replaces="src/repro/kernels/int_norm.py:113",
@@ -883,32 +903,97 @@ def check_layernorm(torch, dev, gen, D, R):
     bwd = dict(name="int_layernorm_bwd", route="cuda",
                source="src/repro_torch/csrc/int_norm.cu",
                replaces="src/repro/kernels/int_norm.py:181",
-               shape=f"({R},{D}) int16 x, int8 g -> dx, dgamma, dbeta; "
+               shape=f"({R},{D}) int16 x, int8 g -> dx, dgamma, dbeta; also "
+                     f"the span step's ({SPAN_ROWS},{D}) (span_*); "
                      "tolerance dbeta exact, dx 64 ulp of max, dgamma 64 ulp "
-                     "of the column's sum of |gq xn|; library: "
-                     "aten.native_layer_norm_backward on the f32 values",
-               max_abs_err=max((dx - dx0).abs().max().item(),
-                               (dg - dg0).abs().max().item()),
-               **timings(lambda: int_norm.int_layernorm_bwd(
-                   xm, gm, xe, ge, gamma, mu0, rstd0),
-                   lambda: int_norm.int_layernorm_bwd_plain(
-                       xm, gm, xe, ge, gamma, mu0, rstd0),
-                   lambda: torch.ops.aten.native_layer_norm_backward(
-                       gq, xv, [D], lmean, lrstd, gamma, beta,
-                       [True, True, True])))
-    # per element: xn (3), gq, gg, two row sums (3), dx (4), dgamma (2)
-    bwd["bound_ms"], bwd["bound_by"] = bound_ms(
-        nbytes(xm, gm, xe, ge, gamma, mu0, rstd0, dx, dg, db), 0,
-        14 * R * D)
+                     "of the column's sum of |gq xn|; two calls bit for bit; "
+                     "library: aten.native_layer_norm_backward on the f32 "
+                     "values",
+               **ln_bwd_case(torch, dev, gen, R, D),
+               **{f"span_{k}": v for k, v in ln_bwd_case(
+                   torch, dev, gen, SPAN_ROWS, D).items()})
     return [fwd, bwd]
 
 
-def check_rmsnorm_bwd(torch, dev, gen, R, D):
+#: bert-base's span fine-tuning step: batch 12 x seq 384 rows
+SPAN_ROWS = 12 * 384
+
+
+def ln_bwd_case(torch, dev, gen, R, D) -> dict:
+    """int_layernorm_bwd on (R, D) int16 mantissas (a12) and int8 gradient
+    mantissas (g8), the statistics from the plain forward: dbeta exactly,
+    dx within 64 ulp of max|dx|, dgamma within 64 ulp of the column's
+    Σ|gq·xn| (f32 sums in another order); timed beside its bound and
+    aten.native_layer_norm_backward."""
+    from repro_torch.core import dfx
+    from repro_torch.kernels import int_norm
+    ulp = 2.0 ** -23
+    xm = torch.randint(-2047, 2048, (R, D), generator=gen, device=dev,
+                       dtype=torch.int16)
+    gm = torch.randint(-127, 128, (R, D), generator=gen, device=dev,
+                       dtype=torch.int8)
+    xe = torch.tensor(-9, dtype=torch.int32, device=dev)
+    ge = torch.tensor(-27, dtype=torch.int32, device=dev)
+    gamma = 1 + 0.1 * torch.randn((D,), generator=gen, device=dev)
+    beta = 0.1 * torch.randn((D,), generator=gen, device=dev)
+    _, mu0, rstd0 = int_norm.int_layernorm_fwd_plain(xm, xe, gamma, beta)
+    dx, dg, db = int_norm.int_layernorm_bwd(xm, gm, xe, ge, gamma, mu0,
+                                            rstd0)
+    dx0, dg0, db0 = int_norm.int_layernorm_bwd_plain(xm, gm, xe, ge, gamma,
+                                                     mu0, rstd0)
+    xn = (xm.float() * dfx.pow2(xe) - mu0) * rstd0
+    col = (gm.float() * dfx.pow2(ge) * xn).abs().sum(0)
+    if (not torch.equal(db, db0)
+            or (dx - dx0).abs().max() > 64 * ulp * dx0.abs().max()
+            or ((dg - dg0).abs() > 64 * ulp * col).any()):
+        raise AssertionError(
+            f"int_layernorm_bwd differs at ({R},{D}): dx "
+            f"{(dx - dx0).abs().max().item()}, dgamma "
+            f"{(dg - dg0).abs().max().item()}, dbeta exact "
+            f"{torch.equal(db, db0)}")
+    xv = xm.float() * dfx.pow2(xe)
+    gq = gm.float() * dfx.pow2(ge)
+    _, lmean, lrstd = torch.ops.aten.native_layer_norm(xv, [D], gamma, beta,
+                                                       1e-5)
+    t = norm_bwd_timings(
+        torch, f"int_layernorm_bwd ({R},{D})",
+        lambda: int_norm.int_layernorm_bwd(xm, gm, xe, ge, gamma, mu0,
+                                           rstd0),
+        lambda: int_norm.int_layernorm_bwd_plain(xm, gm, xe, ge, gamma, mu0,
+                                                 rstd0),
+        lambda: torch.ops.aten.native_layer_norm_backward(
+            gq, xv, [D], lmean, lrstd, gamma, beta, [True, True, True]))
+    # per element: xn (3), gq, gg, two row sums (3), dx (4), dgamma (2)
+    b, by = bound_ms(nbytes(xm, gm, xe, ge, gamma, mu0, rstd0, dx, dg, db),
+                     0, 14 * R * D)
+    return dict(max_abs_err=max((dx - dx0).abs().max().item(),
+                                (dg - dg0).abs().max().item()),
+                bound_ms=b, bound_by=by, **t)
+
+
+def check_rmsnorm_bwd(torch, dev, gen, R, D, D_moe):
     """int_rmsnorm_bwd at the qwen1.5-0.5b training step's shape: R = 2048
     rows (batch 8 x seq 256) of D = 1024 int16 mantissas (a12), int8
-    gradient mantissas (g8).  Tolerances: dx within 64 ulp of its row's
-    max|dx|, dγ within 64 ulp of the column's Σ|gq·xn| (f32 sums in
-    another order)."""
+    gradient mantissas (g8); also at qwen2-moe-a2.7b's D_moe = 2048
+    (``moe_*``)."""
+    return dict(name="int_rmsnorm_bwd", route="cuda",
+                source="src/repro_torch/csrc/int_norm.cu",
+                replaces="src/repro/kernels/int_norm.py:298",
+                shape=f"({R},{D}) int16 x, int8 g -> dx, dgamma; also "
+                      f"qwen2-moe's ({R},{D_moe}) (moe_*); tolerance dx 64 "
+                      "ulp of its row's max, dgamma 64 ulp of the column's "
+                      "sum of |gq xn|; two calls bit for bit; library: "
+                      "F.rms_norm backward (autograd) on the f32 values",
+                **rms_bwd_case(torch, dev, gen, R, D),
+                **{f"moe_{k}": v for k, v in rms_bwd_case(
+                    torch, dev, gen, R, D_moe).items()})
+
+
+def rms_bwd_case(torch, dev, gen, R, D) -> dict:
+    """int_rmsnorm_bwd on (R, D) int16 / int8 mantissas, rstd from the
+    kernel's forward.  Tolerances: dx within 64 ulp of its row's max|dx|,
+    dγ within 64 ulp of the column's Σ|gq·xn| (f32 sums in another
+    order); timed beside its bound and F.rms_norm's backward."""
     import torch.nn.functional as F
     from repro_torch.core import dfx
     from repro_torch.kernels import int_norm
@@ -930,30 +1015,23 @@ def check_rmsnorm_bwd(torch, dev, gen, R, D):
     if (((dx - dx0).abs() > 64 * ulp * row).any()
             or ((dg - dg0).abs() > 64 * ulp * col).any()):
         raise AssertionError(
-            f"int_rmsnorm_bwd differs: dx {(dx - dx0).abs().max().item()}, "
-            f"dgamma {(dg - dg0).abs().max().item()}")
+            f"int_rmsnorm_bwd differs at ({R},{D}): dx "
+            f"{(dx - dx0).abs().max().item()}, dgamma "
+            f"{(dg - dg0).abs().max().item()}")
     # yardstick: the backward of F.rms_norm on the f32 values (autograd,
     # the graph built once and its backward timed)
     xr = xv.clone().requires_grad_(True)
     gr = gamma.clone().requires_grad_(True)
     yr = F.rms_norm(xr, (D,), gr, 1e-6)
-    t = timings(lambda: int_norm.int_rmsnorm_bwd(xm, gm, xe, ge, gamma,
-                                                  rstd),
-                lambda: int_norm.int_rmsnorm_bwd_plain(xm, gm, xe, ge,
-                                                       gamma, rstd),
-                lambda: torch.autograd.grad(yr, (xr, gr), gq,
-                                            retain_graph=True))
+    t = norm_bwd_timings(
+        torch, f"int_rmsnorm_bwd ({R},{D})",
+        lambda: int_norm.int_rmsnorm_bwd(xm, gm, xe, ge, gamma, rstd),
+        lambda: int_norm.int_rmsnorm_bwd_plain(xm, gm, xe, ge, gamma, rstd),
+        lambda: torch.autograd.grad(yr, (xr, gr), gq, retain_graph=True))
     # per element: xn (2), gq, gg, the row sum (2), dx (3), dgamma (2)
     b, by = bound_ms(nbytes(xm, gm, xe, ge, gamma, rstd, dx, dg), 0,
                      11 * R * D)
-    return dict(name="int_rmsnorm_bwd", route="cuda",
-                source="src/repro_torch/csrc/int_norm.cu",
-                replaces="src/repro/kernels/int_norm.py:298",
-                shape=f"({R},{D}) int16 x, int8 g -> dx, dgamma; tolerance "
-                      "dx 64 ulp of its row's max, dgamma 64 ulp of the "
-                      "column's sum of |gq xn|; library: F.rms_norm backward"
-                      " (autograd) on the f32 values",
-                max_abs_err=max((dx - dx0).abs().max().item(),
+    return dict(max_abs_err=max((dx - dx0).abs().max().item(),
                                 (dg - dg0).abs().max().item()),
                 bound_ms=b, bound_by=by, **t)
 
@@ -2341,9 +2419,10 @@ def main() -> int:
                check_attention(torch, dev, gen, cfg)]
     kernels += check_matmul_bwd(torch, dev, gen, bert, tokens)
     kernels += check_layernorm(torch, dev, gen, bert.d_model, tokens)
-    kernels.append(check_rmsnorm_bwd(torch, dev, gen, 8 * 256, cfg.d_model))
-    kernels += check_attention_bwd(torch, dev, gen)
     moe = registry.get_config("qwen2-moe-a2.7b")
+    kernels.append(check_rmsnorm_bwd(torch, dev, gen, 8 * 256, cfg.d_model,
+                                     moe.d_model))
+    kernels += check_attention_bwd(torch, dev, gen)
     kernels.append(check_quantize_grouped(torch, dev, gen, moe))
     kernels += check_matmul_batched(torch, dev, gen, moe)
     for k in kernels:

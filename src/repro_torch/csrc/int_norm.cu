@@ -32,29 +32,60 @@
 // statistics the forward normalised with, saved as the backward's
 // residuals, so the backward differentiates exactly the forward that ran.
 //
-// Bound on the H100: bytes (2 bytes in and 4 out per element for the
-// forwards, 3 in and 4 out for the backwards, a few dozen operations each).
-// Design: the forwards run one 256-thread block per row, a shared-memory
-// tree reduction of the int32 sums, then one coalesced pass writing y.  The
-// backwards' blocks run in no order, so the column sums dgamma / dbeta
-// cannot be carried from block to block as the TPU grid carries them:
-// each block of kLnRows rows writes its own column partials (f32 for
-// dgamma, exact int32 for dbeta) and a second kernel sums them over the
-// blocks in block order — no float atomics, the same result on every run.
-// Within a block a first pass reduces each row's f32 sums (two for the
-// layer-norm, one for the RMS-norm) in shared memory; a second,
-// column-major pass (neighbouring threads on neighbouring columns) writes
-// dx and accumulates the column partials in registers.  The RMS-norm
-// backward is the layer-norm's with mu = 0 and without mean(gg) and dbeta.
+// Bound on the H100: bytes.  The forwards move 2 bytes in and 4 out per
+// element, the backwards 3 in (int16 x, int8 g) and 4 out (dx), against a
+// few dozen operations each.  The forwards run one 256-thread block per
+// row: a shared-memory tree reduction of the int32 sums, then one
+// coalesced pass writing y.
+//
+// The backwards (norm_bwd_cached / norm_bwd_rows below; the RMS-norm is
+// the layer-norm with mu = 0 and without mean(gg) and dbeta) are one
+// cooperative launch each.  The TPU grid carries the column sums dgamma /
+// dbeta from step to step; here the blocks run in no order, so each block
+// keeps its own column partials and, after a grid barrier, the blocks sum
+// the partials of all blocks in a fixed order: no float atomics, the same
+// bits on every run, no second launch.
+//   - A warp per row (a group of WR = 1, 2, 4 or 8 warps for D > 512:
+//     the register budget is 2 units of 8 columns a lane, so 512 columns
+//     a warp).  Each lane loads its units once with 16-byte (int16) or
+//     8-byte (int8) loads and keeps xn and gg of its 16 columns in
+//     registers from the row sums to the dx pass: x and g are read from
+//     device memory once, dx written once.  The group's next row is loaded
+//     as soon as the current row's units are consumed, so its loads are in
+//     flight during the row sums, the barrier and the dx stores.
+//     Mantissas become exact floats by the 2^23 magic-number trick (a
+//     __byte_perm and an add), not by I2F, whose quarter-rate pipe would
+//     rival the memory time.
+//   - Row sums: a warp's by an xor butterfly of shuffles, a group's by
+//     adding its warps' sums in warp order after a named barrier of the
+//     group's warps (double-buffered, one barrier a row); no
+//     __syncthreads on the row path.
+//   - Column partials: each lane keeps its columns' dgamma (f32) and
+//     dbeta (int32) partials in registers over the group's rows; at the
+//     end the block adds its groups in group order through shared memory
+//     and writes one partial row.
+//   - The grid is the co-resident block count (occupancy x SMs, at most
+//     the rows need), launched cooperatively; the grid barrier is
+//     cooperative_groups' own, on the word the cooperative launch
+//     provides and flips back itself (no counter of ours, no memset).
+//     After it, block b sums column slices b, b + nb, ... of 8 columns
+//     over the nb partial rows: thread t adds rows t / 8, t / 8 + 32, ...
+//     in order, then the 32 sums of a column are added in a fixed tree
+//     (shuffles within a warp, then the warps in order).
+//   - norm_bwd_rows takes every other shape (D % 8 != 0, a base not
+//     aligned for the unit loads, D > 4096): one block per row at a time,
+//     scalar loads, x and g read twice, its partial row accumulated in
+//     place in device memory (each column by one thread).
 #include "dfx_common.cuh"
 #include "iapprox.cuh"
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kLnRows = 16;  // rows per backward block (dgamma partials)
+constexpr int kThreads = 256;  // forwards
 
 // rstd = 1 / sqrt(ms + eps) with IEEE sqrt and division, or the Q.14
 // Newton form.
@@ -127,130 +158,6 @@ ln_fwd_kernel(const InT* __restrict__ x, const int* __restrict__ exp,
   }
 }
 
-// One block per kLnRows rows: dx, and this block's column partials of
-// dgamma (f32) and dbeta (int32) in row nb of dg_part / db_part.
-template <typename XT, typename GT>
-__global__ void __launch_bounds__(kThreads)
-ln_bwd_kernel(const XT* __restrict__ x, const GT* __restrict__ g,
-              const int* __restrict__ xexp, const int* __restrict__ gexp,
-              const float* __restrict__ gamma, const float* __restrict__ mu,
-              const float* __restrict__ rstd, float* __restrict__ dx,
-              float* __restrict__ dg_part, int* __restrict__ db_part, int R,
-              int D) {
-  __shared__ float red[2][kThreads];
-  __shared__ float mean_gg[kLnRows], mean_ggxn[kLnRows];
-  const int t = threadIdx.x;
-  const int r0 = blockIdx.x * kLnRows;
-  const int nr = min(kLnRows, R - r0);
-  const float xs = dfx::pow2f(xexp[0]), gs = dfx::pow2f(gexp[0]);
-  const float d = (float)D;
-  for (int r = 0; r < nr; ++r) {
-    const long long off = (long long)(r0 + r) * D;
-    const float m = mu[r0 + r], rs = rstd[r0 + r];
-    float sg = 0.0f, sgx = 0.0f;
-    for (int i = t; i < D; i += kThreads) {
-      const float xn = __fmul_rn(__fsub_rn(__fmul_rn((float)x[off + i], xs), m),
-                                 rs);
-      const float gg = __fmul_rn(__fmul_rn((float)g[off + i], gs), gamma[i]);
-      sg = __fadd_rn(sg, gg);
-      sgx = __fadd_rn(sgx, __fmul_rn(gg, xn));
-    }
-    red[0][t] = sg;
-    red[1][t] = sgx;
-    block_sum<float, 2>(red);
-    if (t == 0) {
-      mean_gg[r] = __fdiv_rn(red[0][0], d);
-      mean_ggxn[r] = __fdiv_rn(red[1][0], d);
-    }
-    __syncthreads();
-  }
-  for (int i = t; i < D; i += kThreads) {
-    float dg = 0.0f;
-    int db = 0;
-    const float gam = gamma[i];
-    for (int r = 0; r < nr; ++r) {
-      const long long off = (long long)(r0 + r) * D + i;
-      const float rs = rstd[r0 + r];
-      const float xn = __fmul_rn(
-          __fsub_rn(__fmul_rn((float)x[off], xs), mu[r0 + r]), rs);
-      const int gi = g[off];
-      const float gq = __fmul_rn((float)gi, gs);
-      const float gg = __fmul_rn(gq, gam);
-      dx[off] = __fmul_rn(rs, __fsub_rn(__fsub_rn(gg, mean_gg[r]),
-                                        __fmul_rn(xn, mean_ggxn[r])));
-      dg = __fadd_rn(dg, __fmul_rn(gq, xn));
-      db += gi;
-    }
-    dg_part[(long long)blockIdx.x * D + i] = dg;
-    db_part[(long long)blockIdx.x * D + i] = db;
-  }
-}
-
-// One block per kLnRows rows: dx, and this block's column partials of
-// dgamma in row blockIdx.x of dg_part.
-template <typename XT, typename GT>
-__global__ void __launch_bounds__(kThreads)
-rms_bwd_kernel(const XT* __restrict__ x, const GT* __restrict__ g,
-               const int* __restrict__ xexp, const int* __restrict__ gexp,
-               const float* __restrict__ gamma,
-               const float* __restrict__ rstd, float* __restrict__ dx,
-               float* __restrict__ dg_part, int R, int D) {
-  __shared__ float red[1][kThreads];
-  __shared__ float mean_ggxn[kLnRows];
-  const int t = threadIdx.x;
-  const int r0 = blockIdx.x * kLnRows;
-  const int nr = min(kLnRows, R - r0);
-  const float xs = dfx::pow2f(xexp[0]), gs = dfx::pow2f(gexp[0]);
-  const float d = (float)D;
-  for (int r = 0; r < nr; ++r) {
-    const long long off = (long long)(r0 + r) * D;
-    const float rs = rstd[r0 + r];
-    float sgx = 0.0f;
-    for (int i = t; i < D; i += kThreads) {
-      const float xn = __fmul_rn(__fmul_rn((float)x[off + i], xs), rs);
-      const float gg = __fmul_rn(__fmul_rn((float)g[off + i], gs), gamma[i]);
-      sgx = __fadd_rn(sgx, __fmul_rn(gg, xn));
-    }
-    red[0][t] = sgx;
-    block_sum<float, 1>(red);
-    if (t == 0) mean_ggxn[r] = __fdiv_rn(red[0][0], d);
-    __syncthreads();
-  }
-  for (int i = t; i < D; i += kThreads) {
-    float dg = 0.0f;
-    const float gam = gamma[i];
-    for (int r = 0; r < nr; ++r) {
-      const long long off = (long long)(r0 + r) * D + i;
-      const float rs = rstd[r0 + r];
-      const float xn = __fmul_rn(__fmul_rn((float)x[off], xs), rs);
-      const float gq = __fmul_rn((float)g[off], gs);
-      const float gg = __fmul_rn(gq, gam);
-      dx[off] = __fmul_rn(rs, __fsub_rn(gg, __fmul_rn(xn, mean_ggxn[r])));
-      dg = __fadd_rn(dg, __fmul_rn(gq, xn));
-    }
-    dg_part[(long long)blockIdx.x * D + i] = dg;
-  }
-}
-
-// Column sums of the per-block partials, in block order (db_part null: no
-// dbeta, the RMS-norm).
-__global__ void __launch_bounds__(kThreads)
-ln_bwd_reduce_kernel(const float* __restrict__ dg_part,
-                     const int* __restrict__ db_part,
-                     const int* __restrict__ gexp, float* __restrict__ dgamma,
-                     float* __restrict__ dbeta, int nb, int D) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= D) return;
-  float dg = 0.0f;
-  int db = 0;
-  for (int b = 0; b < nb; ++b) {
-    dg = __fadd_rn(dg, dg_part[(long long)b * D + i]);
-    if (db_part) db += db_part[(long long)b * D + i];
-  }
-  dgamma[i] = dg;
-  if (db_part) dbeta[i] = __fmul_rn((float)db, dfx::pow2f(gexp[0]));
-}
-
 template <typename InT, bool IntRsqrt>
 __global__ void __launch_bounds__(kThreads)
 rms_fwd_kernel(const InT* __restrict__ x, const int* __restrict__ exp,
@@ -300,6 +207,417 @@ int run_fwd(int in_bytes, int integer_rsqrt, Run run) {
   return (int)cudaGetLastError();
 }
 
+// ---- backward ----
+
+constexpr int kBwdWarps = 8;                  // warps per backward block
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kVec = 8;                       // columns per unit
+constexpr int kUnits = 2;                     // units per lane (registers)
+constexpr int kWarpCols = 32 * kUnits * kVec; // 512 columns per warp
+constexpr int kSlice = 8;                     // columns per final slice
+constexpr int kSliceGroups = kBwdThreads / kSlice;
+
+// The backward's arguments (one struct: one pointer for the cooperative
+// launch).  mu, dbeta and db_part are null for the RMS-norm.  wr: warps
+// per row of norm_bwd_cached (0 for norm_bwd_rows).  dg_part / db_part:
+// (gridDim.x, D) partial rows.
+struct NormBwdArgs {
+  const void* x;
+  const void* g;
+  const int* xexp;
+  const int* gexp;
+  const float* gamma;
+  const float* mu;
+  const float* rstd;
+  float* dx;
+  float* dgamma;
+  float* dbeta;
+  float* dg_part;
+  int* db_part;
+  int R, D, wr;
+};
+
+using BwdKernel = void (*)(NormBwdArgs);
+
+// A unit: 8 mantissas of type T, loaded in one 8- or 16-byte load.  bits()
+// is the float bit pattern of 2^23 + (m + 2^(b-1)) for mantissa e (the
+// sign bit flipped makes m + 2^(b-1) >= 0, __byte_perm puts it under the
+// exponent of 2^23); subtracting kBias in f32 gives m exactly, and
+// bits - kBits the integer m.
+template <typename T>
+struct Mant;
+
+template <>
+struct Mant<int8_t> {
+  using Raw = uint2;
+  static constexpr float kBias = 8388736.0f;  // 2^23 + 2^7
+  static constexpr int kBits = 0x4B000080;
+  static __device__ __forceinline__ uint32_t bits(const Raw& r, int e) {
+    const uint32_t w = (e < 4 ? r.x : r.y) ^ 0x80808080u;
+    return __byte_perm(w, 0x4B000000u, 0x7650 | (e & 3));
+  }
+};
+
+template <>
+struct Mant<int16_t> {
+  using Raw = uint4;
+  static constexpr float kBias = 8421376.0f;  // 2^23 + 2^15
+  static constexpr int kBits = 0x4B008000;
+  static __device__ __forceinline__ uint32_t bits(const Raw& r, int e) {
+    const uint32_t v = e < 2 ? r.x : e < 4 ? r.y : e < 6 ? r.z : r.w;
+    return __byte_perm(v ^ 0x80008000u, 0x4B000000u,
+                       (e & 1) ? 0x7632 : 0x7610);
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ float mant_value(uint32_t bits) {
+  return __fsub_rn(__int_as_float((int)bits), Mant<T>::kBias);
+}
+
+// Butterfly sum over the warp: every lane ends with the same bits.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// After the grid barrier: dgamma (and dbeta) from the gridDim.x partial
+// rows.  Block b takes column slices b, b + nb, ... of kSlice columns;
+// thread t adds partial rows t / kSlice, t / kSlice + kSliceGroups, ...
+// in order; the kSliceGroups sums of a column are then added by an xor
+// butterfly over the 4 groups of a warp (lanes e, e ^ 8, e ^ 16, e ^ 24)
+// and the 8 warps' sums in warp order.  red: 2 * kBwdWarps * kSlice
+// words of shared memory.
+template <bool kLN>
+__device__ __forceinline__ void bwd_column_sums(const NormBwdArgs& a,
+                                                float* red) {
+  int* redb = reinterpret_cast<int*>(red + kBwdWarps * kSlice);
+  const int t = threadIdx.x, e = t % kSlice, grp = t / kSlice;
+  const int lane = t & 31, warp = t >> 5;
+  const int nb = gridDim.x, D = a.D;
+  const int slices = (D + kSlice - 1) / kSlice;
+  for (int s = blockIdx.x; s < slices; s += nb) {
+    const int c = s * kSlice + e;
+    float acc = 0.0f;
+    int accb = 0;
+    if (c < D) {
+#pragma unroll 8
+      for (int p = grp; p < nb; p += kSliceGroups) {
+        acc = __fadd_rn(acc, a.dg_part[(long long)p * D + c]);
+        if constexpr (kLN) accb += a.db_part[(long long)p * D + c];
+      }
+    }
+#pragma unroll
+    for (int o = kSlice; o < 32; o <<= 1) {
+      acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, o));
+      if constexpr (kLN) accb += __shfl_xor_sync(0xffffffffu, accb, o);
+    }
+    __syncthreads();
+    if (lane < kSlice) {
+      red[warp * kSlice + e] = acc;
+      redb[warp * kSlice + e] = accb;
+    }
+    __syncthreads();
+    if (t < kSlice && c < D) {
+      float tot = red[t];
+      int totb = redb[t];
+      for (int w = 1; w < kBwdWarps; ++w) {
+        tot = __fadd_rn(tot, red[w * kSlice + t]);
+        totb += redb[w * kSlice + t];
+      }
+      a.dgamma[c] = tot;
+      if constexpr (kLN)
+        a.dbeta[c] = __fmul_rn((float)totb, dfx::pow2f(a.gexp[0]));
+    }
+  }
+}
+
+// Shared memory of norm_bwd_cached: each warp's column partials (f32, and
+// int32 for the layer-norm), then the row sums' double buffer.
+constexpr int cached_smem(bool ln) {
+  return (ln ? 2 : 1) * kBwdWarps * kWarpCols * 4 + 2 * kBwdWarps * 2 * 4;
+}
+// norm_bwd_rows: the row sums' double buffer, then the column sums
+constexpr int kRowsSmem = 2 * kBwdWarps * kSlice * 4;
+
+// D % 8 == 0, D <= wr * 512, x, g aligned to their unit, gamma and dx to
+// 16 bytes.  Group grp of warps wr * grp .. wr * grp + wr - 1 takes rows
+// blockIdx.x * (8 / wr) + grp + j * gridDim.x * (8 / wr); warp q of the
+// group holds units (q * kUnits + k) * 32 + lane, k < kUnits, of its rows.
+// Two blocks per SM (16 warps, at most 128 registers: 107-127 used);
+// three would cap them at 80, below what the bodies hold live.
+template <typename XT, typename GT, bool kLN>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+norm_bwd_cached(NormBwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using MX = Mant<XT>;
+  using MG = Mant<GT>;
+  float* sdg = reinterpret_cast<float*>(smem);
+  int* sdb = reinterpret_cast<int*>(sdg + kBwdWarps * kWarpCols);
+  float* red = kLN ? reinterpret_cast<float*>(sdb + kBwdWarps * kWarpCols)
+                   : reinterpret_cast<float*>(sdb);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = a.wr, gpb = kBwdWarps / wr;
+  const int q = warp % wr, grp = warp / wr;
+  const int D = a.D, nu = D / kVec;
+  const long long groups = (long long)gridDim.x * gpb;
+  const float xs = dfx::pow2f(a.xexp[0]), gs = dfx::pow2f(a.gexp[0]);
+  const float d = (float)D;
+  const float4* gam4 = reinterpret_cast<const float4*>(a.gamma);
+  float dg[kUnits][kVec];
+  int db[kUnits][kVec];
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k)
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      dg[k][e] = 0.0f;
+      db[k][e] = 0;
+    }
+  // the group's first row is loaded ahead of the loop, each next row
+  // right after the current one's units are consumed, so its loads are in
+  // flight during the row sums, the barrier and the dx pass
+  typename MX::Raw xv[kUnits];
+  typename MG::Raw gv[kUnits];
+  const auto load = [&](long long r) {
+    const auto* xr = reinterpret_cast<const typename MX::Raw*>(
+        static_cast<const XT*>(a.x) + r * D);
+    const auto* gr = reinterpret_cast<const typename MG::Raw*>(
+        static_cast<const GT*>(a.g) + r * D);
+#pragma unroll
+    for (int k = 0; k < kUnits; ++k) {
+      const int u = (q * kUnits + k) * 32 + lane;
+      if (u < nu) {
+        xv[k] = xr[u];
+        gv[k] = gr[u];
+      }
+    }
+  };
+  long long r = (long long)blockIdx.x * gpb + grp;
+  if (r < a.R) load(r);
+  int parity = 0;
+  for (; r < a.R; r += groups) {
+    const float m = kLN ? a.mu[r] : 0.0f, rs = a.rstd[r];
+    float xn[kUnits][kVec], gg[kUnits][kVec];
+    float sg = 0.0f, sgx = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kUnits; ++k) {
+      const int u = (q * kUnits + k) * 32 + lane;
+      if (u < nu) {
+        const float4 g0 = gam4[2 * u], g1 = gam4[2 * u + 1];
+        const float gam[kVec] = {g0.x, g0.y, g0.z, g0.w,
+                                 g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const float xs_e =
+              __fmul_rn(mant_value<XT>(MX::bits(xv[k], e)), xs);
+          xn[k][e] = kLN ? __fmul_rn(__fsub_rn(xs_e, m), rs)
+                         : __fmul_rn(xs_e, rs);
+          const uint32_t gb = MG::bits(gv[k], e);
+          const float gq = __fmul_rn(mant_value<GT>(gb), gs);
+          gg[k][e] = __fmul_rn(gq, gam[e]);
+          if constexpr (kLN) {
+            sg = __fadd_rn(sg, gg[k][e]);
+            db[k][e] += (int)gb - MG::kBits;
+          }
+          sgx = __fadd_rn(sgx, __fmul_rn(gg[k][e], xn[k][e]));
+          dg[k][e] = __fadd_rn(dg[k][e], __fmul_rn(gq, xn[k][e]));
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) xn[k][e] = gg[k][e] = 0.0f;
+      }
+    }
+    if (r + groups < a.R) load(r + groups);
+    if constexpr (kLN) sg = warp_sum(sg);
+    sgx = warp_sum(sgx);
+    if (wr > 1) {
+      float* rb = red + parity * kBwdWarps * 2;
+      if (lane == 0) {
+        rb[warp * 2] = sg;
+        rb[warp * 2 + 1] = sgx;
+      }
+      named_barrier(1 + grp, wr * 32);
+      const float* gb = rb + grp * wr * 2;
+      sg = gb[0];
+      sgx = gb[1];
+      for (int j = 1; j < wr; ++j) {
+        sg = __fadd_rn(sg, gb[j * 2]);
+        sgx = __fadd_rn(sgx, gb[j * 2 + 1]);
+      }
+      parity ^= 1;
+    }
+    const float mgg = __fdiv_rn(sg, d), mgx = __fdiv_rn(sgx, d);
+    float4* dxr = reinterpret_cast<float4*>(a.dx + r * D);
+#pragma unroll
+    for (int k = 0; k < kUnits; ++k) {
+      const int u = (q * kUnits + k) * 32 + lane;
+      if (u < nu) {
+        float o[kVec];
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const float c = kLN ? __fsub_rn(gg[k][e], mgg) : gg[k][e];
+          o[e] = __fmul_rn(rs, __fsub_rn(c, __fmul_rn(xn[k][e], mgx)));
+        }
+        dxr[2 * u] = make_float4(o[0], o[1], o[2], o[3]);
+        dxr[2 * u + 1] = make_float4(o[4], o[5], o[6], o[7]);
+      }
+    }
+  }
+  // this warp's column partials -> shared memory (column c of group j at
+  // j * wr * kWarpCols + c); the block's partial row is the sum over its
+  // groups, in group order
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k) {
+    float4* s4 = reinterpret_cast<float4*>(
+        sdg + warp * kWarpCols + (k * 32 + lane) * kVec);
+    s4[0] = make_float4(dg[k][0], dg[k][1], dg[k][2], dg[k][3]);
+    s4[1] = make_float4(dg[k][4], dg[k][5], dg[k][6], dg[k][7]);
+    if constexpr (kLN) {
+      int4* b4 = reinterpret_cast<int4*>(
+          sdb + warp * kWarpCols + (k * 32 + lane) * kVec);
+      b4[0] = make_int4(db[k][0], db[k][1], db[k][2], db[k][3]);
+      b4[1] = make_int4(db[k][4], db[k][5], db[k][6], db[k][7]);
+    }
+  }
+  __syncthreads();
+  float* pg = a.dg_part + (long long)blockIdx.x * D;
+  for (int c = threadIdx.x; c < D; c += kBwdThreads) {
+    float s = 0.0f;
+    int sb = 0;
+    for (int j = 0; j < gpb; ++j) {
+      s = __fadd_rn(s, sdg[j * wr * kWarpCols + c]);
+      if constexpr (kLN) sb += sdb[j * wr * kWarpCols + c];
+    }
+    pg[c] = s;
+    if constexpr (kLN) a.db_part[(long long)blockIdx.x * D + c] = sb;
+  }
+  cooperative_groups::this_grid().sync();
+  bwd_column_sums<kLN>(a, reinterpret_cast<float*>(smem));
+}
+
+// Any shape: block b takes rows b, b + nb, ... one at a time, thread t
+// columns t, t + 256, ...; x and g are read in the row-sum pass and again
+// in the dx pass; the block's partial row lives in dg_part / db_part
+// (zeroed first, each column read and written by its one thread).
+template <typename XT, typename GT, bool kLN>
+__global__ void __launch_bounds__(kBwdThreads)
+norm_bwd_rows(NormBwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* red = reinterpret_cast<float*>(smem);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int D = a.D;
+  const XT* x = static_cast<const XT*>(a.x);
+  const GT* g = static_cast<const GT*>(a.g);
+  const float xs = dfx::pow2f(a.xexp[0]), gs = dfx::pow2f(a.gexp[0]);
+  const float d = (float)D;
+  float* pg = a.dg_part + (long long)blockIdx.x * D;
+  int* pb = kLN ? a.db_part + (long long)blockIdx.x * D : nullptr;
+  for (int c = t; c < D; c += kBwdThreads) {
+    pg[c] = 0.0f;
+    if constexpr (kLN) pb[c] = 0;
+  }
+  int parity = 0;
+  for (long long r = blockIdx.x; r < a.R; r += gridDim.x) {
+    const long long off = r * D;
+    const float m = kLN ? a.mu[r] : 0.0f, rs = a.rstd[r];
+    float sg = 0.0f, sgx = 0.0f;
+    for (int c = t; c < D; c += kBwdThreads) {
+      const float xv = __fmul_rn((float)x[off + c], xs);
+      const float xn = kLN ? __fmul_rn(__fsub_rn(xv, m), rs)
+                           : __fmul_rn(xv, rs);
+      const float gg = __fmul_rn(__fmul_rn((float)g[off + c], gs),
+                                 a.gamma[c]);
+      if constexpr (kLN) sg = __fadd_rn(sg, gg);
+      sgx = __fadd_rn(sgx, __fmul_rn(gg, xn));
+    }
+    if constexpr (kLN) sg = warp_sum(sg);
+    sgx = warp_sum(sgx);
+    float* rb = red + parity * kBwdWarps * 2;
+    if (lane == 0) {
+      rb[warp * 2] = sg;
+      rb[warp * 2 + 1] = sgx;
+    }
+    __syncthreads();
+    sg = rb[0];
+    sgx = rb[1];
+    for (int j = 1; j < kBwdWarps; ++j) {
+      sg = __fadd_rn(sg, rb[j * 2]);
+      sgx = __fadd_rn(sgx, rb[j * 2 + 1]);
+    }
+    parity ^= 1;
+    const float mgg = __fdiv_rn(sg, d), mgx = __fdiv_rn(sgx, d);
+    for (int c = t; c < D; c += kBwdThreads) {
+      const float xv = __fmul_rn((float)x[off + c], xs);
+      const float xn = kLN ? __fmul_rn(__fsub_rn(xv, m), rs)
+                           : __fmul_rn(xv, rs);
+      const int gi = g[off + c];
+      const float gq = __fmul_rn((float)gi, gs);
+      const float gg = __fmul_rn(gq, a.gamma[c]);
+      const float cc = kLN ? __fsub_rn(gg, mgg) : gg;
+      a.dx[off + c] = __fmul_rn(rs, __fsub_rn(cc, __fmul_rn(xn, mgx)));
+      pg[c] = __fadd_rn(pg[c], __fmul_rn(gq, xn));
+      if constexpr (kLN) pb[c] += gi;
+    }
+  }
+  cooperative_groups::this_grid().sync();
+  bwd_column_sums<kLN>(a, red);
+}
+
+// The backward instantiation for the mantissa types (bytes 1 or 2), the
+// norm and the path; null for other types.
+BwdKernel bwd_kernel(int x_bytes, int g_bytes, bool ln, bool cached) {
+  BwdKernel k = nullptr;
+  auto pick = [&](auto x, auto g) {
+    using X = decltype(x);
+    using G = decltype(g);
+    if (cached)
+      k = ln ? norm_bwd_cached<X, G, true> : norm_bwd_cached<X, G, false>;
+    else
+      k = ln ? norm_bwd_rows<X, G, true> : norm_bwd_rows<X, G, false>;
+  };
+  switch (x_bytes * 4 + g_bytes) {
+    case 5: pick(int8_t(), int8_t()); break;
+    case 6: pick(int8_t(), int16_t()); break;
+    case 9: pick(int16_t(), int8_t()); break;
+    case 10: pick(int16_t(), int16_t()); break;
+    default: break;
+  }
+  return k;
+}
+
+int bwd_smem(bool ln, bool cached) {
+  return cached ? cached_smem(ln) : kRowsSmem;
+}
+
+// One cooperative launch of nb blocks (nb <= int_norm_bwd_resident).
+int norm_bwd_launch(NormBwdArgs a, int x_bytes, int g_bytes, bool ln,
+                    int nb, cudaStream_t stream) {
+  if (a.D <= 0) return 0;
+  const bool cached = a.wr > 0;
+  BwdKernel k = bwd_kernel(x_bytes, g_bytes, ln, cached);
+  if (!k || nb < 1 || a.R < 0) return (int)cudaErrorInvalidValue;
+  if (cached) {
+    const auto off = [](const void* p, int align) {
+      return reinterpret_cast<uintptr_t>(p) % align;
+    };
+    if ((a.wr != 1 && a.wr != 2 && a.wr != 4 && a.wr != 8) ||
+        a.D % kVec != 0 || a.D > a.wr * kWarpCols ||
+        off(a.x, kVec * x_bytes) || off(a.g, kVec * g_bytes) ||
+        off(a.gamma, 16) || off(a.dx, 16))
+      return (int)cudaErrorInvalidValue;
+  }
+  void* args[] = {&a};
+  return (int)cudaLaunchCooperativeKernel((const void*)k, dim3(nb),
+                                          dim3(kBwdThreads), args,
+                                          bwd_smem(ln, cached), stream);
+}
+
 }  // namespace
 
 // xm: (R, D) int8 (in_bytes = 1) or int16 (in_bytes = 2) mantissas; exp one
@@ -335,75 +653,48 @@ extern "C" int int_layernorm_fwd_launch(const void* xm, int in_bytes,
   });
 }
 
-// Rows per backward block: the wrapper sizes the partials (nb, D) with
-// nb = ceil(R / rows).
-extern "C" int int_layernorm_bwd_rows() { return kLnRows; }
+// Co-resident blocks of the backward instantiation on device dev (the
+// most a cooperative launch may take): occupancy x SMs, or a negative
+// CUDA error.  ln: the layer-norm (else the RMS-norm); cached: the
+// register path (wr > 0).
+extern "C" int int_norm_bwd_resident(int dev, int x_bytes, int g_bytes,
+                                     int ln, int cached) {
+  BwdKernel k = bwd_kernel(x_bytes, g_bytes, ln != 0, cached != 0);
+  if (!k) return -(int)cudaErrorInvalidValue;
+  int sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, k, kBwdThreads, bwd_smem(ln != 0, cached != 0));
+  return err == cudaSuccess ? per_sm * sms : -(int)err;
+}
 
 // xm (R, D) and gm (R, D): int8 or int16 mantissas (x_bytes, g_bytes);
 // xexp, gexp one int32 each in device memory; gamma (D,) f32; mu, rstd
 // (R,) f32.  Writes dx (R, D), dgamma and dbeta (D,) f32, using dg_part
-// (nb, D) f32 and db_part (nb, D) int32 as scratch.
+// (nb, D) f32 and db_part (nb, D) int32 as scratch.  wr: warps per row
+// (1, 2, 4 or 8; 0 for the any-shape path); nb: blocks, 1 <= nb <=
+// int_norm_bwd_resident(...).  One cooperative kernel launch.
 extern "C" int int_layernorm_bwd_launch(
     const void* xm, int x_bytes, const void* gm, int g_bytes,
     const int* xexp, const int* gexp, const float* gamma, const float* mu,
     const float* rstd, float* dx, float* dgamma, float* dbeta,
-    float* dg_part, int* db_part, int R, int D, cudaStream_t stream) {
-  if (D <= 0) return 0;
-  const int nb = (R + kLnRows - 1) / kLnRows;
-  if (nb > 0) {
-    // launch the instantiation for the two mantissa types (tags x, g)
-    auto run = [&](auto x, auto g) {
-      using X = decltype(x);
-      using G = decltype(g);
-      ln_bwd_kernel<X, G><<<nb, kThreads, 0, stream>>>(
-          (const X*)xm, (const G*)gm, xexp, gexp, gamma, mu, rstd, dx,
-          dg_part, db_part, R, D);
-    };
-    switch (x_bytes * 4 + g_bytes) {
-      case 5: run(int8_t(), int8_t()); break;
-      case 6: run(int8_t(), int16_t()); break;
-      case 9: run(int16_t(), int8_t()); break;
-      case 10: run(int16_t(), int16_t()); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  ln_bwd_reduce_kernel<<<(D + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      dg_part, db_part, gexp, dgamma, dbeta, nb, D);
-  return (int)cudaGetLastError();
+    float* dg_part, int* db_part, int R, int D, int wr, int nb,
+    cudaStream_t stream) {
+  return norm_bwd_launch({xm, gm, xexp, gexp, gamma, mu, rstd, dx, dgamma,
+                          dbeta, dg_part, db_part, R, D, wr},
+                         x_bytes, g_bytes, true, nb, stream);
 }
 
-// xm (R, D) and gm (R, D): int8 or int16 mantissas (x_bytes, g_bytes);
-// xexp, gexp one int32 each in device memory; gamma (D,) f32; rstd (R,)
-// f32.  Writes dx (R, D) and dgamma (D,) f32, using dg_part (nb, D) f32 as
-// scratch (nb = ceil(R / int_layernorm_bwd_rows())).
+// As int_layernorm_bwd_launch without mu, dbeta and db_part: writes dx
+// (R, D) and dgamma (D,), dg_part (nb, D) f32 as scratch.
 extern "C" int int_rmsnorm_bwd_launch(
     const void* xm, int x_bytes, const void* gm, int g_bytes,
     const int* xexp, const int* gexp, const float* gamma, const float* rstd,
-    float* dx, float* dgamma, float* dg_part, int R, int D,
+    float* dx, float* dgamma, float* dg_part, int R, int D, int wr, int nb,
     cudaStream_t stream) {
-  if (D <= 0) return 0;
-  const int nb = (R + kLnRows - 1) / kLnRows;
-  if (nb > 0) {
-    auto run = [&](auto x, auto g) {
-      using X = decltype(x);
-      using G = decltype(g);
-      rms_bwd_kernel<X, G><<<nb, kThreads, 0, stream>>>(
-          (const X*)xm, (const G*)gm, xexp, gexp, gamma, rstd, dx, dg_part,
-          R, D);
-    };
-    switch (x_bytes * 4 + g_bytes) {
-      case 5: run(int8_t(), int8_t()); break;
-      case 6: run(int8_t(), int16_t()); break;
-      case 9: run(int16_t(), int8_t()); break;
-      case 10: run(int16_t(), int16_t()); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  ln_bwd_reduce_kernel<<<(D + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      dg_part, nullptr, gexp, dgamma, nullptr, nb, D);
-  return (int)cudaGetLastError();
+  return norm_bwd_launch({xm, gm, xexp, gexp, gamma, nullptr, rstd, dx,
+                          dgamma, nullptr, dg_part, nullptr, R, D, wr},
+                         x_bytes, g_bytes, false, nb, stream);
 }

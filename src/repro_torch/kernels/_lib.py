@@ -40,10 +40,10 @@ SIGNATURES = {
     "int_layernorm_fwd_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F,
                                  _I, _P],
     "int_layernorm_bwd_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                                 _P, _P, _P, _I, _I, _P],
-    "int_layernorm_bwd_rows": [],
+                                 _P, _P, _P, _I, _I, _I, _I, _P],
     "int_rmsnorm_bwd_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _P],
+                               _I, _I, _I, _I, _P],
+    "int_norm_bwd_resident": [_I, _I, _I, _I, _I],
     "int_attn_fwd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "int_attn_bwd_dq_launch": [_P] * 9 + [_I] * 13 + [_F, _I, _P],

@@ -199,22 +199,72 @@ def int_layernorm_fwd(xm: torch.Tensor, x_exp: torch.Tensor,
     return out
 
 
-def _launch_ln_bwd(lib, xm, gm, x_exp, g_exp, gamma, mu, rstd, stream):
+#: the backward kernels' launch plan (``csrc/int_norm.cu``): warps per
+#: block, columns per unit (one 8- or 16-byte load of a lane), columns a
+#: warp keeps in registers (2 units a lane), warps per row at most
+BWD_WARPS, BWD_VEC, BWD_WARP_COLS, BWD_MAX_WR = 8, 8, 512, 8
+
+_resident: dict = {}
+
+
+def bwd_warps_per_row(D: int, aligned: bool) -> int:
+    """Warps per row of the register path (1, 2, 4 or 8: the fewest whose
+    512 columns each cover D), or 0 for the any-shape path: D not a
+    multiple of 8, a base not aligned for the unit loads, or D > 4096."""
+    if not aligned or D % BWD_VEC:
+        return 0
+    wr = 1
+    while wr * BWD_WARP_COLS < D:
+        wr *= 2
+    return wr if wr <= BWD_MAX_WR else 0
+
+
+def bwd_blocks(R: int, wr: int, resident: int) -> int:
+    """Blocks of the cooperative launch: as many as the rows need (8 / wr
+    rows at a time a block, one on the any-shape path), at most the
+    co-resident count, at least one (R = 0 still writes zero sums)."""
+    per_block = BWD_WARPS // wr if wr else 1
+    return max(1, min(resident, -(-R // per_block)))
+
+
+def _launch_bwd(lib, ln, xm, gm, x_exp, g_exp, gamma, mu, rstd, stream):
+    """One cooperative launch of the layer-norm (``ln``) or RMS-norm
+    backward -> ``(dx, dgamma, dbeta or None)``."""
     R, D = xm.shape
-    nb = -(-R // lib.int_layernorm_bwd_rows())
     dev = xm.device
     dx = torch.empty((R, D), dtype=torch.float32, device=dev)
     dgamma = torch.empty((D,), dtype=torch.float32, device=dev)
-    dbeta = torch.empty((D,), dtype=torch.float32, device=dev)
+    xp, gp, gap = xm.data_ptr(), gm.data_ptr(), gamma.data_ptr()
+    xb, gb = xm.element_size(), gm.element_size()
+    wr = bwd_warps_per_row(D, xp % (BWD_VEC * xb) == 0
+                           and gp % (BWD_VEC * gb) == 0 and gap % 16 == 0
+                           and dx.data_ptr() % 16 == 0)
+    key = (dev.index, xb, gb, ln, wr > 0)
+    if key not in _resident:
+        n = lib.int_norm_bwd_resident(dev.index or 0, xb, gb, int(ln),
+                                      int(wr > 0))
+        if n < 1:
+            raise RuntimeError(f"int_norm_bwd_resident: {n} co-resident "
+                               "blocks (a negative CUDA error)")
+        _resident[key] = n
+    nb = bwd_blocks(R, wr, _resident[key])
     dg_part = torch.empty((nb, D), dtype=torch.float32, device=dev)
-    db_part = torch.empty((nb, D), dtype=torch.int32, device=dev)
-    err = lib.int_layernorm_bwd_launch(
-        xm.data_ptr(), xm.element_size(), gm.data_ptr(), gm.element_size(),
-        x_exp.data_ptr(), g_exp.data_ptr(), gamma.data_ptr(), mu.data_ptr(),
-        rstd.data_ptr(), dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
-        dg_part.data_ptr(), db_part.data_ptr(), R, D, stream)
-    _lib.check(err, "int_layernorm_bwd")
-    return dx, dgamma, dbeta
+    if ln:
+        dbeta = torch.empty((D,), dtype=torch.float32, device=dev)
+        db_part = torch.empty((nb, D), dtype=torch.int32, device=dev)
+        err = lib.int_layernorm_bwd_launch(
+            xp, xb, gp, gb, x_exp.data_ptr(), g_exp.data_ptr(), gap,
+            mu.data_ptr(), rstd.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
+            dbeta.data_ptr(), dg_part.data_ptr(), db_part.data_ptr(), R, D,
+            wr, nb, stream)
+        _lib.check(err, "int_layernorm_bwd")
+        return dx, dgamma, dbeta
+    err = lib.int_rmsnorm_bwd_launch(
+        xp, xb, gp, gb, x_exp.data_ptr(), g_exp.data_ptr(), gap,
+        rstd.data_ptr(), dx.data_ptr(), dgamma.data_ptr(), dg_part.data_ptr(),
+        R, D, wr, nb, stream)
+    _lib.check(err, "int_rmsnorm_bwd")
+    return dx, dgamma, None
 
 
 def int_layernorm_bwd(xm: torch.Tensor, gm: torch.Tensor,
@@ -226,9 +276,9 @@ def int_layernorm_bwd(xm: torch.Tensor, gm: torch.Tensor,
     xm: (R, D) activation mantissas (the forward's residual); gm: (R, D)
     quantized upstream-gradient mantissas; mu, rstd: (R, 1) forward-saved
     statistics; gamma: (D,) the dequantized weight.  The column sums come
-    out whole (the kernel's per-block partials are summed on the card in a
-    second, ordered pass).  CUDA kernels for CUDA tensors, the plain version
-    for CPU tensors.
+    out whole (the kernel's per-block partials are summed after a grid
+    barrier in the same launch, in a fixed order).  CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors.
     """
     R, D = xm.shape
     if gamma.shape != (D,) or mu.shape != (R, 1) or rstd.shape != (R, 1):
@@ -236,9 +286,9 @@ def int_layernorm_bwd(xm: torch.Tensor, gm: torch.Tensor,
                          "expected")
     if _check_ln("int_layernorm_bwd", xm, gm):
         return int_layernorm_bwd_plain(xm, gm, x_exp, g_exp, gamma, mu, rstd)
-    out = _launch_ln_bwd(_lib.load(), xm.contiguous(), gm.contiguous(),
-                         _exp(x_exp, xm), _exp(g_exp, xm), _vec(gamma, xm),
-                         _vec(mu, xm), _vec(rstd, xm), _lib.stream_of(xm))
+    out = _launch_bwd(_lib.load(), True, xm.contiguous(), gm.contiguous(),
+                      _exp(x_exp, xm), _exp(g_exp, xm), _vec(gamma, xm),
+                      _vec(mu, xm), _vec(rstd, xm), _lib.stream_of(xm))
     int_layernorm_bwd.launches += 1
     return out
 
@@ -257,22 +307,6 @@ def int_rmsnorm_bwd_plain(xm: torch.Tensor, gm: torch.Tensor,
     return dx, (gq * xn).sum(0)
 
 
-def _launch_rms_bwd(lib, xm, gm, x_exp, g_exp, gamma, rstd, stream):
-    R, D = xm.shape
-    nb = -(-R // lib.int_layernorm_bwd_rows())
-    dev = xm.device
-    dx = torch.empty((R, D), dtype=torch.float32, device=dev)
-    dgamma = torch.empty((D,), dtype=torch.float32, device=dev)
-    dg_part = torch.empty((nb, D), dtype=torch.float32, device=dev)
-    err = lib.int_rmsnorm_bwd_launch(
-        xm.data_ptr(), xm.element_size(), gm.data_ptr(), gm.element_size(),
-        x_exp.data_ptr(), g_exp.data_ptr(), gamma.data_ptr(),
-        rstd.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
-        dg_part.data_ptr(), R, D, stream)
-    _lib.check(err, "int_rmsnorm_bwd")
-    return dx, dgamma
-
-
 def int_rmsnorm_bwd(xm: torch.Tensor, gm: torch.Tensor, x_exp: torch.Tensor,
                     g_exp: torch.Tensor, gamma: torch.Tensor,
                     rstd: torch.Tensor):
@@ -281,17 +315,17 @@ def int_rmsnorm_bwd(xm: torch.Tensor, gm: torch.Tensor, x_exp: torch.Tensor,
     xm: (R, D) activation mantissas (the forward's residual); gm: (R, D)
     quantized upstream-gradient mantissas; rstd: (R, 1) the forward's
     statistic; gamma: (D,) the dequantized weight.  dgamma comes out whole
-    (per-block partials summed on the card in block order).  CUDA kernels
-    for CUDA tensors, the plain version for CPU tensors."""
+    (per-block partials summed in a fixed order in the same launch).  CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
     R, D = xm.shape
     if gamma.shape != (D,) or rstd.shape != (R, 1):
         raise ValueError("int_rmsnorm_bwd: gamma (D,) and rstd (R, 1) "
                          "expected")
     if _check_ln("int_rmsnorm_bwd", xm, gm):
         return int_rmsnorm_bwd_plain(xm, gm, x_exp, g_exp, gamma, rstd)
-    out = _launch_rms_bwd(_lib.load(), xm.contiguous(), gm.contiguous(),
-                          _exp(x_exp, xm), _exp(g_exp, xm), _vec(gamma, xm),
-                          _vec(rstd, xm), _lib.stream_of(xm))
+    out = _launch_bwd(_lib.load(), False, xm.contiguous(), gm.contiguous(),
+                      _exp(x_exp, xm), _exp(g_exp, xm), _vec(gamma, xm),
+                      None, _vec(rstd, xm), _lib.stream_of(xm))[:2]
     int_rmsnorm_bwd.launches += 1
     return out
 

@@ -1,4 +1,5 @@
-"""``chip_smoke.device_ms`` against a profiler that loses a window's events.
+"""``chip_smoke.device_ms`` and ``device_kernels`` against a profiler that
+loses a window's events.
 
 On the card, torch.profiler now and then records only part of a window's
 device events, or none, so a kernel's device time read 0 and the script
@@ -20,9 +21,10 @@ import chip_smoke  # noqa: E402
 
 
 class _Event:
-    def __init__(self, device_type, count, us):
+    def __init__(self, device_type, count, us, key="_Z8k_kernelv"):
         self.device_type, self.count = device_type, count
         self.self_device_time_total = us
+        self.key = key
 
 
 def _fake_profiler(monkeypatch, windows):
@@ -76,3 +78,23 @@ def test_device_ms_raises_when_no_windows_agree(monkeypatch):
     _fake_profiler(monkeypatch, windows)
     with pytest.raises(RuntimeError, match="disagreed in every window"):
         chip_smoke.device_ms(lambda: None, reps=10, windows=6)
+
+
+@pytest.mark.parametrize("windows,per_call", [
+    # one launch a call, every window whole
+    ([[(5, 40.0)], [(5, 41.0)]], 1.0),
+    # the first window lost its events; a kernel and a copy a call after
+    ([[], [(5, 40.0), (5, 9.0)], [(5, 40.0), (5, 9.0)]], 2.0),
+])
+def test_device_kernels_waits_for_two_agreeing_windows(monkeypatch, windows,
+                                                       per_call):
+    seen = _fake_profiler(monkeypatch, windows)
+    n, names = chip_smoke.device_kernels(lambda: None, reps=5)
+    assert n == per_call and len(seen) == len(windows)
+    assert set(names) == {"k_kernel"}
+
+
+def test_device_kernels_raises_when_no_windows_agree(monkeypatch):
+    _fake_profiler(monkeypatch, [[(i, 10.0)] for i in range(1, 7)])
+    with pytest.raises(RuntimeError, match="disagreed in every window"):
+        chip_smoke.device_kernels(lambda: None, reps=5, windows=6)

@@ -242,36 +242,65 @@ def test_bfp_matmul_batched_every_limb_pair(dev, E, M, lx, lw):
                        bm.bfp_matmul_batched_tn_plain(xm, gt, e))
 
 
+#: backward shapes (R, D, unaligned): the main paths' (bert-base 4096 x
+#: 768 and its span step 4608 x 768; qwen 2048 x 1024, qwen2-moe 2048 x
+#: 2048, smollm 2048 x 576), D not a multiple of the 8-column unit, one
+#: row, no rows, and views whose base is one element off the allocation's
+#: (at D = 7, and at a main-path width, which then takes the any-shape body)
+NORM_BWD_LN = ((4096, 768, False), (4608, 768, False), (37, 1000, False),
+               (1, 7, False), (0, 7, False), (8, 7, True), (6, 768, True))
+NORM_BWD_RMS = ((2048, 1024, False), (2048, 2048, False), (2048, 576, False),
+                (37, 1000, False), (1, 7, False), (0, 7, False), (8, 7, True),
+                (6, 1024, True))
+
+
+def _mantissas(gen, dev, R, D, lim, dtype, unaligned):
+    """(R, D) mantissas in [-lim, lim]; ``unaligned``: a view whose base
+    sits one element past its allocation's."""
+    m = torch.randint(-lim, lim + 1, (R * D + unaligned,), generator=gen,
+                      device=dev).to(dtype)
+    return m[int(unaligned):].view(R, D)
+
+
+def _twice(fn, *args):
+    """The kernel's outputs, after checking that a second call on the same
+    inputs gives the same bits."""
+    a, b = fn(*args), fn(*args)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    return a
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("xt,xlim,gt,glim", [
     (torch.int16, 2047, torch.int8, 127), (torch.int8, 127, torch.int8, 127),
-    (torch.int16, 32767, torch.int16, 32767)])
+    (torch.int16, 32767, torch.int16, 32767),
+    (torch.int8, 127, torch.int16, 32767)])
 def test_int_layernorm(dev, xt, xlim, gt, glim):
     gen = torch.Generator(device=dev).manual_seed(xlim + glim)
-    for R, D in ((4096, 768), (37, 1000), (1, 7)):
-        xm = torch.randint(-xlim, xlim + 1, (R, D), generator=gen,
-                           device=dev).to(xt)
-        xm[0] = xm[0, 0]                          # variance clamped at 0
-        gm = torch.randint(-glim, glim + 1, (R, D), generator=gen,
-                           device=dev).to(gt)
+    for R, D, unaligned in NORM_BWD_LN:
+        xm = _mantissas(gen, dev, R, D, xlim, xt, unaligned)
+        if R:
+            xm[0] = xm[0, 0]                      # variance clamped at 0
+        gm = _mantissas(gen, dev, R, D, glim, gt, unaligned)
         gamma = 1 + 0.2 * torch.randn((D,), generator=gen, device=dev)
         beta = 0.1 * torch.randn((D,), generator=gen, device=dev)
         xe = torch.tensor(-10, dtype=torch.int32, device=dev)
         ge = torch.tensor(-20, dtype=torch.int32, device=dev)
-        y, mu, r = int_norm.int_layernorm_fwd(xm, xe, gamma, beta)
         y0, mu0, r0 = int_norm.int_layernorm_fwd_plain(xm, xe, gamma, beta)
-        torch.testing.assert_close(mu, mu0, rtol=2 * ULP, atol=1e-30)
-        torch.testing.assert_close(r, r0, rtol=4 * ULP, atol=0)
-        xn = ((xm.float() * 2.0 ** -10 - mu0) * r0 * gamma).abs()
-        bound = (8 * ULP * y0.abs().amax(-1, keepdim=True)
-                 + ((r - r0).abs() / r0) * xn.amax(-1, keepdim=True))
-        assert ((y - y0).abs() <= bound + 1e-30).all()
-        dx, dg, db = int_norm.int_layernorm_bwd(xm, gm, xe, ge, gamma, mu0,
-                                                r0)
+        if R:
+            y, mu, r = int_norm.int_layernorm_fwd(xm, xe, gamma, beta)
+            torch.testing.assert_close(mu, mu0, rtol=2 * ULP, atol=1e-30)
+            torch.testing.assert_close(r, r0, rtol=4 * ULP, atol=0)
+            xn = ((xm.float() * 2.0 ** -10 - mu0) * r0 * gamma).abs()
+            bound = (8 * ULP * y0.abs().amax(-1, keepdim=True)
+                     + ((r - r0).abs() / r0) * xn.amax(-1, keepdim=True))
+            assert ((y - y0).abs() <= bound + 1e-30).all()
+        dx, dg, db = _twice(int_norm.int_layernorm_bwd, xm, gm, xe, ge, gamma,
+                            mu0, r0)
         dx0, dg0, db0 = int_norm.int_layernorm_bwd_plain(xm, gm, xe, ge,
                                                          gamma, mu0, r0)
         assert torch.equal(db, db0)
-        row = dx0.abs().amax(-1, keepdim=True)
+        row = dx0.abs().amax(-1, keepdim=True) if R else dx0
         assert ((dx - dx0).abs() <= 64 * ULP * row + 1e-30).all()
         col = (gm.float() * 2.0 ** -20
                * (xm.float() * 2.0 ** -10 - mu0) * r0).abs().sum(0)
@@ -327,21 +356,20 @@ def test_int_attn_fwd(dev, case, lqk, lpv, pb):
 @pytest.mark.cuda
 @pytest.mark.parametrize("xt,xlim,gt,glim", [
     (torch.int16, 2047, torch.int8, 127), (torch.int8, 127, torch.int8, 127),
-    (torch.int16, 32767, torch.int16, 32767)])
+    (torch.int16, 32767, torch.int16, 32767),
+    (torch.int8, 127, torch.int16, 32767)])
 def test_int_rmsnorm_bwd(dev, xt, xlim, gt, glim):
     gen = torch.Generator(device=dev).manual_seed(xlim + 3 * glim)
-    for R, D in ((2048, 1024), (37, 1000), (1, 7)):
-        xm = torch.randint(-xlim, xlim + 1, (R, D), generator=gen,
-                           device=dev).to(xt)
-        gm = torch.randint(-glim, glim + 1, (R, D), generator=gen,
-                           device=dev).to(gt)
+    for R, D, unaligned in NORM_BWD_RMS:
+        xm = _mantissas(gen, dev, R, D, xlim, xt, unaligned)
+        gm = _mantissas(gen, dev, R, D, glim, gt, unaligned)
         gamma = 1 + 0.2 * torch.randn((D,), generator=gen, device=dev)
         xe = torch.tensor(-10, dtype=torch.int32, device=dev)
         ge = torch.tensor(-20, dtype=torch.int32, device=dev)
         _, r0 = int_norm.int_rmsnorm_fwd_plain(xm, xe, gamma)
-        dx, dg = int_norm.int_rmsnorm_bwd(xm, gm, xe, ge, gamma, r0)
+        dx, dg = _twice(int_norm.int_rmsnorm_bwd, xm, gm, xe, ge, gamma, r0)
         dx0, dg0 = int_norm.int_rmsnorm_bwd_plain(xm, gm, xe, ge, gamma, r0)
-        row = dx0.abs().amax(-1, keepdim=True)
+        row = dx0.abs().amax(-1, keepdim=True) if R else dx0
         assert ((dx - dx0).abs() <= 64 * ULP * row + 1e-30).all()
         col = (gm.float() * 2.0 ** -20 * xm.float() * 2.0 ** -10
                * r0).abs().sum(0)

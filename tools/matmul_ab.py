@@ -97,8 +97,9 @@ def kernels(torch, cs) -> None:
     torch.cuda.empty_cache()
 
 
-def profiled(torch, one_step, what: str) -> None:
-    """Three profiled steps: device busy ms, its matmul part, wall ms."""
+def profiled(torch, one_step, what: str, part=("matmul", MATMUL)) -> None:
+    """Three profiled steps: device busy ms, the part of it in kernels whose
+    name matches ``part`` (label, pattern), wall ms."""
     from torch.profiler import ProfilerActivity, profile
     busy, mm, wall = [], [], []
     for _ in range(3):
@@ -113,9 +114,9 @@ def profiled(torch, one_step, what: str) -> None:
                 for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         busy.append(sum(us for us, _ in rows) / 1e3)
-        mm.append(sum(us for us, key in rows if MATMUL.search(key)) / 1e3)
-    print(f"  {what}: device busy ms {[round(v, 2) for v in busy]}, matmul "
-          f"ms {[round(v, 2) for v in mm]}; profiled wall ms "
+        mm.append(sum(us for us, key in rows if part[1].search(key)) / 1e3)
+    print(f"  {what}: device busy ms {[round(v, 2) for v in busy]}, "
+          f"{part[0]} ms {[round(v, 3) for v in mm]}; profiled wall ms "
           f"{[round(v, 1) for v in wall]}", flush=True)
 
 
@@ -126,9 +127,13 @@ def counted(ws: dict, steps: list) -> list:
     return sorted((n, c) for n, c in last.items() if c)
 
 
-def bert_phase5(torch, ws: dict) -> None:
+def bert_phase5(torch, ws: dict, part=None) -> tuple:
+    """Phase 5's cls run; with ``part``, also three profiled steps (as
+    ``chip_smoke.py`` phase 5 profiles one).  Returns the losses and the
+    launches in one step, as the phases below do."""
     from repro_torch.configs import bert_base
     from repro_torch.train import finetune as tf
+    from repro_torch.train import optimizer as topt
     dev = torch.device("cuda")
     ft = tf.FtConfig(steps=10, batch=32, seq=128, eval_n=32, lr=1e-4)
     counts = []
@@ -141,10 +146,26 @@ def bert_phase5(torch, ws: dict) -> None:
             {n: w.launches for n, w in ws.items()}))
     print(f"  phase 5 bert-base cls, paper scope: losses {losses}; "
           f"launches in one step {counted(ws, counts)}", flush=True)
+    if part:
+        gen = torch.Generator(device=dev).manual_seed(1)
+        cfg, params, sampler, loss_fn, lr = tf._task_setup(
+            "cls", gen, ft, bert_base.CONFIG, dev)
+        ocfg = topt.OptimizerConfig(lr=lr, weight_decay=0.0)
+        state = {"p": params, "o": topt.init(params)}
+        batch = tf.to_device(sampler(ft.batch, 0), dev)
+
+        def one_step():
+            state["p"], state["o"], _, _, _ = tf.train_step(
+                state["p"], state["o"], batch, cfg, tf.paper_scope(),
+                loss_fn, ocfg, gen)
+        one_step()
+        profiled(torch, one_step, "bert-base cls training step", part)
+        del state
     torch.cuda.empty_cache()
+    return losses, counted(ws, counts)
 
 
-def qwen_phase6(torch, ws: dict) -> None:
+def qwen_phase6(torch, ws: dict, part=("matmul", MATMUL)) -> tuple:
     from repro_torch.launch import train as lt
     argv = ["--arch", "qwen1.5-0.5b", "--batch", "8", "--seq", "256",
             "--steps", "6", "--lr", "0.0001", "--log-every", "6",
@@ -158,12 +179,14 @@ def qwen_phase6(torch, ws: dict) -> None:
           f"step {counted(ws, counts)}", flush=True)
     run = lt.build(lt.parse_args(argv))
     run.step()
-    profiled(torch, run.step, "qwen1.5-0.5b int8 training step")
+    profiled(torch, run.step, "qwen1.5-0.5b int8 training step", part)
     del run
     torch.cuda.empty_cache()
+    return losses, counted(ws, counts)
 
 
-def moe_phase8(torch, ws: dict, layers: int) -> None:
+def moe_phase8(torch, ws: dict, layers: int,
+               part=("matmul", MATMUL)) -> tuple:
     from repro_torch.configs import registry
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models import lm
@@ -195,9 +218,10 @@ def moe_phase8(torch, ws: dict, layers: int) -> None:
     print(f"  phase 8 qwen2-moe-a2.7b ({layers} layers) int8: losses "
           f"{losses}; launches in one step {counted(ws, counts)}", flush=True)
     profiled(torch, one_step, f"qwen2-moe-a2.7b ({layers} layers) int8 "
-             "training step")
+             "training step", part)
     del run, step
     torch.cuda.empty_cache()
+    return losses, counted(ws, counts)
 
 
 def main() -> int:
