@@ -31,7 +31,11 @@ Phases (each raises on failure; nothing is caught):
    bert-base's w1 shape; the
    qwen2-moe-a2.7b paths — E = 60 experts, 256 capacity rows each in
    training, 16 at decode — for the grouped quantize and the batched NN /
-   NT / TN matmuls): run the kernel and its plain PyTorch version on the
+   NT / TN matmuls; the norm forwards also at the qwen1.5-0.5b training
+   step, qwen2-moe-a2.7b's width, decode and the span step, each body
+   held bit for bit against the any-shape body, and at D = 1000 and on
+   int8 mantissas, one device kernel per call): run the kernel and its
+   plain PyTorch version on the
    card from the same seeded inputs and hold them together (integer
    outputs, the matmuls and the attention backward exactly, other f32
    outputs within the stated tolerance); time kernel, plain version and a
@@ -528,50 +532,145 @@ def _matmul_train_rows(torch, dev, gen, cfg, V, bert, tokens, exp):
     return rows
 
 
-def check_rmsnorm(torch, dev, gen, D):
-    """int_rmsnorm_fwd at prefill: 256 rows (4 slots x 64 tokens) of int16
-    mantissas at a12."""
+def norm_fwd_case(torch, dev, gen, ln: bool, R: int, D: int,
+                  dtype=None) -> dict:
+    """A norm forward (``ln``: int_layernorm_fwd, else int_rmsnorm_fwd) at
+    (R, D) on int16 mantissas at a12 (or ``dtype`` int8, full range), both
+    rsqrt bodies: the wrapper (the register body where the shape takes it)
+    against the any-shape body bit for bit (y, mu, rstd; the any-shape body
+    through the private launcher with wr = 0) and against the plain version
+    (FP32 body: the statistics within 4 ulp, y within 1e-6 of max|y|;
+    kept-int body: the statistics exact, y within 1e-6 of max|y|); one
+    device kernel per wrapper call.  Returns its calls (``wrap``, ``plain``,
+    ``any_shape``, ``library``), ``max_abs_err``, the bound and the
+    kernel's name."""
     import torch.nn.functional as F
     from repro_torch.core import dfx
-    from repro_torch.kernels import int_norm
-    R = 256
-    xm = torch.randint(-2047, 2048, (R, D), generator=gen, device=dev,
-                       dtype=torch.int16)
-    exp = torch.tensor(-9, dtype=torch.int32, device=dev)
+    from repro_torch.kernels import _lib, int_norm
+    ulp = 2.0 ** -23
+    dtype = dtype or torch.int16
+    lim = 127 if dtype == torch.int8 else 2047
+    xm = torch.randint(-lim, lim + 1, (R, D), generator=gen,
+                       device=dev).to(dtype)
+    xe = torch.tensor(-9, dtype=torch.int32, device=dev)
     gamma = 1 + 0.1 * torch.randn((D,), generator=gen, device=dev)
-    y, rstd = int_norm.int_rmsnorm_fwd(xm, exp, gamma)
-    y0, rstd0 = int_norm.int_rmsnorm_fwd_plain(xm, exp, gamma)
-    rel = max(((y - y0).abs().max() / y0.abs().max()).item(),
-              ((rstd - rstd0).abs().max() / rstd0.abs().max()).item())
-    if rel > 1e-6:
-        raise AssertionError(f"int_rmsnorm_fwd differs: rel {rel}")
-    # the kept-int body: the Q.14 Newton rsqrt on the same mean square
-    yi, ri = int_norm.int_rmsnorm_fwd(xm, exp, gamma, integer_rsqrt=True)
-    yi0, ri0 = int_norm.int_rmsnorm_fwd_plain(xm, exp, gamma,
-                                              integer_rsqrt=True)
-    ey = ((yi - yi0).abs().max() / yi0.abs().max()).item()
-    if not torch.equal(ri, ri0) or ey > 1e-6:
-        raise AssertionError(f"int_rmsnorm_fwd integer body differs: rstd "
-                             f"exact {torch.equal(ri, ri0)}, y rel {ey}")
-    xv = xm.float() * dfx.pow2(exp)
-    t = timings(lambda: int_norm.int_rmsnorm_fwd(xm, exp, gamma),
-                lambda: int_norm.int_rmsnorm_fwd_plain(xm, exp, gamma),
-                lambda: F.rms_norm(xv, (D,), gamma, 1e-6))
-    ti = timings(lambda: int_norm.int_rmsnorm_fwd(xm, exp, gamma,
-                                                  integer_rsqrt=True),
-                 lambda: int_norm.int_rmsnorm_fwd_plain(xm, exp, gamma,
-                                                        integer_rsqrt=True))
-    b, by = bound_ms(nbytes(xm, gamma, y, rstd), 0)
+    beta = 0.1 * torch.randn((D,), generator=gen, device=dev)
+    lib, st = _lib.load(), _lib.stream_of(xm)
+    if ln:
+        def wrap(ir=False):
+            return int_norm.int_layernorm_fwd(xm, xe, gamma, beta,
+                                              integer_rsqrt=ir)
+
+        def plain(ir=False):
+            return int_norm.int_layernorm_fwd_plain(xm, xe, gamma, beta,
+                                                    integer_rsqrt=ir)
+
+        def any_shape(ir=False):
+            return int_norm._launch_ln_fwd(lib, xm, xe, gamma, beta, 1e-5, ir,
+                                           st, wr=0)
+    else:
+        def wrap(ir=False):
+            return int_norm.int_rmsnorm_fwd(xm, xe, gamma, integer_rsqrt=ir)
+
+        def plain(ir=False):
+            return int_norm.int_rmsnorm_fwd_plain(xm, xe, gamma,
+                                                  integer_rsqrt=ir)
+
+        def any_shape(ir=False):
+            return int_norm._launch(lib, xm, xe, gamma, 1e-6, ir, st, wr=0)
+    name = "int_layernorm_fwd" if ln else "int_rmsnorm_fwd"
+    what = f"{name} ({R},{D}) {str(dtype)[6:]}"
+    err = 0.0
+    for ir in (False, True):
+        got, ref, rows = wrap(ir), plain(ir), any_shape(ir)
+        if not all(torch.equal(a, b) for a, b in zip(got, rows)):
+            raise AssertionError(f"{what} integer_rsqrt={ir}: the register "
+                                 "body differs from the any-shape body")
+        stats = [((a - b).abs() / b.abs().clamp(min=1e-30)).max().item()
+                 for a, b in zip(got[1:], ref[1:])]
+        ey = ((got[0] - ref[0]).abs().max() / ref[0].abs().max()).item()
+        if max(stats) > (0 if ir else 4 * ulp) or ey > 1e-6:
+            raise AssertionError(f"{what} integer_rsqrt={ir} differs from "
+                                 f"its plain version: stats rel {stats}, y "
+                                 f"rel {ey}")
+        err = max(err, (got[0] - ref[0]).abs().max().item())
+    n, names = device_kernels(wrap)
+    if n != 1:
+        raise AssertionError(f"{what}: {n:g} device kernels per call {names}")
+    xv = xm.float() * dfx.pow2(xe)
+    y, *st_out = got
+    return dict(
+        wrap=wrap, plain=plain, any_shape=any_shape, max_abs_err=err,
+        library=((lambda: F.layer_norm(xv, (D,), gamma, beta, 1e-5)) if ln
+                 else (lambda: F.rms_norm(xv, (D,), gamma, 1e-6))),
+        # the layer-norm's f32 operations per element: 4 digit-sum /
+        # moment int ops, then sub, 2 mul, mul, add
+        bound=bound_ms(nbytes(xm, xe, gamma, y, *st_out) + (
+            nbytes(beta) if ln else 0), 0, 9 * R * D if ln else 0),
+        kernel=names[0])
+
+
+def norm_fwd_row(label, case) -> dict:
+    """One timed sub-row of a norm forward: both bodies' device ms beside
+    the any-shape body's (the design before the register path), the
+    library call's and the bound."""
+    b, by = case["bound"]
+    row = dict(label=label, device_ms=device_ms(case["wrap"]),
+               int_device_ms=device_ms(lambda: case["wrap"](True)),
+               any_shape_device_ms=device_ms(case["any_shape"]),
+               library_device_ms=device_ms(case["library"]), bound_ms=b,
+               bound_by=by, max_abs_err=case["max_abs_err"])
+    print(f"  {label}: device {row['device_ms']:.4f} ms (kept-int "
+          f"{row['int_device_ms']:.4f}), {100 * b / row['device_ms']:.1f}% of "
+          f"its bound {b:.4f} ms ({by}); any-shape body "
+          f"{row['any_shape_device_ms']:.4f}; library "
+          f"{row['library_device_ms']:.4f} ms [{case['kernel'][:60]}]",
+          flush=True)
+    return row
+
+
+def check_norm_fwd_shapes(torch, dev, gen, ln: bool, R: int, D: int,
+                          rows: list) -> list:
+    """Sub-rows of a norm forward (``rows``: (label, R, D)), and two
+    checked-only cases at (R, D)'s rows: D = 1000 (the any-shape body) and
+    int8 mantissas."""
+    out = [norm_fwd_row(label, norm_fwd_case(torch, dev, gen, ln, r, d))
+           for label, r, d in rows]
+    norm_fwd_case(torch, dev, gen, ln, R, 1000)
+    norm_fwd_case(torch, dev, gen, ln, R, D, torch.int8)
+    print(f"  {'int_layernorm_fwd' if ln else 'int_rmsnorm_fwd'} ({R},1000) "
+          f"and ({R},{D}) int8: held", flush=True)
+    return out
+
+
+def check_rmsnorm(torch, dev, gen, D, D_moe):
+    """int_rmsnorm_fwd at prefill: 256 rows (4 slots x 64 tokens) of int16
+    mantissas at a12; also (``rows``) qwen1.5-0.5b's training step (2048
+    rows), qwen2-moe-a2.7b's width D_moe and decode (4 rows), each held as
+    ``norm_fwd_case`` holds it and timed beside the any-shape body, and the
+    any-shape D = 1000 and int8 mantissas held."""
+    R = 256
+    c = norm_fwd_case(torch, dev, gen, False, R, D)
+    t = timings(c["wrap"], c["plain"], c["library"])
+    ti = timings(lambda: c["wrap"](True), lambda: c["plain"](True))
+    b, by = c["bound"]
     k = dict(name="int_rmsnorm_fwd", route="cuda",
              source="src/repro_torch/csrc/int_norm.cu",
              replaces="src/repro/kernels/int_norm.py:246",
-             shape=f"({R},{D}) int16, tolerance 1e-6 relative; kept-int "
-                   "body (int_*): rstd exact, y 1e-6 relative",
-             max_abs_err=(y - y0).abs().max().item(), bound_ms=b,
-             bound_by=by, **t,
-             **int_body(ti, max_abs_err=(yi - yi0).abs().max().item(),
-                        bound_ms=b, bound_by=by))
+             shape=f"({R},{D}) int16; tolerance rstd 4 ulp, y 1e-6 of max; "
+                   "kept-int body (int_*): rstd exact, y 1e-6 of max; both "
+                   "bodies bit for bit with the any-shape body; library: "
+                   "F.rms_norm on the f32 values; rows: 2048 x D, 2048 x "
+                   "D_moe, 4 x D",
+             max_abs_err=c["max_abs_err"], bound_ms=b, bound_by=by,
+             any_shape_device_ms=device_ms(c["any_shape"]), **t,
+             **int_body(ti, bound_ms=b, bound_by=by))
     print(body_line("int_rmsnorm_fwd", k))
+    k["rows"] = check_norm_fwd_shapes(
+        torch, dev, gen, False, R, D,
+        [(f"11b qwen1.5-0.5b training 2048x{D}", 2048, D),
+         (f"11c qwen2-moe-a2.7b training 2048x{D_moe}", 2048, D_moe),
+         (f"11d decode 4x{D}", 4, D)])
     return k
 
 
@@ -844,62 +943,28 @@ def check_layernorm(torch, dev, gen, D, R):
     """int_layernorm_fwd / _bwd at the bert-base fine-tuning step's shape:
     R = 4096 rows (batch 32 x seq 128) of D = 768 int16 mantissas (a12),
     int8 gradient mantissas (g8); the backward also at the span step's
-    4608 rows (``ln_bwd_case``).
-
-    Tolerances: mu and rstd within 4 ulp and y within 1e-6 of max|y| (the
-    plain version's division by D may be a reciprocal multiply on the
-    card)."""
-    import torch.nn.functional as F
-    from repro_torch.core import dfx
-    from repro_torch.kernels import int_norm
-    ulp = 2.0 ** -23
-    xm = torch.randint(-2047, 2048, (R, D), generator=gen, device=dev,
-                       dtype=torch.int16)
-    xe = torch.tensor(-9, dtype=torch.int32, device=dev)
-    gamma = 1 + 0.1 * torch.randn((D,), generator=gen, device=dev)
-    beta = 0.1 * torch.randn((D,), generator=gen, device=dev)
-    y, mu, rstd = int_norm.int_layernorm_fwd(xm, xe, gamma, beta)
-    y0, mu0, rstd0 = int_norm.int_layernorm_fwd_plain(xm, xe, gamma, beta)
-    rel = max(((mu - mu0).abs() / mu0.abs().clamp(min=1e-30)).max().item(),
-              ((rstd - rstd0).abs() / rstd0).max().item())
-    ey = ((y - y0).abs().max() / y0.abs().max()).item()
-    if rel > 4 * ulp or ey > 1e-6:
-        raise AssertionError(f"int_layernorm_fwd differs: stats rel {rel}, "
-                             f"y rel {ey}")
-    yi, mui, ri = int_norm.int_layernorm_fwd(xm, xe, gamma, beta,
-                                             integer_rsqrt=True)
-    yi0, mui0, ri0 = int_norm.int_layernorm_fwd_plain(xm, xe, gamma, beta,
-                                                      integer_rsqrt=True)
-    eyi = ((yi - yi0).abs().max() / yi0.abs().max()).item()
-    if not (torch.equal(mui, mui0) and torch.equal(ri, ri0)) or eyi > 1e-6:
-        raise AssertionError(f"int_layernorm_fwd integer body differs: mu, "
-                             f"rstd exact {torch.equal(mui, mui0)}, "
-                             f"{torch.equal(ri, ri0)}; y rel {eyi}")
-    xv = xm.float() * dfx.pow2(xe)
+    4608 rows (``ln_bwd_case``), the forward there too (a sub-row) and
+    held as ``norm_fwd_case`` holds it."""
+    c = norm_fwd_case(torch, dev, gen, True, R, D)
+    b, by = c["bound"]
     fwd = dict(name="int_layernorm_fwd", route="cuda",
                source="src/repro_torch/csrc/int_norm.cu",
                replaces="src/repro/kernels/int_norm.py:113",
                shape=f"({R},{D}) int16 -> y, mu, rstd; tolerance stats 4 ulp,"
                      " y 1e-6 of max; kept-int body (int_*): mu and rstd "
-                     "exact, y 1e-6 of max; library: F.layer_norm on the "
-                     "f32 values",
-               max_abs_err=(y - y0).abs().max().item(),
-               **timings(lambda: int_norm.int_layernorm_fwd(xm, xe, gamma,
-                                                            beta),
-                         lambda: int_norm.int_layernorm_fwd_plain(
-                             xm, xe, gamma, beta),
-                         lambda: F.layer_norm(xv, (D,), gamma, beta, 1e-5)))
-    # per element: 4 digit-sum / moment int ops, then sub, 2 mul, mul, add
-    fwd["bound_ms"], fwd["bound_by"] = bound_ms(
-        nbytes(xm, xe, gamma, beta, y, mu, rstd), 0, 9 * R * D)
+                     "exact, y 1e-6 of max; both bodies bit for bit with the "
+                     "any-shape body; library: F.layer_norm on the f32 "
+                     f"values; rows: the span step's {SPAN_ROWS} x {D}",
+               max_abs_err=c["max_abs_err"], bound_ms=b, bound_by=by,
+               any_shape_device_ms=device_ms(c["any_shape"]),
+               **timings(c["wrap"], c["plain"], c["library"]))
     fwd.update(int_body(
-        timings(lambda: int_norm.int_layernorm_fwd(xm, xe, gamma, beta,
-                                                   integer_rsqrt=True),
-                lambda: int_norm.int_layernorm_fwd_plain(
-                    xm, xe, gamma, beta, integer_rsqrt=True)),
-        max_abs_err=(yi - yi0).abs().max().item(),
-        bound_ms=fwd["bound_ms"], bound_by=fwd["bound_by"]))
+        timings(lambda: c["wrap"](True), lambda: c["plain"](True)),
+        bound_ms=b, bound_by=by))
     print(body_line("int_layernorm_fwd", fwd))
+    fwd["rows"] = check_norm_fwd_shapes(
+        torch, dev, gen, True, R, D,
+        [(f"9b bert-base span {SPAN_ROWS}x{D}", SPAN_ROWS, D)])
     bwd = dict(name="int_layernorm_bwd", route="cuda",
                source="src/repro_torch/csrc/int_norm.cu",
                replaces="src/repro/kernels/int_norm.py:181",
@@ -2412,14 +2477,14 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     print("[2] kernels against their plain versions, full-width shapes")
     bert, tokens = bert_base.CONFIG, 32 * 128
+    moe = registry.get_config("qwen2-moe-a2.7b")
     kernels = [check_quantize(torch, dev, gen, V, cfg.d_model, tokens,
                               bert.d_ff),
                check_matmul(torch, dev, gen, cfg, V, bert, tokens),
-               check_rmsnorm(torch, dev, gen, cfg.d_model),
+               check_rmsnorm(torch, dev, gen, cfg.d_model, moe.d_model),
                check_attention(torch, dev, gen, cfg)]
     kernels += check_matmul_bwd(torch, dev, gen, bert, tokens)
     kernels += check_layernorm(torch, dev, gen, bert.d_model, tokens)
-    moe = registry.get_config("qwen2-moe-a2.7b")
     kernels.append(check_rmsnorm_bwd(torch, dev, gen, 8 * 256, cfg.d_model,
                                      moe.d_model))
     kernels += check_attention_bwd(torch, dev, gen)

@@ -34,9 +34,35 @@
 //
 // Bound on the H100: bytes.  The forwards move 2 bytes in and 4 out per
 // element, the backwards 3 in (int16 x, int8 g) and 4 out (dx), against a
-// few dozen operations each.  The forwards run one 256-thread block per
-// row: a shared-memory tree reduction of the int32 sums, then one
-// coalesced pass writing y.
+// few dozen operations each.
+//
+// The forwards (norm_fwd_cached below; the RMS-norm is the layer-norm
+// without s1, mu and beta) are one launch each, with no column sums:
+//   - A group of WR = 1, 2, 4 or 8 warps per row (the fewest whose 512
+//     columns each cover D), each lane holding 4 units of 4 columns,
+//     loaded once with 8-byte (int16) or 4-byte (int8) loads and kept in
+//     registers from the row sums to the y pass: x is read from device
+//     memory once, y written once, a unit's 4 values in one float4 store,
+//     so that each load and each store instruction of a warp covers one
+//     contiguous span (8-column units, whose two float4 stores 32 bytes
+//     apart half-fill each store's sectors, ran slower).  gamma and beta
+//     are loaded by float4 for the lane's columns once and held across
+//     the group's rows.  Mantissas become exact floats by the 2^23 magic
+//     number, as in the backwards.
+//   - The grid holds about 16 resident warps a SM (the host's plan,
+//     kernels/int_norm.py::fwd_blocks) and the groups stride over the
+//     rows, each loading its next row while the current one is reduced
+//     and stored (one block per group of rows, without that overlap, runs
+//     slower: tools/norm_fwd_grid.py).
+//   - The int32 sums (s1 and the three digit sums): a warp's by
+//     __reduce_add_sync, a group's by adding its warps' sums in shared
+//     memory after a named barrier of the group's warps (double-buffered,
+//     one barrier a row).  They are exact, so mu, rstd and y are bit for
+//     bit those of the any-shape body and the plain version.
+//   - ln_fwd_kernel / rms_fwd_kernel take every other shape (D % 8 != 0,
+//     a base not aligned for the unit loads, D > 4096): one 256-thread
+//     block per row, a shared-memory tree of the sums, scalar loads, x
+//     read twice.
 //
 // The backwards (norm_bwd_cached / norm_bwd_rows below; the RMS-norm is
 // the layer-norm with mu = 0 and without mean(gg) and dbeta) are one
@@ -85,8 +111,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // forwards
-
 // rstd = 1 / sqrt(ms + eps) with IEEE sqrt and division, or the Q.14
 // Newton form.
 template <bool IntRsqrt>
@@ -94,6 +118,75 @@ __device__ __forceinline__ float rstd_of(float ms, float eps) {
   const float y = __fadd_rn(ms, eps);
   if constexpr (IntRsqrt) return iapprox::i_rsqrt(y);
   return __fdiv_rn(1.0f, __fsqrt_rn(y));
+}
+
+constexpr int kWarps = 8;                     // warps per block, at most
+constexpr int kThreads = 32 * kWarps;
+constexpr int kVec = 8;                       // columns per unit
+constexpr int kUnits = 2;                     // units per lane (registers)
+constexpr int kWarpCols = 32 * kUnits * kVec; // 512 columns per warp
+// The forwards' unit: 4 columns, so that a warp's loads of a unit and its
+// float4 stores of y are each one contiguous span (4 units a lane, the
+// same 512 columns a warp)
+constexpr int kFVec = 4;
+constexpr int kFUnits = kWarpCols / (32 * kFVec);
+
+// A unit: 8 mantissas of type T, loaded in one 8- or 16-byte load (Raw4,
+// bits4: the forwards' unit of 4).  bits()
+// is the float bit pattern of 2^23 + (m + 2^(b-1)) for mantissa e (the
+// sign bit flipped makes m + 2^(b-1) >= 0, __byte_perm puts it under the
+// exponent of 2^23); subtracting kBias in f32 gives m exactly, and
+// bits - kBits the integer m.
+template <typename T>
+struct Mant;
+
+template <>
+struct Mant<int8_t> {
+  using Raw = uint2;
+  using Raw4 = uint32_t;  // the forwards' 4-column unit
+  static constexpr float kBias = 8388736.0f;  // 2^23 + 2^7
+  static constexpr int kBits = 0x4B000080;
+  static __device__ __forceinline__ uint32_t bits(const Raw& r, int e) {
+    const uint32_t w = (e < 4 ? r.x : r.y) ^ 0x80808080u;
+    return __byte_perm(w, 0x4B000000u, 0x7650 | (e & 3));
+  }
+  static __device__ __forceinline__ uint32_t bits4(Raw4 r, int e) {
+    return __byte_perm(r ^ 0x80808080u, 0x4B000000u, 0x7650 | e);
+  }
+};
+
+template <>
+struct Mant<int16_t> {
+  using Raw = uint4;
+  using Raw4 = uint2;
+  static constexpr float kBias = 8421376.0f;  // 2^23 + 2^15
+  static constexpr int kBits = 0x4B008000;
+  static __device__ __forceinline__ uint32_t bits(const Raw& r, int e) {
+    const uint32_t v = e < 2 ? r.x : e < 4 ? r.y : e < 6 ? r.z : r.w;
+    return __byte_perm(v ^ 0x80008000u, 0x4B000000u,
+                       (e & 1) ? 0x7632 : 0x7610);
+  }
+  static __device__ __forceinline__ uint32_t bits4(const Raw4& r, int e) {
+    return __byte_perm((e < 2 ? r.x : r.y) ^ 0x80008000u, 0x4B000000u,
+                       (e & 1) ? 0x7632 : 0x7610);
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ float mant_value(uint32_t bits) {
+  return __fsub_rn(__int_as_float((int)bits), Mant<T>::kBias);
+}
+
+// Butterfly sum over the warp: every lane ends with the same bits.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Shared-memory tree sum, in a fixed order, of NS arrays of per-thread
@@ -193,6 +286,159 @@ rms_fwd_kernel(const InT* __restrict__ x, const int* __restrict__ exp,
   if (t == 0) rstd[row] = rs;
 }
 
+// The register path's arguments.  beta and mu are null for the RMS-norm.
+// wr: warps per row.
+struct NormFwdArgs {
+  const void* x;
+  const int* exp;
+  const float* gamma;
+  const float* beta;
+  float* y;
+  float* mu;
+  float* rstd;
+  int R, D, wr;
+  float eps;
+};
+
+// D % 8 == 0, D <= wr * 512, x aligned to its unit, gamma, beta and y to
+// 16 bytes.  A block holds gpb = blockDim.x / (32 wr) groups of wr warps;
+// group grp of block b takes rows b * gpb + grp + j * gridDim.x * gpb, and
+// warp q of the group holds units (q * kFUnits + k) * 32 + lane, k <
+// kFUnits, of each (columns 4 u .. 4 u + 3 of unit u).
+template <typename T, bool kLN, bool IntRsqrt>
+__global__ void __launch_bounds__(kThreads)
+norm_fwd_cached(NormFwdArgs a) {
+  using M = Mant<T>;
+  __shared__ int red[2][kWarps][4];  // the group sums' double buffer
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = a.wr, gpb = (blockDim.x >> 5) / wr;
+  const int q = warp % wr, grp = warp / wr;
+  const int D = a.D, nu = D / kFVec;
+  const long long groups = (long long)gridDim.x * gpb;
+  const float scale = dfx::pow2f(a.exp[0]), d = (float)D;
+  typename M::Raw4 xv[kFUnits];
+  const auto load = [&](long long r) {
+    const auto* xr = reinterpret_cast<const typename M::Raw4*>(
+        static_cast<const T*>(a.x) + r * D);
+#pragma unroll
+    for (int k = 0; k < kFUnits; ++k) {
+      const int u = (q * kFUnits + k) * 32 + lane;
+      if (u < nu) xv[k] = xr[u];
+    }
+  };
+  long long r = (long long)blockIdx.x * gpb + grp;
+  if (r < a.R) load(r);
+  float4 gam[kFUnits], bet[kFUnits];
+  const float4* g4 = reinterpret_cast<const float4*>(a.gamma);
+  const float4* b4 = reinterpret_cast<const float4*>(a.beta);
+#pragma unroll
+  for (int k = 0; k < kFUnits; ++k) {
+    const int u = (q * kFUnits + k) * 32 + lane;
+    if (u < nu) {
+      gam[k] = g4[u];
+      if constexpr (kLN) bet[k] = b4[u];
+    }
+  }
+  int parity = 0;
+  for (; r < a.R; r += groups) {
+    // the digit sums (and s1) of the lane's columns, and x * 2^exp
+    int s1 = 0, sa = 0, sb = 0, sc = 0;
+    float xs[kFUnits][kFVec];
+#pragma unroll
+    for (int k = 0; k < kFUnits; ++k) {
+      const int u = (q * kFUnits + k) * 32 + lane;
+      if (u < nu) {
+#pragma unroll
+        for (int e = 0; e < kFVec; ++e) {
+          const uint32_t bits = M::bits4(xv[k], e);
+          const int m = (int)bits - M::kBits;
+          if constexpr (sizeof(T) == 1) {
+            sc += m * m;  // |m| <= 128: hi = 0, lo = m
+          } else {
+            const int lo = ((m + 128) & 255) - 128;
+            const int hi = (m - lo) >> 8;
+            sa += hi * hi;
+            sb += hi * lo;
+            sc += lo * lo;
+          }
+          if constexpr (kLN) s1 += m;
+          xs[k][e] = __fmul_rn(mant_value<T>(bits), scale);
+        }
+      }
+    }
+    if (r + groups < a.R) load(r + groups);
+    if constexpr (kLN) s1 = __reduce_add_sync(0xffffffffu, s1);
+    if constexpr (sizeof(T) == 2) {
+      sa = __reduce_add_sync(0xffffffffu, sa);
+      sb = __reduce_add_sync(0xffffffffu, sb);
+    }
+    sc = __reduce_add_sync(0xffffffffu, sc);
+    if (wr > 1) {
+      int* rb = red[parity][0];
+      if (lane == 0) {
+        rb[warp * 4] = s1;
+        rb[warp * 4 + 1] = sa;
+        rb[warp * 4 + 2] = sb;
+        rb[warp * 4 + 3] = sc;
+      }
+      named_barrier(1 + grp, wr * 32);
+      const int* gs = rb + grp * wr * 4;
+      s1 = gs[0];
+      sa = gs[1];
+      sb = gs[2];
+      sc = gs[3];
+      for (int j = 1; j < wr; ++j) {
+        s1 += gs[j * 4];
+        sa += gs[j * 4 + 1];
+        sb += gs[j * 4 + 2];
+        sc += gs[j * 4 + 3];
+      }
+      parity ^= 1;
+    }
+    // the statistics, in the any-shape body's expressions and order
+    const float s2 = __fadd_rn(__fadd_rn(__fmul_rn((float)sa, 65536.0f),
+                                         __fmul_rn((float)sb, 512.0f)),
+                               (float)sc);
+    float m = 0.0f, rs;
+    if constexpr (kLN) {
+      const float mu_m = __fdiv_rn((float)s1, d);
+      const float var_m =
+          fmaxf(__fsub_rn(__fdiv_rn(s2, d), __fmul_rn(mu_m, mu_m)), 0.0f);
+      m = __fmul_rn(mu_m, scale);
+      rs = rstd_of<IntRsqrt>(__fmul_rn(var_m, __fmul_rn(scale, scale)),
+                             a.eps);
+    } else {
+      rs = rstd_of<IntRsqrt>(
+          __fmul_rn(__fdiv_rn(s2, d), __fmul_rn(scale, scale)), a.eps);
+    }
+    float4* yr = reinterpret_cast<float4*>(a.y + r * D);
+#pragma unroll
+    for (int k = 0; k < kFUnits; ++k) {
+      const int u = (q * kFUnits + k) * 32 + lane;
+      if (u < nu) {
+        const float g[kFVec] = {gam[k].x, gam[k].y, gam[k].z, gam[k].w};
+        float o[kFVec];
+#pragma unroll
+        for (int e = 0; e < kFVec; ++e)
+          o[e] = __fmul_rn(kLN ? __fmul_rn(__fsub_rn(xs[k][e], m), rs)
+                               : __fmul_rn(xs[k][e], rs),
+                           g[e]);
+        if constexpr (kLN) {
+          o[0] = __fadd_rn(o[0], bet[k].x);
+          o[1] = __fadd_rn(o[1], bet[k].y);
+          o[2] = __fadd_rn(o[2], bet[k].z);
+          o[3] = __fadd_rn(o[3], bet[k].w);
+        }
+        yr[u] = make_float4(o[0], o[1], o[2], o[3]);
+      }
+    }
+    if (q == 0 && lane == 0) {
+      if constexpr (kLN) a.mu[r] = m;
+      a.rstd[r] = rs;
+    }
+  }
+}
+
 // Launch the forward for the mantissa type (in_bytes 1 or 2) and the
 // rsqrt body (tags x, r).
 template <typename Run>
@@ -207,15 +453,32 @@ int run_fwd(int in_bytes, int integer_rsqrt, Run run) {
   return (int)cudaGetLastError();
 }
 
+// One launch of the register path: nb blocks of gpb groups of a.wr warps.
+int norm_fwd_launch(const NormFwdArgs& a, int in_bytes, int integer_rsqrt,
+                    bool ln, int gpb, int nb, cudaStream_t stream) {
+  const auto off = [](const void* p, int align) {
+    return reinterpret_cast<uintptr_t>(p) % align;
+  };
+  if ((a.wr != 1 && a.wr != 2 && a.wr != 4 && a.wr != 8) ||
+      a.D % kVec != 0 || a.D > a.wr * kWarpCols || gpb < 1 ||
+      gpb * a.wr > kWarps || nb < 1 || off(a.x, kFVec * in_bytes) ||
+      off(a.gamma, 16) || (ln && off(a.beta, 16)) || off(a.y, 16))
+    return (int)cudaErrorInvalidValue;
+  return run_fwd(in_bytes, integer_rsqrt, [&](auto x, auto r) {
+    using X = decltype(x);
+    constexpr bool kInt = decltype(r)::value;
+    const dim3 block(32 * a.wr * gpb);
+    if (ln)
+      norm_fwd_cached<X, true, kInt><<<nb, block, 0, stream>>>(a);
+    else
+      norm_fwd_cached<X, false, kInt><<<nb, block, 0, stream>>>(a);
+  });
+}
+
 // ---- backward ----
 
-constexpr int kBwdWarps = 8;                  // warps per backward block
-constexpr int kBwdThreads = 32 * kBwdWarps;
-constexpr int kVec = 8;                       // columns per unit
-constexpr int kUnits = 2;                     // units per lane (registers)
-constexpr int kWarpCols = 32 * kUnits * kVec; // 512 columns per warp
 constexpr int kSlice = 8;                     // columns per final slice
-constexpr int kSliceGroups = kBwdThreads / kSlice;
+constexpr int kSliceGroups = kThreads / kSlice;
 
 // The backward's arguments (one struct: one pointer for the cooperative
 // launch).  mu, dbeta and db_part are null for the RMS-norm.  wr: warps
@@ -239,65 +502,17 @@ struct NormBwdArgs {
 
 using BwdKernel = void (*)(NormBwdArgs);
 
-// A unit: 8 mantissas of type T, loaded in one 8- or 16-byte load.  bits()
-// is the float bit pattern of 2^23 + (m + 2^(b-1)) for mantissa e (the
-// sign bit flipped makes m + 2^(b-1) >= 0, __byte_perm puts it under the
-// exponent of 2^23); subtracting kBias in f32 gives m exactly, and
-// bits - kBits the integer m.
-template <typename T>
-struct Mant;
-
-template <>
-struct Mant<int8_t> {
-  using Raw = uint2;
-  static constexpr float kBias = 8388736.0f;  // 2^23 + 2^7
-  static constexpr int kBits = 0x4B000080;
-  static __device__ __forceinline__ uint32_t bits(const Raw& r, int e) {
-    const uint32_t w = (e < 4 ? r.x : r.y) ^ 0x80808080u;
-    return __byte_perm(w, 0x4B000000u, 0x7650 | (e & 3));
-  }
-};
-
-template <>
-struct Mant<int16_t> {
-  using Raw = uint4;
-  static constexpr float kBias = 8421376.0f;  // 2^23 + 2^15
-  static constexpr int kBits = 0x4B008000;
-  static __device__ __forceinline__ uint32_t bits(const Raw& r, int e) {
-    const uint32_t v = e < 2 ? r.x : e < 4 ? r.y : e < 6 ? r.z : r.w;
-    return __byte_perm(v ^ 0x80008000u, 0x4B000000u,
-                       (e & 1) ? 0x7632 : 0x7610);
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ float mant_value(uint32_t bits) {
-  return __fsub_rn(__int_as_float((int)bits), Mant<T>::kBias);
-}
-
-// Butterfly sum over the warp: every lane ends with the same bits.
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ void named_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
 // After the grid barrier: dgamma (and dbeta) from the gridDim.x partial
 // rows.  Block b takes column slices b, b + nb, ... of kSlice columns;
 // thread t adds partial rows t / kSlice, t / kSlice + kSliceGroups, ...
 // in order; the kSliceGroups sums of a column are then added by an xor
 // butterfly over the 4 groups of a warp (lanes e, e ^ 8, e ^ 16, e ^ 24)
-// and the 8 warps' sums in warp order.  red: 2 * kBwdWarps * kSlice
+// and the 8 warps' sums in warp order.  red: 2 * kWarps * kSlice
 // words of shared memory.
 template <bool kLN>
 __device__ __forceinline__ void bwd_column_sums(const NormBwdArgs& a,
                                                 float* red) {
-  int* redb = reinterpret_cast<int*>(red + kBwdWarps * kSlice);
+  int* redb = reinterpret_cast<int*>(red + kWarps * kSlice);
   const int t = threadIdx.x, e = t % kSlice, grp = t / kSlice;
   const int lane = t & 31, warp = t >> 5;
   const int nb = gridDim.x, D = a.D;
@@ -327,7 +542,7 @@ __device__ __forceinline__ void bwd_column_sums(const NormBwdArgs& a,
     if (t < kSlice && c < D) {
       float tot = red[t];
       int totb = redb[t];
-      for (int w = 1; w < kBwdWarps; ++w) {
+      for (int w = 1; w < kWarps; ++w) {
         tot = __fadd_rn(tot, red[w * kSlice + t]);
         totb += redb[w * kSlice + t];
       }
@@ -341,10 +556,10 @@ __device__ __forceinline__ void bwd_column_sums(const NormBwdArgs& a,
 // Shared memory of norm_bwd_cached: each warp's column partials (f32, and
 // int32 for the layer-norm), then the row sums' double buffer.
 constexpr int cached_smem(bool ln) {
-  return (ln ? 2 : 1) * kBwdWarps * kWarpCols * 4 + 2 * kBwdWarps * 2 * 4;
+  return (ln ? 2 : 1) * kWarps * kWarpCols * 4 + 2 * kWarps * 2 * 4;
 }
 // norm_bwd_rows: the row sums' double buffer, then the column sums
-constexpr int kRowsSmem = 2 * kBwdWarps * kSlice * 4;
+constexpr int kRowsSmem = 2 * kWarps * kSlice * 4;
 
 // D % 8 == 0, D <= wr * 512, x, g aligned to their unit, gamma and dx to
 // 16 bytes.  Group grp of warps wr * grp .. wr * grp + wr - 1 takes rows
@@ -353,17 +568,17 @@ constexpr int kRowsSmem = 2 * kBwdWarps * kSlice * 4;
 // Two blocks per SM (16 warps, at most 128 registers: 107-127 used);
 // three would cap them at 80, below what the bodies hold live.
 template <typename XT, typename GT, bool kLN>
-__global__ void __launch_bounds__(kBwdThreads, 2)
+__global__ void __launch_bounds__(kThreads, 2)
 norm_bwd_cached(NormBwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   using MX = Mant<XT>;
   using MG = Mant<GT>;
   float* sdg = reinterpret_cast<float*>(smem);
-  int* sdb = reinterpret_cast<int*>(sdg + kBwdWarps * kWarpCols);
-  float* red = kLN ? reinterpret_cast<float*>(sdb + kBwdWarps * kWarpCols)
+  int* sdb = reinterpret_cast<int*>(sdg + kWarps * kWarpCols);
+  float* red = kLN ? reinterpret_cast<float*>(sdb + kWarps * kWarpCols)
                    : reinterpret_cast<float*>(sdb);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wr = a.wr, gpb = kBwdWarps / wr;
+  const int wr = a.wr, gpb = kWarps / wr;
   const int q = warp % wr, grp = warp / wr;
   const int D = a.D, nu = D / kVec;
   const long long groups = (long long)gridDim.x * gpb;
@@ -437,7 +652,7 @@ norm_bwd_cached(NormBwdArgs a) {
     if constexpr (kLN) sg = warp_sum(sg);
     sgx = warp_sum(sgx);
     if (wr > 1) {
-      float* rb = red + parity * kBwdWarps * 2;
+      float* rb = red + parity * kWarps * 2;
       if (lane == 0) {
         rb[warp * 2] = sg;
         rb[warp * 2 + 1] = sgx;
@@ -487,7 +702,7 @@ norm_bwd_cached(NormBwdArgs a) {
   }
   __syncthreads();
   float* pg = a.dg_part + (long long)blockIdx.x * D;
-  for (int c = threadIdx.x; c < D; c += kBwdThreads) {
+  for (int c = threadIdx.x; c < D; c += kThreads) {
     float s = 0.0f;
     int sb = 0;
     for (int j = 0; j < gpb; ++j) {
@@ -506,7 +721,7 @@ norm_bwd_cached(NormBwdArgs a) {
 // in the dx pass; the block's partial row lives in dg_part / db_part
 // (zeroed first, each column read and written by its one thread).
 template <typename XT, typename GT, bool kLN>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kThreads)
 norm_bwd_rows(NormBwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* red = reinterpret_cast<float*>(smem);
@@ -518,7 +733,7 @@ norm_bwd_rows(NormBwdArgs a) {
   const float d = (float)D;
   float* pg = a.dg_part + (long long)blockIdx.x * D;
   int* pb = kLN ? a.db_part + (long long)blockIdx.x * D : nullptr;
-  for (int c = t; c < D; c += kBwdThreads) {
+  for (int c = t; c < D; c += kThreads) {
     pg[c] = 0.0f;
     if constexpr (kLN) pb[c] = 0;
   }
@@ -527,7 +742,7 @@ norm_bwd_rows(NormBwdArgs a) {
     const long long off = r * D;
     const float m = kLN ? a.mu[r] : 0.0f, rs = a.rstd[r];
     float sg = 0.0f, sgx = 0.0f;
-    for (int c = t; c < D; c += kBwdThreads) {
+    for (int c = t; c < D; c += kThreads) {
       const float xv = __fmul_rn((float)x[off + c], xs);
       const float xn = kLN ? __fmul_rn(__fsub_rn(xv, m), rs)
                            : __fmul_rn(xv, rs);
@@ -538,7 +753,7 @@ norm_bwd_rows(NormBwdArgs a) {
     }
     if constexpr (kLN) sg = warp_sum(sg);
     sgx = warp_sum(sgx);
-    float* rb = red + parity * kBwdWarps * 2;
+    float* rb = red + parity * kWarps * 2;
     if (lane == 0) {
       rb[warp * 2] = sg;
       rb[warp * 2 + 1] = sgx;
@@ -546,13 +761,13 @@ norm_bwd_rows(NormBwdArgs a) {
     __syncthreads();
     sg = rb[0];
     sgx = rb[1];
-    for (int j = 1; j < kBwdWarps; ++j) {
+    for (int j = 1; j < kWarps; ++j) {
       sg = __fadd_rn(sg, rb[j * 2]);
       sgx = __fadd_rn(sgx, rb[j * 2 + 1]);
     }
     parity ^= 1;
     const float mgg = __fdiv_rn(sg, d), mgx = __fdiv_rn(sgx, d);
-    for (int c = t; c < D; c += kBwdThreads) {
+    for (int c = t; c < D; c += kThreads) {
       const float xv = __fmul_rn((float)x[off + c], xs);
       const float xn = kLN ? __fmul_rn(__fsub_rn(xv, m), rs)
                            : __fmul_rn(xv, rs);
@@ -614,7 +829,7 @@ int norm_bwd_launch(NormBwdArgs a, int x_bytes, int g_bytes, bool ln,
   }
   void* args[] = {&a};
   return (int)cudaLaunchCooperativeKernel((const void*)k, dim3(nb),
-                                          dim3(kBwdThreads), args,
+                                          dim3(kThreads), args,
                                           bwd_smem(ln, cached), stream);
 }
 
@@ -622,13 +837,19 @@ int norm_bwd_launch(NormBwdArgs a, int x_bytes, int g_bytes, bool ln,
 
 // xm: (R, D) int8 (in_bytes = 1) or int16 (in_bytes = 2) mantissas; exp one
 // int32 in device memory; gamma (D,) f32; y (R, D) f32; rstd (R,) f32.
-// integer_rsqrt != 0: the rsqrt's Q.14 Newton body.
+// integer_rsqrt != 0: the rsqrt's Q.14 Newton body.  wr: warps per row of
+// the register path (1, 2, 4 or 8), gpb rows a block, nb blocks; wr = 0:
+// the any-shape body (a block per row; gpb and nb unused).
 extern "C" int int_rmsnorm_fwd_launch(const void* xm, int in_bytes,
                                       const int* exp, const float* gamma,
                                       float* y, float* rstd, int R, int D,
-                                      float eps, int integer_rsqrt,
-                                      cudaStream_t stream) {
+                                      float eps, int integer_rsqrt, int wr,
+                                      int gpb, int nb, cudaStream_t stream) {
   if (R <= 0 || D <= 0) return 0;
+  if (wr > 0)
+    return norm_fwd_launch({xm, exp, gamma, nullptr, y, nullptr, rstd, R, D,
+                            wr, eps},
+                           in_bytes, integer_rsqrt, false, gpb, nb, stream);
   return run_fwd(in_bytes, integer_rsqrt, [&](auto x, auto r) {
     using X = decltype(x);
     rms_fwd_kernel<X, decltype(r)::value><<<R, kThreads, 0, stream>>>(
@@ -636,16 +857,19 @@ extern "C" int int_rmsnorm_fwd_launch(const void* xm, int in_bytes,
   });
 }
 
-// xm: (R, D) int8 (in_bytes = 1) or int16 (2) mantissas; exp one int32 in
-// device memory; gamma, beta (D,) f32; y (R, D) f32; mu, rstd (R,) f32.
-// integer_rsqrt != 0: the rsqrt's Q.14 Newton body.
+// As int_rmsnorm_fwd_launch, with beta (D,) f32 and mu (R,) f32.
 extern "C" int int_layernorm_fwd_launch(const void* xm, int in_bytes,
                                         const int* exp, const float* gamma,
                                         const float* beta, float* y,
                                         float* mu, float* rstd, int R, int D,
-                                        float eps, int integer_rsqrt,
+                                        float eps, int integer_rsqrt, int wr,
+                                        int gpb, int nb,
                                         cudaStream_t stream) {
   if (R <= 0 || D <= 0) return 0;
+  if (wr > 0)
+    return norm_fwd_launch({xm, exp, gamma, beta, y, mu, rstd, R, D, wr,
+                            eps},
+                           in_bytes, integer_rsqrt, true, gpb, nb, stream);
   return run_fwd(in_bytes, integer_rsqrt, [&](auto x, auto r) {
     using X = decltype(x);
     ln_fwd_kernel<X, decltype(r)::value><<<R, kThreads, 0, stream>>>(
@@ -666,7 +890,7 @@ extern "C" int int_norm_bwd_resident(int dev, int x_bytes, int g_bytes,
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, k, kBwdThreads, bwd_smem(ln != 0, cached != 0));
+        &per_sm, k, kThreads, bwd_smem(ln != 0, cached != 0));
   return err == cudaSuccess ? per_sm * sms : -(int)err;
 }
 

@@ -36,9 +36,10 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 SIGNATURES = {
     "dfx_quantize_launch": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _P],
     "bfp_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "int_rmsnorm_fwd_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "int_rmsnorm_fwd_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I,
+                               _I, _P],
     "int_layernorm_fwd_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F,
-                                 _I, _P],
+                                 _I, _I, _I, _I, _P],
     "int_layernorm_bwd_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _I, _I, _I, _I, _P],
     "int_rmsnorm_bwd_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,

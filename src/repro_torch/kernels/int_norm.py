@@ -101,16 +101,19 @@ def int_rmsnorm_fwd_plain(xm: torch.Tensor, x_exp: torch.Tensor,
 
 
 def _launch(lib, xm: torch.Tensor, x_exp: torch.Tensor, gamma: torch.Tensor,
-            eps: float, integer_rsqrt: bool, stream: int):
+            eps: float, integer_rsqrt: bool, stream: int, wr=None):
+    """One launch of the RMS-norm forward -> ``(y, rstd)``; ``wr`` None takes
+    the plan's path, 0 the any-shape body."""
     R, D = xm.shape
     y = torch.empty((R, D), dtype=torch.float32, device=xm.device)
     rstd = torch.empty((R, 1), dtype=torch.float32, device=xm.device)
+    wr, gpb, nb = _fwd_plan(xm, (gamma, y), wr)
     err = lib.int_rmsnorm_fwd_launch(xm.data_ptr(), xm.element_size(),
                                      x_exp.data_ptr(), gamma.data_ptr(),
                                      y.data_ptr(), rstd.data_ptr(), R, D,
-                                     float(eps), int(integer_rsqrt), stream)
+                                     float(eps), int(integer_rsqrt), wr, gpb,
+                                     nb, stream)
     _lib.check(err, "int_rmsnorm_fwd")
-    int_rmsnorm_fwd.launches += 1
     return y, rstd
 
 
@@ -133,8 +136,10 @@ def int_rmsnorm_fwd(xm: torch.Tensor, x_exp: torch.Tensor,
         raise ValueError(f"int_rmsnorm_fwd: unsupported device {xm.device}")
     x_exp = x_exp.to(device=xm.device, dtype=torch.int32).reshape(())
     gamma = gamma.to(device=xm.device, dtype=torch.float32).contiguous()
-    return _launch(_lib.load(), xm.contiguous(), x_exp, gamma, eps,
-                   integer_rsqrt, _lib.stream_of(xm))
+    out = _launch(_lib.load(), xm.contiguous(), x_exp, gamma, eps,
+                  integer_rsqrt, _lib.stream_of(xm))
+    int_rmsnorm_fwd.launches += 1
+    return out
 
 
 int_rmsnorm_fwd.launches = 0
@@ -164,15 +169,19 @@ def _exp(e: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return e.to(device=like.device, dtype=torch.int32).reshape(())
 
 
-def _launch_ln_fwd(lib, xm, x_exp, gamma, beta, eps, integer_rsqrt, stream):
+def _launch_ln_fwd(lib, xm, x_exp, gamma, beta, eps, integer_rsqrt, stream,
+                   wr=None):
+    """One launch of the layer-norm forward -> ``(y, mu, rstd)``; ``wr`` as
+    in ``_launch``."""
     R, D = xm.shape
     y = torch.empty((R, D), dtype=torch.float32, device=xm.device)
     mu = torch.empty((R, 1), dtype=torch.float32, device=xm.device)
     rstd = torch.empty((R, 1), dtype=torch.float32, device=xm.device)
+    wr, gpb, nb = _fwd_plan(xm, (gamma, beta, y), wr)
     err = lib.int_layernorm_fwd_launch(
         xm.data_ptr(), xm.element_size(), x_exp.data_ptr(), gamma.data_ptr(),
         beta.data_ptr(), y.data_ptr(), mu.data_ptr(), rstd.data_ptr(), R, D,
-        float(eps), int(integer_rsqrt), stream)
+        float(eps), int(integer_rsqrt), wr, gpb, nb, stream)
     _lib.check(err, "int_layernorm_fwd")
     return y, mu, rstd
 
@@ -199,24 +208,68 @@ def int_layernorm_fwd(xm: torch.Tensor, x_exp: torch.Tensor,
     return out
 
 
-#: the backward kernels' launch plan (``csrc/int_norm.cu``): warps per
-#: block, columns per unit (one 8- or 16-byte load of a lane), columns a
-#: warp keeps in registers (2 units a lane), warps per row at most
+#: the register paths' plan (``csrc/int_norm.cu``, forwards and
+#: backwards): warps per block, columns per unit (the backwards' 8- or
+#: 16-byte load of a lane; the forwards load half a unit at a time, under
+#: the same alignment), columns a warp keeps in registers, warps per row at
+#: most
 BWD_WARPS, BWD_VEC, BWD_WARP_COLS, BWD_MAX_WR = 8, 8, 512, 8
 
 _resident: dict = {}
 
 
-def bwd_warps_per_row(D: int, aligned: bool) -> int:
+def fwd_warps_per_row(D: int, aligned: bool) -> int:
     """Warps per row of the register path (1, 2, 4 or 8: the fewest whose
     512 columns each cover D), or 0 for the any-shape path: D not a
-    multiple of 8, a base not aligned for the unit loads, or D > 4096."""
+    multiple of 8, a base not aligned for the unit loads, or D > 4096.  The
+    forwards and the backwards share the rule."""
     if not aligned or D % BWD_VEC:
         return 0
     wr = 1
     while wr * BWD_WARP_COLS < D:
         wr *= 2
     return wr if wr <= BWD_MAX_WR else 0
+
+
+bwd_warps_per_row = fwd_warps_per_row
+
+
+#: resident warps a streaming multiprocessor the forward's grid aims at
+#: (gpb * wr * nb = 16 * SMs): among the fastest grids on the H100 at
+#: every main shape (``tools/norm_fwd_grid.py``); more groups leave each
+#: fewer rows to load ahead, fewer leave bytes out of flight
+FWD_WARPS_PER_SM = 16
+
+
+def fwd_blocks(R: int, wr: int, sms: int) -> tuple:
+    """``(gpb, nb)`` of the forward's register path: gpb rows a block at a
+    time (8 / wr, halved while the blocks would not fill the sms SMs) and
+    nb blocks (one for each gpb rows, at most FWD_WARPS_PER_SM warps a
+    SM); the groups stride over the rows."""
+    gpb = BWD_WARPS // wr
+    while gpb > 1 and -(-R // gpb) < sms:
+        gpb //= 2
+    cap = -(-FWD_WARPS_PER_SM * sms // (wr * gpb))
+    return gpb, max(1, min(-(-R // gpb), cap))
+
+
+_sms: dict = {}
+
+
+def _fwd_plan(xm: torch.Tensor, f32: tuple, wr) -> tuple:
+    """``(wr, gpb, nb)`` of a forward launch: the register path when D and
+    every base allow it (``wr`` None), or the any-shape body (``wr`` 0)."""
+    R, D = xm.shape
+    if wr is None:
+        wr = fwd_warps_per_row(D, xm.data_ptr() % (BWD_VEC * xm.element_size())
+                               == 0 and all(t.data_ptr() % 16 == 0
+                                            for t in f32))
+    if not wr:
+        return 0, 0, 0
+    dev = xm.device
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return (wr,) + fwd_blocks(R, wr, _sms[dev])
 
 
 def bwd_blocks(R: int, wr: int, resident: int) -> int:

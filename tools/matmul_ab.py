@@ -97,11 +97,13 @@ def kernels(torch, cs) -> None:
     torch.cuda.empty_cache()
 
 
-def profiled(torch, one_step, what: str, part=("matmul", MATMUL)) -> None:
+def profiled(torch, one_step, what: str,
+             parts=(("matmul", MATMUL),)) -> None:
     """Three profiled steps: device busy ms, the part of it in kernels whose
-    name matches ``part`` (label, pattern), wall ms."""
+    name matches each of ``parts`` ((label, pattern) pairs), wall ms."""
     from torch.profiler import ProfilerActivity, profile
-    busy, mm, wall = [], [], []
+    busy, wall = [], []
+    split = {label: [] for label, _ in parts}
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -114,10 +116,13 @@ def profiled(torch, one_step, what: str, part=("matmul", MATMUL)) -> None:
                 for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         busy.append(sum(us for us, _ in rows) / 1e3)
-        mm.append(sum(us for us, key in rows if part[1].search(key)) / 1e3)
+        for label, pattern in parts:
+            split[label].append(sum(us for us, key in rows
+                                    if pattern.search(key)) / 1e3)
     print(f"  {what}: device busy ms {[round(v, 2) for v in busy]}, "
-          f"{part[0]} ms {[round(v, 3) for v in mm]}; profiled wall ms "
-          f"{[round(v, 1) for v in wall]}", flush=True)
+          + ", ".join(f"{label} ms {[round(v, 3) for v in ms]}"
+                      for label, ms in split.items())
+          + f"; profiled wall ms {[round(v, 1) for v in wall]}", flush=True)
 
 
 def counted(ws: dict, steps: list) -> list:
@@ -127,8 +132,8 @@ def counted(ws: dict, steps: list) -> list:
     return sorted((n, c) for n, c in last.items() if c)
 
 
-def bert_phase5(torch, ws: dict, part=None) -> tuple:
-    """Phase 5's cls run; with ``part``, also three profiled steps (as
+def bert_phase5(torch, ws: dict, parts=None) -> tuple:
+    """Phase 5's cls run; with ``parts``, also three profiled steps (as
     ``chip_smoke.py`` phase 5 profiles one).  Returns the losses and the
     launches in one step, as the phases below do."""
     from repro_torch.configs import bert_base
@@ -146,7 +151,7 @@ def bert_phase5(torch, ws: dict, part=None) -> tuple:
             {n: w.launches for n, w in ws.items()}))
     print(f"  phase 5 bert-base cls, paper scope: losses {losses}; "
           f"launches in one step {counted(ws, counts)}", flush=True)
-    if part:
+    if parts:
         gen = torch.Generator(device=dev).manual_seed(1)
         cfg, params, sampler, loss_fn, lr = tf._task_setup(
             "cls", gen, ft, bert_base.CONFIG, dev)
@@ -159,13 +164,13 @@ def bert_phase5(torch, ws: dict, part=None) -> tuple:
                 state["p"], state["o"], batch, cfg, tf.paper_scope(),
                 loss_fn, ocfg, gen)
         one_step()
-        profiled(torch, one_step, "bert-base cls training step", part)
+        profiled(torch, one_step, "bert-base cls training step", parts)
         del state
     torch.cuda.empty_cache()
     return losses, counted(ws, counts)
 
 
-def qwen_phase6(torch, ws: dict, part=("matmul", MATMUL)) -> tuple:
+def qwen_phase6(torch, ws: dict, parts=(("matmul", MATMUL),)) -> tuple:
     from repro_torch.launch import train as lt
     argv = ["--arch", "qwen1.5-0.5b", "--batch", "8", "--seq", "256",
             "--steps", "6", "--lr", "0.0001", "--log-every", "6",
@@ -179,14 +184,14 @@ def qwen_phase6(torch, ws: dict, part=("matmul", MATMUL)) -> tuple:
           f"step {counted(ws, counts)}", flush=True)
     run = lt.build(lt.parse_args(argv))
     run.step()
-    profiled(torch, run.step, "qwen1.5-0.5b int8 training step", part)
+    profiled(torch, run.step, "qwen1.5-0.5b int8 training step", parts)
     del run
     torch.cuda.empty_cache()
     return losses, counted(ws, counts)
 
 
 def moe_phase8(torch, ws: dict, layers: int,
-               part=("matmul", MATMUL)) -> tuple:
+               parts=(("matmul", MATMUL),)) -> tuple:
     from repro_torch.configs import registry
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models import lm
@@ -218,7 +223,7 @@ def moe_phase8(torch, ws: dict, layers: int,
     print(f"  phase 8 qwen2-moe-a2.7b ({layers} layers) int8: losses "
           f"{losses}; launches in one step {counted(ws, counts)}", flush=True)
     profiled(torch, one_step, f"qwen2-moe-a2.7b ({layers} layers) int8 "
-             "training step", part)
+             "training step", parts)
     del run, step
     torch.cuda.empty_cache()
     return losses, counted(ws, counts)
