@@ -59,7 +59,9 @@ Phases (each raises on failure; nothing is caught):
    for cls under the plain int8 preset; one ``lm_loss`` step of
    qwen1.5-0.5b and of smollm-135m under int8; qwen2-moe-a2.7b's served
    logits and one ``lm_loss`` step, with the tokens routed to another
-   expert set on the two devices counted and set aside.  Under int8 +
+   expert set on the two devices counted and set aside; the sweep's
+   presets: the BERT cls step at int16 and a reduced ViT's at int16 and
+   int8 (round to nearest).  Under int8 +
    ``kept_ops="integer"``: the BERT cls step, the qwen1.5-0.5b step and
    the MoE step, whose router gradient must be zero on both devices.
 4. Serve qwen1.5-0.5b at full width (24 layers, d_model 1024, vocab
@@ -109,7 +111,25 @@ Phases (each raises on failure; nothing is caught):
    rounding from a seeded CUDA generator; all four MoE kernels must have
    launched, and the peak must leave 10% of the card's memory.  Prints
    what phase 6 prints.
-9. Print the ``{"kernels": [...]}`` line, then the last line
+9. The paper's bit-width sweep (``train/finetune.py::sweep``,
+   ``train/paper_tables.py``) at the presets fp32, int16, int12, int10 and
+   int8 (the plain presets: integer attention, stochastic gradient
+   rounding from a seeded CUDA generator).  Full width: bert-base cls
+   (batch 32 x seq 128), bert-base span (12 x 384) and vit-base img (32 x
+   197 tokens) through ``finetune``, lr 1e-4, 6 steps each, the launch
+   counters set to 0 just before each run and read just after; every loss
+   finite, every kernel of the path launched in every step at each
+   integer preset, each wrapper's launches per step equal at int16, int12,
+   int10 and int8, none under FP32.  Prints losses, the median of steps
+   1-5, tokens/s, peak memory, launches per step and a profiled step's
+   busy share at int16 and int8.  Then the reference's sizes (bert-tiny /
+   vit-tiny, batch 16, eval on 128): Tables 1-3 and Fig. 4 at 120 steps,
+   Fig. 5 at 150 with its assertion; each table's metric, its drop against
+   FP32 and int8's average drop.  Phase 2 holds the sweep's attention
+   calls (3 limb planes at hd 64, bert cls / span and vit shapes; vit at
+   int8 too) and int16's 3x3 NT / TN matmuls (bert-base w1, vit-base w1's
+   6304-row dW) too.
+10. Print the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available or when
@@ -119,6 +139,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -320,7 +341,8 @@ def check_quantize(torch, dev, gen, V, D, tokens, F):
     held exactly at the fine-tuning step's largest gradient quantize: w1's
     upstream gradient (tokens x F) f32 at 8 bits, rounded stochastically
     (``u`` from the CUDA generator) into limb planes; that call is timed
-    too (``grad_*`` keys)."""
+    too (``grad_*`` keys).  The bit-width sweep's calls are held exactly
+    as well (``check_sweep_quantize``)."""
     from repro_torch.core import dfx
     from repro_torch.kernels import dfx_quant
     table = torch.randn((V, D), generator=gen, device=dev) * 0.02
@@ -346,6 +368,8 @@ def check_quantize(torch, dev, gen, V, D, tokens, F):
                 f"{tuple(x.shape)} bits={bits} limb_planes={limbs} "
                 f"stochastic={u is not None}")
         err = max(err, (got.float() - ref.float()).abs().max().item())
+    del act
+    check_sweep_quantize(torch, dev, gen)
     ge = dfx.scale_exponent(grad) - 7
     grad_q = dfx_quant.dfx_quantize(grad, ge, bits=8, u=u_grad,
                                     limb_planes=True)
@@ -373,6 +397,56 @@ def check_quantize(torch, dev, gen, V, D, tokens, F):
                       "with u); library: torch.quantize_per_tensor to qint8",
                 max_abs_err=err, bound_ms=b, bound_by=by,
                 grad_device_ms=grad_ms, grad_bound_ms=grad_b, **t)
+
+
+def check_sweep_quantize(torch, dev, gen):
+    """dfx_quantize held exactly against its plain version at the calls of
+    the sweep's int16, int12 and int10 steps: at each step's rows x d_model
+    and x d_ff, an activation into limb planes (round to nearest), an
+    upstream gradient into limb planes and as a logical mantissa
+    (stochastic, ``u`` from the CUDA generator) and a norm's input as a
+    logical mantissa; the weights (d x d, d x d_ff, d_ff x d) into planes
+    and the embedding table as a logical mantissa.  The 16-bit gradient
+    planes (3 planes, stochastic) at the cls step's rows x d_ff are timed
+    beside their bound."""
+    from repro_torch.configs.bert_base import CONFIG as bert
+    from repro_torch.core import dfx
+    from repro_torch.kernels import dfx_quant
+    D, F, V = bert.d_model, bert.d_ff, bert.vocab
+    rows = [b * t for _, _, b, t in SWEEP_CELLS]
+    n = 0
+    shapes = [(r, c) for r in rows for c in (D, F)]
+    for shape in shapes + [(D, D), (D, F), (F, D), (V, D)]:
+        x = torch.randn(shape, generator=gen, device=dev)
+        g = x * 1e-6
+        u = torch.rand(shape, generator=gen, device=dev)
+        for bits in (16, 12, 10):
+            if shape in shapes:
+                cases = [(x, True, None), (g, True, u), (g, False, u),
+                         (x, False, None)]
+            else:
+                cases = [(x, shape != (V, D), None)]
+            for t, limbs, uu in cases:
+                e = dfx.scale_exponent(t) - (bits - 1)
+                got = dfx_quant.dfx_quantize(t, e, bits=bits, u=uu,
+                                             limb_planes=limbs)
+                _held("dfx_quantize", got, dfx_quant.dfx_quantize_plain(
+                    t, e, bits=bits, u=uu, limb_planes=limbs),
+                    f"{shape} bits={bits} limb_planes={limbs} "
+                    f"stochastic={uu is not None}")
+                n += 1
+    g = torch.randn((rows[0], F), generator=gen, device=dev) * 1e-6
+    u = torch.rand(g.shape, generator=gen, device=dev)
+    e = dfx.scale_exponent(g) - 15
+    out = dfx_quant.dfx_quantize(g, e, bits=16, u=u, limb_planes=True)
+    ms = device_ms(lambda: dfx_quant.dfx_quantize(g, e, bits=16, u=u,
+                                                  limb_planes=True))
+    b, by = bound_ms(nbytes(g, u, out), 0)
+    print(f"  dfx_quantize: the sweep's {n} int16 / int12 / int10 calls held "
+          f"exactly at rows {rows} x ({D}, {F}), the weights and the "
+          f"({V},{D}) table; 16-bit gradient "
+          f"planes {tuple(g.shape)} -> {tuple(out.shape)}, stochastic: "
+          f"device {ms:.4f} ms, bound {b:.4f} ms ({by})", flush=True)
 
 
 def _planes(torch, gen, dev, L, *shape):
@@ -533,9 +607,9 @@ def _matmul_train_rows(torch, dev, gen, cfg, V, bert, tokens, exp):
 
 
 def norm_fwd_case(torch, dev, gen, ln: bool, R: int, D: int,
-                  dtype=None) -> dict:
+                  dtype=None, bits: int = 12) -> dict:
     """A norm forward (``ln``: int_layernorm_fwd, else int_rmsnorm_fwd) at
-    (R, D) on int16 mantissas at a12 (or ``dtype`` int8, full range), both
+    (R, D) on int16 mantissas at ``bits`` (or ``dtype`` int8, full range), both
     rsqrt bodies: the wrapper (the register body where the shape takes it)
     against the any-shape body bit for bit (y, mu, rstd; the any-shape body
     through the private launcher with wr = 0) and against the plain version
@@ -549,7 +623,7 @@ def norm_fwd_case(torch, dev, gen, ln: bool, R: int, D: int,
     from repro_torch.kernels import _lib, int_norm
     ulp = 2.0 ** -23
     dtype = dtype or torch.int16
-    lim = 127 if dtype == torch.int8 else 2047
+    lim = 127 if dtype == torch.int8 else 2 ** (bits - 1) - 1
     xm = torch.randint(-lim, lim + 1, (R, D), generator=gen,
                        device=dev).to(dtype)
     xe = torch.tensor(-9, dtype=torch.int32, device=dev)
@@ -579,7 +653,7 @@ def norm_fwd_case(torch, dev, gen, ln: bool, R: int, D: int,
         def any_shape(ir=False):
             return int_norm._launch(lib, xm, xe, gamma, 1e-6, ir, st, wr=0)
     name = "int_layernorm_fwd" if ln else "int_rmsnorm_fwd"
-    what = f"{name} ({R},{D}) {str(dtype)[6:]}"
+    what = f"{name} ({R},{D}) {str(dtype)[6:]} at {bits} bits"
     err = 0.0
     for ir in (False, True):
         got, ref, rows = wrap(ir), plain(ir), any_shape(ir)
@@ -675,18 +749,27 @@ def check_rmsnorm(torch, dev, gen, D, D_moe):
 
 
 #: attention forward shapes held on the card: name -> (B, Sq, Sk, KV, G,
-#: hd, offsets, causal, window, q/k planes, v planes); v planes 2 means P
-#: at 12 bits, 3 at 16
+#: hd, offsets, causal, window, act bits); q/k/v carry n_limbs(act bits)
+#: planes and P is quantized at the act bits.  The ", int16" / ", int12" /
+#: ... entries are the bit-width sweep's calls (phase 9), bidirectional
+SWEEP_TIMED = ("bert-base cls, int16", "bert-base span, int16",
+               "vit-base img, int16")
 ATTN_FWD_SHAPES = {
-    "decode": (4, 1, 256, 16, 1, 64, [64, 65, 66, 67], True, None, 2, 2),
-    "prefill": (4, 64, 256, 16, 1, 64, 0, True, None, 2, 2),
-    "qwen1.5-0.5b train": (8, 256, 256, 16, 1, 64, 0, True, None, 2, 2),
-    "smollm-135m gqa": (8, 256, 256, 3, 3, 64, 0, True, None, 2, 2),
-    "ragged + window": (2, 20, 150, 2, 2, 16, [100, 37], True, 40, 2, 2),
+    "decode": (4, 1, 256, 16, 1, 64, [64, 65, 66, 67], True, None, 12),
+    "prefill": (4, 64, 256, 16, 1, 64, 0, True, None, 12),
+    "qwen1.5-0.5b train": (8, 256, 256, 16, 1, 64, 0, True, None, 12),
+    "smollm-135m gqa": (8, 256, 256, 3, 3, 64, 0, True, None, 12),
+    "ragged + window": (2, 20, 150, 2, 2, 16, [100, 37], True, 40, 12),
     "qwen2-moe-a2.7b train (hd 128)": (8, 256, 256, 16, 1, 128, 0, True,
-                                       None, 2, 2),
-    "head dim 256, 3 limbs": (8, 256, 256, 4, 1, 256, 0, True, None, 3, 3),
-    "head dim 384": (8, 256, 256, 4, 1, 384, 0, True, None, 2, 2),
+                                       None, 12),
+    "head dim 256, 3 limbs": (8, 256, 256, 4, 1, 256, 0, True, None, 16),
+    "head dim 384": (8, 256, 256, 4, 1, 384, 0, True, None, 12),
+    "bert-base cls, int16": (32, 128, 128, 12, 1, 64, 0, False, None, 16),
+    "bert-base span, int16": (12, 384, 384, 12, 1, 64, 0, False, None, 16),
+    "vit-base img, int16": (32, 197, 197, 12, 1, 64, 0, False, None, 16),
+    "vit-base img, int12 and int8": (32, 197, 197, 12, 1, 64, 0, False,
+                                     None, 12),
+    "vit-base img, int10": (32, 197, 197, 12, 1, 64, 0, False, None, 10),
 }
 
 
@@ -717,28 +800,34 @@ def check_attention(torch, dev, gen, cfg):
     slots, one query each at positions 64..67 over a 256-deep cache;
     prefill: 64 queries from position 0 over it; the training steps' calls,
     causal from position 0; a ragged windowed case; head dim 256 at 3
-    limbs and head dim 384, the direct body), FP32 and kept-int bodies:
-    o within 1e-5 of max|o| and lse within 1e-4 (the same expf and the same
-    ordered f32 sums on both sides; the max abs errors are reported).
-    Timed at decode, the qwen1.5-0.5b training shape (24 calls a step; both
-    bodies), qwen2-moe-a2.7b's head dim 128 and head dim 384, each beside
+    limbs and head dim 384, the direct body; the bit-width sweep's calls
+    at 3 and 2 planes, vit's 197 keys ending in a ragged key block), FP32
+    and kept-int bodies: o within 1e-5 of max|o| and lse within 1e-4 (the
+    same expf and the same ordered f32 sums on both sides; the max abs
+    errors are reported).  The exponents keep the values' size at every
+    plane count.  Timed at decode, the qwen1.5-0.5b training shape (24
+    calls a step; both bodies), qwen2-moe-a2.7b's head dim 128, head dim
+    384 and the sweep's int16 calls (``sweep_rows``), each beside
     SDPA's f32 forward on the dequantized values with the same mask (its
     kv heads repeated for GQA).  Bound: the bytes of the planes and
     outputs, or the int8 operations of the limb-pair products over the
     (query, key) pairs the mask lets through, whichever is larger."""
     import torch.nn.functional as F
     from repro_torch.kernels import int_attention as ia
-    exps = torch.tensor([-9, -9, -8], dtype=torch.int32, device=dev)
+    from repro_torch.kernels.dfx_quant import n_limbs
     err = {False: 0.0, True: 0.0}
     runs = {}
     for label, shape in ATTN_FWD_SHAPES.items():
-        B, Sq, Sk, KV, G, hd, off, causal, window, lqk, lv = shape
-        q = _planes(torch, gen, dev, lqk, B, Sq, KV, G, hd)
-        k = _planes(torch, gen, dev, lqk, B, Sk, KV, hd)
-        v = _planes(torch, gen, dev, lv, B, Sk, KV, hd)
+        B, Sq, Sk, KV, G, hd, off, causal, window, bits = shape
+        L = n_limbs(bits)
+        q = _planes(torch, gen, dev, L, B, Sq, KV, G, hd)
+        k = _planes(torch, gen, dev, L, B, Sk, KV, hd)
+        v = _planes(torch, gen, dev, L, B, Sk, KV, hd)
+        exps = torch.tensor([-9, -9, -8], dtype=torch.int32,
+                            device=dev) - 7 * (L - 2)
         qo = torch.tensor(off if isinstance(off, list) else [off] * B,
                           dtype=torch.int32, device=dev)
-        kw = dict(p_bits=12 if lv == 2 else 16, causal=causal, window=window,
+        kw = dict(p_bits=bits, causal=causal, window=window,
                   sc=1.0 / hd ** 0.5)
         line = []
         for iexp in (False, True):
@@ -757,17 +846,18 @@ def check_attention(torch, dev, gen, cfg):
             line.append(f"{'kept-int' if iexp else 'FP32'} o max|err| "
                         f"{e_o:.3e} of {scale:.3e}, lse {e_l:.3e}")
             if not iexp:
-                runs[label] = (shape, q, k, v, qo, kw, o, lse)
-        print(f"  attention forward at {label} {shape[:6]}, {lqk}/{lv} "
-              "planes: " + "; ".join(line))
+                runs[label] = (shape, q, k, v, qo, exps, kw, o, lse, e_o)
+        print(f"  attention forward at {label} {shape[:6]}, {L} planes, P "
+              f"{bits} bits: " + "; ".join(line))
     for name, used, spill in ptxas_entries(r"fwd_"):
         print(f"  ptxas {name}: {used}; {spill}")
 
     def measure(label, kept_int=False):
         """Timings (kernel, plain, SDPA) and the bound at one shape; with
         ``kept_int`` also the integer body's (int_*)."""
-        shape, q, k, v, qo, kw, o, lse = runs[label]
-        B, Sq, Sk, KV, G, hd, off, causal, window, lqk, lv = shape
+        shape, q, k, v, qo, exps, kw, o, lse, _ = runs[label]
+        B, Sq, Sk, KV, G, hd, off, causal, window, bits = shape
+        L = q.shape[0]
         qs = _dequant(q, exps[0]).reshape(B, Sq, KV * G, hd).transpose(1, 2)
         ks, vs = (_dequant(x, e).repeat_interleave(G, dim=2).transpose(1, 2)
                   for x, e in ((k, exps[1]), (v, exps[2])))
@@ -778,10 +868,12 @@ def check_attention(torch, dev, gen, cfg):
         if window is not None:
             seen = seen & (kpos > qpos[..., None] - window)
         # the library's fastest form of the same mask: is_causal where the
-        # mask is the plain causal one, else the boolean mask itself
+        # mask is the plain causal one, none where every key is seen, else
+        # the boolean mask itself
         plain_causal = (causal and window is None and Sq == Sk
                         and not bool(qo.any()))
-        mask = None if plain_causal else seen[:, None]
+        mask = (None if plain_causal or not (causal or window)
+                else seen[:, None])
 
         def library():
             return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
@@ -795,7 +887,7 @@ def check_attention(torch, dev, gen, cfg):
         need_keys = int(seen.any(1).sum()) * KV                  # K/V rows
         n_bytes = (nbytes(q, qo, exps, o, lse)
                    + (k.shape[0] + v.shape[0]) * need_keys * hd)
-        b, by = bound_ms(n_bytes, 2 * pairs * hd * (lqk * lqk + lv * lv))
+        b, by = bound_ms(n_bytes, 2 * pairs * hd * 2 * L * L)
         t.update(bound_ms=b, bound_by=by)
         if kept_int:
             ki = dict(kw, integer_exp=True)
@@ -813,6 +905,8 @@ def check_attention(torch, dev, gen, cfg):
     tt = measure("qwen1.5-0.5b train", kept_int=True)
     tm = measure("qwen2-moe-a2.7b train (hd 128)")
     tw = measure("head dim 384")
+    sweep = [dict(label=lb, max_abs_err=runs[lb][-1], **measure(lb))
+             for lb in SWEEP_TIMED]
     B, Sq, Sk, KV, G, hd = ATTN_FWD_SHAPES["decode"][:6]
     out = dict(name="int_attn_fwd", route="cuda",
                source="src/repro_torch/csrc/int_attention.cu",
@@ -821,7 +915,8 @@ def check_attention(torch, dev, gen, cfg):
                      f"{KV},{hd}), 2 limbs; also timed at the qwen1.5-0.5b "
                      "training shape (8,256) causal (train_*), qwen2-moe's "
                      "head dim 128 (moe_*) and head dim 384 (hd384_*, the "
-                     "direct body); the kept-int body (int_*, train_int_*) "
+                     "direct body), and the sweep's int16 calls (sweep_rows); "
+                     "the kept-int body (int_*, train_int_*) "
                      "at decode and the training shape; both bodies held at "
                      + ", ".join(ATTN_FWD_SHAPES) + "; tolerance o 1e-5 "
                      "relative, lse 1e-4 absolute; library: SDPA forward "
@@ -829,7 +924,8 @@ def check_attention(torch, dev, gen, cfg):
                max_abs_err=err[False], int_max_abs_err=err[True], **t,
                **{f"train_{k_}": v_ for k_, v_ in tt.items()},
                **{f"moe_{k_}": v_ for k_, v_ in tm.items()},
-               **{f"hd384_{k_}": v_ for k_, v_ in tw.items()})
+               **{f"hd384_{k_}": v_ for k_, v_ in tw.items()},
+               sweep_rows=sweep)
     print(body_line("int_attn_fwd", out))
     print(body_line("int_attn_fwd", out, "train_"))
     return out
@@ -954,7 +1050,8 @@ def check_layernorm(torch, dev, gen, D, R):
                      " y 1e-6 of max; kept-int body (int_*): mu and rstd "
                      "exact, y 1e-6 of max; both bodies bit for bit with the "
                      "any-shape body; library: F.layer_norm on the f32 "
-                     f"values; rows: the span step's {SPAN_ROWS} x {D}",
+                     f"values; rows: the span step's {SPAN_ROWS} x {D}; held "
+                     "at the sweep's x at 16, 12 and 10 bits too",
                max_abs_err=c["max_abs_err"], bound_ms=b, bound_by=by,
                any_shape_device_ms=device_ms(c["any_shape"]),
                **timings(c["wrap"], c["plain"], c["library"]))
@@ -969,7 +1066,8 @@ def check_layernorm(torch, dev, gen, D, R):
                source="src/repro_torch/csrc/int_norm.cu",
                replaces="src/repro/kernels/int_norm.py:181",
                shape=f"({R},{D}) int16 x, int8 g -> dx, dgamma, dbeta; also "
-                     f"the span step's ({SPAN_ROWS},{D}) (span_*); "
+                     f"the span step's ({SPAN_ROWS},{D}) (span_*); held at "
+                     "the sweep's x and g at 16, 12 and 10 bits too; "
                      "tolerance dbeta exact, dx 64 ulp of max, dgamma 64 ulp "
                      "of the column's sum of |gq xn|; two calls bit for bit; "
                      "library: aten.native_layer_norm_backward on the f32 "
@@ -977,6 +1075,17 @@ def check_layernorm(torch, dev, gen, D, R):
                **ln_bwd_case(torch, dev, gen, R, D),
                **{f"span_{k}": v for k, v in ln_bwd_case(
                    torch, dev, gen, SPAN_ROWS, D).items()})
+    # the bit-width sweep's calls: int16 / int12 / int10 x and g at each
+    # full-width step's rows
+    rows = [b * t for _, _, b, t in SWEEP_CELLS]
+    for bits in (16, 12, 10):
+        for r in rows:
+            norm_fwd_case(torch, dev, gen, True, r, D, bits=bits)
+            ln_bwd_case(torch, dev, gen, r, D, x_bits=bits, g_bits=bits,
+                        timed=False)
+    print(f"  int_layernorm_fwd / _bwd: the sweep's int16, int12 and int10 "
+          f"calls held at rows {rows} x {D} (x and g at 16, 12 and 10 bits)",
+          flush=True)
     return [fwd, bwd]
 
 
@@ -984,21 +1093,24 @@ def check_layernorm(torch, dev, gen, D, R):
 SPAN_ROWS = 12 * 384
 
 
-def ln_bwd_case(torch, dev, gen, R, D) -> dict:
-    """int_layernorm_bwd on (R, D) int16 mantissas (a12) and int8 gradient
-    mantissas (g8), the statistics from the plain forward: dbeta exactly,
-    dx within 64 ulp of max|dx|, dgamma within 64 ulp of the column's
-    Σ|gq·xn| (f32 sums in another order); timed beside its bound and
+def ln_bwd_case(torch, dev, gen, R, D, x_bits=12, g_bits=8,
+                timed=True) -> dict:
+    """int_layernorm_bwd on (R, D) int16 mantissas at ``x_bits`` (a12) and
+    gradient mantissas at ``g_bits`` (g8: int8; wider: int16), the
+    statistics from the plain forward: dbeta exactly, dx within 64 ulp of
+    max|dx|, dgamma within 64 ulp of the column's Σ|gq·xn| (f32 sums in
+    another order); with ``timed``, timed beside its bound and
     aten.native_layer_norm_backward."""
     from repro_torch.core import dfx
     from repro_torch.kernels import int_norm
     ulp = 2.0 ** -23
-    xm = torch.randint(-2047, 2048, (R, D), generator=gen, device=dev,
+    xl, gl = 2 ** (x_bits - 1) - 1, 2 ** (g_bits - 1) - 1
+    xm = torch.randint(-xl, xl + 1, (R, D), generator=gen, device=dev,
                        dtype=torch.int16)
-    gm = torch.randint(-127, 128, (R, D), generator=gen, device=dev,
-                       dtype=torch.int8)
-    xe = torch.tensor(-9, dtype=torch.int32, device=dev)
-    ge = torch.tensor(-27, dtype=torch.int32, device=dev)
+    gm = torch.randint(-gl, gl + 1, (R, D), generator=gen, device=dev,
+                       dtype=torch.int8 if g_bits == 8 else torch.int16)
+    xe = torch.tensor(3 - x_bits, dtype=torch.int32, device=dev)
+    ge = torch.tensor(-19 - g_bits, dtype=torch.int32, device=dev)
     gamma = 1 + 0.1 * torch.randn((D,), generator=gen, device=dev)
     beta = 0.1 * torch.randn((D,), generator=gen, device=dev)
     _, mu0, rstd0 = int_norm.int_layernorm_fwd_plain(xm, xe, gamma, beta)
@@ -1012,10 +1124,13 @@ def ln_bwd_case(torch, dev, gen, R, D) -> dict:
             or (dx - dx0).abs().max() > 64 * ulp * dx0.abs().max()
             or ((dg - dg0).abs() > 64 * ulp * col).any()):
         raise AssertionError(
-            f"int_layernorm_bwd differs at ({R},{D}): dx "
+            f"int_layernorm_bwd differs at ({R},{D}) x{x_bits} g{g_bits}: dx "
             f"{(dx - dx0).abs().max().item()}, dgamma "
             f"{(dg - dg0).abs().max().item()}, dbeta exact "
             f"{torch.equal(db, db0)}")
+    err = max((dx - dx0).abs().max().item(), (dg - dg0).abs().max().item())
+    if not timed:
+        return dict(max_abs_err=err)
     xv = xm.float() * dfx.pow2(xe)
     gq = gm.float() * dfx.pow2(ge)
     _, lmean, lrstd = torch.ops.aten.native_layer_norm(xv, [D], gamma, beta,
@@ -1031,9 +1146,7 @@ def ln_bwd_case(torch, dev, gen, R, D) -> dict:
     # per element: xn (3), gq, gg, two row sums (3), dx (4), dgamma (2)
     b, by = bound_ms(nbytes(xm, gm, xe, ge, gamma, mu0, rstd0, dx, dg, db),
                      0, 14 * R * D)
-    return dict(max_abs_err=max((dx - dx0).abs().max().item(),
-                                (dg - dg0).abs().max().item()),
-                bound_ms=b, bound_by=by, **t)
+    return dict(max_abs_err=err, bound_ms=b, bound_by=by, **t)
 
 
 def check_rmsnorm_bwd(torch, dev, gen, R, D, D_moe):
@@ -1102,42 +1215,65 @@ def rms_bwd_case(torch, dev, gen, R, D) -> dict:
 
 
 #: attention backward shapes held on the card: name -> (B, Sq, Sk, KV, G,
-#: hd, offsets, causal, window)
+#: hd, offsets, causal, window, act bits, grad bits); q/k/v carry
+#: n_limbs(act bits) planes and P is quantized at the act bits, g carries
+#: n_limbs(grad bits) planes and dS is quantized at the grad bits.  The
+#: ", int16" / ", int12" / ... entries are the bit-width sweep's calls
+#: (phase 9), bidirectional, held on the FP32 body the sweep runs
 ATTN_BWD_SHAPES = {
-    "bert-base cls": (32, 128, 128, 12, 1, 64, 0, False, None),
-    "qwen1.5-0.5b train": (8, 256, 256, 16, 1, 64, 0, True, None),
-    "smollm-135m gqa": (8, 256, 256, 3, 3, 64, 0, True, None),
-    "ragged + window": (2, 20, 150, 2, 2, 16, [100, 37], True, 40),
-    "qwen2-moe-a2.7b train": (8, 256, 256, 16, 1, 128, 0, True, None),
-    "head dim 256 (widest body)": (8, 256, 256, 4, 1, 256, 0, True, None),
-    "head dim 384": (8, 256, 256, 4, 1, 384, 0, True, None),
+    "bert-base cls": (32, 128, 128, 12, 1, 64, 0, False, None, 12, 8),
+    "qwen1.5-0.5b train": (8, 256, 256, 16, 1, 64, 0, True, None, 12, 8),
+    "smollm-135m gqa": (8, 256, 256, 3, 3, 64, 0, True, None, 12, 8),
+    "ragged + window": (2, 20, 150, 2, 2, 16, [100, 37], True, 40, 12, 8),
+    "qwen2-moe-a2.7b train": (8, 256, 256, 16, 1, 128, 0, True, None, 12,
+                              8),
+    "head dim 256 (widest body)": (8, 256, 256, 4, 1, 256, 0, True, None, 12,
+                                   8),
+    "head dim 384": (8, 256, 256, 4, 1, 384, 0, True, None, 12, 8),
+    "bert-base cls, int16": (32, 128, 128, 12, 1, 64, 0, False, None, 16,
+                             16),
+    "bert-base span, int16": (12, 384, 384, 12, 1, 64, 0, False, None, 16,
+                              16),
+    "vit-base img, int16": (32, 197, 197, 12, 1, 64, 0, False, None, 16,
+                            16),
+    "bert-base cls, int12": (32, 128, 128, 12, 1, 64, 0, False, None, 12,
+                             12),
+    "vit-base img, int12": (32, 197, 197, 12, 1, 64, 0, False, None, 12,
+                            12),
+    "vit-base img, int10": (32, 197, 197, 12, 1, 64, 0, False, None, 10,
+                            10),
+    "vit-base img, int8": (32, 197, 197, 12, 1, 64, 0, False, None, 12, 8),
 }
 
 
 def _attn_bwd_inputs(torch, dev, gen, shape):
-    """int8-preset operands: q/k/v 2 planes (a12), g 1 plane (g8), dS 8 bits,
-    P 12 bits; lse from the forward kernel, delta = rowsum(g·o) and dS's
-    exponent from the dequantized values, as ``int_attention`` makes
-    them; exponents [q, k, v, g, dS]."""
+    """Operands at the shape's bits: q/k/v n_limbs(act bits) planes, g
+    n_limbs(grad bits) planes, the exponents keeping the values' size at
+    every plane count; lse from the forward kernel, delta = rowsum(g·o)
+    and dS's exponent from the dequantized values, as ``int_attention``
+    makes them; exponents [q, k, v, g, dS]."""
     from repro_torch.core import int_ops
     from repro_torch.kernels import int_attention as ia
-    B, Sq, Sk, KV, G, hd, off, causal, window = shape
-    q = _planes(torch, gen, dev, 2, B, Sq, KV, G, hd)
-    k = _planes(torch, gen, dev, 2, B, Sk, KV, hd)
-    v = _planes(torch, gen, dev, 2, B, Sk, KV, hd)
-    g = _planes(torch, gen, dev, 1, B, Sq, KV, G, hd)
+    from repro_torch.kernels.dfx_quant import n_limbs
+    B, Sq, Sk, KV, G, hd, off, causal, window, ab, gb = shape
+    L, Lg = n_limbs(ab), n_limbs(gb)
+    q = _planes(torch, gen, dev, L, B, Sq, KV, G, hd)
+    k = _planes(torch, gen, dev, L, B, Sk, KV, hd)
+    v = _planes(torch, gen, dev, L, B, Sk, KV, hd)
+    g = _planes(torch, gen, dev, Lg, B, Sq, KV, G, hd)
     qo = torch.tensor(off if isinstance(off, list) else [off] * B,
                       dtype=torch.int32, device=dev)
-    qe, ke, ve, ge = -12, -12, -9, -20
+    qe, ke, ve = (e - 7 * (L - 2) for e in (-12, -12, -9))
+    ge = -20 - 7 * (Lg - 1)
     o, lse = ia.int_attn_fwd(
         q, k, v, qo, torch.tensor([qe, ke, ve], dtype=torch.int32,
                                   device=dev),
-        p_bits=12, causal=causal, window=window, sc=1.0 / hd ** 0.5)
-    gd = g[0].float() * 2.0 ** ge
-    vd = (v[0].float() + 128 * v[1].float()) * 2.0 ** ve
+        p_bits=ab, causal=causal, window=window, sc=1.0 / hd ** 0.5)
+    e = torch.tensor([ve, ge], dtype=torch.int32, device=dev)
+    gd, vd = _dequant(g, e[1]), _dequant(v, e[0])
     delta = (gd * o).sum(-1)
     dse = int_ops._ds_exp(int_ops._max_row_norm(gd),
-                          int_ops._max_row_norm(vd), 8)
+                          int_ops._max_row_norm(vd), gb)
     exps = torch.tensor([qe, ke, ve, ge, int(dse)], dtype=torch.int32,
                         device=dev)
     return q, k, v, g, lse, delta, qo, exps
@@ -1145,10 +1281,12 @@ def _attn_bwd_inputs(torch, dev, gen, shape):
 
 def check_attention_bwd(torch, dev, gen):
     """int_attn_bwd_dq and int_attn_bwd_dkv against their plain versions at
-    ATTN_BWD_SHAPES (int8 preset), FP32 and kept-int bodies, timed at the
-    qwen1.5-0.5b training shape (the kept-int body too: int_*) and,
-    beside it, at qwen2-moe-a2.7b's (head dim 128; moe_*) and at head dim
-    256 (the widest body; hd256_*).  Tolerance: exact (the same expf or
+    ATTN_BWD_SHAPES (the int8 preset's bits, FP32 and kept-int bodies; the
+    sweep's shapes at int16, int12, int10 and int8, the FP32 body), timed
+    at the qwen1.5-0.5b training shape (the kept-int body too: int_*) and,
+    beside it, at qwen2-moe-a2.7b's (head dim 128; moe_*), at head dim
+    256 (the widest body; hd256_*), head dim 384 (hd384_*) and the sweep's
+    int16 calls (``sweep_rows``).  Tolerance: exact (the same expf or
     i_exp, the same exact int32 limb-pair dots and the same ordered f32
     sums on both sides).  Library: SDPA's f32
     backward at the same shape (dq, dk and dv together).  Bound: the bytes
@@ -1157,23 +1295,24 @@ def check_attention_bwd(torch, dev, gen):
     whichever is larger."""
     import torch.nn.functional as F
     from repro_torch.kernels import int_attention as ia
+    from repro_torch.kernels.dfx_quant import n_limbs
     errs = {"int_attn_bwd_dq": 0.0, "int_attn_bwd_dkv": 0.0}
     timed = {}
     for label, shape in ATTN_BWD_SHAPES.items():
-        B, Sq, Sk, KV, G, hd, off, causal, window = shape
+        B, Sq, Sk, KV, G, hd, off, causal, window, ab, gb = shape
         q, k, v, g, lse, delta, qo, exps = _attn_bwd_inputs(torch, dev, gen,
                                                             shape)
-        for iexp in (False, True):
-            kw = dict(ds_bits=8, causal=causal, window=window,
+        for iexp in (False, True) if (ab, gb) == (12, 8) else (False,):
+            kw = dict(ds_bits=gb, causal=causal, window=window,
                       sc=1.0 / hd ** 0.5, integer_exp=iexp)
             dq = ia.int_attn_bwd_dq(q, k, v, g, lse, delta, qo, exps,
-                                    p_bits=12, **kw)
+                                    p_bits=ab, **kw)
             dk, dv = ia.int_attn_bwd_dkv(q, k, v, g, lse, delta, qo, exps,
-                                         p_bits=12, **kw)
+                                         p_bits=ab, **kw)
             dq0 = ia.int_attn_bwd_dq_plain(q, k, v, g, lse, delta, qo, exps,
                                            **kw)
             dk0, dv0 = ia.int_attn_bwd_dkv_plain(q, k, v, g, lse, delta, qo,
-                                                 exps, p_bits=12, **kw)
+                                                 exps, p_bits=ab, **kw)
             line = []
             for name, got, ref in (("dq", dq, dq0), ("dk", dk, dk0),
                                    ("dv", dv, dv0)):
@@ -1190,11 +1329,13 @@ def check_attention_bwd(torch, dev, gen):
                 line.append(f"{name} max|err| {err:.3e} of max {scale:.3e}, "
                             f"{int((got != ref).sum())} elements differ")
             print(f"  attention backward ({'kept-int' if iexp else 'FP32'} "
-                  f"body) at {label} {shape[:6]}: " + "; ".join(line))
+                  f"body) at {label} {shape[:6]}, q/k/v {q.shape[0]} planes "
+                  f"(P {ab} bits), g {g.shape[0]} (dS {gb} bits): "
+                  + "; ".join(line), flush=True)
             if not iexp and label in ("qwen1.5-0.5b train",
                                       "qwen2-moe-a2.7b train",
                                       "head dim 256 (widest body)",
-                                      "head dim 384"):
+                                      "head dim 384") + SWEEP_TIMED:
                 timed[label] = (shape, q, k, v, g, lse, delta, qo, exps, kw,
                                 dq, dk, dv)
 
@@ -1203,7 +1344,7 @@ def check_attention_bwd(torch, dev, gen):
         """{name: timings and bound} of both kernels at one shape, with
         SDPA's f32 backward (autograd, its graph built once) beside them;
         with ``kept_int`` also the kept-int bodies' timings (int_*)."""
-        B, Sq, Sk, KV, G, hd, off, causal, window = shape
+        B, Sq, Sk, KV, G, hd, off, causal, window, ab, gb = shape
         H = KV * G
         qs, ks, vs = (torch.randn((B, H, S, hd), generator=gen, device=dev)
                       .requires_grad_(True) for S in (Sq, Sk, Sk))
@@ -1218,22 +1359,23 @@ def check_attention_bwd(torch, dev, gen):
         pairs = (B * KV * G * Sq * (Sq + 1) // 2 if causal
                  else B * KV * G * Sq * Sk)
         rows = nbytes(lse, delta)
+        # s (L x L limb pairs), dp (Lg x L), dq or dk (dS planes x L), and
+        # dv (P planes x Lg)
+        L, Lg, Lds = q.shape[0], g.shape[0], n_limbs(gb)
         res = {}
         for name, fn, plain, outs, limb_pairs in (
                 ("int_attn_bwd_dq",
                  lambda: ia.int_attn_bwd_dq(q, k, v, g, lse, delta, qo, exps,
-                                            p_bits=12, **kw),
+                                            p_bits=ab, **kw),
                  lambda: ia.int_attn_bwd_dq_plain(q, k, v, g, lse, delta, qo,
                                                   exps, **kw),
-                 (dq,), 4 + 2 + 2),
+                 (dq,), L * L + Lg * L + Lds * L),
                 ("int_attn_bwd_dkv",
                  lambda: ia.int_attn_bwd_dkv(q, k, v, g, lse, delta, qo,
-                                             exps, p_bits=12, **kw),
+                                             exps, p_bits=ab, **kw),
                  lambda: ia.int_attn_bwd_dkv_plain(q, k, v, g, lse, delta,
-                                                   qo, exps, p_bits=12, **kw),
-                 (dk, dv), 4 + 2 + 2 + 2)):
-            # s (2x2 limb pairs), dp (1x2), and dq (1x2) or dk (1x2) + dv
-            # (2x1)
+                                                   qo, exps, p_bits=ab, **kw),
+                 (dk, dv), L * L + Lg * L + Lds * L + L * Lg)):
             b, by = bound_ms(nbytes(q, k, v, g, qo, exps, *outs) + rows,
                              2 * hd * pairs * limb_pairs)
             res[name] = {**timings(fn, plain), **lib_t, "bound_ms": b,
@@ -1242,16 +1384,16 @@ def check_attention_bwd(torch, dev, gen):
             ki = dict(kw, integer_exp=True)
             res["int_attn_bwd_dq"].update(int_body(timings(
                 lambda: ia.int_attn_bwd_dq(q, k, v, g, lse, delta, qo, exps,
-                                           p_bits=12, **ki),
+                                           p_bits=ab, **ki),
                 lambda: ia.int_attn_bwd_dq_plain(q, k, v, g, lse, delta, qo,
                                                  exps, **ki)),
                 bound_ms=res["int_attn_bwd_dq"]["bound_ms"],
                 bound_by=res["int_attn_bwd_dq"]["bound_by"]))
             res["int_attn_bwd_dkv"].update(int_body(timings(
                 lambda: ia.int_attn_bwd_dkv(q, k, v, g, lse, delta, qo,
-                                            exps, p_bits=12, **ki),
+                                            exps, p_bits=ab, **ki),
                 lambda: ia.int_attn_bwd_dkv_plain(q, k, v, g, lse, delta, qo,
-                                                  exps, p_bits=12, **ki)),
+                                                  exps, p_bits=ab, **ki)),
                 bound_ms=res["int_attn_bwd_dkv"]["bound_ms"],
                 bound_by=res["int_attn_bwd_dkv"]["bound_by"]))
         return res
@@ -1260,17 +1402,20 @@ def check_attention_bwd(torch, dev, gen):
     moe = measure(*timed["qwen2-moe-a2.7b train"])
     wide = measure(*timed["head dim 256 (widest body)"])
     wide384 = measure(*timed["head dim 384"])
+    sweep = {lb: measure(*timed[lb]) for lb in SWEEP_TIMED}
     shape = ATTN_BWD_SHAPES["qwen1.5-0.5b train"]
     B, Sq, Sk, KV, G, hd = shape[:6]
     out_k = []
     for name in ("int_attn_bwd_dq", "int_attn_bwd_dkv"):
         for what, m in (("qwen2-moe-a2.7b train (hd 128)", moe[name]),
                         ("head dim 256", wide[name]),
-                        ("head dim 384 (direct body)", wide384[name])):
+                        ("head dim 384 (direct body)", wide384[name]),
+                        *((lb, r[name]) for lb, r in sweep.items())):
             print(f"  {name} at {what}: call {m['ms']:.4f} ms, device "
-                  f"{m['device_ms']:.4f} ms; SDPA backward device "
+                  f"{m['device_ms']:.4f} ms; plain device "
+                  f"{m['plain_device_ms']:.4f}; SDPA backward device "
                   f"{m['library_device_ms']:.4f}; bound {m['bound_ms']:.4f} "
-                  f"ms ({m['bound_by']})")
+                  f"ms ({m['bound_by']})", flush=True)
         print(body_line(name, main[name]))
         out_k.append(dict(
             name=name, route="cuda",
@@ -1282,17 +1427,106 @@ def check_attention_bwd(torch, dev, gen):
                   f"k/v ({B},{Sk},{KV},{hd}), 2 planes (g 1), causal, dS 8 "
                   "bits, P 12 bits; the kept-int body timed there too "
                   "(int_*); also timed at qwen2-moe-a2.7b's head dim 128 "
-                  "(moe_*), at head dim 256 (hd256_*) and at head dim 384 "
-                  "(hd384_*, the direct body); both bodies held "
-                  "at " + ", ".join(ATTN_BWD_SHAPES)
-                  + "; tolerance exact; library: SDPA backward (f32, "
-                  "autograd, dq + dk + dv)",
+                  "(moe_*), at head dim 256 (hd256_*), at head dim 384 "
+                  "(hd384_*, the direct body) and at the sweep's int16 "
+                  "calls (sweep_rows); held at " + ", ".join(ATTN_BWD_SHAPES)
+                  + " (both bodies at the int8 bits); tolerance exact; "
+                  "library: SDPA backward (f32, autograd, dq + dk + dv)",
             max_abs_err=errs[name], int_max_abs_err=errs[name + " int"],
             **main[name],
             **{f"moe_{k_}": v_ for k_, v_ in moe[name].items()},
             **{f"hd256_{k_}": v_ for k_, v_ in wide[name].items()},
-            **{f"hd384_{k_}": v_ for k_, v_ in wide384[name].items()}))
+            **{f"hd384_{k_}": v_ for k_, v_ in wide384[name].items()},
+            sweep_rows=[dict(label=lb, max_abs_err=0.0, **r[name])
+                        for lb, r in sweep.items()]))
     return out_k
+
+
+def _quant_planes(torch, gen, dev, bits, *shape):
+    """The limb planes of a seeded normal tensor quantized at ``bits`` (the
+    quantize kernel, as a layer makes them: balanced base-2^7 digits, a
+    small top plane)."""
+    from repro_torch.core import dfx
+    return dfx.quantize(torch.randn(shape, generator=gen, device=dev), bits,
+                        limb_planes=True).m
+
+
+def check_sweep_matmuls(torch, dev, gen, bert, tokens, vit_tokens) -> dict:
+    """bfp_matmul, bfp_matmul_nt and bfp_matmul_tn at the sweep's limb
+    pairs, on operands quantized as a layer quantizes them: 3x3 at 16 bits,
+    2x2 at 12 and at 10.  At each full-width step's rows (bert-base cls
+    and span, vit-base img: 32 x 197 = 6304 rows, a ragged last tile and
+    the sweep's longest contraction), w1's forward X . W, its dX G . W^T
+    and its dW X^T . G, held exactly against the plain versions (float64
+    sums: a wrapped int32 sum would differ), with dW's largest
+    |limb-pair sum| printed beside 2^31.  Timed beside torch._int_mm per
+    limb pair: NT and TN at 3x3 on bert w1 and TN on vit w1 (int16), and
+    NN, NT and TN at 2x2 on bert w1 (int12).  Returns {kernel: [row, ...]}."""
+    from repro_torch.kernels import bfp_matmul as bm
+    from repro_torch.kernels.dfx_quant import n_limbs
+    D, F = bert.d_model, bert.d_ff
+    e = torch.tensor(-30, dtype=torch.int32, device=dev)
+    rows = {"bfp_matmul": [], "bfp_matmul_nt": [], "bfp_matmul_tn": []}
+    for bits in (16, 12, 10):
+        L = n_limbs(bits)
+        w = _quant_planes(torch, gen, dev, bits, D, F)
+        wt = [wj.t().contiguous() for wj in w]
+        for T in (b * t for _, _, b, t in SWEEP_CELLS):
+            label = f"{'vit' if T == vit_tokens else 'bert'} w1"
+            what = f"int{bits} {L}x{L} {label} ({T} rows)"
+            x = _quant_planes(torch, gen, dev, bits, T, D)
+            g = _quant_planes(torch, gen, dev, bits, T, F)
+            _held("bfp_matmul", bm.bfp_matmul(x, w, e),
+                  bm.bfp_matmul_plain(x, w, e), f"{what} forward")
+            _held("bfp_matmul_nt", bm.bfp_matmul_nt(g, w, e),
+                  bm.bfp_matmul_nt_plain(g, w, e), f"{what} dX")
+            _held("bfp_matmul_tn", bm.bfp_matmul_tn(x, g, e),
+                  bm.bfp_matmul_tn_plain(x, g, e), f"{what} dW")
+            peak = max(float((xi.t().double() @ gj.double()).abs().max())
+                       for xi in x for gj in g)
+            print(f"  {what}: forward, dX and dW bit for bit; dW's largest "
+                  f"|limb-pair sum| {peak:.0f} = 2^{math.log2(peak):.2f} of "
+                  "2^31 (no int32 wrap)", flush=True)
+            if peak >= 2 ** 31:
+                raise AssertionError(f"the {what} dW's int32 limb-pair sums "
+                                     f"wrap: {peak}")
+            timed = {(16, tokens): "nt tn", (16, vit_tokens): "tn",
+                     (12, tokens): "nn nt tn"}.get((bits, T), "").split()
+            n_ops = 2 * T * D * F * L * L
+            if "nn" in timed:
+                ws = [wj.contiguous() for wj in w]
+                wc = [_colmajor(wj) for wj in w]
+                rows["bfp_matmul"].append(mm_row(
+                    f"{what} forward {T}x{D}x{F}",
+                    lambda: bm.bfp_matmul(x, w, e), n_ops,
+                    nbytes(x, w) + 4 * T * F,
+                    {"int_mm": lambda: [torch._int_mm(xi, wj) for xi in x
+                                        for wj in ws],
+                     "int_mm_colmajor": lambda: [torch._int_mm(xi, wj)
+                                                 for xi in x for wj in wc]}))
+            if "nt" in timed:
+                rows["bfp_matmul_nt"].append(mm_row(
+                    f"{what} dX {T}x{F} . ({D}x{F})^T",
+                    lambda: bm.bfp_matmul_nt(g, w, e), n_ops,
+                    nbytes(g, w) + 4 * T * D,
+                    {"int_mm": lambda: [torch._int_mm(gi, wj) for gi in g
+                                        for wj in wt],
+                     "int_mm_colmajor": lambda: [torch._int_mm(gi, wj.t())
+                                                 for gi in g for wj in w]}))
+            if "tn" in timed:
+                xt = [xi.t().contiguous() for xi in x]
+                gc_ = [_colmajor(gj) for gj in g]
+                rows["bfp_matmul_tn"].append(dict(mm_row(
+                    f"{what} dW ({T}x{D})^T . {T}x{F}",
+                    lambda: bm.bfp_matmul_tn(x, g, e), n_ops,
+                    nbytes(x, g) + 4 * D * F,
+                    {"int_mm": lambda: [torch._int_mm(xi, gj) for xi in xt
+                                        for gj in g],
+                     "int_mm_colmajor": lambda: [torch._int_mm(xi, gj)
+                                                 for xi in xt
+                                                 for gj in gc_]}),
+                    max_limb_pair_sum=peak))
+    return rows
 
 
 #: qwen2-moe-a2.7b training depth in phase 8 (of 24 layers): the deepest
@@ -1587,6 +1821,60 @@ def check_small_bert(torch, dev):
         dl = abs(l1 - l0) / abs(l0)
         worst, at = _grad_agreement(torch, g0, g1)
         print(f"  reduced bert-base {task} step ({label}), card vs CPU: loss "
+              f"{l1:.6f} vs {l0:.6f} (rel {dl:.2e}, tolerance 1e-5); worst "
+              f"gradient {worst:.2e} of its max at {at} (tolerance 2e-3) "
+              f"over {len(g0)} parameters")
+        if dl > 1e-5 or worst > 2e-3:
+            raise AssertionError("card training step disagrees with the CPU "
+                                 "path")
+
+
+def check_small_sweep(torch, dev):
+    """The sweep's presets on reduced models: one training step, rounding
+    to nearest, on the card against the port's CPU path from the same
+    weights and batch, with ``check_small_bert``'s tolerances (loss 1e-5
+    relative, every gradient within 2e-3 of its largest magnitude): the
+    reduced bert-base cls step at int16 (3 limb planes, integer
+    attention), and a reduced ViT (2 layers, d_model 128, 32 x 32 images in
+    8 x 8 patches: 17 tokens, a ragged key block) at int16 and int8."""
+    import dataclasses
+    import functools
+    from repro_torch.configs import bert_base
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.models import paper_models as pm
+    from repro_torch.train import finetune as tf
+    from repro_torch.train import optimizer as topt
+    bert = bert_base.CONFIG.reduced()
+    vit = pm.vit_config(n_layers=2, d_model=128, n_heads=4, d_ff=256,
+                        img=32, patch=8, name="vit-2l-d128")
+    ocfg = topt.OptimizerConfig(lr=1e-3, weight_decay=0.0)
+    for model, preset in (("bert", "int16"), ("vit", "int16"),
+                          ("vit", "int8")):
+        qcfg = dataclasses.replace(QuantConfig.preset(preset),
+                                   stochastic_grad=False)
+        g = torch.Generator().manual_seed(1)
+        if model == "bert":
+            cfg, loss_fn = bert, pm.bert_cls_loss
+            params = pm.bert_init(g, cfg, num_labels=4, device="cpu")
+            batch = tf.make_cls_task(vocab=cfg.vocab, seq=32)(4, 0)
+        else:
+            cfg = vit
+            loss_fn = functools.partial(pm.vit_cls_loss, patch=8)
+            params = pm.vit_init(g, cfg, num_classes=4, img=32, patch=8,
+                                 device="cpu")
+            batch = tf.make_img_task(img=32, patch=8)(4, 0)
+        res = {}
+        for device in ("cpu", dev):
+            p = _to(params, device)
+            _, _, loss, grads, _ = tf.train_step(
+                p, topt.init(p), tf.to_device(batch, device), cfg, qcfg,
+                loss_fn, ocfg, None)
+            res[str(device)] = (float(loss), {n: g_.cpu()
+                                              for n, g_ in _leaves(grads)})
+        (l0, g0), (l1, g1) = res["cpu"], res[str(dev)]
+        dl = abs(l1 - l0) / abs(l0)
+        worst, at = _grad_agreement(torch, g0, g1)
+        print(f"  reduced {cfg.name} step ({preset}), card vs CPU: loss "
               f"{l1:.6f} vs {l0:.6f} (rel {dl:.2e}, tolerance 1e-5); worst "
               f"gradient {worst:.2e} of its max at {at} (tolerance 2e-3) "
               f"over {len(g0)} parameters")
@@ -2436,6 +2724,154 @@ def train_moe_phase(torch, dev, wrappers, layers: int = MOE_TRAIN_LAYERS,
     return launches
 
 
+#: phase 9: the paper's presets, and the full-width cells (task, config
+#: module, batch, tokens per sample)
+SWEEP_PRESETS = ("fp32", "int16", "int12", "int10", "int8")
+SWEEP_CELLS = (("cls", "bert_base", 32, 128), ("span", "bert_base", 12, 384),
+               ("img", "vit_base", 32, 197))
+#: the kernels of phase 9's path: each launches at every integer preset
+SWEEP_KERNELS = ("dfx_quantize", "bfp_matmul", "bfp_matmul_nt",
+                 "bfp_matmul_tn", "int_layernorm_fwd", "int_layernorm_bwd",
+                 "int_attn_fwd", "int_attn_bwd_dq", "int_attn_bwd_dkv")
+
+
+def sweep_full_width(torch, dev, wrappers) -> dict:
+    """Phase 9, full width: bert-base cls and span and vit-base img through
+    ``finetune`` at each of SWEEP_PRESETS (the plain presets, as the
+    reference's ``sweep`` runs them: integer attention, stochastic gradient
+    rounding from a seeded CUDA generator), lr 1e-4, 6 steps each.  The
+    launch counters are set to 0 just before each run and read just after.
+    Every loss must be finite; at each integer preset every kernel of the
+    path launches in every step, and each wrapper's launches per step are
+    the same at int16, int12, int10 and int8 (the reference's
+    ``step_stats`` claim); FP32 launches none.  Prints the losses, the
+    median of steps 1-5, tokens/s, the peak, the launches per step, and a
+    profiled step's busy share at int16 and int8.  Returns each wrapper's
+    launches over the integer runs."""
+    import importlib
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.train import finetune as tf
+    from repro_torch.train import optimizer as topt
+    total = dict.fromkeys(wrappers, 0)
+    for task, module, batch, seq in SWEEP_CELLS:
+        conf = importlib.import_module(f"repro_torch.configs.{module}")
+        arch = conf.CONFIG
+        ft = tf.FtConfig(steps=6, batch=batch, eval_n=batch, lr=1e-4,
+                         **({"img": conf.IMG} if task == "img" else
+                            {"seq": seq}))
+        per_preset = {}
+        for p in SWEEP_PRESETS:
+            stamps, counts = [], []
+
+            def on_step(i, loss):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                counts.append({n: w.launches for n, w in wrappers.items()})
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for w in wrappers.values():
+                w.launches = 0
+            t_start = time.perf_counter()
+            metric, losses = tf.finetune(task, QuantConfig.preset(p), ft,
+                                         device=dev, arch=arch,
+                                         return_losses=True, on_step=on_step)
+            torch.cuda.synchronize()
+            launches = {n: w.launches for n, w in wrappers.items()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"non-finite {task} {p} loss: {losses}")
+            steps = _per_step(counts)
+            st = _step_stats(torch, stamps, t_start, batch * seq)
+            last = {n: c for n, c in steps[-1].items() if c}
+            print(f"  {arch.name} {task} {p}: losses "
+                  f"{[round(v, 5) for v in losses]}; steps 1-5 ms "
+                  f"{[round(v, 2) for v in st['step_ms']]}, median "
+                  f"{st['median_ms']:.2f} ms, {st['tok_s']:.1f} tokens/s; "
+                  f"set-up + step 0 {st['first_ms']:.2f} ms; peak "
+                  f"{peak:.2f} GiB; launches per step {last} (run, eval "
+                  f"included: {sum(launches.values())}); eval metric "
+                  f"{metric:.1f}% on {batch}", flush=True)
+            if p == "fp32":
+                if any(launches.values()):
+                    raise AssertionError(f"FP32 {task} launched kernels: "
+                                         f"{launches}")
+            else:
+                for n in SWEEP_KERNELS:
+                    if not all(s_[n] > 0 for s_ in steps):
+                        raise AssertionError(
+                            f"kernel {n} was not launched in every {task} "
+                            f"{p} step: {[s_[n] for s_ in steps]}")
+                for n, c in launches.items():
+                    total[n] += c
+            per_preset[p] = steps[-1]
+        ints = [p for p in SWEEP_PRESETS if p != "fp32"]
+        for n in wrappers:
+            seen = {p: per_preset[p][n] for p in ints}
+            if len(set(seen.values())) != 1:
+                raise AssertionError(f"{task}: {n}'s launches per step differ "
+                                     f"across the integer presets: {seen}")
+        print(f"  {task}: launches per step equal at "
+              f"{', '.join(ints)}: {sum(per_preset['int8'].values())} "
+              "(delta 0 against int8)", flush=True)
+        for p in ("int16", "int8"):
+            gen = torch.Generator(device=dev).manual_seed(1)
+            cfg, params, sampler, loss_fn, lr = tf._task_setup(
+                task, gen, ft, arch, dev)
+            ocfg = topt.OptimizerConfig(lr=lr, weight_decay=0.0)
+            state = {"p": params, "o": topt.init(params)}
+            b = tf.to_device(sampler(batch, 0), dev)
+            q = QuantConfig.preset(p)
+
+            def one_step():
+                state["p"], state["o"], _, _, _ = tf.train_step(
+                    state["p"], state["o"], b, cfg, q, loss_fn, ocfg, gen)
+            one_step()
+            profile_step(torch, one_step, f"{arch.name} {task} step ({p})")
+            del state, params
+    return total
+
+
+def sweep_reference_size(torch, dev) -> None:
+    """Phase 9, the paper's numbers at the reference's sizes (bert-tiny /
+    vit-tiny, batch 16, eval on 128): Tables 1-3 and Fig. 4 at 120 steps,
+    Fig. 5 at 150 with its assertion (int16's final loss near FP32's).
+    Prints each table's metric and drop against FP32, and int8's average
+    drop over the three tables (the paper reports 3.1 points)."""
+    from repro_torch.train import paper_tables as pt
+    drops = []
+    for title, fn in (("Table 1 (GLUE proxy, cls, accuracy)",
+                       pt.table1_glue_sweep),
+                      ("Table 2 (SQuAD proxy, span, exact match)",
+                       pt.table2_squad_sweep),
+                      ("Table 3 (CIFAR proxy, ViT img, accuracy)",
+                       pt.table3_vit_sweep)):
+        t0 = time.perf_counter()
+        rows = fn(steps=120, device=dev)
+        res = {r[0].split("/")[1]: pt.metric_of(r) for r in rows}
+        drops.append(res["fp32"] - res["int8"])
+        print(f"  {title}, 120 steps, {time.perf_counter() - t0:.1f} s: "
+              + "; ".join(f"{p} {m:.2f} (drop {res['fp32'] - m:+.2f})"
+                          for p, m in res.items()), flush=True)
+    t0 = time.perf_counter()
+    rows = pt.fig4_act_bits(steps=120, device=dev)
+    print(f"  Fig. 4 (w8 g8, span EM by activation bits), 120 steps, "
+          f"{time.perf_counter() - t0:.1f} s: "
+          + "; ".join(f"{r[0].split('/')[1]} {pt.metric_of(r):.2f}"
+                      for r in rows), flush=True)
+    t0 = time.perf_counter()
+    rows = pt.fig5_loss_traj(steps=150, device=dev)
+    print(f"  Fig. 5 (span loss trajectories), 150 steps, "
+          f"{time.perf_counter() - t0:.1f} s: final losses "
+          + "; ".join(f"{r[0].split('/')[1]} {pt.metric_of(r):.4f}"
+                      for r in rows) + " (int16 within 0.15 max(fp32, 0.1) "
+          "+ 0.05 of fp32: holds)", flush=True)
+    print(f"  int8's drop against FP32: {[round(d, 2) for d in drops]}, "
+          f"average {sum(drops) / len(drops):+.2f} points (the paper: 3.1)",
+          flush=True)
+
+
 def _to(tree, device):
     """A copy of the tree on ``device`` (a copy on the CPU too: a training
     step updates its parameters in place)."""
@@ -2454,7 +2890,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import bert_base, registry
-    from repro_torch.kernels import _lib, bfp_matmul, dfx_quant, int_attention, int_norm
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import ops as kops
     from repro_torch.models import lm
 
     dev = torch.device("cuda", 0)
@@ -2490,6 +2927,10 @@ def main() -> int:
     kernels += check_attention_bwd(torch, dev, gen)
     kernels.append(check_quantize_grouped(torch, dev, gen, moe))
     kernels += check_matmul_batched(torch, dev, gen, moe)
+    sweep_rows = check_sweep_matmuls(torch, dev, gen, bert, tokens, 32 * 197)
+    for k in kernels:
+        if k["name"] in sweep_rows:
+            k["sweep_rows"] = sweep_rows[k["name"]]
     for k in kernels:
         print(f"  {k['name']}: max_abs_err {k['max_abs_err']:.3e}; call "
               f"{k['ms']:.4f} ms, device {k['device_ms']:.4f} ms; plain "
@@ -2500,74 +2941,58 @@ def main() -> int:
     print("[3] reduced models, card vs CPU path")
     check_small_model(torch, dev)
     check_small_bert(torch, dev)
+    check_small_sweep(torch, dev)
     check_small_lm_train(torch, dev)
     check_small_moe(torch, dev)
     check_small_moe_kept_int(torch, dev)
 
     print("[4] serve qwen1.5-0.5b, full width, int8")
-    wrappers = {"dfx_quantize": dfx_quant.dfx_quantize,
-                "bfp_matmul": bfp_matmul.bfp_matmul,
-                "int_rmsnorm_fwd": int_norm.int_rmsnorm_fwd,
-                "int_attn_fwd": int_attention.int_attn_fwd}
-    launches = serve_phase(torch, dev, cfg, wrappers)
+    serve = ("dfx_quantize", "bfp_matmul", "int_rmsnorm_fwd", "int_attn_fwd")
+    launches = serve_phase(torch, dev, cfg, kops.wrappers(*serve))
     print("[5] fine-tune bert-base, full width, paper scope (int8 linear / "
           "layer-norm / embedding), stochastic gradient rounding")
-    paper = {"dfx_quantize": dfx_quant.dfx_quantize,
-             "bfp_matmul": bfp_matmul.bfp_matmul,
-             "bfp_matmul_nt": bfp_matmul.bfp_matmul_nt,
-             "bfp_matmul_tn": bfp_matmul.bfp_matmul_tn,
-             "int_layernorm_fwd": int_norm.int_layernorm_fwd,
-             "int_layernorm_bwd": int_norm.int_layernorm_bwd}
-    attn = {"int_attn_fwd": int_attention.int_attn_fwd,
-            "int_attn_bwd_dq": int_attention.int_attn_bwd_dq,
-            "int_attn_bwd_dkv": int_attention.int_attn_bwd_dkv}
-    ft_launches, ft8_launches = finetune_phase(torch, dev, paper,
-                                               {**paper, **attn})
+    matmuls = ("dfx_quantize", "bfp_matmul", "bfp_matmul_nt", "bfp_matmul_tn")
+    attn = ("int_attn_fwd", "int_attn_bwd_dq", "int_attn_bwd_dkv")
+    paper = matmuls + ("int_layernorm_fwd", "int_layernorm_bwd")
+    lm_train = matmuls + ("int_rmsnorm_fwd", "int_rmsnorm_bwd") + attn
+    ft_launches, ft8_launches = finetune_phase(
+        torch, dev, kops.wrappers(*paper), kops.wrappers(*paper, *attn))
     print("[6] train qwen1.5-0.5b, full width, int8, batch 8 x seq 256, "
           "through launch.train")
-    tr_launches = train_phase(torch, dev, {
-        "dfx_quantize": dfx_quant.dfx_quantize,
-        "bfp_matmul": bfp_matmul.bfp_matmul,
-        "bfp_matmul_nt": bfp_matmul.bfp_matmul_nt,
-        "bfp_matmul_tn": bfp_matmul.bfp_matmul_tn,
-        "int_rmsnorm_fwd": int_norm.int_rmsnorm_fwd,
-        "int_rmsnorm_bwd": int_norm.int_rmsnorm_bwd, **attn})
+    tr_launches = train_phase(torch, dev, kops.wrappers(*lm_train))
     print("[6b] kept_ops=\"integer\" at full width beside int8: bert-base "
           "cls (batch 32 x seq 128, 10 steps) and qwen1.5-0.5b training "
           "(batch 8 x seq 256, 6 steps)")
     gc.collect()
     torch.cuda.empty_cache()
-    kept = kept_int_phase(torch, dev, {**paper, **attn}, {
-        "dfx_quantize": dfx_quant.dfx_quantize,
-        "bfp_matmul": bfp_matmul.bfp_matmul,
-        "bfp_matmul_nt": bfp_matmul.bfp_matmul_nt,
-        "bfp_matmul_tn": bfp_matmul.bfp_matmul_tn,
-        "int_rmsnorm_fwd": int_norm.int_rmsnorm_fwd,
-        "int_rmsnorm_bwd": int_norm.int_rmsnorm_bwd, **attn})
-    moe_fwd = {"dfx_quantize_grouped": dfx_quant.dfx_quantize_grouped,
-               "bfp_matmul_batched": bfp_matmul.bfp_matmul_batched}
+    kept = kept_int_phase(torch, dev, kops.wrappers(*paper, *attn),
+                          kops.wrappers(*lm_train))
+    moe_fwd = ("dfx_quantize_grouped", "bfp_matmul_batched")
     gc.collect()
     torch.cuda.empty_cache()
     print("[7] serve qwen2-moe-a2.7b, full width and depth (24 layers, 60 "
           "experts top-4 + shared expert), int8; device memory allocated "
           f"before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     moe_serve = serve_phase(torch, dev, registry.get_config(
-        "qwen2-moe-a2.7b"), {**wrappers, **moe_fwd})
+        "qwen2-moe-a2.7b"), kops.wrappers(*serve, *moe_fwd))
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[8] train qwen2-moe-a2.7b, full width, {MOE_TRAIN_LAYERS} layers, "
           "int8, batch 8 x seq 256, lm_loss + make_train_step; device memory "
           f"allocated before: {torch.cuda.memory_allocated() / 2**30:.2f} "
           "GiB")
-    moe_train = train_moe_phase(torch, dev, {
-        "dfx_quantize": dfx_quant.dfx_quantize,
-        "bfp_matmul": bfp_matmul.bfp_matmul,
-        "bfp_matmul_nt": bfp_matmul.bfp_matmul_nt,
-        "bfp_matmul_tn": bfp_matmul.bfp_matmul_tn,
-        "int_rmsnorm_fwd": int_norm.int_rmsnorm_fwd,
-        "int_rmsnorm_bwd": int_norm.int_rmsnorm_bwd, **attn, **moe_fwd,
-        "bfp_matmul_batched_nt": bfp_matmul.bfp_matmul_batched_nt,
-        "bfp_matmul_batched_tn": bfp_matmul.bfp_matmul_batched_tn})
+    moe_train = train_moe_phase(torch, dev, kops.wrappers(
+        *lm_train, *moe_fwd, "bfp_matmul_batched_nt", "bfp_matmul_batched_tn"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[9] the paper's bit-width sweep (fp32, int16, int12, int10, "
+          "int8): bert-base cls / span and vit-base img at full width, 6 "
+          "steps each; Tables 1-3 and Figs. 4-5 at the reference's sizes")
+    t9 = time.perf_counter()
+    sweep_launches = sweep_full_width(torch, dev, kops.wrappers())
+    print(f"[9] full width in {time.perf_counter() - t9:.1f} s", flush=True)
+    sweep_reference_size(torch, dev)
+    print(f"[9] phase took {time.perf_counter() - t9:.1f} s")
     for k in kernels:
         by_path = {"serve": launches.get(k["name"], 0),
                    "finetune": ft_launches.get(k["name"], 0),
@@ -2577,7 +3002,8 @@ def main() -> int:
                    "train_moe": moe_train.get(k["name"], 0),
                    "finetune_keptint": kept["finetune_keptint"].get(
                        k["name"], 0),
-                   "train_keptint": kept["train_keptint"].get(k["name"], 0)}
+                   "train_keptint": kept["train_keptint"].get(k["name"], 0),
+                   "sweep": sweep_launches.get(k["name"], 0)}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         if "int_ms" in k:        # the kept-int paths run its integer body

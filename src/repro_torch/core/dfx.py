@@ -143,3 +143,18 @@ def quantize_stacked(x: torch.Tensor, bits: int, *,
 def dequantize(t: DfxTensor) -> torch.Tensor:
     """Non-linear inverse mapping: DFX -> float32 (exact)."""
     return t.m.to(torch.float32) * pow2(t.exp)
+
+
+# ---------------------------------------------------------------------------
+# Error-bound helpers (Proposition 1)
+# ---------------------------------------------------------------------------
+
+def error_bound(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Prop. 1 bound on |x̂ - x|: the quantization step ``2^(e_scale-b+1)``
+    (RN halves it; stochastic rounding meets it), a 0-d f32 tensor."""
+    return pow2(scale_exponent(x.to(torch.float32)) - (bits - 1))
+
+
+def variance_bound(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Prop. 1: V{delta} <= 2^(2(e_scale_ieee - b + 2)) = step^2."""
+    return error_bound(x, bits) ** 2

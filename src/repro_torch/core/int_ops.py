@@ -10,6 +10,7 @@ the integer flash-attention kernel.  The kernels run on the card for CUDA
 tensors and as their plain PyTorch versions for CPU tensors.  With
 ``cfg.enabled`` False each layer is its FP32 reference (plain autograd).
 
+``int_patch_embed`` (ViT) is a reshape in front of ``int_linear``.
 ``int_linear``, ``int_batched_linear``, ``int_embedding``,
 ``int_layernorm``, ``int_rmsnorm`` and ``int_attention`` are
 ``torch.autograd.Function``s, the counterparts of the reference's
@@ -161,6 +162,20 @@ def int_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
         y = torch.matmul(x, w.t() if transposed_w else w)
         return y + b if b is not None else y
     return _IntLinear.apply(x, w, b, key, cfg, transposed_w)
+
+
+def int_patch_embed(images: torch.Tensor, w: torch.Tensor,
+                    b: Optional[torch.Tensor], key, cfg: QuantConfig,
+                    patch: int) -> torch.Tensor:
+    """ViT patch embedding = non-overlapping conv = reshape + int_linear.
+
+    images: (B, H, W, C); w: (patch*patch*C, D) -> (B, H/p·W/p, D), each
+    patch flattened in (row, column, channel) order as in the reference."""
+    B, H, W, C = images.shape
+    x = images.reshape(B, H // patch, patch, W // patch, patch, C)
+    x = x.permute(0, 1, 3, 2, 4, 5).reshape(
+        B, (H // patch) * (W // patch), -1)
+    return int_linear(x, w, b, key, cfg)
 
 
 # =========================================================================

@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 import fnmatch
 import functools
+import json
 import warnings
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -50,6 +51,11 @@ class ScopeRule:
 
     def matches(self, path: str) -> bool:
         return fnmatch.fnmatchcase(path, self.pattern)
+
+
+def rule(pattern: str, **overrides: Any) -> ScopeRule:
+    """Convenience constructor: ``rule("embed*", weight_bits=16)``."""
+    return ScopeRule(pattern=pattern, overrides=tuple(overrides.items()))
 
 
 def specificity(pattern: str) -> Tuple[int, int]:
@@ -113,6 +119,39 @@ class QuantPolicy:
                 "the rule to silence", StabilityWarning, stacklevel=2)
         return leaf
 
+    # -- JSON round trip (the policy's storage format) --------------------
+    def to_json(self) -> str:
+        """The port's fields, ``sort_keys=True`` like the reference's
+        document, so the reference's ``from_json`` reads it back (its
+        missing ``backend`` takes the reference's default)."""
+        doc = {
+            "base": dataclasses.asdict(self.base),
+            "rules": [{"pattern": r.pattern, "overrides": dict(r.overrides)}
+                      for r in self.rules],
+        }
+        return json.dumps(doc, sort_keys=True)
+
+    @staticmethod
+    def from_json(doc: Union[str, Mapping[str, Any]]) -> "QuantPolicy":
+        """A policy from the port's or the reference's document.  The
+        reference's ``backend`` key (in the base or a rule) is dropped: the
+        port has no backend switch, its kernels follow the reference's
+        Pallas route wherever the tensors lie."""
+        if isinstance(doc, str):
+            doc = json.loads(doc)
+        base = {k: v for k, v in doc.get("base", {}).items()
+                if k != "backend"}
+        rules = tuple(
+            ScopeRule(pattern=r["pattern"], overrides=tuple(
+                (k, v) for k, v in r.get("overrides", {}).items()
+                if k != "backend"))
+            for r in doc.get("rules", ()))
+        return QuantPolicy(base=QuantConfig(**base), rules=rules)
+
+    @staticmethod
+    def preset(name: str) -> "QuantPolicy":
+        return preset(name)
+
 
 @dataclasses.dataclass(frozen=True)
 class Scope:
@@ -148,6 +187,12 @@ class Scope:
 
 
 QuantLike = Union[QuantConfig, QuantPolicy, Scope]
+
+
+class PolicyScopeError(ValueError):
+    """A policy's scope rules cannot be realized on this model structure
+    (e.g. per-layer-index rules on an interleaved stack).  Sweep drivers
+    catch this to record the cell as skipped, not failed."""
 
 
 def as_policy(q: QuantLike) -> QuantPolicy:

@@ -18,7 +18,23 @@ from repro_torch.kernels.dfx_quant import (dfx_quantize, dfx_quantize_grouped,
                                            n_limbs, split_limbs_stacked)
 from repro_torch.kernels.int_attention import (int_attn_bwd_dkv,
                                                int_attn_bwd_dq, int_attn_fwd)
-from repro_torch.kernels.int_norm import int_rmsnorm_bwd, int_rmsnorm_fwd
+from repro_torch.kernels.int_norm import (int_layernorm_bwd, int_layernorm_fwd,
+                                          int_rmsnorm_bwd, int_rmsnorm_fwd)
+
+#: every kernel wrapper by name; each counts its CUDA launches in
+#: ``.launches`` (a CPU tensor runs the plain version and counts none)
+WRAPPERS = {f.__name__: f for f in (
+    dfx_quantize, dfx_quantize_grouped,
+    bfp_matmul, bfp_matmul_nt, bfp_matmul_tn,
+    bfp_matmul_batched, bfp_matmul_batched_nt, bfp_matmul_batched_tn,
+    int_layernorm_fwd, int_layernorm_bwd, int_rmsnorm_fwd, int_rmsnorm_bwd,
+    int_attn_fwd, int_attn_bwd_dq, int_attn_bwd_dkv)}
+
+
+def wrappers(*names: str) -> dict:
+    """{name: wrapper} of ``names``, or of every wrapper when none is
+    given."""
+    return {n: WRAPPERS[n] for n in names or WRAPPERS}
 
 
 def _as_planes(m: torch.Tensor, bits: int, base_ndim: int) -> torch.Tensor:

@@ -1,9 +1,9 @@
-"""The paper's own model: a BERT-style encoder with a classification or
-span head.
+"""The paper's own models: a BERT-style encoder with a classification or
+span head, and the ViT classifier.
 
-Counterpart of the BERT half of ``repro/models/paper_models.py`` (ViT is
-not ported yet).  Every linear, layer-norm and embedding goes through the
-integer layers of ``core.int_ops``; softmax, GELU and the pooler's tanh
+Counterpart of ``repro/models/paper_models.py``.  Every linear, layer-norm,
+embedding and patch embedding goes through the integer layers of
+``core.int_ops``; softmax, GELU and the pooler's tanh
 are the paper's kept FP32 ops (the iapprox integer forms under
 ``kept_ops="integer"``).  Parameters are a nested dict of tensors
 with the layer stack on a leading ``(L, ...)`` axis, as in the reference,
@@ -13,7 +13,8 @@ Python loop here, without recompute.
 
 Quantization scope paths, as in the reference: ``embed``, ``type_embed``,
 ``embed_ln``, ``blocks.{i}.{ln1, attn.*, ln2, mlp.{w1,w2,act}}``,
-``pooler`` (+ ``pooler.act``), ``head``, ``span_head``.
+``pooler`` (+ ``pooler.act``), ``head``, ``span_head``; ViT:
+``patch_embed``, ``blocks.{i}.*``, ``final_ln``, ``head``.
 """
 from __future__ import annotations
 
@@ -41,6 +42,15 @@ def bert_config(n_layers=12, d_model=768, n_heads=12, d_ff=3072,
                       d_model=d_model, n_heads=n_heads, n_kv_heads=n_heads,
                       d_ff=d_ff, vocab=vocab, norm="layernorm", act="gelu",
                       max_position_embeddings=512)
+
+
+def vit_config(n_layers=12, d_model=768, n_heads=12, d_ff=3072,
+               img=224, patch=16, name="vit-base") -> ArchConfig:
+    return ArchConfig(name=name, family="encoder", n_layers=n_layers,
+                      d_model=d_model, n_heads=n_heads, n_kv_heads=n_heads,
+                      d_ff=d_ff, vocab=0, norm="layernorm", act="gelu",
+                      max_position_embeddings=(img // patch) ** 2 + 1,
+                      frontend="vision_stub")
 
 
 def _enc_block_init(gen: torch.Generator, cfg: ArchConfig, device,
@@ -147,3 +157,53 @@ def bert_span_loss(params: Params, batch: dict, cfg: ArchConfig,
     le = _pick(end_lp, batch["span_end"])
     return -0.5 * torch.mean(ls + le), {"start_lp": start_lp,
                                         "end_lp": end_lp}
+
+
+# ===================== ViT =====================
+
+def vit_init(gen: torch.Generator, cfg: ArchConfig, num_classes: int = 10,
+             img: int = 224, patch: int = 16, channels: int = 3,
+             device="cuda") -> Params:
+    """Random params drawn from ``gen`` (a generator on ``device``), in the
+    reference's tree: the patch projection, the class token, learned
+    positions, the stacked encoder blocks, the final norm and the head."""
+    device = resolve_device(device)
+    D = cfg.d_model
+
+    def init(*shape):
+        return blocks._init(gen, shape, device)
+    return {
+        "patch_w": init(patch * patch * channels, D),
+        "patch_b": torch.zeros((D,), device=device),
+        "cls": init(1, 1, D),
+        "pos_embed": init((img // patch) ** 2 + 1, D),
+        "blocks": _enc_block_init(gen, cfg, device, (cfg.n_layers,)),
+        "final_ln": blocks.norm_init(cfg, device),
+        "head": init(D, num_classes),
+        "head_b": torch.zeros((num_classes,), device=device),
+    }
+
+
+def vit_apply(params: Params, images: torch.Tensor, cfg: ArchConfig,
+              qcfg: QuantLike, key, patch: int = 16) -> torch.Tensor:
+    """images (B, H, W, C) f32 -> class logits (B, num_classes): patch
+    embedding, the class token in front, learned positions, the encoder,
+    the final norm over every token, the head on the class token."""
+    sc = ensure_scope(qcfg)
+    x = int_ops.int_patch_embed(images, params["patch_w"], params["patch_b"],
+                                key, sc.leaf("patch_embed"), patch)
+    cls = params["cls"].expand(x.shape[0], 1, cfg.d_model)
+    x = torch.cat([cls, x], dim=1) + params["pos_embed"][None]
+    x = _encoder(params, x, cfg, sc, key)
+    x = blocks.norm_apply(params["final_ln"], x, cfg, sc.child("final_ln"),
+                          key)
+    return int_ops.int_linear(x[:, 0], params["head"], params["head_b"], key,
+                              sc.leaf("head"))
+
+
+def vit_cls_loss(params: Params, batch: dict, cfg: ArchConfig,
+                 qcfg: QuantLike, key, patch: int = 16):
+    """Mean cross-entropy of the class logits -> ``(loss, {"logits"})``."""
+    logits = vit_apply(params, batch["images"], cfg, qcfg, key, patch=patch)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -torch.mean(_pick(logp, batch["labels"])), {"logits": logits}

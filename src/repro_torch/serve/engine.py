@@ -25,12 +25,21 @@ from repro_torch.models.config import ArchConfig
 class ServeConfig:
     max_seq: int = 2048
     batch_slots: int = 8
+    temperature: float = 0.0          # 0 => greedy
     eos_id: int = -1                  # -1 => never stop early
-    cache_dtype: torch.dtype = torch.float32
+    cache_dtype: torch.dtype = torch.float32   # or a name ("bfloat16", ...)
     #: bounded admission queue: ``submit`` raises :class:`QueueFull` beyond
     max_queue: int = 64
     #: default per-request deadline (seconds from submit); None = none
     default_deadline_s: Optional[float] = None
+
+    def __post_init__(self):
+        if isinstance(self.cache_dtype, str):
+            # config files name dtypes as strings, as in the reference
+            dtype = getattr(torch, self.cache_dtype, None)
+            if not isinstance(dtype, torch.dtype):
+                raise ValueError(f"unknown cache_dtype {self.cache_dtype!r}")
+            self.cache_dtype = dtype
 
 
 class QueueFull(RuntimeError):
@@ -38,8 +47,9 @@ class QueueFull(RuntimeError):
 
 
 class Engine:
-    """Owns params, config and the prefill / decode entry points; decoding
-    is greedy (serving draws no randomness)."""
+    """Owns params, config and the prefill / decode entry points.  Decoding
+    is greedy unless ``ServeConfig.temperature > 0`` and the caller hands
+    ``generate`` a ``torch.Generator``; the batcher is always greedy."""
 
     def __init__(self, params, cfg: ArchConfig, qcfg: QuantLike,
                  scfg: ServeConfig, device="cuda"):
@@ -61,10 +71,35 @@ class Engine:
         return lm.init_cache(self.cfg, batch, self.scfg.max_seq,
                              dtype=self.scfg.cache_dtype, device=self.device)
 
-    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
-        """Greedy next token per row: (B, 1) int32."""
-        return logits[:, -1, : self.cfg.vocab].argmax(-1, keepdim=True).to(
-            torch.int32)
+    def generate(self, prompts: np.ndarray, max_new_tokens: int,
+                 gen: Optional[torch.Generator] = None) -> np.ndarray:
+        """Single-shot batched generation: prompts (B, S) int32, left-aligned
+        and of one length; one prefill, then ``max_new_tokens`` decode
+        steps.  Returns (B, max_new_tokens) int32.  ``gen`` (a generator on
+        the engine's device) draws the samples when the temperature is
+        positive; each step takes the next numbers of its stream, where the
+        reference folds the step index into its key."""
+        prompts = np.asarray(prompts, dtype=np.int32)
+        cache = self.init_cache(prompts.shape[0])
+        logits, cache = self._prefill(
+            self.params, torch.as_tensor(prompts, device=self.device), cache)
+        out = []
+        for _ in range(max_new_tokens):
+            nxt = self._sample(logits, gen)
+            out.append(nxt.cpu().numpy())
+            logits, cache = self._decode(self.params, nxt, cache)
+        return np.concatenate(out, axis=1)
+
+    def _sample(self, logits: torch.Tensor,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Next token per row, (B, 1) int32: drawn from
+        ``softmax(logits / temperature)`` with ``gen``, or greedy when the
+        temperature is 0 or no generator is given."""
+        logits = logits[:, -1, : self.cfg.vocab]
+        if self.scfg.temperature <= 0 or gen is None:
+            return logits.argmax(-1, keepdim=True).to(torch.int32)
+        probs = torch.softmax(logits.float() / self.scfg.temperature, -1)
+        return torch.multinomial(probs, 1, generator=gen).to(torch.int32)
 
 
 @dataclasses.dataclass
@@ -207,7 +242,7 @@ class ContinuousBatcher:
                 self._evict(i, "nonfinite_logits")
         if not any(s.active for s in self.slots):
             return
-        nxt = self.engine._sample(self._logits)
+        nxt = self.engine._sample(self._logits, None)
         nxt_np = nxt.cpu().numpy()
         for i, s in enumerate(self.slots):
             if not s.active:

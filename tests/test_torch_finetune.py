@@ -329,8 +329,13 @@ def test_finetune_runs_on_cpu_and_needs_a_card_by_default():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tf.finetune("cls", tf.paper_scope(), ft)
-    with pytest.raises(NotImplementedError):
-        tf.finetune("img", tf.paper_scope(), ft, device="cpu")
+    # the img task runs since ViT is ported (vit-tiny, 17 tokens)
+    metric, losses = tf.finetune("img", tf.paper_scope(), ft, device="cpu",
+                                 return_losses=True)
+    assert len(losses) == 3 and all(np.isfinite(losses))
+    assert 0.0 <= metric <= 100.0
+    with pytest.raises(KeyError):
+        tf.finetune("no_such_task", tf.paper_scope(), ft, device="cpu")
 
 
 @pytest.mark.parametrize("task,lr,want", [("cls", None, 1e-3),
