@@ -88,7 +88,8 @@ Phases (each raises on failure; nothing is caught):
    (``launch.train``): int8, batch 8 x seq 256, 6 AdamW steps at lr 1e-4,
    launch counters set to 0 just before and read just after; every kernel
    of the path must have launched (RMS-norm and attention backward
-   included), every loss be finite and the first near ln 151936.  Prints
+   included; the per-layer remat on, as in every LM training run), every
+   loss be finite and the first near ln 151936.  Prints
    the median step time of steps 1.., tokens/s, peak memory, the launches
    of one step, a profiled step's device-busy share and the FP32 losses
    from the same init.
@@ -129,7 +130,40 @@ Phases (each raises on failure; nothing is caught):
    calls (3 limb planes at hd 64, bert cls / span and vit shapes; vit at
    int8 too) and int16's 3x3 NT / TN matmuls (bert-base w1, vit-base w1's
    6304-row dW) too.
-10. Print the ``{"kernels": [...]}`` line, then the last line
+   Phase 2 also holds, and times beside bound and library, the kernel
+   calls of phase 10 (``check_arch_shapes``, ``ARCH_ATTN``): the quantize
+   of mistral-nemo-12b's 131072 x 5120 embedding and head, its logits'
+   gradient and mistral-large-123b's wd; the grouped quantize of
+   mixtral-8x7b's 8 x 4096 x 14336 expert stacks; nemo's untied head NN /
+   NT (dX over 2^17 rows, its largest limb-pair sum against 2^31) / TN
+   and large's wd NN (K = 28672); the batched NN / NT / TN at mixtral's
+   8 experts x 1280 rows; the RMS-norm forward and backward at 2048 x
+   {4096, 5120, 12288}; the attention forward, dq and dkv at mixtral's 1
+   x 5120 tokens with its window of 4096 keys (G 4, hd 128) and at
+   large's G = 12 (8 x 256), and the forward at decode past mixtral's
+   window and at large's G = 12.  Phase 3 also runs mistral-nemo-12b and
+   mistral-large-123b (served logits, one int8 ``lm_loss`` step with
+   every layer call replayed) and mixtral-8x7b (as qwen2-moe-a2.7b, over
+   prompts and sequences past its window of 64) at reduced configs that
+   keep each arch's trait (``small_config``).
+10. mistral-nemo-12b, mixtral-8x7b and mistral-large-123b at full width
+   (``arch_phase``), int8, random weights from a seeded generator, each
+   freed before the next.  Served with phase 4's request mix: nemo at
+   full depth (40 layers, ~45.6 GiB of FP32 weights), mixtral and large at
+   the deepest depths that leave 10% of the card's memory spare
+   (``*_SERVE_LAYERS``).  Trained through ``lm_loss`` +
+   ``make_train_step`` with the per-layer remat on and stochastic
+   gradient rounding from a seeded CUDA generator, 4 AdamW steps at lr
+   1e-4: mixtral at 2 layers and batch 8 x 512 (the capacity dispatch at
+   1280 rows per expert), nemo at ``NEMO_TRAIN_LAYERS`` and large at 2,
+   batch 8 x 256; every kernel of each path must have launched, every
+   loss be finite and the first near ln(vocab) + d_model x 0.02^2 / 2,
+   the peak leave 10% of the memory.  Prints what phases 4 and 8 print
+   (the FP32 losses from the same init included).  Then nemo on the
+   chunked FP32 attention path: 2 layers, 1 x 4096 tokens, 2 steps with
+   remat on, then one step with remat off from the same init; both peaks
+   printed, no kernel launched.
+11. Print the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available or when
@@ -174,6 +208,27 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+#: sentinel kernels (``torch.cuda._sleep``'s spin kernel) launched at the
+#: head of every profiler window and left out of its counts: after many
+#: profiler sessions in one process the profiler drops the first device
+#: events of a window (measured on the H100: 1-2 of them, the same number
+#: in every window), which the sentinels take in place of the kernels
+#: measured
+HEAD_SENTINELS = 8
+
+
+def _window_events(torch, prof) -> list:
+    """A profiler window's device events without the head sentinels."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "spin_kernel" not in e.key]
+
+
+def _head_sentinels(torch):
+    for _ in range(HEAD_SENTINELS):
+        torch.cuda._sleep(1000)
+
+
 def device_ms(fn, reps: int = 10, windows: int = 6) -> float:
     """Device time of ``fn()`` in ms: the summed duration of the kernels and
     copies it runs (torch.profiler), per call — the host time between
@@ -183,7 +238,7 @@ def device_ms(fn, reps: int = 10, windows: int = 6) -> float:
     events (a window of ``reps`` calls then reads low, or 0).  So windows
     are repeated until one records as many device events as an earlier
     one, and that window's time is taken; no agreement within ``windows``
-    windows raises."""
+    windows raises.  Each window starts with ``HEAD_SENTINELS``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -191,11 +246,11 @@ def device_ms(fn, reps: int = 10, windows: int = 6) -> float:
     seen = []                        # (device events, device us) per window
     for _ in range(windows):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _head_sentinels(torch)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = _window_events(torch, prof)
         n = sum(e.count for e in events)
         us = sum(getattr(e, "self_device_time_total", 0) for e in events)
         if n and any(n == m for m, _ in seen):
@@ -207,8 +262,9 @@ def device_ms(fn, reps: int = 10, windows: int = 6) -> float:
 
 def device_kernels(fn, reps: int = 5, windows: int = 6) -> tuple:
     """(device kernels and copies per call of ``fn()``, their names) from
-    torch.profiler; windows are repeated until two record the same count,
-    as in ``device_ms``."""
+    torch.profiler; windows, each after ``HEAD_SENTINELS``, are repeated
+    until two record the same count, as in ``device_ms``, a count that is
+    a whole number of calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -216,13 +272,13 @@ def device_kernels(fn, reps: int = 5, windows: int = 6) -> tuple:
     seen = []
     for _ in range(windows):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _head_sentinels(torch)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = _window_events(torch, prof)
         n = sum(e.count for e in events)
-        if n and n in seen:
+        if n and n % reps == 0 and n in seen:
             return n / reps, sorted(_kernel_name(e.key) for e in events)
         seen.append(n)
     raise RuntimeError(f"the profiler's device event counts disagreed in "
@@ -242,13 +298,19 @@ def norm_bwd_timings(torch, name, kernel, plain, library) -> dict:
     return dict(timings(kernel, plain, library), kernels_per_call=n)
 
 
-def timings(kernel, plain, library=None) -> dict:
+def timings(kernel, plain=None, library=None) -> dict:
     """CUDA-event medians and profiler device times of the kernel's wrapper
-    call, its plain version and the library yardstick."""
-    return dict(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+    call, its plain version and the library yardstick (None where not
+    given: a plain version too slow to time at the shape)."""
+    return dict(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain) if plain else None,
                 library_ms=cuda_ms(library) if library else None,
-                device_ms=device_ms(kernel), plain_device_ms=device_ms(plain),
+                device_ms=device_ms(kernel),
+                plain_device_ms=device_ms(plain) if plain else None,
                 library_device_ms=device_ms(library) if library else None)
+
+
+def _ms(x) -> str:
+    return "not timed" if x is None else f"{x:.4f}"
 
 
 def int_body(t: dict, **extra) -> dict:
@@ -748,6 +810,14 @@ def check_rmsnorm(torch, dev, gen, D, D_moe):
     return k
 
 
+#: phase 10's attention calls (PR 22), held and timed in phase 2: mixtral's
+#: training shape with its window of 4096 keys biting (1 x 5120 tokens, 32
+#: heads over 8 kv heads of 128) and mistral-large's 12 query heads per kv
+#: head at 8 x 256
+MIXTRAL_ATTN = "mixtral train, window 4096 (1 x 5120)"
+LARGE_ATTN = "mistral-large G 12 (8 x 256)"
+ARCH_ATTN = (MIXTRAL_ATTN, LARGE_ATTN)
+
 #: attention forward shapes held on the card: name -> (B, Sq, Sk, KV, G,
 #: hd, offsets, causal, window, act bits); q/k/v carry n_limbs(act bits)
 #: planes and P is quantized at the act bits.  The ", int16" / ", int12" /
@@ -770,6 +840,13 @@ ATTN_FWD_SHAPES = {
     "vit-base img, int12 and int8": (32, 197, 197, 12, 1, 64, 0, False,
                                      None, 12),
     "vit-base img, int10": (32, 197, 197, 12, 1, 64, 0, False, None, 10),
+    MIXTRAL_ATTN: (1, 5120, 5120, 8, 4, 128, 0, True, 4096, 12),
+    LARGE_ATTN: (8, 256, 256, 8, 12, 128, 0, True, None, 12),
+    "mixtral decode past the window": (4, 1, 5120, 8, 4, 128,
+                                       [5119, 4600, 4096, 300], True, 4096,
+                                       12),
+    "mistral-large decode (G 12)": (4, 1, 256, 8, 12, 128, [64, 65, 66, 67],
+                                    True, None, 12),
 }
 
 
@@ -852,9 +929,10 @@ def check_attention(torch, dev, gen, cfg):
     for name, used, spill in ptxas_entries(r"fwd_"):
         print(f"  ptxas {name}: {used}; {spill}")
 
-    def measure(label, kept_int=False):
-        """Timings (kernel, plain, SDPA) and the bound at one shape; with
-        ``kept_int`` also the integer body's (int_*)."""
+    def measure(label, kept_int=False, time_plain=True):
+        """Timings (kernel, plain unless ``time_plain`` is False, SDPA) and
+        the bound at one shape; with ``kept_int`` also the integer body's
+        (int_*)."""
         shape, q, k, v, qo, exps, kw, o, lse, _ = runs[label]
         B, Sq, Sk, KV, G, hd, off, causal, window, bits = shape
         L = q.shape[0]
@@ -879,8 +957,8 @@ def check_attention(torch, dev, gen, cfg):
             return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
                                                   is_causal=plain_causal)
         t = timings(lambda: ia.int_attn_fwd(q, k, v, qo, exps, **kw),
-                    lambda: ia.int_attn_fwd_plain(q, k, v, qo, exps, **kw),
-                    library)
+                    (lambda: ia.int_attn_fwd_plain(q, k, v, qo, exps, **kw))
+                    if time_plain else None, library)
         # bytes and int8 ops these inputs need: each (query, key) pair the
         # mask lets through, every limb pair of QK^T and of PV
         pairs = int(seen.sum()) * KV * G
@@ -897,7 +975,7 @@ def check_attention(torch, dev, gen, cfg):
                 library), bound_ms=b, bound_by=by))
         print(f"  int_attn_fwd at {label}: call {t['ms']:.4f} ms, device "
               f"{t['device_ms']:.4f} ms; plain device "
-              f"{t['plain_device_ms']:.4f}; SDPA forward (f32) device "
+              f"{_ms(t['plain_device_ms'])}; SDPA forward (f32) device "
               f"{t['library_device_ms']:.4f}; bound {b:.4f} ms ({by})")
         return t
 
@@ -907,6 +985,10 @@ def check_attention(torch, dev, gen, cfg):
     tw = measure("head dim 384")
     sweep = [dict(label=lb, max_abs_err=runs[lb][-1], **measure(lb))
              for lb in SWEEP_TIMED]
+    # the plain version walks mixtral's 5120 keys in blocks: held, not timed
+    arch = [dict(label=lb, max_abs_err=runs[lb][-1],
+                 **measure(lb, time_plain=lb != MIXTRAL_ATTN))
+            for lb in ARCH_ATTN]
     B, Sq, Sk, KV, G, hd = ATTN_FWD_SHAPES["decode"][:6]
     out = dict(name="int_attn_fwd", route="cuda",
                source="src/repro_torch/csrc/int_attention.cu",
@@ -915,7 +997,9 @@ def check_attention(torch, dev, gen, cfg):
                      f"{KV},{hd}), 2 limbs; also timed at the qwen1.5-0.5b "
                      "training shape (8,256) causal (train_*), qwen2-moe's "
                      "head dim 128 (moe_*) and head dim 384 (hd384_*, the "
-                     "direct body), and the sweep's int16 calls (sweep_rows); "
+                     "direct body), the sweep's int16 calls (sweep_rows) "
+                     "and phase 10's mixtral and mistral-large calls "
+                     "(arch_rows); "
                      "the kept-int body (int_*, train_int_*) "
                      "at decode and the training shape; both bodies held at "
                      + ", ".join(ATTN_FWD_SHAPES) + "; tolerance o 1e-5 "
@@ -925,7 +1009,7 @@ def check_attention(torch, dev, gen, cfg):
                **{f"train_{k_}": v_ for k_, v_ in tt.items()},
                **{f"moe_{k_}": v_ for k_, v_ in tm.items()},
                **{f"hd384_{k_}": v_ for k_, v_ in tw.items()},
-               sweep_rows=sweep)
+               sweep_rows=sweep, arch_rows=arch)
     print(body_line("int_attn_fwd", out))
     print(body_line("int_attn_fwd", out, "train_"))
     return out
@@ -1243,6 +1327,8 @@ ATTN_BWD_SHAPES = {
     "vit-base img, int10": (32, 197, 197, 12, 1, 64, 0, False, None, 10,
                             10),
     "vit-base img, int8": (32, 197, 197, 12, 1, 64, 0, False, None, 12, 8),
+    MIXTRAL_ATTN: (1, 5120, 5120, 8, 4, 128, 0, True, 4096, 12, 8),
+    LARGE_ATTN: (8, 256, 256, 8, 12, 128, 0, True, None, 12, 8),
 }
 
 
@@ -1335,20 +1421,32 @@ def check_attention_bwd(torch, dev, gen):
             if not iexp and label in ("qwen1.5-0.5b train",
                                       "qwen2-moe-a2.7b train",
                                       "head dim 256 (widest body)",
-                                      "head dim 384") + SWEEP_TIMED:
+                                      "head dim 384") + SWEEP_TIMED \
+                    + ARCH_ATTN:
                 timed[label] = (shape, q, k, v, g, lse, delta, qo, exps, kw,
                                 dq, dk, dv)
 
     def measure(shape, q, k, v, g, lse, delta, qo, exps, kw, dq, dk, dv,
-                kept_int=False):
+                kept_int=False, time_plain=True):
         """{name: timings and bound} of both kernels at one shape, with
-        SDPA's f32 backward (autograd, its graph built once) beside them;
-        with ``kept_int`` also the kept-int bodies' timings (int_*)."""
+        SDPA's f32 backward (autograd, its graph built once; a boolean mask
+        where a window bites) beside them; with ``kept_int`` also the
+        kept-int bodies' timings (int_*); the plain versions' unless
+        ``time_plain`` is False."""
         B, Sq, Sk, KV, G, hd, off, causal, window, ab, gb = shape
         H = KV * G
         qs, ks, vs = (torch.randn((B, H, S, hd), generator=gen, device=dev)
                       .requires_grad_(True) for S in (Sq, Sk, Sk))
-        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+        qpos = qo[:, None] + torch.arange(Sq, device=dev)          # (B, Sq)
+        kpos = torch.arange(Sk, device=dev)
+        seen = kpos <= qpos[..., None] if causal else \
+            torch.ones((B, Sq, Sk), dtype=torch.bool, device=dev)
+        if window is not None:
+            seen = seen & (kpos > qpos[..., None] - window)
+        out = (F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+               if window is None else
+               F.scaled_dot_product_attention(qs, ks, vs,
+                                              attn_mask=seen[:, None]))
         gout = torch.randn_like(out)
 
         def library():
@@ -1356,8 +1454,8 @@ def check_attention_bwd(torch, dev, gen):
                                        retain_graph=True)
         lib_t = dict(library_ms=cuda_ms(library),
                      library_device_ms=device_ms(library))
-        pairs = (B * KV * G * Sq * (Sq + 1) // 2 if causal
-                 else B * KV * G * Sq * Sk)
+        # the (query, key) pairs the mask lets through
+        pairs = int(seen.sum()) * KV * G
         rows = nbytes(lse, delta)
         # s (L x L limb pairs), dp (Lg x L), dq or dk (dS planes x L), and
         # dv (P planes x Lg)
@@ -1378,8 +1476,8 @@ def check_attention_bwd(torch, dev, gen):
                  (dk, dv), L * L + Lg * L + Lds * L + L * Lg)):
             b, by = bound_ms(nbytes(q, k, v, g, qo, exps, *outs) + rows,
                              2 * hd * pairs * limb_pairs)
-            res[name] = {**timings(fn, plain), **lib_t, "bound_ms": b,
-                         "bound_by": by}
+            res[name] = {**timings(fn, plain if time_plain else None),
+                         **lib_t, "bound_ms": b, "bound_by": by}
         if kept_int:
             ki = dict(kw, integer_exp=True)
             res["int_attn_bwd_dq"].update(int_body(timings(
@@ -1403,6 +1501,8 @@ def check_attention_bwd(torch, dev, gen):
     wide = measure(*timed["head dim 256 (widest body)"])
     wide384 = measure(*timed["head dim 384"])
     sweep = {lb: measure(*timed[lb]) for lb in SWEEP_TIMED}
+    arch = {lb: measure(*timed[lb], time_plain=lb != MIXTRAL_ATTN)
+            for lb in ARCH_ATTN}
     shape = ATTN_BWD_SHAPES["qwen1.5-0.5b train"]
     B, Sq, Sk, KV, G, hd = shape[:6]
     out_k = []
@@ -1410,10 +1510,11 @@ def check_attention_bwd(torch, dev, gen):
         for what, m in (("qwen2-moe-a2.7b train (hd 128)", moe[name]),
                         ("head dim 256", wide[name]),
                         ("head dim 384 (direct body)", wide384[name]),
-                        *((lb, r[name]) for lb, r in sweep.items())):
+                        *((lb, r[name]) for lb, r in sweep.items()),
+                        *((lb, r[name]) for lb, r in arch.items())):
             print(f"  {name} at {what}: call {m['ms']:.4f} ms, device "
                   f"{m['device_ms']:.4f} ms; plain device "
-                  f"{m['plain_device_ms']:.4f}; SDPA backward device "
+                  f"{_ms(m['plain_device_ms'])}; SDPA backward device "
                   f"{m['library_device_ms']:.4f}; bound {m['bound_ms']:.4f} "
                   f"ms ({m['bound_by']})", flush=True)
         print(body_line(name, main[name]))
@@ -1428,8 +1529,10 @@ def check_attention_bwd(torch, dev, gen):
                   "bits, P 12 bits; the kept-int body timed there too "
                   "(int_*); also timed at qwen2-moe-a2.7b's head dim 128 "
                   "(moe_*), at head dim 256 (hd256_*), at head dim 384 "
-                  "(hd384_*, the direct body) and at the sweep's int16 "
-                  "calls (sweep_rows); held at " + ", ".join(ATTN_BWD_SHAPES)
+                  "(hd384_*, the direct body), at the sweep's int16 "
+                  "calls (sweep_rows) and at phase 10's mixtral and "
+                  "mistral-large calls (arch_rows); held at "
+                  + ", ".join(ATTN_BWD_SHAPES)
                   + " (both bodies at the int8 bits); tolerance exact; "
                   "library: SDPA backward (f32, autograd, dq + dk + dv)",
             max_abs_err=errs[name], int_max_abs_err=errs[name + " int"],
@@ -1438,7 +1541,9 @@ def check_attention_bwd(torch, dev, gen):
             **{f"hd256_{k_}": v_ for k_, v_ in wide[name].items()},
             **{f"hd384_{k_}": v_ for k_, v_ in wide384[name].items()},
             sweep_rows=[dict(label=lb, max_abs_err=0.0, **r[name])
-                        for lb, r in sweep.items()]))
+                        for lb, r in sweep.items()],
+            arch_rows=[dict(label=lb, max_abs_err=0.0, **r[name])
+                       for lb, r in arch.items()]))
     return out_k
 
 
@@ -1533,10 +1638,275 @@ def check_sweep_matmuls(torch, dev, gen, bert, tokens, vit_tokens) -> dict:
 #: that leaves 10% of the card's memory spare
 MOE_TRAIN_LAYERS = 6
 
+#: Phase 10's depths (PR 22), at full width.  FP32 bytes: a mistral-nemo-12b
+#: layer is 272.6 M parameters (1.016 GiB), its untied embedding and head
+#: 1.342 B (5.0 GiB); a mixtral-8x7b layer 1,451 M (5.41 GiB; the 8 expert
+#: stacks 1,409 M), its embedding and head 262 M (0.98 GiB); a
+#: mistral-large-123b layer 1,384 M (5.16 GiB), its embedding and head 805
+#: M (3.0 GiB).  The card holds 79.18 GiB; 10% spare leaves 71.26.
+#: Serving holds the FP32 weights, one weight's int8 planes at a time and a
+#: 4-slot cache of 256 positions (measured peaks, H100 80GB HBM3: nemo
+#: 47.23 GiB at its full 40 layers; mixtral 67.51 at 12 layers, 1.66 above
+#: its weights, so 13 would need 72.9; large 65.66 at 12, 0.78 above its
+#: weights, so 13 needs 70.8).
+NEMO_SERVE_LAYERS, MIXTRAL_SERVE_LAYERS, LARGE_SERVE_LAYERS = 40, 12, 13
+#: Training holds parameters, AdamW moments and gradients (16 bytes a
+#: parameter, the update in place), at the end of the backward the
+#: per-layer gradients of the stacked block weights beside their stack (up
+#: to 4 more bytes a block parameter), and the step's activations (one
+#: layer's under remat).  mixtral at 2 layers, batch 8 x 512 (T·K = 8192 >
+#: 4096: the capacity dispatch, 1280 rows per expert): measured peak 54.19
+#: GiB.  nemo at batch 8 x 256: 16-20 B x 272.6 M = 4.06-5.08 GiB a layer;
+#: measured 57.56 GiB at 8 layers, so 10 layers need 65.7-67.7 GiB and 11
+#: up to 72.8.  mistral-large at 2 layers, batch 8 x 256: 2 x 1,384 M x
+#: 20 B + 805 M x 16 B = 68.2 GB = 63.5 GiB at most.
+MIXTRAL_TRAIN_LAYERS, NEMO_TRAIN_LAYERS, LARGE_TRAIN_LAYERS = 2, 10, 2
+#: mixtral's training batch (8 x 512 = 4096 tokens, 8192 choices of 2) and
+#: its capacity rows per expert, ceil128(1.25 x 8192 / 8) = 1280
+MIXTRAL_TRAIN_BATCH, MIXTRAL_TRAIN_ROWS = (8, 512), 1280
+#: nemo on the chunked FP32 attention path: 1 x 4096 tokens at 2 layers
+#: (``flash_attention``'s backward keeps no chunk's scores; without remat
+#: a layer keeps its FP32 activations: the MLP's 4096 x 14336 rows, the
+#: projections, norms and residuals, ~1.4 GiB)
+NEMO_FP32_LAYERS, NEMO_FP32_SEQ = 2, 4096
+
 #: qwen2-moe-a2.7b training step's capacity rows per expert (batch 8 x seq
 #: 256, top-4 of 60: ceil128(1.25 * 8192 / 60)) and its decode's (4 slots
 #: x top-4, drop-free)
 MOE_TRAIN_ROWS, MOE_DECODE_ROWS = 256, 16
+
+
+def _quant_row(torch, label, x, bits, limbs, u=None) -> dict:
+    """A quantize call (``dfx_quantize``; ``dfx_quantize_grouped`` for a 3-d
+    stack, one exponent per leading slice) held exactly against its plain
+    version and timed beside its bound and, for 8 bits, the library's int8
+    quantize at the same power-of-two scale(s)."""
+    from repro_torch.core import dfx
+    from repro_torch.kernels import dfx_quant as dq
+    from repro_torch.kernels.dfx_quant import n_limbs
+    grouped = x.dim() == 3
+    name = "dfx_quantize_grouped" if grouped else "dfx_quantize"
+    e = (dfx.slice_exponents(x) if grouped else dfx.scale_exponent(x)) \
+        - (bits - 1)
+    kernel = dq.dfx_quantize_grouped if grouped else dq.dfx_quantize
+    plain = (dq.dfx_quantize_grouped_plain if grouped
+             else dq.dfx_quantize_plain)
+    out = kernel(x, e, bits=bits, u=u, limb_planes=limbs)
+    _held(name, out, plain(x, e, bits=bits, u=u, limb_planes=limbs), label)
+    del out
+    if bits != 8:
+        lib = None
+    elif grouped:
+        scales = dfx.pow2(e).double()
+        zeros = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
+
+        def lib():
+            return torch.quantize_per_channel(x, scales, zeros, 0,
+                                              torch.qint8)
+    else:
+        scale = float(dfx.pow2(e))
+
+        def lib():
+            return torch.quantize_per_tensor(x, scale, 0, torch.qint8)
+    d = device_ms(lambda: kernel(x, e, bits=bits, u=u, limb_planes=limbs))
+    out_bytes = x.numel() * (n_limbs(bits) if limbs else
+                             (1 if bits <= 8 else 2))
+    b, by = bound_ms(nbytes(x) + out_bytes + (nbytes(u) if u is not None
+                                              else 0), 0)
+    ld = device_ms(lib) if lib else None
+    print(f"  {name} {label}: held exactly; device {d:.4f} ms, "
+          f"{100 * b / d:.1f}% of its bound {b:.4f} ms ({by}); "
+          + (f"library {ld:.4f} ms (factor {d / ld:.2f})" if ld else
+             "no int8 library call at these bits"), flush=True)
+    return dict(label=label, device_ms=d, bound_ms=b, bound_by=by,
+                library_device_ms=ld, factor=d / ld if ld else None,
+                max_abs_err=0.0)
+
+
+def check_arch_shapes(torch, dev, gen) -> dict:
+    """Phase 2's holds at the shapes phase 10 gives the kernels (PR 22):
+    mistral-nemo-12b (d_model 5120, attention width 4096, d_ff 14336, an
+    untied 131,072-column head), mixtral-8x7b (d_model 4096, 8 experts of
+    d_ff 14336, 1280 capacity rows each at batch 8 x 512) and
+    mistral-large-123b (d_model 12288, d_ff 28672), at 2048 training rows
+    (batch 8 x 256).  Each call held exactly against its plain version
+    (the norms within the tolerances of ``norm_fwd_case`` /
+    ``rms_bwd_case``), the listed ones timed beside the bound and the
+    library call: the quantize of nemo's embedding table (8-bit mantissa),
+    its head (8-bit planes) and its logits' gradient (2048 x 131072, g8
+    planes, stochastic), and of large's wd; the grouped quantize of
+    mixtral's expert stack, expert input (a12 planes) and expert gradient;
+    nemo's head NN (logits), NT (dX over V = 2^17, its largest |limb-pair
+    partial sum| printed against 2^31: the port wraps as the reference
+    does) and TN (dW), large's wd NN (K = 28672), also held: large's wq,
+    nemo's wq, wo and wd; the batched NN / NT / TN at mixtral's wg_e (and
+    wd_e's NN held); the RMS-norm forward and backward at 2048 x {4096,
+    5120, 12288} (mixtral, nemo, large).  Returns {kernel: [row, ...]}."""
+    from repro_torch.kernels import bfp_matmul as bm
+    from repro_torch.models import lm
+    from repro_torch.configs import registry
+    nemo = registry.get_config("mistral-nemo-12b")
+    mixtral = registry.get_config("mixtral-8x7b")
+    large = registry.get_config("mistral-large-123b")
+    T, V = 8 * 256, lm.padded_vocab(nemo)
+    rows = {k: [] for k in ("dfx_quantize", "dfx_quantize_grouped",
+                            "bfp_matmul", "bfp_matmul_nt", "bfp_matmul_tn",
+                            "bfp_matmul_batched", "bfp_matmul_batched_nt",
+                            "bfp_matmul_batched_tn", "int_rmsnorm_fwd",
+                            "int_rmsnorm_bwd")}
+    e = torch.tensor(-30, dtype=torch.int32, device=dev)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+
+    # ---- quantize
+    x = randn(V, nemo.d_model, scale=0.02)
+    rows["dfx_quantize"].append(_quant_row(
+        torch, f"nemo embedding table ({V},{nemo.d_model}) -> 8-bit "
+        "mantissa", x, 8, False))
+    x = randn(nemo.d_model, V, scale=0.02)
+    rows["dfx_quantize"].append(_quant_row(
+        torch, f"nemo head ({nemo.d_model},{V}) -> 8-bit planes", x, 8,
+        True))
+    x = randn(T, V, scale=1e-6)
+    u = torch.rand(x.shape, generator=gen, device=dev)
+    rows["dfx_quantize"].append(_quant_row(
+        torch, f"nemo logits' gradient ({T},{V}) -> g8 planes, stochastic",
+        x, 8, True, u))
+    del u
+    x = randn(large.d_ff, large.d_model, scale=0.02)
+    rows["dfx_quantize"].append(_quant_row(
+        torch, f"large wd ({large.d_ff},{large.d_model}) -> 8-bit planes",
+        x, 8, True))
+    E, C, D, F = (mixtral.moe_experts, MIXTRAL_TRAIN_ROWS, mixtral.d_model,
+                  mixtral.d_ff)
+    x = randn(E, D, F, scale=0.02)
+    rows["dfx_quantize_grouped"].append(_quant_row(
+        torch, f"mixtral expert stack ({E},{D},{F}) -> 8-bit planes", x, 8,
+        True))
+    x = randn(E, C, D)
+    x[3, C // 2:] = 0                         # an expert's empty rows
+    rows["dfx_quantize_grouped"].append(_quant_row(
+        torch, f"mixtral expert input ({E},{C},{D}) -> a12 planes", x, 12,
+        True))
+    x = randn(E, C, F, scale=1e-6)
+    u = torch.rand(x.shape, generator=gen, device=dev)
+    rows["dfx_quantize_grouped"].append(_quant_row(
+        torch, f"mixtral expert gradient ({E},{C},{F}) -> g8 planes, "
+        "stochastic", x, 8, True, u))
+    del x, u
+
+    # ---- NN / NT / TN: nemo's head, large's wd (and held-only calls)
+    def libs(pairs):
+        """torch._int_mm per limb pair, B row-major and column-major."""
+        rm = [(a, b.contiguous()) for a, b in pairs]
+        cm = [(a, _colmajor(b)) for a, b in pairs]
+        return {"int_mm": lambda: [torch._int_mm(a, b) for a, b in rm],
+                "int_mm_colmajor": lambda: [torch._int_mm(a, b)
+                                            for a, b in cm]}
+
+    def held(name, fn, plain, a, b, what, ex=e):
+        _held(name, fn(a, b, ex), plain(a, b, ex), what)
+
+    Dn = nemo.d_model
+    xq = _quant_planes(torch, gen, dev, 12, T, Dn)            # (2, T, D)
+    wh = _quant_planes(torch, gen, dev, 8, Dn, V)             # (1, D, V)
+    held("bfp_matmul", bm.bfp_matmul, bm.bfp_matmul_plain, xq, wh,
+         "nemo's head logits")
+    rows["bfp_matmul"].append(mm_row(
+        f"nemo head logits {T}x{Dn}x{V} 2x1", lambda: bm.bfp_matmul(
+            xq, wh, e), 2 * T * Dn * V * 2, nbytes(xq, wh) + 4 * T * V,
+        libs([(xj, wh[0]) for xj in xq])))
+    g = _quant_planes(torch, gen, dev, 8, T, V)               # (1, T, V)
+    held("bfp_matmul_nt", bm.bfp_matmul_nt, bm.bfp_matmul_nt_plain, g, wh,
+         "nemo's head dX over V")
+    peak = float((g[0].double() @ wh[0].double().t()).abs().max())
+    print(f"  bfp_matmul_nt nemo head dX over V = {V}: bit for bit; largest "
+          f"|limb-pair partial sum| {peak:.0f} = 2^{math.log2(peak):.2f} of "
+          f"2^31 (at most {V} x 127^2 = 2^{math.log2(V * 127 ** 2):.3f})",
+          flush=True)
+    rows["bfp_matmul_nt"].append(dict(mm_row(
+        f"nemo head dX {T}x{V} . ({Dn}x{V})^T 1x1",
+        lambda: bm.bfp_matmul_nt(g, wh, e), 2 * T * V * Dn,
+        nbytes(g, wh) + 4 * T * Dn, libs([(g[0], wh[0].t())])),
+        max_limb_pair_sum=peak))
+    held("bfp_matmul_tn", bm.bfp_matmul_tn, bm.bfp_matmul_tn_plain, xq, g,
+         "nemo's head dW")
+    peak = max(float((xj.t().double() @ g[0].double()).abs().max())
+               for xj in xq)
+    xt = [xj.t().contiguous() for xj in xq]
+    rows["bfp_matmul_tn"].append(dict(mm_row(
+        f"nemo head dW ({T}x{Dn})^T . {T}x{V} 2x1",
+        lambda: bm.bfp_matmul_tn(xq, g, e), 2 * T * Dn * V * 2,
+        nbytes(xq, g) + 4 * Dn * V,
+        libs([(xj, g[0]) for xj in xt])), max_limb_pair_sum=peak))
+    del xq, wh, g, xt
+    xq = _quant_planes(torch, gen, dev, 12, T, large.d_ff)
+    w = _quant_planes(torch, gen, dev, 8, large.d_ff, large.d_model)
+    held("bfp_matmul", bm.bfp_matmul, bm.bfp_matmul_plain, xq, w,
+         "large's wd")
+    rows["bfp_matmul"].append(mm_row(
+        f"large wd {T}x{large.d_ff}x{large.d_model} 2x1",
+        lambda: bm.bfp_matmul(xq, w, e), 2 * T * large.d_ff * large.d_model
+        * 2, nbytes(xq, w) + 4 * T * large.d_model,
+        libs([(xj, w[0]) for xj in xq])))
+    del xq, w
+    for what, K, N in (("large wq", large.d_model, large.n_heads * 128),
+                       ("nemo wq", Dn, nemo.n_heads * nemo.head_dim),
+                       ("nemo wo", nemo.n_heads * nemo.head_dim, Dn),
+                       ("nemo wd", nemo.d_ff, Dn)):
+        held("bfp_matmul", bm.bfp_matmul, bm.bfp_matmul_plain,
+             _planes(torch, gen, dev, 2, T, K), _planes(torch, gen, dev, 1,
+                                                        K, N),
+             f"{what} {T}x{K}x{N}")
+    print("  bfp_matmul: large wq, nemo wq / wo / wd held exactly",
+          flush=True)
+
+    # ---- the batched trio at mixtral's wg_e (E = 8, 1280 rows)
+    eb = torch.arange(E, dtype=torch.int32, device=dev) - 30
+    x, wg, gg = (_planes(torch, gen, dev, 2, E, C, D),
+                 _planes(torch, gen, dev, 1, E, D, F),
+                 _planes(torch, gen, dev, 1, E, C, F))
+    h, wd = _planes(torch, gen, dev, 2, E, C, F), _planes(torch, gen, dev,
+                                                          1, E, F, D)
+    for name, a, b, what, n_ops, out_n in (
+            ("bfp_matmul_batched", x, wg, f"wg_e forward ({E},{C},{D})x"
+             f"({E},{D},{F}) 2x1", 2 * E * C * D * F * 2, E * C * F),
+            ("bfp_matmul_batched_nt", gg, wg, f"wg_e dX ({E},{C},{F}) . "
+             f"({E},{D},{F})^T 1x1", 2 * E * C * F * D, E * C * D),
+            ("bfp_matmul_batched_tn", x, gg, f"wg_e dW ({E},{C},{D})^T . "
+             f"({E},{C},{F}) 2x1", 2 * E * C * D * F * 2, E * D * F)):
+        fn, plain = getattr(bm, name), getattr(bm, name + "_plain")
+        held(name, fn, plain, a, b, f"mixtral {what}", eb)
+        if name == "bfp_matmul_batched":
+            held(name, fn, plain, h, wd, "mixtral wd_e forward", eb)
+            pairs = [(aj[i], b[0][i]) for aj in a for i in range(E)]
+        elif name == "bfp_matmul_batched_nt":
+            pairs = [(a[0][i], b[0][i].t()) for i in range(E)]
+        else:
+            pairs = [(aj[i].t().contiguous(), b[0][i]) for aj in a
+                     for i in range(E)]
+        rows[name].append(mm_row(
+            f"mixtral {what}", lambda: fn(a, b, eb), n_ops,
+            nbytes(a, b, eb) + 4 * out_n, libs(pairs)))
+        del pairs
+    del x, wg, gg, h, wd
+
+    # ---- RMS-norm forward and backward at the three widths
+    for arch, cfg in (("mixtral", mixtral), ("nemo", nemo),
+                      ("large", large)):
+        rows["int_rmsnorm_fwd"].append(norm_fwd_row(
+            f"{arch} training {T}x{cfg.d_model}",
+            norm_fwd_case(torch, dev, gen, False, T, cfg.d_model)))
+        r = rms_bwd_case(torch, dev, gen, T, cfg.d_model)
+        rows["int_rmsnorm_bwd"].append(dict(
+            r, label=f"{arch} training {T}x{cfg.d_model}"))
+        d, b = r["device_ms"], r["bound_ms"]
+        print(f"  int_rmsnorm_bwd {arch} training {T}x{cfg.d_model}: device "
+              f"{d:.4f} ms, {100 * b / d:.1f}% of its bound {b:.4f} ms "
+              f"({r['bound_by']}); library {r['library_device_ms']:.4f} ms "
+              f"(factor {d / r['library_device_ms']:.2f})", flush=True)
+    return rows
 
 
 def check_quantize_grouped(torch, dev, gen, moe):
@@ -1711,13 +2081,28 @@ def check_matmul_batched(torch, dev, gen, moe):
     return out
 
 
-def check_small_model(torch, dev):
-    """Reduced qwen1.5-0.5b (2 layers): prefill + 3 decode steps on the card
-    (CUDA kernels) against the port's CPU path (plain versions)."""
+def small_config(arch: str):
+    """``arch``'s reduced config (2 layers, d_model 128, 4 heads of 32),
+    keeping the trait ``reduced()`` hides, as ``tests/test_torch_archs.py``
+    does: mistral-nemo-12b's attention width unlike d_model (4 heads of
+    48), mistral-large-123b's 12 query heads per kv head (one kv head of
+    16)."""
+    import dataclasses
     from repro_torch.configs import registry
+    trait = {"mistral-nemo-12b": dict(head_dim=48),
+             "mistral-large-123b": dict(n_heads=12, n_kv_heads=1,
+                                        head_dim=16)}
+    return dataclasses.replace(registry.get_config(arch).reduced(),
+                               **trait.get(arch, {}))
+
+
+def check_small_model(torch, dev, arch="qwen1.5-0.5b"):
+    """A dense arch's reduced config (``small_config``, 2 layers): prefill
+    + 3 decode steps on the card (CUDA kernels) against the port's CPU
+    path (plain versions)."""
     from repro_torch.core.qconfig import QuantConfig
     from repro_torch.models import lm
-    cfg = registry.get_config("qwen1.5-0.5b").reduced()
+    cfg = small_config(arch)
     params = lm.lm_init(torch.Generator().manual_seed(1), cfg, device="cpu")
     gen = torch.Generator().manual_seed(2)
     toks = torch.randint(0, cfg.vocab, (2, 9), generator=gen)
@@ -1741,7 +2126,7 @@ def check_small_model(torch, dev):
         if not torch.isfinite(b).all():
             raise AssertionError("non-finite logits on the card")
         worst = max(worst, ((a - b).abs().max() / a.abs().max()).item())
-    print(f"  reduced qwen1.5-0.5b, card vs CPU logits: max |diff| / max|ref| "
+    print(f"  reduced {arch}, card vs CPU logits: max |diff| / max|ref| "
           f"= {worst:.3e} (tolerance 5e-3)")
     if worst > 5e-3:
         raise AssertionError("card logits disagree with the CPU path")
@@ -1919,6 +2304,13 @@ class _Recorder:
         for n, f in self.orig.items():
             setattr(self.int_ops, n, f)
 
+    def forward_calls(self) -> list:
+        """The first of two recorded steps' calls (the CPU step's), without
+        the per-layer remat's recompute calls: their outputs feed no
+        backward, so they receive no gradient."""
+        return [e for e in self.calls[:len(self.calls) // 2]
+                if e["g"] is not None]
+
     def replay(self, entry, device):
         """The layer's output and input gradients on ``device`` from the
         recorded inputs and upstream gradient."""
@@ -1935,7 +2327,8 @@ class _Recorder:
 
 def check_small_lm_train(torch, dev):
     """Reduced qwen1.5-0.5b and smollm-135m (2 layers, d_model 128, 4 query
-    heads over 2 kv heads): one ``lm_loss`` step under int8, rounding to
+    heads over 2 kv heads), mistral-nemo-12b and mistral-large-123b
+    (``small_config``): one ``lm_loss`` step under int8, rounding to
     nearest, on the card and on the port's CPU path from the same weights
     and batch; qwen also under int8 + ``kept_ops="integer"``.
 
@@ -1953,7 +2346,6 @@ def check_small_lm_train(torch, dev):
     attention forward) and input gradients (within 2e-3 of max, as
     check_small_bert) must agree."""
     import dataclasses
-    from repro_torch.configs import registry
     from repro_torch.core.qconfig import QuantConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models import lm
@@ -1963,8 +2355,10 @@ def check_small_lm_train(torch, dev):
     for arch, label, qcfg in (
             ("qwen1.5-0.5b", "int8", rn), ("smollm-135m", "int8", rn),
             ("qwen1.5-0.5b", "int8 + kept-int",
-             dataclasses.replace(rn, kept_ops="integer"))):
-        cfg = registry.get_config(arch).reduced()
+             dataclasses.replace(rn, kept_ops="integer")),
+            ("mistral-nemo-12b", "int8", rn),
+            ("mistral-large-123b", "int8", rn)):
+        cfg = small_config(arch)
         params = lm.lm_init(torch.Generator().manual_seed(1), cfg,
                             device="cpu")
         batch = next(SyntheticLM(DataConfig(batch_size=4, seq_len=64,
@@ -1981,7 +2375,7 @@ def check_small_lm_train(torch, dev):
         (l0, g0), (l1, g1) = res["cpu"], res[str(dev)]
         dl = abs(l1 - l0) / abs(l0)
         worst, at = _grad_agreement(torch, g0, g1)
-        calls = rec.calls[:len(rec.calls) // 2]          # the CPU step's
+        calls = rec.forward_calls()
         worst_y = worst_g = 0.0
         for entry in calls:
             (y0, gs0), (y1, gs1) = (rec.replay(entry, "cpu"),
@@ -2038,11 +2432,14 @@ def _rerouted(torch, a: list, b: list, rows: int):
     return n, bad
 
 
-def check_small_moe(torch, dev):
-    """Reduced qwen2-moe-a2.7b (2 layers, d_model 128, 4 experts top-2, a
-    shared expert of 128) on the card against the port's CPU path from the
-    same weights: the served logits (prefill + 3 decode steps, 4 rows) and
-    one ``lm_loss`` step under int8, rounding to nearest.
+def check_small_moe(torch, dev, arch="qwen2-moe-a2.7b", seq=64, prompt=9):
+    """A MoE arch's reduced config (2 layers, d_model 128, 4 experts top-2;
+    qwen2-moe-a2.7b with a shared expert of 128, mixtral-8x7b with a
+    window of 64 keys) on the card against the port's CPU path from the
+    same weights: the served logits (a prompt of ``prompt`` tokens, then 3
+    decode steps, 4 rows) and one ``lm_loss`` step on 4 x ``seq`` tokens
+    under int8, rounding to nearest (past the window, either makes it
+    bite).
 
     Routing is discontinuous: the card's exp in the router softmax and the
     CPU's differ in the last ulp, and a token whose k-th and (k+1)-th
@@ -2056,22 +2453,21 @@ def check_small_moe(torch, dev):
     recorded inputs and upstream gradient: outputs within 2^-11 of max,
     input gradients within 2e-3 of max (as check_small_lm_train)."""
     import dataclasses
-    from repro_torch.configs import registry
     from repro_torch.core.qconfig import QuantConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models import lm
     from repro_torch.train import finetune as tf
     from repro_torch.train import trainer
-    cfg = registry.get_config("qwen2-moe-a2.7b").reduced()
+    cfg = small_config(arch)
     params = lm.lm_init(torch.Generator().manual_seed(1), cfg, device="cpu")
     gen = torch.Generator().manual_seed(2)
     B = 4
-    toks = torch.randint(0, cfg.vocab, (B, 9), generator=gen)
+    toks = torch.randint(0, cfg.vocab, (B, prompt), generator=gen)
     dec = torch.randint(0, cfg.vocab, (3, B, 1), generator=gen)
     outs, routes = {}, {}
     for device in ("cpu", dev):
         p = _to(params, device)
-        cache = lm.init_cache(cfg, B, 64, device=device)
+        cache = lm.init_cache(cfg, B, max(64, prompt + 16), device=device)
         rows = []
         with torch.no_grad(), _Routes() as r:
             logits, cache = lm.lm_prefill_cache(p, toks.to(device), cache,
@@ -2093,7 +2489,7 @@ def check_small_moe(torch, dev):
             raise AssertionError("non-finite MoE logits on the card")
         worst = max(worst, ((a[ok] - b[ok]).abs().max()
                             / a[ok].abs().max()).item())
-    print(f"  reduced qwen2-moe-a2.7b served, card vs CPU: {n_rr} token "
+    print(f"  reduced {arch} served, card vs CPU: {n_rr} token "
           f"routings of {sum(x.shape[0] for x in routes['cpu'])} differ "
           f"({int(bad.sum())} of {B} rows set aside); logits of the other "
           f"rows max |diff| / max|ref| = {worst:.3e} (tolerance 5e-3)")
@@ -2101,7 +2497,7 @@ def check_small_moe(torch, dev):
         raise AssertionError("card MoE logits disagree with the CPU path")
 
     rn = dataclasses.replace(QuantConfig.int8(), stochastic_grad=False)
-    batch = next(SyntheticLM(DataConfig(batch_size=4, seq_len=64,
+    batch = next(SyntheticLM(DataConfig(batch_size=4, seq_len=seq,
                                         vocab=cfg.vocab)))
     res, routes = {}, {}
     rec = _Recorder(torch, _Recorder.NAMES + ("int_batched_linear",))
@@ -2114,11 +2510,11 @@ def check_small_moe(torch, dev):
                             {n: g.cpu() for n, g in _leaves(grads)})
         routes[str(device)] = r.sel
     (l0, a0, g0), (l1, a1, g1) = res["cpu"], res[str(dev)]
-    n_tok = 4 * 64
+    n_tok = 4 * seq
     n_rr, _ = _rerouted(torch, routes["cpu"], routes[str(dev)], 4)
     dl = abs(l1 - l0) / abs(l0)
     worst, at = _grad_agreement(torch, g0, g1)
-    calls = rec.calls[:len(rec.calls) // 2]              # the CPU step's
+    calls = rec.forward_calls()
     worst_y = worst_g = 0.0
     worst_at = ""
     for entry in calls:
@@ -2135,7 +2531,7 @@ def check_small_moe(torch, dev):
             if d > worst_g:
                 worst_g, worst_at = d, entry["name"]
     n_moe = sum(e["name"] == "int_batched_linear" for e in calls)
-    print(f"  reduced qwen2-moe-a2.7b lm_loss step (int8), card vs CPU: "
+    print(f"  reduced {arch} lm_loss step (int8), card vs CPU: "
           f"loss {l1:.6f} vs {l0:.6f} (rel {dl:.2e}), aux {a1:.6f} vs "
           f"{a0:.6f}; {n_rr} token routings of {n_tok * 2} differ; whole-"
           f"step gradients finite, worst {worst:.2e} of its max at {at}; "
@@ -2556,7 +2952,8 @@ def kept_int_phase(torch, dev, bert_wrappers, lm_wrappers) -> tuple:
 
 
 def serve_phase(torch, dev, cfg, wrappers, n_req: int = 8,
-                prompt_len: int = 64, new: int = 16) -> dict:
+                prompt_len: int = 64, new: int = 16,
+                max_share: float = 1.0) -> dict:
     """Serve ``cfg`` at full width, int8 (w8·a12), random weights from a
     seeded generator: 4 slots, max_seq 256, ``n_req`` requests of
     ``prompt_len``-token prompts, ``new`` new tokens each, through
@@ -2564,7 +2961,8 @@ def serve_phase(torch, dev, cfg, wrappers, n_req: int = 8,
     to 0 just before the run and read just after; every kernel in
     ``wrappers`` must have launched.  Prints tokens/s, peak memory, one
     decode step's time and launches, one prefill's time and a profiled
-    decode step.  Returns the run's launches."""
+    decode step.  The peak memory must stay within ``max_share`` of the
+    card's.  Returns the run's launches."""
     from repro_torch.configs import registry
     from repro_torch.models import lm
     from repro_torch.serve.engine import ContinuousBatcher, Engine, ServeConfig
@@ -2599,10 +2997,15 @@ def serve_phase(torch, dev, cfg, wrappers, n_req: int = 8,
         if c <= 0:
             raise AssertionError(f"kernel {n} was not launched on the path")
     tokens = n_req * new
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
     print(f"  served {n_req} requests ({prompt_len}-token prompts, {new} new "
           f"tokens each) in {dt:.3f} s: {tokens / dt:.1f} generated tok/s, "
           f"{n_req * (prompt_len + new) / dt:.1f} processed tok/s; peak "
-          f"memory {peak:.2f} GiB; launches {launches}")
+          f"memory {peak:.2f} GiB ({100 * peak / total:.1f}% of "
+          f"{total:.2f}); launches {launches}")
+    if peak > max_share * total:
+        raise AssertionError(f"serving peak {peak:.2f} GiB is past "
+                             f"{max_share:.0%} of the card's {total:.2f} GiB")
     # launches and time of one decode step of the 4-slot batch
     def decode_step():
         engine._decode(engine.params, batcher.last_tok,
@@ -2626,25 +3029,23 @@ def serve_phase(torch, dev, cfg, wrappers, n_req: int = 8,
     return launches
 
 
-def train_moe_phase(torch, dev, wrappers, layers: int = MOE_TRAIN_LAYERS,
+def train_cut_phase(torch, dev, cfg, wrappers, batch=(8, 256),
                     steps: int = 6, lr: float = 1e-4) -> dict:
-    """Train qwen2-moe-a2.7b at full width (d_model 2048, 60 experts top-4
-    of d_ff 1408, the shared expert of 5632, vocab 151936, untied head)
-    with the depth cut to ``layers``: int8, batch 8 x seq 256 of
-    ``SyntheticLM`` (T·K = 8192 > 4096, so the capacity dispatch runs at
-    256 rows per expert), ``steps`` AdamW steps at ``lr`` through
-    ``lm_loss`` + ``make_train_step`` (what ``launch.train`` wires; the
-    launcher has no depth flag, as the reference's has none), random
-    weights and stochastic gradient rounding from one seeded CUDA
-    generator.  The depth: the deepest that leaves 10% of the card's
+    """Train ``cfg`` — a full-width config with its depth cut to fit, as
+    ``cfg.n_layers`` says — through ``lm_loss`` + ``make_train_step`` (what
+    ``launch.train`` wires; the launcher has no depth flag, as the
+    reference's has none), with the per-layer remat on: int8, ``batch``
+    (rows x tokens) of ``SyntheticLM``, ``steps`` AdamW steps at ``lr``,
+    random weights and stochastic gradient rounding from one seeded CUDA
+    generator.  The depth is the deepest that leaves 10% of the card's
     memory spare, with parameters, AdamW moments and gradients (16 bytes a
     parameter: the update runs in place) and the step's activations.  The
     launch counters are set to 0 just before the int8 run and read just
     after; every kernel in ``wrappers`` must have launched, every loss be
-    finite and the first near ln 151936.  Then one profiled int8 step, and
-    the same steps under FP32 from the same init.  Returns the int8 run's
-    launches."""
-    import dataclasses
+    finite and the first within 1 of ln(vocab) + d_model x 0.02^2 / 2 (the
+    cross entropy of the random head's logits), and the peak must leave
+    10% of the card's memory.  Then one profiled int8 step, and the same steps
+    under FP32 from the same init.  Returns the int8 run's launches."""
     import math
     from repro_torch.configs import registry
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -2652,9 +3053,7 @@ def train_moe_phase(torch, dev, wrappers, layers: int = MOE_TRAIN_LAYERS,
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train import trainer
     from repro_torch.train.finetune import to_device
-    cfg = dataclasses.replace(registry.get_config("qwen2-moe-a2.7b"),
-                              n_layers=layers)
-    B, S = 8, 256
+    B, S = batch
 
     def start(quant):
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -2689,39 +3088,201 @@ def train_moe_phase(torch, dev, wrappers, layers: int = MOE_TRAIN_LAYERS,
     launches = {n: w.launches for n, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite MoE training loss: {losses}")
-    if abs(losses[0] - math.log(151936)) > 1.5:
-        raise AssertionError(f"first loss {losses[0]} is not near ln 151936")
+        raise AssertionError(f"non-finite {cfg.name} training loss: {losses}")
+    # random weights: the head's logits have variance d_model x 0.02^2
+    # over unit-RMS features, so the first loss sits near ln V + that / 2
+    expect = math.log(cfg.vocab) + cfg.d_model * 0.02 ** 2 / 2
+    if abs(losses[0] - expect) > 1.0:
+        raise AssertionError(f"first loss {losses[0]} is not near "
+                             f"ln {cfg.vocab} + {cfg.d_model} x 0.02^2 / 2 "
+                             f"= {expect:.3f}")
     for n, c in launches.items():
         if c <= 0:
-            raise AssertionError(f"kernel {n} was not launched on the MoE "
-                                 "training path")
+            raise AssertionError(f"kernel {n} was not launched on the "
+                                 f"{cfg.name} training path")
     first_ms = 1e3 * (stamps[0] - t_start)
     step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
     med = statistics.median(step_ms)
     tok_s = B * S * len(step_ms) / sum(step_ms) * 1e3
     last = {n: counts[-1][n] - counts[-2][n] for n in wrappers}
     total = torch.cuda.get_device_properties(0).total_memory / 2**30
-    if peak > 0.9 * total:
-        raise AssertionError(f"peak {peak:.2f} GiB leaves less than 10% of "
-                             f"the card's {total:.2f} GiB")
-    print(f"  {layers} layers, {n_params / 1e9:.3f} B parameters; set-up + "
-          f"step 0 {first_ms:.2f} ms; steps 1-{steps - 1} ms "
+    print(f"  {cfg.name}, {cfg.n_layers} layers, batch {B} x {S}, "
+          f"{n_params / 1e9:.3f} B parameters; set-up + step 0 "
+          f"{first_ms:.2f} ms; steps 1-{steps - 1} ms "
           f"{[round(v, 2) for v in step_ms]}; median {med:.2f} ms; "
           f"{tok_s:.1f} tokens/s over those steps; peak memory {peak:.2f} "
           f"GiB of {total:.2f} GiB ({100 * peak / total:.1f}%); launches in "
-          f"the run {launches}; in one step {last}")
-    profile_step(torch, one_step, f"qwen2-moe-a2.7b training step ({layers}"
-                 " layers, int8)")
+          f"the run {launches}; in one step {last}", flush=True)
+    if peak > 0.9 * total:
+        raise AssertionError(f"peak {peak:.2f} GiB leaves less than 10% of "
+                             f"the card's {total:.2f} GiB")
+    profile_step(torch, one_step, f"{cfg.name} training step "
+                 f"({cfg.n_layers} layers, int8)")
     del one_step, run
+    gc.collect()
     torch.cuda.empty_cache()
     one_step, run = start("fp32")
     losses32 = [one_step() for _ in range(steps)]
     del one_step, run
+    gc.collect()
     torch.cuda.empty_cache()
     print(f"  lr {lr}; int8 losses {[round(v, 5) for v in losses]}; FP32 "
           f"losses from the same init {[round(v, 5) for v in losses32]}")
     return launches
+
+
+def fp32_remat_phase(torch, dev, steps: int = 2, lr: float = 1e-4) -> dict:
+    """mistral-nemo-12b at full width, ``NEMO_FP32_LAYERS`` layers, on the
+    chunked FP32 attention path (``blocks.flash_attention``): batch 1 x
+    ``NEMO_FP32_SEQ`` tokens under the ``fp32`` preset, ``steps`` AdamW
+    steps with the per-layer remat on (peak memory from the start), one
+    profiled step, then one step from the same init with ``remat=False``
+    (``_backbone_train``'s internal switch; its own peak).  No kernel
+    runs on this path: every launch counter must stay 0.  Prints losses,
+    step ms, tokens/s, both peaks and the busy share."""
+    import dataclasses
+    import functools
+    import math
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import trainer
+    from repro_torch.train.finetune import to_device
+    cfg = dataclasses.replace(registry.get_config("mistral-nemo-12b"),
+                              n_layers=NEMO_FP32_LAYERS)
+    S = NEMO_FP32_SEQ
+    wrappers = kops.wrappers()
+
+    def run_steps(n, remat=True):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = lm.lm_init(gen, cfg, device=dev)
+        step = trainer.make_train_step(
+            lm.lm_loss, cfg, registry.get_quant("fp32"),
+            opt_lib.OptimizerConfig(lr=lr, total_steps=steps))
+        data = SyntheticLM(DataConfig(batch_size=1, seq_len=S,
+                                      vocab=cfg.vocab, seed=0))
+        state = {"p": params, "o": opt_lib.init(params)}
+        del params
+        orig = lm._backbone_train
+        lm._backbone_train = functools.partial(orig, remat=remat)
+        losses, stamps = [], []
+        try:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            for _ in range(n):
+                batch = to_device(next(data), dev)
+                state["p"], state["o"], m = step(state["p"], state["o"],
+                                                 batch, gen)
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if remat:
+                profile_step(torch, lambda: step(
+                    state["p"], state["o"], to_device(next(data), dev), gen),
+                    f"{cfg.name} FP32 training step (1 x {S}, "
+                    f"{cfg.n_layers} layers, remat)")
+        finally:
+            lm._backbone_train = orig
+        return losses, [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])], \
+            peak
+
+    for w in wrappers.values():
+        w.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, peak = run_steps(steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses0, ms0, peak0 = run_steps(1, remat=False)
+    launched = {n: w.launches for n, w in wrappers.items() if w.launches}
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(v) for v in losses + losses0):
+        raise AssertionError(f"non-finite FP32 nemo loss: {losses} "
+                             f"{losses0}")
+    expect = math.log(cfg.vocab) + cfg.d_model * 0.02 ** 2 / 2
+    if abs(losses[0] - expect) > 1.0:
+        raise AssertionError(f"first loss {losses[0]} is not near "
+                             f"{expect:.3f} (as train_cut_phase's)")
+    if launched:
+        raise AssertionError(f"kernels launched on the FP32 path: {launched}")
+    print(f"  {cfg.name}, {cfg.n_layers} layers, 1 x {S} tokens, fp32: "
+          f"remat on: losses {[round(v, 5) for v in losses]}, step ms "
+          f"{[round(v, 2) for v in ms]} ({S * len(ms) / sum(ms) * 1e3:.1f} "
+          f"tokens/s), peak {peak:.2f} GiB; remat off, one step from the "
+          f"same init: loss {losses0[0]:.5f}, {ms0[0]:.2f} ms, peak "
+          f"{peak0:.2f} GiB; launches 0 (no kernel on this path)",
+          flush=True)
+    return dict(peak_remat=peak, peak_no_remat=peak0, step_ms=ms,
+                step_ms_no_remat=ms0)
+
+
+def arch_phase(torch, dev) -> dict:
+    """Phase 10 (PR 22): mistral-nemo-12b, mixtral-8x7b and
+    mistral-large-123b at full width, int8.  Serving through
+    ``serve_phase`` (4 slots, 8 requests x (64 + 16) tokens): nemo at full
+    depth, mixtral and large at the depths that leave 10% of the memory
+    spare.  Training through ``train_cut_phase`` (4 AdamW steps, remat
+    on, stochastic gradient rounding): mixtral at 2 layers and batch 8 x
+    512 (the capacity dispatch), nemo at ``NEMO_TRAIN_LAYERS`` and large
+    at 2, batch 8 x 256.  Then nemo on the FP32 path at 1 x 4096 tokens
+    (``fp32_remat_phase``).  Each model is freed before the next.
+    Returns each run's launches by path name."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops as kops
+    serve = ("dfx_quantize", "bfp_matmul", "int_rmsnorm_fwd", "int_attn_fwd")
+    moe_fwd = ("dfx_quantize_grouped", "bfp_matmul_batched")
+    train = ("dfx_quantize", "bfp_matmul", "bfp_matmul_nt", "bfp_matmul_tn",
+             "int_rmsnorm_fwd", "int_rmsnorm_bwd", "int_attn_fwd",
+             "int_attn_bwd_dq", "int_attn_bwd_dkv")
+    moe_train = moe_fwd + ("bfp_matmul_batched_nt", "bfp_matmul_batched_tn")
+    out = {}
+    for key, arch, depth in (("nemo", "mistral-nemo-12b", NEMO_SERVE_LAYERS),
+                             ("mixtral", "mixtral-8x7b",
+                              MIXTRAL_SERVE_LAYERS),
+                             ("large", "mistral-large-123b",
+                              LARGE_SERVE_LAYERS)):
+        cfg = dataclasses.replace(registry.get_config(arch), n_layers=depth)
+        t0 = time.perf_counter()
+        print(f"[10] serve {arch}, {depth} of "
+              f"{registry.get_config(arch).n_layers} layers, int8")
+        out[f"serve_{key}"] = serve_phase(
+            torch, dev, cfg, kops.wrappers(
+                *serve, *(moe_fwd if cfg.moe_experts else ())),
+            max_share=0.9)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[10] {arch} served in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    for key, arch, depth, batch in (
+            ("mixtral", "mixtral-8x7b", MIXTRAL_TRAIN_LAYERS,
+             MIXTRAL_TRAIN_BATCH),
+            ("nemo", "mistral-nemo-12b", NEMO_TRAIN_LAYERS, (8, 256)),
+            ("large", "mistral-large-123b", LARGE_TRAIN_LAYERS, (8, 256))):
+        cfg = dataclasses.replace(registry.get_config(arch), n_layers=depth)
+        t0 = time.perf_counter()
+        print(f"[10] train {arch}, {depth} layers, int8, batch {batch[0]} x "
+              f"{batch[1]}, remat on")
+        out[f"train_{key}"] = train_cut_phase(
+            torch, dev, cfg, kops.wrappers(
+                *train, *(moe_train if cfg.moe_experts else ())),
+            batch=batch, steps=4)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[10] {arch} trained in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    t0 = time.perf_counter()
+    print(f"[10] train mistral-nemo-12b on the FP32 path, {NEMO_FP32_LAYERS} "
+          f"layers, 1 x {NEMO_FP32_SEQ} tokens, remat on and off")
+    fp32_remat_phase(torch, dev)
+    print(f"[10] FP32 nemo in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 #: phase 9: the paper's presets, and the full-width cells (task, config
@@ -2880,6 +3441,7 @@ def _to(tree, device):
 
 
 def main() -> int:
+    import dataclasses
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2931,6 +3493,10 @@ def main() -> int:
     for k in kernels:
         if k["name"] in sweep_rows:
             k["sweep_rows"] = sweep_rows[k["name"]]
+    arch_rows = check_arch_shapes(torch, dev, gen)
+    for k in kernels:
+        if k["name"] in arch_rows:
+            k["arch_rows"] = arch_rows[k["name"]]
     for k in kernels:
         print(f"  {k['name']}: max_abs_err {k['max_abs_err']:.3e}; call "
               f"{k['ms']:.4f} ms, device {k['device_ms']:.4f} ms; plain "
@@ -2945,6 +3511,9 @@ def main() -> int:
     check_small_lm_train(torch, dev)
     check_small_moe(torch, dev)
     check_small_moe_kept_int(torch, dev)
+    for arch in ("mistral-nemo-12b", "mistral-large-123b"):
+        check_small_model(torch, dev, arch)
+    check_small_moe(torch, dev, "mixtral-8x7b", seq=80, prompt=89)
 
     print("[4] serve qwen1.5-0.5b, full width, int8")
     serve = ("dfx_quantize", "bfp_matmul", "int_rmsnorm_fwd", "int_attn_fwd")
@@ -2981,7 +3550,8 @@ def main() -> int:
           "int8, batch 8 x seq 256, lm_loss + make_train_step; device memory "
           f"allocated before: {torch.cuda.memory_allocated() / 2**30:.2f} "
           "GiB")
-    moe_train = train_moe_phase(torch, dev, kops.wrappers(
+    moe_train = train_cut_phase(torch, dev, dataclasses.replace(
+        moe, n_layers=MOE_TRAIN_LAYERS), kops.wrappers(
         *lm_train, *moe_fwd, "bfp_matmul_batched_nt", "bfp_matmul_batched_tn"))
     gc.collect()
     torch.cuda.empty_cache()
@@ -2993,6 +3563,15 @@ def main() -> int:
     print(f"[9] full width in {time.perf_counter() - t9:.1f} s", flush=True)
     sweep_reference_size(torch, dev)
     print(f"[9] phase took {time.perf_counter() - t9:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[10] mistral-nemo-12b, mixtral-8x7b and mistral-large-123b at full "
+          "width, int8: served (nemo at full depth) and trained (remat on); "
+          "nemo on the FP32 path at 1 x 4096 tokens; device memory "
+          f"allocated before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    t10 = time.perf_counter()
+    arch_launches = arch_phase(torch, dev)
+    print(f"[10] phase took {time.perf_counter() - t10:.1f} s", flush=True)
     for k in kernels:
         by_path = {"serve": launches.get(k["name"], 0),
                    "finetune": ft_launches.get(k["name"], 0),
@@ -3003,7 +3582,9 @@ def main() -> int:
                    "finetune_keptint": kept["finetune_keptint"].get(
                        k["name"], 0),
                    "train_keptint": kept["train_keptint"].get(k["name"], 0),
-                   "sweep": sweep_launches.get(k["name"], 0)}
+                   "sweep": sweep_launches.get(k["name"], 0),
+                   **{path: ls.get(k["name"], 0)
+                      for path, ls in arch_launches.items()}}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         if "int_ms" in k:        # the kept-int paths run its integer body

@@ -21,6 +21,9 @@ PORTED = {
     "qwen1.5-0.5b": "qwen1p5_0p5b",
     "smollm-135m": "smollm_135m",
     "qwen2-moe-a2.7b": "qwen2_moe_a2p7b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "mistral-nemo-12b": "mistral_nemo_12b",
+    "mistral-large-123b": "mistral_large_123b",
 }
 
 

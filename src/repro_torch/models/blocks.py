@@ -10,8 +10,9 @@ activations are FP32 unless the leaf's ``kept_ops="integer"`` swaps them
 for the iapprox forms (``int_ops.int_activation`` / ``int_softmax``, and
 attention's in-kernel exp).  When the policy enables
 quantization at the ``attn.qk`` leaf, attention is
-``int_ops.int_attention``; otherwise the FP32 reference path below (a plain
-masked softmax, differentiable) runs.
+``int_ops.int_attention``; otherwise the reference's FP32 paths run as plain
+differentiable ops: ``flash_attention`` (an online softmax over KV chunks)
+or, for one query over a KV cache, ``_decode_attention``.
 
 The reference's ``health.probe`` calls are identities with probes
 suspended and are left out.  Its ``subkey`` (a distinct PRNG key per call
@@ -74,32 +75,134 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def _fp32_attention(q, k, v, *, causal: bool, q_offset,
-                    window: Optional[int]) -> torch.Tensor:
-    """FP32 reference attention (quantization disabled): masked softmax,
-    causal or bidirectional; plain differentiable ops (the reference's XLA
-    ``flash_attention`` at one KV chunk, which is no Pallas kernel).
+# =========================================================================
+# FP32 attention (quantization disabled at ``attn.qk``): the reference's
+# online softmax over KV chunks, and its single-pass decode form
+# =========================================================================
+
+def _scale(hd: int) -> float:
+    """The reference's ``1 / sqrt(float32(hd))``, rounded to f32 as it is
+    there (a Python float that a float32 tensor takes exactly)."""
+    return float(1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32)))
+
+
+def _chunk_mask(qpos, c: int, chunk: int, Sk: int, causal: bool,
+                window: Optional[int]) -> torch.Tensor:
+    """Keys ``c * chunk ..`` each query may see, as the reference masks
+    them: inside the keys (``kpos < Sk``: the zero-padded ragged last
+    chunk is out), not after the query (causal), inside the window.
+    (1|B, 1, 1, Sq, chunk), broadcasting against (B, KV, G, Sq, chunk)."""
+    kpos = c * chunk + torch.arange(chunk, device=qpos.device)
+    ok = (kpos < Sk).expand(qpos.shape + (chunk,))
+    if causal:
+        ok = ok & (kpos <= qpos[..., None])
+    if window is not None:
+        ok = ok & (kpos > qpos[..., None] - window)
+    return ok[:, None, None]
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The online softmax over KV chunks, forward as the reference computes
+    it; the backward is flash attention's: it keeps q, k, v, the output
+    and each row's final max and normalizer (no chunk's scores) and, chunk
+    by chunk, recomputes the probabilities ``P`` and forms ``dS = P ∘ (dP
+    - rowsum(dO ∘ O))``.  qs: the scaled queries (B, Sq, KV, G, hd); k, v:
+    (B, n·chunk, KV, hd), zero-padded; qpos: (1|B, Sq)."""
+
+    @staticmethod
+    def forward(ctx, qs, k, v, qpos, Sk: int, chunk: int, causal: bool,
+                window):
+        B, Sq, KV, G, hd = qs.shape
+        f = dict(device=qs.device, dtype=qs.dtype)
+        m = torch.full((B, KV, G, Sq), _BIG_NEG, **f)
+        l = torch.zeros((B, KV, G, Sq), **f)
+        acc = torch.zeros((B, KV, G, Sq, hd), **f)
+        for c in range(k.shape[1] // chunk):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            okb = _chunk_mask(qpos, c, chunk, Sk, causal, window)
+            s = torch.where(okb, torch.einsum("bqhgd,bkhd->bhgqk", qs,
+                                              k[:, sl]), _BIG_NEG)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.where(okb, torch.exp(s - m_new[..., None]), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p, v[:, sl])
+            m = m_new
+        l = torch.clamp(l, min=1e-20)
+        out = acc / l[..., None]
+        ctx.save_for_backward(qs, k, v, qpos, m, l, out)
+        ctx.meta = (Sk, chunk, causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qs, k, v, qpos, m, l, out = ctx.saved_tensors
+        Sk, chunk, causal, window = ctx.meta
+        delta = (dout * out).sum(-1)                        # (B, KV, G, Sq)
+        dqs = torch.zeros_like(qs)
+        dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+        for c in range(k.shape[1] // chunk):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            okb = _chunk_mask(qpos, c, chunk, Sk, causal, window)
+            s = torch.where(okb, torch.einsum("bqhgd,bkhd->bhgqk", qs,
+                                              k[:, sl]), _BIG_NEG)
+            p = torch.where(okb, torch.exp(s - m[..., None]),
+                            0.0) / l[..., None]
+            dp = torch.einsum("bhgqd,bkhd->bhgqk", dout, v[:, sl])
+            ds = p * (dp - delta[..., None])
+            dqs += torch.einsum("bhgqk,bkhd->bqhgd", ds, k[:, sl])
+            dk[:, sl] = torch.einsum("bhgqk,bqhgd->bkhd", ds, qs)
+            dv[:, sl] = torch.einsum("bhgqk,bhgqd->bkhd", p, dout)
+        return dqs, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, q_offset=0, window: Optional[int] = None,
+                    chunk: int = 1024) -> torch.Tensor:
+    """FP32 attention as the reference's ``flash_attention`` computes it:
+    an online softmax over KV chunks of ``chunk`` keys, with the same order
+    of operations (the ragged last chunk zero-padded and masked by ``kpos <
+    Sk``; the running max ``m``, normalizer ``l`` and ``acc`` carried in
+    f32; ``acc / max(l, 1e-20)``).  No score matrix wider than one chunk is
+    formed, in the forward or the backward (``_FlashAttention``).
+    ``q_offset`` is a scalar or a per-row (B,) vector of the queries' first
+    positions.
     q: (B, Sq, KV, G, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, KV, G, hd)."""
     B, Sq, KV, G, hd = q.shape
     Sk = k.shape[1]
-    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float() / hd ** 0.5, k.float())
-    if causal:
-        s = _causal_mask(s, q, Sq, Sk, q_offset, window)
-    o = torch.einsum("bhgqk,bkhd->bhgqd", torch.softmax(s, dim=-1),
-                     v.float())
-    return o.permute(0, 3, 1, 2, 4)
-
-
-def _causal_mask(s, q, Sq, Sk, q_offset, window):
-    """Scores of keys after each query's position (or outside its window)
-    set to -1e30."""
+    chunk = min(chunk, Sk)
+    pad = -(-Sk // chunk) * chunk - Sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     qpos = (torch.as_tensor(q_offset, device=q.device).reshape(-1, 1)
-            + torch.arange(Sq, device=q.device))               # (1|B, Sq)
-    kpos = torch.arange(Sk, device=q.device)
-    ok = kpos <= qpos[..., None]
+            + torch.arange(Sq, device=q.device))                # (1|B, Sq)
+    out = _FlashAttention.apply(q.to(torch.float32) * _scale(hd),
+                                k.to(torch.float32), v.to(torch.float32),
+                                qpos, Sk, chunk, causal, window)
+    return out.permute(0, 3, 1, 2, 4)
+
+
+def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      index, window: Optional[int]) -> torch.Tensor:
+    """One query per row over the whole cache: a single masked FP32
+    softmax, keys after ``index`` (a scalar or a per-row (B,) vector of the
+    queries' positions) or outside the window masked out.
+    q: (B, 1, KV, G, hd); k, v: (B, Smax, KV, hd) -> (B, 1, KV, G, hd)."""
+    hd = q.shape[-1]
+    Smax = k.shape[1]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.to(torch.float32) * _scale(hd),
+                     k.to(torch.float32))
+    idx = torch.as_tensor(index, device=q.device).reshape(-1, 1)  # (1|B, 1)
+    kpos = torch.arange(Smax, device=q.device)[None, :]
+    ok = kpos <= idx
     if window is not None:
-        ok = ok & (kpos > qpos[..., None] - window)
-    return torch.where(ok[:, None, None], s, _BIG_NEG)
+        ok = ok & (kpos > idx - window)
+    s = torch.where(ok[:, None, None, None, :], s, _BIG_NEG)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", torch.softmax(s, dim=-1),
+                     v.to(torch.float32))
+    return o.permute(0, 3, 1, 2, 4)
 
 
 # =========================================================================
@@ -184,8 +287,10 @@ def attention_apply(
     if leaf_qk.enabled:
         o = int_ops.int_attention(q, k, v, q_offset, key, leaf_qk, leaf_pv,
                                   causal, win)
+    elif S == 1 and kv_cache is not None:
+        o = _decode_attention(q, k, v, idx, win)
     else:
-        o = _fp32_attention(q, k, v, causal=causal, q_offset=q_offset,
+        o = flash_attention(q, k, v, causal=causal, q_offset=q_offset,
                             window=win)
     o = o.reshape(B, S, H * hd)
     out = int_ops.int_linear(o, p["wo"], None, key, sc.leaf("wo"))

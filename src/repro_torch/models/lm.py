@@ -1,17 +1,20 @@
 """Decoder-only language model, dense and MoE families: init, the training
-loss, KV cache, chunked prefill and decode.
+loss, the full-prompt prefill, KV cache, chunked prefill and decode.
 
 Counterpart of the dense and MoE paths of ``repro/models/lm.py``.
 Parameters are a nested dict of tensors with the layer stack stacked on a
 leading ``(L, ...)`` axis, as in the reference's ``lm_init``, so the
 reference's
 params carry across one to one (``repro_torch.convert``).  The reference's
-``lax.scan`` over the stack is a Python loop here, and its remat
-(``utils.checkpoint`` around each layer of the training stack) is left
-out: the backward keeps every layer's residuals (the quantized planes the
-integer layers save), trading device memory for no recompute.  Its
-sharding constraints (``sharding.constrain*``) and ``health.probe`` calls
-are identities on one device with probes suspended, and are left out.
+``lax.scan`` over the stack is a Python loop here.  Its remat
+(``utils.checkpoint`` around each layer of the training stack, full
+recompute) is ``torch.utils.checkpoint`` around each layer: the backward
+keeps each layer's input and recomputes the layer's residuals (the
+quantized planes the integer layers save) when it reaches it.  The
+recompute replays the forward's stochastic-rounding noise from a copy of
+the generator (``_remat_layer``).  Its sharding constraints
+(``sharding.constrain*``) and ``health.probe`` calls are identities on one
+device with probes suspended, and are left out.
 
 A MoE block's ``moe`` sublayer (``blocks.moe_apply``) takes the MLP's
 place; its load-balancing loss is summed over the layers and ``lm_loss``
@@ -23,6 +26,7 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core import int_ops
 from repro_torch.core.qpolicy import QuantLike, ensure_scope, layer_groups
@@ -133,18 +137,66 @@ def _logits(params: Params, x: torch.Tensor, cfg: ArchConfig,
                               transposed_w=tied)
 
 
+def _replay_key(key, state):
+    """The key a layer's recompute draws from: a fresh generator on the
+    key's device set to ``state``, the key's state before the layer's
+    forward; the key itself (None) when there is no state."""
+    if state is None:
+        return key
+    gen = torch.Generator(device=key.device)
+    gen.set_state(state)
+    return gen
+
+
+def _remat_layer(bp: Params, x: torch.Tensor, cfg: ArchConfig,
+                 bsc: QuantLike, key):
+    """``_attn_block`` under ``torch.utils.checkpoint`` (non-reentrant):
+    the backward recomputes the layer from its input.
+
+    The layers draw stochastic-rounding noise from ``key`` — the
+    activations' in the forward (``stochastic_fwd``), the gradients' in the
+    backward (each autograd Function keeps ``key`` for that) — and
+    ``torch.utils.checkpoint`` restores only the default generators.  A
+    recompute that drew from ``key`` would take other activation noise
+    than the forward did and shift every later gradient draw.  So the
+    recompute draws from a copy of ``key`` set to its state before the
+    layer: the same noise, the same saved tensors (checkpoint checks their
+    count, shapes and dtypes), and ``key`` left where the step without
+    remat leaves it.  A callable key hands in noise that cannot be
+    replayed, so its layers run without remat."""
+    if key is not None and not isinstance(key, torch.Generator):
+        return _attn_block(bp, x, cfg, bsc, key)[:2]
+    state = key.get_state() if key is not None else None
+    calls = []
+
+    def run(x):
+        k = key if not calls else _replay_key(key, state)
+        calls.append(1)
+        return _attn_block(bp, x, cfg, bsc, k)[:2]
+    # the layers draw from ``key`` only, never from the default generators
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False,
+                                             preserve_rng_state=False)
+
+
 def _backbone_train(params: Params, x: torch.Tensor, cfg: ArchConfig,
-                    qcfg: QuantLike, key) -> Tuple[torch.Tensor, torch.Tensor]:
-    """All layers, no cache (training): a Python loop over the stack, each
-    run of identically resolved layers under its scope.  Returns (x, the
-    MoE aux losses summed over the layers)."""
+                    qcfg: QuantLike, key, *,
+                    remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All layers, no cache (training, and ``lm_prefill``): a Python loop
+    over the stack, each run of identically resolved layers under its
+    scope.  ``remat``: each layer under ``_remat_layer`` while autograd
+    records (the reference's per-layer remat; off only to compare the
+    two).  Returns (x, the MoE aux losses summed over the layers)."""
     sc = ensure_scope(qcfg)
     layers = blocks.unstack(params["blocks"], cfg.n_layers)
+    remat = remat and torch.is_grad_enabled()
     aux = torch.zeros((), device=x.device)
     for start, stop, bsc in layer_groups(sc, cfg.n_layers,
                                          _block_leaves(cfg)):
         for i in range(start, stop):
-            x, a, _ = _attn_block(layers[i], x, cfg, bsc, key)
+            if remat:
+                x, a = _remat_layer(layers[i], x, cfg, bsc, key)
+            else:
+                x, a, _ = _attn_block(layers[i], x, cfg, bsc, key)
             aux = aux + a
     return x, aux
 
@@ -170,6 +222,19 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     if cfg.moe_experts:
         loss = loss + 0.01 * aux / cfg.n_layers
     return loss, {"ce": loss.detach(), "aux": aux.detach()}
+
+
+def lm_prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
+               qcfg: QuantLike) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward pass over the full prompt, no cache and no key (round to
+    nearest): the training backbone, whose FP32 attention is the chunked
+    ``flash_attention``.  Returns (last-position logits (B, 1, V), the
+    final hidden states (B, S, D))."""
+    _require_ported(cfg)
+    x = _embed(params, tokens, cfg, qcfg, None)
+    x, _ = _backbone_train(params, x, cfg, qcfg, None)
+    logits = _logits(params, x[:, -1:], cfg, qcfg, None)
+    return logits, x
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,

@@ -6,7 +6,10 @@ device events, or none, so a kernel's device time read 0 and the script
 divided by it.  Here the profiler is replaced by a stand-in that drops
 events on chosen windows, so the repair runs on the CPU: a window counts
 only once another one recorded as many device events, and windows that
-never agree raise instead of returning a low time.
+never agree raise instead of returning a low time.  ``device_kernels``
+also skips counts that are not a whole number of calls.  Each window
+starts with sentinel kernels that take the events the profiler drops at
+a window's head, and they are left out of the counts.
 """
 import sys
 from pathlib import Path
@@ -18,6 +21,10 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
+
+
+#: the head sentinel's kernel (``torch.cuda._sleep``)
+SPIN = "_ZN2at4cuda12_GLOBAL__N_111spin_kernelEl"
 
 
 class _Event:
@@ -45,10 +52,11 @@ def _fake_profiler(monkeypatch, windows):
 
         def key_averages(self):
             cuda = torch.autograd.DeviceType.CUDA
-            return ([_Event(cuda, n, us) for n, us in windows[self.i]]
+            return ([_Event(cuda, *ev) for ev in windows[self.i]]
                     + [_Event(torch.autograd.DeviceType.CPU, 7, 999.0)])
     monkeypatch.setattr(torch.profiler, "profile", Profile)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
     return seen
 
 
@@ -63,6 +71,8 @@ def _fake_profiler(monkeypatch, windows):
     # one lossy window between two whole ones: the third agrees with the first
     ([[(10, 500.0), (10, 300.0)], [(6, 300.0)], [(10, 490.0), (10, 300.0)]],
      0.079),
+    # the head sentinels (their counts differing) are left out
+    ([[(8, 8.0, SPIN), (10, 500.0)], [(7, 7.0, SPIN), (10, 510.0)]], 0.051),
 ])
 def test_device_ms_waits_for_two_agreeing_windows(monkeypatch, windows, ms):
     seen = _fake_profiler(monkeypatch, windows)
@@ -85,6 +95,10 @@ def test_device_ms_raises_when_no_windows_agree(monkeypatch):
     ([[(5, 40.0)], [(5, 41.0)]], 1.0),
     # the first window lost its events; a kernel and a copy a call after
     ([[], [(5, 40.0), (5, 9.0)], [(5, 40.0), (5, 9.0)]], 2.0),
+    # two windows lost the same event: not a whole number of calls
+    ([[(4, 32.0)], [(4, 32.0)], [(5, 40.0)], [(5, 40.0)]], 1.0),
+    # the head sentinels took the dropped events and are not counted
+    ([[(7, 7.0, SPIN), (5, 40.0)], [(6, 6.0, SPIN), (5, 40.0)]], 1.0),
 ])
 def test_device_kernels_waits_for_two_agreeing_windows(monkeypatch, windows,
                                                        per_call):

@@ -1,0 +1,109 @@
+"""Per-layer remat of the training stack (``lm._backbone_train``): with
+stochastic rounding in the forward (``stochastic_fwd``) and of the
+gradients (``stochastic_grad``), all drawn from one ``torch.Generator``,
+a step with remat (each layer under ``torch.utils.checkpoint``, the
+recompute drawing from a copy of the generator set to its state before the
+layer) gives the same loss and every gradient bit for bit as the step
+without, and leaves the generator in the same state.  A recompute that drew
+from the shared generator instead (emulated by patching ``_replay_key``)
+breaks both, so the test sees the hazard.  Reduced qwen1.5-0.5b (dense,
+QKV bias, tied head) and reduced mixtral-8x7b (MoE, a window of 64 keys
+over 80 tokens), int8, on the CPU.
+"""
+import dataclasses
+import functools
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.core.qconfig import QuantConfig  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+
+SEQ = {"qwen1.5-0.5b": 24, "mixtral-8x7b": 80}
+STOCHASTIC = dataclasses.replace(QuantConfig.int8(), stochastic_grad=True,
+                                 stochastic_fwd=True)
+
+
+def _leaves(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaves(tree[k], f"{prefix}{k}.")
+        else:
+            yield prefix + k, tree[k]
+
+
+def _step(monkeypatch, arch, remat, key=None):
+    """One ``lm_loss`` forward and backward with ``_backbone_train``'s remat
+    set as given; returns (loss, {name: gradient}, the generator's state
+    after the backward, calls of ``_attn_block``)."""
+    cfg = registry.get_config(arch).reduced()
+    params = lm.lm_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    leaves = dict(_leaves(params))
+    for t in leaves.values():
+        t.requires_grad_(True)
+    toks = torch.randint(0, cfg.vocab, (2, SEQ[arch]),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    gen = torch.Generator().manual_seed(2)
+    calls = []
+    block = lm._attn_block
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return block(*a, **kw)
+    monkeypatch.setattr(lm, "_attn_block", counted)
+    monkeypatch.setattr(lm, "_backbone_train", functools.partial(
+        lm._backbone_train, remat=remat))
+    loss, _ = lm.lm_loss(params, batch, cfg, STOCHASTIC,
+                         gen if key is None else key)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    monkeypatch.undo()
+    return (loss.detach(), dict(zip(leaves, grads)), gen.get_state(),
+            len(calls))
+
+
+@pytest.mark.parametrize("arch", list(SEQ))
+def test_remat_replays_the_forward_noise_bit_for_bit(monkeypatch, arch):
+    loss, grads, state, calls = _step(monkeypatch, arch, remat=True)
+    loss0, grads0, state0, calls0 = _step(monkeypatch, arch, remat=False)
+    n = registry.get_config(arch).reduced().n_layers
+    assert (calls, calls0) == (2 * n, n)           # each layer recomputed
+    assert torch.equal(loss, loss0)
+    assert sorted(grads) == sorted(grads0)
+    for name, g in grads.items():
+        assert torch.isfinite(g).all() and g.abs().max() > 0, name
+        assert torch.equal(g, grads0[name]), name
+    assert torch.equal(state, state0)
+
+
+@pytest.mark.parametrize("arch", list(SEQ))
+def test_recompute_from_the_shared_generator_is_caught(monkeypatch, arch):
+    """The hazard, emulated: the recompute draws from the shared generator.
+    Its activation noise is then not the forward's, and every gradient draw
+    after it shifts: the gradients and the generator's final state differ
+    from the step without remat."""
+    loss0, grads0, state0, _ = _step(monkeypatch, arch, remat=False)
+    monkeypatch.setattr(lm, "_replay_key", lambda key, state: key)
+    loss, grads, state, calls = _step(monkeypatch, arch, remat=True)
+    assert calls == 2 * registry.get_config(arch).reduced().n_layers
+    assert torch.equal(loss, loss0)                # the forward is the same
+    assert not torch.equal(state, state0)
+    assert not all(torch.equal(g, grads0[n]) for n, g in grads.items())
+
+
+def test_a_callable_key_runs_without_remat(monkeypatch):
+    """A callable key hands in noise that cannot be replayed: its layers
+    run once, and the step equals the step without remat."""
+    def key(shape, device):
+        return torch.rand(shape, generator=noise, device=device)
+    noise = torch.Generator().manual_seed(3)
+    loss, grads, _, calls = _step(monkeypatch, "qwen1.5-0.5b", remat=True,
+                                  key=key)
+    noise = torch.Generator().manual_seed(3)
+    loss0, grads0, _, _ = _step(monkeypatch, "qwen1.5-0.5b", remat=False,
+                                key=key)
+    assert calls == registry.get_config("qwen1.5-0.5b").reduced().n_layers
+    assert torch.equal(loss, loss0)
+    assert all(torch.equal(g, grads0[n]) for n, g in grads.items())
