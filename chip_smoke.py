@@ -163,7 +163,25 @@ Phases (each raises on failure; nothing is caught):
    chunked FP32 attention path: 2 layers, 1 x 4096 tokens, 2 steps with
    remat on, then one step with remat off from the same init; both peaks
    printed, no kernel launched.
-11. Print the ``{"kernels": [...]}`` line, then the last line
+   Phase 2 also holds ``dfx_quantize_grouped`` at the state plane's
+   shapes (``check_state_shapes``): qwen1.5-0.5b's embedding moment as
+   152,064 slices of 1 x 1024 (its vocabulary padded to a multiple of
+   256; round to nearest and stochastic, 1 and 3 planes) and its 24 MLP
+   stacks of 1024 x 2816, both timed.
+11. The state plane and the recovering training loop
+   (``state_plane_phase``), through ``launch.train``: qwen1.5-0.5b at
+   full width, int8, batch 8 x seq 256, 6 steps, with FP32 moments, int8
+   QTensor moments and int8 moments + the int8 parameter image, each run
+   launching every training kernel (the grouped quantize too with int8
+   moments); prints losses, step ms, tokens/s, peak memory, resident
+   moment bytes, launches per step and the bytes of a checkpoint.  Then
+   smollm-135m at its full config, batch 8 x seq 128, int8 moments, the
+   sentinel and a checkpoint every 2 steps: a clean run, a chaos run
+   (preemption, moment bit-flip, corrupt checkpoint, straggler) that
+   ends bit for bit at the clean run's parameters and moments, a
+   NaN-injected run with one skipped step, and a sentinel forced to
+   escalate (its rebuilt 16-bit attention scope on 3-plane kernels).
+12. Print the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available or when
@@ -3433,6 +3451,317 @@ def sweep_reference_size(torch, dev) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the state plane and the recovering training loop
+# ---------------------------------------------------------------------------
+
+def check_state_shapes(torch, dev, gen) -> dict:
+    """Phase 2's holds of ``dfx_quantize_grouped`` at the state plane's
+    shapes: the quantized moments keep one exponent per leading
+    slice, so qwen1.5-0.5b's (152064, 1024) embedding moment (its 151,936
+    tokens padded to a multiple of 256) is a (152064, 1, 1024) stack of
+    152,064 slices (more than ``gridDim.y``'s 65,535),
+    held exactly at round to nearest and stochastic, 1 plane (8 bits) and
+    3 (16 bits), with an all-zero slice; and its 24 layers' (1024, 2816)
+    MLP stacks.  Both timed at the moment update's call (8 bits,
+    stochastic): call and device ms beside the bound and
+    ``torch.quantize_per_channel``.  Returns {kernel: [row, ...]}."""
+    from repro_torch.configs import registry
+    from repro_torch.core import dfx
+    from repro_torch.kernels import dfx_quant as dq
+    from repro_torch.models import lm
+    cfg = registry.get_config("qwen1.5-0.5b")
+    V, D, F, L = lm.padded_vocab(cfg), cfg.d_model, cfg.d_ff, cfg.n_layers
+    emb = torch.randn((V, 1, D), generator=gen, device=dev).mul_(1e-3)
+    emb[7] = 0
+    u = torch.rand(emb.shape, generator=gen, device=dev)
+    for bits in (8, 16):
+        e = dfx.slice_exponents(emb) - (bits - 1)
+        for uu in (None, u):
+            _held("dfx_quantize_grouped",
+                  dq.dfx_quantize_grouped(emb, e, bits=bits, u=uu,
+                                          limb_planes=True),
+                  dq.dfx_quantize_grouped_plain(emb, e, bits=bits, u=uu,
+                                                limb_planes=True),
+                  f"({V}, 1, {D}) at {bits} bits, "
+                  + ("stochastic" if uu is not None else "round to nearest"))
+    print(f"  dfx_quantize_grouped: held exactly at ({V}, 1, {D}), 1 and 3 "
+          "planes, round to nearest and stochastic", flush=True)
+    rows = []
+    stack = torch.randn((L, D, F), generator=gen, device=dev).mul_(1e-3)
+    us = torch.rand(stack.shape, generator=gen, device=dev)
+    for label, x, uu in ((f"qwen embedding moment ({V},1,{D}), 8-bit "
+                          "plane, stochastic", emb, u),
+                         (f"qwen MLP stack moment ({L},{D},{F}), 8-bit "
+                          "plane, stochastic", stack, us)):
+        row = _quant_row(torch, label, x, 8, True, uu)
+        e = dfx.slice_exponents(x) - 7
+        row["ms"] = cuda_ms(lambda: dq.dfx_quantize_grouped(
+            x, e, bits=8, u=uu, limb_planes=True))
+        print(f"    call {row['ms']:.4f} ms", flush=True)
+        rows.append(row)
+    del emb, u, stack, us
+    return {"dfx_quantize_grouped": rows}
+
+
+def _moment_bytes(torch, opt_state) -> int:
+    """Resident bytes of the AdamW moments (``QTensor.nbytes``, or 4 a
+    float)."""
+    from repro_torch.core import qtensor
+    from repro_torch.train import optimizer as opt_lib
+    return sum(x.nbytes if qtensor.is_qtensor(x) else x.numel() * 4
+               for t in (opt_state.m, opt_state.v)
+               for x in opt_lib.tree_leaves(t))
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def state_plane_qwen(torch, dev, wrappers, steps: int = 6,
+                     lr: float = 1e-4) -> dict:
+    """Phase 11a: qwen1.5-0.5b at full width through ``launch.train``,
+    int8, batch 8 x seq 256, ``steps`` steps from seed 0, three runs:
+    FP32 moments, int8 QTensor moments (``--state-bits 8``), and int8
+    moments with the int8 parameter image (``--gather-bits 8``).  Every
+    counter is set to 0 just before each run and read just after; each run
+    must launch every training kernel, the state-bits runs the grouped
+    quantize too (the moments' per-slice exponents).  Each run writes its
+    final checkpoint into a temporary directory that is then removed.
+    Prints the losses, the median of steps 1.., tokens/s, peak memory,
+    the resident moment bytes, the launches per step and the bytes of the
+    checkpoint.  Returns {run: launches}."""
+    import math
+    import shutil
+    import tempfile
+    from repro_torch.launch import train as lt
+    base = ["--arch", "qwen1.5-0.5b", "--batch", "8", "--seq", "256",
+            "--steps", str(steps), "--lr", str(lr), "--log-every",
+            str(steps), "--device", str(dev), "--quant", "int8"]
+    runs = {"state_bits_0": [], "state_bits_8": ["--state-bits", "8"],
+            "state_bits_8_gather_8": ["--state-bits", "8", "--gather-bits",
+                                      "8"]}
+    out, report = {}, {}
+    for name, extra in runs.items():
+        stamps, counts = [], []
+
+        def on_step(i, metrics):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            counts.append({n: w.launches for n, w in wrappers.items()})
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for w in wrappers.values():
+                w.launches = 0
+            t_start = time.perf_counter()
+            run = lt.train(lt.parse_args(base + extra + ["--ckpt-dir", tmp]),
+                           on_step)
+            torch.cuda.synchronize()
+            t_saved = time.perf_counter()
+            launches = {n: w.launches for n, w in wrappers.items()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            moment = _moment_bytes(torch, run.opt_state)
+            disk = _dir_bytes(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        losses = [run.losses[i] for i in range(steps)]
+        del run
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{name}: non-finite losses {losses}")
+        need = [n for n in wrappers if n != "dfx_quantize_grouped"
+                or name != "state_bits_0"]
+        for n in need:
+            if launches[n] <= 0:
+                raise AssertionError(f"{name}: kernel {n} was not launched")
+        st = _step_stats(torch, stamps, t_start, 8 * 256)
+        report[name] = dict(losses=losses, median_ms=st["median_ms"],
+                            tok_s=st["tok_s"], peak=peak, moment=moment,
+                            disk=disk, per_step=_per_step(counts)[-1],
+                            save_s=t_saved - stamps[-1])
+        out[name] = launches
+    print("  run: losses | median step ms (steps 1-5) | tokens/s | peak GiB "
+          "| moment bytes | checkpoint bytes (final save s)")
+    for name, r in report.items():
+        print(f"  {name}: {[round(v, 5) for v in r['losses']]} | "
+              f"{r['median_ms']:.2f} | {r['tok_s']:.1f} | {r['peak']:.2f} | "
+              f"{r['moment']} ({r['moment'] / 1e9:.3f} GB) | {r['disk']} "
+              f"({r['disk'] / 1e9:.3f} GB; {r['save_s']:.2f} s)")
+    for name, r in report.items():
+        print(f"  {name} launches per step: {r['per_step']}")
+    return out
+
+
+def _snapshot(torch, run) -> list:
+    """Copies of a run's parameters and moments (QTensor planes and
+    exponents), in a fixed order."""
+    from repro_torch.core import qtensor
+    from repro_torch.train import optimizer as opt_lib
+    out = [p.clone() for p in opt_lib.tree_leaves(run.params)]
+    for t in (run.opt_state.m, run.opt_state.v):
+        for x in opt_lib.tree_leaves(t):
+            out += ([x.m.clone(), x.exp.clone()] if qtensor.is_qtensor(x)
+                    else [x.clone()])
+    return out
+
+
+def _bitwise(torch, a: list, b: list, what: str) -> None:
+    if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+        bad = sum(not torch.equal(x, y) for x, y in zip(a, b))
+        raise AssertionError(f"{what}: {bad} of {len(a)} tensors differ")
+
+
+def state_plane_chaos(torch, dev, wrappers, steps: int = 10) -> dict:
+    """Phase 11b: smollm-135m at its full config (the end-to-end example's
+    model), batch 8 x seq 128, ``--state-bits 8 --sentinel --ckpt-dir
+    <tmp> --ckpt-every 2``, ``steps`` steps, each run in a temporary
+    directory removed afterwards.  A clean run; a chaos run (preemption at
+    step 3, a moment bit-flip at 5, the newest checkpoint's bytes flipped
+    at 7, a 2 s straggler before 8) whose final parameters and moments
+    must equal the clean run's bit for bit and whose events must hold the
+    retries, restores, a ``ckpt-corrupt`` and a straggler at step 8; a NaN
+    injected at step 4 (one ``skip-step``; the parameters and moments
+    after step 4 equal those before it); and a sentinel forced to
+    escalate (``clip_high`` 0): the rebuilt step (attention at 16 bits)
+    must run the matmul and attention kernels on 3 limb planes, its step
+    ms printed beside the int8 steps'.  Returns {run: launches}."""
+    import math
+    import shutil
+    import tempfile
+    from repro_torch.kernels import dfx_quant
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import train as lt
+    from repro_torch.train import sentinel as sentinel_lib
+    B, S = 8, 128
+    base = ["--arch", "smollm-135m", "--batch", str(B), "--seq", str(S),
+            "--steps", str(steps), "--lr", "3e-4", "--device", str(dev),
+            "--state-bits", "8", "--sentinel", "--ckpt-every", "2",
+            "--log-every", str(steps)]
+    out = {}
+
+    def go(name, extra, on_step=None, sentinel_cfg=None):
+        """A run with its own checkpoint directory; ``on_step(run, step)``."""
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            args = lt.parse_args(base + extra + ["--ckpt-dir", tmp])
+            run = lt.build(args, sentinel_cfg)
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            lt.train(args, on_step and (lambda i, m: on_step(run, i)), run)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        out[name] = {n: w.launches for n, w in wrappers.items()}
+        for n, c in out[name].items():
+            if c <= 0:
+                raise AssertionError(f"{name}: kernel {n} was not launched")
+        losses = [run.losses[i] for i in sorted(run.losses)]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{name}: non-finite losses {losses}")
+        print(f"  {name}: {dt:.1f} s; losses {[round(v, 5) for v in losses]}"
+              f"; events {[e['type'] for e in run.events]}", flush=True)
+        return run
+
+    clean = go("clean", [])
+    ref = _snapshot(torch, clean)
+    del clean
+    chaos = go("chaos", ["--chaos-preempt-at", "3", "--chaos-bitflip-at",
+                         "5", "--chaos-corrupt-ckpt-at", "7",
+                         "--chaos-straggle-at", "8", "--chaos-straggle-s",
+                         "2"])
+    for ev in chaos.events:
+        print(f"    {ev}")
+    kinds = [e["type"] for e in chaos.events]
+    errors = {e["error"] for e in chaos.events if e["type"] == "retry"}
+    if (kinds.count("retry") != 3 or kinds.count("restore") != 3
+            or errors != {"Preemption", "StateCorruption"}
+            or {"type": "ckpt-corrupt", "step": 6} not in chaos.events
+            or not any(e["type"] == "straggler" and e["step"] == 8
+                       for e in chaos.events)):
+        raise AssertionError(f"chaos run events: {chaos.events}")
+    _bitwise(torch, _snapshot(torch, chaos), ref,
+             "chaos run's final parameters and moments against the clean "
+             "run's")
+    print("  chaos run's final parameters and moments equal the clean "
+          "run's bit for bit", flush=True)
+    del chaos, ref
+
+    snaps = {}
+
+    def keep(run, i):
+        if i in (3, 4):
+            snaps[i] = _snapshot(torch, run)
+    run = go("nan", ["--chaos-nan-at", "4"], keep)
+    skips = [e for e in run.events if e["type"] == "skip-step"]
+    if skips != [{"type": "skip-step", "step": 4, "streak": 1}]:
+        raise AssertionError(f"NaN run events: {run.events}")
+    _bitwise(torch, snaps[4], snaps[3], "parameters and moments after the "
+             "skipped step 4 against those before it")
+    print("  NaN at step 4: one skip-step; parameters and moments after it "
+          "equal those before it bit for bit", flush=True)
+    del run, snaps
+
+    planes, stamps = [], []
+    mm, attn = kops.bfp_matmul, kops.int_attn_fwd
+
+    def mm_rec(xm, wm, *a, **k):
+        planes.append(("bfp_matmul", xm.shape[0], wm.shape[0]))
+        return mm(xm, wm, *a, **k)
+
+    def attn_rec(qm, km, vm, *a, **k):
+        planes.append(("int_attn_fwd", qm.shape[0], km.shape[0]))
+        return attn(qm, km, vm, *a, **k)
+
+    def mark(run, i):
+        torch.cuda.synchronize()
+        stamps.append((i, time.perf_counter(), len(planes)))
+    kops.bfp_matmul, kops.int_attn_fwd = mm_rec, attn_rec
+    try:
+        # no checkpoint until the last step: the step ms hold no save
+        run = go("escalate", ["--steps", "6", "--ckpt-every", "100"], mark,
+                 sentinel_lib.SentinelConfig(clip_high=0.0))
+    finally:
+        kops.bfp_matmul, kops.int_attn_fwd = mm, attn
+    esc = [e for e in run.events if e["type"] == "escalation"]
+    if not esc:
+        raise AssertionError(f"no escalation: {run.events}")
+    at = esc[0]["step"]
+    n16 = dfx_quant.n_limbs(esc[0]["bits"])
+    after = planes[stamps[at][2]:]
+    for k in ("bfp_matmul", "int_attn_fwd"):
+        if not any(p[0] == k and p[1] == n16 and p[2] == n16 for p in after):
+            raise AssertionError(f"the rebuilt step ran no {n16}-plane {k}")
+    ms = [1e3 * (b[1] - a[1]) for a, b in zip(stamps, stamps[1:])]
+    print(f"  escalation {esc[0]} at step {at}; the rebuilt step runs "
+          f"{n16}-plane bfp_matmul and int_attn_fwd; step ms "
+          f"{[round(v, 2) for v in ms]} (steps 1-{at} int8, after them the "
+          "escalated policy)", flush=True)
+    del run
+    return out
+
+
+def state_plane_phase(torch, dev, kops) -> dict:
+    """Phase 11: ``state_plane_qwen`` and ``state_plane_chaos``.
+    Returns {path: launches} of the five runs."""
+    lm_train = ("dfx_quantize", "bfp_matmul", "bfp_matmul_nt",
+                "bfp_matmul_tn", "int_rmsnorm_fwd", "int_rmsnorm_bwd",
+                "int_attn_fwd", "int_attn_bwd_dq", "int_attn_bwd_dkv")
+    wrappers = kops.wrappers(*lm_train, "dfx_quantize_grouped")
+    qwen = state_plane_qwen(torch, dev, wrappers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    chaos = state_plane_chaos(torch, dev, wrappers)
+    return {**{f"state_{k}": v for k, v in qwen.items()},
+            **{f"chaos_{k}": v for k, v in chaos.items()}}
+
+
 def _to(tree, device):
     """A copy of the tree on ``device`` (a copy on the CPU too: a training
     step updates its parameters in place)."""
@@ -3497,6 +3826,10 @@ def main() -> int:
     for k in kernels:
         if k["name"] in arch_rows:
             k["arch_rows"] = arch_rows[k["name"]]
+    state_rows = check_state_shapes(torch, dev, gen)
+    for k in kernels:
+        if k["name"] in state_rows:
+            k["state_rows"] = state_rows[k["name"]]
     for k in kernels:
         print(f"  {k['name']}: max_abs_err {k['max_abs_err']:.3e}; call "
               f"{k['ms']:.4f} ms, device {k['device_ms']:.4f} ms; plain "
@@ -3572,6 +3905,15 @@ def main() -> int:
     t10 = time.perf_counter()
     arch_launches = arch_phase(torch, dev)
     print(f"[10] phase took {time.perf_counter() - t10:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[11] the state plane and the recovering training loop: "
+          "qwen1.5-0.5b at full width with FP32 / int8 moments / int8 "
+          "moments + int8 parameter image; smollm-135m clean, chaos, NaN "
+          "and escalation runs through launch.train")
+    t11 = time.perf_counter()
+    state_launches = state_plane_phase(torch, dev, kops)
+    print(f"[11] phase took {time.perf_counter() - t11:.1f} s", flush=True)
     for k in kernels:
         by_path = {"serve": launches.get(k["name"], 0),
                    "finetune": ft_launches.get(k["name"], 0),
@@ -3584,7 +3926,9 @@ def main() -> int:
                    "train_keptint": kept["train_keptint"].get(k["name"], 0),
                    "sweep": sweep_launches.get(k["name"], 0),
                    **{path: ls.get(k["name"], 0)
-                      for path, ls in arch_launches.items()}}
+                      for path, ls in arch_launches.items()},
+                   **{path: ls.get(k["name"], 0)
+                      for path, ls in state_launches.items()}}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         if "int_ms" in k:        # the kept-int paths run its integer body

@@ -146,6 +146,30 @@ def dequantize(t: DfxTensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Health counters (the sentinel's probes, core/health.py)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def health_stats(x: torch.Tensor, bits: int) -> dict:
+    """Counters of mapping ``x`` at ``bits``, 0-d f32 tensors: the clip rate
+    at the quantizer's saturation point, the mantissa zero-fraction (an
+    underflow proxy), the step exponent and the non-finite count.  The
+    quantizer's frexp / step arithmetic on the sanitised magnitudes, so a
+    NaN raises ``nonfinite`` and does not poison the amax.  Plain PyTorch
+    reductions: no kernel launch."""
+    x = x.detach().to(torch.float32)
+    finite = torch.isfinite(x)
+    ax = torch.where(finite, x.abs(), torch.zeros_like(x))
+    exp = scale_exponent(ax) - (bits - 1)
+    y = torch.round(ax * pow2(-exp))
+    lim = float(2 ** (bits - 1) - 1)
+    return {"clip": (y >= lim).to(torch.float32).mean(),
+            "zero": (y == 0).to(torch.float32).mean(),
+            "nonfinite": (~finite).sum().to(torch.float32),
+            "exp": exp.to(torch.float32)}
+
+
+# ---------------------------------------------------------------------------
 # Error-bound helpers (Proposition 1)
 # ---------------------------------------------------------------------------
 

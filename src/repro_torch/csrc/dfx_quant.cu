@@ -18,10 +18,14 @@
 // (pallas_call at :238 round-to-nearest and :243 stochastic; bodies
 // _quant_kernel_grouped{,_stoch,_limbs,_limbs_stoch}): x is an (E, M, N)
 // stack and slice e shifts by its own exponent exp[e] (the MoE experts'
-// per-expert scales).  The slice is blockIdx.y, so each thread reads its
-// slice's exponent once and no index is divided; the plane-major (L, E, M,
-// N) limb output is plane j at j * E*M*N + i, the ungrouped layout of the
-// flattened stack.  The per-tensor form is the one-slice case.
+// per-expert scales; the quantized optimizer moments' one exponent per
+// leading slice, 152,064 of them for qwen1.5-0.5b's padded embedding).
+// A block takes slices blockIdx.y, blockIdx.y + gridDim.y, ... (gridDim.y
+// is at most 65,535, so any number of slices fits), reads each slice's
+// exponent once and divides no index; the plane-major (L, E, M, N) limb
+// output is plane j at j * E*M*N + i, the ungrouped layout of the
+// flattened stack.
+// The per-tensor form is the one-slice case.
 //
 // Bound on the H100: bytes.  Each element reads 4 bytes (8 with u) and
 // writes 1-4, for one multiply, one round and a few integer ops, far below
@@ -44,39 +48,44 @@ __device__ __forceinline__ int round_clip(float x, float scale,
   return (int)fminf(fmaxf(y, -lim), lim);
 }
 
-// Slice blockIdx.y of `slice` elements (all of x for the per-tensor
-// form): grid-stride over the slice at the slice's exponent.
+// Slices blockIdx.y, blockIdx.y + gridDim.y, ... of `slice` elements each
+// (one slice, all of x, for the per-tensor form): grid-stride over each
+// slice at the slice's exponent.
 template <typename OutT>
 __global__ void __launch_bounds__(kThreads)
 quant_kernel(const float* __restrict__ x, const int* __restrict__ exp,
              const float* __restrict__ u, OutT* __restrict__ out,
-             long long slice, int bits) {
-  const float scale = dfx::pow2f(-exp[blockIdx.y]);
+             int groups, long long slice, int bits) {
   const float lim = (float)((1 << (bits - 1)) - 1);
-  const long long base = (long long)blockIdx.y * slice;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       r < slice; r += stride) {
-    const long long i = base + r;
-    out[i] = (OutT)round_clip(x[i], scale, u, i, lim);
+  for (int g = blockIdx.y; g < groups; g += gridDim.y) {
+    const float scale = dfx::pow2f(-exp[g]);
+    const long long base = (long long)g * slice;
+    for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         r < slice; r += stride) {
+      const long long i = base + r;
+      out[i] = (OutT)round_clip(x[i], scale, u, i, lim);
+    }
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
 quant_limbs_kernel(const float* __restrict__ x, const int* __restrict__ exp,
                    const float* __restrict__ u, int8_t* __restrict__ out,
-                   long long slice, int bits, int limbs) {
-  const float scale = dfx::pow2f(-exp[blockIdx.y]);
+                   int groups, long long slice, int bits, int limbs) {
   const float lim = (float)((1 << (bits - 1)) - 1);
-  const long long n = (long long)gridDim.y * slice;   // one plane
-  const long long base = (long long)blockIdx.y * slice;
+  const long long n = (long long)groups * slice;      // one plane
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       r < slice; r += stride) {
-    const long long i = base + r;
-    const int m = round_clip(x[i], scale, u, i, lim);
-    dfx::split_limbs(m, limbs,
-                     [&](int j, int d) { out[j * n + i] = (int8_t)d; });
+  for (int g = blockIdx.y; g < groups; g += gridDim.y) {
+    const float scale = dfx::pow2f(-exp[g]);
+    const long long base = (long long)g * slice;
+    for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         r < slice; r += stride) {
+      const long long i = base + r;
+      const int m = round_clip(x[i], scale, u, i, lim);
+      dfx::split_limbs(m, limbs,
+                       [&](int j, int d) { out[j * n + i] = (int8_t)d; });
+    }
   }
 }
 
@@ -92,28 +101,29 @@ extern "C" int dfx_quantize_launch(const float* x, const int* exp,
                                    long long slice, int bits, int out_kind,
                                    int limbs, cudaStream_t stream) {
   if (groups <= 0 || slice <= 0) return 0;
-  if (groups > 65535) return (int)cudaErrorInvalidValue;
-  // about 132 x 32 blocks in all, at least one per slice
+  // about 132 x 32 blocks in all, at least one per slice up to 65,535
+  // slices (the most gridDim.y takes); past that a block walks its slices
+  const int gy = groups < 65535 ? groups : 65535;
   long long bx = (slice + kThreads - 1) / kThreads;
-  const long long cap = (132 * 32 + groups - 1) / groups;
+  const long long cap = (132 * 32 + gy - 1) / gy;
   if (bx > cap) bx = cap;
-  const dim3 grid((unsigned)bx, (unsigned)groups);
+  const dim3 grid((unsigned)bx, (unsigned)gy);
   switch (out_kind) {
     case 0:
       quant_kernel<int8_t><<<grid, kThreads, 0, stream>>>(
-          x, exp, u, (int8_t*)out, slice, bits);
+          x, exp, u, (int8_t*)out, groups, slice, bits);
       break;
     case 1:
       quant_kernel<int16_t><<<grid, kThreads, 0, stream>>>(
-          x, exp, u, (int16_t*)out, slice, bits);
+          x, exp, u, (int16_t*)out, groups, slice, bits);
       break;
     case 2:
       quant_kernel<int32_t><<<grid, kThreads, 0, stream>>>(
-          x, exp, u, (int32_t*)out, slice, bits);
+          x, exp, u, (int32_t*)out, groups, slice, bits);
       break;
     case 3:
       quant_limbs_kernel<<<grid, kThreads, 0, stream>>>(
-          x, exp, u, (int8_t*)out, slice, bits, limbs);
+          x, exp, u, (int8_t*)out, groups, slice, bits, limbs);
       break;
     default:
       return (int)cudaErrorInvalidValue;

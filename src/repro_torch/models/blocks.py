@@ -14,8 +14,10 @@ quantization at the ``attn.qk`` leaf, attention is
 differentiable ops: ``flash_attention`` (an online softmax over KV chunks)
 or, for one query over a KV cache, ``_decode_attention``.
 
-The reference's ``health.probe`` calls are identities with probes
-suspended and are left out.  Its ``subkey`` (a distinct PRNG key per call
+Each block probes the tensor it is about to quantize at the reference's
+scope paths (``health.probe``: the attention input, the MLP's, the MoE
+router's, each norm's), which does nothing unless a sentinel step has a
+collector open.  The reference's ``subkey`` (a distinct PRNG key per call
 site) has no counterpart: every call site gets the same ``key``, and a
 ``torch.Generator`` hands each draw the next numbers of its one stream.
 """
@@ -25,7 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core import int_ops
+from repro_torch.core import health, int_ops
 from repro_torch.core.qpolicy import QuantLike, ensure_scope
 from repro_torch.models.config import ArchConfig
 
@@ -257,6 +259,7 @@ def attention_apply(
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
     sc = ensure_scope(qcfg)
+    health.probe(sc.path, x, sc.leaf("wq").act_bits)
     q = int_ops.int_linear(x, p["wq"], p.get("bq"), key, sc.leaf("wq"))
     k = int_ops.int_linear(x, p["wk"], p.get("bk"), key, sc.leaf("wk"))
     v = int_ops.int_linear(x, p["wv"], p.get("bv"), key, sc.leaf("wv"))
@@ -320,6 +323,7 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantLike,
     """SwiGLU ``wd(silu(wg x) * wu x)`` or GELU ``w2 gelu(w1 x + b1) + b2``
     (the activation a kept FP32 op)."""
     sc = ensure_scope(qcfg)
+    health.probe(sc.path, x, sc.leaf("wg" if "wg" in p else "w1").act_bits)
     if "wg" in p:
         g = int_ops.int_linear(x, p["wg"], None, key, sc.leaf("wg"))
         u = int_ops.int_linear(x, p["wu"], None, key, sc.leaf("wu"))
@@ -393,6 +397,7 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantLike,
     E, K = cfg.moe_experts, cfg.moe_topk
     T = B * S
     sc = ensure_scope(qcfg)
+    health.probe(sc.path, x, sc.leaf("router").act_bits)
     xf = x.reshape(T, D)
     logits = int_ops.int_linear(xf, p["router"], None, key, sc.leaf("router"))
     probs = int_ops.int_softmax(logits.to(torch.float32), sc.leaf("router"))
@@ -443,7 +448,9 @@ def norm_init(cfg: ArchConfig, device, lead: Tuple[int, ...] = ()) -> Params:
 
 def norm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantLike,
                key) -> torch.Tensor:
-    leaf = ensure_scope(qcfg).cfg()      # the scope path IS the norm's path
+    sc = ensure_scope(qcfg)
+    leaf = sc.cfg()                      # the scope path IS the norm's path
+    health.probe(sc.path, x, leaf.act_bits)
     if "b" in p:
         return int_ops.int_layernorm(x, p["g"], p["b"], key, leaf)
     return int_ops.int_rmsnorm(x, p["g"], key, leaf)

@@ -12,9 +12,10 @@ recompute) is ``torch.utils.checkpoint`` around each layer: the backward
 keeps each layer's input and recomputes the layer's residuals (the
 quantized planes the integer layers save) when it reaches it.  The
 recompute replays the forward's stochastic-rounding noise from a copy of
-the generator (``_remat_layer``).  Its sharding constraints
-(``sharding.constrain*``) and ``health.probe`` calls are identities on one
-device with probes suspended, and are left out.
+the generator (``_remat_layer``), with probes suspended.  Its sharding
+constraints (``sharding.constrain*``) are identities on one device and
+are left out; its ``health.probe`` calls are here (the embedding's output
+and the head's input, beside the blocks' own).
 
 A MoE block's ``moe`` sublayer (``blocks.moe_apply``) takes the MLP's
 place; its load-balancing loss is summed over the layers and ``lm_loss``
@@ -28,7 +29,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.core import int_ops
+from repro_torch.core import health, int_ops
 from repro_torch.core.qpolicy import QuantLike, ensure_scope, layer_groups
 from repro_torch.models import blocks
 from repro_torch.models.config import ArchConfig
@@ -120,8 +121,9 @@ def _attn_block(bp: Params, x: torch.Tensor, cfg: ArchConfig,
 def _embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
            qcfg: QuantLike, key) -> torch.Tensor:
     sc = ensure_scope(qcfg)
-    return int_ops.int_embedding(params["embed"], tokens, key,
-                                 sc.leaf("embed"))
+    x = int_ops.int_embedding(params["embed"], tokens, key, sc.leaf("embed"))
+    health.probe(sc.path + ("embed",), x, sc.leaf("embed").act_bits)
+    return x
 
 
 def _logits(params: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -131,6 +133,7 @@ def _logits(params: Params, x: torch.Tensor, cfg: ArchConfig,
                           sc.child("final_norm"), key)
     tied = cfg.tie_embeddings
     head = params["embed"] if tied else params["lm_head"]
+    health.probe(sc.path + ("lm_head",), x, sc.leaf("lm_head").act_bits)
     # the head resolves under "lm_head" whether or not it is tied; a tied
     # head is the (V, D) table, read as its transpose
     return int_ops.int_linear(x, head, None, key, sc.leaf("lm_head"),
@@ -170,9 +173,12 @@ def _remat_layer(bp: Params, x: torch.Tensor, cfg: ArchConfig,
     calls = []
 
     def run(x):
-        k = key if not calls else _replay_key(key, state)
+        if calls:                    # the recompute: probed once already
+            with health.suspend():
+                return _attn_block(bp, x, cfg, bsc,
+                                   _replay_key(key, state))[:2]
         calls.append(1)
-        return _attn_block(bp, x, cfg, bsc, k)[:2]
+        return _attn_block(bp, x, cfg, bsc, key)[:2]
     # the layers draw from ``key`` only, never from the default generators
     return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False,
                                              preserve_rng_state=False)

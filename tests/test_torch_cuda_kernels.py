@@ -445,6 +445,25 @@ def test_dfx_quantize_grouped(dev, bits):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 16])
+def test_dfx_quantize_grouped_past_grid_y(dev, bits):
+    """E = 70,000 slices, more than ``gridDim.y`` takes (65,535): a block
+    walks several slices (the quantized moments of a 151,936-row
+    embedding), each at its own exponent, slice 65,600 all zero."""
+    gen = torch.Generator(device=dev).manual_seed(bits)
+    E, M, N = 70_000, 1, 96
+    x = torch.randn((E, M, N), generator=gen, device=dev)
+    x *= 2.0 ** (torch.arange(E, device=dev) % 24 - 12)[:, None, None]
+    x[65_600] = 0
+    u = torch.rand((E, M, N), generator=gen, device=dev)
+    exp = dfx.slice_exponents(x) - (bits - 1)
+    for kw in (dict(), dict(u=u, limb_planes=True)):
+        got = dfx_quant.dfx_quantize_grouped(x, exp, bits=bits, **kw)
+        ref = dfx_quant.dfx_quantize_grouped_plain(x, exp, bits=bits, **kw)
+        assert torch.equal(got, ref), kw
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(60, 16, 2048, 1408), (4, 77, 130, 61),
                                    (3, 5, 768, 4), (1, 256, 1408, 2048)])
 def test_bfp_matmul_batched(dev, shape):

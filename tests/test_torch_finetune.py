@@ -235,8 +235,9 @@ def test_optimizer_matches_reference():
         np.testing.assert_allclose(dict(_leaves(tp))[name].numpy(), r,
                                    rtol=1e-6, atol=1e-7)
     assert int(ts.step) == 3
-    with pytest.raises(NotImplementedError):
-        topt.init(tp, topt.OptimizerConfig(state_bits=8))
+    # quantized moments are ported (tests/test_torch_state_plane.py)
+    q = topt.init(tp, topt.OptimizerConfig(state_bits=8))
+    assert q.m["a"].bits == 8 and q.m["a"].exp.shape == (5, 1)
 
 
 def _update_out_of_place(cfg, grads, state, params):

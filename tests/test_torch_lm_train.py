@@ -247,18 +247,16 @@ def test_microbatches_average_the_gradients():
 def test_unported_train_paths_raise():
     cfg = registry.get_config("smollm-135m").reduced()
     ocfg = topt.OptimizerConfig()
-    for tc in (trainer.TrainConfig(gather_bits=8),
-               trainer.TrainConfig(grad_compress_bits=8)):
-        with pytest.raises(NotImplementedError):
-            trainer.make_train_step(lm.lm_loss, cfg, QuantConfig.int8(),
-                                    ocfg, tc)
+    with pytest.raises(NotImplementedError):
+        trainer.make_train_step(lm.lm_loss, cfg, QuantConfig.int8(), ocfg,
+                                trainer.TrainConfig(grad_compress_bits=8))
     with pytest.raises(NotImplementedError):
         trainer.make_train_step(lm.lm_loss, cfg, QuantConfig.int8(), ocfg,
                                 mesh=object())
     with pytest.raises(NotImplementedError):
         trainer.make_compressed_train_step()
-    for flag in (["--pods", "2"], ["--ckpt-dir", "/tmp/x"], ["--sentinel"],
-                 ["--chaos-nan-at", "3"], ["--state-bits", "8"]):
+    for flag in (["--pods", "2"], ["--model-parallel", "2"],
+                 ["--grad-compress-bits", "8"]):
         with pytest.raises(NotImplementedError, match=flag[0]):
             launch_train.parse_args(flag)
     with pytest.raises(NotImplementedError):
