@@ -124,7 +124,8 @@ Phases (each raises on failure; nothing is caught):
    int10 and int8, none under FP32.  Prints losses, the median of steps
    1-5, tokens/s, peak memory, launches per step and a profiled step's
    busy share at int16 and int8.  Then the reference's sizes (bert-tiny /
-   vit-tiny, batch 16, eval on 128): Tables 1-3 and Fig. 4 at 120 steps,
+   vit-tiny, batch 16, eval on 128): Tables 1-3 and Fig. 4 at
+   ``SWEEP_REF_STEPS`` steps (60; 120 before PR 24),
    Fig. 5 at 150 with its assertion; each table's metric, its drop against
    FP32 and int8's average drop.  Phase 2 holds the sweep's attention
    calls (3 limb planes at hd 64, bert cls / span and vit shapes; vit at
@@ -148,7 +149,8 @@ Phases (each raises on failure; nothing is caught):
    keep each arch's trait (``small_config``).
 10. mistral-nemo-12b, mixtral-8x7b and mistral-large-123b at full width
    (``arch_phase``), int8, random weights from a seeded generator, each
-   freed before the next.  Served with phase 4's request mix: nemo at
+   freed before the next.  Served with phase 4's request mix (4 requests
+   since PR 24, ``ARCH_SERVE_REQUESTS``): nemo at
    full depth (40 layers, ~45.6 GiB of FP32 weights), mixtral and large at
    the deepest depths that leave 10% of the card's memory spare
    (``*_SERVE_LAYERS``).  Trained through ``lm_loss`` +
@@ -181,7 +183,36 @@ Phases (each raises on failure; nothing is caught):
    ends bit for bit at the clean run's parameters and moments, a
    NaN-injected run with one skipped step, and a sentinel forced to
    escalate (its rebuilt 16-bit attention scope on 3-plane kernels).
-12. Print the ``{"kernels": [...]}`` line, then the last line
+   Phase 2 also holds, and times beside bound and library, the kernel
+   calls of phase 12 (``check_ssm_shapes``, ``SSM_ATTN_FWD``): the Mamba2
+   projections wdt (N = 32 / 80, dX contracting over K = 32 / 80), wBC,
+   wz and out_proj of mamba2-370m and zamba2-2.7b as NN / NT / TN at
+   2048 rows; the gated RMS-norm forward and backward over d_inner 2048
+   and 5120; the attention forward, dq and dkv at zamba2's shared block
+   (head dim 80, 8 x 256, 32 heads), the forward at its decode (4 rows
+   over 256 keys) and at llava's 2880-row prefix + 64 text tokens (1 x
+   2944, 32 heads over 8 kv heads of 128).
+12. The SSM, hybrid and VLM families at full width (``family_phase``),
+   int8 unless named, random weights from seeded generators, each freed
+   before the next.  12a: mamba2-370m (48 layers) trained through
+   ``launch.train`` at batch 8 x 256, 4 steps, int8 and FP32; served
+   through ``ContinuousBatcher`` (4 slots, 4 requests of 32-token
+   prompts teacher-forced through decode steps, 16 new tokens each); and
+   ``ssd_chunked`` over four chunks of 256 against 1024
+   ``ssd_decode_step`` calls at the layer's full width (``SSD_CHECK``).
+   12b: zamba2-2.7b trained at ``ZAMBA_TRAIN_LAYERS`` (its full 54
+   leave 10% of the memory spare) the same way; served through
+   ``Engine.generate`` (batch 4, 16-token prompts, 8 new tokens); its
+   FP32 decode against ``lm_prefill`` at full width.  12c:
+   llava-next-mistral-7b's ``lm_prefill`` at full depth over a 2880-row
+   prefix of random patch embeddings and 64 text tokens, and training at
+   ``LLAVA_TRAIN_LAYERS`` (batch 2 x 256 text tokens behind the zero
+   prefix the launcher gives), 3 steps, int8 and FP32.  Every kernel of
+   each path must have launched, every loss be finite and the first
+   near ln(vocab) + d_model x 0.02^2 / 2, each training peak leave 10%
+   of the card's memory.  Prints step ms, tokens/s, peak memory, busy
+   share, launches per step and the losses.
+13. Print the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available or when
@@ -835,6 +866,14 @@ def check_rmsnorm(torch, dev, gen, D, D_moe):
 MIXTRAL_ATTN = "mixtral train, window 4096 (1 x 5120)"
 LARGE_ATTN = "mistral-large G 12 (8 x 256)"
 ARCH_ATTN = (MIXTRAL_ATTN, LARGE_ATTN)
+#: phase 12's attention calls (PR 24), held and timed in phase 2:
+#: zamba2-2.7b's shared block (32 heads of 80, no GQA) in training and at
+#: decode, llava-next-mistral-7b's 2880-row image prefix + 64 text tokens
+#: (32 heads over 8 kv heads of 128)
+ZAMBA_ATTN = "zamba2 shared block hd 80 (8 x 256)"
+ZAMBA_DECODE = "zamba2 decode hd 80 (4 rows over 256 keys)"
+LLAVA_ATTN = "llava prefix + text (1 x 2944)"
+SSM_ATTN_FWD = (ZAMBA_ATTN, ZAMBA_DECODE, LLAVA_ATTN)
 
 #: attention forward shapes held on the card: name -> (B, Sq, Sk, KV, G,
 #: hd, offsets, causal, window, act bits); q/k/v carry n_limbs(act bits)
@@ -865,6 +904,9 @@ ATTN_FWD_SHAPES = {
                                        12),
     "mistral-large decode (G 12)": (4, 1, 256, 8, 12, 128, [64, 65, 66, 67],
                                     True, None, 12),
+    ZAMBA_ATTN: (8, 256, 256, 32, 1, 80, 0, True, None, 12),
+    ZAMBA_DECODE: (4, 1, 256, 32, 1, 80, [64, 65, 66, 67], True, None, 12),
+    LLAVA_ATTN: (1, 2944, 2944, 8, 4, 128, 0, True, None, 12),
 }
 
 
@@ -1007,6 +1049,9 @@ def check_attention(torch, dev, gen, cfg):
     arch = [dict(label=lb, max_abs_err=runs[lb][-1],
                  **measure(lb, time_plain=lb != MIXTRAL_ATTN))
             for lb in ARCH_ATTN]
+    ssm_rows = [dict(label=lb, max_abs_err=runs[lb][-1],
+                     **measure(lb, time_plain=lb != LLAVA_ATTN))
+                for lb in SSM_ATTN_FWD]
     B, Sq, Sk, KV, G, hd = ATTN_FWD_SHAPES["decode"][:6]
     out = dict(name="int_attn_fwd", route="cuda",
                source="src/repro_torch/csrc/int_attention.cu",
@@ -1017,7 +1062,8 @@ def check_attention(torch, dev, gen, cfg):
                      "head dim 128 (moe_*) and head dim 384 (hd384_*, the "
                      "direct body), the sweep's int16 calls (sweep_rows) "
                      "and phase 10's mixtral and mistral-large calls "
-                     "(arch_rows); "
+                     "(arch_rows) and phase 12's zamba2 (hd 80) and llava "
+                     "calls (ssm_rows); "
                      "the kept-int body (int_*, train_int_*) "
                      "at decode and the training shape; both bodies held at "
                      + ", ".join(ATTN_FWD_SHAPES) + "; tolerance o 1e-5 "
@@ -1027,7 +1073,7 @@ def check_attention(torch, dev, gen, cfg):
                **{f"train_{k_}": v_ for k_, v_ in tt.items()},
                **{f"moe_{k_}": v_ for k_, v_ in tm.items()},
                **{f"hd384_{k_}": v_ for k_, v_ in tw.items()},
-               sweep_rows=sweep, arch_rows=arch)
+               sweep_rows=sweep, arch_rows=arch, ssm_rows=ssm_rows)
     print(body_line("int_attn_fwd", out))
     print(body_line("int_attn_fwd", out, "train_"))
     return out
@@ -1347,6 +1393,7 @@ ATTN_BWD_SHAPES = {
     "vit-base img, int8": (32, 197, 197, 12, 1, 64, 0, False, None, 12, 8),
     MIXTRAL_ATTN: (1, 5120, 5120, 8, 4, 128, 0, True, 4096, 12, 8),
     LARGE_ATTN: (8, 256, 256, 8, 12, 128, 0, True, None, 12, 8),
+    ZAMBA_ATTN: (8, 256, 256, 32, 1, 80, 0, True, None, 12, 8),
 }
 
 
@@ -1440,7 +1487,7 @@ def check_attention_bwd(torch, dev, gen):
                                       "qwen2-moe-a2.7b train",
                                       "head dim 256 (widest body)",
                                       "head dim 384") + SWEEP_TIMED \
-                    + ARCH_ATTN:
+                    + ARCH_ATTN + (ZAMBA_ATTN,):
                 timed[label] = (shape, q, k, v, g, lse, delta, qo, exps, kw,
                                 dq, dk, dv)
 
@@ -1521,6 +1568,7 @@ def check_attention_bwd(torch, dev, gen):
     sweep = {lb: measure(*timed[lb]) for lb in SWEEP_TIMED}
     arch = {lb: measure(*timed[lb], time_plain=lb != MIXTRAL_ATTN)
             for lb in ARCH_ATTN}
+    ssm = {ZAMBA_ATTN: measure(*timed[ZAMBA_ATTN])}
     shape = ATTN_BWD_SHAPES["qwen1.5-0.5b train"]
     B, Sq, Sk, KV, G, hd = shape[:6]
     out_k = []
@@ -1529,7 +1577,8 @@ def check_attention_bwd(torch, dev, gen):
                         ("head dim 256", wide[name]),
                         ("head dim 384 (direct body)", wide384[name]),
                         *((lb, r[name]) for lb, r in sweep.items()),
-                        *((lb, r[name]) for lb, r in arch.items())):
+                        *((lb, r[name]) for lb, r in arch.items()),
+                        *((lb, r[name]) for lb, r in ssm.items())):
             print(f"  {name} at {what}: call {m['ms']:.4f} ms, device "
                   f"{m['device_ms']:.4f} ms; plain device "
                   f"{_ms(m['plain_device_ms'])}; SDPA backward device "
@@ -1548,8 +1597,9 @@ def check_attention_bwd(torch, dev, gen):
                   "(int_*); also timed at qwen2-moe-a2.7b's head dim 128 "
                   "(moe_*), at head dim 256 (hd256_*), at head dim 384 "
                   "(hd384_*, the direct body), at the sweep's int16 "
-                  "calls (sweep_rows) and at phase 10's mixtral and "
-                  "mistral-large calls (arch_rows); held at "
+                  "calls (sweep_rows), at phase 10's mixtral and "
+                  "mistral-large calls (arch_rows) and at phase 12's zamba2 "
+                  "shared block, head dim 80 (ssm_rows); held at "
                   + ", ".join(ATTN_BWD_SHAPES)
                   + " (both bodies at the int8 bits); tolerance exact; "
                   "library: SDPA backward (f32, autograd, dq + dk + dv)",
@@ -1561,7 +1611,9 @@ def check_attention_bwd(torch, dev, gen):
             sweep_rows=[dict(label=lb, max_abs_err=0.0, **r[name])
                         for lb, r in sweep.items()],
             arch_rows=[dict(label=lb, max_abs_err=0.0, **r[name])
-                       for lb, r in arch.items()]))
+                       for lb, r in arch.items()],
+            ssm_rows=[dict(label=lb, max_abs_err=0.0, **r[name])
+                      for lb, r in ssm.items()]))
     return out_k
 
 
@@ -1668,6 +1720,9 @@ MOE_TRAIN_LAYERS = 6
 #: its weights, so 13 would need 72.9; large 65.66 at 12, 0.78 above its
 #: weights, so 13 needs 70.8).
 NEMO_SERVE_LAYERS, MIXTRAL_SERVE_LAYERS, LARGE_SERVE_LAYERS = 40, 12, 13
+#: phase 10's requests per served arch (8 until PR 24, which halved them
+#: to make room for phase 12; 4 still fill the 4 slots)
+ARCH_SERVE_REQUESTS = 4
 #: Training holds parameters, AdamW moments and gradients (16 bytes a
 #: parameter, the update in place), at the end of the backward the
 #: per-layer gradients of the stacked block weights beside their stack (up
@@ -1921,6 +1976,70 @@ def check_arch_shapes(torch, dev, gen) -> dict:
             r, label=f"{arch} training {T}x{cfg.d_model}"))
         d, b = r["device_ms"], r["bound_ms"]
         print(f"  int_rmsnorm_bwd {arch} training {T}x{cfg.d_model}: device "
+              f"{d:.4f} ms, {100 * b / d:.1f}% of its bound {b:.4f} ms "
+              f"({r['bound_by']}); library {r['library_device_ms']:.4f} ms "
+              f"(factor {d / r['library_device_ms']:.2f})", flush=True)
+    return rows
+
+
+def check_ssm_shapes(torch, dev, gen) -> dict:
+    """Phase 2's holds at the shapes phase 12 gives the matmul and norm
+    kernels (PR 24), 2048 training rows (batch 8 x 256): for mamba2-370m
+    (d_model 1024, d_inner 2048, 2 x state 128 = 256, 32 SSD heads) and
+    zamba2-2.7b (2560, 5120, 128, 80 heads) the Mamba2 projections wdt
+    (N = 32 / 80: the narrowest products; their dX contracts over K = 32 /
+    80), wBC, wz and out_proj, each as NN (a12 x w8, the forward), NT
+    (g8 x w8, dX) and TN (a12 x g8, dW), held exactly against the plain
+    version on operands quantized as a layer quantizes them, and timed
+    beside the bound and ``torch._int_mm`` per limb pair; the gated
+    RMS-norm forward and backward over d_inner 2048 and 5120 (2048 rows).
+    Returns {kernel: [row, ...]}."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import bfp_matmul as bm
+    rows = {k: [] for k in ("bfp_matmul", "bfp_matmul_nt", "bfp_matmul_tn",
+                            "int_rmsnorm_fwd", "int_rmsnorm_bwd")}
+    T = 8 * 256
+    e = torch.tensor(-30, dtype=torch.int32, device=dev)
+
+    def libs(pairs):
+        rm = [(a, b.contiguous()) for a, b in pairs]
+        cm = [(a, _colmajor(b)) for a, b in pairs]
+        return {"int_mm": lambda: [torch._int_mm(a, b) for a, b in rm],
+                "int_mm_colmajor": lambda: [torch._int_mm(a, b)
+                                            for a, b in cm]}
+
+    for arch in ("mamba2-370m", "zamba2-2.7b"):
+        cfg = registry.get_config(arch)
+        D, DI = cfg.d_model, cfg.d_inner
+        for proj, K, N in (("wdt", D, cfg.ssm_nheads),
+                           ("wBC", D, 2 * cfg.ssm_state), ("wz", D, DI),
+                           ("out_proj", DI, D)):
+            what = f"{arch} {proj}"
+            x = _quant_planes(torch, gen, dev, 12, T, K)          # (2, T, K)
+            w = _quant_planes(torch, gen, dev, 8, K, N)           # (1, K, N)
+            g = _quant_planes(torch, gen, dev, 8, T, N)           # (1, T, N)
+            for name, a, b, label, n_ops, out_n, pairs in (
+                    ("bfp_matmul", x, w, f"{T}x{K}x{N} 2x1",
+                     2 * T * K * N * 2, T * N, [(xj, w[0]) for xj in x]),
+                    ("bfp_matmul_nt", g, w, f"dX {T}x{N} . ({K}x{N})^T 1x1",
+                     2 * T * N * K, T * K, [(g[0], w[0].t())]),
+                    ("bfp_matmul_tn", x, g, f"dW ({T}x{K})^T . {T}x{N} "
+                     "2x1", 2 * T * K * N * 2, K * N,
+                     [(xj.t().contiguous(), g[0]) for xj in x])):
+                fn, plain = getattr(bm, name), getattr(bm, name + "_plain")
+                _held(name, fn(a, b, e), plain(a, b, e), f"{what} {label}")
+                rows[name].append(mm_row(
+                    f"{what} {label}", lambda: fn(a, b, e), n_ops,
+                    nbytes(a, b) + 4 * out_n, libs(pairs)))
+            del x, w, g
+        rows["int_rmsnorm_fwd"].append(norm_fwd_row(
+            f"{arch} gated norm {T}x{DI}",
+            norm_fwd_case(torch, dev, gen, False, T, DI)))
+        r = rms_bwd_case(torch, dev, gen, T, DI)
+        rows["int_rmsnorm_bwd"].append(dict(
+            r, label=f"{arch} gated norm {T}x{DI}"))
+        d, b = r["device_ms"], r["bound_ms"]
+        print(f"  int_rmsnorm_bwd {arch} gated norm {T}x{DI}: device "
               f"{d:.4f} ms, {100 * b / d:.1f}% of its bound {b:.4f} ms "
               f"({r['bound_by']}); library {r['library_device_ms']:.4f} ms "
               f"(factor {d / r['library_device_ms']:.2f})", flush=True)
@@ -3035,12 +3154,17 @@ def serve_phase(torch, dev, cfg, wrappers, n_req: int = 8,
     step_ms = cuda_ms(decode_step, reps=5, warmup=1)
     print(f"  one decode step (4 slots): {step_ms:.2f} ms; launches per "
           f"step {per_step}")
-    prefill_ms = cuda_ms(lambda: engine._prefill(
-        engine.params, torch.zeros((4, prompt_len), dtype=torch.int32,
-                                   device=dev),
-        {k: v.clone() for k, v in batcher.cache.items()}), reps=3, warmup=1)
-    print(f"  one {prompt_len}-token prefill (4-slot batch): "
-          f"{prefill_ms:.2f} ms")
+    if engine.steps_prompts:
+        print(f"  a {prompt_len}-token prompt is {prompt_len} decode steps "
+              "(teacher-forced: no cache-prefill form)")
+    else:
+        prefill_ms = cuda_ms(lambda: engine._prefill(
+            engine.params, torch.zeros((4, prompt_len), dtype=torch.int32,
+                                       device=dev),
+            {k: v.clone() for k, v in batcher.cache.items()}), reps=3,
+            warmup=1)
+        print(f"  one {prompt_len}-token prefill (4-slot batch): "
+              f"{prefill_ms:.2f} ms")
     profile_step(torch, lambda: engine._decode(
         engine.params, batcher.last_tok,
         {k: v.clone() for k, v in batcher.cache.items()}), "decode step")
@@ -3243,7 +3367,8 @@ def fp32_remat_phase(torch, dev, steps: int = 2, lr: float = 1e-4) -> dict:
 def arch_phase(torch, dev) -> dict:
     """Phase 10 (PR 22): mistral-nemo-12b, mixtral-8x7b and
     mistral-large-123b at full width, int8.  Serving through
-    ``serve_phase`` (4 slots, 8 requests x (64 + 16) tokens): nemo at full
+    ``serve_phase`` (4 slots, ``ARCH_SERVE_REQUESTS`` requests x (64 + 16)
+    tokens): nemo at full
     depth, mixtral and large at the depths that leave 10% of the memory
     spare.  Training through ``train_cut_phase`` (4 AdamW steps, remat
     on, stochastic gradient rounding): mixtral at 2 layers and batch 8 x
@@ -3273,7 +3398,7 @@ def arch_phase(torch, dev) -> dict:
         out[f"serve_{key}"] = serve_phase(
             torch, dev, cfg, kops.wrappers(
                 *serve, *(moe_fwd if cfg.moe_experts else ())),
-            max_share=0.9)
+            n_req=ARCH_SERVE_REQUESTS, max_share=0.9)
         gc.collect()
         torch.cuda.empty_cache()
         print(f"[10] {arch} served in {time.perf_counter() - t0:.1f} s",
@@ -3412,9 +3537,16 @@ def sweep_full_width(torch, dev, wrappers) -> dict:
     return total
 
 
+#: phase 9's steps at the reference's sizes for Tables 1-3 and Fig. 4 (120
+#: until PR 24, which halved them to make room for phase 12; Fig. 5 keeps
+#: its 150 for its assertion)
+SWEEP_REF_STEPS = 60
+
+
 def sweep_reference_size(torch, dev) -> None:
     """Phase 9, the paper's numbers at the reference's sizes (bert-tiny /
-    vit-tiny, batch 16, eval on 128): Tables 1-3 and Fig. 4 at 120 steps,
+    vit-tiny, batch 16, eval on 128): Tables 1-3 and Fig. 4 at
+    ``SWEEP_REF_STEPS`` steps,
     Fig. 5 at 150 with its assertion (int16's final loss near FP32's).
     Prints each table's metric and drop against FP32, and int8's average
     drop over the three tables (the paper reports 3.1 points)."""
@@ -3427,15 +3559,17 @@ def sweep_reference_size(torch, dev) -> None:
                       ("Table 3 (CIFAR proxy, ViT img, accuracy)",
                        pt.table3_vit_sweep)):
         t0 = time.perf_counter()
-        rows = fn(steps=120, device=dev)
+        rows = fn(steps=SWEEP_REF_STEPS, device=dev)
         res = {r[0].split("/")[1]: pt.metric_of(r) for r in rows}
         drops.append(res["fp32"] - res["int8"])
-        print(f"  {title}, 120 steps, {time.perf_counter() - t0:.1f} s: "
+        print(f"  {title}, {SWEEP_REF_STEPS} steps, "
+              f"{time.perf_counter() - t0:.1f} s: "
               + "; ".join(f"{p} {m:.2f} (drop {res['fp32'] - m:+.2f})"
                           for p, m in res.items()), flush=True)
     t0 = time.perf_counter()
-    rows = pt.fig4_act_bits(steps=120, device=dev)
-    print(f"  Fig. 4 (w8 g8, span EM by activation bits), 120 steps, "
+    rows = pt.fig4_act_bits(steps=SWEEP_REF_STEPS, device=dev)
+    print(f"  Fig. 4 (w8 g8, span EM by activation bits), {SWEEP_REF_STEPS} "
+          "steps, "
           f"{time.perf_counter() - t0:.1f} s: "
           + "; ".join(f"{r[0].split('/')[1]} {pt.metric_of(r):.2f}"
                       for r in rows), flush=True)
@@ -3762,6 +3896,399 @@ def state_plane_phase(torch, dev, kops) -> dict:
             **{f"chaos_{k}": v for k, v in chaos.items()}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the SSM, hybrid and VLM families
+# ---------------------------------------------------------------------------
+
+#: Phase 12's depths (PR 24), at full width.  Training holds 16 bytes a
+#: parameter (FP32 weights, gradients, AdamW moments; the update in
+#: place), up to 4 more at the end of the backward, and one layer's
+#: activations under remat beside each layer's input.  zamba2-2.7b: 2.42 B
+#: parameters, 36.1-45.1 GiB: its full 54 layers leave 10% of the card's
+#: 79.18 GiB (measured peak 41.44 GiB; NVIDIA H100 80GB HBM3, 700.00 W).
+#: llava-next-mistral-7b: a layer is 218.1 M parameters (3.25-4.06 GiB
+#: training), its embedding, head and projector 279 M (4.16 GiB), and at
+#: batch 2 x (2880 + 256) positions a layer's recompute holds its MLP's
+#: 6272 x 14336 rows (0.34 GiB a f32 tensor): measured peak 55.93 GiB at
+#: 14 layers, so 17 need at most 68.1 GiB (measured 67.00) and 18 up to
+#: 72.2 (past 71.26).
+ZAMBA_TRAIN_LAYERS, LLAVA_TRAIN_LAYERS = 54, 17
+#: llava's training batch: 2 rows of 256 text tokens behind the prefix;
+#: its prefill: 1 row of 64 text tokens behind the prefix, full depth
+LLAVA_TRAIN_BATCH, LLAVA_PREFILL_TEXT = (2, 256), 64
+#: the full-width chunked-scan check (b, L, H, P, N): mamba2-370m's layer
+#: over 1024 tokens, four chunks of 256
+SSD_CHECK = (1, 1024, 32, 64, 128)
+
+
+def family_train(torch, dev, arch, wrappers, batch, steps: int = 4,
+                 layers=None, lr: float = 1e-4) -> dict:
+    """Train ``arch`` at full width through ``launch.train`` (phase 12):
+    int8, ``batch`` (rows x text tokens) of ``SyntheticLM``, ``steps``
+    AdamW steps at ``lr``, random weights and stochastic gradient rounding
+    from the launcher's seeded CUDA generator, remat on.  ``layers`` cuts
+    the depth (the launcher has no depth flag, as the reference's has
+    none: the registry hands the launcher the cut config for the run).
+    A VLM's rows sit behind seeded unit-normal patch embeddings (each
+    batch its own, as a vision tower's outputs would be; the launcher's
+    ``make_batch`` is handed them for the run): the zero ones the
+    launcher gives, as the reference's does, make the prefix rows exactly
+    zero, where each RMS-norm's derivative is rsqrt(eps) = 1000, so the
+    backward overflows FP32 at depth — one FP32 step on them is run last
+    and its gradient norm printed.
+    The launch counters are set to 0 just before the int8 run and read
+    just after; every kernel in ``wrappers`` must have launched, every loss
+    be finite and the first within 1 of ln(vocab) + d_model x 0.02^2 / 2,
+    and the peak must leave 10% of the card's memory.  Then one more step
+    of the int8 run, profiled, and the same steps under FP32 from the same
+    init.  Returns the int8 run's launches and step statistics."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as lt
+    full = registry.get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers) if layers else full
+    B, S = batch
+    argv = ["--arch", arch, "--batch", str(B), "--seq", str(S), "--steps",
+            str(steps), "--lr", str(lr), "--log-every", str(steps),
+            "--device", str(dev)]
+    orig, orig_batch = registry.get_config, lt.make_batch
+    registry.get_config = lambda a: cfg if a == arch else orig(a)
+    if cfg.vlm_prefix:
+        rng = np.random.default_rng(0)
+
+        def make_batch(c, raw):
+            B = raw["tokens"].shape[0]
+            return {"patch_embeds": rng.standard_normal(
+                (B, c.vlm_prefix, c.d_model), dtype=np.float32), **raw}
+        lt.make_batch = make_batch
+    try:
+        stamps, counts, gnorm, gnorm32 = [], [], [], []
+
+        def on_step(i, metrics):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            counts.append({n: w.launches for n, w in wrappers.items()})
+            gnorm.append(float(metrics["grad_norm"]))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        t_start = time.perf_counter()
+        run = lt.train(lt.parse_args(argv + ["--quant", "int8"]), on_step)
+        torch.cuda.synchronize()
+        launches = {n: w.launches for n, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        total = torch.cuda.get_device_properties(0).total_memory / 2**30
+        losses = [run.losses[i] for i in sorted(run.losses)]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"non-finite {arch} training loss: {losses}")
+        expect = math.log(cfg.vocab) + cfg.d_model * 0.02 ** 2 / 2
+        if abs(losses[0] - expect) > 1.0:
+            raise AssertionError(f"{arch}: first loss {losses[0]} is not near "
+                                 f"{expect:.3f}")
+        for n, c in launches.items():
+            if c <= 0:
+                raise AssertionError(f"kernel {n} was not launched on the "
+                                     f"{arch} training path")
+        st = _step_stats(torch, stamps, t_start, B * S)
+        last = _per_step(counts)[-1]
+        print(f"  {arch}, {cfg.n_layers} of {full.n_layers} layers, batch "
+              f"{B} x {S} text tokens"
+              + (f" behind the {cfg.vlm_prefix}-row prefix" if cfg.vlm_prefix
+                 else "") + f"; set-up + step 0 {st['first_ms']:.2f} ms; "
+              f"steps 1-{steps - 1} ms {[round(v, 2) for v in st['step_ms']]};"
+              f" median {st['median_ms']:.2f} ms; {st['tok_s']:.1f} text "
+              f"tokens/s; peak memory {peak:.2f} GiB of {total:.2f} "
+              f"({100 * peak / total:.1f}%); launches in the run {launches}; "
+              f"in one step {last}", flush=True)
+        if peak > 0.9 * total:
+            raise AssertionError(f"{arch}: peak {peak:.2f} GiB leaves less "
+                                 f"than 10% of the card's {total:.2f} GiB")
+        # one more step of the same run, profiled
+        busy, _ = profile_step(torch, run.step, f"{arch} training step "
+                               f"({cfg.n_layers} layers, int8)")
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(0)
+        losses32 = lt.main(argv + ["--quant", "fp32"], on_step=lambda i, m:
+                           gnorm32.append(float(m["grad_norm"])))
+        if cfg.vlm_prefix:
+            gc.collect()
+            torch.cuda.empty_cache()
+            lt.make_batch = orig_batch
+            zero, one = [], list(argv)
+            one[one.index("--steps") + 1] = one[one.index("--log-every") + 1] \
+                = "1"
+            lt.main(one + ["--quant", "fp32"],
+                    on_step=lambda i, m: zero.append(
+                        (float(m["loss"]), float(m["grad_norm"]))))
+            print(f"  {arch}: one FP32 step on the launcher's zero patch "
+                  f"embeddings: loss {zero[0][0]:.5f}, gradient norm "
+                  f"{zero[0][1]} (the prefix rows' RMS-norm derivatives)",
+                  flush=True)
+    finally:
+        registry.get_config, lt.make_batch = orig, orig_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {arch}: lr {lr}; int8 losses {[round(v, 5) for v in losses]}; "
+          f"FP32 losses from the same init "
+          f"{[round(v, 5) for v in losses32]}; gradient norms (before "
+          f"clipping at 1) int8 {[float(f'{v:.4g}') for v in gnorm]}, FP32 "
+          f"{[float(f'{v:.4g}') for v in gnorm32]}", flush=True)
+    if not all(math.isfinite(v) for v in losses32):
+        raise AssertionError(f"non-finite {arch} FP32 loss: {losses32}")
+    return dict(launches=launches, per_step=last, losses=losses,
+                losses32=losses32, gnorm=gnorm, gnorm32=gnorm32,
+                peak_gib=peak, busy=busy, layers=cfg.n_layers, **st)
+
+
+def ssd_full_width(torch, dev) -> float:
+    """``ssd_chunked`` over four chunks against a loop of
+    ``ssd_decode_step`` at mamba2-370m's full-width layer shape
+    (``SSD_CHECK``), FP32 on the card: the layer's init A = -(1 .. 32) and
+    dt log-uniform in [1e-3, 1e-1] (Mamba2's dt range), so the heads with
+    a small A·dt carry state across chunks.  Tolerance: y and the final
+    state within 1e-4 of their max (the same f32 products summed in
+    another order).  Returns y's max relative error."""
+    from repro_torch.models import ssm
+    b, L, H, P, N = SSD_CHECK
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    x, Bm, Cm = randn(b, L, H, P), randn(b, L, N), randn(b, L, N)
+    u = torch.rand((b, L, H), generator=gen, device=dev)
+    dt = torch.exp(math.log(1e-3) + u * (math.log(0.1) - math.log(1e-3)))
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    y, s = ssm.ssd_chunked(x, dt, A, Bm, Cm, 256)
+    torch.cuda.synchronize()
+    t_chunk = time.perf_counter() - t0
+    st = torch.zeros((b, H, P, N), device=dev)
+    ys = []
+    t0 = time.perf_counter()
+    for i in range(L):
+        st, yi = ssm.ssd_decode_step(st, x[:, i], dt[:, i], A, Bm[:, i],
+                                     Cm[:, i])
+        ys.append(yi)
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t0
+    yl = torch.stack(ys, 1)
+    ey = ((y - yl).abs().max() / yl.abs().max()).item()
+    es = ((s - st).abs().max() / st.abs().max()).item()
+    # the recurrence's share of the second chunk's output
+    y1, _ = ssm.ssd_chunked(x[:, 256:512], dt[:, 256:512], A,
+                            Bm[:, 256:512], Cm[:, 256:512], 256)
+    carried = ((y[:, 256:512] - y1).abs().max()
+               / y[:, 256:512].abs().max()).item()
+    print(f"  ssd_chunked (b {b}, L {L} = 4 chunks of 256, H {H}, P {P}, N "
+          f"{N}) against {L} ssd_decode_steps: y max relative error "
+          f"{ey:.3e}, final state {es:.3e} (tolerance 1e-4); the carried "
+          f"state moves chunk 2's output by {carried:.3f} of its max; "
+          f"chunked {1e3 * t_chunk:.2f} ms, loop {1e3 * t_loop:.1f} ms",
+          flush=True)
+    if not (ey <= 1e-4 and es <= 1e-4 and carried > 1e-2):
+        raise AssertionError(f"ssd_chunked differs from the decode loop: y "
+                             f"{ey}, state {es}, carried {carried}")
+    return ey
+
+
+def hybrid_serve(torch, dev, wrappers, batch: int = 4, prompt: int = 16,
+                 new: int = 8) -> dict:
+    """Serve zamba2-2.7b at full width and depth through
+    ``Engine.generate`` (phase 12b): int8, ``batch`` prompts of ``prompt``
+    tokens teacher-forced through decode steps, then ``new`` tokens each.
+    The launch counters are set to 0 just before and read just after;
+    every kernel in ``wrappers`` must have launched.  Then, at FP32 from
+    the same weights, 8 tokens of 2 rows stepped through the cache against
+    ``lm_prefill`` (the reference's ``test_decode_matches_prefill`` at
+    full width and depth).  Tolerance 1e-3 of max|logits|, where the
+    reference's test holds 2e-4 absolute over its 2-4 reduced layers: the
+    SSD's chunk form and its recurrence sum the same f32 products in
+    other orders, and the random-init stack amplifies that with depth
+    (``tools/ssm_depth.py``: on the CPU 5.8e-6 at 6 layers, 1.5e-4 at 18,
+    logits near 4.5).  Returns the launches and the numbers printed."""
+    from repro_torch.configs import registry
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = registry.get_config("zamba2-2.7b")
+    params = lm.lm_init(torch.Generator(device=dev).manual_seed(0), cfg,
+                        device=dev)
+    engine = Engine(params, cfg, registry.get_quant("int8"),
+                    ServeConfig(max_seq=64, batch_slots=batch), device=dev)
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt),
+                            generator=torch.Generator().manual_seed(0)).numpy()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, new)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if out.shape != (batch, new) or not ((out >= 0) & (out < cfg.vocab)).all():
+        raise AssertionError(f"zamba2 generate returned {out}")
+    for n, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"kernel {n} was not launched on the zamba2 "
+                                 "serving path")
+    cache = engine.init_cache(batch)
+    tok = torch.as_tensor(prompts[:, :1], device=dev)
+    for w in wrappers.values():
+        w.launches = 0
+    engine._decode(params, tok, cache)
+    per_step = {n: w.launches for n, w in wrappers.items()}
+    step_ms = cuda_ms(lambda: engine._decode(params, tok, cache), reps=5,
+                      warmup=1)
+    print(f"  zamba2-2.7b, {cfg.n_layers} layers, int8: generate {batch} x "
+          f"({prompt} "
+          f"teacher-forced + {new} new) tokens in {dt:.3f} s: "
+          f"{batch * new / dt:.1f} generated tok/s, "
+          f"{batch * (prompt + new) / dt:.1f} processed tok/s; peak memory "
+          f"{peak:.2f} GiB; launches {launches}; one decode step ({batch} "
+          f"rows) {step_ms:.2f} ms, launches {per_step}", flush=True)
+    busy, _ = profile_step(torch, lambda: engine._decode(params, tok, cache),
+                           "zamba2 decode step")
+    q = QuantConfig.fp32()
+    toks = torch.as_tensor(prompts[:2, :8], device=dev)
+    with torch.no_grad():
+        pre, _ = lm.lm_prefill(params, toks, cfg, q)
+        cache = lm.init_cache(cfg, 2, 16, device=dev)
+        for t in range(8):
+            dec, cache = lm.lm_decode_step(params, toks[:, t:t + 1], cache,
+                                           cfg, q)
+    err = (pre - dec).abs().max().item()
+    scale = pre.abs().max().item()
+    print(f"  zamba2 FP32 decode against lm_prefill (2 x 8 tokens, full "
+          f"width and depth): max|err| {err:.3e}, max|logits| {scale:.3e} "
+          f"(tolerance 1e-3 of max|logits|)", flush=True)
+    if not (math.isfinite(scale) and err <= 1e-3 * scale):
+        raise AssertionError(f"zamba2 decode differs from prefill: {err} of "
+                             f"{scale}")
+    del engine, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, per_step=per_step, tok_s=batch * new / dt,
+                step_ms=step_ms, busy=busy, decode_err=err)
+
+
+def vlm_prefill(torch, dev, wrappers) -> dict:
+    """llava-next-mistral-7b at full width and depth (32 layers, ~29 GB of
+    FP32 weights), int8: ``lm_prefill`` of one row of
+    ``LLAVA_PREFILL_TEXT`` text tokens behind 2880 random patch embeddings
+    (phase 12c).  The launch counters are set to 0 just before and read
+    just after; every kernel in ``wrappers`` must have launched and the
+    logits be finite.  Prints the prefill ms (CUDA events, after one
+    warm-up call), peak memory and busy share."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    cfg = registry.get_config("llava-next-mistral-7b")
+    params = lm.lm_init(torch.Generator(device=dev).manual_seed(0), cfg,
+                        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (1, LLAVA_PREFILL_TEXT), generator=gen,
+                         device=dev)
+    pe = torch.randn((1, cfg.vlm_prefix, cfg.d_model), generator=gen,
+                     device=dev)
+    q = registry.get_quant("int8")
+
+    def prefill():
+        with torch.no_grad():
+            return lm.lm_prefill(params, toks, cfg, q, prefix_embeds=pe)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    logits, x = prefill()
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if x.shape != (1, cfg.vlm_prefix + LLAVA_PREFILL_TEXT, cfg.d_model) or \
+            not torch.isfinite(logits[..., :cfg.vocab]).all():
+        raise AssertionError(f"llava prefill: shape {tuple(x.shape)}, "
+                             "non-finite logits")
+    for n, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"kernel {n} was not launched on the llava "
+                                 "prefill path")
+    del logits, x
+    ms = cuda_ms(prefill, reps=3, warmup=0)
+    busy, _ = profile_step(torch, prefill, f"llava prefill (1 x ("
+                           f"{cfg.vlm_prefix} + {LLAVA_PREFILL_TEXT}), "
+                           f"{cfg.n_layers} layers, int8)")
+    n = 1 * (cfg.vlm_prefix + LLAVA_PREFILL_TEXT)
+    print(f"  llava-next-mistral-7b, {cfg.n_layers} layers, int8: prefill of "
+          f"{n} "
+          f"positions {ms:.2f} ms ({n / ms * 1e3:.1f} positions/s); peak "
+          f"memory {peak:.2f} GiB; launches {launches}", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ms=ms, busy=busy, peak_gib=peak)
+
+
+def family_phase(torch, dev, kops) -> dict:
+    """Phase 12 (PR 24): mamba2-370m (12a), zamba2-2.7b (12b) and
+    llava-next-mistral-7b (12c) at full width, int8 unless named, random
+    weights from seeded generators, each freed before the next.  Returns
+    {path: launches}."""
+    from repro_torch.configs import registry
+    serve = ("dfx_quantize", "bfp_matmul", "int_rmsnorm_fwd")
+    train = serve + ("bfp_matmul_nt", "bfp_matmul_tn", "int_rmsnorm_bwd")
+    attn = ("int_attn_fwd", "int_attn_bwd_dq", "int_attn_bwd_dkv")
+    out = {}
+    t0 = time.perf_counter()
+    print("[12a] mamba2-370m, 48 layers: train 8 x 256 through launch.train "
+          "(int8 and FP32), serve 4 slots x (32 teacher-forced + 16 new)",
+          flush=True)
+    m = family_train(torch, dev, "mamba2-370m", kops.wrappers(*train),
+                     (8, 256))
+    out["train_mamba2"] = m["launches"]
+    out["serve_mamba2"] = serve_phase(
+        torch, dev, registry.get_config("mamba2-370m"),
+        kops.wrappers(*serve), n_req=4, prompt_len=32, new=16,
+        max_share=0.9)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssd_full_width(torch, dev)
+    print(f"[12a] mamba2-370m in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    print(f"[12b] zamba2-2.7b, {ZAMBA_TRAIN_LAYERS} of 54 layers: train 8 x "
+          "256 (int8 and FP32), generate 4 x (16 + 8), FP32 decode against "
+          "prefill", flush=True)
+    z = family_train(torch, dev, "zamba2-2.7b", kops.wrappers(*train, *attn),
+                     (8, 256), layers=ZAMBA_TRAIN_LAYERS)
+    out["train_zamba2"] = z["launches"]
+    out["serve_zamba2"] = hybrid_serve(
+        torch, dev, kops.wrappers(*serve, "int_attn_fwd"))["launches"]
+    print(f"[12b] zamba2-2.7b in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    print(f"[12c] llava-next-mistral-7b: prefill 2880 + "
+          f"{LLAVA_PREFILL_TEXT} at 32 layers; train {LLAVA_TRAIN_LAYERS} "
+          f"layers, {LLAVA_TRAIN_BATCH[0]} x {LLAVA_TRAIN_BATCH[1]} text "
+          "tokens behind a prefix of seeded random patch embeddings (int8 "
+          "and FP32)", flush=True)
+    out["prefill_llava"] = vlm_prefill(
+        torch, dev, kops.wrappers(*serve, "int_attn_fwd"))["launches"]
+    lv = family_train(torch, dev, "llava-next-mistral-7b",
+                      kops.wrappers(*train, *attn), LLAVA_TRAIN_BATCH,
+                      steps=3, layers=LLAVA_TRAIN_LAYERS)
+    out["train_llava"] = lv["launches"]
+    print(f"[12c] llava-next-mistral-7b in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 def _to(tree, device):
     """A copy of the tree on ``device`` (a copy on the CPU too: a training
     step updates its parameters in place)."""
@@ -3786,6 +4313,10 @@ def main() -> int:
     from repro_torch.models import lm
 
     dev = torch.device("cuda", 0)
+    t_main = time.perf_counter()
+
+    def at() -> str:
+        return f" (at {time.perf_counter() - t_main:.1f} s)"
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
@@ -3803,7 +4334,8 @@ def main() -> int:
     cfg = registry.get_config("qwen1.5-0.5b")
     V = lm.padded_vocab(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
-    print("[2] kernels against their plain versions, full-width shapes")
+    print("[2] kernels against their plain versions, full-width shapes"
+          + at(), flush=True)
     bert, tokens = bert_base.CONFIG, 32 * 128
     moe = registry.get_config("qwen2-moe-a2.7b")
     kernels = [check_quantize(torch, dev, gen, V, cfg.d_model, tokens,
@@ -3830,6 +4362,10 @@ def main() -> int:
     for k in kernels:
         if k["name"] in state_rows:
             k["state_rows"] = state_rows[k["name"]]
+    ssm_rows = check_ssm_shapes(torch, dev, gen)
+    for k in kernels:
+        if k["name"] in ssm_rows:
+            k["ssm_rows"] = k.get("ssm_rows", []) + ssm_rows[k["name"]]
     for k in kernels:
         print(f"  {k['name']}: max_abs_err {k['max_abs_err']:.3e}; call "
               f"{k['ms']:.4f} ms, device {k['device_ms']:.4f} ms; plain "
@@ -3837,7 +4373,7 @@ def main() -> int:
               f"{k['library_ms']} / {k['library_device_ms']}; bound "
               f"{k['bound_ms']:.4f} by {k['bound_by']} [{k['shape']}]")
 
-    print("[3] reduced models, card vs CPU path")
+    print("[3] reduced models, card vs CPU path" + at(), flush=True)
     check_small_model(torch, dev)
     check_small_bert(torch, dev)
     check_small_sweep(torch, dev)
@@ -3848,11 +4384,12 @@ def main() -> int:
         check_small_model(torch, dev, arch)
     check_small_moe(torch, dev, "mixtral-8x7b", seq=80, prompt=89)
 
-    print("[4] serve qwen1.5-0.5b, full width, int8")
+    print("[4] serve qwen1.5-0.5b, full width, int8" + at(), flush=True)
     serve = ("dfx_quantize", "bfp_matmul", "int_rmsnorm_fwd", "int_attn_fwd")
     launches = serve_phase(torch, dev, cfg, kops.wrappers(*serve))
     print("[5] fine-tune bert-base, full width, paper scope (int8 linear / "
-          "layer-norm / embedding), stochastic gradient rounding")
+          "layer-norm / embedding), stochastic gradient rounding" + at(),
+          flush=True)
     matmuls = ("dfx_quantize", "bfp_matmul", "bfp_matmul_nt", "bfp_matmul_tn")
     attn = ("int_attn_fwd", "int_attn_bwd_dq", "int_attn_bwd_dkv")
     paper = matmuls + ("int_layernorm_fwd", "int_layernorm_bwd")
@@ -3860,11 +4397,11 @@ def main() -> int:
     ft_launches, ft8_launches = finetune_phase(
         torch, dev, kops.wrappers(*paper), kops.wrappers(*paper, *attn))
     print("[6] train qwen1.5-0.5b, full width, int8, batch 8 x seq 256, "
-          "through launch.train")
+          "through launch.train" + at(), flush=True)
     tr_launches = train_phase(torch, dev, kops.wrappers(*lm_train))
     print("[6b] kept_ops=\"integer\" at full width beside int8: bert-base "
           "cls (batch 32 x seq 128, 10 steps) and qwen1.5-0.5b training "
-          "(batch 8 x seq 256, 6 steps)")
+          "(batch 8 x seq 256, 6 steps)" + at(), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     kept = kept_int_phase(torch, dev, kops.wrappers(*paper, *attn),
@@ -3874,7 +4411,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("[7] serve qwen2-moe-a2.7b, full width and depth (24 layers, 60 "
           "experts top-4 + shared expert), int8; device memory allocated "
-          f"before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+          f"before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB" + at(),
+          flush=True)
     moe_serve = serve_phase(torch, dev, registry.get_config(
         "qwen2-moe-a2.7b"), kops.wrappers(*serve, *moe_fwd))
     gc.collect()
@@ -3882,7 +4420,7 @@ def main() -> int:
     print(f"[8] train qwen2-moe-a2.7b, full width, {MOE_TRAIN_LAYERS} layers, "
           "int8, batch 8 x seq 256, lm_loss + make_train_step; device memory "
           f"allocated before: {torch.cuda.memory_allocated() / 2**30:.2f} "
-          "GiB")
+          "GiB" + at(), flush=True)
     moe_train = train_cut_phase(torch, dev, dataclasses.replace(
         moe, n_layers=MOE_TRAIN_LAYERS), kops.wrappers(
         *lm_train, *moe_fwd, "bfp_matmul_batched_nt", "bfp_matmul_batched_tn"))
@@ -3890,7 +4428,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("[9] the paper's bit-width sweep (fp32, int16, int12, int10, "
           "int8): bert-base cls / span and vit-base img at full width, 6 "
-          "steps each; Tables 1-3 and Figs. 4-5 at the reference's sizes")
+          "steps each; Tables 1-3 and Figs. 4-5 at the reference's sizes"
+          + at(), flush=True)
     t9 = time.perf_counter()
     sweep_launches = sweep_full_width(torch, dev, kops.wrappers())
     print(f"[9] full width in {time.perf_counter() - t9:.1f} s", flush=True)
@@ -3914,6 +4453,16 @@ def main() -> int:
     t11 = time.perf_counter()
     state_launches = state_plane_phase(torch, dev, kops)
     print(f"[11] phase took {time.perf_counter() - t11:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[12] the SSM, hybrid and VLM families at full width: mamba2-370m, "
+          "zamba2-2.7b and llava-next-mistral-7b, trained and served; device "
+          f"memory allocated before: {torch.cuda.memory_allocated() / 2**30:.2f}"
+          " GiB", flush=True)
+    t12 = time.perf_counter()
+    family_launches = family_phase(torch, dev, kops)
+    print(f"[12] phase took {time.perf_counter() - t12:.1f} s" + at(),
+          flush=True)
     for k in kernels:
         by_path = {"serve": launches.get(k["name"], 0),
                    "finetune": ft_launches.get(k["name"], 0),
@@ -3928,7 +4477,9 @@ def main() -> int:
                    **{path: ls.get(k["name"], 0)
                       for path, ls in arch_launches.items()},
                    **{path: ls.get(k["name"], 0)
-                      for path, ls in state_launches.items()}}
+                      for path, ls in state_launches.items()},
+                   **{path: ls.get(k["name"], 0)
+                      for path, ls in family_launches.items()}}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         if "int_ms" in k:        # the kept-int paths run its integer body

@@ -16,7 +16,8 @@ ARCH_IDS = ("zamba2-2.7b", "qwen1.5-0.5b", "mistral-nemo-12b", "smollm-135m",
             "mistral-large-123b", "llava-next-mistral-7b", "mixtral-8x7b",
             "qwen2-moe-a2.7b", "mamba2-370m", "whisper-large-v3")
 
-#: arch id -> config module of the archs this port runs (dense and MoE)
+#: arch id -> config module of the archs this port runs (every decoder-only
+#: family: dense, MoE, SSM, hybrid and VLM)
 PORTED = {
     "qwen1.5-0.5b": "qwen1p5_0p5b",
     "smollm-135m": "smollm_135m",
@@ -24,6 +25,9 @@ PORTED = {
     "mixtral-8x7b": "mixtral_8x7b",
     "mistral-nemo-12b": "mistral_nemo_12b",
     "mistral-large-123b": "mistral_large_123b",
+    "mamba2-370m": "mamba2_370m",
+    "zamba2-2.7b": "zamba2_2p7b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
 }
 
 

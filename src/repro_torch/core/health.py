@@ -18,7 +18,7 @@ value computed inside a ``lax.scan`` or ``jax.checkpoint`` body cannot
 leave it through a Python global, so its layers return their counters as
 the scan's output.  The port's layer loop is plain Python and its probes
 go straight to the sink, so those have no counterpart.  A per-layer remat
-recompute (``lm._remat_layer``) runs under ``suspend()``, so a layer is
+recompute (``lm._remat``) runs under ``suspend()``, so a layer is
 counted once (``nonfinite`` is a sum).
 """
 from __future__ import annotations

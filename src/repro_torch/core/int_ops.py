@@ -10,7 +10,9 @@ the integer flash-attention kernel.  The kernels run on the card for CUDA
 tensors and as their plain PyTorch versions for CPU tensors.  With
 ``cfg.enabled`` False each layer is its FP32 reference (plain autograd).
 
-``int_patch_embed`` (ViT) is a reshape in front of ``int_linear``.
+``int_patch_embed`` (ViT) is a reshape in front of ``int_linear``;
+``int_conv1d_depthwise`` (the Mamba frontend) is integer tensor code
+around two quantizations, as the reference's is XLA work around them.
 ``int_linear``, ``int_batched_linear``, ``int_embedding``,
 ``int_layernorm``, ``int_rmsnorm`` and ``int_attention`` are
 ``torch.autograd.Function``s, the counterparts of the reference's
@@ -176,6 +178,130 @@ def int_patch_embed(images: torch.Tensor, w: torch.Tensor,
     x = x.permute(0, 1, 3, 2, 4, 5).reshape(
         B, (H // patch) * (W // patch), -1)
     return int_linear(x, w, b, key, cfg)
+
+
+# =========================================================================
+# Causal depthwise conv1d (the Mamba frontend)
+# =========================================================================
+
+def _conv_digits(m: torch.Tensor):
+    """Balanced base-2^8 digit planes of an integer mantissa tensor, int32:
+    ``m = hi * 256 + lo`` with ``|lo| <= 128``, ``|hi| <= 128`` for 16-bit
+    mantissas (``hi`` identically zero for 8-bit)."""
+    m32 = m.to(torch.int32)
+    lo = ((m32 + 128) & 255) - 128
+    return (m32 - lo) >> 8, lo
+
+
+def _shift_front(t: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, L, C) -> (B, n + L, C) with ``n`` zero rows in front."""
+    return torch.cat([t.new_zeros((t.shape[0], n, t.shape[2])), t], dim=1)
+
+
+def _shift_back(t: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, L, C) -> (B, L + n, C) with ``n`` zero rows behind."""
+    return torch.cat([t, t.new_zeros((t.shape[0], n, t.shape[2]))], dim=1)
+
+
+def _hi(digits, bits: int):
+    """The high digit plane, or None where the mantissas fit 8 bits
+    (``|m| <= 127``: the plane is identically zero and its products add
+    exact zeros)."""
+    return digits[0] if bits > 8 else None
+
+
+def _digit_correlate(a: torch.Tensor, wh, wl: torch.Tensor) -> torch.Tensor:
+    """``Σ_k a[:, l + k] · w[k]`` over the K-row windows of ``a`` (B, L +
+    K - 1, C), ``w`` (K, C) given as its digit planes (``wh`` None: zero):
+    each digit's K products summed exactly in integers, the two combined
+    in f32 with one rounding."""
+    win = a.unfold(1, wl.shape[0], 1)                     # (B, L, C, K)
+    acc = (win * wl.t()).sum(-1).to(torch.float32)
+    if wh is not None:
+        acc = (win * wh.t()).sum(-1).to(torch.float32) * 256.0 + acc
+    return acc
+
+
+class _IntDwConv(torch.autograd.Function):
+    """Integer causal depthwise conv: K shifted elementwise products of the
+    act-bit mantissas of x and the weight-bit mantissas of w.  Residuals:
+    both mantissas and their exponents."""
+
+    @staticmethod
+    def forward(ctx, x, w, key, cfg: QuantConfig):
+        K = w.shape[0]
+        qx = dfx.quantize(x, cfg.act_bits, u=_act_noise(x, cfg, key))
+        qw = dfx.quantize(w, cfg.weight_bits)
+        # w split into base-2^8 digits: every integer partial stays below
+        # 2^(b_act - 1) · 2^7 · K, where one f32 sum would round past 2^24
+        wd = _conv_digits(qw.m)
+        acc = _digit_correlate(_shift_front(qx.m.to(torch.int32), K - 1),
+                               _hi(wd, cfg.weight_bits), wd[1])
+        ctx.save_for_backward(qx.m, qx.exp, qw.m, qw.exp)
+        ctx.cfg, ctx.key = cfg, key
+        return acc * dfx.pow2(qx.exp + qw.exp)
+
+    @staticmethod
+    def backward(ctx, g):
+        xm, x_exp, wm, w_exp = ctx.saved_tensors
+        cfg = ctx.cfg
+        K = wm.shape[0]
+        qg = _quant_grad(g, cfg, ctx.key)
+        gm = qg.m.to(torch.int32)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # dx[l] = Σ_k g[l + K-1-k] · w[k]: a correlation with w's taps
+            # reversed, w digit-split
+            wd = [d.flip(0) for d in _conv_digits(wm)]
+            dx = _digit_correlate(_shift_back(gm, K - 1),
+                                  _hi(wd, cfg.weight_bits), wd[1]) \
+                * dfx.pow2(qg.exp + w_exp)
+        if ctx.needs_input_grad[1]:
+            # dw[k] = Σ_{b,l} x[l - (K-1-k)] · g[l] over B·L: both operands
+            # digit-split, each plane's integer sum bounded by 2^14 · B·L
+            # (exact to B·L = 2^17 in the reference's int32), combined in
+            # f32 with the planes weighted 65536 / 256 / 256 / 1
+            xd = [_shift_front(d, K - 1).unfold(1, K, 1)   # (B, L, C, K)
+                  for d in _conv_digits(xm)]
+            xh, xl = _hi(xd, cfg.act_bits), xd[1]
+            gd = _conv_digits(gm)
+            gh, gl = _hi(gd, cfg.grad_bits), gd[1]
+
+            def plane(a, b):
+                if a is None or b is None:
+                    return 0.0
+                return (a * b[..., None]).sum(dim=(0, 1)).t().to(
+                    torch.float32)
+            dwm = (plane(xh, gh) * 65536.0
+                   + (plane(xh, gl) + plane(xl, gh)) * 256.0
+                   + plane(xl, gl))
+            dw = dwm * dfx.pow2(x_exp + qg.exp)
+        return dx, dw, None, None
+
+
+def int_conv1d_depthwise(x: torch.Tensor, w: torch.Tensor, key,
+                         cfg: QuantConfig) -> torch.Tensor:
+    """Causal depthwise conv1d with integer forward and backward.
+    x: (B, L, D), w: (K, D) -> (B, L, D); ``y[l] = Σ_k x[l - (K-1-k)] ·
+    w[k]``, zeros before the start.
+
+    A sum of K shifted elementwise integer products (plain PyTorch integer
+    tensor code, as the reference leaves it to XLA; only the two
+    quantizations run in the quantize kernel).  The weight's mantissas are
+    split into balanced base-2^8 digits so every int32 partial is exact;
+    the digit sums are combined in f32 with one rounding, times
+    ``2^(ex + ew)``.  The backward quantizes the upstream gradient once at
+    ``grad_bits``: dx by correlation with w digit-split, dw with both
+    operands digit-split (four planes weighted 65536 / 256 / 256 / 1, each
+    an int32 reduction over B·L).  ``stochastic_fwd`` with a key rounds
+    x's quantization stochastically (the activation noise drawn first, the
+    gradient's in the backward).  With ``cfg.enabled`` False: the FP32
+    pad-and-sum."""
+    K = w.shape[0]
+    if not cfg.enabled:
+        pads = _shift_front(x, K - 1)
+        return sum(pads[:, k:k + x.shape[1], :] * w[k] for k in range(K))
+    return _IntDwConv.apply(x, w, key, cfg)
 
 
 # =========================================================================

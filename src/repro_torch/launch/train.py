@@ -34,6 +34,7 @@ import logging
 import time
 from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs import registry
@@ -146,7 +147,7 @@ class Run:
     events: List[dict] = dataclasses.field(default_factory=list)
 
     def step(self, inject_nan: float = 0.0) -> dict:
-        batch = to_device(next(self.data), self.device)
+        batch = to_device(make_batch(self.cfg, next(self.data)), self.device)
         if self.sentinel is None:
             self.params, self.opt_state, metrics = self.step_fn(
                 self.params, self.opt_state, batch, self.gen)
@@ -168,6 +169,17 @@ class Run:
     def event(self, ev: dict) -> None:
         self.events.append(ev)
         log.info("event: %s", ev)
+
+
+def make_batch(cfg, raw: dict) -> dict:
+    """The model's batch from the data's: a VLM's gets zero patch
+    embeddings (B, vlm_prefix, D), as the reference's launcher gives it
+    (the vision tower is a stub)."""
+    if cfg.vlm_prefix:
+        B = raw["tokens"].shape[0]
+        return {"patch_embeds": np.zeros((B, cfg.vlm_prefix, cfg.d_model),
+                                         np.float32), **raw}
+    return raw
 
 
 def _step_fn(cfg, qcfg, opt_cfg, tcfg, sentinel: bool):

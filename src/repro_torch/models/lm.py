@@ -1,7 +1,8 @@
-"""Decoder-only language model, dense and MoE families: init, the training
-loss, the full-prompt prefill, KV cache, chunked prefill and decode.
+"""Decoder-only language model, the dense / MoE / SSM / hybrid / VLM
+families: init, the training loss, the full-prompt prefill, the KV / SSM
+cache, chunked prefill and decode.
 
-Counterpart of the dense and MoE paths of ``repro/models/lm.py``.
+Counterpart of ``repro/models/lm.py``.
 Parameters are a nested dict of tensors with the layer stack stacked on a
 leading ``(L, ...)`` axis, as in the reference's ``lm_init``, so the
 reference's
@@ -12,15 +13,28 @@ recompute) is ``torch.utils.checkpoint`` around each layer: the backward
 keeps each layer's input and recomputes the layer's residuals (the
 quantized planes the integer layers save) when it reaches it.  The
 recompute replays the forward's stochastic-rounding noise from a copy of
-the generator (``_remat_layer``), with probes suspended.  Its sharding
+the generator (``_remat``), with probes suspended.  Its sharding
 constraints (``sharding.constrain*``) are identities on one device and
 are left out; its ``health.probe`` calls are here (the embedding's output
 and the head's input, beside the blocks' own).
 
 A MoE block's ``moe`` sublayer (``blocks.moe_apply``) takes the MLP's
 place; its load-balancing loss is summed over the layers and ``lm_loss``
-adds ``0.01 · aux / n_layers``, as the reference does.  The SSM, hybrid
-and VLM families are not ported yet.
+adds ``0.01 · aux / n_layers``, as the reference does.
+
+The SSM family is a stack of Mamba2 layers (``models/ssm.py``); the
+hybrid runs the one ``shared_attn`` block (a dense attention block, one
+param set) after every ``hybrid_attn_every`` of them, each of its
+``L // every`` calls with a KV cache of its own at decode.  Their layers
+run under the same remat (the shared block's calls too) and with probes
+suspended, as the reference masks them there.  Their recurrence has no
+cache-prefill form: ``lm_prefill_cache`` raises for them and the engine
+teacher-forces a prompt through ``lm_decode_step``.  The decode cache
+keeps the SSM and conv states FP32 and is updated in place, like the KV
+cache.  The VLM family is the dense stack behind an ``mm_proj``
+projection of precomputed patch embeddings, put in front of the tokens
+(``prefix_embeds`` / the batch's ``patch_embeds``); its loss counts the
+text positions only.
 """
 from __future__ import annotations
 
@@ -30,20 +44,29 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core import health, int_ops
-from repro_torch.core.qpolicy import QuantLike, ensure_scope, layer_groups
-from repro_torch.models import blocks
+from repro_torch.core.qpolicy import (PolicyScopeError, QuantLike,
+                                      ensure_scope, layer_groups)
+from repro_torch.models import blocks, ssm
 from repro_torch.models.config import ArchConfig
 
 Params = Dict[str, Any]
 
+#: families whose layers carry an SSM state (no cache-prefill form)
+STATE_FAMILIES = ("ssm", "hybrid")
+
 
 def _require_ported(cfg: ArchConfig) -> None:
-    if (cfg.family not in ("dense", "moe")
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm")
+            or cfg.enc_dec
             or bool(cfg.moe_experts) != (cfg.family == "moe")
-            or cfg.vlm_prefix):
+            or bool(cfg.vlm_prefix) != (cfg.family == "vlm")
+            or (cfg.family == "hybrid"
+                and (not cfg.hybrid_attn_every
+                     or cfg.n_layers % cfg.hybrid_attn_every))):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and MoE families are ported (got "
-            f"family={cfg.family!r})")
+            f"{cfg.name}: the decoder-only families (dense, MoE, SSM, "
+            f"hybrid, VLM) are ported, the audio / enc-dec ones not yet "
+            f"(got family={cfg.family!r})")
 
 
 def _block_leaves(cfg: ArchConfig) -> list:
@@ -59,6 +82,26 @@ def _block_leaves(cfg: ArchConfig) -> list:
     else:
         leaves += blocks.mlp_leaves(cfg)
     return leaves
+
+
+#: every integer-layer leaf path inside one Mamba2 layer
+_MAMBA_LEAVES = ["mamba." + n for n in
+                 ("wz", "wx", "wBC", "wdt", "conv_x", "conv_BC",
+                  "norm_g", "out_proj",
+                  "act.conv_x", "act.conv_BC", "act.gate")]
+
+
+def _uniform_stack_scope(sc, L: int, leaves, what: str):
+    """The one scope of a stack that cannot be split into groups (the
+    hybrid's), raising when the policy resolves it per layer."""
+    groups = layer_groups(sc, L, leaves)
+    if len(groups) > 1:
+        raise PolicyScopeError(
+            f"quantization policy resolves non-uniformly over the {what} "
+            f"block stack ({len(groups)} groups); per-layer-index scope "
+            "rules are not supported for the hybrid family — use rules "
+            "uniform over 'blocks.*'")
+    return groups[0][2]
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -89,16 +132,29 @@ def lm_init(gen: torch.Generator, cfg: ArchConfig, device="cuda") -> Params:
     if not cfg.tie_embeddings:
         params["lm_head"] = blocks._init(
             gen, (cfg.d_model, padded_vocab(cfg)), device)
-    params["blocks"] = {
-        "ln1": blocks.norm_init(cfg, device, L),
-        "attn": blocks.attention_init(gen, cfg, device, L),
-        "ln2": blocks.norm_init(cfg, device, L),
-    }
-    if cfg.moe_experts:
-        params["blocks"]["moe"] = blocks.moe_init(gen, cfg, device, L)
+    if cfg.family in STATE_FAMILIES:
+        params["blocks"] = {"mamba": ssm.mamba2_init(gen, cfg, device, L)}
+        if cfg.family == "hybrid":
+            params["shared_attn"] = _block_init(gen, cfg, device, ())
     else:
-        params["blocks"]["mlp"] = blocks.mlp_init(gen, cfg, device, L)
+        params["blocks"] = _block_init(gen, cfg, device, L)
+    if cfg.vlm_prefix:
+        params["mm_proj"] = blocks._init(gen, (cfg.d_model, cfg.d_model),
+                                         device)
     return params
+
+
+def _block_init(gen: torch.Generator, cfg: ArchConfig, device,
+                lead: Tuple[int, ...]) -> Params:
+    """An attention block's params (stacked with ``lead = (L,)``)."""
+    p = {"ln1": blocks.norm_init(cfg, device, lead),
+         "attn": blocks.attention_init(gen, cfg, device, lead),
+         "ln2": blocks.norm_init(cfg, device, lead)}
+    if cfg.moe_experts:
+        p["moe"] = blocks.moe_init(gen, cfg, device, lead)
+    else:
+        p["mlp"] = blocks.mlp_init(gen, cfg, device, lead)
+    return p
 
 
 def _attn_block(bp: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -119,9 +175,15 @@ def _attn_block(bp: Params, x: torch.Tensor, cfg: ArchConfig,
 
 
 def _embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
-           qcfg: QuantLike, key) -> torch.Tensor:
+           qcfg: QuantLike, key, prefix_embeds=None) -> torch.Tensor:
+    """The tokens' embeddings; for the VLM, the projected patch embeddings
+    (``int_linear`` through ``mm_proj``) in front of them."""
     sc = ensure_scope(qcfg)
     x = int_ops.int_embedding(params["embed"], tokens, key, sc.leaf("embed"))
+    if prefix_embeds is not None:
+        pe = int_ops.int_linear(prefix_embeds, params["mm_proj"], None, key,
+                                sc.leaf("mm_proj"))
+        x = torch.cat([pe, x], dim=1)
     health.probe(sc.path + ("embed",), x, sc.leaf("embed").act_bits)
     return x
 
@@ -151,10 +213,9 @@ def _replay_key(key, state):
     return gen
 
 
-def _remat_layer(bp: Params, x: torch.Tensor, cfg: ArchConfig,
-                 bsc: QuantLike, key):
-    """``_attn_block`` under ``torch.utils.checkpoint`` (non-reentrant):
-    the backward recomputes the layer from its input.
+def _remat(fn, x: torch.Tensor, key):
+    """``fn(x, key)`` — one layer — under ``torch.utils.checkpoint``
+    (non-reentrant): the backward recomputes the layer from its input.
 
     The layers draw stochastic-rounding noise from ``key`` — the
     activations' in the forward (``stochastic_fwd``), the gradients' in the
@@ -168,20 +229,32 @@ def _remat_layer(bp: Params, x: torch.Tensor, cfg: ArchConfig,
     remat leaves it.  A callable key hands in noise that cannot be
     replayed, so its layers run without remat."""
     if key is not None and not isinstance(key, torch.Generator):
-        return _attn_block(bp, x, cfg, bsc, key)[:2]
+        return fn(x, key)
     state = key.get_state() if key is not None else None
     calls = []
 
     def run(x):
         if calls:                    # the recompute: probed once already
             with health.suspend():
-                return _attn_block(bp, x, cfg, bsc,
-                                   _replay_key(key, state))[:2]
+                return fn(x, _replay_key(key, state))
         calls.append(1)
-        return _attn_block(bp, x, cfg, bsc, key)[:2]
+        return fn(x, key)
     # the layers draw from ``key`` only, never from the default generators
     return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False,
                                              preserve_rng_state=False)
+
+
+def _remat_layer(bp: Params, x: torch.Tensor, cfg: ArchConfig,
+                 bsc: QuantLike, key):
+    """``_attn_block`` under ``_remat``: (x, aux)."""
+    return _remat(lambda x, k: _attn_block(bp, x, cfg, bsc, k)[:2], x, key)
+
+
+def _mamba_layer(bp: Params, x: torch.Tensor, cfg: ArchConfig,
+                 bsc: QuantLike, key) -> torch.Tensor:
+    """One residual Mamba2 layer of the training stack."""
+    h, _ = ssm.mamba2_apply(bp["mamba"], x, cfg, bsc.child("mamba"), key)
+    return x + h
 
 
 def _backbone_train(params: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -189,12 +262,18 @@ def _backbone_train(params: Params, x: torch.Tensor, cfg: ArchConfig,
                     remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """All layers, no cache (training, and ``lm_prefill``): a Python loop
     over the stack, each run of identically resolved layers under its
-    scope.  ``remat``: each layer under ``_remat_layer`` while autograd
+    scope.  ``remat``: each layer under ``_remat`` while autograd
     records (the reference's per-layer remat; off only to compare the
-    two).  Returns (x, the MoE aux losses summed over the layers)."""
+    two).  Returns (x, the MoE aux losses summed over the layers).  The
+    SSM and hybrid stacks run with probes suspended, as the reference
+    masks them (``_backbone_train_ssm``)."""
     sc = ensure_scope(qcfg)
     layers = blocks.unstack(params["blocks"], cfg.n_layers)
     remat = remat and torch.is_grad_enabled()
+    if cfg.family in STATE_FAMILIES:
+        with health.suspend():
+            return _backbone_train_ssm(params, layers, x, cfg, sc, key,
+                                       remat)
     aux = torch.zeros((), device=x.device)
     for start, stop, bsc in layer_groups(sc, cfg.n_layers,
                                          _block_leaves(cfg)):
@@ -207,16 +286,57 @@ def _backbone_train(params: Params, x: torch.Tensor, cfg: ArchConfig,
     return x, aux
 
 
+def _backbone_train_ssm(params: Params, layers: list, x: torch.Tensor,
+                        cfg: ArchConfig, sc, key, remat: bool):
+    """The SSM stack (runs of identically resolved layers), or the
+    hybrid's ``L // every`` groups of ``every`` Mamba2 layers, each group
+    followed by the shared attention block, under one scope (a policy
+    that splits the hybrid's stack raises).  Returns (x, 0)."""
+    L = cfg.n_layers
+    zero = torch.zeros((), device=x.device)
+
+    def mamba(i, bsc, x):
+        if remat:
+            return _remat(lambda x, k: _mamba_layer(layers[i], x, cfg, bsc,
+                                                    k), x, key)
+        return _mamba_layer(layers[i], x, cfg, bsc, key)
+
+    if cfg.family == "ssm":
+        for start, stop, bsc in layer_groups(sc, L, _MAMBA_LEAVES):
+            for i in range(start, stop):
+                x = mamba(i, bsc, x)
+        return x, zero
+    every = cfg.hybrid_attn_every
+    bsc = _uniform_stack_scope(sc, L, _MAMBA_LEAVES, "hybrid")
+    ssc = sc.child("shared_attn")
+    shared = params["shared_attn"]
+    for g in range(L // every):
+        for i in range(g * every, (g + 1) * every):
+            x = mamba(i, bsc, x)
+        if remat:
+            x, _ = _remat(lambda x, k: _attn_block(shared, x, cfg, ssc,
+                                                   k)[:2], x, key)
+        else:
+            x, _, _ = _attn_block(shared, x, cfg, ssc, key)
+    return x, zero
+
+
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             qcfg: QuantLike, key) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Next-token cross entropy.  batch: tokens (B, S) and labels (B, S)
-    integer tensors (label -1: masked).  Returns ``(loss, {"ce", "aux"})``:
-    for a MoE config the loss includes ``0.01 · aux / n_layers`` and ``aux``
-    is the layers' summed balance loss (0 for the dense family); ``ce`` is
-    the returned loss, as the reference reports it."""
+    integer tensors (label -1: masked); the VLM's also ``patch_embeds``
+    (B, vlm_prefix, D), whose positions the loss leaves out.  Returns
+    ``(loss, {"ce", "aux"})``: for a MoE config the loss includes ``0.01 ·
+    aux / n_layers`` and ``aux`` is the layers' summed balance loss (0 for
+    the other families); ``ce`` is the returned loss, as the reference
+    reports it."""
     _require_ported(cfg)
-    x = _embed(params, batch["tokens"], cfg, qcfg, key)
+    tokens = batch["tokens"]
+    x = _embed(params, tokens, cfg, qcfg, key,
+               prefix_embeds=batch.get("patch_embeds"))
     x, aux = _backbone_train(params, x, cfg, qcfg, key)
+    if cfg.vlm_prefix:
+        x = x[:, -tokens.shape[1]:]          # the text positions only
     logits = _logits(params, x, cfg, qcfg, key)
     labels = batch["labels"]
     valid = labels >= 0
@@ -231,13 +351,15 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
 
 
 def lm_prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
-               qcfg: QuantLike) -> Tuple[torch.Tensor, torch.Tensor]:
+               qcfg: QuantLike, prefix_embeds=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward pass over the full prompt, no cache and no key (round to
     nearest): the training backbone, whose FP32 attention is the chunked
-    ``flash_attention``.  Returns (last-position logits (B, 1, V), the
-    final hidden states (B, S, D))."""
+    ``flash_attention``.  ``prefix_embeds`` (VLM): patch embeddings (B, P,
+    D) projected in front of the tokens.  Returns (last-position logits
+    (B, 1, V), the final hidden states (B, P + S, D))."""
     _require_ported(cfg)
-    x = _embed(params, tokens, cfg, qcfg, None)
+    x = _embed(params, tokens, cfg, qcfg, None, prefix_embeds=prefix_embeds)
     x, _ = _backbone_train(params, x, cfg, qcfg, None)
     logits = _logits(params, x[:, -1:], cfg, qcfg, None)
     return logits, x
@@ -245,14 +367,28 @@ def lm_prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype=torch.float32, device="cuda") -> Params:
-    """KV cache: k/v (L, B, max_seq, KV, hd) and a per-row (B,) int32
-    ``index`` (continuous batching admits slots at different times)."""
+    """Decode cache and a per-row (B,) int32 ``index`` (continuous
+    batching admits slots at different times).  Attention families: k / v
+    (L, B, max_seq, KV, hd) of ``dtype``.  SSM and hybrid: the FP32 states
+    ``ssm`` (L, B, H, P, N), ``conv_x`` (L, B, K-1, DI) and ``conv_BC``
+    (L, B, K-1, 2N); the hybrid also k / v (G, B, max_seq, KV, hd), one
+    per call of the shared block.  Batch is axis 1 of every stacked
+    tensor."""
     _require_ported(cfg)
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "index": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    index = torch.zeros((batch,), dtype=torch.int32, device=device)
+    cache = {}
+    if cfg.family in STATE_FAMILIES:
+        cache.update(zip(("ssm", "conv_x", "conv_BC"),
+                         ssm.mamba2_init_state(cfg, batch, device, (L,))))
+        if cfg.family == "ssm":
+            return dict(cache, index=index)
+        L = L // cfg.hybrid_attn_every
+    shape = (L, batch, max_seq, KV, hd)
+    return dict(cache, k=torch.zeros(shape, dtype=dtype, device=device),
+                v=torch.zeros(shape, dtype=dtype, device=device),
+                index=index)
 
 
 def lm_prefill_cache(params: Params, tokens: torch.Tensor, cache: Params,
@@ -263,9 +399,15 @@ def lm_prefill_cache(params: Params, tokens: torch.Tensor, cache: Params,
     tokens: (B, S) int — written into the cache at ``cache['index'] ..
     index+S`` with per-row ``q_offset = index`` (S == 1 is plain decode).
     The cache's k/v tensors are updated in place; returns (last-position
-    logits (B, 1, V), cache with the advanced index).
+    logits (B, 1, V), cache with the advanced index).  Attention-cache
+    families only: the SSM and hybrid recurrence steps token by token
+    (``lm_decode_step``).
     """
     _require_ported(cfg)
+    if cfg.family in STATE_FAMILIES:
+        raise ValueError(
+            "lm_prefill_cache supports attention-cache families only; "
+            f"got family={cfg.family!r} (use lm_decode_step per token)")
     key = None                                   # no stochastic rounding
     index = cache["index"]
     sc = ensure_scope(qcfg)
@@ -285,5 +427,42 @@ def lm_prefill_cache(params: Params, tokens: torch.Tensor, cache: Params,
 def lm_decode_step(params: Params, token: torch.Tensor, cache: Params,
                    cfg: ArchConfig,
                    qcfg: QuantLike) -> Tuple[torch.Tensor, Params]:
-    """token: (B, 1).  Returns (logits (B, 1, V), cache)."""
-    return lm_prefill_cache(params, token, cache, cfg, qcfg)
+    """token: (B, 1).  Returns (logits (B, 1, V), cache); the cache's
+    tensors are updated in place."""
+    if cfg.family not in STATE_FAMILIES:
+        return lm_prefill_cache(params, token, cache, cfg, qcfg)
+    _require_ported(cfg)
+    key = None                                   # no stochastic rounding
+    index = cache["index"]
+    sc = ensure_scope(qcfg)
+    x = _embed(params, token, cfg, sc, key)
+    L = cfg.n_layers
+    layers = blocks.unstack(params["blocks"], L)
+
+    def mamba(i, bsc, x):
+        h, new = ssm.mamba2_apply(
+            layers[i]["mamba"], x, cfg, bsc.child("mamba"), key,
+            state=tuple(cache[n][i] for n in ("ssm", "conv_x", "conv_BC")),
+            decode=True)
+        for n, t in zip(("ssm", "conv_x", "conv_BC"), new):
+            cache[n][i].copy_(t)
+        return x + h
+
+    if cfg.family == "ssm":
+        for start, stop, bsc in layer_groups(sc, L, _MAMBA_LEAVES):
+            for i in range(start, stop):
+                x = mamba(i, bsc, x)
+    else:
+        every = cfg.hybrid_attn_every
+        bsc = _uniform_stack_scope(sc, L, _MAMBA_LEAVES, "hybrid")
+        ssc = sc.child("shared_attn")
+        with health.suspend():       # as the reference masks them here
+            for g in range(L // every):
+                for i in range(g * every, (g + 1) * every):
+                    x = mamba(i, bsc, x)
+                x, _, _ = _attn_block(params["shared_attn"], x, cfg, ssc,
+                                      key, cache=(cache["k"][g],
+                                                  cache["v"][g]),
+                                      cache_index=index)
+    logits = _logits(params, x, cfg, sc, key)
+    return logits, dict(cache, index=index + 1)

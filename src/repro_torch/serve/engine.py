@@ -1,11 +1,14 @@
 """Batched serving engine: chunked prefill + decode over a KV cache and a
 continuous-batching slot scheduler.
 
-Counterpart of ``repro/serve/engine.py`` (dense family).  The reference
-jits ``lm_prefill_cache`` / ``lm_decode_step``; here they run eagerly under
-``torch.no_grad()``, and the KV cache is updated in place, so admission
-snapshots the cache by copy where the reference keeps the old immutable
-value.
+Counterpart of ``repro/serve/engine.py``.  The reference jits
+``lm_prefill_cache`` / ``lm_decode_step``; here they run eagerly under
+``torch.no_grad()``, and the KV / SSM cache is updated in place, so
+admission snapshots the cache by copy where the reference keeps the old
+immutable value.  The SSM and hybrid families have no cache-prefill form:
+``generate`` and the batcher's admission teacher-force a prompt through
+decode steps, one per token, as the reference does.  The VLM serves text
+only, as there.
 """
 from __future__ import annotations
 
@@ -67,6 +70,12 @@ class Engine:
     def _decode(self, params, token: torch.Tensor, cache):
         return lm.lm_decode_step(params, token, cache, self.cfg, self.qcfg)
 
+    @property
+    def steps_prompts(self) -> bool:
+        """True when a prompt runs through decode steps, one per token (the
+        SSM and hybrid families' recurrence has no cache-prefill form)."""
+        return self.cfg.family in lm.STATE_FAMILIES
+
     def init_cache(self, batch: int):
         return lm.init_cache(self.cfg, batch, self.scfg.max_seq,
                              dtype=self.scfg.cache_dtype, device=self.device)
@@ -74,15 +83,20 @@ class Engine:
     def generate(self, prompts: np.ndarray, max_new_tokens: int,
                  gen: Optional[torch.Generator] = None) -> np.ndarray:
         """Single-shot batched generation: prompts (B, S) int32, left-aligned
-        and of one length; one prefill, then ``max_new_tokens`` decode
-        steps.  Returns (B, max_new_tokens) int32.  ``gen`` (a generator on
+        and of one length; one prefill (S decode steps for the SSM and
+        hybrid families), then ``max_new_tokens`` decode steps.  Returns (B, max_new_tokens) int32.  ``gen`` (a generator on
         the engine's device) draws the samples when the temperature is
         positive; each step takes the next numbers of its stream, where the
         reference folds the step index into its key."""
         prompts = np.asarray(prompts, dtype=np.int32)
         cache = self.init_cache(prompts.shape[0])
-        logits, cache = self._prefill(
-            self.params, torch.as_tensor(prompts, device=self.device), cache)
+        toks = torch.as_tensor(prompts, device=self.device)
+        if self.steps_prompts:
+            for t in range(toks.shape[1]):
+                logits, cache = self._decode(self.params, toks[:, t:t + 1],
+                                             cache)
+        else:
+            logits, cache = self._prefill(self.params, toks, cache)
         out = []
         for _ in range(max_new_tokens):
             nxt = self._sample(logits, gen)
@@ -116,7 +130,8 @@ class _Slot:
 def _copy_slot(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor],
                slot: int) -> None:
     """In place: ``dst``'s ``slot``-th batch entry := ``src``'s.  Batch is
-    axis 1 for the layer-stacked k/v, axis 0 for ``index``."""
+    axis 1 for every layer-stacked tensor (k / v, the SSM and conv
+    states), axis 0 for ``index``."""
     for name, d in dst.items():
         if name == "index":
             d[slot] = src[name][slot]
@@ -128,10 +143,12 @@ class ContinuousBatcher:
     """Fixed-slot continuous batching: finished sequences free their slot,
     queued requests join mid-flight.
 
-    Admission: the batched prefill advances and rewrites every slot's cache
-    row and index, so admission copies the cache first, resets the admitted
-    slot to the fresh state (index 0), prefills, and then restores every
-    other slot's row and index from the copy.  Active slots decode as if
+    Admission: the batched prefill (for the SSM and hybrid families, one
+    decode step per prompt token, the other rows stepping on their last
+    token) advances and rewrites every slot's cache row and index, so
+    admission copies the cache first, resets the admitted slot to the
+    fresh state (index 0), prefills, and then restores every other slot's
+    row and index from the copy.  Active slots decode as if
     the admission never happened and the admitted slot as if alone
     (interleaved output == sequential output when rows are independent,
     i.e. with quantization disabled — an integer per-tensor scale spans
@@ -207,13 +224,23 @@ class ContinuousBatcher:
             rid, prompt, budget, deadline = nxt
             snap = {k: v.clone() for k, v in self.cache.items()}
             _copy_slot(self.cache, self._fresh_cache, slot_id)
-            # one chunked-prefill call: the admitted slot's prompt in its
-            # row, zeros elsewhere — other rows are restored below
-            toks = np.zeros((len(self.slots), len(prompt)), np.int32)
-            toks[slot_id] = prompt
-            logits, self.cache = eng._prefill(
-                eng.params, torch.as_tensor(toks, device=eng.device),
-                self.cache)
+            if eng.steps_prompts:
+                # teacher-forced: the prompt's tokens in the admitted row
+                # step by step; the other rows are restored below
+                for t in range(len(prompt)):
+                    self.last_tok = self.last_tok.clone()
+                    self.last_tok[slot_id, 0] = int(prompt[t])
+                    logits, self.cache = eng._decode(eng.params,
+                                                     self.last_tok,
+                                                     self.cache)
+            else:
+                # one chunked-prefill call: the admitted slot's prompt in
+                # its row, zeros elsewhere — other rows are restored below
+                toks = np.zeros((len(self.slots), len(prompt)), np.int32)
+                toks[slot_id] = prompt
+                logits, self.cache = eng._prefill(
+                    eng.params, torch.as_tensor(toks, device=eng.device),
+                    self.cache)
             _copy_slot(snap, self.cache, slot_id)
             self.cache = snap
             if self._logits is not None:

@@ -655,6 +655,68 @@ def test_int_attn_bwd_any_head_dim(dev, hd, lqk, lpv, lg, ds_bits, pb):
         assert torch.equal(got, ref)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,M,K,N,lx,lw", [
+    # mamba2-370m's wdt at batch 8 x 256: forward, dX over K = 32, dW
+    ("nn", 2048, 1024, 32, 2, 1), ("nt", 2048, 32, 1024, 1, 1),
+    ("tn", 1024, 2048, 32, 2, 1),
+    # zamba2-2.7b's: N = 80
+    ("nn", 2048, 2560, 80, 2, 1), ("nt", 2048, 80, 2560, 1, 1),
+    ("tn", 2560, 2048, 80, 2, 1),
+    # a decode row of zamba2's wdt
+    ("nn", 4, 2560, 80, 2, 1)])
+def test_bfp_matmul_ssm_wdt_shapes(dev, layout, M, K, N, lx, lw):
+    """The Mamba2 dt projection: the narrowest products of the SSM slice
+    (N = 32 / 80 heads), its dX contracting over K = 32 / 80: bit for
+    bit."""
+    assert torch.equal(*_mm_case(dev, layout, M, K, N, lx, lw, seed=K + N))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["train", "decode", "ragged_gqa"])
+def test_int_attn_head_dim_80(dev, case):
+    """zamba2-2.7b's shared attention block: head dim 80 (not a multiple of
+    the s8 ``mma`` k-step of 32), 32 heads, no GQA; the forward within 1e-5
+    of max|o| and 1e-4 on lse, dq / dk / dv bit for bit (training
+    shapes)."""
+    B, Sq, Sk, KV, G, off = {"train": (2, 256, 256, 8, 1, [0, 0]),
+                             "decode": (4, 1, 256, 8, 1, [64, 65, 66, 255]),
+                             "ragged_gqa": (2, 70, 150, 2, 2, [80, 0])}[case]
+    hd = 80
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+
+    def planes(L, *shape):
+        return torch.randint(-64, 65, (L,) + shape, generator=gen,
+                             device=dev, dtype=torch.int8)
+    qm, km = planes(2, B, Sq, KV, G, hd), planes(2, B, Sk, KV, hd)
+    vm, gm = planes(2, B, Sk, KV, hd), planes(1, B, Sq, KV, G, hd)
+    qo = torch.tensor(off, dtype=torch.int32, device=dev)
+    exps = torch.tensor([-11, -10, -8, -12, -13], dtype=torch.int32,
+                        device=dev)
+    sc = 1.0 / hd ** 0.5
+    kw = dict(p_bits=12, causal=True, window=None, sc=sc)
+    o, lse = ia.int_attn_fwd(qm, km, vm, qo, exps[:3], **kw)
+    o0, lse0 = ia.int_attn_fwd_plain(qm, km, vm, qo, exps[:3], **kw)
+    assert o0.abs().max() > 0
+    assert (o - o0).abs().max() <= 1e-5 * o0.abs().max()
+    assert (lse - lse0).abs().max() <= 1e-4
+    if Sq == 1:
+        return
+    delta = 0.05 * torch.randn((B, Sq, KV, G), generator=gen, device=dev)
+    kw = dict(ds_bits=8, causal=True, window=None, sc=sc)
+    dq = ia.int_attn_bwd_dq(qm, km, vm, gm, lse0, delta, qo, exps,
+                            p_bits=12, **kw)
+    dk, dv = ia.int_attn_bwd_dkv(qm, km, vm, gm, lse0, delta, qo, exps,
+                                 p_bits=12, **kw)
+    dq0 = ia.int_attn_bwd_dq_plain(qm, km, vm, gm, lse0, delta, qo, exps,
+                                   **kw)
+    dk0, dv0 = ia.int_attn_bwd_dkv_plain(qm, km, vm, gm, lse0, delta, qo,
+                                         exps, p_bits=12, **kw)
+    for got, ref in ((dq, dq0), (dk, dk0), (dv, dv0)):
+        assert ref.abs().max() > 0
+        assert torch.equal(got, ref)
+
+
 def test_cpu_tensors_take_the_plain_version():
     """On the CPU the wrappers run the plain versions (no build, no card)."""
     x = torch.randn(5, 6)

@@ -260,7 +260,7 @@ def test_unported_train_paths_raise():
         with pytest.raises(NotImplementedError, match=flag[0]):
             launch_train.parse_args(flag)
     with pytest.raises(NotImplementedError):
-        launch_train.main(["--arch", "mamba2-370m", "--device", "cpu"])
+        launch_train.main(["--arch", "whisper-large-v3", "--device", "cpu"])
 
 
 def test_launcher_trains_on_cpu(caplog):

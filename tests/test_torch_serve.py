@@ -181,7 +181,7 @@ def test_forward_only_and_unported_paths_raise():
     ys = int_ops.int_activation(xs, QuantConfig(kept_ops="integer"), "silu")
     assert (ys - torch.nn.functional.silu(xs)).abs().max() <= 4e-3
     with pytest.raises(NotImplementedError):
-        registry.get_config("mamba2-370m")
+        registry.get_config("whisper-large-v3")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             lm.init_cache(registry.get_config(ARCH).reduced(), 1, 8)
