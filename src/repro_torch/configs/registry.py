@@ -16,8 +16,9 @@ ARCH_IDS = ("zamba2-2.7b", "qwen1.5-0.5b", "mistral-nemo-12b", "smollm-135m",
             "mistral-large-123b", "llava-next-mistral-7b", "mixtral-8x7b",
             "qwen2-moe-a2.7b", "mamba2-370m", "whisper-large-v3")
 
-#: arch id -> config module of the archs this port runs (every decoder-only
-#: family: dense, MoE, SSM, hybrid and VLM)
+#: arch id -> config module of the archs this port runs: every family of
+#: the reference (the decoder-only dense, MoE, SSM, hybrid and VLM ones
+#: through ``models/lm.py``, the enc-dec one through ``models/encdec.py``)
 PORTED = {
     "qwen1.5-0.5b": "qwen1p5_0p5b",
     "smollm-135m": "smollm_135m",
@@ -28,6 +29,7 @@ PORTED = {
     "mamba2-370m": "mamba2_370m",
     "zamba2-2.7b": "zamba2_2p7b",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 

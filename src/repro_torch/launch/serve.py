@@ -41,6 +41,10 @@ def main(argv=None) -> None:
     cfg = registry.get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.enc_dec:
+        raise SystemExit("the serving engine runs decoder-only archs; decode "
+                         "an enc-dec arch through models/encdec.py (encode, "
+                         "encdec_precompute_cross, encdec_decode_step)")
     device = lm.resolve_device(args.device)
     params = lm.lm_init(torch.Generator(device=device).manual_seed(args.seed),
                         cfg, device=device)

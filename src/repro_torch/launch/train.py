@@ -9,7 +9,9 @@
 
 Random weights from ``--seed`` (default 0) through one ``torch.Generator``
 on the device, which then also draws the stochastic gradient rounding's
-noise; batches from ``SyntheticLM``; AdamW at ``--lr`` with the reference's
+noise; batches from ``SyntheticLM`` (``make_batch``: an enc-dec arch,
+whose model is ``models/encdec.py``, also gets ``--seq`` frame embeddings
+a row, a VLM its patch embeddings); AdamW at ``--lr`` with the reference's
 defaults (constant schedule, clipping at 1): FP32 moments, or with
 ``--state-bits`` QTensor moments; ``--gather-bits`` lets the compute see
 each parameter's DFX image.  Runs on the card unless ``--device cpu``.
@@ -39,7 +41,7 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.train import chaos as chaos_lib
 from repro_torch.train import checkpoint, fault
 from repro_torch.train import optimizer as opt_lib
@@ -172,9 +174,16 @@ class Run:
 
 
 def make_batch(cfg, raw: dict) -> dict:
-    """The model's batch from the data's: a VLM's gets zero patch
-    embeddings (B, vlm_prefix, D), as the reference's launcher gives it
-    (the vision tower is a stub)."""
+    """The model's batch from the data's: an enc-dec arch's gets frame
+    embeddings (B, seq, D), unit normals from a generator seeded 0 anew
+    for every batch, and a VLM's zero patch embeddings (B, vlm_prefix, D),
+    as the reference's launcher gives them (the audio frontend and the
+    vision tower are stubs)."""
+    if cfg.enc_dec:
+        B, S = raw["tokens"].shape
+        frames = np.random.default_rng(0).standard_normal(
+            (B, S, cfg.d_model)).astype(np.float32)
+        return {"frames": frames, **raw}
     if cfg.vlm_prefix:
         B = raw["tokens"].shape[0]
         return {"patch_embeds": np.zeros((B, cfg.vlm_prefix, cfg.d_model),
@@ -182,10 +191,18 @@ def make_batch(cfg, raw: dict) -> dict:
     return raw
 
 
+def _model(cfg) -> tuple:
+    """(init, loss) of the arch's model: ``models/encdec.py`` for an
+    enc-dec arch, ``models/lm.py`` for the others."""
+    if cfg.enc_dec:
+        return encdec.encdec_init, encdec.encdec_loss
+    return lm.lm_init, lm.lm_loss
+
+
 def _step_fn(cfg, qcfg, opt_cfg, tcfg, sentinel: bool):
     make = (sentinel_lib.make_sentinel_step if sentinel
             else trainer.make_train_step)
-    return make(lm.lm_loss, cfg, qcfg, opt_cfg, tcfg)
+    return make(_model(cfg)[1], cfg, qcfg, opt_cfg, tcfg)
 
 
 def build(args: argparse.Namespace,
@@ -199,7 +216,7 @@ def build(args: argparse.Namespace,
     qcfg = registry.get_quant(args.quant)
     device = lm.resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = lm.lm_init(gen, cfg, device=device)
+    params = _model(cfg)[0](gen, cfg, device=device)
     opt_cfg = opt_lib.OptimizerConfig(lr=args.lr, total_steps=args.steps,
                                       state_bits=args.state_bits,
                                       seed=args.seed)

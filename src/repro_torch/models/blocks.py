@@ -1,7 +1,8 @@
 """Transformer blocks built on the integer layers.
 
 Counterpart of ``repro/models/blocks.py``: RoPE, GQA attention (causal with
-a KV cache, or bidirectional for the encoder), the SwiGLU and GELU MLPs, the
+a KV cache, bidirectional for the encoder, or cross-attention over given
+keys and values), the SwiGLU and GELU MLPs, the
 mixture of experts (top-k router, capacity dispatch, per-expert integer
 SwiGLU, optional shared expert) and the RMS-norm / layer-norm wrappers, as
 plain functions over dicts of tensors.  Every projection and norm goes
@@ -247,6 +248,7 @@ def attention_apply(
     causal: bool = True,
     kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cache_index=0,
+    kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     use_rope: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """GQA self-attention, causal with RoPE (the LM) or bidirectional
@@ -254,18 +256,23 @@ def attention_apply(
     cache).  x: (B, S, D) at positions ``cache_index + [0, S)``.  A given
     ``kv_cache`` (k, v) of shape (B, Smax, KV, hd) is updated in place (the
     reference returns an updated copy) and attention then runs over the
-    whole cache."""
+    whole cache.  ``kv_override`` (k, v), each (B, Sk, KV, hd), is
+    cross-attention: only q is projected, and RoPE never touches the given
+    keys."""
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
     sc = ensure_scope(qcfg)
     health.probe(sc.path, x, sc.leaf("wq").act_bits)
     q = int_ops.int_linear(x, p["wq"], p.get("bq"), key, sc.leaf("wq"))
-    k = int_ops.int_linear(x, p["wk"], p.get("bk"), key, sc.leaf("wk"))
-    v = int_ops.int_linear(x, p["wv"], p.get("bv"), key, sc.leaf("wv"))
     q = q.reshape(B, S, KV, G, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    if kv_override is None:
+        k = int_ops.int_linear(x, p["wk"], p.get("bk"), key, sc.leaf("wk"))
+        v = int_ops.int_linear(x, p["wv"], p.get("bv"), key, sc.leaf("wv"))
+        k = k.reshape(B, S, KV, hd)
+        v = v.reshape(B, S, KV, hd)
+    else:
+        k, v = kv_override
 
     idx = torch.as_tensor(cache_index, device=x.device)
     if use_rope:
@@ -273,7 +280,8 @@ def attention_apply(
                      + torch.arange(S, device=x.device)).expand(B, S)
         q = rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta).reshape(
             B, S, KV, G, hd)
-        k = rope(k, positions, cfg.rope_theta)
+        if kv_override is None:
+            k = rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     q_offset = 0

@@ -56,17 +56,20 @@ STATE_FAMILIES = ("ssm", "hybrid")
 
 
 def _require_ported(cfg: ArchConfig) -> None:
+    if cfg.enc_dec:
+        raise NotImplementedError(
+            f"{cfg.name}: an enc-dec arch runs through models/encdec.py "
+            "(encdec_init, encdec_loss, encode, encdec_precompute_cross, "
+            "encdec_decode_step), not the decoder-only models/lm.py")
     if (cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm")
-            or cfg.enc_dec
             or bool(cfg.moe_experts) != (cfg.family == "moe")
             or bool(cfg.vlm_prefix) != (cfg.family == "vlm")
             or (cfg.family == "hybrid"
                 and (not cfg.hybrid_attn_every
                      or cfg.n_layers % cfg.hybrid_attn_every))):
         raise NotImplementedError(
-            f"{cfg.name}: the decoder-only families (dense, MoE, SSM, "
-            f"hybrid, VLM) are ported, the audio / enc-dec ones not yet "
-            f"(got family={cfg.family!r})")
+            f"{cfg.name}: models/lm.py runs the decoder-only families "
+            f"(dense, MoE, SSM, hybrid, VLM); got family={cfg.family!r}")
 
 
 def _block_leaves(cfg: ArchConfig) -> list:

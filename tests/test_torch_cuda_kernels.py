@@ -717,6 +717,54 @@ def test_int_attn_head_dim_80(dev, case):
         assert torch.equal(got, ref)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["encoder_ragged", "cross", "cross_gqa",
+                                  "decode_cross"])
+def test_int_attn_bidirectional_sq_ne_sk(dev, case):
+    """whisper-large-v3's attention calls: bidirectional over keys
+    that end inside a block (the encoder's 1500 frames), cross-attention
+    with Sq != Sk (decoder queries over the encoder's keys) and one
+    bidirectional decode row over the precomputed cross keys, head dim 64:
+    the forward and dq / dk / dv bit for bit (int8 preset's limbs)."""
+    B, Sq, Sk, KV, G = {"encoder_ragged": (2, 150, 150, 4, 1),
+                        "cross": (2, 48, 150, 4, 1),
+                        "cross_gqa": (2, 70, 21, 2, 2),
+                        "decode_cross": (4, 1, 150, 4, 1)}[case]
+    hd = 64
+    gen = torch.Generator(device=dev).manual_seed(Sq + Sk)
+
+    def planes(L, *shape):
+        return torch.randint(-64, 65, (L,) + shape, generator=gen,
+                             device=dev, dtype=torch.int8)
+    qm, km = planes(2, B, Sq, KV, G, hd), planes(2, B, Sk, KV, hd)
+    vm, gm = planes(2, B, Sk, KV, hd), planes(1, B, Sq, KV, G, hd)
+    qo = torch.zeros((B,), dtype=torch.int32, device=dev)
+    exps = torch.tensor([-11, -10, -8, -12, -13], dtype=torch.int32,
+                        device=dev)
+    sc = 1.0 / hd ** 0.5
+    kw = dict(p_bits=12, causal=False, window=None, sc=sc)
+    o, lse = ia.int_attn_fwd(qm, km, vm, qo, exps[:3], **kw)
+    o0, lse0 = ia.int_attn_fwd_plain(qm, km, vm, qo, exps[:3], **kw)
+    assert o0.abs().max() > 0
+    assert torch.equal(o, o0)
+    assert (lse - lse0).abs().max() <= 1e-4
+    if Sq == 1:
+        return
+    delta = 0.05 * torch.randn((B, Sq, KV, G), generator=gen, device=dev)
+    kw = dict(ds_bits=8, causal=False, window=None, sc=sc)
+    dq = ia.int_attn_bwd_dq(qm, km, vm, gm, lse0, delta, qo, exps,
+                            p_bits=12, **kw)
+    dk, dv = ia.int_attn_bwd_dkv(qm, km, vm, gm, lse0, delta, qo, exps,
+                                 p_bits=12, **kw)
+    dq0 = ia.int_attn_bwd_dq_plain(qm, km, vm, gm, lse0, delta, qo, exps,
+                                   **kw)
+    dk0, dv0 = ia.int_attn_bwd_dkv_plain(qm, km, vm, gm, lse0, delta, qo,
+                                         exps, p_bits=12, **kw)
+    for got, ref in ((dq, dq0), (dk, dk0), (dv, dv0)):
+        assert ref.abs().max() > 0
+        assert torch.equal(got, ref)
+
+
 def test_cpu_tensors_take_the_plain_version():
     """On the CPU the wrappers run the plain versions (no build, no card)."""
     x = torch.randn(5, 6)
