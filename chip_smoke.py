@@ -1519,9 +1519,9 @@ def check_attention_bwd(torch, dev, gen):
         B, Sq, Sk, KV, G, hd, off, causal, window, ab, gb = shape
         q, k, v, g, lse, delta, qo, exps = _attn_bwd_inputs(torch, dev, gen,
                                                             shape)
-        # whisper's calls: the body its int8 path runs
-        for iexp in ((False, True) if (ab, gb) == (12, 8)
-                     and label not in WHISPER_ATTN_BWD else (False,)):
+        # both bodies at the int8 bits, whisper's Sq != Sk bidirectional
+        # calls too
+        for iexp in ((False, True) if (ab, gb) == (12, 8) else (False,)):
             kw = dict(ds_bits=gb, causal=causal, window=window,
                       sc=1.0 / hd ** 0.5, integer_exp=iexp)
             dq = ia.int_attn_bwd_dq(q, k, v, g, lse, delta, qo, exps,
@@ -1616,15 +1616,17 @@ def check_attention_bwd(torch, dev, gen):
             res["int_attn_bwd_dq"].update(int_body(timings(
                 lambda: ia.int_attn_bwd_dq(q, k, v, g, lse, delta, qo, exps,
                                            p_bits=ab, **ki),
-                lambda: ia.int_attn_bwd_dq_plain(q, k, v, g, lse, delta, qo,
-                                                 exps, **ki)),
+                (lambda: ia.int_attn_bwd_dq_plain(
+                    q, k, v, g, lse, delta, qo, exps, **ki))
+                if time_plain else None),
                 bound_ms=res["int_attn_bwd_dq"]["bound_ms"],
                 bound_by=res["int_attn_bwd_dq"]["bound_by"]))
             res["int_attn_bwd_dkv"].update(int_body(timings(
                 lambda: ia.int_attn_bwd_dkv(q, k, v, g, lse, delta, qo,
                                             exps, p_bits=ab, **ki),
-                lambda: ia.int_attn_bwd_dkv_plain(q, k, v, g, lse, delta, qo,
-                                                  exps, p_bits=ab, **ki)),
+                (lambda: ia.int_attn_bwd_dkv_plain(
+                    q, k, v, g, lse, delta, qo, exps, p_bits=ab, **ki))
+                if time_plain else None),
                 bound_ms=res["int_attn_bwd_dkv"]["bound_ms"],
                 bound_by=res["int_attn_bwd_dkv"]["bound_by"]))
         return res
@@ -1637,7 +1639,8 @@ def check_attention_bwd(torch, dev, gen):
     arch = {lb: measure(*timed[lb], time_plain=lb != MIXTRAL_ATTN)
             for lb in ARCH_ATTN}
     ssm = {ZAMBA_ATTN: measure(*timed[ZAMBA_ATTN])}
-    whisper = {lb: measure(*timed[lb], time_plain=lb != WHISPER_ENC)
+    whisper = {lb: measure(*timed[lb], kept_int=True,
+                           time_plain=lb != WHISPER_ENC)
                for lb in WHISPER_ATTN_BWD}
     shape = ATTN_BWD_SHAPES["qwen1.5-0.5b train"]
     B, Sq, Sk, KV, G, hd = shape[:6]
@@ -1655,6 +1658,11 @@ def check_attention_bwd(torch, dev, gen):
                   f"{_ms(m['plain_device_ms'])}; SDPA backward device "
                   f"{m['library_device_ms']:.4f}; bound {m['bound_ms']:.4f} "
                   f"ms ({m['bound_by']})", flush=True)
+            if "int_ms" in m:
+                print(f"  {name} kept-int body at {what}: call "
+                      f"{m['int_ms']:.4f} ms, device "
+                      f"{m['int_device_ms']:.4f} ms; plain (flag set) "
+                      f"device {_ms(m['int_plain_device_ms'])}", flush=True)
         print(body_line(name, main[name]))
         out_k.append(dict(
             name=name, route="cuda",
@@ -1673,7 +1681,7 @@ def check_attention_bwd(torch, dev, gen):
                   "shared block, head dim 80 (ssm_rows) and at phase 13's "
                   "whisper encoder, cross-attention (Sq != Sk, "
                   "bidirectional) and decoder self-attention "
-                  "(whisper_rows); held at "
+                  "(whisper_rows, both bodies: int_*); held at "
                   + ", ".join(ATTN_BWD_SHAPES)
                   + " (both bodies at the int8 bits); tolerance exact; "
                   "library: SDPA backward (f32, autograd, dq + dk + dv)",
@@ -4830,6 +4838,322 @@ def whisper_phase(torch, dev, kops) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: distributed training on torch.distributed
+# ---------------------------------------------------------------------------
+
+#: Phase 14: qwen1.5-0.5b at full width (d_model 1024, vocab 151936),
+#: batch 8 x seq 256 (the global batch; 4 rows a rank at 2 ranks),
+#: ``DIST_STEPS`` AdamW steps at lr 1e-4.  One card: the 2-rank parts run
+#: two gloo processes that share it (NCCL refuses two ranks on one GPU),
+#: so their collectives go through the host; 14c runs a one-rank NCCL
+#: group.  14a and 14c run ``DIST_LAYERS`` of 24 layers, cut for the
+#: run's time (at 24 the phase took 105.2 s: 14a 42.5 s, its steps 5.6 s;
+#: NVIDIA H100 80GB HBM3, 700.00 W); 14b, through ``launch.train``, all 24.
+DIST_LAYERS, DIST_BATCH, DIST_STEPS = 12, (8, 256), 3
+#: seconds each part may take (spawn, build load, init, steps)
+DIST_TIMEOUT = 420
+DIST_PATH = ("dfx_quantize", "bfp_matmul", "bfp_matmul_nt", "bfp_matmul_tn",
+             "int_rmsnorm_fwd", "int_rmsnorm_bwd", "int_attn_fwd",
+             "int_attn_bwd_dq", "int_attn_bwd_dkv")
+
+
+def _dist_config():
+    import dataclasses
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get_config("qwen1.5-0.5b"),
+                               n_layers=DIST_LAYERS)
+
+
+def _plain_image(torch, full, spec, mesh):
+    """A leaf's int8 image as the plain quantize makes it: each data block
+    at its own exponent (``sharding.local_slices`` of every data rank)."""
+    from repro_torch.core import dfx
+    from repro_torch.kernels.dfx_quant import dfx_quantize_plain
+    d = next((i for i, a in enumerate(spec) if a == "data"), None)
+    if d is None:
+        return full
+    parts = []
+    for block in torch.chunk(full, mesh.shape["data"], dim=d):
+        e = dfx.scale_exponent(block) - 7
+        m = dfx_quantize_plain(block, e, bits=8)
+        parts.append(m.to(torch.float32) * dfx.pow2(e))
+    return torch.cat(parts, dim=d)
+
+
+def _dist_stats(before: dict, after: dict, steps: int) -> dict:
+    """Collectives per step by tag: {tag: [calls, bytes]}."""
+    out = {}
+    for (tag, what), v in after.items():
+        out.setdefault(tag, [0.0, 0.0])[what == "bytes"] = (
+            v - before.get((tag, what), 0)) / steps
+    return out
+
+
+def dist_fsdp(torch, dev, check: bool) -> dict:
+    """14a / 14c on every rank: ``init_train_state(fsdp=True)`` +
+    ``jit_train_step`` with the int8 gather and int8 moments.  With
+    ``check`` the gather's image is held against the plain per-block
+    fake-quant and rank 0 computes the one-rank forward loss on the same
+    image and batch.  Returns what rank 0 reports."""
+    import torch.distributed as dist
+    from repro_torch import sharding
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt_lib, trainer
+    from repro_torch.train.finetune import to_device
+    from repro_torch.configs import registry
+    world = dist.get_world_size()
+    mesh = sharding.init_mesh((world, 1), ("data", "model"))
+    cfg, q = _dist_config(), registry.get_quant("int8")
+    opt_cfg = opt_lib.OptimizerConfig(lr=1e-4, state_bits=8,
+                                      total_steps=DIST_STEPS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, opt, pspecs = trainer.init_train_state(
+        lambda g: lm.lm_init(g, cfg, device=dev), gen, mesh, fsdp=True,
+        opt_cfg=opt_cfg)
+    gen.manual_seed(1 + mesh.rank)              # the rank's own rounding
+    step = trainer.jit_train_step(trainer.make_train_step(
+        lm.lm_loss, cfg, q, opt_cfg, trainer.TrainConfig(gather_bits=8)),
+        mesh, pspecs)
+    B, S = DIST_BATCH
+    data = SyntheticLM(DataConfig(batch_size=B, seq_len=S, vocab=cfg.vocab))
+    batches = [to_device(next(data), dev) for _ in range(DIST_STEPS)]
+    out = {"rank": mesh.rank, "world": world}
+    flat = list(zip(opt_lib.tree_leaves(params),
+                    opt_lib.tree_leaves(pspecs)))
+    out["f32_gather_bytes"] = sum(
+        4 * p.numel() * world for p, s in flat if "data" in s)
+    out["params"] = sum(p.numel() * mesh.count(
+        tuple(a for a in s if a)) for p, s in flat)
+    if check:
+        with torch.no_grad():
+            image = sharding.quantized_all_gather(params, mesh, bits=8,
+                                                  pspecs=pspecs)
+            bad = []
+            for (p, spec), img in zip(flat, opt_lib.tree_leaves(image)):
+                plain = _plain_image(torch, sharding.gather_full(
+                    p, spec, mesh), spec, mesh)
+                if not torch.equal(img, plain):
+                    bad.append(spec)
+            if bad:
+                raise AssertionError(f"int8 gather image differs from the "
+                                     f"per-block plain fake-quant: {bad}")
+            if mesh.rank == 0:
+                out["one_rank_loss"] = float(lm.lm_loss(
+                    image, batches[0], cfg, q, None)[0])
+            del image
+    gc.collect()
+    torch.cuda.empty_cache()
+    wrappers = kops.wrappers(*DIST_PATH, "dfx_quantize_grouped")
+    for w in wrappers.values():
+        w.launches = 0
+    sharding.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(sharding.STATS)
+    stamps, losses = [time.perf_counter()], []
+    for b in batches:
+        params, opt, m = step(params, opt, b, gen)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    launches = {n: w.launches for n, w in wrappers.items()}
+    for n, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"rank {mesh.rank}: {n} was not launched")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    stats = _dist_stats(before, dict(sharding.STATS), DIST_STEPS)
+    peak = sharding.all_gather(torch.tensor(
+        torch.cuda.max_memory_allocated() / 2**30), mesh.axis_names, mesh)
+    out.update(losses=losses, launches=launches, stats=stats,
+               step_ms=[1e3 * (b - a) for a, b in zip(stamps, stamps[1:])],
+               peak_gib=[float(v) for v in peak])
+    return out
+
+
+def dist_compressed(torch, dev) -> dict:
+    """14b on every rank: ``launch.train`` with ``--pods 2
+    --grad-compress-bits 8`` over gloo at full width and depth, then one
+    leaf-sized compressed mean held against the float64 mean of the
+    ranks' mantissas at the shared exponent."""
+    import torch.distributed as dist
+    from repro_torch import sharding
+    from repro_torch.core import dfx, grad_compress
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import train as lt
+    B, S = DIST_BATCH
+    wrappers = kops.wrappers(*DIST_PATH)
+    for w in wrappers.values():
+        w.launches = 0
+    sharding.reset_stats()
+    stamps = []
+
+    def on_step(i, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    t0 = time.perf_counter()
+    losses = lt.main(["--arch", "qwen1.5-0.5b", "--batch", str(B), "--seq",
+                      str(S), "--steps", str(DIST_STEPS), "--lr", "1e-4",
+                      "--log-every", str(DIST_STEPS), "--device", "cuda",
+                      "--dist-backend", "gloo", "--pods", "2",
+                      "--grad-compress-bits", "8"], on_step=on_step)
+    launches = {n: w.launches for n, w in wrappers.items()}
+    stats = _dist_stats({}, dict(sharding.STATS), DIST_STEPS)
+    for n, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"{n} was not launched on the compressed "
+                                 "path")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    rank = dist.get_rank()
+    mesh = sharding.init_mesh((2, 1, 1), ("pod", "data", "model"))
+    shape = (DIST_LAYERS, 1024, 2816)          # qwen's blocks.mlp.wg
+    g = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(
+        rank), device=dev) * 1e-3
+    got, _ = grad_compress.compressed_psum_mean({"w": g}, None, bits=8,
+                                                min_size=1, mesh=mesh)
+    both = sharding.all_gather(g, "pod", mesh).double()
+    e = max(int(dfx.scale_exponent(x.float())) for x in both) - 7
+    ms = torch.clamp(torch.round(both * 2.0 ** -e), -127, 127)
+    ref = (ms.sum(0) * 2.0 ** e / 2).float()
+    if not torch.equal(got["w"], ref):
+        raise AssertionError("the compressed mean differs from the float64 "
+                             "mean of the dequantized per-rank tensors at "
+                             f"{int((got['w'] != ref).sum())} elements")
+    return {"rank": rank, "losses": losses, "launches": launches,
+            "stats": stats, "first_ms": 1e3 * (stamps[0] - t0),
+            "step_ms": [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "leaf": list(shape)}
+
+
+def dist_worker(part: str, out_dir: str) -> int:
+    """One rank of phase 14's part ``part`` under ``torchrun``; rank 0
+    writes ``out_dir/<part>.json``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if part == "14c" else "gloo")
+    try:
+        out = (dist_compressed(torch, dev) if part == "14b"
+               else dist_fsdp(torch, dev, check=part == "14a"))
+        if dist.get_rank() == 0:
+            Path(out_dir, f"{part}.json").write_text(json.dumps(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _spawn_part(part: str, nproc: int, out_dir: str) -> dict:
+    """Run a part under ``torchrun --nproc-per-node nproc``; its process
+    group is killed at ``DIST_TIMEOUT``."""
+    import os
+    import signal
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="4")
+    p = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(nproc), str(ROOT / "chip_smoke.py"),
+         "--dist-worker", part, out_dir], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        log, _ = p.communicate(timeout=DIST_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        raise AssertionError(f"phase {part} passed its {DIST_TIMEOUT} s")
+    if p.returncode != 0:
+        raise AssertionError(f"phase {part} failed (rc {p.returncode}):\n"
+                             + log[-6000:])
+    return json.loads(Path(out_dir, f"{part}.json").read_text())
+
+
+def _stat(stats: dict, *tags) -> tuple:
+    return (sum(stats.get(t, [0, 0])[0] for t in tags),
+            sum(stats.get(t, [0, 0])[1] for t in tags))
+
+
+def dist_phase(torch, card: str) -> dict:
+    """Phase 14: 14a (2 gloo ranks sharing the card, the SPMD step with the
+    int8 gather and int8 moments), 14b (the compressed step through
+    ``launch.train`` under ``torchrun``) and 14c (a one-rank NCCL group
+    running 14a's step).  Returns {path: rank 0's launches}."""
+    import shutil
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        t0 = time.perf_counter()
+        B, S = DIST_BATCH
+        print(f"[14a] qwen1.5-0.5b, full width, {DIST_LAYERS} layers, 2 gloo "
+              f"ranks on one card: init_train_state(fsdp=True) + "
+              f"jit_train_step, int8 gather + int8 moments, {B} x {S}, "
+              f"{DIST_STEPS} steps", flush=True)
+        a = _spawn_part("14a", 2, out_dir)
+        rel = abs(a["losses"][0] - a["one_rank_loss"]) / abs(
+            a["one_rank_loss"])
+        if not rel <= 1e-6:
+            raise AssertionError(f"14a: first loss {a['losses'][0]} vs the "
+                                 f"one-rank loss {a['one_rank_loss']}")
+        st = a["stats"]
+        g8 = _stat(st, "gather_int8")
+        gs = _stat(st, "grad_sum")
+        ex = _stat(st, "exponent")
+        stt = _stat(st, "stat", "metric", "moment_exp")
+        print(f"  [{card}] losses {a['losses']}; first loss {a['losses'][0]}"
+              f" vs one rank on the same image {a['one_rank_loss']} "
+              f"(rel {rel:.2e}, band 1e-6); the int8 gather's image equals "
+              "the per-block plain fake-quant bit for bit")
+        print(f"  [{card}] step ms {[round(v, 1) for v in a['step_ms']]}; "
+              f"per step: parameter gather {g8[1] / 1e9:.4f} GB int8 "
+              f"({g8[0]:.0f} calls) against {a['f32_gather_bytes'] / 1e9:.4f}"
+              f" GB f32; gradient all-reduce {gs[1] / 1e9:.4f} GB f32 "
+              f"({gs[0]:.0f} calls); exponent all-reduces {ex[0]:.0f}; "
+              f"other small all-reduces {stt[0]:.0f}; peak per rank "
+              f"{[round(v, 2) for v in a['peak_gib']]} GiB; "
+              f"{a['params'] / 1e6:.1f} M parameters", flush=True)
+        print(f"  [{card}] launches per rank in the run: {a['launches']}")
+        print(f"[14a] in {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        print(f"[14b] qwen1.5-0.5b, full width and depth, through "
+              f"launch.train under torchrun --nproc-per-node 2: --pods 2 "
+              f"--grad-compress-bits 8, gloo, {B} x {S}, {DIST_STEPS} steps",
+              flush=True)
+        b = _spawn_part("14b", 2, out_dir)
+        st = b["stats"]
+        cs, ce, cf = (_stat(st, "compress_sum"), _stat(st, "compress_exp"),
+                      _stat(st, "compress_fp32"))
+        print(f"  [{card}] losses {b['losses']}; set-up + step 0 "
+              f"{b['first_ms']:.1f} ms; steps 1.. ms "
+              f"{[round(v, 1) for v in b['step_ms']]}; per step: int32 "
+              f"mantissa sums {cs[1] / 1e9:.4f} GB ({cs[0]:.0f} calls), "
+              f"exponent MAX {ce[0]:.0f}, FP32 small leaves "
+              f"{cf[1] / 1e6:.3f} MB ({cf[0]:.0f}); peak rank 0 "
+              f"{b['peak_gib']:.2f} GiB; the compressed mean of a "
+              f"{tuple(b['leaf'])} leaf equals the float64 mean of the "
+              "ranks' dequantized mantissas bit for bit", flush=True)
+        print(f"  [{card}] launches rank 0: {b['launches']}")
+        print(f"[14b] in {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        print(f"[14c] a one-rank NCCL group: 14a's step, {DIST_STEPS} steps",
+              flush=True)
+        c = _spawn_part("14c", 1, out_dir)
+        ex = _stat(c["stats"], "exponent")
+        print(f"  [{card}] losses {c['losses']}; step ms "
+              f"{[round(v, 1) for v in c['step_ms']]}; exponent all-reduces "
+              f"per step {ex[0]:.0f} (NCCL, one rank); peak "
+              f"{c['peak_gib'][0]:.2f} GiB; launches {c['launches']}")
+        print(f"[14c] in {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return {"dist_fsdp": a["launches"], "dist_compressed": b["launches"],
+            "dist_nccl": c["launches"]}
+
+
 def _to(tree, device):
     """A copy of the tree on ``device`` (a copy on the CPU too: a training
     step updates its parameters in place)."""
@@ -4839,6 +5163,18 @@ def _to(tree, device):
 
 def main() -> int:
     import dataclasses
+    import os
+    # the bytecode of every module this run imports goes under build/, so
+    # phase 14's worker processes load what this process compiled: where
+    # Python is set to write none (PYTHONDONTWRITEBYTECODE) and
+    # site-packages holds none, each process compiled its own (6.6 s of
+    # torch's import, ~8 s more in its first distributed step)
+    if (ROOT / "src" / "repro_torch").is_dir():
+        os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+        sys.dont_write_bytecode = False
+        os.environ.setdefault("PYTHONPYCACHEPREFIX",
+                              str(ROOT / "build" / "pycache"))
+        sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"]
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5021,6 +5357,15 @@ def main() -> int:
     whisper_launches = whisper_phase(torch, dev, kops)
     print(f"[13] phase took {time.perf_counter() - t13:.1f} s" + at(),
           flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[14] distributed training on torch.distributed: the int8 "
+          "gather, int8 moments, the compressed cross-pod mean, NCCL"
+          + at(), flush=True)
+    t14 = time.perf_counter()
+    dist_launches = dist_phase(torch, card)
+    print(f"[14] phase took {time.perf_counter() - t14:.1f} s" + at(),
+          flush=True)
     for k in kernels:
         by_path = {"serve": launches.get(k["name"], 0),
                    "finetune": ft_launches.get(k["name"], 0),
@@ -5039,7 +5384,9 @@ def main() -> int:
                    **{path: ls.get(k["name"], 0)
                       for path, ls in family_launches.items()},
                    **{path: ls.get(k["name"], 0)
-                      for path, ls in whisper_launches.items()}}
+                      for path, ls in whisper_launches.items()},
+                   **{path: ls.get(k["name"], 0)
+                      for path, ls in dist_launches.items()}}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         if "int_ms" in k:        # the kept-int paths run its integer body
@@ -5053,4 +5400,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(*sys.argv[2:4]))
     sys.exit(main())

@@ -33,6 +33,17 @@ PORTED = {
 }
 
 
+#: archs whose params + optimizer exceed ~8 GB a device without FSDP
+FSDP_ARCHS = frozenset({
+    "mistral-nemo-12b", "mistral-large-123b", "llava-next-mistral-7b",
+    "mixtral-8x7b", "qwen2-moe-a2.7b", "zamba2-2.7b", "whisper-large-v3",
+})
+
+
+def use_fsdp(arch: str) -> bool:
+    return arch in FSDP_ARCHS
+
+
 def get_config(arch: str) -> ArchConfig:
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; have {sorted(ARCH_IDS)}")

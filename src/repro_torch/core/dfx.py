@@ -9,12 +9,47 @@ Counterpart of ``repro/core/dfx.py``:
 Every power of two is built exactly (``pow2`` writes the IEEE exponent
 bits), where the reference's ``jnp.exp2(int)`` is exact on XLA:CPU only for
 small arguments; so the port's scales are exact at every exponent.
+
+Under a mesh (``sharding.spmd``) a step's tensors are split over the ranks
+of the batch axes, where the reference's jit'd SPMD step sees the logical
+tensor and XLA all-reduces its ``max|x|``.  ``sync`` then holds that
+reduction: ``scale_exponent`` / ``slice_exponents`` take the MAX of the
+int32 exponent over those ranks, ``global_max`` the MAX of a statistic
+that decides one (attention's row norms), and ``health_stats`` sums its
+counts, so every rank quantizes at the exponent one device would.  The
+losses take their batch means the same way (``global_sum``, ``ranks``).
+Inside ``sharding.manual_axes_active`` (the reference's ``shard_map``
+bodies) and on one device ``sync`` is None and every reduction is the
+rank's own.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
+
+#: set by ``sharding.spmd`` for the duration of a distributed step: an
+#: object whose ``max(t)`` / ``sum(t)`` reduce ``t`` over the ranks and
+#: whose ``ranks`` counts them
+sync: Any = None
+
+
+def global_max(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (a statistic of the rank's part of a tensor), or under a mesh
+    its MAX over the ranks that hold the other parts."""
+    return t if sync is None else sync.max(t)
+
+
+def global_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (a sum over the rank's rows), or under a mesh its SUM over the
+    ranks that hold the other rows."""
+    return t if sync is None else sync.sum(t)
+
+
+def ranks() -> int:
+    """The ranks a step's rows are split over (1 on one device).  Each
+    holds as many rows, and the step takes the mean of their losses."""
+    return 1 if sync is None else sync.ranks
 
 
 def storage_dtype(bits: int) -> torch.dtype:
@@ -70,7 +105,8 @@ def scale_exponent(x: torch.Tensor) -> torch.Tensor:
     lo, hi = torch.aminmax(x)
     absmax = torch.maximum(-lo, hi)
     _, e = torch.frexp(absmax)
-    return torch.where(absmax > 0, e, torch.zeros_like(e)).to(torch.int32)
+    return global_max(
+        torch.where(absmax > 0, e, torch.zeros_like(e)).to(torch.int32))
 
 
 def slice_exponents(x: torch.Tensor) -> torch.Tensor:
@@ -79,7 +115,8 @@ def slice_exponents(x: torch.Tensor) -> torch.Tensor:
     lo, hi = torch.aminmax(x.reshape(x.shape[0], -1), dim=1)
     absmax = torch.maximum(-lo, hi)
     _, e = torch.frexp(absmax)
-    return torch.where(absmax > 0, e, torch.zeros_like(e)).to(torch.int32)
+    return global_max(
+        torch.where(absmax > 0, e, torch.zeros_like(e)).to(torch.int32))
 
 
 def uniform(key, shape, device) -> torch.Tensor:
@@ -163,6 +200,15 @@ def health_stats(x: torch.Tensor, bits: int) -> dict:
     exp = scale_exponent(ax) - (bits - 1)
     y = torch.round(ax * pow2(-exp))
     lim = float(2 ** (bits - 1) - 1)
+    if sync is not None:
+        # the logical tensor's counts: summed over the ranks' parts
+        n = sync.sum(torch.stack([(y >= lim).sum(), (y == 0).sum(),
+                                  (~finite).sum(),
+                                  torch.tensor(x.numel(), device=x.device)]))
+        return {"clip": (n[0] / n[3]).to(torch.float32),
+                "zero": (n[1] / n[3]).to(torch.float32),
+                "nonfinite": n[2].to(torch.float32),
+                "exp": exp.to(torch.float32)}
     return {"clip": (y >= lim).to(torch.float32).mean(),
             "zero": (y == 0).to(torch.float32).mean(),
             "nonfinite": (~finite).sum().to(torch.float32),

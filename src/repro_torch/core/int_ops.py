@@ -524,8 +524,10 @@ def int_softmax(x: torch.Tensor, cfg: QuantConfig,
 
 
 def _max_row_norm(x: torch.Tensor) -> torch.Tensor:
-    """max over rows of ‖x_row‖₂ along the trailing (head) dim: f32 0-d."""
-    return torch.sqrt(torch.amax(torch.sum(torch.square(x.float()), dim=-1)))
+    """max over rows of ‖x_row‖₂ along the trailing (head) dim: f32 0-d
+    (under a mesh over every rank's rows, ``dfx.global_max``)."""
+    return dfx.global_max(torch.sqrt(torch.amax(torch.sum(
+        torch.square(x.float()), dim=-1))))
 
 
 def _ds_exp(g_norm: torch.Tensor, v_norm: torch.Tensor,

@@ -99,16 +99,22 @@ def step_exponent(x: torch.Tensor, bits: int,
 
 def quantize(x: torch.Tensor, bits: int, *,
              group_axis: Optional[int] = None, stochastic: bool = False,
-             key=None) -> QTensor:
+             key=None, exp: Optional[torch.Tensor] = None) -> QTensor:
     """DFX linear mapping of ``x`` into a QTensor: one quantize launch for
     a CUDA tensor (its plain version for a CPU tensor).  ``group_axis``: None
-    (one exponent) or 0 (one per leading slice)."""
+    (one exponent) or 0 (one per leading slice).  ``exp`` overrides the
+    derived step exponent (``step_exponent``'s shape): the collectives
+    quantize against a scale shared over ranks (``grad_compress``), the
+    optimizer its sharded moments against the logical tensor's."""
     if stochastic and key is None:
         raise ValueError("stochastic rounding requires a key")
     _check_axis(group_axis)
     from repro_torch.kernels import ops       # the kernels import dfx
     x = x.to(torch.float32)
-    exp = step_exponent(x, bits, group_axis)
+    if exp is None:
+        exp = step_exponent(x, bits, group_axis)
+    else:
+        exp = torch.as_tensor(exp, dtype=torch.int32, device=x.device)
     u = dfx.uniform(key, tuple(x.shape), x.device) if stochastic else None
     if group_axis is None:
         x2 = x.reshape(-1, x.shape[-1]) if x.dim() else x.reshape(1, 1)
@@ -154,13 +160,20 @@ def zeros(shape: Tuple[int, ...], bits: int,
                    bits=bits)
 
 
-def ema_update(t: QTensor, x: torch.Tensor, decay: float, key) -> QTensor:
+def ema_update(t: QTensor, x: torch.Tensor, decay: float, key,
+               exp_fn=None) -> QTensor:
     """Stochastic-rounding EMA: ``t ← Q_sr(decay·deq(t) + (1-decay)·x)``,
     the EMA in FP32 and re-quantized at ``t``'s width and grouping; the
-    stored exponent keeps its shape."""
+    stored exponent keeps its shape.  ``exp_fn(e)`` maps the EMA's own
+    step exponents (keep-dims) to the ones it is quantized at (a sharded
+    moment: the logical tensor's)."""
     new = decay * dequantize(t) + (1.0 - decay) * x.to(torch.float32)
-    q = quantize(new, t.bits, group_axis=t.group_axis, stochastic=True,
-                 key=key)
+    ga, exp = t.group_axis, None
+    if exp_fn is not None:
+        e = step_exponent(new, t.bits, ga).reshape(t.exp.shape)
+        exp = exp_fn(e).reshape(() if ga is None else t.exp.shape)
+    q = quantize(new, t.bits, group_axis=ga, stochastic=True, key=key,
+                 exp=exp)
     if q.exp.shape != t.exp.shape:
         # keep-dims groups of size 1 re-derive as one exponent
         q = QTensor(m=q.m, exp=q.exp.reshape(t.exp.shape), bits=t.bits)

@@ -76,10 +76,22 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels (if this tree's library is not built yet) and
-    return the library's path.  Raises with the compiler output on error."""
+    return the library's path.  Raises with the compiler output on error.
+    Processes that start together (the ranks of a distributed run) take
+    a file lock, so one of them builds and the others load its library."""
+    import fcntl
     so = library_path()
     if so.exists():
         return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if so.exists():
+            return so
+        return _build(so)
+
+
+def _build(so: Path) -> Path:
     nvcc = _nvcc()
     obj_dir = BUILD_DIR / f"obj_{so.stem.rsplit('_', 1)[-1]}"
     obj_dir.mkdir(parents=True, exist_ok=True)

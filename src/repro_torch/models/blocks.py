@@ -28,7 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core import health, int_ops
+from repro_torch.core import dfx, health, int_ops
 from repro_torch.core.qpolicy import QuantLike, ensure_scope
 from repro_torch.models.config import ArchConfig
 
@@ -370,12 +370,15 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def capacity(cfg: ArchConfig, tokens: int) -> int:
-    """Rows per expert of the capacity dispatch: drop-free (``T·K``) for
+def capacity(cfg: ArchConfig, tokens: int, groups: int = 1) -> int:
+    """Rows per expert of one group's capacity dispatch (``tokens``: the
+    group's): drop-free (``T·K``) where the ``groups`` together hold
     ``T·K <= 4096`` (decode, so decode == prefill), else ``capacity_factor
-    · T·K / E`` rounded up to a multiple of 128."""
+    · T·K / E`` rounded up to a multiple of 128.  Under a mesh each
+    batch-axis rank is a group, as each data shard is in the reference's
+    shard-local dispatch."""
     tk = tokens * cfg.moe_topk
-    if tk <= 4096:
+    if tk * groups <= 4096:
         return tk
     c = int(cfg.moe_capacity_factor * tk / cfg.moe_experts) or 1
     return ((c + 127) // 128) * 128
@@ -388,7 +391,7 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantLike,
     Router: ``int_linear`` (D -> E), FP32 softmax, top-k with the gates
     renormalised, the Switch-style load-balancing loss over each token's
     first choice.  Dispatch: the reference's capacity dispatch with one
-    group (one device): token-choice ``j`` of expert ``e`` takes row
+    group (a rank): token-choice ``j`` of expert ``e`` takes row
     ``pos`` = the count of earlier choices of ``e``; choices past the
     capacity write a spill row, which is dropped (with duplicate writes
     there, whichever lands is never read).  The reference keeps one spill
@@ -412,11 +415,15 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantLike,
     gate, sel = top_k(probs, K)                                  # (T, K)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
 
-    density = torch.mean(
-        torch.nn.functional.one_hot(sel[:, 0], E).to(torch.float32), dim=0)
+    # the balance loss: the logical batch's share of first choices per
+    # expert (counted over every rank's tokens under a mesh) times the
+    # rank's mean router probabilities, so the step's mean of the ranks'
+    # losses is the reference's and each token's gradient one device's
+    first = torch.nn.functional.one_hot(sel[:, 0], E).to(torch.float32)
+    density = dfx.global_sum(first.sum(0)) / (T * dfx.ranks())
     aux = E * torch.sum(density * torch.mean(probs, dim=0))
 
-    Cg = capacity(cfg, T)
+    Cg = capacity(cfg, T, dfx.ranks())
     sel_f, gate_f = sel.reshape(T * K), gate.reshape(T * K)
     onehot = torch.nn.functional.one_hot(sel_f, E)               # (TK, E)
     pos_all = torch.cumsum(onehot, dim=0) - onehot

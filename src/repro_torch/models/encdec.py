@@ -229,14 +229,7 @@ def encdec_loss(params: Params, batch: Dict[str, torch.Tensor],
     enc = encode(params, batch["frames"], cfg, qcfg, key)
     x = _dec_embed(params, batch["tokens"], cfg, qcfg, key)
     x = _decoder(params, x, enc, cfg, qcfg, key)
-    logits = _head(params, x, cfg, qcfg, key)
-    labels = batch["labels"]
-    valid = labels >= 0
-    lab = torch.where(valid, labels, torch.zeros_like(labels)).long()
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    ll = torch.gather(logp, -1, lab[..., None])[..., 0]
-    n = torch.clamp(valid.sum(), min=1).to(torch.float32)
-    loss = -torch.sum(ll * valid) / n
+    loss = lm.token_ce(_head(params, x, cfg, qcfg, key), batch["labels"])
     return loss, {"ce": loss.detach()}
 
 

@@ -43,7 +43,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.core import health, int_ops
+from repro_torch.core import dfx, health, int_ops
 from repro_torch.core.qpolicy import (PolicyScopeError, QuantLike,
                                       ensure_scope, layer_groups)
 from repro_torch.models import blocks, ssm
@@ -324,6 +324,21 @@ def _backbone_train_ssm(params: Params, layers: list, x: torch.Tensor,
     return x, zero
 
 
+def token_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy over the valid labels (label < 0: masked).
+    Under a mesh (``dfx.sync``) the mean is the logical batch's: the
+    count is summed over the ranks, and each rank returns its rows' share
+    of the mean times the ranks, so the step's mean of the ranks' losses
+    is the logical loss and its backward, seeded with 1 / ranks, gives each
+    token the gradient one device would."""
+    valid = labels >= 0
+    lab = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = torch.gather(logp, -1, lab[..., None])[..., 0]
+    n = torch.clamp(dfx.global_sum(valid.sum()), min=1).to(torch.float32)
+    return -torch.sum(ll * valid) / (n / dfx.ranks())
+
+
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             qcfg: QuantLike, key) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Next-token cross entropy.  batch: tokens (B, S) and labels (B, S)
@@ -341,13 +356,7 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     if cfg.vlm_prefix:
         x = x[:, -tokens.shape[1]:]          # the text positions only
     logits = _logits(params, x, cfg, qcfg, key)
-    labels = batch["labels"]
-    valid = labels >= 0
-    lab = torch.where(valid, labels, torch.zeros_like(labels)).long()
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    ll = torch.gather(logp, -1, lab[..., None])[..., 0]
-    n = torch.clamp(valid.sum(), min=1).to(torch.float32)
-    loss = -torch.sum(ll * valid) / n
+    loss = token_ce(logits, batch["labels"])
     if cfg.moe_experts:
         loss = loss + 0.01 * aux / cfg.n_layers
     return loss, {"ce": loss.detach(), "aux": aux.detach()}

@@ -1,0 +1,569 @@
+"""The mesh, the parameter partition rules and the int8 parameter gather
+over ``torch.distributed``.
+
+Counterpart of ``repro/sharding.py``.  Axes (the reference's DESIGN.md §5):
+
+* ``pod``   — outer data-parallel axis spanning pods (multi-pod mesh only)
+* ``data``  — inner data-parallel / FSDP axis
+* ``model`` — the tensor-parallel axis of the rules; the port shards the
+  *storage* of parameters and moments over it and gathers the full tensor
+  before compute, so the ranks of one model group compute the same rows
+  (GSPMD's result equals one device's, so the numbers are the reference's)
+
+A :class:`Mesh` names the axes of the initialised world in row-major
+order (rank ``r`` sits at ``unravel_index(r, shape)``) and holds one
+process group for every subset of its axes.  Every rank keeps its block
+of each parameter: a spec is a plain tuple per leaf, one entry per
+dimension, an axis name or None (the reference's ``PartitionSpec``).
+
+The collectives live here (``all_reduce`` with SUM or MAX, ``all_gather``,
+``barrier``): what both gloo and NCCL offer.  Under gloo a
+CUDA tensor is staged through the host explicitly (the compute stays on
+the card); under NCCL nothing is staged.  Each call is counted in
+``STATS`` under a tag, with the bytes of its result.
+
+Not ported: ``constrain`` / ``constrain_batch`` / ``constrain_tokens``,
+``SEQUENCE_SHARDING``, ``make_mesh_compat`` and ``shard_map_compat`` —
+layout hints and version shims for XLA; the port places every tensor
+explicitly.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import itertools
+import math
+import re
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import dfx, qtensor
+from repro_torch.train import optimizer as opt_lib
+
+Spec = Tuple[Optional[str], ...]
+
+
+class Mesh:
+    """Axis names and sizes; with ``groups`` (``init_mesh``) also this
+    rank's coordinates and a process group for every subset of the axes.
+    Without them (``Mesh(shape, names)``) it only answers sizes, as the
+    partition rules need."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *,
+                 rank: Optional[int] = None,
+                 groups: Optional[Dict[Tuple[str, ...], Any]] = None,
+                 backend: Optional[str] = None):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"shape {tuple(shape)} vs axes {axis_names}")
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
+        self.rank = rank
+        self.coords = (None if rank is None else dict(zip(
+            self.axis_names, (int(c) for c in np.unravel_index(
+                rank, tuple(self.shape.values()))))))
+        self._groups = groups or {}
+        self.backend = backend
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape})"
+
+    def axes(self, names) -> Tuple[str, ...]:
+        """``names`` (a name, a tuple or None) that are axes of the mesh,
+        in the mesh's order."""
+        names = (names,) if isinstance(names, str) else tuple(names or ())
+        return tuple(a for a in self.axis_names if a in names)
+
+    def count(self, names) -> int:
+        """Ranks along ``names``."""
+        return math.prod(self.shape[a] for a in self.axes(names))
+
+    def index(self, names) -> int:
+        """This rank's row-major index over ``names`` (its rank in their
+        group)."""
+        idx = 0
+        for a in self.axes(names):
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+    def group(self, names):
+        """The process group of the ranks that differ from this one only
+        along ``names``."""
+        return self._groups[self.axes(names)]
+
+
+def init_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
+    """A mesh over the initialised world (``prod(shape)`` ranks).  Every
+    rank creates every group, in one order (``new_group`` is collective)."""
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"a {tuple(shape)} mesh needs {math.prod(shape)} "
+                         f"ranks; the world has {world}")
+    rank = dist.get_rank()
+    names = tuple(axis_names)
+    grid = np.arange(world).reshape(tuple(shape))
+    groups = {}
+    for n in range(1, len(names) + 1):
+        for sub in itertools.combinations(range(len(names)), n):
+            rest = [i for i in range(len(names)) if i not in sub]
+            # rows: the ranks that share every coordinate outside ``sub``
+            rows = np.transpose(grid, rest + list(sub)).reshape(
+                -1, math.prod(shape[i] for i in sub))
+            for row in rows:
+                g = dist.new_group([int(r) for r in row])
+                if rank in row:
+                    groups[tuple(names[i] for i in sub)] = g
+    return Mesh(shape, names, rank=rank, groups=groups,
+                backend=dist.get_backend())
+
+
+# ---------------------------------------------------------------------------
+# Active mesh, the SPMD step's exponent sync and the manual bodies
+# ---------------------------------------------------------------------------
+
+_ACTIVE_MESH: Optional[Mesh] = None
+
+#: axes under manual control (the reference's ``shard_map`` bodies):
+#: while any are, every reduction of a quantize is the rank's own
+_MANUAL_AXES: frozenset = frozenset()
+
+
+def set_mesh(mesh: Optional[Mesh]) -> None:
+    global _ACTIVE_MESH
+    _ACTIVE_MESH = mesh
+
+
+def get_mesh() -> Optional[Mesh]:
+    return _ACTIVE_MESH
+
+
+def batch_axes(mesh: Optional[Mesh] = None) -> Tuple[str, ...]:
+    mesh = mesh or _ACTIVE_MESH
+    if mesh is None:
+        return ("data",)
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+class _Sync:
+    """``dfx.Sync`` over the ranks along ``axes``: a step's tensors are
+    split over the batch axes (the model ranks hold the same rows, so the
+    MAX over the world would be the same number, at more ranks' cost); a
+    gradient block over the axes its spec shards."""
+
+    def __init__(self, mesh: Mesh, axes: Tuple[str, ...]):
+        self.mesh, self.axes = mesh, axes
+        self.ranks = mesh.count(axes)
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        return all_reduce(t, "max", self.axes, self.mesh, tag="exponent")
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        return all_reduce(t, "sum", self.axes, self.mesh, tag="stat")
+
+
+@contextlib.contextmanager
+def spmd(mesh: Mesh, axes=None):
+    """The body of a distributed step: every per-tensor exponent, and the
+    statistics and batch means that decide one, are the logical tensor's
+    (``dfx.sync``), as in the reference's jit'd SPMD step; off inside
+    ``manual_axes_active``.  ``axes``: the axes the tensors are split
+    over (default the batch axes; none: nothing to reduce)."""
+    axes = mesh.axes(batch_axes(mesh) if axes is None else axes)
+    prev = dfx.sync
+    dfx.sync = None if _MANUAL_AXES or not axes else _Sync(mesh, axes)
+    try:
+        yield
+    finally:
+        dfx.sync = prev
+
+
+@contextlib.contextmanager
+def manual_axes_active(axes):
+    """Mark ``axes`` manual (the reference's ``shard_map`` bodies): every
+    quantize in the block takes the exponent of the rank's own tensor."""
+    global _MANUAL_AXES
+    prev, prev_sync = _MANUAL_AXES, dfx.sync
+    _MANUAL_AXES = prev | frozenset(axes)
+    dfx.sync = None
+    try:
+        yield
+    finally:
+        _MANUAL_AXES = prev
+        dfx.sync = prev_sync
+
+
+# ---------------------------------------------------------------------------
+# Collectives
+# ---------------------------------------------------------------------------
+
+#: (tag, "calls" | "bytes") -> count: every collective this process ran,
+#: with the bytes of its result (the gathered or the reduced tensor)
+STATS: collections.Counter = collections.Counter()
+
+
+def reset_stats() -> None:
+    STATS.clear()
+
+
+def _count(tag: str, t: torch.Tensor) -> None:
+    STATS[(tag, "calls")] += 1
+    STATS[(tag, "bytes")] += t.numel() * t.element_size()
+
+
+def _wire(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """A copy of ``t`` where the backend moves it: gloo's CUDA collectives
+    are not all there (nor for every dtype), so a CUDA payload goes
+    through the host, explicitly; NCCL moves CUDA tensors only, so a host
+    payload (a generator's state) goes to the rank's card."""
+    t = t.detach()
+    if mesh.backend == "gloo" and t.is_cuda:
+        return t.cpu()
+    if mesh.backend == "nccl" and not t.is_cuda:
+        return t.to(torch.device("cuda", torch.cuda.current_device()))
+    return t.clone()
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(t: torch.Tensor, op: str, axes, mesh: Mesh, *,
+               tag: str = "all_reduce") -> torch.Tensor:
+    """SUM or MAX of ``t`` over the ranks along ``axes`` (a new tensor).
+    Ring cost per rank: ``2 (n - 1) / n`` of its bytes sent."""
+    buf = _wire(t, mesh)
+    dist.all_reduce(buf, _OPS[op], group=mesh.group(axes))
+    _count(tag, buf)
+    return buf.to(t.device)
+
+
+def all_gather(t: torch.Tensor, axes, mesh: Mesh, *,
+               tag: str = "all_gather") -> torch.Tensor:
+    """``(n, *t.shape)``: every rank's ``t`` along ``axes``, in their
+    row-major order.  Ring cost per rank: ``(n - 1)`` times its bytes
+    sent."""
+    src = _wire(t, mesh).contiguous()
+    parts = [torch.empty_like(src) for _ in range(mesh.count(axes))]
+    dist.all_gather(parts, src, group=mesh.group(axes))
+    out = torch.stack(parts)
+    _count(tag, out)
+    return out.to(t.device)
+
+
+def barrier(mesh: Mesh) -> None:
+    dist.barrier(group=mesh.group(mesh.axis_names))
+
+
+# ---------------------------------------------------------------------------
+# Parameter partition rules
+# ---------------------------------------------------------------------------
+# (path-suffix regex, preferred spec per dim). "model" entries are checked
+# for divisibility; "data" is the FSDP fallback dim.
+
+_RULES = [
+    # embeddings / unembedding
+    (r"embed$", ("model", "data")),
+    (r"lm_head$", ("data", "model")),
+    (r"pos_embed$", (None, "data")),
+    # attention
+    (r"wq$", ("data", "model")),
+    (r"wk$", ("data", "model")),
+    (r"wv$", ("data", "model")),
+    (r"wo$", ("model", "data")),
+    (r"b[qkv]$", ("model",)),
+    # dense MLP (SwiGLU + gelu variants)
+    (r"wg$", ("data", "model")),
+    (r"wu$", ("data", "model")),
+    (r"wd$", ("model", "data")),
+    (r"w1$", ("data", "model")),
+    (r"w2$", ("model", "data")),
+    (r"b1$", ("model",)),
+    (r"b2$", (None,)),
+    # MoE: expert weights shard on model only (the data axis is the
+    # dispatch buffer's token rows in the reference)
+    (r"router$", (None, None)),
+    (r"(wg|wu)_e$", (None, None, "model")),
+    (r"wd_e$", (None, "model", None)),
+    # mamba2
+    (r"wz$", ("data", "model")),
+    (r"wx$", ("data", "model")),
+    (r"wBC$", ("data", None)),
+    (r"wdt$", ("data", "model")),
+    (r"conv_x$", (None, "model")),
+    (r"conv_BC$", (None, None)),
+    (r"out_proj$", ("model", "data")),
+    (r"norm_g$", ("model",)),
+    (r"(A_log|dt_bias|D_skip)$", (None,)),
+    # norms and misc small params
+    (r"(^|/)g$", (None,)),
+    (r"(^|/)b$", (None,)),
+    (r"head$", ("data", "model")),
+]
+
+_STACKS = ("blocks", "enc_blocks", "dec_blocks")
+
+
+def spec_for(path: str, shape, mesh: Mesh, fsdp: bool,
+             stacked: bool) -> Spec:
+    """The spec of one parameter (``path``: its keys joined by ``/``).
+    ``stacked``: a leading layer axis (never sharded)."""
+    dims = list(shape)[1:] if stacked else list(shape)
+    rule = next((spec for pat, spec in _RULES if re.search(pat, path)),
+                (None,) * len(dims))
+    out, used = [], set()
+    for dim, want in zip(dims, rule):
+        take = None
+        for cand in (want if isinstance(want, (list, tuple)) else [want]):
+            if cand is None or (cand == "data" and not fsdp):
+                continue
+            if (cand in mesh.axis_names and cand not in used
+                    and dim % mesh.shape[cand] == 0):
+                take = cand
+                break
+        out.append(take)
+        if take:
+            used.add(take)
+    # the reference zips the rule with the dims: a rule shorter than the
+    # leaf leaves the trailing dims out of the spec (unsharded)
+    return tuple([None] + out if stacked else out)
+
+
+def _map_with_path(fn, tree: Any, path: str = "") -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def param_pspecs(params: Any, mesh: Mesh, *, fsdp: bool) -> Any:
+    """A spec per leaf of ``params`` (tensors, or anything with a
+    logical ``.shape``)."""
+    def one(path, leaf):
+        stacked = any(c in _STACKS for c in path.split("/")[:-1])
+        return spec_for(path, leaf.shape, mesh, fsdp, stacked)
+    return _map_with_path(one, params)
+
+
+def qtensor_pspecs(like: Any, param_specs: Any, mesh: Mesh) -> Any:
+    """Specs for a state tree that may hold QTensors: a QTensor node gets
+    ``QTensor(m=(None, *spec), exp=(), bits)`` — its planes shard like the
+    logical tensor, the exponent vector is the reference's replicated
+    ``P()`` (the port keeps each rank's rows of it: ``exp_spec``); other
+    leaves keep their parameter's spec."""
+    del mesh
+
+    def one(q, spec):
+        if not qtensor.is_qtensor(q):
+            return spec
+        return qtensor.QTensor(m=(None, *spec), exp=(), bits=q.bits)
+    return opt_lib.tree_map(one, like, param_specs)
+
+
+def exp_spec(q: qtensor.QTensor, spec: Spec) -> Spec:
+    """How the port stores a sharded QTensor's exponent: a per-slice
+    ``(E, 1, ..., 1)`` vector is split like the parameter's leading dim
+    (each rank keeps the rows of its planes), one exponent is whole."""
+    if q.exp.dim() == 0:
+        return ()
+    return (spec[0],) + (None,) * (q.exp.dim() - 1)
+
+
+def _fsdp_dim(spec) -> Optional[int]:
+    """Index of the dim sharded over the ``data`` axis, or None."""
+    for i, s in enumerate(tuple(spec)):
+        names = (s,) if isinstance(s, str) else tuple(s or ())
+        if "data" in names:
+            return i
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Blocks: a rank's part of a logical tensor
+# ---------------------------------------------------------------------------
+
+def sharded_axes(spec: Spec, mesh: Mesh) -> Tuple[str, ...]:
+    """The mesh axes a spec shards over, in the mesh's order."""
+    return mesh.axes(tuple(a for s in spec for a in mesh.axes(s)))
+
+
+def local_slices(shape, spec: Spec, mesh: Mesh) -> Tuple[slice, ...]:
+    """This rank's block of a logical tensor of ``shape``."""
+    out = []
+    for d, size in enumerate(shape):
+        names = mesh.axes(spec[d]) if d < len(spec) else ()
+        n = mesh.count(names)
+        if size % n:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                             f"over {names}")
+        i, step = mesh.index(names), size // n
+        out.append(slice(i * step, (i + 1) * step))
+    return tuple(out)
+
+
+def full_shape(shape, spec: Spec, mesh: Mesh) -> Tuple[int, ...]:
+    """The logical shape of a block of ``shape``."""
+    return tuple(d * mesh.count(spec[i] if i < len(spec) else None)
+                 for i, d in enumerate(shape))
+
+
+def map_state(fn, tree: Any, specs: Any) -> Any:
+    """``fn(leaf, spec)`` over a state tree (dicts, NamedTuples such as the
+    optimizer's ``OptState``) beside a tree of specs; a leaf is a tensor
+    or a QTensor (which takes its parameter's spec).  Where ``specs`` is
+    None the subtree is replicated and stays as it is."""
+    if specs is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: map_state(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_state(fn, a, b)
+                            for a, b in zip(tree, specs)))
+    return fn(tree, specs)
+
+
+def shard(tree: Any, specs: Any, mesh: Mesh) -> Any:
+    """Each rank's blocks of a state tree of logical tensors (copies)."""
+    def one(x, spec):
+        if qtensor.is_qtensor(x):
+            es = exp_spec(x, spec)
+            return qtensor.QTensor(
+                m=x.m[(slice(None),) + local_slices(x.shape, spec,
+                                                     mesh)].clone(),
+                exp=x.exp[local_slices(x.exp.shape, es, mesh)].clone(),
+                bits=x.bits)
+        return x[local_slices(x.shape, spec, mesh)].clone()
+    return map_state(one, tree, specs)
+
+
+def unshard(tree: Any, specs: Any, mesh: Mesh) -> Any:
+    """The logical state tree of a tree of blocks (QTensors: planes and
+    per-slice exponents gathered as they are stored)."""
+    def one(x, spec):
+        if qtensor.is_qtensor(x):
+            return qtensor.QTensor(
+                m=gather_full(x.m, (None, *spec), mesh, tag="gather_state"),
+                exp=gather_full(x.exp, exp_spec(x, spec), mesh,
+                                tag="gather_state"),
+                bits=x.bits)
+        return gather_full(x, spec, mesh, tag="gather_state")
+    return map_state(one, tree, specs)
+
+
+def empty_full(tree: Any, specs: Any, mesh: Mesh) -> Any:
+    """Uninitialised logical tensors shaped as a tree of blocks' logical
+    tensors (a checkpoint restore's ``like``)."""
+    def empty(t, spec):
+        return torch.empty(full_shape(t.shape, spec, mesh), dtype=t.dtype,
+                           device=t.device)
+
+    def one(x, spec):
+        if qtensor.is_qtensor(x):
+            return qtensor.QTensor(m=empty(x.m, (None, *spec)),
+                                   exp=empty(x.exp, exp_spec(x, spec)),
+                                   bits=x.bits)
+        return empty(x, spec)
+    return map_state(one, tree, specs)
+
+
+def _assemble(blocks: torch.Tensor, spec: Spec, axes: Tuple[str, ...],
+              mesh: Mesh) -> torch.Tensor:
+    """The logical tensor from its blocks ``(n, *local)``, ``n`` the
+    row-major product over ``axes`` (a group's rank order)."""
+    local = tuple(blocks.shape[1:])
+    sizes = [mesh.shape[a] for a in axes]
+    b = blocks.reshape(tuple(sizes) + local)
+    order, full = [], []
+    for d, size in enumerate(local):
+        names = mesh.axes(spec[d]) if d < len(spec) else ()
+        order += [axes.index(a) for a in names] + [len(axes) + d]
+        full.append(size * mesh.count(names))
+    return b.permute(order).reshape(full)
+
+
+def gather_full(x: torch.Tensor, spec: Spec, mesh: Mesh, *,
+                tag: str = "gather_f32") -> torch.Tensor:
+    """The logical tensor of a block: one FP32 ``all_gather`` over the
+    axes the spec shards (none: ``x`` itself)."""
+    axes = sharded_axes(spec, mesh)
+    if not axes:
+        return x
+    return _assemble(all_gather(x, axes, mesh, tag=tag), spec, axes, mesh)
+
+
+# ---------------------------------------------------------------------------
+# The int8 QTensor parameter gather
+# ---------------------------------------------------------------------------
+
+def _gathered_leaf(x: torch.Tensor, spec: Spec, mesh: Mesh,
+                   bits: int) -> torch.Tensor:
+    """int8 all-gather of one FSDP leaf.  Wire format per block: ``L``
+    int8 limb planes and one int32 step exponent (each block dequantizes
+    against its own exponent: no cross-block MAX).  The reference keeps
+    the ``model`` sharding of its output; the port gathers every axis the
+    spec shards, so the blocks travel in one gather."""
+    axes = sharded_axes(spec, mesh)
+    with manual_axes_active(mesh.axis_names):
+        t = qtensor.quantize(x, bits)                 # the rank's block
+    m = all_gather(t.m, axes, mesh, tag="gather_int8")      # (n, L, *local)
+    e = all_gather(t.exp, axes, mesh, tag="gather_int8")    # (n,)
+    shards = qtensor.dequantize(qtensor.QTensor(
+        m=m.transpose(0, 1), exp=e.reshape((-1,) + (1,) * x.dim()),
+        bits=bits))                                          # (n, *local)
+    return _assemble(shards, spec, axes, mesh)
+
+
+class _Gather(torch.autograd.Function):
+    """A leaf's logical tensor from the rank's block (``bits`` 0: FP32;
+    see ``gather_params``).  Backward: the logical identity, the
+    reference's straight-through ``custom_vjp``.  Each rank's cotangent
+    is its term of the logical one (the step's loss is the mean of the
+    ranks' losses, its backward seeded with 1 / ranks), so the backward
+    SUMs the terms over the batch axes and keeps the rank's block: what
+    XLA's reduce-scatter does to the reference's cotangent.  Wire cost: an
+    ``all_reduce`` and a slice, ``2 (n - 1) / n`` of the leaf's bytes sent
+    per rank on a ring, against ``(n - 1) / n`` for a reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x, spec, mesh, bits):
+        ctx.mesh, ctx.sharded = mesh, bool(sharded_axes(spec, mesh))
+        ctx.slices = local_slices(full_shape(x.shape, spec, mesh), spec,
+                                  mesh)
+        if bits and "data" not in mesh.axis_names:
+            # no FSDP axis: the single-host straight-through form
+            return qtensor.fake_quant_ste(gather_full(x, spec, mesh), bits)
+        if bits and _fsdp_dim(spec) is not None:
+            return _gathered_leaf(x, spec, mesh, bits)
+        return gather_full(x, spec, mesh) if ctx.sharded else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        axes = batch_axes(ctx.mesh)
+        if ctx.mesh.count(axes) > 1:
+            g = all_reduce(g, "sum", axes, ctx.mesh, tag="grad_sum")
+        return (g[ctx.slices].clone() if ctx.sharded else g), None, None, \
+            None
+
+
+def gather_params(params: Any, pspecs: Any, mesh: Mesh, bits: int = 0
+                  ) -> Any:
+    """The logical parameters of the rank's blocks, each leaf through one
+    ``_Gather``: with ``bits`` a ``data``-sharded leaf moves as ``bits``-bit
+    limb planes and per-block exponents (``4 / L`` times fewer bytes than
+    FP32), dequantized per block; a leaf without a ``data`` dim is not
+    quantized (the reference passes it through in FP32): gathered in FP32
+    where it is ``model``-sharded, itself where replicated.  Without a
+    ``data`` axis every leaf takes the straight-through fake-quant."""
+    return opt_lib.tree_map(lambda p, s: _Gather.apply(p, s, mesh, bits),
+                            params, pspecs)
+
+
+def quantized_all_gather(params: Any, mesh: Mesh, *, bits: int,
+                         pspecs: Any = None) -> Any:
+    """``gather_params`` at ``bits``: the reference's int8 FSDP gather.
+    Gradients pass straight through (``_Gather``).  ``pspecs``: the
+    leaves' specs (the port's parameters are the rank's blocks, whose
+    logical shapes it cannot infer)."""
+    if pspecs is None:
+        raise TypeError("quantized_all_gather needs the blocks' pspecs")
+    return gather_params(params, pspecs, mesh, bits)

@@ -167,8 +167,11 @@ class ChaosMonkey:
     recovery passes clean.
     """
 
-    def __init__(self, cfg: ChaosConfig):
+    def __init__(self, cfg: ChaosConfig, writer: bool = True):
         self.cfg = cfg
+        #: whether this process corrupts the checkpoint file (one rank of
+        #: a distributed run: the others read what it did)
+        self.writer = writer
         self.fired: Set[Tuple[str, int]] = set()
 
     def _rng(self, kind: str, step: int) -> np.random.Generator:
@@ -197,7 +200,7 @@ class ChaosMonkey:
                 f"injected dropped collective participant at step {step}")
         if self._fire("ckpt", c.corrupt_ckpt_at, step):
             leaf = _newest_leaf_file(c.ckpt_dir) if c.ckpt_dir else None
-            if leaf is not None:
+            if leaf is not None and self.writer:
                 corrupt_file(leaf, self._rng("ckpt", step))
             raise StateCorruption(
                 f"injected checkpoint corruption at step {step}")

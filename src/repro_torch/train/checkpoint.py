@@ -22,6 +22,14 @@ checkpoint written by either package restores in the other:
   devices.  Leaves are read by the names of the ``like`` tree, so extra
   leaves in a checkpoint (the port's launcher saves its generator's state
   as ``rng``) are ignored.
+
+Under a mesh (``layout=(mesh, specs)``: ``specs`` a spec tree beside the
+state, None for a replicated part) the format stays the reference's, full
+arrays: ``save`` gathers the logical state on every rank
+(``sharding.unshard``), rank 0 writes, and all ranks pass a barrier;
+``restore`` reads the whole file on every rank and keeps the rank's
+blocks.  ``restore_latest`` passes a barrier first, so what another rank
+wrote (or corrupted) is on disk before anyone reads.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import sharding
 from repro_torch.core import qtensor
 
 log = logging.getLogger("repro_torch.checkpoint")
@@ -97,10 +106,27 @@ def _np_dtype(ref: Any):
     return getattr(ref, "dtype", None)
 
 
+Layout = Optional[tuple]
+
+
 def save(ckpt_dir: str, step: int, state: Dict[str, Any],
-         *, keep: int = 3) -> str:
+         *, keep: int = 3, layout: Layout = None) -> str:
     """state: dict of trees (e.g. {"params": ..., "opt": ..., "data": ...})
-    of tensors, QTensors, numpy arrays and Python numbers."""
+    of tensors, QTensors, numpy arrays and Python numbers; under a mesh
+    (``layout``) each rank's blocks."""
+    final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    if layout is not None:
+        mesh, specs = layout
+        state = sharding.unshard(state, specs, mesh)
+        if mesh.rank == 0:
+            _write(ckpt_dir, step, state, keep)
+        sharding.barrier(mesh)
+        return final
+    return _write(ckpt_dir, step, state, keep)
+
+
+def _write(ckpt_dir: str, step: int, state: Dict[str, Any],
+           keep: int) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
     tmp = final + f".tmp-{os.getpid()}-{int(time.time() * 1e3)}"
@@ -229,12 +255,21 @@ def restore(ckpt_dir: str, step: int, like: Dict[str, Any], *,
 
 
 def restore_latest(ckpt_dir: str, like: Dict[str, Any],
-                   on_event: Optional[Callable[[dict], None]] = None
-                   ) -> Optional[tuple]:
+                   on_event: Optional[Callable[[dict], None]] = None, *,
+                   layout: Layout = None) -> Optional[tuple]:
     """Restore the newest checkpoint that verifies, walking backwards over
     retained steps on corruption.  Returns ``(state, step)`` or ``None``
     when no usable checkpoint exists.  Emits
-    ``{"type": "ckpt-corrupt", "step": k}`` per rejected step."""
+    ``{"type": "ckpt-corrupt", "step": k}`` per rejected step.  Under a
+    mesh (``layout``) ``like`` holds the rank's blocks, and so does the
+    restored state."""
+    if layout is not None:
+        mesh, specs = layout
+        sharding.barrier(mesh)
+        got = restore_latest(ckpt_dir, sharding.empty_full(like, specs, mesh),
+                             on_event)
+        return None if got is None else (sharding.shard(got[0], specs, mesh),
+                                         got[1])
     for step in reversed(_steps_on_disk(ckpt_dir)):
         if not verify_manifest(ckpt_dir, step):
             log.warning("checkpoint step %d: manifest broken; trying "

@@ -147,11 +147,14 @@ def _check_tree(name: str, tree: Any, params: Any) -> None:
 
 
 NoiseFn = Callable[[int, int, str], Any]
+ExpFn = Callable[[int, str, torch.Tensor], torch.Tensor]
 
 
 @torch.no_grad()
 def update(cfg: OptimizerConfig, grads: Any, state: OptState, params: Any,
-           noise: Optional[NoiseFn] = None) -> Tuple[Any, OptState, dict]:
+           noise: Optional[NoiseFn] = None, *,
+           grad_norm: Optional[torch.Tensor] = None,
+           exp_fn: Optional[ExpFn] = None) -> Tuple[Any, OptState, dict]:
     """Returns ``(params, state, metrics)``: the same parameter tensors it
     was given, updated in place, leaf by leaf (the reference donates their
     buffers to its jitted step), and the moments — FP32 ones updated in
@@ -162,11 +165,16 @@ def update(cfg: OptimizerConfig, grads: Any, state: OptState, params: Any,
 
     ``noise(step, leaf index, "m" | "v")`` returns the key of a quantized
     moment's stochastic rounding (``dfx.uniform``'s: a generator or a
-    callable handing in ``u``); by default ``moment_generator``."""
+    callable handing in ``u``); by default ``moment_generator``.
+
+    Sharded state (each rank's blocks, ``trainer.jit_train_step``):
+    ``grad_norm`` is the logical gradients' global norm, and
+    ``exp_fn(leaf index, "m" | "v", e)`` maps a block's own step exponents
+    to the logical moment's."""
     _check_tree("gradient", grads, params)
     _check_tree("moment (m)", state.m, params)
     _check_tree("moment (v)", state.v, params)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = None
     if cfg.grad_clip > 0:
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
@@ -209,8 +217,11 @@ def update(cfg: OptimizerConfig, grads: Any, state: OptState, params: Any,
         g = g.to(torch.float32)
         if scale is not None:
             g = g * scale
-        m = qtensor.ema_update(m, g, b1, noise(at, i, "m"))
-        v = qtensor.ema_update(v, torch.square(g), b2, noise(at, i, "v"))
+        m = qtensor.ema_update(m, g, b1, noise(at, i, "m"), None if exp_fn
+                               is None else lambda e: exp_fn(i, "m", e))
+        v = qtensor.ema_update(v, torch.square(g), b2, noise(at, i, "v"),
+                               None if exp_fn is None
+                               else lambda e: exp_fn(i, "v", e))
         del g
         mf, vf = qtensor.dequantize(m), qtensor.dequantize(v)
         # a b-bit v cannot hold entries below one step of its group's

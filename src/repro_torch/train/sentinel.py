@@ -32,7 +32,7 @@ from repro_torch.core import health
 from repro_torch.core.qpolicy import QuantLike, QuantPolicy, as_policy, rule
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.trainer import (LossFn, TrainConfig, loss_and_grads,
-                                       require_single_device)
+                                       placement)
 
 
 class NumericsError(RuntimeError):
@@ -57,13 +57,17 @@ class SentinelConfig:
     nonfinite_patience: int = 3
 
 
-def grad_health(grads: Any, grad_bits: int) -> Dict[str, torch.Tensor]:
+def grad_health(grads: Any, grad_bits: int,
+                where=None) -> Dict[str, torch.Tensor]:
     """Gradient health at ``grad_bits``: worst clip rate, element-weighted
-    mean zero-fraction, total non-finite count, largest step exponent."""
-    leaves = opt_lib.tree_leaves(grads)
-    gs = [health.stats(g, grad_bits) for g in leaves]
-    sizes = torch.tensor([float(g.numel()) for g in leaves],
-                         device=leaves[0].device)
+    mean zero-fraction, total non-finite count, largest step exponent.
+    ``where`` (``trainer.placement``; default one device): under a mesh
+    ``grads`` are blocks and the health is the logical tensors'."""
+    where = where or placement()
+    per = where.per_leaf(grads, lambda g: health.stats(g, grad_bits))
+    gs = [s for s, _ in per]
+    sizes = torch.tensor([float(n) for _, n in per],
+                         device=gs[0]["clip"].device)
     return {
         "clip": torch.stack([s["clip"] for s in gs]).max(),
         "zero": (torch.stack([s["zero"] for s in gs]) * sizes).sum()
@@ -82,9 +86,12 @@ def make_sentinel_step(loss_fn: LossFn, cfg, qcfg: QuantLike,
     ``(params, opt_state, metrics)``; metrics carry ``skipped`` (1.0 when
     the non-finite guard fired: params and moments are then the tensors
     passed in, untouched), ``lr`` (0 on a skip) and ``health``, the
-    per-scope counters and the ``grads`` aggregate."""
-    require_single_device(train_cfg, mesh, param_specs)
+    per-scope counters and the ``grads`` aggregate.  With ``mesh`` and
+    ``param_specs`` it is the SPMD step of ``trainer.jit_train_step``
+    (blocks in and out, the global batch); the probes' counters and the
+    gradients' health are then the logical tensors'."""
     grad_bits = as_policy(qcfg).base.grad_bits
+    where = placement(mesh, param_specs, gather_bits=train_cfg.gather_bits)
 
     def loss_with_health(params, batch, cfg, qcfg, key):
         # the collector is open around the forward only: the backward's
@@ -93,26 +100,31 @@ def make_sentinel_step(loss_fn: LossFn, cfg, qcfg: QuantLike,
             loss, metrics = loss_fn(params, batch, cfg, qcfg, key)
         return loss, {**metrics, "health": hp}
 
-    def step(params, opt_state, batch, key, inject_nan=0.0):
+    def grads_fn(params, batch, key):
         loss, metrics, grads = loss_and_grads(
-            loss_with_health, params, batch, cfg, qcfg, key,
-            train_cfg.gather_bits)
-        if float(inject_nan) > 0:
-            grads = opt_lib.tree_map(lambda g: g + float("nan"), grads)
-        gh = grad_health(grads, grad_bits)
+            loss_with_health, params, batch, cfg, qcfg, key, where.view_bits,
+            where.scale)
         scal = {k: v.detach() for k, v in metrics.items()
                 if isinstance(v, torch.Tensor) and v.dim() == 0}
+        return grads, {"loss": loss, **scal, "health": metrics["health"]}
+
+    def step(params, opt_state, batch, key, inject_nan=0.0):
+        grads, metrics = where.grads(grads_fn, params, batch, key)
+        loss = metrics["loss"]
+        if float(inject_nan) > 0:
+            grads = opt_lib.tree_map(lambda g: g + float("nan"), grads)
+        gh = grad_health(grads, grad_bits, where)
         if float(gh["nonfinite"]) == 0:
-            params, opt_state, om = opt_lib.update(opt_cfg, grads, opt_state,
-                                                   params)
+            params, opt_state, om = where.update(opt_cfg, grads, opt_state,
+                                                 params)
             skipped = 0.0
         else:
             # params and moments pass through; lr 0 marks the skip
-            om = {"grad_norm": opt_lib.global_norm(grads),
+            om = {"grad_norm": where.global_norm(grads),
                   "lr": torch.zeros((), device=loss.device)}
             skipped = 1.0
         return params, opt_state, {
-            "loss": loss, **scal, **om,
+            **metrics, **om,
             "skipped": torch.tensor(skipped, device=loss.device),
             "health": {**metrics["health"], "grads": gh}}
 

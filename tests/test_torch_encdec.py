@@ -28,7 +28,11 @@ Stated tolerances (``tests/test_torch_archs.py``'s):
   projections 50% (caveat B: the 8-bit dS amplifies those flips in every
   gradient below it; measured: the self-attention wq / wk 9-15% of their
   norm, every other leaf under 1.4%), the band ``test_torch_archs.py`` and
-  ``test_torch_ssm.py`` state for the same effect.
+  ``test_torch_ssm.py`` state for the same effect.  That the attention
+  backward itself is not the cause is shown by
+  ``tests/test_torch_encdec_replay.py``: each layer's integer attention
+  backward, replayed from its own saved inputs with one exp on both sides,
+  equals the reference's Pallas kernels bit for bit.
 * Decode: FP32 teacher-forced decode steps against the training
   decoder's logits within 2e-4 absolute (the reference's own decode
   test's bound); int8 decode steps (bfloat16 self cache, the reference's

@@ -245,20 +245,27 @@ def test_microbatches_average_the_gradients():
 
 
 def test_unported_train_paths_raise():
+    """The distributed paths are ported (``tests/test_torch_distributed.py``
+    runs them); what stays refused is what the reference refuses: a
+    mesh step without the specs of its blocks, the compressed step
+    without a pod axis, ``--grad-compress-bits`` without ``--pods > 1``,
+    and a mesh without a distributed world."""
+    from repro_torch import sharding
     cfg = registry.get_config("smollm-135m").reduced()
     ocfg = topt.OptimizerConfig()
-    with pytest.raises(NotImplementedError):
-        trainer.make_train_step(lm.lm_loss, cfg, QuantConfig.int8(), ocfg,
-                                trainer.TrainConfig(grad_compress_bits=8))
-    with pytest.raises(NotImplementedError):
-        trainer.make_train_step(lm.lm_loss, cfg, QuantConfig.int8(), ocfg,
-                                mesh=object())
-    with pytest.raises(NotImplementedError):
-        trainer.make_compressed_train_step()
-    for flag in (["--pods", "2"], ["--model-parallel", "2"],
-                 ["--grad-compress-bits", "8"]):
-        with pytest.raises(NotImplementedError, match=flag[0]):
-            launch_train.parse_args(flag)
+    mesh = sharding.Mesh((2, 1), ("data", "model"))
+    with pytest.raises(ValueError, match="param_specs"):
+        trainer.jit_train_step(trainer.make_train_step(
+            lm.lm_loss, cfg, QuantConfig.int8(), ocfg), mesh, None)
+    with pytest.raises(ValueError, match="pod"):
+        trainer.make_compressed_train_step(lm.lm_loss, cfg,
+                                           QuantConfig.int8(), ocfg, mesh)
+    with pytest.raises(SystemExit):
+        launch_train.parse_args(["--grad-compress-bits", "8"])
+    for flag in (["--pods", "2"], ["--model-parallel", "2"]):
+        with pytest.raises(ValueError, match="torchrun"):
+            launch_train.init_world(launch_train.parse_args(
+                ["--device", "cpu"] + flag))
     # the enc-dec arch trains through the launcher (models/encdec.py)
     losses = launch_train.main(["--arch", "whisper-large-v3", "--reduced",
                                 "--device", "cpu", "--steps", "2", "--batch",

@@ -1,0 +1,449 @@
+"""One rank of a gloo world for the port's distributed tests.
+
+    python tests/torch_dist_worker.py CASE RANK WORLD PORT DIR
+
+joins the world at ``tcp://127.0.0.1:PORT``, runs ``CASE`` on the inputs
+in ``DIR/in.npz`` and writes what the test holds to ``DIR/out<RANK>.pt``.
+The tests spawn every rank with a timeout (``spawn``) and read the files.
+No JAX here: the reference runs in a process of its own.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(HERE, "..", "src")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn(case: str, world: int, inputs: dict, out_dir: str,
+          timeout: float = 240.0) -> list:
+    """Run ``case`` on ``world`` gloo ranks; every rank's output, in rank
+    order.  The world is torn down when a rank fails or the timeout
+    passes."""
+    import torch
+    np.savez(os.path.join(out_dir, "in.npz"), **inputs)
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, case, str(r), str(world), str(port),
+         out_dir], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    logs = [""] * world
+    try:
+        for r, p in enumerate(procs):
+            logs[r], _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"{case}: ranks {bad} failed (rc "
+                             f"{[procs[r].returncode for r in bad]}):\n"
+                             + logs[bad[0]][-4000:])
+    return [torch.load(os.path.join(out_dir, f"out{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+# =========================================================================
+# Cases (each runs on every rank; returns what the rank writes)
+# =========================================================================
+
+def _tree(flat: dict, prefix: str) -> dict:
+    """Nested dict of tensors from the ``prefix/a/b`` keys of an npz."""
+    import torch
+    out = {}
+    for k, v in flat.items():
+        if not k.startswith(prefix + "/"):
+            continue
+        node = out
+        parts = k[len(prefix) + 1:].split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = torch.from_numpy(np.array(v, dtype=v.dtype))
+    return out
+
+
+def _to(tree: dict, dev) -> dict:
+    """A copy of a nested dict of tensors (on ``dev``, or where it is)."""
+    return {k: _to(v, dev) if isinstance(v, dict)
+            else v.to(dev or v.device, copy=True) for k, v in tree.items()}
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flat(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+def _batch(inp) -> dict:
+    import torch
+    return {k: torch.from_numpy(np.array(inp[k])) for k in ("tokens",
+                                                          "labels")}
+
+
+def case_gather(inp, mesh_of):
+    import torch
+    from repro_torch import sharding
+    mesh = mesh_of((4, 2), ("data", "model"))
+    specs = {"w": ("data", "model"), "v": (None, "data"), "g": ()}
+    full = {k: torch.from_numpy(inp[k]) for k in specs}
+    blocks = {k: b.requires_grad_(True)
+              for k, b in sharding.shard(full, specs, mesh).items()}
+    sharding.reset_stats()
+    got = sharding.quantized_all_gather(blocks, mesh, bits=8, pspecs=specs)
+    stats = dict(sharding.STATS)
+    # each rank's term of the logical loss sum(gathered): the step's
+    # convention, its backward seeded with 1 / ranks of the batch axes
+    n = mesh.count(sharding.batch_axes(mesh))
+    (sum(x.sum() for x in got.values()) / n).backward()
+    return {"got": {k: v.detach() for k, v in got.items()},
+            "grads": {k: b.grad for k, b in blocks.items()},
+            "block_shapes": {k: tuple(b.shape) for k, b in blocks.items()},
+            "stats": stats}
+
+
+def case_compress(inp, mesh_of):
+    import torch
+    from repro_torch.core import grad_compress
+    gs = torch.from_numpy(inp["gs"])
+    npods = gs.shape[0]
+    mesh = mesh_of((npods,), ("pod",))
+    g = {"w": gs[mesh.rank]}
+    kw = dict(bits=8, axis="pod", min_size=1, mesh=mesh)
+    out1, res1 = grad_compress.compressed_psum_mean(
+        g, grad_compress.init_residuals(g), **kw)
+    out2, res2 = grad_compress.compressed_psum_mean(g, res1, **kw)
+    o_no, _ = grad_compress.compressed_psum_mean(g, None, **kw)
+    return {"out1": out1["w"], "res1": res1["w"], "out2": out2["w"],
+            "res2": res2["w"], "out_no_ef": o_no["w"]}
+
+
+def _qwen_step_inputs(inp):
+    from repro_torch.configs import registry
+    cfg = registry.get_config("qwen1.5-0.5b").reduced()
+    return cfg, _tree(inp, "init"), _batch(inp)
+
+
+def case_fp32_step(inp, mesh_of):
+    from repro_torch import sharding
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt_lib, trainer
+    mesh = mesh_of((2, 2), ("data", "model"))
+    cfg, init, batch = _qwen_step_inputs(inp)
+    opt_cfg = opt_lib.OptimizerConfig(lr=1e-3)
+    step = trainer.make_train_step(lm.lm_loss, cfg, QuantConfig.fp32(),
+                                   opt_cfg)
+    params, opt, pspecs = trainer.init_train_state(lambda k: init, None,
+                                                   mesh, fsdp=True)
+    stepj = trainer.jit_train_step(step, mesh, pspecs, donate=False)
+    params, opt, m = stepj(params, opt, batch, None)
+    return {"loss": float(m["loss"]),
+            "params": _flat(sharding.unshard(params, pspecs, mesh)),
+            "specs": _flat(pspecs)}
+
+
+def case_int8_step(inp, mesh_of):
+    """The int8 round-to-nearest step on a data-2 mesh against the port's
+    one-device step (on rank 0), recording every per-tensor exponent; and
+    a quantize's exponent under ``spmd`` and inside
+    ``manual_axes_active``."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.core import dfx
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt_lib, trainer
+    mesh = mesh_of((2, 1), ("data", "model"))
+    cfg, init, batch = _qwen_step_inputs(inp)
+    dev = torch.device(str(inp.get("device", "cpu")))
+    if dev.type == "cuda":
+        # both ranks share the card: their collectives stage through the host
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+        init = _to(init, dev)
+        batch = {k: v.to(dev) for k, v in batch.items()}
+    q = dataclasses.replace(QuantConfig.int8(), stochastic_grad=False)
+    opt_cfg = opt_lib.OptimizerConfig(lr=1e-3)
+    rec = _record_exponents(dfx)
+
+    def copy(tree):
+        return _to(tree, None)
+
+    out = {}
+    for mb in (1, 2):
+        tcfg = trainer.TrainConfig(microbatches=mb)
+        params, opt, pspecs = trainer.init_train_state(
+            lambda k: copy(init), None, mesh, fsdp=True)
+        step = trainer.jit_train_step(trainer.make_train_step(
+            lm.lm_loss, cfg, q, opt_cfg, tcfg), mesh, pspecs)
+        rec.clear()
+        params, opt, m = step(params, opt, batch, None)
+        dist_exps = list(rec)
+        full = _flat(sharding.unshard(params, pspecs, mesh))
+        rec.clear()
+        one = trainer.make_train_step(lm.lm_loss, cfg, q, opt_cfg, tcfg)
+        p1 = copy(init)
+        p1, _, m1 = one(p1, opt_lib.init(p1), batch, None)
+        out[mb] = {"loss": float(m["loss"]), "loss_one": float(m1["loss"]),
+                   "exps": dist_exps, "exps_one": list(rec),
+                   "params": _flat(_to(full, "cpu")),
+                   "params_one": _flat(_to(p1, "cpu"))}
+    # a rank-local tensor: its exponent under spmd, then under manual
+    x = torch.full((4, 4), 0.75 * 4.0 ** mesh.rank, device=dev)
+    with sharding.spmd(mesh):
+        e_spmd = int(dfx.scale_exponent(x))
+        with sharding.manual_axes_active(mesh.axis_names):
+            e_manual = int(dfx.scale_exponent(x))
+    out["local"] = {"spmd": e_spmd, "manual": e_manual,
+                    "own": int(torch.frexp(x.abs().max())[1])}
+    return out
+
+
+def case_moe_layer(inp, mesh_of):
+    """Reduced mixtral's MoE layer, FP32, on a data-2 mesh under
+    ``sharding.spmd``: each rank its rows of the reference's input."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.configs import registry
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.models import blocks
+    from repro_torch.train import trainer
+    mesh = mesh_of((2, 1), ("data", "model"))
+    cfg = registry.get_config("mixtral-8x7b").reduced()
+    tree = _tree(inp, "moe_in")
+    x = torch.from_numpy(np.ascontiguousarray(
+        trainer.local_rows({"x": inp["moe_x"]}, mesh)["x"]))
+    T = x.shape[0] * x.shape[1]
+    with sharding.spmd(mesh):
+        y, aux = blocks.moe_apply(tree, x, cfg, QuantConfig.fp32(), None)
+        cap = blocks.capacity(cfg, T, 2)
+    # the rank's first choices per expert, past the capacity: the drops
+    probs = torch.softmax(x.reshape(T, -1) @ tree["router"], dim=-1)
+    sel = torch.topk(probs, cfg.moe_topk).indices.reshape(-1)
+    over = torch.bincount(sel, minlength=cfg.moe_experts) - cap
+    return {"y": y, "aux": float(aux), "cap": cap,
+            "dropped": int(over.clamp(min=0).sum())}
+
+
+def case_int8_moe_step(inp, mesh_of):
+    """Reduced mixtral, int8 round to nearest, on a data-2 mesh against
+    the port's one-device step, with labels masked unevenly over the
+    ranks' rows; every per-tensor exponent recorded."""
+    from repro_torch import sharding
+    from repro_torch.configs import registry
+    from repro_torch.core import dfx
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt_lib, trainer
+    import torch
+    mesh = mesh_of((2, 1), ("data", "model"))
+    cfg = registry.get_config("mixtral-8x7b").reduced()
+    init = lm.lm_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = _batch(inp)
+    q = dataclasses.replace(QuantConfig.int8(), stochastic_grad=False)
+    opt_cfg = opt_lib.OptimizerConfig(lr=1e-3)
+    rec = _record_exponents(dfx)
+    params, opt, pspecs = trainer.init_train_state(
+        lambda k: _to(init, None), None, mesh, fsdp=True)
+    step = trainer.jit_train_step(trainer.make_train_step(
+        lm.lm_loss, cfg, q, opt_cfg), mesh, pspecs)
+    params, opt, m = step(params, opt, batch, None)
+    exps = list(rec)
+    full = _flat(sharding.unshard(params, pspecs, mesh))
+    rec.clear()
+    p1 = _to(init, None)
+    p1, _, m1 = trainer.make_train_step(lm.lm_loss, cfg, q, opt_cfg)(
+        p1, opt_lib.init(p1), batch, None)
+    return {"loss": float(m["loss"]), "loss_one": float(m1["loss"]),
+            "aux": float(m["aux"]), "aux_one": float(m1["aux"]),
+            "exps": exps, "exps_one": list(rec), "params": full,
+            "params_one": _flat(p1)}
+
+
+def _record_exponents(dfx) -> list:
+    """Every per-tensor and per-slice exponent ``dfx`` returns from now
+    on, in order (the list, cleared by the caller)."""
+    rec = []
+    orig = dfx.scale_exponent, dfx.slice_exponents
+
+    def scale_exponent(x):
+        e = orig[0](x)
+        rec.append(int(e))
+        return e
+
+    def slice_exponents(x):
+        e = orig[1](x)
+        rec.extend(int(v) for v in e)
+        return e
+    dfx.scale_exponent, dfx.slice_exponents = scale_exponent, slice_exponents
+    return rec
+
+
+def case_state_plane(inp, mesh_of):
+    from repro_torch.configs import registry
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.train import finetune, optimizer as opt_lib, trainer
+    import torch
+    mesh = mesh_of((4, 2), ("data", "model"))
+    cfg = registry.get_config("smollm-135m").reduced()
+    steps = int(inp["steps"])
+
+    def run(gather_bits, state_bits):
+        opt_cfg = opt_lib.OptimizerConfig(lr=2e-3, weight_decay=0.0,
+                                          state_bits=state_bits)
+        params, opt_state, pspecs = trainer.init_train_state(
+            lambda g: lm.lm_init(g, cfg, device="cpu"),
+            torch.Generator().manual_seed(0), mesh, fsdp=True,
+            opt_cfg=opt_cfg)
+        step = trainer.jit_train_step(trainer.make_train_step(
+            lm.lm_loss, cfg, QuantConfig.fp32(), opt_cfg,
+            trainer.TrainConfig(gather_bits=gather_bits)), mesh, pspecs)
+        data = SyntheticLM(DataConfig(batch_size=8, seq_len=32,
+                                      vocab=cfg.vocab, seed=3))
+        losses = []
+        for _ in range(steps):
+            batch = finetune.to_device(next(data), "cpu")
+            params, opt_state, m = step(params, opt_state, batch, None)
+            losses.append(float(m["loss"]))
+        return losses
+
+    return {"base": run(0, 0), "quant": run(8, 8)}
+
+
+def case_chaos(inp, mesh_of):
+    import torch
+    from repro_torch import sharding
+    from repro_torch.configs import registry
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.train import (chaos, checkpoint, fault, finetune,
+                                   optimizer as opt_lib, trainer)
+    mesh = mesh_of((2, 2), ("data", "model"))
+    cfg = registry.get_config("smollm-135m").reduced()
+    opt_cfg = opt_lib.OptimizerConfig(lr=1e-3)
+    params, opt_state, pspecs = trainer.init_train_state(
+        lambda g: lm.lm_init(g, cfg, device="cpu"),
+        torch.Generator().manual_seed(0), mesh, fsdp=True)
+    step = trainer.jit_train_step(trainer.make_train_step(
+        lm.lm_loss, cfg, QuantConfig.int8(), opt_cfg), mesh, pspecs,
+        donate=False)
+    layout = (mesh, {"params": pspecs, "opt": opt_lib.OptState(
+        step=(), m=pspecs, v=pspecs), "data": None})
+    dp = mesh.index(sharding.batch_axes(mesh))
+
+    def run(ccfg, ckpt_dir, steps=14):
+        data = SyntheticLM(DataConfig(batch_size=4, seq_len=32,
+                                      vocab=cfg.vocab, seed=3))
+        last = {}
+
+        def one(state, k):
+            p, o = state
+            b = finetune.to_device(next(data), "cpu")
+            # a key per (step, batch-axis rank): the reference's fold_in
+            key = torch.Generator().manual_seed(1000 * k + dp)
+            p, o, m = step(p, o, b, key)
+            last["loss"] = float(m["loss"])
+            return (p, o)
+
+        def save_fn(state, k):
+            checkpoint.save(ckpt_dir, k, {"params": state[0],
+                                          "opt": state[1],
+                                          "data": data.state()},
+                            layout=layout)
+
+        def restore_fn():
+            got = checkpoint.restore_latest(
+                ckpt_dir, {"params": params, "opt": opt_state,
+                           "data": data.state()}, layout=layout)
+            assert got is not None, "no usable checkpoint"
+            blob, k = got
+            data.restore(blob["data"])
+            return (blob["params"], blob["opt"]), k
+
+        def fresh(tree):
+            # the loop updates in place: each run starts from a copy
+            return sharding.map_state(lambda x, s: x.clone(), tree, pspecs)
+
+        monkey = chaos.ChaosMonkey(ccfg, writer=mesh.rank == 0)
+        state = (fresh(params), opt_lib.init(fresh(params)))
+        events = []
+        fault.run_with_recovery(
+            monkey.wrap(one), state, start_step=0, num_steps=steps,
+            save_fn=save_fn, restore_fn=restore_fn, save_every=4,
+            on_event=events.append)
+        return last["loss"], events
+
+    root = os.path.join(os.environ["DIST_OUT"], "ckpt")
+    clean, _ = run(chaos.ChaosConfig(), os.path.join(root, "clean"))
+    hit, events = run(chaos.ChaosConfig(
+        seed=11, preempt_at=(6,), bitflip_at=(9,), drop_psum_at=(12,),
+        ckpt_dir=os.path.join(root, "chaos")), os.path.join(root, "chaos"))
+    return {"clean": clean, "chaos": hit,
+            "events": [e["type"] for e in events]}
+
+
+def case_compressed_step(inp, mesh_of):
+    from repro_torch.core import grad_compress
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt_lib, trainer
+    mesh = mesh_of((2, 2, 1), ("pod", "data", "model"))
+    cfg, params, batch = _qwen_step_inputs(inp)
+    opt_cfg = opt_lib.OptimizerConfig(lr=1e-3)
+    step = trainer.make_compressed_train_step(
+        lm.lm_loss, cfg, QuantConfig.fp32(), opt_cfg, mesh,
+        trainer.TrainConfig(grad_compress_bits=8))
+    params, _, res, m = step(params, opt_lib.init(params),
+                             grad_compress.init_residuals(params), batch,
+                             None)
+    return {"loss": float(m["loss"]), "params": _flat(params)}
+
+
+def main(argv) -> int:
+    import torch
+    import torch.distributed as dist
+    from repro_torch import sharding
+    case, rank, world, port, out_dir = argv
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(1)
+    os.environ["DIST_OUT"] = out_dir
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        inp = dict(np.load(os.path.join(out_dir, "in.npz")))
+        out = globals()[f"case_{case}"](inp, sharding.init_mesh)
+        torch.save(out, os.path.join(out_dir, f"out{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, SRC)
+    sys.exit(main(sys.argv[1:]))
