@@ -4966,6 +4966,7 @@ def dist_fsdp(torch, dev, check: bool) -> dict:
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite losses {losses}")
     stats = _dist_stats(before, dict(sharding.STATS), DIST_STEPS)
+    out["largest"] = dict(sharding.LARGEST)
     peak = sharding.all_gather(torch.tensor(
         torch.cuda.max_memory_allocated() / 2**30), mesh.axis_names, mesh)
     out.update(losses=losses, launches=launches, stats=stats,
@@ -5099,21 +5100,33 @@ def dist_phase(torch, card: str) -> dict:
         if not rel <= 1e-6:
             raise AssertionError(f"14a: first loss {a['losses'][0]} vs the "
                                  f"one-rank loss {a['one_rank_loss']}")
-        st = a["stats"]
-        g8 = _stat(st, "gather_int8")
+        st, big = a["stats"], a["largest"]
+        g8 = _stat(st, "gather_int8", "gather_f32")
+        gl = _stat(st, "gather_layer_int8", "gather_layer_f32",
+                   "gather_layer_exp")
         gs = _stat(st, "grad_sum")
+        gsl = _stat(st, "grad_sum_layer")
         ex = _stat(st, "exponent")
         stt = _stat(st, "stat", "metric", "moment_exp")
+        if gl[0] <= 0 or gsl[0] <= 0:
+            raise AssertionError("14a: the step gathered no layer inside "
+                                 f"the layer loop: {st}")
         print(f"  [{card}] losses {a['losses']}; first loss {a['losses'][0]}"
               f" vs one rank on the same image {a['one_rank_loss']} "
               f"(rel {rel:.2e}, band 1e-6); the int8 gather's image equals "
               "the per-block plain fake-quant bit for bit")
         print(f"  [{card}] step ms {[round(v, 1) for v in a['step_ms']]}; "
-              f"per step: parameter gather {g8[1] / 1e9:.4f} GB int8 "
-              f"({g8[0]:.0f} calls) against {a['f32_gather_bytes'] / 1e9:.4f}"
-              f" GB f32; gradient all-reduce {gs[1] / 1e9:.4f} GB f32 "
-              f"({gs[0]:.0f} calls); exponent all-reduces {ex[0]:.0f}; "
-              f"other small all-reduces {stt[0]:.0f}; peak per rank "
+              f"per step: per-layer gathers {gl[1] / 1e9:.4f} GB "
+              f"({gl[0]:.0f} calls, the largest "
+              f"{big.get('gather_layer_int8', 0) / 1e6:.3f} MB int8), "
+              f"whole-leaf gathers {g8[1] / 1e9:.4f} GB ({g8[0]:.0f} calls) "
+              f"against {a['f32_gather_bytes'] / 1e9:.4f} GB f32; "
+              f"per-layer gradient sums {gsl[1] / 1e9:.4f} GB f32 "
+              f"({gsl[0]:.0f} calls, the largest "
+              f"{big.get('grad_sum_layer', 0) / 1e6:.3f} MB), whole-leaf "
+              f"{gs[1] / 1e9:.4f} GB ({gs[0]:.0f} calls); exponent "
+              f"all-reduces {ex[0]:.0f}; other small all-reduces "
+              f"{stt[0]:.0f}; peak per rank "
               f"{[round(v, 2) for v in a['peak_gib']]} GiB; "
               f"{a['params'] / 1e6:.1f} M parameters", flush=True)
         print(f"  [{card}] launches per rank in the run: {a['launches']}")
@@ -5152,6 +5165,72 @@ def dist_phase(torch, card: str) -> dict:
         shutil.rmtree(out_dir, ignore_errors=True)
     return {"dist_fsdp": a["launches"], "dist_compressed": b["launches"],
             "dist_nccl": c["launches"]}
+
+
+#: phase 15's sizes: quickstart steps; the serving example's requests,
+#: prompt and new tokens; the sensitivity sweep's steps, eval samples and
+#: block scopes
+EX_QUICK_STEPS = 6
+EX_SERVE = (8, 12, 16)
+EX_SENS = (4, 64, 1)
+
+
+def examples_phase(torch, dev, kops) -> dict:
+    """Phase 15: the three examples at small sizes on the card, then
+    ``fig1_throughput``'s rows, the int8 product held against the exact
+    one at n = 512.  Returns {path: launches}, read before Fig. 1's
+    timing."""
+    from repro_torch.examples import finetune_layer_sensitivity as sens
+    from repro_torch.examples import quickstart, serve_continuous_batching
+    from repro_torch.kernels.bfp_matmul import bfp_matmul
+    from repro_torch.train import paper_tables
+    wrappers = kops.wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    where = ["--device", dev.type]
+    q = quickstart.main(["--steps", str(EX_QUICK_STEPS)] + where)
+    for preset, losses in q.items():
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"quickstart {preset}: losses {losses}")
+    if abs(q["int16"][0] - q["fp32"][0]) > 1e-3:
+        raise AssertionError(f"quickstart: int16's first loss "
+                             f"{q['int16'][0]} vs fp32's {q['fp32'][0]}")
+    t1 = time.perf_counter()
+    n_req, prompt, new = EX_SERVE
+    got = serve_continuous_batching.main(
+        ["--requests", str(n_req), "--prompt", str(prompt), "--new-tokens",
+         str(new)] + where)
+    if len(got) != n_req or any(len(v) != new for v in got.values()):
+        raise AssertionError(f"serving: {len(got)} of {n_req} requests")
+    t2 = time.perf_counter()
+    steps, eval_n, n_blocks = EX_SENS
+    sw = sens.main(["--steps", str(steps), "--eval-n", str(eval_n),
+                    "--blocks", str(n_blocks)] + where)
+    if not all(0 <= r[2] <= 100 for r in sw["scopes"]):
+        raise AssertionError(f"sensitivity sweep: {sw}")
+    t3 = time.perf_counter()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    for n in ("dfx_quantize", "bfp_matmul", "bfp_matmul_nt", "bfp_matmul_tn",
+              "int_rmsnorm_fwd", "int_layernorm_fwd"):
+        if launches[n] <= 0:
+            raise AssertionError(f"{n} was not launched by the examples")
+    print(f"  quickstart {t1 - t0:.1f} s, serving {t2 - t1:.1f} s, "
+          f"sensitivity ({len(sw['scopes'])} scopes + 3 baselines, {steps} "
+          f"steps) {t3 - t2:.1f} s; launches {launches}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a8, b8 = (torch.randint(-127, 128, (1, 512, 512), generator=gen,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    got = bfp_matmul(a8, b8, torch.zeros((), dtype=torch.int32, device=dev))
+    exact = (a8[0].double() @ b8[0].double()).float()
+    if not torch.equal(got, exact):
+        raise AssertionError("bfp_matmul at n = 512 differs from the exact "
+                             "product")
+    print("  Fig. 1 (the int8 product at n = 512 equals the exact one):")
+    for row in paper_tables.fig1_throughput(dev.type):
+        print(f"    {row[0]}: {row[1]:.2f} us; {row[2]}")
+    print(f"  phase 15 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"examples": launches}
 
 
 def _to(tree, device):
@@ -5366,6 +5445,12 @@ def main() -> int:
     dist_launches = dist_phase(torch, card)
     print(f"[14] phase took {time.perf_counter() - t14:.1f} s" + at(),
           flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[15] the examples on the card (quickstart, continuous-batching "
+          "serving, the layer-sensitivity sweep) and the paper's Fig. 1"
+          + at(), flush=True)
+    example_launches = examples_phase(torch, dev, kops)
     for k in kernels:
         by_path = {"serve": launches.get(k["name"], 0),
                    "finetune": ft_launches.get(k["name"], 0),
@@ -5386,7 +5471,9 @@ def main() -> int:
                    **{path: ls.get(k["name"], 0)
                       for path, ls in whisper_launches.items()},
                    **{path: ls.get(k["name"], 0)
-                      for path, ls in dist_launches.items()}}
+                      for path, ls in dist_launches.items()},
+                   **{path: ls.get(k["name"], 0)
+                      for path, ls in example_launches.items()}}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         if "int_ms" in k:        # the kept-int paths run its integer body

@@ -2,11 +2,14 @@
 
 Counterpart of ``repro/configs/mistral_large_123b.py``, whose source the
 reference marks unverified.  The reference lists this arch in its
-registry's ``FSDP_ARCHS`` (parameters sharded over the data axis of a
-mesh); the port runs one card and has no mesh, so it has no counterpart of
-that.  96 query heads share 8 kv heads (12 per group).  At full depth the
-FP32 weights (about 123 B parameters, 491 GB) do not fit one card: runs on
-it cut the depth, never a width.
+registry's ``FSDP_ARCHS``; so does the port, and ``launch.train`` under
+``torchrun`` trains it with FSDP over the data axis of a mesh, each layer
+gathered inside the layer loop: a rank holds 21.4 GB of FP32 parameters
+and gradients during a step on the 16 x 16 production mesh, beside 3.9 GB
+of FP32 moments (985 GB with every leaf gathered whole;
+``tools/fsdp_footprint.py``).  96 query heads share 8 kv heads (12 per
+group).  At full depth the FP32 weights (about 123 B parameters, 491 GB)
+do not fit one card: runs on it cut the depth, never a width.
 """
 from repro_torch.models.config import ArchConfig
 

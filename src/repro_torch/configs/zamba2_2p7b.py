@@ -4,8 +4,12 @@ Counterpart of ``repro/configs/zamba2_2p7b.py``.  54 Mamba2 layers of
 d_inner 5120 (80 SSD heads of 64, state 64); after every 6 of them the one
 shared attention block (32 heads of 80, no GQA, a SwiGLU MLP of 10240)
 runs, 9 times in all, each with a KV cache of its own at decode.  The
-reference lists this arch in its registry's ``FSDP_ARCHS``; the port runs
-one card and has no mesh.  About 2.4 B parameters (9.7 GB of FP32).
+reference lists this arch in its registry's ``FSDP_ARCHS``; so does the
+port, and ``launch.train`` under ``torchrun`` trains it with FSDP, each
+Mamba2 layer gathered inside the layer loop and the shared block whole: a
+rank holds 4.9 GB of FP32 parameters and gradients during a step at data
+8, 2.6 GB on the 16 x 16 production mesh (``tools/fsdp_footprint.py``).
+About 2.4 B parameters (9.7 GB of FP32).
 """
 from repro_torch.models.config import ArchConfig
 

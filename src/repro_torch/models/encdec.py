@@ -21,7 +21,9 @@ layers runs under its first layer's scope.  Both training stacks run each
 layer under ``lm._remat`` (the reference's ``utils.checkpoint``; the
 recompute replays the forward's noise), and every stack runs with probes
 suspended, as the reference's scans do; ``enc_ln`` and ``final_norm``
-probe.
+probe.  Each layer gathers its own leaves of a sharded stack
+(``sharding.gather_layer``, as in ``models/lm.py``), the cross K/V's
+projections with them.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.core import health, int_ops
 from repro_torch.core.qpolicy import QuantLike, ensure_scope, layer_groups
 from repro_torch.models import blocks, lm
@@ -104,6 +107,7 @@ def _remat_call(fn, x: torch.Tensor, key, remat: bool) -> torch.Tensor:
 
 def _enc_layer(bp: Params, x: torch.Tensor, cfg: ArchConfig, bsc,
                key) -> torch.Tensor:
+    bp = sharding.gather_layer(bp)
     h = blocks.norm_apply(bp["ln1"], x, cfg, bsc.child("ln1"), key)
     h, _ = blocks.attention_apply(bp["attn"], h, cfg, bsc.child("attn"), key,
                                   causal=False, use_rope=False)
@@ -150,6 +154,7 @@ def _dec_layer(bp: Params, x: torch.Tensor, enc, cfg: ArchConfig, bsc, key,
     """One decoder layer: causal self-attention (over ``cache`` when given,
     updated in place), cross-attention over ``cross`` (or over the cross
     K/V computed here from ``enc``), the MLP."""
+    bp = sharding.gather_layer(bp)
     h = blocks.norm_apply(bp["ln1"], x, cfg, bsc.child("ln1"), key)
     h, _ = blocks.attention_apply(bp["attn"], h, cfg, bsc.child("attn"), key,
                                   kv_cache=cache, cache_index=index,

@@ -13,7 +13,11 @@ recompute) is ``torch.utils.checkpoint`` around each layer: the backward
 keeps each layer's input and recomputes the layer's residuals (the
 quantized planes the integer layers save) when it reaches it.  The
 recompute replays the forward's stochastic-rounding noise from a copy of
-the generator (``_remat``), with probes suspended.  Its sharding
+the generator (``_remat``), with probes suspended.  Under a mesh step a
+layer stack's leaves arrive as the rank's blocks (``sharding.Stack``):
+each layer gathers its own (``sharding.gather_layer``) inside the function
+the remat checkpoints, so the recompute gathers again and nothing
+gathered outlives the layer; full tensors pass through.  Its sharding
 constraints (``sharding.constrain*``) are identities on one device and
 are left out; its ``health.probe`` calls are here (the embedding's output
 and the head's input, beside the blocks' own).
@@ -43,6 +47,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import sharding
 from repro_torch.core import dfx, health, int_ops
 from repro_torch.core.qpolicy import (PolicyScopeError, QuantLike,
                                       ensure_scope, layer_groups)
@@ -162,6 +167,7 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, device,
 
 def _attn_block(bp: Params, x: torch.Tensor, cfg: ArchConfig,
                 qcfg: QuantLike, key, *, cache=None, cache_index=0):
+    bp = sharding.gather_layer(bp)
     sc = ensure_scope(qcfg)
     h = blocks.norm_apply(bp["ln1"], x, cfg, sc.child("ln1"), key)
     h, new_cache = blocks.attention_apply(
@@ -256,6 +262,7 @@ def _remat_layer(bp: Params, x: torch.Tensor, cfg: ArchConfig,
 def _mamba_layer(bp: Params, x: torch.Tensor, cfg: ArchConfig,
                  bsc: QuantLike, key) -> torch.Tensor:
     """One residual Mamba2 layer of the training stack."""
+    bp = sharding.gather_layer(bp)
     h, _ = ssm.mamba2_apply(bp["mamba"], x, cfg, bsc.child("mamba"), key)
     return x + h
 

@@ -22,6 +22,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.core import int_ops
 from repro_torch.core.qpolicy import QuantLike, ensure_scope, layer_groups
 from repro_torch.models import blocks
@@ -70,6 +71,7 @@ def _encoder(params: Params, x: torch.Tensor, cfg: ArchConfig,
     layers = blocks.unstack(params["blocks"], L)
     for start, stop, bsc in layer_groups(sc, L, _ENC_BLOCK_LEAVES):
         for bp in layers[start:stop]:
+            bp = sharding.gather_layer(bp)
             h = blocks.norm_apply(bp["ln1"], x, cfg, bsc.child("ln1"), key)
             h, _ = blocks.attention_apply(bp["attn"], h, cfg,
                                           bsc.child("attn"), key,

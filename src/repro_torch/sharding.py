@@ -10,6 +10,12 @@ Counterpart of ``repro/sharding.py``.  Axes (the reference's DESIGN.md §5):
   before compute, so the ranks of one model group compute the same rows
   (GSPMD's result equals one device's, so the numbers are the reference's)
 
+A step gathers the leaves of the layer stacks (``blocks/``, ``enc_blocks/``,
+``dec_blocks/``) one layer at a time, inside the layer that uses them
+(``layer_view`` / ``gather_layer``), as XLA partitions the reference's scan
+over layers: a rank holds one layer's logical tensors and their gradient
+beside its blocks.  Every other leaf is gathered whole (``gather_params``).
+
 A :class:`Mesh` names the axes of the initialised world in row-major
 order (rank ``r`` sits at ``unravel_index(r, shape)``) and holds one
 process group for every subset of its axes.  Every rank keeps its block
@@ -20,7 +26,8 @@ The collectives live here (``all_reduce`` with SUM or MAX, ``all_gather``,
 ``barrier``): what both gloo and NCCL offer.  Under gloo a
 CUDA tensor is staged through the host explicitly (the compute stays on
 the card); under NCCL nothing is staged.  Each call is counted in
-``STATS`` under a tag, with the bytes of its result.
+``STATS`` under a tag, with the bytes of its result, and the largest
+single result by tag in ``LARGEST``.
 
 Not ported: ``constrain`` / ``constrain_batch`` / ``constrain_tokens``,
 ``SEQUENCE_SHARDING``, ``make_mesh_compat`` and ``shard_map_compat`` —
@@ -201,15 +208,20 @@ def manual_axes_active(axes):
 #: (tag, "calls" | "bytes") -> count: every collective this process ran,
 #: with the bytes of its result (the gathered or the reduced tensor)
 STATS: collections.Counter = collections.Counter()
+#: tag -> the bytes of the largest single result under the tag
+LARGEST: collections.Counter = collections.Counter()
 
 
 def reset_stats() -> None:
     STATS.clear()
+    LARGEST.clear()
 
 
 def _count(tag: str, t: torch.Tensor) -> None:
+    n = t.numel() * t.element_size()
     STATS[(tag, "calls")] += 1
-    STATS[(tag, "bytes")] += t.numel() * t.element_size()
+    STATS[(tag, "bytes")] += n
+    LARGEST[tag] = max(LARGEST[tag], n)
 
 
 def _wire(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -301,9 +313,6 @@ _RULES = [
     (r"head$", ("data", "model")),
 ]
 
-_STACKS = ("blocks", "enc_blocks", "dec_blocks")
-
-
 def spec_for(path: str, shape, mesh: Mesh, fsdp: bool,
              stacked: bool) -> Spec:
     """The spec of one parameter (``path``: its keys joined by ``/``).
@@ -340,8 +349,8 @@ def param_pspecs(params: Any, mesh: Mesh, *, fsdp: bool) -> Any:
     """A spec per leaf of ``params`` (tensors, or anything with a
     logical ``.shape``)."""
     def one(path, leaf):
-        stacked = any(c in _STACKS for c in path.split("/")[:-1])
-        return spec_for(path, leaf.shape, mesh, fsdp, stacked)
+        return spec_for(path, leaf.shape, mesh, fsdp,
+                        opt_lib.is_stacked(path))
     return _map_with_path(one, params)
 
 
@@ -556,6 +565,118 @@ def gather_params(params: Any, pspecs: Any, mesh: Mesh, bits: int = 0
     ``data`` axis every leaf takes the straight-through fake-quant."""
     return opt_lib.tree_map(lambda p, s: _Gather.apply(p, s, mesh, bits),
                             params, pspecs)
+
+
+# ---------------------------------------------------------------------------
+# Per-layer gathering: a layer stack's leaves inside the layer loop
+# ---------------------------------------------------------------------------
+
+class Stack:
+    """A layer stack's leaf as a step's loss sees it: the rank's block
+    ``(L, *local)`` (the autograd leaf), its spec, the mesh, and with the
+    int8 gather ``packed``: the block's ``bits``-bit limb planes, quantized
+    once per step at one exponent (the reference's image,
+    ``_gathered_leaf``), and every rank's exponent.  ``unbind(0)`` (what
+    ``blocks.unstack`` calls) gives one ``Layer`` a layer;
+    ``gather_layer`` turns it into the layer's logical tensor inside the
+    layer."""
+
+    def __init__(self, block: torch.Tensor, spec: Spec, mesh: Mesh,
+                 packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 bits: int = 0):
+        self.block, self.spec, self.mesh = block, spec, mesh
+        self.packed, self.bits = packed, bits
+
+    def unbind(self, dim: int = 0) -> list:
+        # one unbind of the layer axis: the block gradient is stacked once
+        return [Layer(self, i, x) for i, x in enumerate(self.block.unbind(0))]
+
+
+class Layer(collections.namedtuple("Layer", "stack index block")):
+    """Layer ``index`` of a ``Stack``: ``block`` is its view of the rank's
+    block."""
+
+
+def _pack(block: torch.Tensor, spec: Spec, mesh: Mesh, bits: int):
+    """A stacked block's int8 wire form, once per step: its planes at one
+    exponent over all its layers (the sync off, as ``_gathered_leaf``) and
+    the exponents of every rank along the spec's axes."""
+    with manual_axes_active(mesh.axis_names):
+        t = qtensor.quantize(block.detach(), bits)
+    e = all_gather(t.exp, sharded_axes(spec, mesh), mesh,
+                   tag="gather_layer_exp")
+    return t.m, e
+
+
+class _GatherLayer(torch.autograd.Function):
+    """One layer's logical tensor from the rank's block of it: the int8
+    planes of the layer (``Stack.packed``) gathered and dequantized per
+    block, or its FP32 block gathered where the spec shards it, or the
+    block itself.  Backward: ``_Gather``'s, for the layer — the SUM over
+    the batch axes, the rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, stack, i):
+        spec, mesh = stack.spec[1:], stack.mesh
+        axes = sharded_axes(spec, mesh)
+        ctx.mesh, ctx.sharded = mesh, bool(axes)
+        ctx.slices = local_slices(full_shape(x.shape, spec, mesh), spec,
+                                  mesh)
+        if stack.packed is not None:
+            planes, e = stack.packed
+            m = all_gather(planes[:, i], axes, mesh,
+                           tag="gather_layer_int8")  # (n, limbs, *local)
+            shards = qtensor.dequantize(qtensor.QTensor(
+                m=m.transpose(0, 1), exp=e.reshape((-1,) + (1,) * x.dim()),
+                bits=stack.bits))
+            return _assemble(shards, spec, axes, mesh)
+        if axes:
+            return gather_full(x, spec, mesh, tag="gather_layer_f32")
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        axes = batch_axes(ctx.mesh)
+        if ctx.mesh.count(axes) > 1:
+            g = all_reduce(g, "sum", axes, ctx.mesh, tag="grad_sum_layer")
+        return (g[ctx.slices].clone() if ctx.sharded else g), None, None
+
+
+def gather_layer(tree: Any) -> Any:
+    """One layer's params as the layer computes with them: each ``Layer``
+    of a ``Stack`` its logical tensor (``_GatherLayer``), every tensor as
+    it is (one device, or a whole-model image: nothing to do).  The models
+    call it inside the function their remat checkpoints, so the recompute
+    gathers again and nothing gathered outlives the layer."""
+    if isinstance(tree, dict):
+        return {k: gather_layer(v) for k, v in tree.items()}
+    if isinstance(tree, Layer):
+        return _GatherLayer.apply(tree.block, tree.stack, tree.index)
+    return tree
+
+
+def layer_view(params: Any, pspecs: Any, mesh: Mesh, bits: int = 0,
+               packed: Optional[dict] = None) -> Any:
+    """What a step's loss sees of the rank's blocks: each layer stack's
+    leaf a ``Stack`` (gathered a layer at a time, inside the layer), every
+    other leaf its logical tensor through ``_Gather`` (``gather_params``).
+    ``packed``: a dict the caller keeps for one step, where a stack's int8
+    wire form is made at its first use and found by every later
+    microbatch.  Without a ``data`` axis ``bits`` takes the straight-through
+    form over whole leaves, so every leaf is gathered whole there."""
+    leaves, specs = opt_lib.tree_leaves(params), opt_lib.tree_leaves(pspecs)
+    packed = {} if packed is None else packed
+    out = []
+    for i, (path, p, spec) in enumerate(zip(opt_lib.tree_paths(params),
+                                            leaves, specs)):
+        if not opt_lib.is_stacked(path) or (
+                bits and "data" not in mesh.axis_names):
+            out.append(_Gather.apply(p, spec, mesh, bits))
+            continue
+        if bits and _fsdp_dim(spec) is not None and i not in packed:
+            packed[i] = _pack(p, spec, mesh, bits)
+        out.append(Stack(p, spec, mesh, packed.get(i), bits))
+    return opt_lib.tree_unflatten(params, out)
 
 
 def quantized_all_gather(params: Any, mesh: Mesh, *, bits: int,

@@ -14,8 +14,9 @@ dimensions, one exponent for a vector.  Their EMA is computed in FP32 and
 re-quantized with stochastic rounding (``qtensor.ema_update``), whose
 noise is a function of ``(cfg.seed, step, leaf index, m | v)`` as the
 reference's ``fold_in(PRNGKey(seed), step)`` keys are: a generator seeded
-from those four numbers, so a run restored from a checkpoint draws what
-the uninterrupted run drew.  The denominator is floored at one step of
+from those four numbers (and the layer, for each leading slice of a layer
+stack's leaf), so a run restored from a checkpoint draws what the
+uninterrupted run drew.  The denominator is floored at one step of
 ``v``'s scale, ``max(v, 2^v.exp)``.
 """
 from __future__ import annotations
@@ -56,6 +57,23 @@ def tree_leaves(tree: Any) -> list:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_paths(tree: Any, path: str = "") -> list:
+    """Each leaf's keys joined by ``/``, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in tree_paths(tree[k], f"{path}/{k}" if path else k)]
+    return [path]
+
+
+#: the layer stacks: a leaf below one of these keys has a leading layer axis
+STACKS = ("blocks", "enc_blocks", "dec_blocks")
+
+
+def is_stacked(path: str) -> bool:
+    """Whether the leaf at ``path`` (``tree_paths``) is a layer stack's."""
+    return any(c in STACKS for c in path.split("/")[:-1])
 
 
 def tree_unflatten(tree: Any, leaves) -> Any:
@@ -128,12 +146,47 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 def moment_generator(seed: int, step: int, leaf: int, which: str,
-                     device) -> torch.Generator:
+                     device, layer: Optional[int] = None) -> torch.Generator:
     """The generator of one quantized moment's stochastic rounding at one
-    step: seeded from ``(seed, step, leaf index, m | v)``."""
-    s = np.random.SeedSequence([seed, step, leaf, "mv".index(which)])
+    step: seeded from ``(seed, step, leaf index, m | v)``, and ``layer``
+    for one leading slice of a stacked leaf."""
+    s = np.random.SeedSequence([seed, step, leaf, "mv".index(which)]
+                               + ([] if layer is None else [layer]))
     return torch.Generator(device=device).manual_seed(
         int(s.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+
+
+def moment_noise(seed: int, step: int, leaf: int, which: str, device,
+                 shape, stacked: bool, block=None):
+    """``dfx.uniform``'s key for one quantized moment of logical ``shape``
+    at one step.  A stacked leaf draws one leading slice (layer) at a
+    time, each from its own ``moment_generator``, so no draw is larger than
+    one layer; any other leaf draws whole from one generator.  ``block``:
+    the slices of the rank's block of the logical tensor (a sharded
+    moment), which keeps its block of each draw: the same numbers the
+    one-device draw puts there."""
+    shape = tuple(shape)
+    if not stacked:
+        gen = moment_generator(seed, step, leaf, which, device)
+        if block is None:
+            return gen
+        return lambda _, dev: torch.rand(shape, generator=gen, device=dev,
+                                         dtype=torch.float32)[block]
+    block = block or tuple(slice(None) for _ in shape)
+    rows = range(*block[0].indices(shape[0]))
+
+    def draw(_, dev):
+        out = None
+        for j, layer in enumerate(rows):
+            u = torch.rand(shape[1:], generator=moment_generator(
+                seed, step, leaf, which, dev, layer), device=dev,
+                dtype=torch.float32)[block[1:]]
+            if out is None:
+                out = torch.empty((len(rows),) + tuple(u.shape),
+                                  dtype=torch.float32, device=dev)
+            out[j] = u
+        return out
+    return draw
 
 
 def _check_tree(name: str, tree: Any, params: Any) -> None:
@@ -165,7 +218,7 @@ def update(cfg: OptimizerConfig, grads: Any, state: OptState, params: Any,
 
     ``noise(step, leaf index, "m" | "v")`` returns the key of a quantized
     moment's stochastic rounding (``dfx.uniform``'s: a generator or a
-    callable handing in ``u``); by default ``moment_generator``.
+    callable handing in ``u``); by default ``moment_noise``'s.
 
     Sharded state (each rank's blocks, ``trainer.jit_train_step``):
     ``grad_norm`` is the logical gradients' global norm, and
@@ -188,8 +241,12 @@ def update(cfg: OptimizerConfig, grads: Any, state: OptState, params: Any,
     quantized = any(qtensor.is_qtensor(m) for m in tree_leaves(state.m))
     at = int(state.step) if quantized else 0      # one read per step
     if quantized and noise is None:
+        stacked = [is_stacked(p) for p in tree_paths(params)]
+        shapes = [p.shape for p in tree_leaves(params)]
+
         def noise(at, i, which):
-            return moment_generator(cfg.seed, at, i, which, sf.device)
+            return moment_noise(cfg.seed, at, i, which, sf.device,
+                                shapes[i], stacked[i])
 
     def apply(p, m, v, ta, tb):
         # FP32 master weight update (paper-kept op):

@@ -5,18 +5,25 @@ the reference's sizes: bert-tiny / vit-tiny, batch 16, eval on 128 held-out
 samples, the reference's steps.  Each function returns a list of rows
 ``(name, us_per_step, derived)``; the derived column carries the table's
 metric (``metric_of`` reads it back).  ``fig5_loss_traj`` keeps the
-reference's directional assertion.  ``fig1_throughput`` (the TPU roofline
-and a numpy microbenchmark) is not ported.
+reference's directional assertion.  ``fig1_throughput`` gives the H100's
+peaks in place of the TPU's and times the port's integer matmul against
+the float ones on the card.
 
     PYTHONPATH=src python -c "from repro_torch.train import paper_tables \\
         as pt; print(pt.table1_glue_sweep(steps=4, device='cpu'))"
 """
 from __future__ import annotations
 
+import statistics
+import subprocess
 import time
 from typing import List, Optional, Tuple
 
+import torch
+
 from repro_torch.core.qconfig import QuantConfig
+from repro_torch.kernels.bfp_matmul import bfp_matmul
+from repro_torch.models.lm import resolve_device
 from repro_torch.train.finetune import FtConfig, finetune, sweep
 
 PRESETS = ["fp32", "int16", "int12", "int10", "int8"]
@@ -91,4 +98,82 @@ def fig5_loss_traj(steps: int = 150, device="cuda",
     # directional check: int16 final loss within 15% of fp32
     assert abs(trajs["int16"][-1] - trajs["fp32"][-1]) < 0.15 * max(
         trajs["fp32"][-1], 0.1) + 0.05, trajs
+    return rows
+
+
+#: the H100 SXM's dense data-sheet peaks, operations a second
+H100_PEAKS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+
+
+def card_name() -> str:
+    """The card's name and power limit as ``nvidia-smi`` reads them."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout
+        return out.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return f"{torch.cuda.get_device_name(0)}, power limit not read"
+
+
+def _event_us(fn, reps: int) -> float:
+    """Median time of ``fn()`` on the card in microseconds, by CUDA
+    events around each call after a warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) * 1e3)
+    return statistics.median(times)
+
+
+def fig1_throughput(device="cuda", sizes=(512, 4096),
+                    reps: int = 20) -> List[Row]:
+    """Fig. 1 analogue: integer against float throughput.
+
+    The paper measured a Xeon, the reference states the TPU v5e's
+    roofline.  Here: the H100 SXM's dense data-sheet peaks (int8 1,979
+    TOP/s, bf16 989 and f32 67 TFLOP/s), and on the card the port's
+    ``bfp_matmul`` at 1 x 1 limbs (int8 planes, int32 sums, one exponent)
+    against ``torch.matmul`` in f32 and bf16 on the same n x n x n
+    operands, timed by CUDA events, with the card's name and power limit.
+    On the CPU each product runs once through its plain version and no
+    speed is claimed (us 0)."""
+    rows = [
+        ("fig1_model/h100_int8", 0.0, "peak=1979e12ops 2.0x_vs_bf16"),
+        ("fig1_model/h100_bf16", 0.0, "peak=989e12ops 1.0x"),
+        ("fig1_model/h100_f32", 0.0, "peak=67e12ops 0.068x_vs_bf16"),
+    ]
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        rows.append(("fig1_card/card", 0.0, f"card={card_name()}"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for n in sizes:
+        a8, b8 = (torch.randint(-127, 128, (1, n, n), generator=gen,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2))
+        exp = torch.zeros((), dtype=torch.int32, device=dev)
+        af, bf = a8[0].to(torch.float32), b8[0].to(torch.float32)
+        ah, bh = af.to(torch.bfloat16), bf.to(torch.bfloat16)
+        calls = {"bfp_matmul_int8": lambda: bfp_matmul(a8, b8, exp),
+                 "f32_matmul": lambda: torch.matmul(af, bf),
+                 "bf16_matmul": lambda: torch.matmul(ah, bh)}
+        for name, fn in calls.items():
+            if not on_card:
+                fn()
+                rows.append((f"fig1_cpu/{name}", 0.0,
+                             f"n={n} plain_version_not_timed"))
+                continue
+            us = _event_us(fn, reps)
+            rows.append((f"fig1_card/{name}", us,
+                         f"n={n} rate={2 * n ** 3 / us / 1e6:.1f}e12ops"))
     return rows

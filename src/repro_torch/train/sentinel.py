@@ -102,8 +102,8 @@ def make_sentinel_step(loss_fn: LossFn, cfg, qcfg: QuantLike,
 
     def grads_fn(params, batch, key):
         loss, metrics, grads = loss_and_grads(
-            loss_with_health, params, batch, cfg, qcfg, key, where.view_bits,
-            where.scale)
+            loss_with_health, params, batch, cfg, qcfg, key,
+            grad_scale=where.scale, view=where.view)
         scal = {k: v.detach() for k, v in metrics.items()
                 if isinstance(v, torch.Tensor) and v.dim() == 0}
         return grads, {"loss": loss, **scal, "health": metrics["health"]}

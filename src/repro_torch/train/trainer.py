@@ -10,20 +10,23 @@ Counterpart of ``repro/train/trainer.py``:
   (``qtensor.fake_quant_ste``; straight-through gradient).
 * ``jit_train_step`` — the step over a mesh, under the reference's name
   (the port has no jit).  Each rank holds its blocks of the parameters
-  and moments (``init_train_state``, ``sharding.param_pspecs``); a step
-  gathers the logical parameters (FP32 ``all_gather``, or with
-  ``gather_bits`` the int8 ``sharding.quantized_all_gather``), computes
-  on the rank's rows of the global batch under ``sharding.spmd`` (every
-  per-tensor exponent, and the loss's batch means, the logical tensor's,
-  as XLA gives the reference), takes the gradients with respect to the
-  gathered parameters and pulls them back through the gather, whose
-  backward SUMs them over the batch axes and keeps the rank's block (the
-  backward is seeded with 1 / ranks, so the sum is the mean and every
-  gradient tensor quantizes at one device's exponent), and runs the
-  AdamW update on its blocks.  The ranks of one ``model`` group compute
-  the same rows (tensor-parallel compute is not ported): the result is
-  one device's.  Each rank holds the full parameters and their full
-  gradients during the step; only the state between steps is sharded.
+  and moments (``init_train_state``, ``sharding.param_pspecs``).  A step
+  computes on the rank's rows of the global batch under ``sharding.spmd``
+  (every per-tensor exponent, and the loss's batch means, the logical
+  tensor's, as XLA gives the reference).  The loss sees each layer
+  stack's leaf as the rank's block, gathered one layer at a time inside
+  the layer (FP32 ``all_gather``, or with ``gather_bits`` the int8 planes
+  of the reference's image; ``sharding.layer_view``), and every other
+  leaf gathered whole before the forward.  Each gather's backward SUMs
+  its gradient over the batch axes and keeps the rank's block, so the
+  gradients arrive as blocks (the backward is seeded with 1 / ranks, so
+  the sum is the mean and every gradient tensor quantizes at one device's
+  exponent); then the AdamW update runs on the blocks.  The ranks of one
+  ``model`` group compute the same rows (tensor-parallel compute is not
+  ported): the result is one device's.  During the step a rank holds its
+  blocks, the whole non-stacked leaves and one layer's logical tensors
+  and gradients.  With microbatches each one gathers every layer again
+  and sums its gradients over the ranks.
 * ``make_compressed_train_step`` — parameters, optimizer state and the
   error-feedback residuals replicated, the batch split over pod x data:
   an FP32 mean over ``data``, the int8 compressed mean over ``pod``
@@ -69,17 +72,18 @@ def gathered(params: Any, gather_bits: int) -> Any:
 
 def loss_and_grads(loss_fn: LossFn, params: Any, batch: dict, cfg,
                    qcfg: QuantLike, key, gather_bits: int = 0,
-                   grad_scale: float = 1.0):
+                   grad_scale: float = 1.0, view: Optional[Callable] = None):
     """``(loss, metrics, grads)`` of ``loss_fn(params, batch, cfg, qcfg,
-    key)`` by autograd, the loss seeing ``gathered(params, gather_bits)``.
-    A parameter the loss does not reach gets a zero gradient, as under
-    ``jax.grad``.  ``grad_scale``: the backward's seed (the gradients of
-    ``grad_scale · loss``)."""
+    key)`` by autograd, the loss seeing ``gathered(params, gather_bits)``,
+    or ``view(params)`` when given (a placement's).  A parameter the loss
+    does not reach gets a zero gradient, as under ``jax.grad``.
+    ``grad_scale``: the backward's seed (the gradients of ``grad_scale ·
+    loss``)."""
     live = opt_lib.tree_map(lambda p: p.detach().requires_grad_(True),
                             params)
     leaves = opt_lib.tree_leaves(live)
-    loss, metrics = loss_fn(gathered(live, gather_bits), batch, cfg, qcfg,
-                            key)
+    seen = gathered(live, gather_bits) if view is None else view(live)
+    loss, metrics = loss_fn(seen, batch, cfg, qcfg, key)
     seed = None if grad_scale == 1.0 else torch.full_like(loss, grad_scale)
     gs = torch.autograd.grad(loss, leaves, seed, allow_unused=True)
     grads = opt_lib.tree_unflatten(params, [
@@ -101,17 +105,18 @@ def _scalars(metrics: dict) -> dict:
 
 
 def make_grads_fn(loss_fn: LossFn, cfg, qcfg: QuantLike, microbatches: int,
-                  gather_bits: int = 0, grad_scale: float = 1.0) -> GradsFn:
+                  gather_bits: int = 0, grad_scale: float = 1.0,
+                  view: Optional[Callable] = None) -> GradsFn:
     """``(params, batch, key) -> (grads, metrics)``; with microbatches > 1
     the gradients and the scalar metrics are the means over the
     microbatches (summed in f32, then scaled by 1/n, as the reference).
-    ``gather_bits``: the loss sees ``gathered(params, gather_bits)``;
-    ``grad_scale``: the backward's seed (``loss_and_grads``)."""
+    ``gather_bits`` / ``view``: what the loss sees; ``grad_scale``: the
+    backward's seed (``loss_and_grads``)."""
 
     def single(params, batch, key):
         loss, metrics, grads = loss_and_grads(loss_fn, params, batch, cfg,
                                               qcfg, key, gather_bits,
-                                              grad_scale)
+                                              grad_scale, view)
         return grads, {"loss": loss, **_scalars(metrics)}
 
     if microbatches <= 1:
@@ -177,7 +182,10 @@ class _Local:
     scale = 1.0
 
     def __init__(self, gather_bits: int):
-        self.view_bits = gather_bits
+        self.gather_bits = gather_bits
+
+    def view(self, params):
+        return gathered(params, self.gather_bits)
 
     def grads(self, grads_fn: GradsFn, params, batch, key):
         return grads_fn(params, batch, key)
@@ -205,26 +213,28 @@ class _Spmd:
         self.mesh, self.specs = mesh, param_specs
         self.gather_bits, self.microbatches = gather_bits, microbatches
         self.axes = sharding.batch_axes(mesh)
-        self.view_bits, self.scale = 0, 1.0 / mesh.count(self.axes)
+        self.scale = 1.0 / mesh.count(self.axes)
+        self._packed = None
+
+    def view(self, params):
+        """The loss's view of the blocks (``sharding.layer_view``); a
+        stack's int8 planes are made once a step."""
+        return sharding.layer_view(params, self.specs, self.mesh,
+                                   self.gather_bits, self._packed)
 
     def grads(self, grads_fn: GradsFn, params, batch, key):
         """The rank's blocks of the logical gradients, and the metrics'
-        means.  The gradients are taken with respect to the gathered
-        parameters, as the reference's step takes them, and reach the
-        blocks through the gather's backward (``sharding.gather_params``:
-        the SUM over the batch axes, the rank's block)."""
+        means.  Each gradient reaches its block through its gather's
+        backward (the SUM over the batch axes, the rank's block): a layer
+        stack's a layer at a time."""
         batch = local_rows(batch, self.mesh, self.microbatches, self.axes)
-        live = opt_lib.tree_map(lambda p: p.detach().requires_grad_(True),
-                                params)
-        with sharding.spmd(self.mesh):
-            image = sharding.gather_params(live, self.specs, self.mesh,
-                                           self.gather_bits)
-            g_image, metrics = grads_fn(image, batch, key)
-            blocks = torch.autograd.grad(opt_lib.tree_leaves(image),
-                                         opt_lib.tree_leaves(live),
-                                         opt_lib.tree_leaves(g_image))
-        return (opt_lib.tree_unflatten(params, list(blocks)),
-                _mean_metrics(metrics, self.mesh, self.axes))
+        self._packed = {}
+        try:
+            with sharding.spmd(self.mesh):
+                grads, metrics = grads_fn(params, batch, key)
+        finally:
+            self._packed = None
+        return grads, _mean_metrics(metrics, self.mesh, self.axes)
 
     def per_leaf(self, grads, fn) -> list:
         """``(fn(block), logical size)`` of each gradient leaf, ``fn``'s
@@ -257,18 +267,14 @@ class _Spmd:
         mesh = self.mesh
         specs = opt_lib.tree_leaves(self.specs)
         shapes = self._shapes(params)
+        stacked = [opt_lib.is_stacked(p) for p in opt_lib.tree_paths(params)]
         gnorm = self.global_norm(grads)
 
         def noise(at, i, which):
-            gen = opt_lib.moment_generator(opt_cfg.seed, at, i, which,
-                                           gnorm.device)
-            sl = sharding.local_slices(shapes[i], specs[i], mesh)
-
-            def draw(shape, device):
-                # the logical tensor's draw, the rank's block of it
-                return torch.rand(shapes[i], generator=gen, device=device,
-                                  dtype=torch.float32)[sl]
-            return draw
+            # the one-device draw, the rank's block of each slice of it
+            return opt_lib.moment_noise(
+                opt_cfg.seed, at, i, which, gnorm.device, shapes[i],
+                stacked[i], sharding.local_slices(shapes[i], specs[i], mesh))
 
         def exp_fn(i, which, e):
             axes = sharding.sharded_axes(specs[i], mesh)
@@ -296,9 +302,9 @@ def placement(mesh: Optional[sharding.Mesh] = None, param_specs: Any = None,
     grads_fn, params, batch, key)`` returns the gradients (blocks under a
     mesh) and the metrics, ``update(opt_cfg, grads, opt_state, params)``
     the AdamW step, ``per_leaf(grads, fn)`` / ``global_norm(grads)`` the
-    logical gradients' statistics; a gradient function for it takes
-    ``view_bits`` as its ``gather_bits`` and ``scale`` as its backward's
-    seed."""
+    logical gradients' statistics; a gradient function for it takes its
+    ``view`` (what the loss sees of the parameters) and ``scale`` as its
+    backward's seed."""
     if mesh is None:
         return _Local(gather_bits)
     return _Spmd(mesh, param_specs, gather_bits, microbatches)
@@ -328,7 +334,7 @@ class TrainStep:
         ``placement``)."""
         grads_fn = make_grads_fn(self.loss_fn, self.cfg, self.qcfg,
                                  self.train_cfg.microbatches,
-                                 where.view_bits, where.scale)
+                                 grad_scale=where.scale, view=where.view)
 
         def step(params, opt_state, batch, key):
             grads, metrics = where.grads(grads_fn, params, batch, key)
@@ -347,8 +353,8 @@ def make_train_step(loss_fn: LossFn, cfg, qcfg: QuantLike,
     model's autograd Functions; with ``gather_bits`` of the parameters'
     DFX images), then the AdamW update, in place: the returned params are
     the tensors passed in.  ``jit_train_step`` gives its SPMD form, where
-    ``gather_bits`` moves the parameters through
-    ``sharding.quantized_all_gather``."""
+    ``gather_bits`` moves the parameters as int8 planes
+    (``sharding.layer_view``)."""
     return TrainStep(loss_fn, cfg, qcfg, opt_cfg, train_cfg)
 
 

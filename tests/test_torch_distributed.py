@@ -2,9 +2,11 @@
 ``train/trainer.py``'s SPMD and compressed steps, sharded checkpoints,
 ``launch.train`` under ``torchrun``) against ``tests/test_distributed.py``'s
 cases, on gloo worlds of CPU processes (``torch_dist_worker.spawn``: a
-free port, a timeout, the world torn down on failure).  The reference
-runs once, in a subprocess with 8 host devices, shared by the cases
-through a module fixture.
+free port, a timeout, the world torn down on failure): one world of 2, 4
+and 8 ranks each, every case of that size run on it in turn
+(``spawn_group``), shared through module fixtures.  The reference runs
+once, in a subprocess with 8 host devices, shared by the cases through a
+module fixture.
 
 Stated tolerances:
 
@@ -70,7 +72,7 @@ from repro_torch.core import qtensor  # noqa: E402
 from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.train import trainer  # noqa: E402
-from torch_dist_worker import spawn  # noqa: E402
+from torch_dist_worker import spawn, spawn_group  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 #: the state-plane run's steps (the reference's test takes 200; at 60 the
@@ -352,9 +354,47 @@ def local_ids(b):
 # The int8 gather, the SPMD steps, the compressed step
 # =========================================================================
 
-def test_quantized_all_gather_matches_reference(ref, tmp_path):
+@pytest.fixture(scope="module")
+def world8(ref, tmp_path_factory):
+    """The 8-rank cases on one world: the int8 gather, the state plane."""
+    return spawn_group({"gather": _sub(ref, "gather_in"),
+                        "state_plane": {"steps": np.int64(STATE_PLANE_STEPS)}},
+                       8, str(tmp_path_factory.mktemp("world8")),
+                       timeout=700)
+
+
+@pytest.fixture(scope="module")
+def world4(ref, tmp_path_factory):
+    """The 4-rank cases on one world: the FP32 and compressed steps,
+    chaos."""
+    return spawn_group({"fp32_step": _step_inputs(ref),
+                        "compressed_step": _step_inputs(ref),
+                        "chaos": {"none": np.zeros(1)}},
+                       4, str(tmp_path_factory.mktemp("world4")),
+                       timeout=400)
+
+
+@pytest.fixture(scope="module")
+def world2(ref, tmp_path_factory):
+    """The 2-rank cases on one world: the int8 step, the MoE layer and
+    step."""
+    cfg = registry.get_config("mixtral-8x7b").reduced()
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab, (4, 32)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab, (4, 32)).astype(np.int32)
+    labels[0, 8:] = -1                   # rank 0: 8 + 21 valid labels,
+    labels[1, ::3] = -1                  # rank 1: 64
+    moe_in = {**{f"moe_in/{k}": v for k, v in _sub(ref, "moe_in").items()},
+              "moe_x": ref["moe_x"]}
+    return spawn_group({"int8_step": _step_inputs(ref), "moe_layer": moe_in,
+                        "int8_moe_step": {"tokens": tokens,
+                                          "labels": labels}},
+                       2, str(tmp_path_factory.mktemp("world2")))
+
+
+def test_quantized_all_gather_matches_reference(ref, world8):
     inp = _sub(ref, "gather_in")
-    outs = spawn("gather", 8, inp, str(tmp_path))
+    outs = [o["gather"] for o in world8]
     want = _sub(ref, "gather_out")
     for r, o in enumerate(outs):
         for k in inp:
@@ -371,8 +411,8 @@ def test_quantized_all_gather_matches_reference(ref, tmp_path):
     assert st[("gather_int8", "bytes")] == 8 * 16 + 6 * 4 + 4 * (8 + 4)
 
 
-def test_fp32_spmd_step_matches_reference(ref, tmp_path):
-    out = spawn("fp32_step", 4, _step_inputs(ref), str(tmp_path))[0]
+def test_fp32_spmd_step_matches_reference(ref, world4):
+    out = world4[0]["fp32_step"]
     assert out["specs"]["blocks/attn/wq"] == (None, "data", "model")
     for tag in ("one", "mesh"):
         assert abs(out["loss"] - float(ref[f"fp32/loss_{tag}"])) < 1e-4
@@ -384,9 +424,8 @@ def test_fp32_spmd_step_matches_reference(ref, tmp_path):
 
 
 @pytest.fixture(scope="module")
-def int8_world(ref, tmp_path_factory):
-    return spawn("int8_step", 2, _step_inputs(ref),
-                 str(tmp_path_factory.mktemp("int8")))
+def int8_world(world2):
+    return [o["int8_step"] for o in world2]
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
@@ -444,10 +483,8 @@ def test_capacity_is_decided_on_the_logical_tokens():
     assert blocks.capacity(cfg, 1024, 2) == 2048
 
 
-def test_moe_layer_under_a_mesh_matches_reference(ref, tmp_path):
-    inp = {**{f"moe_in/{k}": v for k, v in _sub(ref, "moe_in").items()},
-           "moe_x": ref["moe_x"]}
-    outs = spawn("moe_layer", 2, inp, str(tmp_path))
+def test_moe_layer_under_a_mesh_matches_reference(ref, world2):
+    outs = [o["moe_layer"] for o in world2]
     want = ref["moe_y"]
     top = np.abs(want).max()
     for r, o in enumerate(outs):
@@ -458,15 +495,8 @@ def test_moe_layer_under_a_mesh_matches_reference(ref, tmp_path):
                                float(ref["moe_aux"]), rtol=1e-5)
 
 
-def test_int8_moe_step_with_uneven_labels_matches_one_device(tmp_path):
-    cfg = registry.get_config("mixtral-8x7b").reduced()
-    rng = np.random.default_rng(5)
-    tokens = rng.integers(0, cfg.vocab, (4, 32)).astype(np.int32)
-    labels = rng.integers(0, cfg.vocab, (4, 32)).astype(np.int32)
-    labels[0, 8:] = -1                   # rank 0: 8 + 21 valid labels,
-    labels[1, ::3] = -1                  # rank 1: 64
-    o = spawn("int8_moe_step", 2, {"tokens": tokens, "labels": labels},
-              str(tmp_path))[0]
+def test_int8_moe_step_with_uneven_labels_matches_one_device(world2):
+    o = world2[0]["int8_moe_step"]
     assert o["exps"] == o["exps_one"] and len(o["exps"]) > 20
     np.testing.assert_allclose(o["loss"], o["loss_one"], rtol=1e-6)
     np.testing.assert_allclose(o["aux"], o["aux_one"], rtol=1e-6)
@@ -485,8 +515,8 @@ def test_manual_axes_keep_the_local_exponent(int8_world):
     assert int8_world[0]["local"]["own"] != int8_world[1]["local"]["own"]
 
 
-def test_compressed_step_matches_reference(ref, tmp_path):
-    out = spawn("compressed_step", 4, _step_inputs(ref), str(tmp_path))[0]
+def test_compressed_step_matches_reference(ref, world4):
+    out = world4[0]["compressed_step"]
     np.testing.assert_allclose(out["loss"], float(ref["compressed_loss"]),
                                rtol=1e-5)
     want = _sub(ref, "compressed")
@@ -504,9 +534,8 @@ def test_compressed_step_matches_reference(ref, tmp_path):
 # The state plane, chaos, the launcher
 # =========================================================================
 
-def test_quantized_state_plane_tracks_fp32(tmp_path):
-    out = spawn("state_plane", 8, {"steps": np.int64(STATE_PLANE_STEPS)},
-                str(tmp_path), timeout=600)[0]
+def test_quantized_state_plane_tracks_fp32(world8):
+    out = world8[0]["state_plane"]
     base, quant = out["base"], out["quant"]
     assert len(quant) == STATE_PLANE_STEPS
     tail_b, tail_q = np.mean(base[-20:]), np.mean(quant[-20:])
@@ -514,8 +543,8 @@ def test_quantized_state_plane_tracks_fp32(tmp_path):
     assert abs(tail_q - tail_b) / tail_b < 0.01, (tail_b, tail_q)
 
 
-def test_chaos_recovery_across_ranks_matches_clean(tmp_path):
-    outs = spawn("chaos", 4, {"none": np.zeros(1)}, str(tmp_path))
+def test_chaos_recovery_across_ranks_matches_clean(world4):
+    outs = [o["chaos"] for o in world4]
     for o in outs:
         assert abs(o["clean"] - o["chaos"]) < 1e-5, o
         assert o["events"].count("restore") == 3, o["events"]

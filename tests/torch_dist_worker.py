@@ -60,9 +60,31 @@ def spawn(case: str, world: int, inputs: dict, out_dir: str,
                        weights_only=False) for r in range(world)]
 
 
+def spawn_group(cases: dict, world: int, out_dir: str,
+                timeout: float = 240.0) -> list:
+    """Run several cases on one world of ``world`` gloo ranks, in order:
+    ``cases`` maps a case to its inputs.  Every rank's ``{case: output}``,
+    in rank order."""
+    inputs = {f"{case}:{k}": v for case, inp in cases.items()
+              for k, v in inp.items()}
+    inputs["cases"] = np.array(list(cases))
+    return spawn("group", world, inputs, out_dir, timeout)
+
+
 # =========================================================================
 # Cases (each runs on every rank; returns what the rank writes)
 # =========================================================================
+
+def case_group(inp, mesh_of):
+    """The cases ``inp["cases"]`` names, in order, each on its
+    ``<case>:``-prefixed inputs (``spawn_group``)."""
+    out = {}
+    for case in (str(c) for c in inp["cases"]):
+        sub = {k.split(":", 1)[1]: v for k, v in inp.items()
+               if k.startswith(case + ":")}
+        out[case] = globals()[f"case_{case}"](sub, mesh_of)
+    return out
+
 
 def _tree(flat: dict, prefix: str) -> dict:
     """Nested dict of tensors from the ``prefix/a/b`` keys of an npz."""
@@ -422,6 +444,196 @@ def case_compressed_step(inp, mesh_of):
                              grad_compress.init_residuals(params), batch,
                              None)
     return {"loss": float(m["loss"]), "params": _flat(params)}
+
+
+# -------------------------------------------------------------------------
+# Per-layer gathering (test_torch_fsdp_layers.py): one world, every case
+# -------------------------------------------------------------------------
+
+def _whole_model_placement(mesh, pspecs, gather_bits, microbatches):
+    """The step that gathers every leaf before the forward and pulls every
+    gradient back through the gathers after the backward: the parameters
+    and gradients whole on every rank."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.train import optimizer as opt_lib, trainer
+
+    class WholeModel(trainer._Spmd):
+        def view(self, params):
+            return params
+
+        def grads(self, grads_fn, params, batch, key):
+            batch = trainer.local_rows(batch, self.mesh, self.microbatches,
+                                       self.axes)
+            live = opt_lib.tree_map(
+                lambda p: p.detach().requires_grad_(True), params)
+            with sharding.spmd(self.mesh):
+                image = sharding.gather_params(live, self.specs, self.mesh,
+                                               self.gather_bits)
+                g_image, metrics = grads_fn(image, batch, key)
+                blocks = torch.autograd.grad(opt_lib.tree_leaves(image),
+                                             opt_lib.tree_leaves(live),
+                                             opt_lib.tree_leaves(g_image))
+            return (opt_lib.tree_unflatten(params, list(blocks)),
+                    trainer._mean_metrics(metrics, self.mesh, self.axes))
+
+    return WholeModel(mesh, pspecs, gather_bits, microbatches)
+
+
+#: (arch, gather_bits, state_bits) of the equality cases
+LAYER_CASES = {
+    "qwen": ("qwen1.5-0.5b", 0, 0),
+    "qwen_gather8": ("qwen1.5-0.5b", 8, 8),
+    "mixtral": ("mixtral-8x7b", 0, 0),
+    "mamba2": ("mamba2-370m", 0, 0),
+    "zamba2": ("zamba2-2.7b", 0, 0),
+    "whisper": ("whisper-large-v3", 0, 0),
+}
+
+
+def _layer_batch(cfg, rows=4, seq=32):
+    import torch
+    from repro_torch.launch import train as launch_train
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab, (rows, seq + 1))
+    raw = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in launch_train.make_batch(cfg, raw).items()}
+
+
+def _moments(opt, pspecs, mesh) -> dict:
+    """Every logical moment: an FP32 tensor, or a QTensor's planes and
+    exponents."""
+    from repro_torch import sharding
+    from repro_torch.core import qtensor
+    out = {}
+    for which in ("m", "v"):
+        full = sharding.unshard(getattr(opt, which), pspecs, mesh)
+        for k, x in _flat(full).items():
+            if qtensor.is_qtensor(x):
+                out[f"{which}/{k}/m"], out[f"{which}/{k}/exp"] = x.m, x.exp
+            else:
+                out[f"{which}/{k}"] = x
+    return out
+
+
+def _layer_step(name, mesh, rec, microbatches=1, where="layer"):
+    """One step of ``LAYER_CASES[name]`` from a seeded init: on ``mesh``
+    per layer (``where="layer"``) or with every leaf gathered whole
+    (``"whole"``), or on one device (``"one"``, no mesh).  The loss, the
+    logical parameters and moments, every exponent, the collectives by
+    tag."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.configs import registry
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import optimizer as opt_lib, trainer
+    arch, gather_bits, state_bits = LAYER_CASES[name]
+    cfg = registry.get_config(arch).reduced()
+    init_fn, loss_fn = launch_train._model(cfg)
+    q = dataclasses.replace(QuantConfig.int8(), stochastic_grad=False)
+    opt_cfg = opt_lib.OptimizerConfig(lr=1e-3, state_bits=state_bits)
+    tcfg = trainer.TrainConfig(microbatches=microbatches,
+                               gather_bits=gather_bits)
+    step = trainer.make_train_step(loss_fn, cfg, q, opt_cfg, tcfg)
+    gen = torch.Generator().manual_seed(0)
+    if where == "one":
+        params = init_fn(gen, cfg, device="cpu")
+        opt = opt_lib.init(params, opt_cfg)
+    else:
+        params, opt, pspecs = trainer.init_train_state(
+            lambda g: init_fn(g, cfg, device="cpu"), gen, mesh, fsdp=True,
+            opt_cfg=opt_cfg)
+        step = (step.on(_whole_model_placement(mesh, pspecs, gather_bits,
+                                               microbatches))
+                if where == "whole" else
+                trainer.jit_train_step(step, mesh, pspecs))
+    sharding.reset_stats()
+    rec.clear()
+    params, opt, m = step(params, opt, _layer_batch(cfg), None)
+    out = {"loss": float(m["loss"]), "exps": list(rec),
+           "stats": dict(sharding.STATS),
+           "largest": dict(sharding.LARGEST)}
+    if where == "one":
+        return dict(out, params=_flat(params))
+    return dict(out, params=_flat(sharding.unshard(params, pspecs, mesh)),
+                moments=_moments(opt, pspecs, mesh))
+
+
+def _layer_footprint(name, mesh) -> dict:
+    """What the per-layer gathers of ``name``'s step should show, from its
+    specs: the data-sharded stacked leaves, the layers, one layer's
+    largest logical bytes on the wire, the leaves gathered whole."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.configs import registry
+    from repro_torch.core import qtensor
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import optimizer as opt_lib
+    arch, gather_bits, _ = LAYER_CASES[name]
+    cfg = registry.get_config(arch).reduced()
+    full = launch_train._model(cfg)[0](torch.Generator().manual_seed(0),
+                                       cfg, device="cpu")
+    specs = sharding.param_pspecs(full, mesh, fsdp=True)
+    paths = opt_lib.tree_paths(full)
+    leaves = list(zip(paths, opt_lib.tree_leaves(full),
+                      opt_lib.tree_leaves(specs)))
+    stacked = [(p, s) for path, p, s in leaves if opt_lib.is_stacked(path)]
+    whole = [(p, s) for path, p, s in leaves
+             if not opt_lib.is_stacked(path)]
+    travel = [(p, s) for p, s in stacked
+              if sharding.sharded_axes(s, mesh)]
+    # a data-sharded layer moves as int8 planes under the int8 gather
+    limbs = qtensor.n_limbs(gather_bits) if gather_bits else 4
+    return {"layers": cfg.n_layers, "stacked": len(stacked),
+            "travel": len(travel),
+            "data": sum("data" in s for p, s in travel),
+            "layer_bytes": max(p[0].numel() * (limbs if "data" in s else 4)
+                               for p, s in travel),
+            "whole": len(whole),
+            "whole_travel": sum(bool(sharding.sharded_axes(s, mesh))
+                                for p, s in whole),
+            "whole_bytes": max(4 * p.numel() for p, s in whole)}
+
+
+def _layer_noise(mesh) -> dict:
+    """A stacked and a whole leaf's moment noise: the rank's block drawn
+    per slice, and the one-device draw's block."""
+    from repro_torch import sharding
+    from repro_torch.train import optimizer as opt_lib
+    out = {}
+    for name, shape, spec, stacked in (
+            ("stacked", (3, 8, 6), (None, "data", None), True),
+            ("whole", (8, 6), ("data", None), False)):
+        sl = sharding.local_slices(shape, spec, mesh)
+        block = tuple(s.stop - s.start for s in sl)
+        got = opt_lib.moment_noise(5, 2, 7, "v", "cpu", shape, stacked, sl)
+        one = opt_lib.moment_noise(5, 2, 7, "v", "cpu", shape, stacked)
+        out[name] = {"block": _uniform(got, block), "one": _uniform(
+            one, shape)[sl]}
+    return out
+
+
+def _uniform(key, shape):
+    from repro_torch.core import dfx
+    return dfx.uniform(key, shape, "cpu")
+
+
+def case_fsdp_layers(inp, mesh_of):
+    """Every case of test_torch_fsdp_layers.py on one data-2 world."""
+    from repro_torch.core import dfx
+    mesh = mesh_of((2, 1), ("data", "model"))
+    rec = _record_exponents(dfx)
+    out = {"equal": {}, "footprint": {}}
+    for name in LAYER_CASES:
+        out["equal"][name] = {w: _layer_step(name, mesh, rec, where=w)
+                              for w in ("layer", "whole")}
+        out["footprint"][name] = _layer_footprint(name, mesh)
+    out["micro"] = {w: _layer_step("qwen", mesh, rec, 2, where=w)
+                    for w in ("layer", "one")}
+    out["noise"] = _layer_noise(mesh)
+    return out
 
 
 def main(argv) -> int:

@@ -1,0 +1,89 @@
+"""The FP32 parameter and gradient bytes a rank holds during a training
+step over a mesh, with every leaf gathered whole before the forward and
+with each layer stack gathered one layer at a time inside the layer loop
+(``sharding.layer_view``), for every arch of ``registry.FSDP_ARCHS`` at
+full size: from the partition rules (``sharding.param_pspecs``) at the
+logical shapes, on meta tensors (nothing is allocated).
+
+* whole model: every leaf's logical image and gradient, plus the rank's
+  blocks and their gradients;
+* per layer: the non-stacked leaves' images and gradients, the largest
+  layer's (all its stack leaves), plus the blocks and their gradients.
+
+Activations, int8 planes and the moments are left out; the FP32 moments
+(two a parameter, on the blocks) are printed beside.
+
+    PYTHONPATH=src python tools/fsdp_footprint.py
+"""
+import functools
+
+import torch
+
+from repro_torch import sharding
+from repro_torch.configs import registry
+from repro_torch.launch import train as launch_train
+from repro_torch.train import optimizer as opt_lib
+
+MESHES = {"data 8": ((8, 1), ("data", "model")),
+          "16 x 16": ((16, 16), ("data", "model"))}
+
+
+def _meta(fn):
+    @functools.wraps(fn)
+    def on_meta(*args, generator=None, device=None, **kw):
+        return fn(*args, device="meta", **kw)
+    return on_meta
+
+
+def logical_params(arch: str) -> dict:
+    """The arch's parameter tree as meta tensors of the logical shapes."""
+    cfg = registry.get_config(arch)
+    saved = torch.randn, torch.rand
+    torch.randn, torch.rand = _meta(torch.randn), _meta(torch.rand)
+    try:
+        return launch_train._model(cfg)[0](torch.Generator(), cfg,
+                                           device="meta")
+    finally:
+        torch.randn, torch.rand = saved
+
+
+def footprint(params: dict, shape, names) -> dict:
+    """GB a rank holds: whole-model and per-layer, and its FP32 moments."""
+    mesh = sharding.Mesh(shape, names)
+    specs = sharding.param_pspecs(params, mesh, fsdp=True)
+    total = whole = local = 0
+    layer = {}
+    for path, p, spec in zip(opt_lib.tree_paths(params),
+                             opt_lib.tree_leaves(params),
+                             opt_lib.tree_leaves(specs)):
+        n = p.numel()
+        total += n
+        local += n // mesh.count(sharding.sharded_axes(spec, mesh))
+        if opt_lib.is_stacked(path):
+            stack = path.split("/")[0]
+            layer[stack] = layer.get(stack, 0) + n // p.shape[0]
+        else:
+            whole += n
+    gb = 2 * 4 / 1e9                    # an image and a gradient, f32
+    return {"params": total, "before": gb * (total + local),
+            "after": gb * (whole + max(layer.values()) + local),
+            "layer": max(layer.values()), "whole": whole,
+            "moments": gb * local}
+
+
+def main() -> None:
+    print("| arch | parameters | mesh | whole model GB | per layer GB "
+          "(one layer, non-stacked leaves) | FP32 moments GB |")
+    print("|---|---|---|---|---|---|")
+    for arch in sorted(registry.FSDP_ARCHS):
+        params = logical_params(arch)
+        for label, (shape, names) in MESHES.items():
+            f = footprint(params, shape, names)
+            print(f"| {arch} | {f['params'] / 1e9:.3f} B | {label} | "
+                  f"{f['before']:.2f} | {f['after']:.2f} "
+                  f"({f['layer'] / 1e9:.3f} B, {f['whole'] / 1e9:.3f} B) | "
+                  f"{f['moments']:.2f} |")
+
+
+if __name__ == "__main__":
+    main()
