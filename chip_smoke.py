@@ -51,7 +51,11 @@ Phases (each raises on failure; nothing is caught):
    timed with it too, against their plain versions with the same flag
    (``int_*`` keys), beside their FP32 body in the same run.  Also the
    library yardsticks of the decode tied head, bert-base's w1 forward and
-   the MoE decode product.
+   the MoE decode product.  And at the shapes phase 14d's split products
+   give the kernels (``check_tp_shapes``, ``TP_ATTN``: qwen1.5-0.5b at
+   model 2 — q / k / v 512 columns, gate / up 1408, the head's 76,032
+   vocabulary rows, 8 heads — and qwen2-moe-a2.7b's experts at 704 of
+   their 1408 columns), each held bit for bit (``tp_rows``).
 3. On reduced configurations (2 layers), from the same weights, the card
    against the port's CPU path: qwen1.5-0.5b's served logits; one BERT
    training step under the paper's integer scope (round to nearest), its
@@ -125,7 +129,7 @@ Phases (each raises on failure; nothing is caught):
    1-5, tokens/s, peak memory, launches per step and a profiled step's
    busy share at int16 and int8.  Then the reference's sizes (bert-tiny /
    vit-tiny, batch 16, eval on 128): Tables 1-3 and Fig. 4 at
-   ``SWEEP_REF_STEPS`` steps (60; 120 before PR 24),
+   ``SWEEP_REF_STEPS`` steps (30; 60 before phase 14d, 120 before phase 12),
    Fig. 5 at 150 with its assertion; each table's metric, its drop against
    FP32 and int8's average drop.  Phase 2 holds the sweep's attention
    calls (3 limb planes at hd 64, bert cls / span and vit shapes; vit at
@@ -195,7 +199,7 @@ Phases (each raises on failure; nothing is caught):
 12. The SSM, hybrid and VLM families at full width (``family_phase``),
    int8 unless named, random weights from seeded generators, each freed
    before the next.  12a: mamba2-370m at ``MAMBA_LAYERS`` of its 48
-   layers (cut for phase 13's time), trained through ``launch.train``
+   layers (cut for the time of phases 13 and 14d), trained through ``launch.train``
    at batch 8 x 256, 4 steps, int8 and FP32; served
    through ``ContinuousBatcher`` (4 slots, 4 requests of 32-token
    prompts teacher-forced through decode steps, 16 new tokens each); and
@@ -243,7 +247,14 @@ Phases (each raises on failure; nothing is caught):
    d_model x 0.02^2 / 2 and each peak leave 10% of the card's memory.
    Prints step ms, tokens/s, peak memory, busy share, launches per step
    and the losses.
-14. Print the ``{"kernels": [...]}`` line, then the last line
+14. Distributed qwen1.5-0.5b at full width over ``torch.distributed``
+   (``dist_phase``): 14a two gloo ranks sharing the card (FSDP over data
+   2, the int8 gather, one layer at a time), 14b the compressed cross-pod
+   step through ``launch.train``, 14c a one-rank NCCL group, 14d 14a's
+   step on (data 1, model 2) with every product split over the model
+   group (tensor-parallel compute).
+15. The examples and the paper's Fig. 1 (``examples_phase``).
+16. Print the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available or when
@@ -920,6 +931,12 @@ WHISPER_DECODE_SELF = "whisper decode self (4 rows over 448 keys)"
 WHISPER_ATTN_FWD = (WHISPER_ENC, WHISPER_CROSS, WHISPER_SELF,
                     WHISPER_DECODE_CROSS, WHISPER_DECODE_SELF)
 WHISPER_ATTN_BWD = (WHISPER_ENC, WHISPER_CROSS, WHISPER_SELF)
+#: phase 14d's attention calls, held bit for bit and timed in phase 2: a
+#: rank's heads under tensor-parallel compute at model 2, qwen1.5-0.5b's
+#: 16 heads of 64 and qwen2-moe-a2.7b's 16 of 128 halved
+TP_QWEN_ATTN = "qwen1.5-0.5b train, model 2 (8 heads of 64)"
+TP_MOE_ATTN = "qwen2-moe-a2.7b train, model 2 (8 heads of 128)"
+TP_ATTN = (TP_QWEN_ATTN, TP_MOE_ATTN)
 
 #: attention forward shapes held on the card: name -> (B, Sq, Sk, KV, G,
 #: hd, offsets, causal, window, act bits); q/k/v carry n_limbs(act bits)
@@ -958,6 +975,8 @@ ATTN_FWD_SHAPES = {
     WHISPER_SELF: (8, 448, 448, 20, 1, 64, 0, True, None, 12),
     WHISPER_DECODE_CROSS: (4, 1, 1500, 20, 1, 64, 0, False, None, 12),
     WHISPER_DECODE_SELF: (4, 1, 448, 20, 1, 64, 35, True, None, 12),
+    TP_QWEN_ATTN: (8, 256, 256, 8, 1, 64, 0, True, None, 12),
+    TP_MOE_ATTN: (8, 256, 256, 8, 1, 128, 0, True, None, 12),
 }
 
 
@@ -1030,7 +1049,7 @@ def check_attention(torch, dev, gen, cfg):
                 raise AssertionError(
                     f"int_attn_fwd (integer_exp={iexp}) differs at {label}: "
                     f"o max|err| {e_o} of max {scale}, lse {e_l}")
-            if label in WHISPER_ATTN_FWD and e_o != 0:
+            if label in WHISPER_ATTN_FWD + TP_ATTN and e_o != 0:
                 raise AssertionError(
                     f"int_attn_fwd (integer_exp={iexp}) at {label}: o max "
                     f"|err| {e_o}, not bit for bit")
@@ -1112,6 +1131,8 @@ def check_attention(torch, dev, gen, cfg):
     whisper_rows = [dict(label=lb, max_abs_err=runs[lb][-1],
                          **measure(lb, time_plain=lb != WHISPER_ENC))
                     for lb in WHISPER_ATTN_FWD]
+    tp_rows = [dict(label=lb, max_abs_err=runs[lb][-1], **measure(lb))
+               for lb in TP_ATTN]
     B, Sq, Sk, KV, G, hd = ATTN_FWD_SHAPES["decode"][:6]
     out = dict(name="int_attn_fwd", route="cuda",
                source="src/repro_torch/csrc/int_attention.cu",
@@ -1125,7 +1146,9 @@ def check_attention(torch, dev, gen, cfg):
                      "(arch_rows), phase 12's zamba2 (hd 80) and llava "
                      "calls (ssm_rows) and phase 13's whisper calls, "
                      "bidirectional Sq != Sk and one bidirectional decode "
-                     "row among them (whisper_rows, held bit for bit); "
+                     "row among them (whisper_rows, held bit for bit) "
+                     "and phase 14d's heads at model 2 (tp_rows, held bit "
+                     "for bit); "
                      "the kept-int body (int_*, train_int_*) "
                      "at decode and the training shape; both bodies held at "
                      + ", ".join(ATTN_FWD_SHAPES) + "; tolerance o 1e-5 "
@@ -1136,7 +1159,7 @@ def check_attention(torch, dev, gen, cfg):
                **{f"moe_{k_}": v_ for k_, v_ in tm.items()},
                **{f"hd384_{k_}": v_ for k_, v_ in tw.items()},
                sweep_rows=sweep, arch_rows=arch, ssm_rows=ssm_rows,
-               whisper_rows=whisper_rows)
+               whisper_rows=whisper_rows, tp_rows=tp_rows)
     print(body_line("int_attn_fwd", out))
     print(body_line("int_attn_fwd", out, "train_"))
     return out
@@ -1460,6 +1483,8 @@ ATTN_BWD_SHAPES = {
     WHISPER_ENC: (8, 1500, 1500, 20, 1, 64, 0, False, None, 12, 8),
     WHISPER_CROSS: (8, 448, 1500, 20, 1, 64, 0, False, None, 12, 8),
     WHISPER_SELF: (8, 448, 448, 20, 1, 64, 0, True, None, 12, 8),
+    TP_QWEN_ATTN: (8, 256, 256, 8, 1, 64, 0, True, None, 12, 8),
+    TP_MOE_ATTN: (8, 256, 256, 8, 1, 128, 0, True, None, 12, 8),
 }
 
 
@@ -1555,7 +1580,8 @@ def check_attention_bwd(torch, dev, gen):
                                       "qwen2-moe-a2.7b train",
                                       "head dim 256 (widest body)",
                                       "head dim 384") + SWEEP_TIMED \
-                    + ARCH_ATTN + (ZAMBA_ATTN,) + WHISPER_ATTN_BWD:
+                    + ARCH_ATTN + (ZAMBA_ATTN,) + WHISPER_ATTN_BWD \
+                    + TP_ATTN:
                 timed[label] = (shape, q, k, v, g, lse, delta, qo, exps, kw,
                                 dq, dk, dv)
 
@@ -1636,12 +1662,15 @@ def check_attention_bwd(torch, dev, gen):
     wide = measure(*timed["head dim 256 (widest body)"])
     wide384 = measure(*timed["head dim 384"])
     sweep = {lb: measure(*timed[lb]) for lb in SWEEP_TIMED}
-    arch = {lb: measure(*timed[lb], time_plain=lb != MIXTRAL_ATTN)
-            for lb in ARCH_ATTN}
+    # the plain versions at mixtral's and mistral-large's calls run some
+    # 27,000 kernels a call, over which the profiler's windows did not agree
+    # on an event count in a run (NVIDIA H100 80GB HBM3): held, not timed
+    arch = {lb: measure(*timed[lb], time_plain=False) for lb in ARCH_ATTN}
     ssm = {ZAMBA_ATTN: measure(*timed[ZAMBA_ATTN])}
     whisper = {lb: measure(*timed[lb], kept_int=True,
                            time_plain=lb != WHISPER_ENC)
                for lb in WHISPER_ATTN_BWD}
+    tp = {lb: measure(*timed[lb]) for lb in TP_ATTN}
     shape = ATTN_BWD_SHAPES["qwen1.5-0.5b train"]
     B, Sq, Sk, KV, G, hd = shape[:6]
     out_k = []
@@ -1652,7 +1681,8 @@ def check_attention_bwd(torch, dev, gen):
                         *((lb, r[name]) for lb, r in sweep.items()),
                         *((lb, r[name]) for lb, r in arch.items()),
                         *((lb, r[name]) for lb, r in ssm.items()),
-                        *((lb, r[name]) for lb, r in whisper.items())):
+                        *((lb, r[name]) for lb, r in whisper.items()),
+                        *((lb, r[name]) for lb, r in tp.items())):
             print(f"  {name} at {what}: call {m['ms']:.4f} ms, device "
                   f"{m['device_ms']:.4f} ms; plain device "
                   f"{_ms(m['plain_device_ms'])}; SDPA backward device "
@@ -1681,7 +1711,8 @@ def check_attention_bwd(torch, dev, gen):
                   "shared block, head dim 80 (ssm_rows) and at phase 13's "
                   "whisper encoder, cross-attention (Sq != Sk, "
                   "bidirectional) and decoder self-attention "
-                  "(whisper_rows, both bodies: int_*); held at "
+                  "(whisper_rows, both bodies: int_*) and at phase 14d's "
+                  "heads at model 2 (tp_rows); held at "
                   + ", ".join(ATTN_BWD_SHAPES)
                   + " (both bodies at the int8 bits); tolerance exact; "
                   "library: SDPA backward (f32, autograd, dq + dk + dv)",
@@ -1697,7 +1728,9 @@ def check_attention_bwd(torch, dev, gen):
             ssm_rows=[dict(label=lb, max_abs_err=0.0, **r[name])
                       for lb, r in ssm.items()],
             whisper_rows=[dict(label=lb, max_abs_err=0.0, **r[name])
-                          for lb, r in whisper.items()]))
+                          for lb, r in whisper.items()],
+            tp_rows=[dict(label=lb, max_abs_err=0.0, **r[name])
+                     for lb, r in tp.items()]))
     return out_k
 
 
@@ -2263,6 +2296,136 @@ def check_whisper_shapes(torch, dev, gen) -> dict:
               f"ms, {100 * b / d:.1f}% of its bound {b:.4f} ms "
               f"({r['bound_by']}); library {r['library_device_ms']:.4f} ms "
               f"(factor {d / r['library_device_ms']:.2f})", flush=True)
+    return rows
+
+
+def _tp_row(torch, name, label, fn, plain, n_ops, n_bytes, lib) -> dict:
+    """A split-shape call held exactly against its plain version and timed:
+    call (CUDA events), device (profiler), plain (CUDA events), bound, and
+    the library call (CUDA events; ``torch._int_mm`` per limb pair, or the
+    int8 quantize at the same scale)."""
+    _held(name, fn(), plain(), label)
+    d = device_ms(fn)
+    b, by = bound_ms(n_bytes, n_ops)
+    row = dict(label=label, ms=cuda_ms(fn), device_ms=d,
+               plain_ms=cuda_ms(plain, reps=5, warmup=1), bound_ms=b,
+               bound_by=by, bound_share=b / d,
+               library_ms=cuda_ms(lib) if lib else None, max_abs_err=0.0)
+    print(f"  {name} {label}: bit for bit; call {row['ms']:.4f} ms, device "
+          f"{d:.4f} ms, {100 * b / d:.1f}% of its bound {b:.4f} ms ({by}); "
+          f"plain {row['plain_ms']:.4f} ms; library "
+          f"{_ms(row['library_ms'])}", flush=True)
+    return row
+
+
+def check_tp_shapes(torch, dev, gen) -> dict:
+    """Phase 2's holds at the shapes phase 14d gives the quantize and
+    matmul kernels: qwen1.5-0.5b (d_model 1024, 16 heads of 64, d_ff 2816,
+    the vocabulary padded to 152,064 rows) at 8 x 256 tokens with every
+    product split over a model axis of 2 (q / k / v 512 columns, gate / up
+    1408, the tied head's 76,032 vocabulary rows), and qwen2-moe-a2.7b's
+    60 experts at 704 of their 1408 inner columns.  Each call held exactly
+    against its plain version and timed (``_tp_row``): the quantize of the
+    table shard (8-bit mantissa for the lookup, planes for the head), of
+    the logits' gradient shard (g8 planes, stochastic) and of an expert
+    stack shard (grouped); NN at q / k / v, o, gate / up, down, the head's
+    logits (W K-major) and its dX over the vocabulary half; NT (dX) and TN
+    (dW) of q and of gate / up, the head's dE; the batched NN / NT / TN of
+    the experts.  Returns {kernel: [row, ...]}."""
+    from repro_torch.kernels import bfp_matmul as bm
+    from repro_torch.kernels import dfx_quant as dq
+    from repro_torch.core import dfx
+    (T, D, Q, F), V = TP_DIMS, V_HALF
+    rows = {k: [] for k in ("dfx_quantize", "dfx_quantize_grouped",
+                            "bfp_matmul", "bfp_matmul_nt", "bfp_matmul_tn",
+                            "bfp_matmul_batched", "bfp_matmul_batched_nt",
+                            "bfp_matmul_batched_tn")}
+    e = torch.tensor(-30, dtype=torch.int32, device=dev)
+
+    def quant(name, label, x, bits, limbs, u=None):
+        grouped = x.dim() == 3
+        ex = (dfx.slice_exponents(x) if grouped else dfx.scale_exponent(x)) \
+            - (bits - 1)
+        kern = dq.dfx_quantize_grouped if grouped else dq.dfx_quantize
+        plain = (dq.dfx_quantize_grouped_plain if grouped
+                 else dq.dfx_quantize_plain)
+        lib = None
+        if bits == 8 and u is None and not grouped:
+            scale = float(dfx.pow2(ex))
+
+            def lib():
+                return torch.quantize_per_tensor(x, scale, 0, torch.qint8)
+        out_b = x.numel() * (dq.n_limbs(bits) if limbs else 1)
+        rows[name].append(_tp_row(
+            torch, name, label,
+            lambda: kern(x, ex, bits=bits, u=u, limb_planes=limbs),
+            lambda: plain(x, ex, bits=bits, u=u, limb_planes=limbs), 0,
+            nbytes(x) + out_b + (nbytes(u) if u is not None else 0), lib))
+
+    x = torch.randn((V, D), generator=gen, device=dev).mul_(0.02)
+    quant("dfx_quantize", f"table shard ({V},{D}) -> 8-bit mantissa", x, 8,
+          False)
+    quant("dfx_quantize", f"table shard ({V},{D}) -> 8-bit planes", x, 8,
+          True)
+    x = torch.randn((T, V), generator=gen, device=dev).mul_(1e-6)
+    u = torch.rand(x.shape, generator=gen, device=dev)
+    quant("dfx_quantize", f"logits' gradient shard ({T},{V}) -> g8 planes, "
+          "stochastic", x, 8, True, u)
+    del x, u
+    E, C, Dm, Fe = TP_EXPERTS
+    x = torch.randn((E, Dm, Fe), generator=gen, device=dev).mul_(0.02)
+    quant("dfx_quantize_grouped", f"expert stack shard ({E},{Dm},{Fe}) -> "
+          "8-bit planes", x, 8, True)
+    del x
+
+    def pl(L, *shape):
+        return _planes(torch, gen, dev, L, *shape)
+
+    def mm(name, label, a, b, n_ops, out_n, pairs):
+        fn, plain = getattr(bm, name), getattr(bm, name + "_plain")
+        ps = [(p.contiguous(), q.contiguous()) for p, q in pairs]
+        rows[name].append(_tp_row(
+            torch, name, label, lambda: fn(a, b, e), lambda: plain(a, b, e),
+            n_ops, nbytes(a, b) + 4 * out_n,
+            lambda: [torch._int_mm(p, q) for p, q in ps]))
+
+    h = pl(2, T, D)                                   # the normed input
+    for what, N in (("q / k / v", Q), ("gate / up", F)):
+        w, g = pl(1, D, N), pl(1, T, N)
+        mm("bfp_matmul", f"{what} {T}x{D}x{N} 2x1", h, w, 2 * T * D * N * 2,
+           T * N, [(hj, w[0]) for hj in h])
+        mm("bfp_matmul_nt", f"{what} dX {T}x{N} . ({D}x{N})^T 1x1", g, w,
+           2 * T * N * D, T * D, [(g[0], w[0].t())])
+        mm("bfp_matmul_tn", f"{what} dW ({T}x{D})^T . {T}x{N} 2x1", h, g,
+           2 * T * D * N * 2, D * N, [(hj.t(), g[0]) for hj in h])
+    for what, K in (("o", Q), ("down", F)):
+        a, w = pl(2, T, K), pl(1, K, D)
+        mm("bfp_matmul", f"{what} {T}x{K}x{D} 2x1", a, w, 2 * T * K * D * 2,
+           T * D, [(aj, w[0]) for aj in a])
+    del a, w, g
+    emb = pl(1, V, D)                                 # the table shard
+    mm("bfp_matmul", f"tied head logits {T}x{D}x{V} 2x1 (W K-major)", h,
+       emb.transpose(1, 2), 2 * T * D * V * 2, T * V,
+       [(hj, emb[0].t()) for hj in h])
+    g = pl(1, T, V)
+    mm("bfp_matmul", f"tied head dX {T}x{V}x{D} 1x1 (NN over V/2)", g, emb,
+       2 * T * V * D, T * D, [(g[0], emb[0])])
+    mm("bfp_matmul_tn", f"tied head dE ({T}x{V})^T . {T}x{D} 1x2", g, h,
+       2 * T * V * D * 2, V * D, [(g[0].t(), hj) for hj in h])
+    del emb, g, h
+    e = torch.arange(E, dtype=torch.int32, device=dev) - 40
+    x, wg, g = pl(2, E, C, Dm), pl(1, E, Dm, Fe), pl(1, E, C, Fe)
+    for name, a, b, label, n_ops, out_n, pairs in (
+            ("bfp_matmul_batched", x, wg, f"experts gate / up ({E},{C},{Dm})"
+             f"x({E},{Dm},{Fe}) 2x1", 2 * E * C * Dm * Fe * 2, E * C * Fe,
+             [(xj[i], wg[0][i]) for xj in x for i in range(E)]),
+            ("bfp_matmul_batched_nt", g, wg, f"experts dX ({E},{C},{Fe}) . "
+             f"({E},{Dm},{Fe})^T 1x1", 2 * E * C * Fe * Dm, E * C * Dm,
+             [(g[0][i], wg[0][i].t()) for i in range(E)]),
+            ("bfp_matmul_batched_tn", x, g, f"experts dW ({E},{C},{Dm})^T . "
+             f"({E},{C},{Fe}) 2x1", 2 * E * C * Dm * Fe * 2, E * Dm * Fe,
+             [(xj[i].t(), g[0][i]) for xj in x for i in range(E)])):
+        mm(name, label, a, b, n_ops, out_n, pairs)
     return rows
 
 
@@ -3845,9 +4008,9 @@ def sweep_full_width(torch, dev, wrappers) -> dict:
 
 
 #: phase 9's steps at the reference's sizes for Tables 1-3 and Fig. 4 (120
-#: until PR 24, which halved them to make room for phase 12; Fig. 5 keeps
-#: its 150 for its assertion)
-SWEEP_REF_STEPS = 60
+#: until phase 12 joined, then 60; 30 since phase 14d joined, for the
+#: run's time; Fig. 5 keeps its 150 for its assertion)
+SWEEP_REF_STEPS = 30
 
 
 def sweep_reference_size(torch, dev) -> None:
@@ -4139,7 +4302,9 @@ def state_plane_chaos(torch, dev, wrappers, steps: int = 10) -> dict:
     def keep(run, i):
         if i in (3, 4):
             snaps[i] = _snapshot(torch, run)
-    run = go("nan", ["--chaos-nan-at", "4"], keep)
+    # steps 3-5 are all the check reads: 6 steps, for the run's time
+    run = go("nan", ["--chaos-nan-at", "4", "--steps", "6",
+                     "--log-every", "6"], keep)
     skips = [e for e in run.events if e["type"] == "skip-step"]
     if skips != [{"type": "skip-step", "step": 4, "streak": 1}]:
         raise AssertionError(f"NaN run events: {run.events}")
@@ -4219,11 +4384,12 @@ def state_plane_phase(torch, dev, kops) -> dict:
 #: 6272 x 14336 rows (0.34 GiB a f32 tensor): measured peak 55.93 GiB at
 #: 14 layers, so 17 need at most 68.1 GiB (measured 67.00) and 18 up to
 #: 72.2 (past 71.26).
-#: Phase 12's depths are cut to make room for phase 13 (the widths are
-#: untouched): mamba2 trained and served at 24 of 48 layers, zamba2 at 18
-#: of 54 (three groups of six Mamba2 layers, each followed by the shared
-#: block), llava trained at 8 of 32 (17 fit the card).
-MAMBA_LAYERS, ZAMBA_LAYERS, LLAVA_TRAIN_LAYERS = 24, 18, 8
+#: Phase 12's depths are cut to make room for phases 13 and 14d (the
+#: widths are untouched): mamba2 trained and served at 12 of 48 layers (24
+#: until phase 14d joined), zamba2 at 18 of 54 (three groups of six Mamba2
+#: layers, each followed by the shared block), llava trained at 8 of 32
+#: (17 fit the card).
+MAMBA_LAYERS, ZAMBA_LAYERS, LLAVA_TRAIN_LAYERS = 12, 18, 8
 #: llava's training batch: 2 rows of 256 text tokens behind the prefix;
 #: its prefill: 1 row of 64 text tokens behind the prefix, full depth
 LLAVA_TRAIN_BATCH, LLAVA_PREFILL_TEXT = (2, 256), 64
@@ -4849,10 +5015,20 @@ def whisper_phase(torch, dev, kops) -> dict:
 #: so their collectives go through the host; 14c runs a one-rank NCCL
 #: group.  14a and 14c run ``DIST_LAYERS`` of 24 layers, cut for the
 #: run's time (at 24 the phase took 105.2 s: 14a 42.5 s, its steps 5.6 s;
-#: NVIDIA H100 80GB HBM3, 700.00 W); 14b, through ``launch.train``, all 24.
+#: NVIDIA H100 80GB HBM3, 700.00 W); 14b, through ``launch.train``, the
+#: same depth since 14d joined the phase (all 24 before).
+#: 14d runs 14a's step on (data 1, model 2), two gloo ranks sharing the
+#: card, each product split over the model group (tensor-parallel compute).
 DIST_LAYERS, DIST_BATCH, DIST_STEPS = 12, (8, 256), 3
 #: seconds each part may take (spawn, build load, init, steps)
 DIST_TIMEOUT = 420
+#: 14d's vocabulary half: qwen's padded 152,064 rows over 2 model ranks;
+#: phase 2's split shapes (``check_tp_shapes``): qwen's tokens, d_model,
+#: q / k / v and gate / up widths at model 2; qwen2-moe's experts, capacity
+#: rows, d_model and half expert width
+V_HALF = 76032
+TP_DIMS = (8 * 256, 1024, 512, 1408)
+TP_EXPERTS = (60, 256, 2048, 704)
 DIST_PATH = ("dfx_quantize", "bfp_matmul", "bfp_matmul_nt", "bfp_matmul_tn",
              "int_rmsnorm_fwd", "int_rmsnorm_bwd", "int_attn_fwd",
              "int_attn_bwd_dq", "int_attn_bwd_dkv")
@@ -4866,19 +5042,25 @@ def _dist_config():
 
 
 def _plain_image(torch, full, spec, mesh):
-    """A leaf's int8 image as the plain quantize makes it: each data block
-    at its own exponent (``sharding.local_slices`` of every data rank)."""
+    """A leaf's int8 image as the plain quantize makes it: each block of the
+    data x model grid (every rank's ``sharding.local_slices``) at its own
+    exponent; a leaf without a data dim passes through."""
+    import itertools
     from repro_torch.core import dfx
     from repro_torch.kernels.dfx_quant import dfx_quantize_plain
-    d = next((i for i, a in enumerate(spec) if a == "data"), None)
-    if d is None:
+    if not any(a == "data" for a in spec):
         return full
-    parts = []
-    for block in torch.chunk(full, mesh.shape["data"], dim=d):
+    counts = [mesh.count(spec[d] if d < len(spec) else None)
+              for d in range(full.dim())]
+    out = torch.empty_like(full)
+    for idx in itertools.product(*(range(n) for n in counts)):
+        sl = tuple(slice(i * (s // n), (i + 1) * (s // n))
+                   for i, n, s in zip(idx, counts, full.shape))
+        block = full[sl]
         e = dfx.scale_exponent(block) - 7
-        m = dfx_quantize_plain(block, e, bits=8)
-        parts.append(m.to(torch.float32) * dfx.pow2(e))
-    return torch.cat(parts, dim=d)
+        m = dfx_quantize_plain(block.reshape(-1, block.shape[-1]), e, bits=8)
+        out[sl] = m.reshape(block.shape).to(torch.float32) * dfx.pow2(e)
+    return out
 
 
 def _dist_stats(before: dict, after: dict, steps: int) -> dict:
@@ -4890,12 +5072,15 @@ def _dist_stats(before: dict, after: dict, steps: int) -> dict:
     return out
 
 
-def dist_fsdp(torch, dev, check: bool) -> dict:
-    """14a / 14c on every rank: ``init_train_state(fsdp=True)`` +
-    ``jit_train_step`` with the int8 gather and int8 moments.  With
-    ``check`` the gather's image is held against the plain per-block
-    fake-quant and rank 0 computes the one-rank forward loss on the same
-    image and batch.  Returns what rank 0 reports."""
+def dist_fsdp(torch, dev, check: bool, model: int = 1) -> dict:
+    """14a / 14c / 14d on every rank: ``init_train_state(fsdp=True)`` +
+    ``jit_train_step`` with the int8 gather and int8 moments, on a mesh of
+    ``model`` ranks on the model axis (14d: 2, the products split over
+    them).  With ``check`` the gather's image is held against the plain
+    per-block fake-quant and rank 0 computes the one-rank forward loss on
+    the same image and batch.  Returns what rank 0 reports (under a model
+    axis also its NN launches by output width)."""
+    import collections
     import torch.distributed as dist
     from repro_torch import sharding
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -4904,8 +5089,9 @@ def dist_fsdp(torch, dev, check: bool) -> dict:
     from repro_torch.train import optimizer as opt_lib, trainer
     from repro_torch.train.finetune import to_device
     from repro_torch.configs import registry
+    t_part = time.perf_counter()
     world = dist.get_world_size()
-    mesh = sharding.init_mesh((world, 1), ("data", "model"))
+    mesh = sharding.init_mesh((world // model, model), ("data", "model"))
     cfg, q = _dist_config(), registry.get_quant("int8")
     opt_cfg = opt_lib.OptimizerConfig(lr=1e-4, state_bits=8,
                                       total_steps=DIST_STEPS)
@@ -4913,7 +5099,8 @@ def dist_fsdp(torch, dev, check: bool) -> dict:
     params, opt, pspecs = trainer.init_train_state(
         lambda g: lm.lm_init(g, cfg, device=dev), gen, mesh, fsdp=True,
         opt_cfg=opt_cfg)
-    gen.manual_seed(1 + mesh.rank)              # the rank's own rounding
+    # the batch rank's own rounding: the ranks of a model group draw alike
+    gen.manual_seed(1 + mesh.index(sharding.batch_axes(mesh)))
     step = trainer.jit_train_step(trainer.make_train_step(
         lm.lm_loss, cfg, q, opt_cfg, trainer.TrainConfig(gather_bits=8)),
         mesh, pspecs)
@@ -4949,16 +5136,27 @@ def dist_fsdp(torch, dev, check: bool) -> dict:
     wrappers = kops.wrappers(*DIST_PATH, "dfx_quantize_grouped")
     for w in wrappers.values():
         w.launches = 0
+    # the NN launches by output width (N), through the wrapper ops calls
+    by_n, nn = collections.Counter(), kops.bfp_matmul
+
+    def counted(xm, wm, exp):
+        if xm.is_cuda:
+            by_n[int(wm.shape[-1])] += 1
+        return nn(xm, wm, exp)
+    kops.bfp_matmul = counted
     sharding.reset_stats()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = dict(sharding.STATS)
     stamps, losses = [time.perf_counter()], []
-    for b in batches:
-        params, opt, m = step(params, opt, b, gen)
-        losses.append(float(m["loss"]))
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
+    try:
+        for b in batches:
+            params, opt, m = step(params, opt, b, gen)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+    finally:
+        kops.bfp_matmul = nn
     launches = {n: w.launches for n, w in wrappers.items()}
     for n, c in launches.items():
         if c <= 0:
@@ -4971,13 +5169,16 @@ def dist_fsdp(torch, dev, check: bool) -> dict:
         torch.cuda.max_memory_allocated() / 2**30), mesh.axis_names, mesh)
     out.update(losses=losses, launches=launches, stats=stats,
                step_ms=[1e3 * (b - a) for a, b in zip(stamps, stamps[1:])],
-               peak_gib=[float(v) for v in peak])
+               peak_gib=[float(v) for v in peak],
+               nn_by_width={str(k): v for k, v in sorted(by_n.items())},
+               part_s=time.perf_counter() - t_part)
     return out
 
 
 def dist_compressed(torch, dev) -> dict:
     """14b on every rank: ``launch.train`` with ``--pods 2
-    --grad-compress-bits 8`` over gloo at full width and depth, then one
+    --grad-compress-bits 8`` over gloo at full width, ``DIST_LAYERS`` deep
+    (``registry.get_config`` answers ``_dist_config()`` for qwen), then one
     leaf-sized compressed mean held against the float64 mean of the
     ranks' mantissas at the shared exponent."""
     import torch.distributed as dist
@@ -4985,12 +5186,17 @@ def dist_compressed(torch, dev) -> dict:
     from repro_torch.core import dfx, grad_compress
     from repro_torch.kernels import ops as kops
     from repro_torch.launch import train as lt
+    from repro_torch.configs import registry
     B, S = DIST_BATCH
     wrappers = kops.wrappers(*DIST_PATH)
     for w in wrappers.values():
         w.launches = 0
     sharding.reset_stats()
     stamps = []
+    # the launcher builds qwen at 14a's depth (DIST_LAYERS), widths kept
+    cut = _dist_config()
+    registry.get_config = lambda arch, _get=registry.get_config: (
+        cut if arch == "qwen1.5-0.5b" else _get(arch))
 
     def on_step(i, metrics):
         torch.cuda.synchronize()
@@ -5032,8 +5238,9 @@ def dist_compressed(torch, dev) -> dict:
 
 
 def dist_worker(part: str, out_dir: str) -> int:
-    """One rank of phase 14's part ``part`` under ``torchrun``; rank 0
-    writes ``out_dir/<part>.json``."""
+    """One rank of phase 14's part ``part`` (``14ad``: 14a, then 14d;
+    ``14b``; ``14c``) under ``torchrun``; rank 0 writes
+    ``out_dir/<part>.json``."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
@@ -5041,8 +5248,17 @@ def dist_worker(part: str, out_dir: str) -> int:
     torch.cuda.set_device(dev)
     dist.init_process_group("nccl" if part == "14c" else "gloo")
     try:
-        out = (dist_compressed(torch, dev) if part == "14b"
-               else dist_fsdp(torch, dev, check=part == "14a"))
+        if part == "14b":
+            out = dist_compressed(torch, dev)
+        elif part == "14c":
+            out = dist_fsdp(torch, dev, check=False)
+        else:
+            # 14a and 14d in one world of two ranks (one start-up): the
+            # data-2 step, then the model-2 one
+            out = {"14a": dist_fsdp(torch, dev, check=True)}
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["14d"] = dist_fsdp(torch, dev, check=True, model=2)
         if dist.get_rank() == 0:
             Path(out_dir, f"{part}.json").write_text(json.dumps(out))
         dist.barrier()
@@ -5082,8 +5298,11 @@ def _stat(stats: dict, *tags) -> tuple:
 def dist_phase(torch, card: str) -> dict:
     """Phase 14: 14a (2 gloo ranks sharing the card, the SPMD step with the
     int8 gather and int8 moments), 14b (the compressed step through
-    ``launch.train`` under ``torchrun``) and 14c (a one-rank NCCL group
-    running 14a's step).  Returns {path: rank 0's launches}."""
+    ``launch.train`` under ``torchrun``), 14c (a one-rank NCCL group
+    running 14a's step) and 14d (14a's step on (data 1, model 2): the
+    first loss within 1e-5 relative of one rank's on the same image, the
+    split widths among rank 0's NN launches, the peak per rank below 70%
+    of 14c's).  Returns {path: rank 0's launches}."""
     import shutil
     import tempfile
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
@@ -5093,8 +5312,10 @@ def dist_phase(torch, card: str) -> dict:
         print(f"[14a] qwen1.5-0.5b, full width, {DIST_LAYERS} layers, 2 gloo "
               f"ranks on one card: init_train_state(fsdp=True) + "
               f"jit_train_step, int8 gather + int8 moments, {B} x {S}, "
-              f"{DIST_STEPS} steps", flush=True)
-        a = _spawn_part("14a", 2, out_dir)
+              f"{DIST_STEPS} steps (and 14d's, printed after 14c, in the "
+              "same two processes)", flush=True)
+        ad = _spawn_part("14ad", 2, out_dir)
+        a = ad["14a"]
         rel = abs(a["losses"][0] - a["one_rank_loss"]) / abs(
             a["one_rank_loss"])
         if not rel <= 1e-6:
@@ -5130,10 +5351,11 @@ def dist_phase(torch, card: str) -> dict:
               f"{[round(v, 2) for v in a['peak_gib']]} GiB; "
               f"{a['params'] / 1e6:.1f} M parameters", flush=True)
         print(f"  [{card}] launches per rank in the run: {a['launches']}")
-        print(f"[14a] in {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"[14a] with 14d in {time.perf_counter() - t0:.1f} s",
+              flush=True)
         t0 = time.perf_counter()
-        print(f"[14b] qwen1.5-0.5b, full width and depth, through "
-              f"launch.train under torchrun --nproc-per-node 2: --pods 2 "
+        print(f"[14b] qwen1.5-0.5b, full width, {DIST_LAYERS} layers, "
+              f"through launch.train under torchrun --nproc-per-node 2: --pods 2 "
               f"--grad-compress-bits 8, gloo, {B} x {S}, {DIST_STEPS} steps",
               flush=True)
         b = _spawn_part("14b", 2, out_dir)
@@ -5161,10 +5383,49 @@ def dist_phase(torch, card: str) -> dict:
               f"per step {ex[0]:.0f} (NCCL, one rank); peak "
               f"{c['peak_gib'][0]:.2f} GiB; launches {c['launches']}")
         print(f"[14c] in {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"[14d] tensor-parallel compute: 14a's step on (data 1, model "
+              f"2), 2 gloo ranks on one card (14a's processes), every "
+              f"product split over the model group, {B} x {S}, "
+              f"{DIST_STEPS} steps", flush=True)
+        d = ad["14d"]
+        rel = abs(d["losses"][0] - d["one_rank_loss"]) / abs(
+            d["one_rank_loss"])
+        if not rel <= 1e-5:
+            raise AssertionError(f"14d: first loss {d['losses'][0]} vs the "
+                                 f"one-rank loss {d['one_rank_loss']}")
+        st = d["stats"]
+        tp = {t: _stat(st, t) for t in ("tp_out", "tp_dx", "tp_ce",
+                                       "exponent_model", "exponent")}
+        # the split widths at model 2: q / k / v 16 x 64 / 2 = 512 columns,
+        # gate / up 2816 / 2 = 1408, the head's vocabulary half
+        nn = d["nn_by_width"]
+        split_nn = {w: nn.get(str(w), 0) for w in (512, 1408, V_HALF)}
+        if not all(split_nn.values()) or tp["tp_out"][0] <= 0:
+            raise AssertionError(f"14d: the products were not split: NN "
+                                 f"launches by width {nn}, stats {st}")
+        ratio = max(d["peak_gib"]) / c["peak_gib"][0]
+        if not ratio < 0.7:
+            raise AssertionError(f"14d: peak per rank {d['peak_gib']} GiB "
+                                 f"is {ratio:.2f} of 14c's "
+                                 f"{c['peak_gib'][0]:.2f}")
+        print(f"  [{card}] losses {d['losses']}; first loss "
+              f"{d['losses'][0]} vs one rank on the same image "
+              f"{d['one_rank_loss']} (rel {rel:.2e}, band 1e-5)")
+        print(f"  [{card}] step ms {[round(v, 1) for v in d['step_ms']]}; "
+              "per step: " + "; ".join(
+                  f"{t} {n:.0f} calls {b / 1e6:.3f} MB"
+                  for t, (n, b) in tp.items())
+              + f"; per-layer gathers "
+              f"{_stat(st, 'gather_layer_int8', 'gather_layer_f32')[1] / 1e9:.4f}"
+              f" GB; peak per rank {[round(v, 2) for v in d['peak_gib']]} "
+              f"GiB ({100 * ratio:.1f}% of 14c's one rank)", flush=True)
+        print(f"  [{card}] rank 0's NN launches by output width: {nn}; "
+              f"launches per rank in the run: {d['launches']}; its part "
+              f"took {d['part_s']:.1f} s of 14a's", flush=True)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     return {"dist_fsdp": a["launches"], "dist_compressed": b["launches"],
-            "dist_nccl": c["launches"]}
+            "dist_nccl": c["launches"], "dist_tp": d["launches"]}
 
 
 #: phase 15's sizes: quickstart steps; the serving example's requests,
@@ -5327,6 +5588,10 @@ def main() -> int:
         if k["name"] in whisper_rows:
             k["whisper_rows"] = (k.get("whisper_rows", [])
                                  + whisper_rows[k["name"]])
+    tp_rows = check_tp_shapes(torch, dev, gen)
+    for k in kernels:
+        if k["name"] in tp_rows:
+            k["tp_rows"] = k.get("tp_rows", []) + tp_rows[k["name"]]
     for k in kernels:
         print(f"  {k['name']}: max_abs_err {k['max_abs_err']:.3e}; call "
               f"{k['ms']:.4f} ms, device {k['device_ms']:.4f} ms; plain "

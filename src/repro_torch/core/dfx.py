@@ -21,9 +21,20 @@ losses take their batch means the same way (``global_sum``, ``ranks``).
 Inside ``sharding.manual_axes_active`` (the reference's ``shard_map``
 bodies) and on one device ``sync`` is None and every reduction is the
 rank's own.
+
+A step that splits its products over the ``model`` group (tensor
+parallelism, ``sharding.tensor_parallel``) also sets ``model``.  A tensor
+split over that group (a column-parallel output and its gradient, a
+row-parallel input, a weight's model shard, attention's q / k / v and its
+gradient) is quantized inside ``split()``: there ``sync`` reduces over the
+model ranks too, so its exponent is the logical tensor's.  A tensor the
+model ranks hold whole (the residual stream, the norms' inputs, the router
+logits) keeps the batch axes' reduction.  ``ranks`` counts the batch ranks
+in both.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple
 
 import torch
@@ -32,6 +43,29 @@ import torch
 #: object whose ``max(t)`` / ``sum(t)`` reduce ``t`` over the ranks and
 #: whose ``ranks`` counts them
 sync: Any = None
+
+#: set by ``sharding.spmd`` for a step whose products are split over the
+#: model group: ``size`` and ``index`` (the rank's place in the group),
+#: ``sum(t, tag)`` / ``max(t, tag)`` over the group, and ``sync``, the
+#: reduction of a tensor split over the batch and the model axes
+model: Any = None
+
+
+@contextlib.contextmanager
+def split(on: bool = True):
+    """The quantizes inside act on the rank's shard of a tensor split over
+    the model group: ``global_max`` / ``global_sum`` reduce over the model
+    ranks too (``ranks`` still counts the batch ranks).  A no-op when
+    ``on`` is false or no step splits its products."""
+    global sync
+    if not on or model is None or sync is None:
+        yield
+        return
+    prev, sync = sync, model.sync
+    try:
+        yield
+    finally:
+        sync = prev
 
 
 def global_max(t: torch.Tensor) -> torch.Tensor:

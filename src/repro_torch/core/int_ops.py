@@ -51,6 +51,20 @@ there is zero too).
 stochastically too (not the weights').  As the reference splits its key,
 the activation noise is drawn first (attention: q, k, then v), the
 gradient noise later, in the backward.
+
+Tensor parallelism (a step that splits its products over the ``model``
+group, ``dfx.model`` set): ``int_linear`` / ``int_batched_linear`` take
+``split="col"`` (the weight's output columns are the rank's; the output
+and its gradient are the rank's columns) or ``split="row"`` (the input
+and the weight's rows are the rank's; the f32 partial outputs are summed
+over the group before the bias), Megatron's two conjugate operators:
+``copy_to_model`` (identity, its backward the SUM of the dX partials of
+every column-parallel product that reads the input) and
+``reduce_from_model``.  ``int_attention(split=True)`` works on the rank's
+heads and ``int_embedding(vocab_start=)`` on its vocabulary rows.  Every
+quantize of a split tensor takes the logical tensor's exponent
+(``dfx.split``); the SR noise of a split gradient is drawn at the rank's
+shape.
 """
 from __future__ import annotations
 
@@ -101,10 +115,13 @@ class _IntLinear(torch.autograd.Function):
     weight planes, with their exponents."""
 
     @staticmethod
-    def forward(ctx, x, w, b, key, cfg: QuantConfig, transposed_w: bool):
-        qx = dfx.quantize(x, cfg.act_bits, u=_act_noise(x, cfg, key),
-                          limb_planes=True)
-        qw = dfx.quantize(w, cfg.weight_bits, limb_planes=True)
+    def forward(ctx, x, w, b, key, cfg: QuantConfig, transposed_w: bool,
+                split: Optional[str] = None):
+        with dfx.split(split == "row"):
+            qx = dfx.quantize(x, cfg.act_bits, u=_act_noise(x, cfg, key),
+                              limb_planes=True)
+        with dfx.split(split is not None):
+            qw = dfx.quantize(w, cfg.weight_bits, limb_planes=True)
         wm = qw.m.transpose(-1, -2) if transposed_w else qw.m
         K = x.shape[-1]
         xm = qx.m.reshape(qx.m.shape[0], -1, K)
@@ -113,7 +130,7 @@ class _IntLinear(torch.autograd.Function):
         y = y2.reshape(tuple(x.shape[:-1]) + (wm.shape[-1],))
         ctx.save_for_backward(xm, qx.exp, qw.m, qw.exp)
         ctx.cfg, ctx.key, ctx.transposed_w = cfg, key, transposed_w
-        ctx.x_shape, ctx.has_b = tuple(x.shape), b is not None
+        ctx.x_shape, ctx.has_b, ctx.split = tuple(x.shape), b is not None, split
         return y + b if b is not None else y   # O(N) bias add, kept FP32
 
     @staticmethod
@@ -121,7 +138,8 @@ class _IntLinear(torch.autograd.Function):
         xm, x_exp, wm, w_exp = ctx.saved_tensors
         cfg = ctx.cfg
         N = g.shape[-1]
-        qg = _quant_grad(g, cfg, ctx.key, limb_planes=True)
+        with dfx.split(ctx.split == "col"):
+            qg = _quant_grad(g, cfg, ctx.key, limb_planes=True)
         g2 = qg.m.reshape(qg.m.shape[0], -1, N)
         gb = cfg.grad_bits
         dx = dw = db = None
@@ -145,12 +163,12 @@ class _IntLinear(torch.autograd.Function):
             dx = dx.reshape(ctx.x_shape)
         if ctx.has_b and ctx.needs_input_grad[2]:
             db = g.reshape(-1, N).sum(0)
-        return dx, dw, db, None, None, None
+        return dx, dw, db, None, None, None, None
 
 
 def int_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
-               key, cfg: QuantConfig, *,
-               transposed_w: bool = False) -> torch.Tensor:
+               key, cfg: QuantConfig, *, transposed_w: bool = False,
+               split: Optional[str] = None) -> torch.Tensor:
     """``y = x @ w (+ b)`` with integer forward and backward.  x: (..., K),
     w: (K, N), b: (N,) or None.
 
@@ -159,11 +177,92 @@ def int_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     elementwise under one scale) and its planes reach the matmul as the
     K-major view, so the table is never copied or transposed; the backward
     reads the same planes (dX an NN product, the table's gradient a TN
-    product in the table's own layout)."""
-    if not cfg.enabled:
+    product in the table's own layout).
+
+    ``split`` (tensor parallelism): "col", ``w`` / ``b`` the rank's shard
+    of the output columns (of the tied table: its vocabulary rows), ``x``
+    whole and entered through ``copy_to_model`` by the caller, once for
+    every product that reads it; "row", ``x`` and ``w`` the rank's shard of
+    the contraction, the partial outputs summed over the model group
+    (``reduce_from_model``) before ``b``, which is whole, is added."""
+    row = split == "row"
+    if cfg.enabled:
+        y = _IntLinear.apply(x, w, None if row else b, key, cfg,
+                             transposed_w, split)
+        if not row:
+            return y
+    else:
         y = torch.matmul(x, w.t() if transposed_w else w)
-        return y + b if b is not None else y
-    return _IntLinear.apply(x, w, b, key, cfg, transposed_w)
+    if row:
+        y = reduce_from_model(y)
+    return y + b if b is not None else y
+
+
+# =========================================================================
+# Tensor parallelism: Megatron's conjugate operators over the model group
+# =========================================================================
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's ``f``: the identity; its backward SUMs the dX partials
+    of the column-parallel products that read the input over the model
+    group, in f32."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return dfx.model.sum(g, "tp_dx")
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's ``g``: the f32 SUM over the model group of the
+    row-parallel partial outputs; its backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return dfx.model.sum(y, "tp_out")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _ModelHead(torch.autograd.Function):
+    """Head ``j`` of a (B, S, KV, hd) tensor every rank of the model group
+    computes whole (Megatron's kv replication).  Backward: the rank's
+    gradient of its head, zero at the others, SUMmed over the group, so
+    each rank holds the logical gradient of every head."""
+
+    @staticmethod
+    def forward(ctx, t, j):
+        ctx.shape, ctx.j = tuple(t.shape), j
+        return t[:, :, j:j + 1].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        full = g.new_zeros(ctx.shape)
+        full[:, :, ctx.j:ctx.j + 1] = g
+        return dfx.model.sum(full, "tp_kv"), None
+
+
+def model_head(t: torch.Tensor, j: int) -> torch.Tensor:
+    """Head ``j`` of ``t`` (B, S, KV, hd), whole on every rank of the model
+    group, as (B, S, 1, hd)."""
+    return _ModelHead.apply(t, j)
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whole on every rank of the model group, entering the
+    column-parallel products that read it."""
+    return _CopyToModel.apply(x)
+
+
+def reduce_from_model(y: torch.Tensor) -> torch.Tensor:
+    """The logical output of a row-parallel product from the rank's
+    partial."""
+    return _ReduceFromModel.apply(y)
 
 
 def int_patch_embed(images: torch.Tensor, w: torch.Tensor,
@@ -314,15 +413,18 @@ class _IntBatchedLinear(torch.autograd.Function):
     exponents."""
 
     @staticmethod
-    def forward(ctx, x, w, key, cfg: QuantConfig):
-        qx = dfx.quantize_stacked(x, cfg.act_bits,
-                                  u=_act_noise(x, cfg, key, stacked=True),
-                                  limb_planes=True)
-        qw = dfx.quantize_stacked(w, cfg.weight_bits, limb_planes=True)
+    def forward(ctx, x, w, key, cfg: QuantConfig,
+                split: Optional[str] = None):
+        with dfx.split(split == "row"):
+            qx = dfx.quantize_stacked(
+                x, cfg.act_bits, u=_act_noise(x, cfg, key, stacked=True),
+                limb_planes=True)
+        with dfx.split(split is not None):
+            qw = dfx.quantize_stacked(w, cfg.weight_bits, limb_planes=True)
         y = kops.dfx_matmul_tiled_batched(qx.m, qx.exp, cfg.act_bits, qw.m,
                                           qw.exp, cfg.weight_bits)
         ctx.save_for_backward(qx.m, qx.exp, qw.m, qw.exp)
-        ctx.cfg, ctx.key = cfg, key
+        ctx.cfg, ctx.key, ctx.split = cfg, key, split
         return y
 
     @staticmethod
@@ -332,7 +434,9 @@ class _IntBatchedLinear(torch.autograd.Function):
         u = None
         if cfg.stochastic_grad and ctx.key is not None:
             u = dfx.uniform(ctx.key, g.shape, g.device)   # the whole stack
-        qg = dfx.quantize_stacked(g, cfg.grad_bits, u=u, limb_planes=True)
+        with dfx.split(ctx.split == "col"):
+            qg = dfx.quantize_stacked(g, cfg.grad_bits, u=u,
+                                      limb_planes=True)
         gb = cfg.grad_bits
         dx = dw = None
         # one batched launch per direction covers every expert and limb pair
@@ -342,11 +446,12 @@ class _IntBatchedLinear(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = kops.dfx_matmul_tiled_batched_tn(xm, x_exp, cfg.act_bits,
                                                   qg.m, qg.exp, gb)
-        return dx, dw, None, None
+        return dx, dw, None, None, None
 
 
 def int_batched_linear(x: torch.Tensor, w: torch.Tensor, key,
-                       cfg: QuantConfig) -> torch.Tensor:
+                       cfg: QuantConfig, *,
+                       split: Optional[str] = None) -> torch.Tensor:
     """``y[e] = x[e] @ w[e]`` with integer forward and backward and a DFX
     scale per expert.  x: (E, C, K), w: (E, K, N) -> (E, C, N).
 
@@ -354,46 +459,82 @@ def int_batched_linear(x: torch.Tensor, w: torch.Tensor, key,
     batched NN launch.  Backward: the upstream gradient quantized per
     expert at ``grad_bits`` (stochastically from ``key``, one draw over the
     stack), then one batched NT launch (dX) and one TN launch (dW).  With
-    ``cfg.enabled`` False: FP32 einsums."""
-    if not cfg.enabled:
-        return torch.einsum("eck,ekn->ecn", x, w)
-    return _IntBatchedLinear.apply(x, w, key, cfg)
+    ``cfg.enabled`` False: FP32 einsums.  ``split``: as ``int_linear``'s,
+    over each expert's inner width (the per-expert scales MAX-reduced over
+    the model group as a vector)."""
+    if cfg.enabled:
+        y = _IntBatchedLinear.apply(x, w, key, cfg, split)
+    else:
+        y = torch.einsum("eck,ekn->ecn", x, w)
+    return reduce_from_model(y) if split == "row" else y
 
 
 # =========================================================================
 # Embedding
 # =========================================================================
 
+def _vocab_rows(ids: torch.Tensor, start: int, n: int):
+    """The rows of a vocabulary shard ``[start, start + n)`` that ``ids``
+    name (clamped into the shard) and whether each id lies inside it."""
+    local = ids.long() - start
+    return local.clamp(0, n - 1), (local >= 0) & (local < n)
+
+
 class _IntEmbedding(torch.autograd.Function):
     """Lookup from the quantized table; the backward scatter-adds the
-    dequantized, grad-bit quantized gradient into a zero table."""
+    dequantized, grad-bit quantized gradient into a zero table.  With
+    ``start`` the table is the rank's vocabulary shard from row
+    ``start``: ids outside it look up zeros and add nothing."""
 
     @staticmethod
-    def forward(ctx, table, ids, key, cfg: QuantConfig):
-        qt = dfx.quantize(table, cfg.weight_bits)
-        ctx.save_for_backward(ids)
+    def forward(ctx, table, ids, key, cfg: QuantConfig, start):
+        with dfx.split(start is not None):
+            qt = dfx.quantize(table, cfg.weight_bits)
+        inside = None
+        if start is not None:
+            ids, inside = _vocab_rows(ids, start, table.shape[0])
+        out = qt.m[ids].to(torch.float32) * dfx.pow2(qt.exp)
+        if inside is not None:
+            out = torch.where(inside[..., None], out, 0.0)
+        ctx.save_for_backward(ids, inside)
         ctx.cfg, ctx.key, ctx.table_shape = cfg, key, tuple(table.shape)
-        return qt.m[ids].to(torch.float32) * dfx.pow2(qt.exp)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        (ids,) = ctx.saved_tensors
+        ids, inside = ctx.saved_tensors
         gq = dfx.dequantize(_quant_grad(g, ctx.cfg, ctx.key))
         D = ctx.table_shape[-1]
         dt = torch.zeros(ctx.table_shape, dtype=torch.float32,
                          device=g.device)
-        dt.index_add_(0, ids.reshape(-1), gq.reshape(-1, D))
-        return dt, None, None, None
+        ids, gq = ids.reshape(-1), gq.reshape(-1, D)
+        if inside is not None:
+            keep = inside.reshape(-1)
+            ids, gq = ids[keep], gq[keep]
+        dt.index_add_(0, ids, gq)
+        return dt, None, None, None, None
 
 
 def int_embedding(table: torch.Tensor, ids: torch.Tensor, key,
-                  cfg: QuantConfig) -> torch.Tensor:
+                  cfg: QuantConfig, *,
+                  vocab_start: Optional[int] = None) -> torch.Tensor:
     """Embedding lookup from the b-bit quantized table: gather the integer
     mantissas, then the inverse mapping (no activation to round
-    stochastically: ``stochastic_fwd`` leaves it as the reference does)."""
-    if not cfg.enabled or not cfg.int_embedding:
+    stochastically: ``stochastic_fwd`` leaves it as the reference does).
+
+    ``vocab_start`` (tensor parallelism): ``table`` is the rank's shard of
+    the vocabulary from that row, quantized at the logical table's
+    exponent; each rank looks up the ids in its shard, zeros elsewhere,
+    and the rows are SUMmed over the model group (one non-zero term: the
+    logical lookup exactly)."""
+    if cfg.enabled and cfg.int_embedding:
+        y = _IntEmbedding.apply(table, ids, key, cfg, vocab_start)
+    elif vocab_start is None:
         return table[ids]
-    return _IntEmbedding.apply(table, ids, key, cfg)
+    else:
+        rows, inside = _vocab_rows(ids, vocab_start, table.shape[0])
+        y = torch.where(inside[..., None], table[rows], 0.0)
+    return y if vocab_start is None else reduce_from_model(y)
 
 
 # =========================================================================
@@ -545,23 +686,26 @@ class _IntAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, off, key, cfg_qk: QuantConfig,
-                cfg_pv: QuantConfig, causal: bool, window):
+                cfg_pv: QuantConfig, causal: bool, window, split: bool):
         # q, k, v noise in that order (the reference's split of its key);
         # all three follow cfg_qk.stochastic_fwd, as there
-        qq, qk, qv = (dfx.quantize(t, bits, u=_act_noise(t, cfg_qk, key),
-                                   limb_planes=True)
-                      for t, bits in ((q, cfg_qk.act_bits),
-                                      (k, cfg_qk.act_bits),
-                                      (v, cfg_pv.act_bits)))
+        with dfx.split(split):
+            qq, qk, qv = (dfx.quantize(t, bits, u=_act_noise(t, cfg_qk, key),
+                                       limb_planes=True)
+                          for t, bits in ((q, cfg_qk.act_bits),
+                                          (k, cfg_qk.act_bits),
+                                          (v, cfg_pv.act_bits)))
+            v_norm = (_max_row_norm(v) if any(ctx.needs_input_grad[:3])
+                      else None)
         iexp = _kept_int(cfg_qk)
         o, lse = kops.attention_fwd(qq.m, qq.exp, qk.m, qk.exp, qv.m, qv.exp,
                                     off, cfg_pv.act_bits, causal=causal,
                                     window=window, integer_exp=iexp)
-        v_norm = _max_row_norm(v) if any(ctx.needs_input_grad[:3]) else None
         ctx.save_for_backward(qq.m, qq.exp, qk.m, qk.exp, qv.m, qv.exp, o,
                               lse, v_norm, off)
         ctx.cfg_qk, ctx.cfg_pv, ctx.key = cfg_qk, cfg_pv, key
         ctx.causal, ctx.window, ctx.iexp = causal, window, iexp
+        ctx.split = split
         return o
 
     @staticmethod
@@ -569,21 +713,24 @@ class _IntAttention(torch.autograd.Function):
         qm, q_exp, km, k_exp, vm, v_exp, o, lse, v_norm, off = \
             ctx.saved_tensors
         cfg_qk, cfg_pv = ctx.cfg_qk, ctx.cfg_pv
-        qg = _quant_grad(g, cfg_pv, ctx.key, limb_planes=True)
+        with dfx.split(ctx.split):
+            qg = _quant_grad(g, cfg_pv, ctx.key, limb_planes=True)
+            g_norm = _max_row_norm(g)
         # delta = rowsum(dO ∘ o) over the RAW upstream gradient (a kept op)
         delta = torch.sum(g * o, dim=-1)                      # (B, Sq, KV, G)
         ds_bits = cfg_qk.grad_bits
-        ds_exp = _ds_exp(_max_row_norm(g), v_norm, ds_bits)
+        ds_exp = _ds_exp(g_norm, v_norm, ds_bits)
         dq, dk, dv = kops.attention_bwd(
             qm, q_exp, km, k_exp, vm, v_exp, qg.m, qg.exp, lse, delta,
             ds_exp, off, cfg_pv.act_bits, ds_bits, causal=ctx.causal,
             window=ctx.window, integer_exp=ctx.iexp)
-        return dq, dk, dv, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def int_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   q_offset, key, cfg_qk: QuantConfig, cfg_pv: QuantConfig,
-                  causal: bool, window: Optional[int]) -> torch.Tensor:
+                  causal: bool, window: Optional[int], *,
+                  split: bool = False) -> torch.Tensor:
     """Scaled-dot-product attention with integer QKᵀ and PV products,
     forward and backward.
 
@@ -595,9 +742,12 @@ def int_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``cfg_pv.grad_bits`` and dS at ``cfg_qk.grad_bits``.  Under an enabled
     ``cfg_qk.kept_ops="integer"`` the softmax's exp and normalizer are the
     Q.14 forms, forward and backward.  Returns (B, Sq, KV, G, hd) f32.
+    ``split`` (tensor parallelism): q / k / v are the rank's heads of the
+    logical tensors, every exponent and dS's row-norm bound the logical
+    tensor's.
     """
     B = q.shape[0]
     off = torch.as_tensor(q_offset, device=q.device).to(torch.int32)
     off = torch.broadcast_to(off.reshape(-1), (B,)).contiguous()
     return _IntAttention.apply(q, k, v, off, key, cfg_qk, cfg_pv, causal,
-                               window)
+                               window, split)

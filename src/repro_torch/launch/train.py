@@ -39,7 +39,14 @@ Every rank draws the same global batch and initial weights; the step is
 ``trainer.jit_train_step`` (each rank keeps its blocks of the parameters
 and moments; FSDP for the archs of ``registry.FSDP_ARCHS``), the sentinel
 step over the mesh, or with ``--grad-compress-bits`` (``--pods > 1``) the
-compressed cross-pod step.  Rank 0 writes the checkpoints (full arrays,
+compressed cross-pod step.  With ``--model-parallel M`` the dense, MoE
+and VLM stacks split every product over the M ranks of a model group
+(``sharding.tensor_parallel``; a model axis that does not divide the
+heads, the inner widths or the padded vocabulary raises); the SSM,
+hybrid and enc-dec stacks compute replicated over it:
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+        --reduced --device cpu --model-parallel 2 --steps 3  Rank 0 writes the checkpoints (full arrays,
 the reference's format).  Without that environment it is the one-device
 run.
 """
@@ -396,7 +403,7 @@ def train(args: argparse.Namespace,
                 log.info("sentinel: rebuilt the step with the escalated "
                          "policy (%d rules)", len(policy.rules))
         if step % args.log_every == 0:
-            log.info("step %d loss=%.4f gnorm=%.3f", step, run.losses[step],
+            log.info("step %d loss=%.6f gnorm=%.3f", step, run.losses[step],
                      float(metrics["grad_norm"]))
         if on_step is not None:
             on_step(step, metrics)

@@ -21,6 +21,16 @@ router's, each norm's), which does nothing unless a sentinel step has a
 collector open.  The reference's ``subkey`` (a distinct PRNG key per call
 site) has no counterpart: every call site gets the same ``key``, and a
 ``torch.Generator`` hands each draw the next numbers of its one stream.
+
+Under a step that splits its products over the model group
+(``dfx.model``, ``sharding.tensor_parallel``) the params arrive as the
+rank's model shards and each block computes its part: attention on its
+``H / M`` query heads and ``KV / M`` kv heads (or, where the kv heads do
+not split whole, on the one kv head its query heads read, every rank
+projecting all of them), the MLP and each expert on ``d_ff / M`` of their
+inner width; q / k / v and gate / up column-parallel behind one
+``int_ops.copy_to_model``, o and down row-parallel.  The router, the
+capacity dispatch and the norms run whole on every rank of the group.
 """
 from __future__ import annotations
 
@@ -261,16 +271,33 @@ def attention_apply(
     keys."""
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    G = H // KV
     sc = ensure_scope(qcfg)
     health.probe(sc.path, x, sc.leaf("wq").act_bits)
-    q = int_ops.int_linear(x, p["wq"], p.get("bq"), key, sc.leaf("wq"))
+    tp = dfx.model
+    kv_head = None                # a replicated kv head: its index
+    if tp is not None:
+        if KV % tp.size:
+            # the rank's H / M query heads read one kv head (Megatron's kv
+            # replication): every rank projects all KV, attends with it
+            kv_head = tp.index * (H // tp.size) // (H // KV)
+        H, KV = H // tp.size, KV // tp.size if kv_head is None else 1
+        xs, col = int_ops.copy_to_model(x), "col"
+    else:
+        xs, col = x, None
+    G = H // KV
+    q = int_ops.int_linear(xs, p["wq"], p.get("bq"), key, sc.leaf("wq"),
+                           split=col)
     q = q.reshape(B, S, KV, G, hd)
     if kv_override is None:
-        k = int_ops.int_linear(x, p["wk"], p.get("bk"), key, sc.leaf("wk"))
-        v = int_ops.int_linear(x, p["wv"], p.get("bv"), key, sc.leaf("wv"))
-        k = k.reshape(B, S, KV, hd)
-        v = v.reshape(B, S, KV, hd)
+        kx, kcol = (x, None) if kv_head is not None else (xs, col)
+        k = int_ops.int_linear(kx, p["wk"], p.get("bk"), key, sc.leaf("wk"),
+                               split=kcol)
+        v = int_ops.int_linear(kx, p["wv"], p.get("bv"), key, sc.leaf("wv"),
+                               split=kcol)
+        k = k.reshape(B, S, -1, hd)
+        v = v.reshape(B, S, -1, hd)
+        if kv_head is not None:
+            k, v = (int_ops.model_head(t, kv_head) for t in (k, v))
     else:
         k, v = kv_override
 
@@ -297,14 +324,15 @@ def attention_apply(
     win = cfg.sliding_window if causal else None
     if leaf_qk.enabled:
         o = int_ops.int_attention(q, k, v, q_offset, key, leaf_qk, leaf_pv,
-                                  causal, win)
+                                  causal, win, split=tp is not None)
     elif S == 1 and kv_cache is not None:
         o = _decode_attention(q, k, v, idx, win)
     else:
         o = flash_attention(q, k, v, causal=causal, q_offset=q_offset,
                             window=win)
     o = o.reshape(B, S, H * hd)
-    out = int_ops.int_linear(o, p["wo"], None, key, sc.leaf("wo"))
+    out = int_ops.int_linear(o, p["wo"], None, key, sc.leaf("wo"),
+                             split=None if tp is None else "row")
     return out, new_cache
 
 
@@ -329,17 +357,26 @@ def mlp_init(gen: torch.Generator, cfg: ArchConfig, device,
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantLike,
               key) -> torch.Tensor:
     """SwiGLU ``wd(silu(wg x) * wu x)`` or GELU ``w2 gelu(w1 x + b1) + b2``
-    (the activation a kept FP32 op)."""
+    (the activation a kept FP32 op); under tensor parallelism on the
+    rank's part of the inner width (column- then row-parallel)."""
     sc = ensure_scope(qcfg)
     health.probe(sc.path, x, sc.leaf("wg" if "wg" in p else "w1").act_bits)
+    col = row = None
+    if dfx.model is not None:
+        x, col, row = int_ops.copy_to_model(x), "col", "row"
     if "wg" in p:
-        g = int_ops.int_linear(x, p["wg"], None, key, sc.leaf("wg"))
-        u = int_ops.int_linear(x, p["wu"], None, key, sc.leaf("wu"))
+        g = int_ops.int_linear(x, p["wg"], None, key, sc.leaf("wg"),
+                               split=col)
+        u = int_ops.int_linear(x, p["wu"], None, key, sc.leaf("wu"),
+                               split=col)
         h = int_ops.int_activation(g, sc.leaf("act"), "silu") * u
-        return int_ops.int_linear(h, p["wd"], None, key, sc.leaf("wd"))
-    h = int_ops.int_linear(x, p["w1"], p["b1"], key, sc.leaf("w1"))
+        return int_ops.int_linear(h, p["wd"], None, key, sc.leaf("wd"),
+                                  split=row)
+    h = int_ops.int_linear(x, p["w1"], p["b1"], key, sc.leaf("w1"),
+                           split=col)
     h = int_ops.int_activation(h, sc.leaf("act"), "gelu")
-    return int_ops.int_linear(h, p["w2"], p["b2"], key, sc.leaf("w2"))
+    return int_ops.int_linear(h, p["w2"], p["b2"], key, sc.leaf("w2"),
+                              split=row)
 
 
 # =========================================================================
@@ -436,10 +473,17 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantLike,
     buf = buf.index_put((flat_idx,), upd)
     ex_in = buf[:spill].reshape(E, Cg, D)
 
-    g = int_ops.int_batched_linear(ex_in, p["wg_e"], key, sc.leaf("wg_e"))
-    u = int_ops.int_batched_linear(ex_in, p["wu_e"], key, sc.leaf("wu_e"))
+    col = row = None
+    if dfx.model is not None:
+        # each expert's inner width split over the model group
+        ex_in, col, row = int_ops.copy_to_model(ex_in), "col", "row"
+    g = int_ops.int_batched_linear(ex_in, p["wg_e"], key, sc.leaf("wg_e"),
+                                   split=col)
+    u = int_ops.int_batched_linear(ex_in, p["wu_e"], key, sc.leaf("wu_e"),
+                                   split=col)
     h = int_ops.int_activation(g, sc.leaf("act"), "silu") * u
-    ex_out = int_ops.int_batched_linear(h, p["wd_e"], key, sc.leaf("wd_e"))
+    ex_out = int_ops.int_batched_linear(h, p["wd_e"], key, sc.leaf("wd_e"),
+                                        split=row)
 
     take = sel_f * Cg + torch.clamp(pos, max=Cg - 1)
     y = ex_out.reshape(E * Cg, D)[take]                          # (TK, D)

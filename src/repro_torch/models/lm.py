@@ -22,6 +22,16 @@ constraints (``sharding.constrain*``) are identities on one device and
 are left out; its ``health.probe`` calls are here (the embedding's output
 and the head's input, beside the blocks' own).
 
+Under a step that splits its products over the model group
+(``dfx.model``: the dense, MoE and VLM stacks, ``sharding.tensor_parallel``)
+the embedding, the tied or untied head and the cross entropy are
+vocab-parallel: each rank holds the rows ``[r V / M, (r + 1) V / M)`` of
+the padded vocabulary, looks up the ids there (the rows SUMmed over the
+group), computes its columns of the logits, and the loss reduces the row
+max, the sum of exps and the target's logit over the group
+(``token_ce_vocab_parallel``); the blocks split as ``models/blocks.py``
+says.
+
 A MoE block's ``moe`` sublayer (``blocks.moe_apply``) takes the MLP's
 place; its load-balancing loss is summed over the layers and ``lm_loss``
 adds ``0.01 · aux / n_layers``, as the reference does.
@@ -188,7 +198,10 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     """The tokens' embeddings; for the VLM, the projected patch embeddings
     (``int_linear`` through ``mm_proj``) in front of them."""
     sc = ensure_scope(qcfg)
-    x = int_ops.int_embedding(params["embed"], tokens, key, sc.leaf("embed"))
+    table, tp = params["embed"], dfx.model
+    x = int_ops.int_embedding(
+        table, tokens, key, sc.leaf("embed"),
+        vocab_start=None if tp is None else tp.index * table.shape[0])
     if prefix_embeds is not None:
         pe = int_ops.int_linear(prefix_embeds, params["mm_proj"], None, key,
                                 sc.leaf("mm_proj"))
@@ -205,10 +218,14 @@ def _logits(params: Params, x: torch.Tensor, cfg: ArchConfig,
     tied = cfg.tie_embeddings
     head = params["embed"] if tied else params["lm_head"]
     health.probe(sc.path + ("lm_head",), x, sc.leaf("lm_head").act_bits)
+    split = None
+    if dfx.model is not None:
+        # the rank's vocabulary columns: column-parallel over V
+        x, split = int_ops.copy_to_model(x), "col"
     # the head resolves under "lm_head" whether or not it is tied; a tied
     # head is the (V, D) table, read as its transpose
     return int_ops.int_linear(x, head, None, key, sc.leaf("lm_head"),
-                              transposed_w=tied)
+                              transposed_w=tied, split=split)
 
 
 def _replay_key(key, state):
@@ -346,6 +363,52 @@ def token_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -torch.sum(ll * valid) / (n / dfx.ranks())
 
 
+class _VocabParallelLogProb(torch.autograd.Function):
+    """``log p(label)`` of each row from the rank's columns ``[start,
+    start + V_r)`` of the logits, over the model group: the row max
+    MAX-reduced, then the sum of exps and the label's logit (taken where
+    it lies; a label outside the shard adds 0) SUMmed in one all-reduce.
+    Backward: ``g · (onehot − softmax)`` on the rank's columns."""
+
+    @staticmethod
+    def forward(ctx, logits, lab, start):
+        tp = dfx.model
+        z = logits.to(torch.float32)
+        m = tp.max(z.amax(-1), "tp_ce")
+        e = torch.exp(z - m[..., None])
+        local = lab.long() - start
+        inside = (local >= 0) & (local < z.shape[-1])
+        local = local.clamp(0, z.shape[-1] - 1)
+        zt = torch.gather(z, -1, local[..., None])[..., 0]
+        s, zt = tp.sum(torch.stack([e.sum(-1), torch.where(inside, zt, 0.0)]),
+                       "tp_ce").unbind(0)
+        ctx.save_for_backward(e, s, local, inside)
+        return zt - m - torch.log(s)
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s, local, inside = ctx.saved_tensors
+        d = e * (-g / s)[..., None]
+        d.scatter_add_(-1, local[..., None],
+                       torch.where(inside, g, 0.0)[..., None])
+        return d, None, None
+
+
+def token_ce_vocab_parallel(logits: torch.Tensor,
+                            labels: torch.Tensor) -> torch.Tensor:
+    """``token_ce`` over vocab-parallel logits: ``logits`` the rank's
+    columns ``[r V_r, (r + 1) V_r)`` of the padded vocabulary (the pad
+    columns in the sum of exps, as one device has them), the mean over the
+    logical batch's valid labels, whose count is summed over the batch
+    ranks only (the model ranks hold the same labels)."""
+    valid = labels >= 0
+    lab = torch.where(valid, labels, torch.zeros_like(labels))
+    ll = _VocabParallelLogProb.apply(logits, lab,
+                                     dfx.model.index * logits.shape[-1])
+    n = torch.clamp(dfx.global_sum(valid.sum()), min=1).to(torch.float32)
+    return -torch.sum(ll * valid) / (n / dfx.ranks())
+
+
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             qcfg: QuantLike, key) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Next-token cross entropy.  batch: tokens (B, S) and labels (B, S)
@@ -363,7 +426,8 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     if cfg.vlm_prefix:
         x = x[:, -tokens.shape[1]:]          # the text positions only
     logits = _logits(params, x, cfg, qcfg, key)
-    loss = token_ce(logits, batch["labels"])
+    ce = token_ce if dfx.model is None else token_ce_vocab_parallel
+    loss = ce(logits, batch["labels"])
     if cfg.moe_experts:
         loss = loss + 0.01 * aux / cfg.n_layers
     return loss, {"ce": loss.detach(), "aux": aux.detach()}

@@ -5,16 +5,27 @@ Counterpart of ``repro/sharding.py``.  Axes (the reference's DESIGN.md §5):
 
 * ``pod``   — outer data-parallel axis spanning pods (multi-pod mesh only)
 * ``data``  — inner data-parallel / FSDP axis
-* ``model`` — the tensor-parallel axis of the rules; the port shards the
-  *storage* of parameters and moments over it and gathers the full tensor
-  before compute, so the ranks of one model group compute the same rows
-  (GSPMD's result equals one device's, so the numbers are the reference's)
+* ``model`` — the tensor-parallel axis of the rules.  For the attention
+  stacks (``tensor_parallel``: the dense, MoE and VLM families, whose
+  layers run ``lm._attn_block``) a step splits each integer product over
+  the model group as GSPMD splits the reference's: a gather materialises
+  the ``data`` axis only and the rank computes on its ``model`` shard
+  (its heads, its part of the MLP's and each expert's inner width, its
+  vocabulary rows; ``core/int_ops.py``'s column- and row-parallel
+  products).  A k / v leaf whose split falls on no whole kv head is
+  gathered over ``model`` too, and every rank computes the kv heads
+  (Megatron's kv replication; tag ``gather_layer_kv``).  Still computed
+  replicated (gathered over every axis the spec shards, so the ranks of
+  one model group compute the same rows): the SSM and hybrid stacks
+  (``models/ssm.py``, zamba2's shared block), whisper's encoder-decoder
+  and BERT / ViT fine-tuning.
 
 A step gathers the leaves of the layer stacks (``blocks/``, ``enc_blocks/``,
 ``dec_blocks/``) one layer at a time, inside the layer that uses them
 (``layer_view`` / ``gather_layer``), as XLA partitions the reference's scan
-over layers: a rank holds one layer's logical tensors and their gradient
-beside its blocks.  Every other leaf is gathered whole (``gather_params``).
+over layers: a rank holds one layer's tensors (logical, or their model
+shards) and their gradient beside its blocks.  Every other leaf is
+gathered whole before the forward (``_Gather``), or to its model shard.
 
 A :class:`Mesh` names the axes of the initialised world in row-major
 order (rank ``r`` sits at ``unravel_index(r, shape)``) and holds one
@@ -30,9 +41,10 @@ the card); under NCCL nothing is staged.  Each call is counted in
 single result by tag in ``LARGEST``.
 
 Not ported: ``constrain`` / ``constrain_batch`` / ``constrain_tokens``,
-``SEQUENCE_SHARDING``, ``make_mesh_compat`` and ``shard_map_compat`` —
-layout hints and version shims for XLA; the port places every tensor
-explicitly.
+``make_mesh_compat`` and ``shard_map_compat`` — layout hints and version
+shims for XLA; the port places every tensor explicitly.  Still to port:
+``SEQUENCE_SHARDING`` (the residual stream split over ``model`` between
+the products; every model rank holds it whole).
 """
 from __future__ import annotations
 
@@ -155,50 +167,132 @@ def batch_axes(mesh: Optional[Mesh] = None) -> Tuple[str, ...]:
 
 class _Sync:
     """``dfx.Sync`` over the ranks along ``axes``: a step's tensors are
-    split over the batch axes (the model ranks hold the same rows, so the
-    MAX over the world would be the same number, at more ranks' cost); a
-    gradient block over the axes its spec shards."""
+    split over the batch axes (a tensor the model ranks hold whole; the
+    MAX over the world would be the same number, at more ranks' cost), a
+    tensor split over the model group too over the batch and model axes
+    (``suffix`` ``_model`` on its tags), a gradient block over the axes its
+    spec shards.  ``ranks``: the ranks the rows are split over (the batch
+    axes')."""
 
-    def __init__(self, mesh: Mesh, axes: Tuple[str, ...]):
-        self.mesh, self.axes = mesh, axes
-        self.ranks = mesh.count(axes)
+    def __init__(self, mesh: Mesh, axes: Tuple[str, ...],
+                 ranks: Optional[int] = None, suffix: str = ""):
+        self.mesh, self.axes, self.suffix = mesh, axes, suffix
+        self.ranks = mesh.count(axes) if ranks is None else ranks
 
     def max(self, t: torch.Tensor) -> torch.Tensor:
-        return all_reduce(t, "max", self.axes, self.mesh, tag="exponent")
+        return all_reduce(t, "max", self.axes, self.mesh,
+                          tag="exponent" + self.suffix)
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        return all_reduce(t, "sum", self.axes, self.mesh, tag="stat")
+        return all_reduce(t, "sum", self.axes, self.mesh,
+                          tag="stat" + self.suffix)
+
+
+class _ModelGroup:
+    """``dfx.model`` for a step that splits its products over the model
+    group: the rank's place in it, the SUM / MAX over it, and the
+    reduction of a tensor split over the batch and model axes."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.size, self.index = mesh.count("model"), mesh.index("model")
+        batch = mesh.axes(batch_axes(mesh))
+        self.sync = _Sync(mesh, mesh.axes(batch + ("model",)),
+                          ranks=mesh.count(batch), suffix="_model")
+
+    def sum(self, t: torch.Tensor, tag: str) -> torch.Tensor:
+        return all_reduce(t, "sum", "model", self.mesh, tag=tag)
+
+    def max(self, t: torch.Tensor, tag: str) -> torch.Tensor:
+        return all_reduce(t, "max", "model", self.mesh, tag=tag)
 
 
 @contextlib.contextmanager
-def spmd(mesh: Mesh, axes=None):
+def spmd(mesh: Mesh, axes=None, split: bool = False):
     """The body of a distributed step: every per-tensor exponent, and the
     statistics and batch means that decide one, are the logical tensor's
     (``dfx.sync``), as in the reference's jit'd SPMD step; off inside
     ``manual_axes_active``.  ``axes``: the axes the tensors are split
-    over (default the batch axes; none: nothing to reduce)."""
+    over (default the batch axes; none: nothing to reduce).  ``split``:
+    the step splits its products over the model group (``dfx.model``)."""
     axes = mesh.axes(batch_axes(mesh) if axes is None else axes)
-    prev = dfx.sync
+    prev, prev_model = dfx.sync, dfx.model
     dfx.sync = None if _MANUAL_AXES or not axes else _Sync(mesh, axes)
+    dfx.model = (_ModelGroup(mesh) if split and dfx.sync is not None
+                 and mesh.count("model") > 1 else None)
     try:
         yield
     finally:
-        dfx.sync = prev
+        dfx.sync, dfx.model = prev, prev_model
 
 
 @contextlib.contextmanager
 def manual_axes_active(axes):
     """Mark ``axes`` manual (the reference's ``shard_map`` bodies): every
-    quantize in the block takes the exponent of the rank's own tensor."""
+    quantize in the block takes the exponent of the rank's own tensor, and
+    nothing is split over the model group."""
     global _MANUAL_AXES
-    prev, prev_sync = _MANUAL_AXES, dfx.sync
+    prev, prev_sync, prev_model = _MANUAL_AXES, dfx.sync, dfx.model
     _MANUAL_AXES = prev | frozenset(axes)
-    dfx.sync = None
+    dfx.sync = dfx.model = None
     try:
         yield
     finally:
         _MANUAL_AXES = prev
-        dfx.sync = prev_sync
+        dfx.sync, dfx.model = prev_sync, prev_model
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel compute
+# ---------------------------------------------------------------------------
+
+#: the families whose layers run ``lm._attn_block``: their products split
+#: over the model group
+TP_FAMILIES = ("dense", "moe", "vlm")
+
+
+class TensorParallel:
+    """A step that splits its products over a model group of ``size``
+    ranks.  ``kv_split``: the kv heads split whole over the group; else
+    every rank computes all of them from the k / v leaves gathered over
+    ``model`` too (Megatron's kv replication), and attends with the one
+    its query heads read."""
+
+    def __init__(self, size: int, kv_split: bool):
+        self.size, self.kv_split = size, kv_split
+
+    def keep(self, path: str) -> Tuple[str, ...]:
+        """The axes a leaf's gather leaves sharded: ``model``, but for a
+        replicated kv leaf."""
+        if not self.kv_split and re.search(r"(^|/)(wk|wv|bk|bv)$", path):
+            return ()
+        return ("model",)
+
+
+def tensor_parallel(cfg: Any, mesh: Mesh) -> Optional[TensorParallel]:
+    """How a step of ``cfg`` on ``mesh`` splits its products: None where
+    it computes replicated (no model axis of more than one rank; a family
+    outside ``TP_FAMILIES``: the SSM, hybrid, enc-dec and BERT / ViT
+    stacks).  Raises where the model axis divides a split dimension of the
+    family unevenly: the query heads, the MLP's or an expert's inner
+    width, the shared expert's, the padded vocabulary, or the kv heads
+    when the ranks' query heads do not each read one kv head."""
+    M = mesh.shape.get("model", 1)
+    if (M == 1 or getattr(cfg, "enc_dec", False)
+            or getattr(cfg, "family", None) not in TP_FAMILIES):
+        return None
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    dims = {"n_heads": H, "d_ff": cfg.d_ff,
+            "the padded vocabulary": -(-cfg.vocab // 256) * 256}
+    if cfg.moe_shared_dff:
+        dims["moe_shared_dff"] = cfg.moe_shared_dff
+    bad = {k: v for k, v in dims.items() if v % M}
+    if not bad and KV % M and (H // KV) % (H // M):
+        bad["n_kv_heads"] = KV
+    if bad:
+        raise ValueError(f"{cfg.name}: a model axis of {M} ranks does not "
+                         f"split {bad} (tensor-parallel compute)")
+    return TensorParallel(M, KV % M == 0)
 
 
 # ---------------------------------------------------------------------------
@@ -504,13 +598,28 @@ def gather_full(x: torch.Tensor, spec: Spec, mesh: Mesh, *,
 # The int8 QTensor parameter gather
 # ---------------------------------------------------------------------------
 
+def _without(spec: Spec, keep: Tuple[str, ...]) -> Spec:
+    """``spec`` less the axes of ``keep``: what a gather that leaves
+    ``keep`` sharded materialises."""
+    if not keep:
+        return tuple(spec)
+    out = []
+    for s in spec:
+        names = tuple(a for a in ((s,) if isinstance(s, str)
+                                  else tuple(s or ())) if a not in keep)
+        out.append(names[0] if len(names) == 1 else (names or None))
+    return tuple(out)
+
+
 def _gathered_leaf(x: torch.Tensor, spec: Spec, mesh: Mesh,
                    bits: int) -> torch.Tensor:
-    """int8 all-gather of one FSDP leaf.  Wire format per block: ``L``
-    int8 limb planes and one int32 step exponent (each block dequantizes
-    against its own exponent: no cross-block MAX).  The reference keeps
-    the ``model`` sharding of its output; the port gathers every axis the
-    spec shards, so the blocks travel in one gather."""
+    """int8 all-gather of one FSDP leaf over the axes ``spec`` shards.
+    Wire format per block: ``L`` int8 limb planes and one int32 step
+    exponent (each block of the data x model grid dequantizes against its
+    own exponent: no cross-block MAX).  Under tensor-parallel compute
+    ``spec`` leaves ``model`` out, so the rank gets its model shard, as
+    the reference's output keeps its ``model`` sharding; else the port
+    gathers every axis the spec shards, in one gather."""
     axes = sharded_axes(spec, mesh)
     with manual_axes_active(mesh.axis_names):
         t = qtensor.quantize(x, bits)                 # the rank's block
@@ -523,8 +632,9 @@ def _gathered_leaf(x: torch.Tensor, spec: Spec, mesh: Mesh,
 
 
 class _Gather(torch.autograd.Function):
-    """A leaf's logical tensor from the rank's block (``bits`` 0: FP32;
-    see ``gather_params``).  Backward: the logical identity, the
+    """A leaf's logical tensor, or with ``keep`` its shard along those
+    axes, from the rank's block (``bits`` 0: FP32; see ``gather_params``).
+    Backward: the logical identity, the
     reference's straight-through ``custom_vjp``.  Each rank's cotangent
     is its term of the logical one (the step's loss is the mean of the
     ranks' losses, its backward seeded with 1 / ranks), so the backward
@@ -534,7 +644,8 @@ class _Gather(torch.autograd.Function):
     per rank on a ring, against ``(n - 1) / n`` for a reduce-scatter."""
 
     @staticmethod
-    def forward(ctx, x, spec, mesh, bits):
+    def forward(ctx, x, spec, mesh, bits, keep=()):
+        spec = _without(spec, keep)
         ctx.mesh, ctx.sharded = mesh, bool(sharded_axes(spec, mesh))
         ctx.slices = local_slices(full_shape(x.shape, spec, mesh), spec,
                                   mesh)
@@ -551,7 +662,7 @@ class _Gather(torch.autograd.Function):
         if ctx.mesh.count(axes) > 1:
             g = all_reduce(g, "sum", axes, ctx.mesh, tag="grad_sum")
         return (g[ctx.slices].clone() if ctx.sharded else g), None, None, \
-            None
+            None, None
 
 
 def gather_params(params: Any, pspecs: Any, mesh: Mesh, bits: int = 0
@@ -583,9 +694,12 @@ class Stack:
 
     def __init__(self, block: torch.Tensor, spec: Spec, mesh: Mesh,
                  packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                 bits: int = 0):
+                 bits: int = 0, keep: Tuple[str, ...] = (),
+                 tag: str = "gather_layer"):
         self.block, self.spec, self.mesh = block, spec, mesh
-        self.packed, self.bits = packed, bits
+        self.packed, self.bits, self.tag = packed, bits, tag
+        #: the spec a gather materialises (``keep`` stays sharded)
+        self.gspec = _without(spec, keep)
 
     def unbind(self, dim: int = 0) -> list:
         # one unbind of the layer axis: the block gradient is stacked once
@@ -597,27 +711,29 @@ class Layer(collections.namedtuple("Layer", "stack index block")):
     block."""
 
 
-def _pack(block: torch.Tensor, spec: Spec, mesh: Mesh, bits: int):
+def _pack(block: torch.Tensor, spec: Spec, mesh: Mesh, bits: int,
+          tag: str = "gather_layer"):
     """A stacked block's int8 wire form, once per step: its planes at one
     exponent over all its layers (the sync off, as ``_gathered_leaf``) and
-    the exponents of every rank along the spec's axes."""
+    the exponents of every rank along the axes ``spec`` shards (the
+    gathered spec: a kept axis does not travel)."""
     with manual_axes_active(mesh.axis_names):
         t = qtensor.quantize(block.detach(), bits)
-    e = all_gather(t.exp, sharded_axes(spec, mesh), mesh,
-                   tag="gather_layer_exp")
+    e = all_gather(t.exp, sharded_axes(spec, mesh), mesh, tag=tag + "_exp")
     return t.m, e
 
 
 class _GatherLayer(torch.autograd.Function):
-    """One layer's logical tensor from the rank's block of it: the int8
-    planes of the layer (``Stack.packed``) gathered and dequantized per
-    block, or its FP32 block gathered where the spec shards it, or the
-    block itself.  Backward: ``_Gather``'s, for the layer — the SUM over
-    the batch axes, the rank's block."""
+    """One layer's tensor — logical, or its shard along the axes the stack
+    keeps — from the rank's block of it: the int8 planes of the layer
+    (``Stack.packed``) gathered and dequantized per block, or its FP32
+    block gathered where the gathered spec shards it, or the block itself.
+    Backward: ``_Gather``'s, for the layer — the SUM over the batch axes,
+    the rank's block."""
 
     @staticmethod
     def forward(ctx, x, stack, i):
-        spec, mesh = stack.spec[1:], stack.mesh
+        spec, mesh = stack.gspec[1:], stack.mesh
         axes = sharded_axes(spec, mesh)
         ctx.mesh, ctx.sharded = mesh, bool(axes)
         ctx.slices = local_slices(full_shape(x.shape, spec, mesh), spec,
@@ -625,13 +741,13 @@ class _GatherLayer(torch.autograd.Function):
         if stack.packed is not None:
             planes, e = stack.packed
             m = all_gather(planes[:, i], axes, mesh,
-                           tag="gather_layer_int8")  # (n, limbs, *local)
+                           tag=stack.tag + "_int8")  # (n, limbs, *local)
             shards = qtensor.dequantize(qtensor.QTensor(
                 m=m.transpose(0, 1), exp=e.reshape((-1,) + (1,) * x.dim()),
                 bits=stack.bits))
             return _assemble(shards, spec, axes, mesh)
         if axes:
-            return gather_full(x, spec, mesh, tag="gather_layer_f32")
+            return gather_full(x, spec, mesh, tag=stack.tag + "_f32")
         return x.view_as(x)
 
     @staticmethod
@@ -656,26 +772,33 @@ def gather_layer(tree: Any) -> Any:
 
 
 def layer_view(params: Any, pspecs: Any, mesh: Mesh, bits: int = 0,
-               packed: Optional[dict] = None) -> Any:
+               packed: Optional[dict] = None,
+               tp: Optional[TensorParallel] = None) -> Any:
     """What a step's loss sees of the rank's blocks: each layer stack's
     leaf a ``Stack`` (gathered a layer at a time, inside the layer), every
     other leaf its logical tensor through ``_Gather`` (``gather_params``).
     ``packed``: a dict the caller keeps for one step, where a stack's int8
     wire form is made at its first use and found by every later
     microbatch.  Without a ``data`` axis ``bits`` takes the straight-through
-    form over whole leaves, so every leaf is gathered whole there."""
+    form over whole leaves, so every leaf is gathered whole there.  ``tp``
+    (tensor-parallel compute): each leaf is gathered to its model shard,
+    a replicated kv leaf whole (``TensorParallel.keep``; its stack's
+    collectives under ``gather_layer_kv``)."""
     leaves, specs = opt_lib.tree_leaves(params), opt_lib.tree_leaves(pspecs)
     packed = {} if packed is None else packed
     out = []
     for i, (path, p, spec) in enumerate(zip(opt_lib.tree_paths(params),
                                             leaves, specs)):
+        keep = tp.keep(path) if tp is not None else ()
         if not opt_lib.is_stacked(path) or (
                 bits and "data" not in mesh.axis_names):
-            out.append(_Gather.apply(p, spec, mesh, bits))
+            out.append(_Gather.apply(p, spec, mesh, bits, keep))
             continue
+        tag = ("gather_layer_kv" if tp is not None and not keep
+               and "model" in sharded_axes(spec, mesh) else "gather_layer")
         if bits and _fsdp_dim(spec) is not None and i not in packed:
-            packed[i] = _pack(p, spec, mesh, bits)
-        out.append(Stack(p, spec, mesh, packed.get(i), bits))
+            packed[i] = _pack(p, _without(spec, keep), mesh, bits, tag)
+        out.append(Stack(p, spec, mesh, packed.get(i), bits, keep, tag))
     return opt_lib.tree_unflatten(params, out)
 
 

@@ -91,7 +91,8 @@ def make_sentinel_step(loss_fn: LossFn, cfg, qcfg: QuantLike,
     (blocks in and out, the global batch); the probes' counters and the
     gradients' health are then the logical tensors'."""
     grad_bits = as_policy(qcfg).base.grad_bits
-    where = placement(mesh, param_specs, gather_bits=train_cfg.gather_bits)
+    where = placement(mesh, param_specs, gather_bits=train_cfg.gather_bits,
+                      cfg=cfg)
 
     def loss_with_health(params, batch, cfg, qcfg, key):
         # the collector is open around the forward only: the backward's

@@ -21,12 +21,16 @@ Counterpart of ``repro/train/trainer.py``:
   its gradient over the batch axes and keeps the rank's block, so the
   gradients arrive as blocks (the backward is seeded with 1 / ranks, so
   the sum is the mean and every gradient tensor quantizes at one device's
-  exponent); then the AdamW update runs on the blocks.  The ranks of one
-  ``model`` group compute the same rows (tensor-parallel compute is not
-  ported): the result is one device's.  During the step a rank holds its
-  blocks, the whole non-stacked leaves and one layer's logical tensors
-  and gradients.  With microbatches each one gathers every layer again
-  and sums its gradients over the ranks.
+  exponent); then the AdamW update runs on the blocks.  For the attention
+  stacks (``sharding.tensor_parallel``) the gathers materialise the batch
+  axes only and the ranks of one ``model`` group split every product (the
+  model code's column- and row-parallel products, vocab-parallel
+  embedding, head and loss; each split tensor's exponent the logical
+  one's); for the other families they compute the same rows.  Either way
+  the result is one device's up to the f32 sum order.  During the step a
+  rank holds its blocks, the non-stacked leaves (whole, or their model
+  shards) and one layer's tensors and gradients.  With microbatches each
+  one gathers every layer again and sums its gradients over the ranks.
 * ``make_compressed_train_step`` — parameters, optimizer state and the
   error-feedback residuals replicated, the batch split over pod x data:
   an FP32 mean over ``data``, the int8 compressed mean over ``pod``
@@ -207,20 +211,22 @@ class _Spmd:
     INT32_MIN = -2 ** 31
 
     def __init__(self, mesh: sharding.Mesh, param_specs: Any,
-                 gather_bits: int, microbatches: int = 1):
+                 gather_bits: int, microbatches: int = 1,
+                 tp: Optional[sharding.TensorParallel] = None):
         if param_specs is None:
             raise ValueError("a step over a mesh needs the param_specs")
-        self.mesh, self.specs = mesh, param_specs
+        self.mesh, self.specs, self.tp = mesh, param_specs, tp
         self.gather_bits, self.microbatches = gather_bits, microbatches
         self.axes = sharding.batch_axes(mesh)
         self.scale = 1.0 / mesh.count(self.axes)
         self._packed = None
 
     def view(self, params):
-        """The loss's view of the blocks (``sharding.layer_view``); a
-        stack's int8 planes are made once a step."""
+        """The loss's view of the blocks (``sharding.layer_view``; under
+        tensor-parallel compute their model shards); a stack's int8 planes
+        are made once a step."""
         return sharding.layer_view(params, self.specs, self.mesh,
-                                   self.gather_bits, self._packed)
+                                   self.gather_bits, self._packed, self.tp)
 
     def grads(self, grads_fn: GradsFn, params, batch, key):
         """The rank's blocks of the logical gradients, and the metrics'
@@ -230,7 +236,7 @@ class _Spmd:
         batch = local_rows(batch, self.mesh, self.microbatches, self.axes)
         self._packed = {}
         try:
-            with sharding.spmd(self.mesh):
+            with sharding.spmd(self.mesh, split=self.tp is not None):
                 grads, metrics = grads_fn(params, batch, key)
         finally:
             self._packed = None
@@ -296,18 +302,22 @@ class _Spmd:
 
 
 def placement(mesh: Optional[sharding.Mesh] = None, param_specs: Any = None,
-              *, gather_bits: int = 0, microbatches: int = 1):
+              *, gather_bits: int = 0, microbatches: int = 1,
+              cfg: Any = None):
     """Where a step runs: one device (no ``mesh``), or the rank's blocks
-    over ``mesh`` (``param_specs``: the blocks' specs).  Its ``grads(
-    grads_fn, params, batch, key)`` returns the gradients (blocks under a
-    mesh) and the metrics, ``update(opt_cfg, grads, opt_state, params)``
-    the AdamW step, ``per_leaf(grads, fn)`` / ``global_norm(grads)`` the
-    logical gradients' statistics; a gradient function for it takes its
-    ``view`` (what the loss sees of the parameters) and ``scale`` as its
+    over ``mesh`` (``param_specs``: the blocks' specs; ``cfg``: the arch,
+    whose attention stacks split their products over a model axis,
+    ``sharding.tensor_parallel``).  Its ``grads(grads_fn, params, batch,
+    key)`` returns the gradients (blocks under a mesh) and the metrics,
+    ``update(opt_cfg, grads, opt_state, params)`` the AdamW step,
+    ``per_leaf(grads, fn)`` / ``global_norm(grads)`` the logical
+    gradients' statistics; a gradient function for it takes its ``view``
+    (what the loss sees of the parameters) and ``scale`` as its
     backward's seed."""
     if mesh is None:
         return _Local(gather_bits)
-    return _Spmd(mesh, param_specs, gather_bits, microbatches)
+    return _Spmd(mesh, param_specs, gather_bits, microbatches,
+                 sharding.tensor_parallel(cfg, mesh))
 
 
 # =========================================================================
@@ -369,7 +379,7 @@ def jit_train_step(step: TrainStep, mesh: sharding.Mesh, param_specs: Any,
     del donate, opt_state_like
     tcfg = step.train_cfg
     return step.on(placement(mesh, param_specs, gather_bits=tcfg.gather_bits,
-                             microbatches=tcfg.microbatches))
+                             microbatches=tcfg.microbatches, cfg=step.cfg))
 
 
 # =========================================================================

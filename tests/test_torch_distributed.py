@@ -16,9 +16,10 @@ Stated tolerances:
   output bit for bit (``jnp.exp2`` exact at integer arguments on its
   side); the gradient all ones (straight through).
 * The FP32 SPMD step on (2, 2), reduced qwen1.5-0.5b, ``fsdp=True``,
-  from the reference's weights: against the reference's one-device step
-  and its own (2, 2) step, the loss within 1e-4 and every parameter
-  within 2e-5 (the reference test's bounds).
+  from the reference's weights, its products split over the model axis
+  (tensor-parallel compute, ``sharding.tensor_parallel``): against the
+  reference's one-device step and its own (2, 2) step, the loss within
+  1e-4 and every parameter within 2e-5 (the reference test's bounds).
 * The int8 round-to-nearest SPMD step on data 2 against the port's
   one-device step (batch 4, a power of two): the loss within 1e-6
   relative, every parameter within 1e-5 of its largest magnitude, and
@@ -414,6 +415,8 @@ def test_quantized_all_gather_matches_reference(ref, world8):
 def test_fp32_spmd_step_matches_reference(ref, world4):
     out = world4[0]["fp32_step"]
     assert out["specs"]["blocks/attn/wq"] == (None, "data", "model")
+    # the products were split over the model group
+    assert out["stats"][("tp_out", "calls")] > 0
     for tag in ("one", "mesh"):
         assert abs(out["loss"] - float(ref[f"fp32/loss_{tag}"])) < 1e-4
         want = _sub(ref, f"fp32_{tag}")

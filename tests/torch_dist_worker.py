@@ -180,8 +180,9 @@ def case_fp32_step(inp, mesh_of):
     params, opt, pspecs = trainer.init_train_state(lambda k: init, None,
                                                    mesh, fsdp=True)
     stepj = trainer.jit_train_step(step, mesh, pspecs, donate=False)
+    sharding.reset_stats()
     params, opt, m = stepj(params, opt, batch, None)
-    return {"loss": float(m["loss"]),
+    return {"loss": float(m["loss"]), "stats": dict(sharding.STATS),
             "params": _flat(sharding.unshard(params, pspecs, mesh)),
             "specs": _flat(pspecs)}
 
@@ -633,6 +634,149 @@ def case_fsdp_layers(inp, mesh_of):
     out["micro"] = {w: _layer_step("qwen", mesh, rec, 2, where=w)
                     for w in ("layer", "one")}
     out["noise"] = _layer_noise(mesh)
+    return out
+
+
+# -------------------------------------------------------------------------
+# Tensor-parallel compute (test_torch_tensor_parallel.py)
+# -------------------------------------------------------------------------
+
+def _rn_int8():
+    from repro_torch.core.qconfig import QuantConfig
+    return dataclasses.replace(QuantConfig.int8(), stochastic_grad=False)
+
+
+def case_tp_ops(inp, mesh_of):
+    """The split products on a (1, M) mesh from the whole operands in
+    ``inp``: a column- and a row-parallel ``int_linear`` (int8, round to
+    nearest), the vocab-parallel embedding and cross entropy; each output
+    and gradient as the rank holds it."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.core import int_ops
+    from repro_torch.models import lm
+    M = int(inp["model"])
+    mesh = mesh_of((1, M), ("data", "model"))
+    r = mesh.index("model")
+    q = _rn_int8()
+    t = {k: torch.from_numpy(np.array(v)) for k, v in inp.items()}
+    K, N = t["w"].shape
+    V = t["table"].shape[0]
+    cols, rows = slice(r * N // M, (r + 1) * N // M), slice(
+        r * K // M, (r + 1) * K // M)
+    vrows = slice(r * V // M, (r + 1) * V // M)
+
+    def leaf(x):
+        return x.clone().requires_grad_(True)
+    out = {}
+    with sharding.spmd(mesh, split=True):
+        x, w, b = leaf(t["x"]), leaf(t["w"][:, cols]), leaf(t["b"][cols])
+        y = int_ops.int_linear(int_ops.copy_to_model(x), w, b, None, q,
+                               split="col")
+        y.backward(t["gy"][..., cols])
+        out["col"] = {"y": y.detach(), "dx": x.grad, "dw": w.grad,
+                      "db": b.grad}
+        x, w = leaf(t["x"][..., rows]), leaf(t["w"][rows])
+        y = int_ops.int_linear(x, w, t["b"], None, q, split="row")
+        y.backward(t["gy"])
+        out["row"] = {"y": y.detach(), "dx": x.grad, "dw": w.grad}
+        table = leaf(t["table"][vrows])
+        y = int_ops.int_embedding(table, t["ids"], None, q,
+                                  vocab_start=r * V // M)
+        y.backward(t["gemb"])
+        out["emb"] = {"y": y.detach(), "dt": table.grad}
+        z = leaf(t["logits"][..., vrows])
+        loss = lm.token_ce_vocab_parallel(z, t["labels"])
+        loss.backward()
+        out["ce"] = {"loss": loss.detach(), "dz": z.grad}
+    return out
+
+
+def _tp_arch(name):
+    from repro_torch.configs import registry
+    return registry.get_config(name).reduced()
+
+
+def case_tp_fp32_step(inp, mesh_of):
+    """One FP32 AdamW step of each arch in ``inp["archs"]`` on the mesh
+    ``inp["mesh"]`` from the reference's weights and batch
+    (``<arch>/init/...``, ``<arch>/tokens``, ``<arch>/labels``): the loss,
+    the logical parameters, the collectives by tag."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt_lib, trainer
+    mesh = mesh_of(tuple(int(v) for v in inp["mesh"]), ("data", "model"))
+    out = {}
+    for arch in (str(a) for a in inp["archs"]):
+        cfg = _tp_arch(arch)
+        init = _tree(inp, f"{arch}/init")
+        batch = {k: torch.from_numpy(np.array(inp[f"{arch}/{k}"]))
+                 for k in ("tokens", "labels")}
+        opt_cfg = opt_lib.OptimizerConfig(lr=1e-3)
+        params, opt, pspecs = trainer.init_train_state(
+            lambda k: init, None, mesh, fsdp=True)
+        step = trainer.jit_train_step(trainer.make_train_step(
+            lm.lm_loss, cfg, QuantConfig.fp32(), opt_cfg), mesh, pspecs)
+        sharding.reset_stats()
+        params, opt, m = step(params, opt, batch, None)
+        out[arch] = {"loss": float(m["loss"]),
+                     "params": _flat(sharding.unshard(params, pspecs, mesh)),
+                     "stats": dict(sharding.STATS)}
+    return out
+
+
+def _grads_and_exps(cfg, init, batch, mesh, rec):
+    """The int8 round-to-nearest loss, gradients and exponents of one
+    ``lm_loss`` step on ``mesh`` (the logical gradients), or on one device
+    (``mesh`` None); with the collectives by tag."""
+    from repro_torch import sharding
+    from repro_torch.models import lm
+    from repro_torch.train import trainer
+    q = _rn_int8()
+    if mesh is None:
+        rec.clear()
+        loss, _, grads = trainer.loss_and_grads(lm.lm_loss, _to(init, None),
+                                                batch, cfg, q, None)
+        return {"loss": float(loss), "exps": list(rec),
+                "grads": _flat(grads)}
+    params, _, pspecs = trainer.init_train_state(
+        lambda k: _to(init, None), None, mesh, fsdp=True)
+    where = trainer.placement(mesh, pspecs, cfg=cfg)
+    grads_fn = trainer.make_grads_fn(lm.lm_loss, cfg, q, 1,
+                                     grad_scale=where.scale, view=where.view)
+    sharding.reset_stats()
+    rec.clear()
+    grads, metrics = where.grads(grads_fn, params, batch, None)
+    out = {"loss": float(metrics["loss"]), "exps": list(rec),
+           "stats": dict(sharding.STATS)}
+    out["grads"] = _flat(sharding.unshard(grads, pspecs, mesh))
+    return out
+
+
+def case_tp_int8(inp, mesh_of):
+    """Reduced qwen1.5-0.5b and mixtral-8x7b (``inp["archs"]``), int8 round
+    to nearest, from a seeded init: the gradients of one step on each mesh
+    of ``inp["meshes"]`` against the port's one-device gradients, every
+    exponent recorded on both sides.  ``{"DxM": {arch: {"mesh", "one"}}}``."""
+    import torch
+    from repro_torch.core import dfx
+    from repro_torch.models import lm
+    rec = _record_exponents(dfx)
+    out = {}
+    for shape in inp["meshes"]:
+        shape = tuple(int(v) for v in shape)
+        mesh = mesh_of(shape, ("data", "model"))
+        got = out["x".join(map(str, shape))] = {}
+        for arch in (str(a) for a in inp["archs"]):
+            cfg = _tp_arch(arch)
+            init = lm.lm_init(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+            batch = _layer_batch(cfg)
+            got[arch] = {
+                "mesh": _grads_and_exps(cfg, init, batch, mesh, rec),
+                "one": _grads_and_exps(cfg, init, batch, None, rec)}
     return out
 
 

@@ -1,14 +1,20 @@
 """The FP32 parameter and gradient bytes a rank holds during a training
 step over a mesh, with every leaf gathered whole before the forward and
 with each layer stack gathered one layer at a time inside the layer loop
-(``sharding.layer_view``), for every arch of ``registry.FSDP_ARCHS`` at
-full size: from the partition rules (``sharding.param_pspecs``) at the
-logical shapes, on meta tensors (nothing is allocated).
+(``sharding.layer_view``), and under split compute, for every arch of
+``registry.FSDP_ARCHS`` at full size: from the partition rules
+(``sharding.param_pspecs``) at the logical shapes, on meta tensors
+(nothing is allocated).
 
 * whole model: every leaf's logical image and gradient, plus the rank's
   blocks and their gradients;
 * per layer: the non-stacked leaves' images and gradients, the largest
-  layer's (all its stack leaves), plus the blocks and their gradients.
+  layer's (all its stack leaves), plus the blocks and their gradients;
+* split compute: the same, each leaf gathered over ``data`` only to the
+  rank's ``model`` shard where the arch's products split over the model
+  axis (``sharding.tensor_parallel``: the attention stacks; a replicated
+  kv leaf whole), as the port's step does; the other families as per
+  layer.
 
 Activations, int8 planes and the moments are left out; the FP32 moments
 (two a parameter, on the blocks) are printed beside.
@@ -47,42 +53,55 @@ def logical_params(arch: str) -> dict:
         torch.randn, torch.rand = saved
 
 
-def footprint(params: dict, shape, names) -> dict:
-    """GB a rank holds: whole-model and per-layer, and its FP32 moments."""
+def footprint(params: dict, cfg, shape, names) -> dict:
+    """GB a rank holds: whole-model, per-layer and under split compute,
+    and its FP32 moments."""
     mesh = sharding.Mesh(shape, names)
     specs = sharding.param_pspecs(params, mesh, fsdp=True)
-    total = whole = local = 0
-    layer = {}
+    tp = sharding.tensor_parallel(cfg, mesh)
+    total = whole = local = whole_tp = 0
+    layer, layer_tp = {}, {}
     for path, p, spec in zip(opt_lib.tree_paths(params),
                              opt_lib.tree_leaves(params),
                              opt_lib.tree_leaves(specs)):
         n = p.numel()
         total += n
-        local += n // mesh.count(sharding.sharded_axes(spec, mesh))
+        axes = sharding.sharded_axes(spec, mesh)
+        local += n // mesh.count(axes)
+        # what the gather leaves sharded: the model shard under tp
+        kept = n // mesh.count(tuple(a for a in axes if tp is not None
+                                     and a in tp.keep(path)))
         if opt_lib.is_stacked(path):
             stack = path.split("/")[0]
             layer[stack] = layer.get(stack, 0) + n // p.shape[0]
+            layer_tp[stack] = layer_tp.get(stack, 0) + kept // p.shape[0]
         else:
             whole += n
+            whole_tp += kept
     gb = 2 * 4 / 1e9                    # an image and a gradient, f32
     return {"params": total, "before": gb * (total + local),
             "after": gb * (whole + max(layer.values()) + local),
+            "split": gb * (whole_tp + max(layer_tp.values()) + local),
             "layer": max(layer.values()), "whole": whole,
+            "layer_tp": max(layer_tp.values()), "whole_tp": whole_tp,
             "moments": gb * local}
 
 
 def main() -> None:
     print("| arch | parameters | mesh | whole model GB | per layer GB "
-          "(one layer, non-stacked leaves) | FP32 moments GB |")
-    print("|---|---|---|---|---|---|")
+          "(one layer, non-stacked leaves) | split compute GB (the same) | "
+          "FP32 moments GB |")
+    print("|---|---|---|---|---|---|---|")
     for arch in sorted(registry.FSDP_ARCHS):
         params = logical_params(arch)
+        cfg = registry.get_config(arch)
         for label, (shape, names) in MESHES.items():
-            f = footprint(params, shape, names)
+            f = footprint(params, cfg, shape, names)
             print(f"| {arch} | {f['params'] / 1e9:.3f} B | {label} | "
                   f"{f['before']:.2f} | {f['after']:.2f} "
                   f"({f['layer'] / 1e9:.3f} B, {f['whole'] / 1e9:.3f} B) | "
-                  f"{f['moments']:.2f} |")
+                  f"{f['split']:.2f} ({f['layer_tp'] / 1e9:.3f} B, "
+                  f"{f['whole_tp'] / 1e9:.3f} B) | {f['moments']:.2f} |")
 
 
 if __name__ == "__main__":
