@@ -55,7 +55,12 @@ Phases (each raises on failure; nothing is caught):
    give the kernels (``check_tp_shapes``, ``TP_ATTN``: qwen1.5-0.5b at
    model 2 — q / k / v 512 columns, gate / up 1408, the head's 76,032
    vocabulary rows, 8 heads — and qwen2-moe-a2.7b's experts at 704 of
-   their 1408 columns), each held bit for bit (``tp_rows``).
+   their 1408 columns), each held bit for bit (``tp_rows``); and at
+   phase 14e's (``check_tp_state_shapes``): mamba2-370m's and
+   zamba2-2.7b's projections at model 2 — ``wz`` / ``wx`` at half the
+   inner width, ``wdt`` at N = 16 and 40, ``out_proj`` with K split —,
+   whisper-large-v3's MLP and tied head over its 25,984-row vocabulary
+   shard, the shard's quantize, and its attention at 10 heads.
 3. On reduced configurations (2 layers), from the same weights, the card
    against the port's CPU path: qwen1.5-0.5b's served logits; one BERT
    training step under the paper's integer scope (round to nearest), its
@@ -129,7 +134,7 @@ Phases (each raises on failure; nothing is caught):
    1-5, tokens/s, peak memory, launches per step and a profiled step's
    busy share at int16 and int8.  Then the reference's sizes (bert-tiny /
    vit-tiny, batch 16, eval on 128): Tables 1-3 and Fig. 4 at
-   ``SWEEP_REF_STEPS`` steps (30; 60 before phase 14d, 120 before phase 12),
+   ``SWEEP_REF_STEPS`` steps (15; 30 before phase 14e, 60 before 14d),
    Fig. 5 at 150 with its assertion; each table's metric, its drop against
    FP32 and int8's average drop.  Phase 2 holds the sweep's attention
    calls (3 limb planes at hd 64, bert cls / span and vit shapes; vit at
@@ -252,7 +257,11 @@ Phases (each raises on failure; nothing is caught):
    2, the int8 gather, one layer at a time), 14b the compressed cross-pod
    step through ``launch.train``, 14c a one-rank NCCL group, 14d 14a's
    step on (data 1, model 2) with every product split over the model
-   group (tensor-parallel compute).
+   group (tensor-parallel compute), 14e the same split for mamba2-370m
+   (6 of 48 layers), zamba2-2.7b (6 of 54) and whisper-large-v3 (2 + 2
+   of 32 + 32, 8 x (1500 + 448)) in 14a's processes, each first loss held
+   against one rank's on the same image and each peak per rank against a
+   one-rank step's.
 15. The examples and the paper's Fig. 1 (``examples_phase``).
 16. Print the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
@@ -390,13 +399,15 @@ def norm_bwd_timings(torch, name, kernel, plain, library) -> dict:
 
 
 def timings(kernel, plain=None, library=None) -> dict:
-    """CUDA-event medians and profiler device times of the kernel's wrapper
-    call, its plain version and the library yardstick (None where not
-    given: a plain version too slow to time at the shape)."""
+    """CUDA-event medians of the kernel's wrapper call, its plain version
+    and the library yardstick (None where not given: a plain version too
+    slow to time at the shape), and the profiler device times of the
+    kernel and the library call.  The plain version is timed by CUDA
+    events alone: a plain attention call runs thousands of kernels, whose
+    profiler windows took much of phase 2's time."""
     return dict(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain) if plain else None,
                 library_ms=cuda_ms(library) if library else None,
                 device_ms=device_ms(kernel),
-                plain_device_ms=device_ms(plain) if plain else None,
                 library_device_ms=device_ms(library) if library else None)
 
 
@@ -416,8 +427,7 @@ def body_line(name: str, k: dict, prefix: str = "") -> str:
             f"{k[prefix + 'int_ms']:.4f} ms, device "
             f"{k[prefix + 'int_device_ms']:.4f} ms; FP32 body call "
             f"{k[prefix + 'ms']:.4f} ms, device {k[prefix + 'device_ms']:.4f}"
-            f" ms; plain (flag set) device "
-            f"{k[prefix + 'int_plain_device_ms']:.4f} ms")
+            f" ms; plain (flag set) {_ms(k[prefix + 'int_plain_ms'])} ms")
 
 
 def bound_ms(n_bytes: float, n_ops: float, f32_ops: float = 0.0) -> tuple:
@@ -936,7 +946,13 @@ WHISPER_ATTN_BWD = (WHISPER_ENC, WHISPER_CROSS, WHISPER_SELF)
 #: 16 heads of 64 and qwen2-moe-a2.7b's 16 of 128 halved
 TP_QWEN_ATTN = "qwen1.5-0.5b train, model 2 (8 heads of 64)"
 TP_MOE_ATTN = "qwen2-moe-a2.7b train, model 2 (8 heads of 128)"
-TP_ATTN = (TP_QWEN_ATTN, TP_MOE_ATTN)
+#: phase 14e's whisper calls at model 2: a rank's 10 of the 20 heads of 64
+#: in the encoder, the cross-attention and the decoder's self-attention
+TP_WHISPER_ENC = "whisper encoder, model 2 (8 x 1500, 10 heads)"
+TP_WHISPER_CROSS = "whisper cross, model 2 (8 x 448 over 1500, 10 heads)"
+TP_WHISPER_SELF = "whisper decoder self, model 2 (8 x 448, 10 heads)"
+TP_ATTN = (TP_QWEN_ATTN, TP_MOE_ATTN, TP_WHISPER_ENC, TP_WHISPER_CROSS,
+           TP_WHISPER_SELF)
 
 #: attention forward shapes held on the card: name -> (B, Sq, Sk, KV, G,
 #: hd, offsets, causal, window, act bits); q/k/v carry n_limbs(act bits)
@@ -977,6 +993,9 @@ ATTN_FWD_SHAPES = {
     WHISPER_DECODE_SELF: (4, 1, 448, 20, 1, 64, 35, True, None, 12),
     TP_QWEN_ATTN: (8, 256, 256, 8, 1, 64, 0, True, None, 12),
     TP_MOE_ATTN: (8, 256, 256, 8, 1, 128, 0, True, None, 12),
+    TP_WHISPER_ENC: (8, 1500, 1500, 10, 1, 64, 0, False, None, 12),
+    TP_WHISPER_CROSS: (8, 448, 1500, 10, 1, 64, 0, False, None, 12),
+    TP_WHISPER_SELF: (8, 448, 448, 10, 1, 64, 0, True, None, 12),
 }
 
 
@@ -1108,8 +1127,8 @@ def check_attention(torch, dev, gen, cfg):
                 lambda: ia.int_attn_fwd_plain(q, k, v, qo, exps, **ki),
                 library), bound_ms=b, bound_by=by))
         print(f"  int_attn_fwd at {label}: call {t['ms']:.4f} ms, device "
-              f"{t['device_ms']:.4f} ms; plain device "
-              f"{_ms(t['plain_device_ms'])}; SDPA forward (f32) device "
+              f"{t['device_ms']:.4f} ms; plain {_ms(t['plain_ms'])} ms; "
+              f"SDPA forward (f32) device "
               f"{t['library_device_ms']:.4f}; bound {b:.4f} ms ({by})")
         return t
 
@@ -1131,7 +1150,8 @@ def check_attention(torch, dev, gen, cfg):
     whisper_rows = [dict(label=lb, max_abs_err=runs[lb][-1],
                          **measure(lb, time_plain=lb != WHISPER_ENC))
                     for lb in WHISPER_ATTN_FWD]
-    tp_rows = [dict(label=lb, max_abs_err=runs[lb][-1], **measure(lb))
+    tp_rows = [dict(label=lb, max_abs_err=runs[lb][-1],
+                    **measure(lb, time_plain=lb != TP_WHISPER_ENC))
                for lb in TP_ATTN]
     B, Sq, Sk, KV, G, hd = ATTN_FWD_SHAPES["decode"][:6]
     out = dict(name="int_attn_fwd", route="cuda",
@@ -1147,8 +1167,8 @@ def check_attention(torch, dev, gen, cfg):
                      "calls (ssm_rows) and phase 13's whisper calls, "
                      "bidirectional Sq != Sk and one bidirectional decode "
                      "row among them (whisper_rows, held bit for bit) "
-                     "and phase 14d's heads at model 2 (tp_rows, held bit "
-                     "for bit); "
+                     "and phase 14d's and 14e's heads at model 2 "
+                     "(tp_rows, held bit for bit); "
                      "the kept-int body (int_*, train_int_*) "
                      "at decode and the training shape; both bodies held at "
                      + ", ".join(ATTN_FWD_SHAPES) + "; tolerance o 1e-5 "
@@ -1485,6 +1505,9 @@ ATTN_BWD_SHAPES = {
     WHISPER_SELF: (8, 448, 448, 20, 1, 64, 0, True, None, 12, 8),
     TP_QWEN_ATTN: (8, 256, 256, 8, 1, 64, 0, True, None, 12, 8),
     TP_MOE_ATTN: (8, 256, 256, 8, 1, 128, 0, True, None, 12, 8),
+    TP_WHISPER_ENC: (8, 1500, 1500, 10, 1, 64, 0, False, None, 12, 8),
+    TP_WHISPER_CROSS: (8, 448, 1500, 10, 1, 64, 0, False, None, 12, 8),
+    TP_WHISPER_SELF: (8, 448, 448, 10, 1, 64, 0, True, None, 12, 8),
 }
 
 
@@ -1670,7 +1693,8 @@ def check_attention_bwd(torch, dev, gen):
     whisper = {lb: measure(*timed[lb], kept_int=True,
                            time_plain=lb != WHISPER_ENC)
                for lb in WHISPER_ATTN_BWD}
-    tp = {lb: measure(*timed[lb]) for lb in TP_ATTN}
+    tp = {lb: measure(*timed[lb], time_plain=lb != TP_WHISPER_ENC)
+          for lb in TP_ATTN}
     shape = ATTN_BWD_SHAPES["qwen1.5-0.5b train"]
     B, Sq, Sk, KV, G, hd = shape[:6]
     out_k = []
@@ -1684,15 +1708,15 @@ def check_attention_bwd(torch, dev, gen):
                         *((lb, r[name]) for lb, r in whisper.items()),
                         *((lb, r[name]) for lb, r in tp.items())):
             print(f"  {name} at {what}: call {m['ms']:.4f} ms, device "
-                  f"{m['device_ms']:.4f} ms; plain device "
-                  f"{_ms(m['plain_device_ms'])}; SDPA backward device "
+                  f"{m['device_ms']:.4f} ms; plain "
+                  f"{_ms(m['plain_ms'])} ms; SDPA backward device "
                   f"{m['library_device_ms']:.4f}; bound {m['bound_ms']:.4f} "
                   f"ms ({m['bound_by']})", flush=True)
             if "int_ms" in m:
                 print(f"  {name} kept-int body at {what}: call "
                       f"{m['int_ms']:.4f} ms, device "
                       f"{m['int_device_ms']:.4f} ms; plain (flag set) "
-                      f"device {_ms(m['int_plain_device_ms'])}", flush=True)
+                      f"{_ms(m['int_plain_ms'])} ms", flush=True)
         print(body_line(name, main[name]))
         out_k.append(dict(
             name=name, route="cuda",
@@ -2318,6 +2342,129 @@ def _tp_row(torch, name, label, fn, plain, n_ops, n_bytes, lib) -> dict:
     return row
 
 
+def _tp_quant(torch, rows, name, label, x, bits, limbs, u=None):
+    """A split-shape quantize (``dfx_quantize``, or the grouped one for a
+    3-d stack) held and timed (``_tp_row``) into ``rows[name]``: the
+    library call is ``quantize_per_tensor`` at the same scale (8 bits,
+    round to nearest), ``quantize_per_channel`` over the stack's slices
+    (one scale each) for the grouped one, none with noise."""
+    from repro_torch.core import dfx
+    from repro_torch.kernels import dfx_quant as dq
+    grouped = x.dim() == 3
+    ex = (dfx.slice_exponents(x) if grouped else dfx.scale_exponent(x)) \
+        - (bits - 1)
+    kern = dq.dfx_quantize_grouped if grouped else dq.dfx_quantize
+    plain = dq.dfx_quantize_grouped_plain if grouped else dq.dfx_quantize_plain
+    lib = None
+    if bits == 8 and u is None and grouped:
+        scales = dfx.pow2(ex).double()
+        zeros = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
+
+        def lib():
+            return torch.quantize_per_channel(x, scales, zeros, 0,
+                                              torch.qint8)
+    elif bits == 8 and u is None:
+        scale = float(dfx.pow2(ex))
+
+        def lib():
+            return torch.quantize_per_tensor(x, scale, 0, torch.qint8)
+    out_b = x.numel() * (dq.n_limbs(bits) if limbs else 1)
+    rows[name].append(_tp_row(
+        torch, name, label,
+        lambda: kern(x, ex, bits=bits, u=u, limb_planes=limbs),
+        lambda: plain(x, ex, bits=bits, u=u, limb_planes=limbs), 0,
+        nbytes(x) + out_b + (nbytes(u) if u is not None else 0), lib))
+
+
+def _tp_mm(torch, rows, e, name, label, a, b, n_ops, out_n, pairs):
+    """A split-shape limb-plane product held and timed (``_tp_row``) into
+    ``rows[name]``, beside ``torch._int_mm`` over its limb pairs."""
+    from repro_torch.kernels import bfp_matmul as bm
+    fn, plain = getattr(bm, name), getattr(bm, name + "_plain")
+    ps = [(p.contiguous(), q.contiguous()) for p, q in pairs]
+    rows[name].append(_tp_row(
+        torch, name, label, lambda: fn(a, b, e), lambda: plain(a, b, e),
+        n_ops, nbytes(a, b) + 4 * out_n,
+        lambda: [torch._int_mm(p, q) for p, q in ps]))
+
+
+def _tp_projection(torch, gen, dev, rows, e, what, T, K, N):
+    """NN (a12 x w8), NT (dX, g8 x w8) and TN (dW, a12 x g8) of a
+    column-parallel projection at the rank's ``N`` columns."""
+    x, w, g = (_planes(torch, gen, dev, L, *sh)
+               for L, sh in ((2, (T, K)), (1, (K, N)), (1, (T, N))))
+    _tp_mm(torch, rows, e, "bfp_matmul", f"{what} {T}x{K}x{N} 2x1", x, w,
+           2 * T * K * N * 2, T * N, [(xj, w[0]) for xj in x])
+    _tp_mm(torch, rows, e, "bfp_matmul_nt", f"{what} dX {T}x{N} . ({K}x{N})^T"
+           " 1x1", g, w, 2 * T * N * K, T * K, [(g[0], w[0].t())])
+    _tp_mm(torch, rows, e, "bfp_matmul_tn", f"{what} dW ({T}x{K})^T . {T}x{N}"
+           " 2x1", x, g, 2 * T * K * N * 2, K * N,
+           [(xj.t(), g[0]) for xj in x])
+
+
+def check_tp_state_shapes(torch, dev, gen) -> dict:
+    """Phase 2's holds at the shapes phase 14e gives the quantize and matmul
+    kernels at model 2 (each call held exactly against its plain version
+    and timed, ``_tp_row``): mamba2-370m's and zamba2-2.7b's column-parallel
+    projections at 2048 rows (``wz`` / ``wx`` at half the inner width,
+    ``wdt`` at half the SSD heads: N = 16 and N = 40, whose 40-byte rows
+    take the matmul's staged path) as NN, NT and TN, their row-parallel
+    ``out_proj`` (K split) as NN; whisper-large-v3's MLP at 12,000 encoder
+    rows (``w1`` at half of d_ff as NN / NT / TN, ``w2`` with K split as
+    NN), its tied head over the rank's 25,984 vocabulary rows at 3,584
+    decoder rows (logits with W K-major, dX over V / 2, dE) and the
+    quantize of that table shard (8-bit mantissa, planes).  Returns
+    {kernel: [row, ...]}."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    rows = {k: [] for k in ("dfx_quantize", "bfp_matmul", "bfp_matmul_nt",
+                            "bfp_matmul_tn")}
+    e = torch.tensor(-30, dtype=torch.int32, device=dev)
+    T = 8 * 256
+    for arch in ("mamba2-370m", "zamba2-2.7b"):
+        cfg = registry.get_config(arch)
+        D, DI, NH = cfg.d_model, cfg.d_inner // 2, cfg.ssm_nheads // 2
+        what = f"{arch} model 2"
+        _tp_projection(torch, gen, dev, rows, e, f"{what} wz / wx", T, D, DI)
+        _tp_projection(torch, gen, dev, rows, e, f"{what} wdt", T, D, NH)
+        a, w = _planes(torch, gen, dev, 2, T, DI), _planes(torch, gen, dev, 1,
+                                                            DI, D)
+        _tp_mm(torch, rows, e, "bfp_matmul", f"{what} out_proj {T}x{DI}x{D} "
+               "2x1 (K split)", a, w, 2 * T * DI * D * 2, T * D,
+               [(aj, w[0]) for aj in a])
+        del a, w
+    cfg = registry.get_config("whisper-large-v3")
+    D, F, V = cfg.d_model, cfg.d_ff // 2, lm.padded_vocab(cfg) // 2
+    Te, Td = WHISPER_ENC_ROWS, WHISPER_DEC_ROWS
+    what = "whisper model 2"
+    _tp_projection(torch, gen, dev, rows, e, f"{what} w1", Te, D, F)
+    a, w = _planes(torch, gen, dev, 2, Te, F), _planes(torch, gen, dev, 1,
+                                                        F, D)
+    _tp_mm(torch, rows, e, "bfp_matmul", f"{what} w2 {Te}x{F}x{D} 2x1 (K "
+           "split)", a, w, 2 * Te * F * D * 2, Te * D,
+           [(aj, w[0]) for aj in a])
+    del a, w
+    x = torch.randn((V, D), generator=gen, device=dev).mul_(0.02)
+    _tp_quant(torch, rows, "dfx_quantize", f"{what} table shard ({V},{D}) "
+              "-> 8-bit mantissa", x, 8, False)
+    _tp_quant(torch, rows, "dfx_quantize", f"{what} table shard ({V},{D}) "
+              "-> 8-bit planes", x, 8, True)
+    del x
+    h = _planes(torch, gen, dev, 2, Td, D)
+    emb = _planes(torch, gen, dev, 1, V, D)
+    _tp_mm(torch, rows, e, "bfp_matmul", f"{what} tied head logits "
+           f"{Td}x{D}x{V} 2x1 (W K-major)", h, emb.transpose(1, 2),
+           2 * Td * D * V * 2, Td * V, [(hj, emb[0].t()) for hj in h])
+    g = _planes(torch, gen, dev, 1, Td, V)
+    _tp_mm(torch, rows, e, "bfp_matmul", f"{what} tied head dX {Td}x{V}x{D} "
+           "1x1 (NN over V/2)", g, emb, 2 * Td * V * D, Td * D,
+           [(g[0], emb[0])])
+    _tp_mm(torch, rows, e, "bfp_matmul_tn", f"{what} tied head dE "
+           f"({Td}x{V})^T . {Td}x{D} 1x2", g, h, 2 * Td * V * D * 2, V * D,
+           [(g[0].t(), hj) for hj in h])
+    return rows
+
+
 def check_tp_shapes(torch, dev, gen) -> dict:
     """Phase 2's holds at the shapes phase 14d gives the quantize and
     matmul kernels: qwen1.5-0.5b (d_model 1024, 16 heads of 64, d_ff 2816,
@@ -2332,9 +2479,6 @@ def check_tp_shapes(torch, dev, gen) -> dict:
     logits (W K-major) and its dX over the vocabulary half; NT (dX) and TN
     (dW) of q and of gate / up, the head's dE; the batched NN / NT / TN of
     the experts.  Returns {kernel: [row, ...]}."""
-    from repro_torch.kernels import bfp_matmul as bm
-    from repro_torch.kernels import dfx_quant as dq
-    from repro_torch.core import dfx
     (T, D, Q, F), V = TP_DIMS, V_HALF
     rows = {k: [] for k in ("dfx_quantize", "dfx_quantize_grouped",
                             "bfp_matmul", "bfp_matmul_nt", "bfp_matmul_tn",
@@ -2343,24 +2487,10 @@ def check_tp_shapes(torch, dev, gen) -> dict:
     e = torch.tensor(-30, dtype=torch.int32, device=dev)
 
     def quant(name, label, x, bits, limbs, u=None):
-        grouped = x.dim() == 3
-        ex = (dfx.slice_exponents(x) if grouped else dfx.scale_exponent(x)) \
-            - (bits - 1)
-        kern = dq.dfx_quantize_grouped if grouped else dq.dfx_quantize
-        plain = (dq.dfx_quantize_grouped_plain if grouped
-                 else dq.dfx_quantize_plain)
-        lib = None
-        if bits == 8 and u is None and not grouped:
-            scale = float(dfx.pow2(ex))
+        _tp_quant(torch, rows, name, label, x, bits, limbs, u)
 
-            def lib():
-                return torch.quantize_per_tensor(x, scale, 0, torch.qint8)
-        out_b = x.numel() * (dq.n_limbs(bits) if limbs else 1)
-        rows[name].append(_tp_row(
-            torch, name, label,
-            lambda: kern(x, ex, bits=bits, u=u, limb_planes=limbs),
-            lambda: plain(x, ex, bits=bits, u=u, limb_planes=limbs), 0,
-            nbytes(x) + out_b + (nbytes(u) if u is not None else 0), lib))
+    def mm(name, label, a, b, n_ops, out_n, pairs):
+        _tp_mm(torch, rows, e, name, label, a, b, n_ops, out_n, pairs)
 
     x = torch.randn((V, D), generator=gen, device=dev).mul_(0.02)
     quant("dfx_quantize", f"table shard ({V},{D}) -> 8-bit mantissa", x, 8,
@@ -2380,14 +2510,6 @@ def check_tp_shapes(torch, dev, gen) -> dict:
 
     def pl(L, *shape):
         return _planes(torch, gen, dev, L, *shape)
-
-    def mm(name, label, a, b, n_ops, out_n, pairs):
-        fn, plain = getattr(bm, name), getattr(bm, name + "_plain")
-        ps = [(p.contiguous(), q.contiguous()) for p, q in pairs]
-        rows[name].append(_tp_row(
-            torch, name, label, lambda: fn(a, b, e), lambda: plain(a, b, e),
-            n_ops, nbytes(a, b) + 4 * out_n,
-            lambda: [torch._int_mm(p, q) for p, q in ps]))
 
     h = pl(2, T, D)                                   # the normed input
     for what, N in (("q / k / v", Q), ("gate / up", F)):
@@ -2426,6 +2548,40 @@ def check_tp_shapes(torch, dev, gen) -> dict:
              f"({E},{C},{Fe}) 2x1", 2 * E * C * Dm * Fe * 2, E * Dm * Fe,
              [(xj[i].t(), g[0][i]) for xj in x for i in range(E)])):
         mm(name, label, a, b, n_ops, out_n, pairs)
+    return rows
+
+
+def tp_rows_worker(out_path: str) -> int:
+    """``--tp-rows OUT``: ``check_tp_shapes`` and ``check_tp_state_shapes``
+    on the card in a process of their own, their rows written to ``OUT``
+    as JSON.  Phase 2 runs them there: after some hundreds of profiler
+    sessions in one process the profiler recorded a first window and then
+    no device event at all (five windows in a row, NVIDIA H100 80GB HBM3),
+    and these ~90 sessions come last in phase 2."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = check_tp_shapes(torch, dev, gen)
+    for name, more in check_tp_state_shapes(torch, dev, gen).items():
+        rows[name] += more
+    Path(out_path).write_text(json.dumps(rows))
+    return 0
+
+
+def tp_rows_child() -> dict:
+    """The split-shape rows (``tp_rows_worker``) from a child process,
+    which prints its holds and timings into this run's output."""
+    import tempfile
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_")) / "rows.json"
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                        "--tp-rows", str(out)], timeout=900)
+    if r.returncode != 0:
+        raise AssertionError(f"the split-shape rows failed (rc "
+                             f"{r.returncode})")
+    rows = json.loads(out.read_text())
+    out.unlink()
+    out.parent.rmdir()
     return rows
 
 
@@ -4008,9 +4164,9 @@ def sweep_full_width(torch, dev, wrappers) -> dict:
 
 
 #: phase 9's steps at the reference's sizes for Tables 1-3 and Fig. 4 (120
-#: until phase 12 joined, then 60; 30 since phase 14d joined, for the
-#: run's time; Fig. 5 keeps its 150 for its assertion)
-SWEEP_REF_STEPS = 30
+#: until phase 12 joined, then 60, 30 with phase 14d, 15 since phase 14e,
+#: for the run's time; Fig. 5 keeps its 150 for its assertion)
+SWEEP_REF_STEPS = 15
 
 
 def sweep_reference_size(torch, dev) -> None:
@@ -5013,15 +5169,16 @@ def whisper_phase(torch, dev, kops) -> dict:
 #: ``DIST_STEPS`` AdamW steps at lr 1e-4.  One card: the 2-rank parts run
 #: two gloo processes that share it (NCCL refuses two ranks on one GPU),
 #: so their collectives go through the host; 14c runs a one-rank NCCL
-#: group.  14a and 14c run ``DIST_LAYERS`` of 24 layers, cut for the
-#: run's time (at 24 the phase took 105.2 s: 14a 42.5 s, its steps 5.6 s;
-#: NVIDIA H100 80GB HBM3, 700.00 W); 14b, through ``launch.train``, the
-#: same depth since 14d joined the phase (all 24 before).
+#: group.  14a-14d run ``DIST_LAYERS`` of 24 layers, cut for the run's
+#: time (at 24 the phase took 105.2 s: 14a 42.5 s, its steps 5.6 s;
+#: NVIDIA H100 80GB HBM3, 700.00 W; 12 from PR 28, 6 since 14e joined:
+#: a run took 1,180.7 s, its 14a steps 8.6-15.5 s on a slower host).
 #: 14d runs 14a's step on (data 1, model 2), two gloo ranks sharing the
 #: card, each product split over the model group (tensor-parallel compute).
-DIST_LAYERS, DIST_BATCH, DIST_STEPS = 12, (8, 256), 3
-#: seconds each part may take (spawn, build load, init, steps)
-DIST_TIMEOUT = 420
+DIST_LAYERS, DIST_BATCH, DIST_STEPS = 6, (8, 256), 3
+#: seconds each part may take (spawn, build load, init, steps); 14e's
+#: three cells add theirs to 14a's part
+DIST_TIMEOUT, SPLIT_TIMEOUT = 420, 300
 #: 14d's vocabulary half: qwen's padded 152,064 rows over 2 model ranks;
 #: phase 2's split shapes (``check_tp_shapes``): qwen's tokens, d_model,
 #: q / k / v and gate / up widths at model 2; qwen2-moe's experts, capacity
@@ -5237,9 +5394,163 @@ def dist_compressed(torch, dev) -> dict:
             "leaf": list(shape)}
 
 
+#: 14e's cells at full width on (data 1, model 2), in 14a's processes:
+#: arch -> (decoder / SSM layers, encoder layers, rows, tokens, frames),
+#: depths cut for the run's time (zamba2: one group of 6 Mamba2 layers
+#: and the shared block; mamba2 and zamba2 at 12, whisper at 4 + 4 until
+#: runs took 1,245.8 s and 1,180.7 s)
+SPLIT_CELLS = {"mamba2-370m": (6, 0, 8, 256, 0),
+               "zamba2-2.7b": (6, 0, 8, 256, 0),
+               "whisper-large-v3": (2, 2, 8, 448, 1500)}
+#: the kernels each 14e path must launch
+_SSM_PATH = ("dfx_quantize", "bfp_matmul", "bfp_matmul_nt", "bfp_matmul_tn",
+             "int_rmsnorm_fwd", "int_rmsnorm_bwd", "dfx_quantize_grouped")
+_ATTN_PATH = ("int_attn_fwd", "int_attn_bwd_dq", "int_attn_bwd_dkv")
+SPLIT_PATHS = {"mamba2-370m": _SSM_PATH,
+               "zamba2-2.7b": _SSM_PATH + _ATTN_PATH,
+               "whisper-large-v3": _SSM_PATH[:4] + (
+                   "int_layernorm_fwd", "int_layernorm_bwd",
+                   "dfx_quantize_grouped") + _ATTN_PATH}
+
+
+def _split_config(arch: str):
+    import dataclasses
+    from repro_torch.configs import registry
+    layers, enc, *_ = SPLIT_CELLS[arch]
+    cut = dict(n_layers=layers, **({"n_enc_layers": enc} if enc else {}))
+    return dataclasses.replace(registry.get_config(arch), **cut)
+
+
+def _split_widths(cfg) -> tuple:
+    """The output widths (N) of a rank's column-parallel NN products at
+    model 2 that show the split: the SSM's inner half and ``wdt``'s half of
+    the heads, the attention's q / k / v half and the MLP's, the head's
+    vocabulary half."""
+    from repro_torch.models import lm
+    out = [lm.padded_vocab(cfg) // 2]
+    if cfg.family in ("ssm", "hybrid"):
+        out += [cfg.d_inner // 2, cfg.ssm_nheads // 2]
+    if cfg.family != "ssm":
+        out += [cfg.n_heads * cfg.head_dim // 2, cfg.d_ff // 2]
+    return tuple(sorted(set(out)))
+
+
+def dist_split(torch, dev, arch: str) -> dict:
+    """14e on every rank: ``arch`` at full width, cut in depth
+    (``SPLIT_CELLS``), on (data 1, model 2): ``init_train_state(fsdp=True)``
+    + ``jit_train_step`` with the int8 gather and int8 moments, every
+    product split over the model group.  Rank 0 first runs, alone, the
+    one-rank forward loss on the same int8 image and batch and one
+    one-device step from that image (its peak is the one-rank peak).  The
+    launch counters are set to 0 just before the split steps and read just
+    after; every kernel of ``SPLIT_PATHS[arch]`` must have launched.
+    Returns what rank 0 reports (also its NN launches by output width)."""
+    import collections
+    import torch.distributed as dist
+    from repro_torch import sharding
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import train as lt
+    from repro_torch.train import optimizer as opt_lib, trainer
+    from repro_torch.train.finetune import to_device
+    t_part = time.perf_counter()
+    mesh = sharding.init_mesh((1, 2), ("data", "model"))
+    cfg, q = _split_config(arch), registry.get_quant("int8")
+    _, _, B, S, T = SPLIT_CELLS[arch]
+    init_fn, loss_fn = lt._model(cfg)
+    opt_cfg = opt_lib.OptimizerConfig(lr=1e-4, state_bits=8,
+                                      total_steps=DIST_STEPS)
+    tcfg = trainer.TrainConfig(gather_bits=8)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, opt, pspecs = trainer.init_train_state(
+        lambda g: init_fn(g, cfg, device=dev), gen, mesh, fsdp=True,
+        opt_cfg=opt_cfg)
+    gen.manual_seed(1)            # the model ranks draw alike
+    data = SyntheticLM(DataConfig(batch_size=B, seq_len=S, vocab=cfg.vocab))
+    batches = []
+    for i in range(DIST_STEPS):
+        b = to_device(next(data), dev)
+        if T:
+            b["frames"] = torch.randn(
+                (B, T, cfg.d_model), device=dev,
+                generator=torch.Generator(device=dev).manual_seed(1 + i))
+        batches.append(b)
+    out = {"rank": mesh.rank, "arch": arch, "layers": cfg.n_layers,
+           "enc_layers": cfg.n_enc_layers if cfg.enc_dec else 0}
+    # copies: a leaf the gather passes through is a view of the block,
+    # which the one-rank step below would update in place
+    image = opt_lib.tree_map(lambda t: t.detach().clone(),
+                             sharding.quantized_all_gather(
+                                 params, mesh, bits=8, pspecs=pspecs))
+    if mesh.rank == 0:
+        with torch.no_grad():
+            out["one_rank_loss"] = float(loss_fn(image, batches[0], cfg, q,
+                                                 None)[0])
+        # the one-rank step: the logical parameters (here the image), FP32,
+        # their int8 moments and the compute's int8 image of them
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        one = trainer.make_train_step(loss_fn, cfg, q, opt_cfg, tcfg)
+        one(image, opt_lib.init(image, opt_cfg), batches[0],
+            torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+        out["one_rank_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del image
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    step = trainer.jit_train_step(trainer.make_train_step(
+        loss_fn, cfg, q, opt_cfg, tcfg), mesh, pspecs)
+    wrappers = kops.wrappers(*SPLIT_PATHS[arch])
+    by_n, nn = collections.Counter(), kops.bfp_matmul
+
+    def counted(xm, wm, exp):
+        if xm.is_cuda:
+            by_n[int(wm.shape[-1])] += 1
+        return nn(xm, wm, exp)
+    for w in wrappers.values():
+        w.launches = 0
+    kops.bfp_matmul = counted
+    sharding.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps, losses = [time.perf_counter()], []
+    try:
+        for b in batches:
+            params, opt, m = step(params, opt, b, gen)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+    finally:
+        kops.bfp_matmul = nn
+    launches = {n: w.launches for n, w in wrappers.items()}
+    for n, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"rank {mesh.rank}: {n} was not launched on "
+                                 f"the split {arch} path")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{arch}: non-finite losses {losses}")
+    stats = _dist_stats({}, dict(sharding.STATS), DIST_STEPS)
+    peak = sharding.all_gather(torch.tensor(
+        torch.cuda.max_memory_allocated() / 2**30), mesh.axis_names, mesh)
+    out.update(losses=losses, launches=launches, stats=stats,
+               largest=dict(sharding.LARGEST),
+               step_ms=[1e3 * (b - a) for a, b in zip(stamps, stamps[1:])],
+               peak_gib=[float(v) for v in peak],
+               nn_by_width={str(k): v for k, v in sorted(by_n.items())},
+               part_s=time.perf_counter() - t_part)
+    del params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def dist_worker(part: str, out_dir: str) -> int:
-    """One rank of phase 14's part ``part`` (``14ad``: 14a, then 14d;
-    ``14b``; ``14c``) under ``torchrun``; rank 0 writes
+    """One rank of phase 14's part ``part`` (``14ad``: 14a, then 14d and
+    14e; ``14b``; ``14c``) under ``torchrun``; rank 0 writes
     ``out_dir/<part>.json``."""
     import torch
     import torch.distributed as dist
@@ -5259,6 +5570,11 @@ def dist_worker(part: str, out_dir: str) -> int:
             gc.collect()
             torch.cuda.empty_cache()
             out["14d"] = dist_fsdp(torch, dev, check=True, model=2)
+            # 14e: the SSM, hybrid and enc-dec stacks split the same way
+            for arch in SPLIT_CELLS:
+                gc.collect()
+                torch.cuda.empty_cache()
+                out[arch] = dist_split(torch, dev, arch)
         if dist.get_rank() == 0:
             Path(out_dir, f"{part}.json").write_text(json.dumps(out))
         dist.barrier()
@@ -5267,9 +5583,10 @@ def dist_worker(part: str, out_dir: str) -> int:
     return 0
 
 
-def _spawn_part(part: str, nproc: int, out_dir: str) -> dict:
+def _spawn_part(part: str, nproc: int, out_dir: str,
+                timeout: float = DIST_TIMEOUT) -> dict:
     """Run a part under ``torchrun --nproc-per-node nproc``; its process
-    group is killed at ``DIST_TIMEOUT``."""
+    group is killed at ``timeout`` seconds."""
     import os
     import signal
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="4")
@@ -5279,11 +5596,11 @@ def _spawn_part(part: str, nproc: int, out_dir: str) -> dict:
          "--dist-worker", part, out_dir], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True, start_new_session=True)
     try:
-        log, _ = p.communicate(timeout=DIST_TIMEOUT)
+        log, _ = p.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(p.pid, signal.SIGKILL)
         p.communicate()
-        raise AssertionError(f"phase {part} passed its {DIST_TIMEOUT} s")
+        raise AssertionError(f"phase {part} passed its {timeout} s")
     if p.returncode != 0:
         raise AssertionError(f"phase {part} failed (rc {p.returncode}):\n"
                              + log[-6000:])
@@ -5314,7 +5631,7 @@ def dist_phase(torch, card: str) -> dict:
               f"jit_train_step, int8 gather + int8 moments, {B} x {S}, "
               f"{DIST_STEPS} steps (and 14d's, printed after 14c, in the "
               "same two processes)", flush=True)
-        ad = _spawn_part("14ad", 2, out_dir)
+        ad = _spawn_part("14ad", 2, out_dir, DIST_TIMEOUT + SPLIT_TIMEOUT)
         a = ad["14a"]
         rel = abs(a["losses"][0] - a["one_rank_loss"]) / abs(
             a["one_rank_loss"])
@@ -5422,10 +5739,72 @@ def dist_phase(torch, card: str) -> dict:
         print(f"  [{card}] rank 0's NN launches by output width: {nn}; "
               f"launches per rank in the run: {d['launches']}; its part "
               f"took {d['part_s']:.1f} s of 14a's", flush=True)
+        split = {arch: split_report(ad[arch], card) for arch in SPLIT_CELLS}
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     return {"dist_fsdp": a["launches"], "dist_compressed": b["launches"],
-            "dist_nccl": c["launches"], "dist_tp": d["launches"]}
+            "dist_nccl": c["launches"], "dist_tp": d["launches"],
+            **{f"dist_tp_{arch.split('-')[0]}": launches
+               for arch, launches in split.items()}}
+
+
+#: the model axis's collective tags 14e reports
+SPLIT_TAGS = ("tp_out", "tp_dx", "tp_ce", "tp_norm", "tp_heads", "tp_kv",
+              "exponent_model", "exponent")
+
+
+def split_report(e: dict, card: str) -> dict:
+    """Hold and print one 14e cell (``dist_split``'s rank-0 report): the
+    first loss within 1e-5 relative of one rank's on the same image (and
+    whether equal), the split widths among rank 0's NN launches, the peak
+    per rank below 80% of the one-rank step's.  Returns its launches."""
+    arch = e["arch"]
+    cfg = _split_config(arch)
+    _, _, B, S, T = SPLIT_CELLS[arch]
+    depth = (f"{e['enc_layers']} + {e['layers']} layers" if e["enc_layers"]
+             else f"{e['layers']} layers")
+    print(f"[14e] {arch}, full width, {depth}, on (data 1, model 2): 2 gloo "
+          f"ranks on one card (14a's processes), every product split over "
+          f"the model group, int8 gather + int8 moments, {B} x "
+          + (f"({T} frames + {S} tokens)" if T else f"{S}")
+          + f", {DIST_STEPS} steps", flush=True)
+    first, one = e["losses"][0], e["one_rank_loss"]
+    rel = abs(first - one) / abs(one)
+    if not rel <= 1e-5:
+        raise AssertionError(f"14e {arch}: first loss {first} vs the "
+                             f"one-rank loss {one} (rel {rel:.2e})")
+    nn = e["nn_by_width"]
+    widths = {w: nn.get(str(w), 0) for w in _split_widths(cfg)}
+    st = e["stats"]
+    if not all(widths.values()) or _stat(st, "tp_out")[0] <= 0:
+        raise AssertionError(f"14e {arch}: the products were not split: NN "
+                             f"launches by width {nn}, stats {st}")
+    ratio = max(e["peak_gib"]) / e["one_rank_peak_gib"]
+    if not ratio < 0.8:
+        raise AssertionError(f"14e {arch}: peak per rank {e['peak_gib']} "
+                             f"GiB is {ratio:.2f} of the one-rank step's "
+                             f"{e['one_rank_peak_gib']:.2f}")
+    big = e["largest"]
+    gathers = _stat(st, "gather_layer_int8", "gather_layer_f32",
+                    "gather_layer_norm_f32", "gather_layer_kv_f32")[1]
+    print(f"  [{card}] losses {e['losses']}; first loss {first} vs one rank "
+          f"on the same image {one} ("
+          + ("equal" if first == one else f"rel {rel:.2e}")
+          + ", band 1e-5)", flush=True)
+    print(f"  [{card}] step ms {[round(v, 1) for v in e['step_ms']]}; per "
+          "step: " + "; ".join(
+              f"{t} {n:.0f} calls {b_ / 1e6:.3f} MB (largest "
+              f"{big.get(t, 0) / 1e6:.3f})"
+              for t, (n, b_) in ((t, _stat(st, t)) for t in SPLIT_TAGS) if n)
+          + f"; per-layer gathers {gathers / 1e9:.4f} GB; peak per rank "
+          f"{[round(v, 2) for v in e['peak_gib']]} GiB, "
+          f"{100 * ratio:.1f}% of the one-rank step's "
+          f"{e['one_rank_peak_gib']:.2f}", flush=True)
+    print(f"  [{card}] rank 0's NN launches by output width: {nn} (the "
+          f"split widths {sorted(widths)}); launches per rank in the run: "
+          f"{e['launches']}; the cell took {e['part_s']:.1f} s of 14a's "
+          "part", flush=True)
+    return e["launches"]
 
 
 #: phase 15's sizes: quickstart steps; the serving example's requests,
@@ -5588,14 +5967,15 @@ def main() -> int:
         if k["name"] in whisper_rows:
             k["whisper_rows"] = (k.get("whisper_rows", [])
                                  + whisper_rows[k["name"]])
-    tp_rows = check_tp_shapes(torch, dev, gen)
+    sys.stdout.flush()
+    tp_rows = tp_rows_child()
     for k in kernels:
         if k["name"] in tp_rows:
             k["tp_rows"] = k.get("tp_rows", []) + tp_rows[k["name"]]
     for k in kernels:
         print(f"  {k['name']}: max_abs_err {k['max_abs_err']:.3e}; call "
               f"{k['ms']:.4f} ms, device {k['device_ms']:.4f} ms; plain "
-              f"{k['plain_ms']:.4f} / {k['plain_device_ms']:.4f}; library "
+              f"{k['plain_ms']:.4f}; library "
               f"{k['library_ms']} / {k['library_device_ms']}; bound "
               f"{k['bound_ms']:.4f} by {k['bound_by']} [{k['shape']}]")
 
@@ -5754,4 +6134,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-worker"]:
         sys.exit(dist_worker(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--tp-rows"]:
+        sys.exit(tp_rows_worker(sys.argv[2]))
     sys.exit(main())

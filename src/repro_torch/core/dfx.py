@@ -14,7 +14,8 @@ Under a mesh (``sharding.spmd``) a step's tensors are split over the ranks
 of the batch axes, where the reference's jit'd SPMD step sees the logical
 tensor and XLA all-reduces its ``max|x|``.  ``sync`` then holds that
 reduction: ``scale_exponent`` / ``slice_exponents`` take the MAX of the
-int32 exponent over those ranks, ``global_max`` the MAX of a statistic
+int32 exponent over those ranks (an all-zero part taking no part),
+``global_max`` the MAX of a statistic
 that decides one (attention's row norms), and ``health_stats`` sums its
 counts, so every rank quantizes at the exponent one device would.  The
 losses take their batch means the same way (``global_sum``, ``ranks``).
@@ -129,6 +130,24 @@ def pow2(e: torch.Tensor) -> torch.Tensor:
     return torch.where(e > 127, torch.full_like(out, float("inf")), out)
 
 
+#: the exponent an all-zero part of a tensor contributes to the MAX over
+#: the ranks (none: the logical tensor's max|x| is the other parts')
+_EMPTY = -2 ** 31
+
+
+def _frexp_exponent(absmax: torch.Tensor) -> torch.Tensor:
+    """The int32 frexp exponent of ``absmax`` (0 where it is 0), under a
+    mesh the MAX over the ranks that hold the other parts of the tensor,
+    where an all-zero part takes no part (its exponent 0 would outrank
+    every negative one)."""
+    _, e = torch.frexp(absmax)
+    e = e.to(torch.int32)
+    if sync is None:
+        return torch.where(absmax > 0, e, torch.zeros_like(e))
+    e = sync.max(torch.where(absmax > 0, e, torch.full_like(e, _EMPTY)))
+    return torch.where(e == _EMPTY, torch.zeros_like(e), e)
+
+
 def scale_exponent(x: torch.Tensor) -> torch.Tensor:
     """int32 0-d exponent ``e`` with ``max|x| <= 2**e`` (frexp convention);
     0 for an all-zero tensor.
@@ -137,20 +156,14 @@ def scale_exponent(x: torch.Tensor) -> torch.Tensor:
     ``abs`` temporary), as the reference leaves it to XLA.
     """
     lo, hi = torch.aminmax(x)
-    absmax = torch.maximum(-lo, hi)
-    _, e = torch.frexp(absmax)
-    return global_max(
-        torch.where(absmax > 0, e, torch.zeros_like(e)).to(torch.int32))
+    return _frexp_exponent(torch.maximum(-lo, hi))
 
 
 def slice_exponents(x: torch.Tensor) -> torch.Tensor:
     """``scale_exponent`` of every leading slice ``x[e]``: an (E,) int32
     tensor, 0 for an all-zero slice (an expert that receives no token)."""
     lo, hi = torch.aminmax(x.reshape(x.shape[0], -1), dim=1)
-    absmax = torch.maximum(-lo, hi)
-    _, e = torch.frexp(absmax)
-    return global_max(
-        torch.where(absmax > 0, e, torch.zeros_like(e)).to(torch.int32))
+    return _frexp_exponent(torch.maximum(-lo, hi))
 
 
 def uniform(key, shape, device) -> torch.Tensor:

@@ -61,7 +61,11 @@ over the group before the bias), Megatron's two conjugate operators:
 ``copy_to_model`` (identity, its backward the SUM of the dX partials of
 every column-parallel product that reads the input) and
 ``reduce_from_model``.  ``int_attention(split=True)`` works on the rank's
-heads and ``int_embedding(vocab_start=)`` on its vocabulary rows.  Every
+heads, ``int_embedding(vocab_start=)`` on its vocabulary rows and
+``int_conv1d_depthwise(split=True)`` on its channels; ``tp_heads``,
+``scatter_to_model`` and ``gather_from_model`` move a tensor's last dim
+between whole and the ranks' blocks (Mamba2's per-head leaves, its gated
+norm over the whole inner row).  Every
 quantize of a split tensor takes the logical tensor's exponent
 (``dfx.split``); the SR noise of a split gradient is drawn at the rank's
 shape.
@@ -253,6 +257,82 @@ def model_head(t: torch.Tensor, j: int) -> torch.Tensor:
     return _ModelHead.apply(t, j)
 
 
+def _gathered(t: torch.Tensor, tag: str) -> torch.Tensor:
+    """Every rank's ``t`` (..., n) over the model group side by side along
+    the last dim, in rank order: (..., size · n)."""
+    parts = dfx.model.gather(t, tag)                    # (size, ..., n)
+    return parts.movedim(0, -2).reshape(tuple(t.shape[:-1]) + (-1,))
+
+
+def _own_columns(t: torch.Tensor) -> torch.Tensor:
+    """The rank's block of the last dim of ``t``."""
+    n = t.shape[-1] // dfx.model.size
+    return t[..., dfx.model.index * n:(dfx.model.index + 1) * n]
+
+
+class _ScatterToModel(torch.autograd.Function):
+    """The rank's block of the last dim of a tensor every rank of the model
+    group holds whole.  Backward: the ranks' gradients of their blocks
+    gathered side by side (an all-gather), so each rank holds the whole
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, t, tag):
+        ctx.tag = tag
+        return _own_columns(t).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gathered(g.contiguous(), ctx.tag), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The ranks' blocks of the last dim gathered into the whole tensor,
+    on every rank; backward: the rank's block of the gradient, which every
+    rank computes whole and alike."""
+
+    @staticmethod
+    def forward(ctx, t, tag):
+        return _gathered(t.contiguous(), tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_columns(g).clone(), None
+
+
+def scatter_to_model(t: torch.Tensor, tag: str) -> torch.Tensor:
+    """The rank's block of the last dim of ``t``, whole on every rank of
+    the model group; the backward all-gathers the blocks' gradients under
+    ``tag``."""
+    return _ScatterToModel.apply(t, tag)
+
+
+def gather_from_model(t: torch.Tensor, tag: str) -> torch.Tensor:
+    """The whole tensor from the ranks' blocks ``t`` of its last dim, an
+    all-gather under ``tag``; the backward keeps the rank's block."""
+    return _GatherFromModel.apply(t, tag)
+
+
+def tp_heads(t: torch.Tensor) -> torch.Tensor:
+    """The rank's SSD heads of ``t`` (..., NH), a per-head leaf every rank
+    of the model group holds whole (Mamba2's ``A_log``, ``dt_bias``,
+    ``D_skip``): the forward slices its ``NH / size`` heads; the backward
+    all-gathers the ranks' gradients of their heads (tag ``tp_heads``), so
+    every rank holds the leaf's whole gradient.
+
+    Under a model group a Mamba2 layer's gradients are of two kinds.
+    Per-rank partials, SUMmed over ``model`` before they reach a leaf:
+    the dX of the column-parallel products (``copy_to_model``), the
+    partial dB / dC of each rank's heads (the same operator after the
+    conv), and these per-head leaves (here, as an all-gather of disjoint
+    blocks).  Identical on every rank and never summed over ``model``:
+    ``wBC`` and ``conv_BC`` (their input gradient is the summed dB / dC)
+    and the gated norm's ``norm_g`` (the norm runs over the gathered row
+    on every rank); the gathers' backward keeps the rank's block where the
+    leaf is split."""
+    return scatter_to_model(t, "tp_heads")
+
+
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:
     """``x``, whole on every rank of the model group, entering the
     column-parallel products that read it."""
@@ -327,17 +407,18 @@ class _IntDwConv(torch.autograd.Function):
     both mantissas and their exponents."""
 
     @staticmethod
-    def forward(ctx, x, w, key, cfg: QuantConfig):
+    def forward(ctx, x, w, key, cfg: QuantConfig, split: bool):
         K = w.shape[0]
-        qx = dfx.quantize(x, cfg.act_bits, u=_act_noise(x, cfg, key))
-        qw = dfx.quantize(w, cfg.weight_bits)
+        with dfx.split(split):
+            qx = dfx.quantize(x, cfg.act_bits, u=_act_noise(x, cfg, key))
+            qw = dfx.quantize(w, cfg.weight_bits)
         # w split into base-2^8 digits: every integer partial stays below
         # 2^(b_act - 1) · 2^7 · K, where one f32 sum would round past 2^24
         wd = _conv_digits(qw.m)
         acc = _digit_correlate(_shift_front(qx.m.to(torch.int32), K - 1),
                                _hi(wd, cfg.weight_bits), wd[1])
         ctx.save_for_backward(qx.m, qx.exp, qw.m, qw.exp)
-        ctx.cfg, ctx.key = cfg, key
+        ctx.cfg, ctx.key, ctx.split = cfg, key, split
         return acc * dfx.pow2(qx.exp + qw.exp)
 
     @staticmethod
@@ -345,7 +426,8 @@ class _IntDwConv(torch.autograd.Function):
         xm, x_exp, wm, w_exp = ctx.saved_tensors
         cfg = ctx.cfg
         K = wm.shape[0]
-        qg = _quant_grad(g, cfg, ctx.key)
+        with dfx.split(ctx.split):
+            qg = _quant_grad(g, cfg, ctx.key)
         gm = qg.m.to(torch.int32)
         dx = dw = None
         if ctx.needs_input_grad[0]:
@@ -375,11 +457,12 @@ class _IntDwConv(torch.autograd.Function):
                    + (plane(xh, gl) + plane(xl, gh)) * 256.0
                    + plane(xl, gl))
             dw = dwm * dfx.pow2(x_exp + qg.exp)
-        return dx, dw, None, None
+        return dx, dw, None, None, None
 
 
 def int_conv1d_depthwise(x: torch.Tensor, w: torch.Tensor, key,
-                         cfg: QuantConfig) -> torch.Tensor:
+                         cfg: QuantConfig, *, split: bool = False
+                         ) -> torch.Tensor:
     """Causal depthwise conv1d with integer forward and backward.
     x: (B, L, D), w: (K, D) -> (B, L, D); ``y[l] = Σ_k x[l - (K-1-k)] ·
     w[k]``, zeros before the start.
@@ -395,12 +478,15 @@ def int_conv1d_depthwise(x: torch.Tensor, w: torch.Tensor, key,
     an int32 reduction over B·L).  ``stochastic_fwd`` with a key rounds
     x's quantization stochastically (the activation noise drawn first, the
     gradient's in the backward).  With ``cfg.enabled`` False: the FP32
-    pad-and-sum."""
+    pad-and-sum.  ``split`` (tensor parallelism): ``x`` and ``w`` are the
+    rank's channels of the logical tensors (the conv is per channel, so
+    local), and x's, w's and the gradient's quantizes take the logical
+    tensor's exponent."""
     K = w.shape[0]
     if not cfg.enabled:
         pads = _shift_front(x, K - 1)
         return sum(pads[:, k:k + x.shape[1], :] * w[k] for k in range(K))
-    return _IntDwConv.apply(x, w, key, cfg)
+    return _IntDwConv.apply(x, w, key, cfg, split)
 
 
 # =========================================================================

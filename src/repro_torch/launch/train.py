@@ -39,16 +39,20 @@ Every rank draws the same global batch and initial weights; the step is
 ``trainer.jit_train_step`` (each rank keeps its blocks of the parameters
 and moments; FSDP for the archs of ``registry.FSDP_ARCHS``), the sentinel
 step over the mesh, or with ``--grad-compress-bits`` (``--pods > 1``) the
-compressed cross-pod step.  With ``--model-parallel M`` the dense, MoE
-and VLM stacks split every product over the M ranks of a model group
-(``sharding.tensor_parallel``; a model axis that does not divide the
-heads, the inner widths or the padded vocabulary raises); the SSM,
-hybrid and enc-dec stacks compute replicated over it:
+compressed cross-pod step.  With ``--model-parallel M`` every arch's
+training stack (dense, MoE, VLM, the SSM and hybrid Mamba2 stacks,
+whisper's encoder-decoder) splits every product over the M ranks of a
+model group (``sharding.tensor_parallel``; a model axis that does not
+divide the heads, the SSD heads, the inner widths or the padded
+vocabulary raises):
 
     torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
-        --reduced --device cpu --model-parallel 2 --steps 3  Rank 0 writes the checkpoints (full arrays,
-the reference's format).  Without that environment it is the one-device
-run.
+        --arch mamba2-370m --reduced --device cpu --model-parallel 2 \
+        --steps 3
+
+Rank 0 writes the checkpoints (full arrays, the reference's format); a
+resumed run sets each rank's generator from its own row of the saved
+states.  Without that environment it is the one-device run.
 """
 from __future__ import annotations
 
@@ -223,9 +227,12 @@ class Run:
     def load(self, state: dict) -> None:
         self.params, self.opt_state = state["params"], state["opt"]
         self.data.restore(state["data"])
-        rng = state["rng"]
-        self.gen.set_state(rng if self.mesh is None else
-                           rng[self.mesh.rank].contiguous())
+        rng = state["rng"] if self.mesh is None else state["rng"][
+            self.mesh.rank]
+        # a fresh tensor at storage offset 0: a row of the gathered states
+        # is a view at an offset, on which ``set_state`` crashed the CPU
+        # process (rank 1's row)
+        self.gen.set_state(rng.clone())
         if self.residuals is not None:
             self.residuals = state["residuals"]
 

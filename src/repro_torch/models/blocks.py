@@ -238,6 +238,17 @@ def attention_init(gen: torch.Generator, cfg: ArchConfig, device,
     return p
 
 
+def replicated_kv_head(cfg: ArchConfig) -> Optional[int]:
+    """Under a model group whose size does not split the kv heads whole:
+    the one kv head the rank's ``H / M`` query heads read (Megatron's kv
+    replication: every rank projects all of them and attends with that
+    one); else None."""
+    tp, H, KV = dfx.model, cfg.n_heads, cfg.n_kv_heads
+    if tp is None or KV % tp.size == 0:
+        return None
+    return tp.index * (H // tp.size) // (H // KV)
+
+
 def write_cache(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor,
                 v: torch.Tensor, cache_index) -> None:
     """Write S new (B, S, KV, hd) rows into the (B, Smax, KV, hd) caches in
@@ -274,12 +285,8 @@ def attention_apply(
     sc = ensure_scope(qcfg)
     health.probe(sc.path, x, sc.leaf("wq").act_bits)
     tp = dfx.model
-    kv_head = None                # a replicated kv head: its index
+    kv_head = replicated_kv_head(cfg)
     if tp is not None:
-        if KV % tp.size:
-            # the rank's H / M query heads read one kv head (Megatron's kv
-            # replication): every rank projects all KV, attends with it
-            kv_head = tp.index * (H // tp.size) // (H // KV)
         H, KV = H // tp.size, KV // tp.size if kv_head is None else 1
         xs, col = int_ops.copy_to_model(x), "col"
     else:

@@ -24,6 +24,16 @@ suspended, as the reference's scans do; ``enc_ln`` and ``final_norm``
 probe.  Each layer gathers its own leaves of a sharded stack
 (``sharding.gather_layer``, as in ``models/lm.py``), the cross K/V's
 projections with them.
+
+Under a training step that splits its products over the model group
+(``dfx.model``) both stacks' layers split as ``models/blocks.py`` says
+(q / k / v and ``w1`` / ``b1`` column-parallel, ``wo`` and ``w2``
+row-parallel with ``b2`` added whole after the sum, the layer norms
+whole); the cross K/V are column-parallel over the encoder's output,
+entered through ``copy_to_model`` once a step before the decoder loop,
+so one all-reduce sums the 32 layers' accumulated dX partials; the
+embedding, the tied head and the cross entropy are vocab-parallel, as
+``models/lm.py``'s.
 """
 from __future__ import annotations
 
@@ -32,7 +42,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch import sharding
-from repro_torch.core import health, int_ops
+from repro_torch.core import dfx, health, int_ops
 from repro_torch.core.qpolicy import QuantLike, ensure_scope, layer_groups
 from repro_torch.models import blocks, lm
 from repro_torch.models.config import ArchConfig
@@ -140,13 +150,22 @@ def encode(params: Params, frames: torch.Tensor, cfg: ArchConfig,
 def _cross_kv(bp: Params, enc: torch.Tensor, cfg: ArchConfig,
               qcfg: QuantLike, key) -> Tuple[torch.Tensor, torch.Tensor]:
     """A decoder layer's cross-attention keys and values from the encoder's
-    output: each (B, T, KV, hd)."""
+    output: each (B, T, KV, hd).  Under a model group the rank's kv heads,
+    column-parallel over ``enc`` (which the caller entered through
+    ``copy_to_model`` once for every layer), or with the kv replication
+    all of them from the plain ``enc`` and the one its query heads read."""
     B, T, _ = enc.shape
-    KV, hd = cfg.n_kv_heads, cfg.head_dim
     sc = ensure_scope(qcfg)
-    k = int_ops.int_linear(enc, bp["wk"], bp.get("bk"), key, sc.leaf("wk"))
-    v = int_ops.int_linear(enc, bp["wv"], bp.get("bv"), key, sc.leaf("wv"))
-    return k.reshape(B, T, KV, hd), v.reshape(B, T, KV, hd)
+    kv_head = blocks.replicated_kv_head(cfg)
+    col = "col" if dfx.model is not None and kv_head is None else None
+    k = int_ops.int_linear(enc, bp["wk"], bp.get("bk"), key, sc.leaf("wk"),
+                           split=col)
+    v = int_ops.int_linear(enc, bp["wv"], bp.get("bv"), key, sc.leaf("wv"),
+                           split=col)
+    k, v = (t.reshape(B, T, -1, cfg.head_dim) for t in (k, v))
+    if kv_head is not None:
+        k, v = (int_ops.model_head(t, kv_head) for t in (k, v))
+    return k, v
 
 
 def _dec_layer(bp: Params, x: torch.Tensor, enc, cfg: ArchConfig, bsc, key,
@@ -186,6 +205,11 @@ def _decoder(params: Params, x: torch.Tensor, enc, cfg: ArchConfig,
     with health.suspend():
         if self_cache is None:
             remat = torch.is_grad_enabled()
+            if dfx.model is not None and blocks.replicated_kv_head(
+                    cfg) is None:
+                # the cross K/V's column-parallel input, entered once a
+                # step: one SUM of the layers' accumulated dX partials
+                enc = int_ops.copy_to_model(enc)
             for start, stop, bsc in groups:
                 for i in range(start, stop):
                     x = _remat_call(
@@ -207,7 +231,10 @@ def _dec_embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     ``index .. index + S`` (the start clamped into the table, as the
     reference's ``dynamic_slice`` clamps it)."""
     sc = ensure_scope(qcfg)
-    x = int_ops.int_embedding(params["embed"], tokens, key, sc.leaf("embed"))
+    table, tp = params["embed"], dfx.model
+    x = int_ops.int_embedding(
+        table, tokens, key, sc.leaf("embed"),
+        vocab_start=None if tp is None else tp.index * table.shape[0])
     S = tokens.shape[1]
     start = torch.as_tensor(index, device=x.device).clamp(
         0, cfg.max_position_embeddings - S)
@@ -221,8 +248,13 @@ def _head(params: Params, x: torch.Tensor, cfg: ArchConfig,
     sc = ensure_scope(qcfg)
     x = blocks.norm_apply(params["final_norm"], x, cfg,
                           sc.child("final_norm"), key)
+    split = None
+    if dfx.model is not None:
+        # the rank's vocabulary columns: column-parallel over V
+        x, split = int_ops.copy_to_model(x), "col"
     return int_ops.int_linear(x, params["embed"], None, key,
-                              sc.leaf("lm_head"), transposed_w=True)
+                              sc.leaf("lm_head"), transposed_w=True,
+                              split=split)
 
 
 def encdec_loss(params: Params, batch: Dict[str, torch.Tensor],
@@ -234,7 +266,8 @@ def encdec_loss(params: Params, batch: Dict[str, torch.Tensor],
     enc = encode(params, batch["frames"], cfg, qcfg, key)
     x = _dec_embed(params, batch["tokens"], cfg, qcfg, key)
     x = _decoder(params, x, enc, cfg, qcfg, key)
-    loss = lm.token_ce(_head(params, x, cfg, qcfg, key), batch["labels"])
+    ce = lm.token_ce if dfx.model is None else lm.token_ce_vocab_parallel
+    loss = ce(_head(params, x, cfg, qcfg, key), batch["labels"])
     return loss, {"ce": loss.detach()}
 
 

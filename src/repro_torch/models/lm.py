@@ -23,14 +23,16 @@ are left out; its ``health.probe`` calls are here (the embedding's output
 and the head's input, beside the blocks' own).
 
 Under a step that splits its products over the model group
-(``dfx.model``: the dense, MoE and VLM stacks, ``sharding.tensor_parallel``)
+(``dfx.model``, ``sharding.tensor_parallel``: every family here)
 the embedding, the tied or untied head and the cross entropy are
 vocab-parallel: each rank holds the rows ``[r V / M, (r + 1) V / M)`` of
 the padded vocabulary, looks up the ids there (the rows SUMmed over the
 group), computes its columns of the logits, and the loss reduces the row
 max, the sum of exps and the target's logit over the group
 (``token_ce_vocab_parallel``); the blocks split as ``models/blocks.py``
-says.
+says, the Mamba2 layers as ``models/ssm.py`` does, and the hybrid's shared
+block (one set of model shards, its gradient summed over its calls) as
+an attention block.
 
 A MoE block's ``moe`` sublayer (``blocks.moe_apply``) takes the MLP's
 place; its load-balancing loss is summed over the layers and ``lm_loss``

@@ -18,6 +18,20 @@ state, not ``int_conv1d_depthwise``, as in the reference.
 The reference hands each call site its own ``subkey``; here, as in
 ``models/blocks.py``, every call site gets the same ``key`` and a
 ``torch.Generator`` hands each draw the next numbers of its stream.
+
+Under a training step that splits its products over the model group
+(``dfx.model``; the reference's rules, which GSPMD applies) each rank
+keeps its ``NH / M`` SSD heads end to end: ``wz`` / ``wx`` / ``wdt``
+column-parallel behind one ``copy_to_model``, ``conv_x`` on its channels,
+the scan on its heads, ``out_proj`` row-parallel.  B and C (one group,
+shared by every head) are projected and convolved whole from the plain
+input and enter the split region after the conv (``copy_to_model``: the
+ranks' partial dB / dC summed).  The gated norm normalises the whole
+inner row as the reference's Pallas norm does (a custom call XLA does
+not partition along the row): its input is all-gathered over the group
+(tag ``tp_norm``), normed at the logical width with ``norm_g`` whole,
+and the rank's columns go on (``int_ops.gather_from_model`` /
+``scatter_to_model``).  Decode under a mesh is not split.
 """
 from __future__ import annotations
 
@@ -26,7 +40,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import int_ops
+from repro_torch.core import dfx, int_ops
 from repro_torch.core.qpolicy import QuantLike, ensure_scope
 from repro_torch.models.blocks import _init
 from repro_torch.models.config import ArchConfig
@@ -152,12 +166,24 @@ def mamba2_apply(
     DI, N, NH, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
     sc = ensure_scope(qcfg)
     act = sc.child("act")
-    z = int_ops.int_linear(x, p["wz"], None, key, sc.leaf("wz"))
-    xi = int_ops.int_linear(x, p["wx"], None, key, sc.leaf("wx"))
+    tp = None if decode else dfx.model
+    A_log, dt_bias, D_skip = p["A_log"], p["dt_bias"], p["D_skip"]
+    xc, col = x, None
+    if tp is not None:
+        # the rank's NH / M heads end to end: z / x / dt column-parallel,
+        # the per-head leaves sliced (their gradient gathered back)
+        DI, NH = DI // tp.size, NH // tp.size
+        xc, col = int_ops.copy_to_model(x), "col"
+        A_log, dt_bias, D_skip = int_ops.tp_heads(
+            torch.stack([A_log, dt_bias, D_skip])).unbind(0)
+    z = int_ops.int_linear(xc, p["wz"], None, key, sc.leaf("wz"), split=col)
+    xi = int_ops.int_linear(xc, p["wx"], None, key, sc.leaf("wx"), split=col)
+    # B / C are shared by every head: from the plain x, whole on each rank
     bc = int_ops.int_linear(x, p["wBC"], None, key, sc.leaf("wBC"))
-    dt = int_ops.int_linear(x, p["wdt"], None, key, sc.leaf("wdt"))
-    dt = F.softplus(dt + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    dt = int_ops.int_linear(xc, p["wdt"], None, key, sc.leaf("wdt"),
+                            split=col)
+    dt = F.softplus(dt + dt_bias)
+    A = -torch.exp(A_log)
 
     if decode:
         assert S == 1
@@ -173,11 +199,15 @@ def mamba2_apply(
         new_cx, new_cbc = cx[:, 1:], cbc[:, 1:]
     else:
         xi = int_ops.int_activation(int_ops.int_conv1d_depthwise(
-            xi, p["conv_x"], key, sc.leaf("conv_x")),
+            xi, p["conv_x"], key, sc.leaf("conv_x"), split=tp is not None),
             act.leaf("conv_x"), "silu")
         bc = int_ops.int_activation(int_ops.int_conv1d_depthwise(
             bc, p["conv_BC"], key, sc.leaf("conv_BC")),
             act.leaf("conv_BC"), "silu")
+        if tp is not None:
+            # into the split region: the backward SUMs the ranks' partial
+            # dB / dC (each from its heads' scan)
+            bc = int_ops.copy_to_model(bc)
 
     xs = xi.reshape(B_, S, NH, P)
     Bmat, Cmat = bc[..., :N], bc[..., N:]
@@ -192,13 +222,21 @@ def mamba2_apply(
         y, final = ssd_chunked(xs, dt, A, Bmat, Cmat, cfg.ssm_chunk, init)
         new_state = (final, None, None)
 
-    y = y + xs * p["D_skip"][None, None, :, None]
+    y = y + xs * D_skip[None, None, :, None]
     y = y.reshape(B_, S, DI)
-    y = int_ops.int_rmsnorm(
-        y * int_ops.int_activation(z, act.leaf("gate"), "silu"),
-        p["norm_g"], key, sc.leaf("norm_g"))
+    y = y * int_ops.int_activation(z, act.leaf("gate"), "silu")
+    if tp is None:
+        y = int_ops.int_rmsnorm(y, p["norm_g"], key, sc.leaf("norm_g"))
+        return int_ops.int_linear(y, p["out_proj"], None, key,
+                                  sc.leaf("out_proj")), new_state
+    # the gated norm normalises the whole inner row: gathered over the
+    # model group, normed at the logical width (norm_g whole), the rank's
+    # columns into the row-parallel out_proj
+    y = int_ops.int_rmsnorm(int_ops.gather_from_model(y, "tp_norm"),
+                            p["norm_g"], key, sc.leaf("norm_g"))
+    y = int_ops.scatter_to_model(y, "tp_norm")
     return int_ops.int_linear(y, p["out_proj"], None, key,
-                              sc.leaf("out_proj")), new_state
+                              sc.leaf("out_proj"), split="row"), new_state
 
 
 def mamba2_init_state(cfg: ArchConfig, batch: int, device,

@@ -5,20 +5,19 @@ Counterpart of ``repro/sharding.py``.  Axes (the reference's DESIGN.md §5):
 
 * ``pod``   — outer data-parallel axis spanning pods (multi-pod mesh only)
 * ``data``  — inner data-parallel / FSDP axis
-* ``model`` — the tensor-parallel axis of the rules.  For the attention
-  stacks (``tensor_parallel``: the dense, MoE and VLM families, whose
-  layers run ``lm._attn_block``) a step splits each integer product over
-  the model group as GSPMD splits the reference's: a gather materialises
-  the ``data`` axis only and the rank computes on its ``model`` shard
-  (its heads, its part of the MLP's and each expert's inner width, its
-  vocabulary rows; ``core/int_ops.py``'s column- and row-parallel
-  products).  A k / v leaf whose split falls on no whole kv head is
-  gathered over ``model`` too, and every rank computes the kv heads
-  (Megatron's kv replication; tag ``gather_layer_kv``).  Still computed
-  replicated (gathered over every axis the spec shards, so the ranks of
-  one model group compute the same rows): the SSM and hybrid stacks
-  (``models/ssm.py``, zamba2's shared block), whisper's encoder-decoder
-  and BERT / ViT fine-tuning.
+* ``model`` — the tensor-parallel axis of the rules.  For every
+  training stack (``tensor_parallel``: the dense, MoE, VLM, SSM and
+  hybrid families and whisper's encoder-decoder) a step splits each
+  integer product over the model group as GSPMD splits the reference's: a
+  gather materialises the ``data`` axis only and the rank computes on its
+  ``model`` shard (its attention or SSD heads, its part of the MLP's,
+  each expert's and the Mamba2 inner width, its vocabulary rows;
+  ``core/int_ops.py``'s column- and row-parallel products).  A k / v leaf
+  whose split falls on no whole kv head is gathered over ``model`` too,
+  and every rank computes the kv heads (Megatron's kv replication; tag
+  ``gather_layer_kv``); so is the Mamba2 gated norm's gain, whose norm
+  runs over the whole inner row (``gather_layer_norm``).  BERT / ViT
+  fine-tuning computes replicated.
 
 A step gathers the leaves of the layer stacks (``blocks/``, ``enc_blocks/``,
 ``dec_blocks/``) one layer at a time, inside the layer that uses them
@@ -206,6 +205,10 @@ class _ModelGroup:
     def max(self, t: torch.Tensor, tag: str) -> torch.Tensor:
         return all_reduce(t, "max", "model", self.mesh, tag=tag)
 
+    def gather(self, t: torch.Tensor, tag: str) -> torch.Tensor:
+        """``(size, *t.shape)``: every rank's ``t``, in rank order."""
+        return all_gather(t, "model", self.mesh, tag=tag)
+
 
 @contextlib.contextmanager
 def spmd(mesh: Mesh, axes=None, split: bool = False):
@@ -246,9 +249,19 @@ def manual_axes_active(axes):
 # Tensor-parallel compute
 # ---------------------------------------------------------------------------
 
-#: the families whose layers run ``lm._attn_block``: their products split
-#: over the model group
-TP_FAMILIES = ("dense", "moe", "vlm")
+#: the decoder-only families whose products split over the model group:
+#: the attention stacks (``lm._attn_block``), the SSM stack (Mamba2) and
+#: the hybrid (Mamba2 + the shared attention block); an enc-dec config
+#: (whisper) splits too
+TP_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+
+#: the leaves a step under tensor-parallel compute gathers over ``model``
+#: too, whole on every rank of the group: a kv leaf where the kv heads do
+#: not split whole (Megatron's kv replication; tag ``gather_layer_kv``) and
+#: the Mamba2 gated norm's gain, whose norm runs over the whole inner row
+#: (tag ``gather_layer_norm``)
+_KV_LEAF = r"(^|/)(wk|wv|bk|bv)$"
+_NORM_LEAF = r"(^|/)norm_g$"
 
 
 class TensorParallel:
@@ -263,36 +276,51 @@ class TensorParallel:
 
     def keep(self, path: str) -> Tuple[str, ...]:
         """The axes a leaf's gather leaves sharded: ``model``, but for a
-        replicated kv leaf."""
-        if not self.kv_split and re.search(r"(^|/)(wk|wv|bk|bv)$", path):
+        replicated kv leaf and the gated norm's gain."""
+        if ((not self.kv_split and re.search(_KV_LEAF, path))
+                or re.search(_NORM_LEAF, path)):
             return ()
         return ("model",)
+
+    @staticmethod
+    def whole_tag(path: str) -> str:
+        """The collective tag of a stack leaf gathered whole over
+        ``model`` (``keep`` empty)."""
+        return ("gather_layer_norm" if re.search(_NORM_LEAF, path)
+                else "gather_layer_kv")
 
 
 def tensor_parallel(cfg: Any, mesh: Mesh) -> Optional[TensorParallel]:
     """How a step of ``cfg`` on ``mesh`` splits its products: None where
-    it computes replicated (no model axis of more than one rank; a family
-    outside ``TP_FAMILIES``: the SSM, hybrid, enc-dec and BERT / ViT
-    stacks).  Raises where the model axis divides a split dimension of the
-    family unevenly: the query heads, the MLP's or an expert's inner
-    width, the shared expert's, the padded vocabulary, or the kv heads
-    when the ranks' query heads do not each read one kv head."""
+    it computes replicated (no model axis of more than one rank; BERT / ViT
+    fine-tuning, whose families are not in ``TP_FAMILIES``, runs one
+    device's step on every rank).  The split dimensions: the query heads,
+    the MLP's or an expert's inner width, the shared expert's and the
+    padded vocabulary; for a Mamba2 stack (``ssm``, ``hybrid``) its SSD
+    heads and inner width (the hybrid's shared block and whisper's layers
+    as the attention stacks').  Raises where the model axis divides one of
+    them unevenly, or the kv heads when the ranks' query heads do not each
+    read one kv head."""
     M = mesh.shape.get("model", 1)
-    if (M == 1 or getattr(cfg, "enc_dec", False)
-            or getattr(cfg, "family", None) not in TP_FAMILIES):
+    family = getattr(cfg, "family", None)
+    if M == 1 or not (getattr(cfg, "enc_dec", False)
+                      or family in TP_FAMILIES):
         return None
     H, KV = cfg.n_heads, cfg.n_kv_heads
-    dims = {"n_heads": H, "d_ff": cfg.d_ff,
-            "the padded vocabulary": -(-cfg.vocab // 256) * 256}
+    dims = {"the padded vocabulary": -(-cfg.vocab // 256) * 256}
+    if family in ("ssm", "hybrid"):
+        dims.update(ssm_nheads=cfg.ssm_nheads, d_inner=cfg.d_inner)
+    if family != "ssm":
+        dims.update(n_heads=H, d_ff=cfg.d_ff)
     if cfg.moe_shared_dff:
         dims["moe_shared_dff"] = cfg.moe_shared_dff
     bad = {k: v for k, v in dims.items() if v % M}
-    if not bad and KV % M and (H // KV) % (H // M):
+    if family != "ssm" and not bad and KV % M and (H // KV) % (H // M):
         bad["n_kv_heads"] = KV
     if bad:
         raise ValueError(f"{cfg.name}: a model axis of {M} ranks does not "
                          f"split {bad} (tensor-parallel compute)")
-    return TensorParallel(M, KV % M == 0)
+    return TensorParallel(M, family == "ssm" or KV % M == 0)
 
 
 # ---------------------------------------------------------------------------
@@ -782,8 +810,9 @@ def layer_view(params: Any, pspecs: Any, mesh: Mesh, bits: int = 0,
     microbatch.  Without a ``data`` axis ``bits`` takes the straight-through
     form over whole leaves, so every leaf is gathered whole there.  ``tp``
     (tensor-parallel compute): each leaf is gathered to its model shard,
-    a replicated kv leaf whole (``TensorParallel.keep``; its stack's
-    collectives under ``gather_layer_kv``)."""
+    a replicated kv leaf and the gated norm's gain whole
+    (``TensorParallel.keep``; their stacks' collectives under
+    ``gather_layer_kv`` / ``gather_layer_norm``)."""
     leaves, specs = opt_lib.tree_leaves(params), opt_lib.tree_leaves(pspecs)
     packed = {} if packed is None else packed
     out = []
@@ -794,7 +823,7 @@ def layer_view(params: Any, pspecs: Any, mesh: Mesh, bits: int = 0,
                 bits and "data" not in mesh.axis_names):
             out.append(_Gather.apply(p, spec, mesh, bits, keep))
             continue
-        tag = ("gather_layer_kv" if tp is not None and not keep
+        tag = (tp.whole_tag(path) if tp is not None and not keep
                and "model" in sharded_axes(spec, mesh) else "gather_layer")
         if bits and _fsdp_dim(spec) is not None and i not in packed:
             packed[i] = _pack(p, _without(spec, keep), mesh, bits, tag)

@@ -21,13 +21,13 @@ Counterpart of ``repro/train/trainer.py``:
   its gradient over the batch axes and keeps the rank's block, so the
   gradients arrive as blocks (the backward is seeded with 1 / ranks, so
   the sum is the mean and every gradient tensor quantizes at one device's
-  exponent); then the AdamW update runs on the blocks.  For the attention
-  stacks (``sharding.tensor_parallel``) the gathers materialise the batch
-  axes only and the ranks of one ``model`` group split every product (the
-  model code's column- and row-parallel products, vocab-parallel
-  embedding, head and loss; each split tensor's exponent the logical
-  one's); for the other families they compute the same rows.  Either way
-  the result is one device's up to the f32 sum order.  During the step a
+  exponent); then the AdamW update runs on the blocks.  For every
+  training stack (``sharding.tensor_parallel``; BERT / ViT fine-tuning
+  aside) the gathers materialise the batch axes only and the ranks of one
+  ``model`` group split every product (the model code's column- and
+  row-parallel products, vocab-parallel embedding, head and loss; each
+  split tensor's exponent the logical one's).  The result is one device's
+  up to the f32 sum order.  During the step a
   rank holds its blocks, the non-stacked leaves (whole, or their model
   shards) and one layer's tensors and gradients.  With microbatches each
   one gathers every layer again and sums its gradients over the ranks.
@@ -306,7 +306,7 @@ def placement(mesh: Optional[sharding.Mesh] = None, param_specs: Any = None,
               cfg: Any = None):
     """Where a step runs: one device (no ``mesh``), or the rank's blocks
     over ``mesh`` (``param_specs``: the blocks' specs; ``cfg``: the arch,
-    whose attention stacks split their products over a model axis,
+    whose training stack splits its products over a model axis,
     ``sharding.tensor_parallel``).  Its ``grads(grads_fn, params, batch,
     key)`` returns the gradients (blocks under a mesh) and the metrics,
     ``update(opt_cfg, grads, opt_state, params)`` the AdamW step,

@@ -189,13 +189,19 @@ def test_plan_splits_the_attention_stacks(arch, model, kv_split):
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b",
                                   "whisper-large-v3"])
-def test_plan_leaves_the_other_stacks_replicated(arch):
+def test_plan_splits_the_other_stacks(arch):
+    # the SSM, hybrid and enc-dec stacks split too (their own tests:
+    # test_torch_tensor_parallel_state.py)
     mesh = sharding.Mesh((8, 2), ("data", "model"))
-    assert sharding.tensor_parallel(registry.get_config(arch), mesh) is None
+    tp = sharding.tensor_parallel(registry.get_config(arch), mesh)
+    assert tp.size == 2 and tp.kv_split
+    assert tp.keep("blocks/mamba/wx") == ("model",)
+    assert tp.keep("blocks/mamba/norm_g") == ()
     # and a model axis of one splits nothing
-    assert sharding.tensor_parallel(registry.get_config("qwen1.5-0.5b"),
-                                    sharding.Mesh((8, 1), ("data", "model"))
-                                    ) is None
+    for name in (arch, "qwen1.5-0.5b"):
+        assert sharding.tensor_parallel(
+            registry.get_config(name),
+            sharding.Mesh((8, 1), ("data", "model"))) is None
 
 
 def test_plan_refuses_an_uneven_split():

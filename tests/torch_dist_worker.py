@@ -727,30 +727,32 @@ def case_tp_fp32_step(inp, mesh_of):
     return out
 
 
-def _grads_and_exps(cfg, init, batch, mesh, rec):
+def _grads_and_exps(cfg, init, batch, mesh, rec, loss_fn=None):
     """The int8 round-to-nearest loss, gradients and exponents of one
-    ``lm_loss`` step on ``mesh`` (the logical gradients), or on one device
-    (``mesh`` None); with the collectives by tag."""
+    ``loss_fn`` step (default ``lm_loss``) on ``mesh`` (the logical
+    gradients), or on one device (``mesh`` None); with the collectives by
+    tag."""
     from repro_torch import sharding
     from repro_torch.models import lm
     from repro_torch.train import trainer
     q = _rn_int8()
+    loss_fn = loss_fn or lm.lm_loss
     if mesh is None:
         rec.clear()
-        loss, _, grads = trainer.loss_and_grads(lm.lm_loss, _to(init, None),
+        loss, _, grads = trainer.loss_and_grads(loss_fn, _to(init, None),
                                                 batch, cfg, q, None)
         return {"loss": float(loss), "exps": list(rec),
                 "grads": _flat(grads)}
     params, _, pspecs = trainer.init_train_state(
         lambda k: _to(init, None), None, mesh, fsdp=True)
     where = trainer.placement(mesh, pspecs, cfg=cfg)
-    grads_fn = trainer.make_grads_fn(lm.lm_loss, cfg, q, 1,
+    grads_fn = trainer.make_grads_fn(loss_fn, cfg, q, 1,
                                      grad_scale=where.scale, view=where.view)
     sharding.reset_stats()
     rec.clear()
     grads, metrics = where.grads(grads_fn, params, batch, None)
     out = {"loss": float(metrics["loss"]), "exps": list(rec),
-           "stats": dict(sharding.STATS)}
+           "stats": dict(sharding.STATS), "largest": dict(sharding.LARGEST)}
     out["grads"] = _flat(sharding.unshard(grads, pspecs, mesh))
     return out
 
@@ -778,6 +780,92 @@ def case_tp_int8(inp, mesh_of):
                 "mesh": _grads_and_exps(cfg, init, batch, mesh, rec),
                 "one": _grads_and_exps(cfg, init, batch, None, rec)}
     return out
+
+
+# -------------------------------------------------------------------------
+# Tensor-parallel compute for the SSM, hybrid and enc-dec stacks
+# (test_torch_tensor_parallel_state.py)
+# -------------------------------------------------------------------------
+
+def _tp_state_batch(inp, arch, cfg) -> dict:
+    """``<arch>/tokens``, ``/labels`` and (enc-dec) ``/frames`` of ``inp``
+    as tensors."""
+    import torch
+    keys = ("tokens", "labels") + (("frames",) if cfg.enc_dec else ())
+    return {k: torch.from_numpy(np.array(inp[f"{arch}/{k}"])) for k in keys}
+
+
+def case_tp_state_fp32(inp, mesh_of):
+    """One FP32 AdamW step of each reduced arch in ``inp["archs"]`` on the
+    mesh ``inp["mesh"]`` from the reference's weights and batch: the loss,
+    the logical parameters, the collectives by tag."""
+    from repro_torch import sharding
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import optimizer as opt_lib, trainer
+    mesh = mesh_of(tuple(int(v) for v in inp["mesh"]), ("data", "model"))
+    out = {}
+    for arch in (str(a) for a in inp["archs"]):
+        cfg = _tp_arch(arch)
+        init = _tree(inp, f"{arch}/init")
+        params, opt, pspecs = trainer.init_train_state(
+            lambda k: init, None, mesh, fsdp=True)
+        step = trainer.jit_train_step(trainer.make_train_step(
+            launch_train._model(cfg)[1], cfg, QuantConfig.fp32(),
+            opt_lib.OptimizerConfig(lr=1e-3)), mesh, pspecs)
+        sharding.reset_stats()
+        params, opt, m = step(params, opt, _tp_state_batch(inp, arch, cfg),
+                              None)
+        out[arch] = {"loss": float(m["loss"]),
+                     "params": _flat(sharding.unshard(params, pspecs, mesh)),
+                     "stats": dict(sharding.STATS)}
+    return out
+
+
+def case_tp_state_int8(inp, mesh_of):
+    """The int8 round-to-nearest gradients of one step of each
+    ``"<D>x<M>:<arch>"`` in ``inp["runs"]`` (a reduced arch from a seeded
+    init, the batch in ``inp``) on that mesh and on one device, every
+    exponent recorded on both sides.  ``{"DxM": {arch: {"mesh", "one"}}}``."""
+    import torch
+    from repro_torch.core import dfx
+    from repro_torch.launch import train as launch_train
+    rec = _record_exponents(dfx)
+    out = {}
+    for run in (str(r) for r in inp["runs"]):
+        name, arch = run.split(":")
+        mesh = mesh_of(tuple(int(v) for v in name.split("x")),
+                       ("data", "model"))
+        cfg = _tp_arch(arch)
+        init_fn, loss_fn = launch_train._model(cfg)
+        init = init_fn(torch.Generator().manual_seed(0), cfg, device="cpu")
+        batch = _tp_state_batch(inp, arch, cfg)
+        got = {"mesh": _grads_and_exps(cfg, init, batch, mesh, rec,
+                                       loss_fn)}
+        if mesh.rank == 0:      # the one-device step, on rank 0 alone
+            got["one"] = _grads_and_exps(cfg, init, batch, None, rec,
+                                         loss_fn)
+        out.setdefault(name, {})[arch] = got
+    return out
+
+
+def case_zero_part_exponent(inp, mesh_of):
+    """Under ``sharding.spmd`` over a data axis of the world: the
+    exponent of a tensor whose part on one rank is all zero, and of a
+    stack whose slice 1 is all zero on that rank, as every rank sees
+    them."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.core import dfx
+    world = int(inp["world"])
+    mesh = mesh_of((world, 1), ("data", "model"))
+    x = torch.full((4, 4), 3e-6) if mesh.rank == 0 else torch.zeros(4, 4)
+    st = torch.full((3, 4, 4), 3e-6)
+    if mesh.rank:
+        st[1] = 0
+    with sharding.spmd(mesh):
+        return {"one": int(dfx.scale_exponent(x)),
+                "stack": dfx.slice_exponents(st).tolist()}
 
 
 def main(argv) -> int:

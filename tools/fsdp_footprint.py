@@ -12,9 +12,9 @@ with each layer stack gathered one layer at a time inside the layer loop
   layer's (all its stack leaves), plus the blocks and their gradients;
 * split compute: the same, each leaf gathered over ``data`` only to the
   rank's ``model`` shard where the arch's products split over the model
-  axis (``sharding.tensor_parallel``: the attention stacks; a replicated
-  kv leaf whole), as the port's step does; the other families as per
-  layer.
+  axis (``sharding.tensor_parallel``: every training stack; a replicated
+  kv leaf and the Mamba2 gated norm's gain whole), as the port's step
+  does.
 
 Activations, int8 planes and the moments are left out; the FP32 moments
 (two a parameter, on the blocks) are printed beside.
@@ -55,10 +55,14 @@ def logical_params(arch: str) -> dict:
 
 def footprint(params: dict, cfg, shape, names) -> dict:
     """GB a rank holds: whole-model, per-layer and under split compute,
-    and its FP32 moments."""
+    and its FP32 moments; ``raises`` where the model axis does not split
+    the arch (its split compute then as per layer)."""
     mesh = sharding.Mesh(shape, names)
     specs = sharding.param_pspecs(params, mesh, fsdp=True)
-    tp = sharding.tensor_parallel(cfg, mesh)
+    try:
+        tp, raises = sharding.tensor_parallel(cfg, mesh), False
+    except ValueError:
+        tp, raises = None, True
     total = whole = local = whole_tp = 0
     layer, layer_tp = {}, {}
     for path, p, spec in zip(opt_lib.tree_paths(params),
@@ -79,12 +83,19 @@ def footprint(params: dict, cfg, shape, names) -> dict:
             whole += n
             whole_tp += kept
     gb = 2 * 4 / 1e9                    # an image and a gradient, f32
-    return {"params": total, "before": gb * (total + local),
+    return {"params": total, "raises": raises,
+            "before": gb * (total + local),
             "after": gb * (whole + max(layer.values()) + local),
             "split": gb * (whole_tp + max(layer_tp.values()) + local),
             "layer": max(layer.values()), "whole": whole,
             "layer_tp": max(layer_tp.values()), "whole_tp": whole_tp,
             "moments": gb * local}
+
+
+#: where the arch's split dimensions do not divide over 16 model ranks
+#: (whisper's 20 heads: ``tensor_parallel`` raises), its split compute on
+#: the 256 ranks as 64 x 4
+FALLBACK = ((64, 4), ("data", "model"))
 
 
 def main() -> None:
@@ -97,11 +108,16 @@ def main() -> None:
         cfg = registry.get_config(arch)
         for label, (shape, names) in MESHES.items():
             f = footprint(params, cfg, shape, names)
+            if f["raises"]:
+                g = footprint(params, cfg, *FALLBACK)
+                f.update({k: g[k] for k in ("split", "layer_tp", "whole_tp")},
+                         split_on=" on 64 x 4 (model 16 raises)")
             print(f"| {arch} | {f['params'] / 1e9:.3f} B | {label} | "
                   f"{f['before']:.2f} | {f['after']:.2f} "
                   f"({f['layer'] / 1e9:.3f} B, {f['whole'] / 1e9:.3f} B) | "
                   f"{f['split']:.2f} ({f['layer_tp'] / 1e9:.3f} B, "
-                  f"{f['whole_tp'] / 1e9:.3f} B) | {f['moments']:.2f} |")
+                  f"{f['whole_tp'] / 1e9:.3f} B){f.get('split_on', '')} | "
+                  f"{f['moments']:.2f} |")
 
 
 if __name__ == "__main__":
