@@ -60,7 +60,11 @@ Phases (each raises on failure; nothing is caught):
    zamba2-2.7b's projections at model 2 — ``wz`` / ``wx`` at half the
    inner width, ``wdt`` at N = 16 and 40, ``out_proj`` with K split —,
    whisper-large-v3's MLP and tied head over its 25,984-row vocabulary
-   shard, the shard's quantize, and its attention at 10 heads.
+   shard, the shard's quantize, and its attention at 10 heads; and at the
+   sequence shards' (``check_sp_shapes``, ``SP_NORMS``): the norm
+   forwards and backwards and the a12 quantize of their input at a
+   rank's rows (qwen 1024 x 1024, zamba2's shared block 1024 x 2560,
+   whisper's encoder 6000 x 1280 and decoder 1792 x 1280).
 3. On reduced configurations (2 layers), from the same weights, the card
    against the port's CPU path: qwen1.5-0.5b's served logits; one BERT
    training step under the paper's integer scope (round to nearest), its
@@ -108,9 +112,10 @@ Phases (each raises on failure; nothing is caught):
    per step must equal the int8 run's.  Prints losses beside int8 and
    FP32, median step ms, tokens/s, peak memory, busy share and the
    element-wise launches the iapprox activations add.
-7. Serve qwen2-moe-a2.7b at full width and depth (24 layers, d_model
-   2048, 60 experts top-4 of d_ff 1408, a shared expert of 5632, vocab
-   151936; FP32 weights ~57 GB) under int8 with phase 4's request mix,
+7. Serve qwen2-moe-a2.7b at full width, ``MOE_SERVE_LAYERS`` of its 24
+   layers (d_model 2048, 60 experts top-4 of d_ff 1408, a shared expert
+   of 5632, vocab 151936; FP32 weights ~57 GB at full depth) under int8
+   with phase 4's request mix,
    after the earlier phases' tensors are freed: the grouped quantize and
    the batched NN matmul must have launched.  Prints what phase 4 prints.
 8. Train qwen2-moe-a2.7b at full width with the depth cut to
@@ -134,8 +139,8 @@ Phases (each raises on failure; nothing is caught):
    1-5, tokens/s, peak memory, launches per step and a profiled step's
    busy share at int16 and int8.  Then the reference's sizes (bert-tiny /
    vit-tiny, batch 16, eval on 128): Tables 1-3 and Fig. 4 at
-   ``SWEEP_REF_STEPS`` steps (15; 30 before phase 14e, 60 before 14d),
-   Fig. 5 at 150 with its assertion; each table's metric, its drop against
+   ``SWEEP_REF_STEPS`` steps (8; 15 before sequence sharding, 30 before
+   phase 14e, 60 before 14d), Fig. 5 at 150 with its assertion; each table's metric, its drop against
    FP32 and int8's average drop.  Phase 2 holds the sweep's attention
    calls (3 limb planes at hd 64, bert cls / span and vit shapes; vit at
    int8 too) and int16's 3x3 NT / TN matmuls (bert-base w1, vit-base w1's
@@ -160,7 +165,7 @@ Phases (each raises on failure; nothing is caught):
    (``arch_phase``), int8, random weights from a seeded generator, each
    freed before the next.  Served with phase 4's request mix (4 requests
    since PR 24, ``ARCH_SERVE_REQUESTS``): nemo at
-   full depth (40 layers, ~45.6 GiB of FP32 weights), mixtral and large at
+   ``NEMO_SERVE_LAYERS`` (20) of its 40 layers, mixtral and large at
    the deepest depths that leave 10% of the card's memory spare
    (``*_SERVE_LAYERS``).  Trained through ``lm_loss`` +
    ``make_train_step`` with the per-layer remat on and stochastic
@@ -180,13 +185,14 @@ Phases (each raises on failure; nothing is caught):
    256; round to nearest and stochastic, 1 and 3 planes) and its 24 MLP
    stacks of 1024 x 2816, both timed.
 11. The state plane and the recovering training loop
-   (``state_plane_phase``), through ``launch.train``: qwen1.5-0.5b at
-   full width, int8, batch 8 x seq 256, 6 steps, with FP32 moments, int8
+   (``state_plane_phase``; depths ``STATE_PLANE_LAYERS``), through
+   ``launch.train``: qwen1.5-0.5b at full width, int8, batch 8 x seq 256,
+   6 steps, with FP32 moments, int8
    QTensor moments and int8 moments + the int8 parameter image, each run
    launching every training kernel (the grouped quantize too with int8
    moments); prints losses, step ms, tokens/s, peak memory, resident
    moment bytes, launches per step and the bytes of a checkpoint.  Then
-   smollm-135m at its full config, batch 8 x seq 128, int8 moments, the
+   smollm-135m at full width, batch 8 x seq 128, int8 moments, the
    sentinel and a checkpoint every 2 steps: a clean run, a chaos run
    (preemption, moment bit-flip, corrupt checkpoint, straggler) that
    ends bit for bit at the clean run's parameters and moments, a
@@ -204,7 +210,8 @@ Phases (each raises on failure; nothing is caught):
 12. The SSM, hybrid and VLM families at full width (``family_phase``),
    int8 unless named, random weights from seeded generators, each freed
    before the next.  12a: mamba2-370m at ``MAMBA_LAYERS`` of its 48
-   layers (cut for the time of phases 13 and 14d), trained through ``launch.train``
+   layers (cut for the time of phases 13, 14d and 14's sequence
+   sharding), trained through ``launch.train``
    at batch 8 x 256, 4 steps, int8 and FP32; served
    through ``ContinuousBatcher`` (4 slots, 4 requests of 32-token
    prompts teacher-forced through decode steps, 16 new tokens each); and
@@ -237,8 +244,9 @@ Phases (each raises on failure; nothing is caught):
    runs reduced whisper (``check_small_whisper``): one int8
    ``encdec_loss`` step with every layer call replayed, and decode over
    the precomputed cross K/V.
-13. whisper-large-v3, the encoder-decoder, at full width and depth (32 +
-   32 layers, d_model 1280, 20 heads of 64, vocab 51,866; ``whisper_phase``),
+13. whisper-large-v3, the encoder-decoder, at full width, ``WHISPER_LAYERS``
+   of its 32 + 32 layers (d_model 1280, 20 heads of 64, vocab 51,866;
+   ``whisper_phase``),
    int8 unless named, random weights from seeded generators.  13a:
    trained through ``launch.train`` at batch 8 x seq 448 (448 frames and
    448 tokens a row, the launcher's ``make_batch``), 4 steps, int8 and
@@ -257,8 +265,11 @@ Phases (each raises on failure; nothing is caught):
    2, the int8 gather, one layer at a time), 14b the compressed cross-pod
    step through ``launch.train``, 14c a one-rank NCCL group, 14d 14a's
    step on (data 1, model 2) with every product split over the model
-   group (tensor-parallel compute), 14e the same split for mamba2-370m
-   (6 of 48 layers), zamba2-2.7b (6 of 54) and whisper-large-v3 (2 + 2
+   group (tensor-parallel compute) and the residual stream
+   sequence-sharded (``sharding.SEQUENCE_SHARDING``), then the same step
+   with the stream whole, their ring bytes over the model axis within
+   25% of each other, 14e the same split and sharding for mamba2-370m
+   (6 of 48 layers), zamba2-2.7b (6 of 54) and whisper-large-v3 (1 + 1
    of 32 + 32, 8 x (1500 + 448)) in 14a's processes, each first loss held
    against one rank's on the same image and each peak per rank against a
    one-rank step's.
@@ -1848,6 +1859,9 @@ def check_sweep_matmuls(torch, dev, gen, bert, tokens, vit_tokens) -> dict:
 #: qwen2-moe-a2.7b training depth in phase 8 (of 24 layers): the deepest
 #: that leaves 10% of the card's memory spare
 MOE_TRAIN_LAYERS = 6
+#: its serving depth in phase 7: 24 until sequence sharding joined phase
+#: 14, cut for the run's time (the phase took 23-26 s at 24)
+MOE_SERVE_LAYERS = 12
 
 #: Phase 10's depths (PR 22), at full width.  FP32 bytes: a mistral-nemo-12b
 #: layer is 272.6 M parameters (1.016 GiB), its untied embedding and head
@@ -1860,7 +1874,9 @@ MOE_TRAIN_LAYERS = 6
 #: 47.23 GiB at its full 40 layers; mixtral 67.51 at 12 layers, 1.66 above
 #: its weights, so 13 would need 72.9; large 65.66 at 12, 0.78 above its
 #: weights, so 13 needs 70.8).
-NEMO_SERVE_LAYERS, MIXTRAL_SERVE_LAYERS, LARGE_SERVE_LAYERS = 40, 12, 13
+#: nemo served at 20 of its 40 layers since sequence sharding joined phase
+#: 14 (for the run's time: 17.1 s at 40)
+NEMO_SERVE_LAYERS, MIXTRAL_SERVE_LAYERS, LARGE_SERVE_LAYERS = 20, 12, 13
 #: phase 10's requests per served arch (8 until PR 24, which halved them
 #: to make room for phase 12; 4 still fill the 4 slots)
 ARCH_SERVE_REQUESTS = 4
@@ -2551,9 +2567,59 @@ def check_tp_shapes(torch, dev, gen) -> dict:
     return rows
 
 
+#: the norms' inputs as sequence shards at model 2 (phases 14d / 14e): a
+#: rank's rows of (batch x sequence) and d_model, layer norm or RMS norm
+SP_NORMS = (("qwen1.5-0.5b 8 x 256 / 2", False, 1024, 1024),
+            ("zamba2-2.7b shared block 8 x 256 / 2", False, 1024, 2560),
+            ("whisper encoder 8 x 1500 / 2", True, 6000, 1280),
+            ("whisper decoder 8 x 448 / 2", True, 1792, 1280))
+
+
+def check_sp_shapes(torch, dev, gen) -> dict:
+    """Phase 2's holds at the shapes the sequence shards of phases 14d /
+    14e give the norm kernels at model 2 (``SP_NORMS``): each norm forward
+    held as ``norm_fwd_case`` holds it (both rsqrt bodies, the register
+    body bit for bit with the any-shape body, against the plain version)
+    and timed, each backward as ``rms_bwd_case`` / ``ln_bwd_case`` hold it
+    (two calls bit for bit) and timed, and the a12 quantize of the norm's
+    input (the rank's rows, an int16 mantissa) held exactly and timed
+    (``_tp_quant``).  Returns {kernel: [row, ...]}."""
+    rows = {k: [] for k in ("dfx_quantize", "int_rmsnorm_fwd",
+                            "int_rmsnorm_bwd", "int_layernorm_fwd",
+                            "int_layernorm_bwd")}
+    for what, ln, R, D in SP_NORMS:
+        name = "int_layernorm" if ln else "int_rmsnorm"
+        label = f"{what} ({R},{D})"
+        c = norm_fwd_case(torch, dev, gen, ln, R, D)
+        b, by = c["bound"]
+        row = dict(label=label, max_abs_err=c["max_abs_err"], bound_ms=b,
+                   bound_by=by, **timings(c["wrap"], c["plain"],
+                                          c["library"]))
+        rows[name + "_fwd"].append(row)
+        print(f"  {name}_fwd {label}: held (max abs err "
+              f"{row['max_abs_err']:.3e}); call {row['ms']:.4f} ms, device "
+              f"{row['device_ms']:.4f} ms, {100 * b / row['device_ms']:.1f}% "
+              f"of its bound {b:.4f} ms ({by}); plain {row['plain_ms']:.4f}; "
+              f"library {row['library_ms']:.4f} ms", flush=True)
+        row = dict(label=label, **(ln_bwd_case if ln else rms_bwd_case)(
+            torch, dev, gen, R, D))
+        rows[name + "_bwd"].append(row)
+        print(f"  {name}_bwd {label}: held (max abs err "
+              f"{row['max_abs_err']:.3e}); call {row['ms']:.4f} ms, device "
+              f"{row['device_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}); plain {row['plain_ms']:.4f}; library "
+              f"{row['library_ms']:.4f} ms", flush=True)
+        x = torch.randn((R, D), generator=gen, device=dev)
+        _tp_quant(torch, rows, "dfx_quantize", f"{label} a12 norm input -> "
+                  "int16 mantissa", x, 12, False)
+        del x
+    return rows
+
+
 def tp_rows_worker(out_path: str) -> int:
-    """``--tp-rows OUT``: ``check_tp_shapes`` and ``check_tp_state_shapes``
-    on the card in a process of their own, their rows written to ``OUT``
+    """``--tp-rows OUT``: ``check_tp_shapes``, ``check_tp_state_shapes``
+    and ``check_sp_shapes`` on the card in a process of their own, their
+    rows written to ``OUT``
     as JSON.  Phase 2 runs them there: after some hundreds of profiler
     sessions in one process the profiler recorded a first window and then
     no device event at all (five windows in a row, NVIDIA H100 80GB HBM3),
@@ -2563,8 +2629,9 @@ def tp_rows_worker(out_path: str) -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = check_tp_shapes(torch, dev, gen)
-    for name, more in check_tp_state_shapes(torch, dev, gen).items():
-        rows[name] += more
+    for check in (check_tp_state_shapes, check_sp_shapes):
+        for name, more in check(torch, dev, gen).items():
+            rows.setdefault(name, []).extend(more)
     Path(out_path).write_text(json.dumps(rows))
     return 0
 
@@ -4164,9 +4231,10 @@ def sweep_full_width(torch, dev, wrappers) -> dict:
 
 
 #: phase 9's steps at the reference's sizes for Tables 1-3 and Fig. 4 (120
-#: until phase 12 joined, then 60, 30 with phase 14d, 15 since phase 14e,
-#: for the run's time; Fig. 5 keeps its 150 for its assertion)
-SWEEP_REF_STEPS = 15
+#: until phase 12 joined, then 60, 30 with phase 14d, 15 with phase 14e,
+#: 8 since sequence sharding joined 14, for the run's time; Fig. 5 keeps
+#: its 150 for its assertion)
+SWEEP_REF_STEPS = 8
 
 
 def sweep_reference_size(torch, dev) -> None:
@@ -4509,17 +4577,34 @@ def state_plane_chaos(torch, dev, wrappers, steps: int = 10) -> dict:
     return out
 
 
+#: phase 11's depths at full width, cut for the run's time when sequence
+#: sharding joined phase 14 (the phase took 111.4-118.3 s at full depth,
+#: NVIDIA H100 80GB HBM3, 700.00 W): qwen1.5-0.5b 12 of 24 layers,
+#: smollm-135m 15 of 30
+STATE_PLANE_LAYERS = {"qwen1.5-0.5b": 12, "smollm-135m": 15}
+
+
 def state_plane_phase(torch, dev, kops) -> dict:
-    """Phase 11: ``state_plane_qwen`` and ``state_plane_chaos``.
-    Returns {path: launches} of the five runs."""
+    """Phase 11: ``state_plane_qwen`` and ``state_plane_chaos``, each arch
+    cut to ``STATE_PLANE_LAYERS`` (the registry hands the launcher the cut
+    config for the phase).  Returns {path: launches} of the five runs."""
+    import dataclasses
+    from repro_torch.configs import registry
     lm_train = ("dfx_quantize", "bfp_matmul", "bfp_matmul_nt",
                 "bfp_matmul_tn", "int_rmsnorm_fwd", "int_rmsnorm_bwd",
                 "int_attn_fwd", "int_attn_bwd_dq", "int_attn_bwd_dkv")
     wrappers = kops.wrappers(*lm_train, "dfx_quantize_grouped")
-    qwen = state_plane_qwen(torch, dev, wrappers)
-    gc.collect()
-    torch.cuda.empty_cache()
-    chaos = state_plane_chaos(torch, dev, wrappers)
+    orig = registry.get_config
+    registry.get_config = lambda a: (dataclasses.replace(
+        orig(a), n_layers=STATE_PLANE_LAYERS[a]) if a in STATE_PLANE_LAYERS
+        else orig(a))
+    try:
+        qwen = state_plane_qwen(torch, dev, wrappers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        chaos = state_plane_chaos(torch, dev, wrappers)
+    finally:
+        registry.get_config = orig
     return {**{f"state_{k}": v for k, v in qwen.items()},
             **{f"chaos_{k}": v for k, v in chaos.items()}}
 
@@ -4541,11 +4626,12 @@ def state_plane_phase(torch, dev, kops) -> dict:
 #: 14 layers, so 17 need at most 68.1 GiB (measured 67.00) and 18 up to
 #: 72.2 (past 71.26).
 #: Phase 12's depths are cut to make room for phases 13 and 14d (the
-#: widths are untouched): mamba2 trained and served at 12 of 48 layers (24
-#: until phase 14d joined), zamba2 at 18 of 54 (three groups of six Mamba2
-#: layers, each followed by the shared block), llava trained at 8 of 32
-#: (17 fit the card).
-MAMBA_LAYERS, ZAMBA_LAYERS, LLAVA_TRAIN_LAYERS = 12, 18, 8
+#: widths are untouched): mamba2 trained and served at 6 of 48 layers (24
+#: until phase 14d joined, 12 until sequence sharding joined 14; 12a took
+#: 23.0 s at 12), zamba2 at 12 of 54 (two groups of six Mamba2
+#: layers, each followed by the shared block; 12 since sequence sharding
+#: joined 14), llava trained at 8 of 32 (17 fit the card).
+MAMBA_LAYERS, ZAMBA_LAYERS, LLAVA_TRAIN_LAYERS = 6, 12, 8
 #: llava's training batch: 2 rows of 256 text tokens behind the prefix;
 #: its prefill: 1 row of 64 text tokens behind the prefix, full depth
 LLAVA_TRAIN_BATCH, LLAVA_PREFILL_TEXT = (2, 256), 64
@@ -4560,8 +4646,9 @@ def family_train(torch, dev, arch, wrappers, batch, steps: int = 4,
     int8, ``batch`` (rows x text tokens) of ``SyntheticLM``, ``steps``
     AdamW steps at ``lr``, random weights and stochastic gradient rounding
     from the launcher's seeded CUDA generator, remat on.  ``layers`` cuts
-    the depth (the launcher has no depth flag, as the reference's has
-    none: the registry hands the launcher the cut config for the run).
+    the depth, an encoder-decoder's both stacks (the launcher has no
+    depth flag, as the reference's has none: the registry hands the
+    launcher the cut config for the run).
     A VLM's rows sit behind seeded unit-normal patch embeddings (each
     batch its own, as a vision tower's outputs would be; the launcher's
     ``make_batch`` is handed them for the run): the zero ones the
@@ -4581,7 +4668,9 @@ def family_train(torch, dev, arch, wrappers, batch, steps: int = 4,
     from repro_torch.configs import registry
     from repro_torch.launch import train as lt
     full = registry.get_config(arch)
-    cfg = dataclasses.replace(full, n_layers=layers) if layers else full
+    cut = dict(n_layers=layers, **({"n_enc_layers": layers}
+                                   if full.enc_dec else {}))
+    cfg = dataclasses.replace(full, **cut) if layers else full
     B, S = batch
     argv = ["--arch", arch, "--batch", str(B), "--seq", str(S), "--steps",
             str(steps), "--lr", str(lr), "--log-every", str(steps),
@@ -4930,16 +5019,30 @@ def family_phase(torch, dev, kops) -> dict:
     return out
 
 
-#: phase 13: whisper-large-v3 at full width and depth (32 + 32
-#: layers, 1.535 B parameters; parameters, gradients and AdamW moments
-#: ~24.6 GB in FP32).  13a: through ``launch.train`` at batch 8 x seq 448
+#: phase 13: whisper-large-v3 at full width, ``WHISPER_LAYERS`` + the same
+#: of its 32 + 32 layers (at full depth 1.535 B parameters; parameters,
+#: gradients and AdamW moments ~24.6 GB in FP32; cut from full depth for
+#: the run's time when sequence sharding joined phase 14: the phase took
+#: 67.8 s on NVIDIA H100 80GB HBM3, 700.00 W, 13a 20.5 s, 13b 27.1 s, 13c
+#: 20.2 s).  13a: through ``launch.train`` at batch 8 x seq 448
 #: (its ``make_batch`` gives ``seq`` frames a row, as the reference's);
 #: 13b: at the model's own 8 x (1500 frames + 448 tokens); 13c: decode 4
 #: rows of 1500 frames, 4 teacher-forced tokens then 32 greedy ones over
 #: a self cache of 448 positions
 WHISPER_LAUNCH_BATCH = (8, 448)
 WHISPER_FRAMES, WHISPER_TOKENS = 1500, 448
+WHISPER_LAYERS = 8
 WHISPER_DECODE = (4, 4, 32)
+
+
+def _whisper_config():
+    """whisper-large-v3 at full width, ``WHISPER_LAYERS`` encoder and
+    decoder layers."""
+    import dataclasses
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get_config("whisper-large-v3"),
+                               n_layers=WHISPER_LAYERS,
+                               n_enc_layers=WHISPER_LAYERS)
 
 
 def whisper_train(torch, dev, wrappers, batch: int = 8, steps: int = 3,
@@ -4963,7 +5066,7 @@ def whisper_train(torch, dev, wrappers, batch: int = 8, steps: int = 3,
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train import trainer
     from repro_torch.train.finetune import to_device
-    cfg = registry.get_config("whisper-large-v3")
+    cfg = _whisper_config()
     B, T, S = batch, WHISPER_FRAMES, WHISPER_TOKENS
     gc.collect()
     torch.cuda.empty_cache()
@@ -5010,7 +5113,8 @@ def whisper_train(torch, dev, wrappers, batch: int = 8, steps: int = 3,
                                  "training path at 8 x (1500 + 448)")
     st = _step_stats(torch, stamps, t_start, B * (T + S))
     last = _per_step(counts)[-1]
-    print(f"  whisper-large-v3, 32 + 32 layers, batch {B} x ({T} frames + "
+    print(f"  whisper-large-v3, {cfg.n_enc_layers} + {cfg.n_layers} layers, "
+          f"batch {B} x ({T} frames + "
           f"{S} tokens); set-up + step 0 {st['first_ms']:.2f} ms; steps "
           f"1-{steps - 1} ms {[round(v, 2) for v in st['step_ms']]}; median "
           f"{st['median_ms']:.2f} ms; {st['tok_s']:.1f} positions/s "
@@ -5043,7 +5147,7 @@ def whisper_decode(torch, dev, wrappers) -> dict:
     of one decode step and a profiled decode step's busy share."""
     from repro_torch.configs import registry
     from repro_torch.models import encdec
-    cfg = registry.get_config("whisper-large-v3")
+    cfg = _whisper_config()
     rows, prompt, new = WHISPER_DECODE
     q = registry.get_quant("int8")
     gc.collect()
@@ -5122,7 +5226,7 @@ def whisper_decode(torch, dev, wrappers) -> dict:
 
 
 def whisper_phase(torch, dev, kops) -> dict:
-    """Phase 13: whisper-large-v3 at full width and depth, int8
+    """Phase 13: whisper-large-v3 at full width, ``WHISPER_LAYERS`` deep, int8
     unless named, random weights from seeded generators, each run freed
     before the next.  Returns {path: launches}."""
     train = ("dfx_quantize", "bfp_matmul", "bfp_matmul_nt", "bfp_matmul_tn",
@@ -5131,13 +5235,15 @@ def whisper_phase(torch, dev, kops) -> dict:
     out = {}
     t0 = time.perf_counter()
     B, S = WHISPER_LAUNCH_BATCH
-    print(f"[13a] whisper-large-v3, 32 + 32 layers: train {B} x ({S} frames "
+    print(f"[13a] whisper-large-v3, {WHISPER_LAYERS} + {WHISPER_LAYERS} of 32 "
+          f"+ 32 layers: train {B} x ({S} frames "
           f"+ {S} tokens) through launch.train, 4 steps (int8 and FP32)",
           flush=True)
     # 13b profiles whisper's step at the model's own shape; reading the
     # trace of a step's ~56,000 kernels takes ~25 s
     a = family_train(torch, dev, "whisper-large-v3", kops.wrappers(*train),
-                     WHISPER_LAUNCH_BATCH, profile=False)
+                     WHISPER_LAUNCH_BATCH, layers=WHISPER_LAYERS,
+                     profile=False)
     out["train_whisper"] = a["launches"]
     print(f"[13a] in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -5229,14 +5335,17 @@ def _dist_stats(before: dict, after: dict, steps: int) -> dict:
     return out
 
 
-def dist_fsdp(torch, dev, check: bool, model: int = 1) -> dict:
+def dist_fsdp(torch, dev, check: bool, model: int = 1,
+              sequence: bool = True) -> dict:
     """14a / 14c / 14d on every rank: ``init_train_state(fsdp=True)`` +
     ``jit_train_step`` with the int8 gather and int8 moments, on a mesh of
     ``model`` ranks on the model axis (14d: 2, the products split over
-    them).  With ``check`` the gather's image is held against the plain
-    per-block fake-quant and rank 0 computes the one-rank forward loss on
-    the same image and batch.  Returns what rank 0 reports (under a model
-    axis also its NN launches by output width)."""
+    them; ``sequence``: the residual stream sequence-sharded there, else
+    ``sharding.SEQUENCE_SHARDING`` set False for the part).  With
+    ``check`` the gather's image is held against the plain per-block
+    fake-quant and rank 0 computes the one-rank forward loss on the same
+    image and batch.  Returns what rank 0 reports (under a model axis also
+    its NN launches by output width)."""
     import collections
     import torch.distributed as dist
     from repro_torch import sharding
@@ -5258,9 +5367,12 @@ def dist_fsdp(torch, dev, check: bool, model: int = 1) -> dict:
         opt_cfg=opt_cfg)
     # the batch rank's own rounding: the ranks of a model group draw alike
     gen.manual_seed(1 + mesh.index(sharding.batch_axes(mesh)))
+    prev_sp, sharding.SEQUENCE_SHARDING = (sharding.SEQUENCE_SHARDING,
+                                           sequence)
     step = trainer.jit_train_step(trainer.make_train_step(
         lm.lm_loss, cfg, q, opt_cfg, trainer.TrainConfig(gather_bits=8)),
         mesh, pspecs)
+    sharding.SEQUENCE_SHARDING = prev_sp
     B, S = DIST_BATCH
     data = SyntheticLM(DataConfig(batch_size=B, seq_len=S, vocab=cfg.vocab))
     batches = [to_device(next(data), dev) for _ in range(DIST_STEPS)]
@@ -5398,10 +5510,11 @@ def dist_compressed(torch, dev) -> dict:
 #: arch -> (decoder / SSM layers, encoder layers, rows, tokens, frames),
 #: depths cut for the run's time (zamba2: one group of 6 Mamba2 layers
 #: and the shared block; mamba2 and zamba2 at 12, whisper at 4 + 4 until
-#: runs took 1,245.8 s and 1,180.7 s)
+#: runs took 1,245.8 s and 1,180.7 s; whisper 2 + 2 until sequence
+#: sharding joined, its cell 18.6 s)
 SPLIT_CELLS = {"mamba2-370m": (6, 0, 8, 256, 0),
                "zamba2-2.7b": (6, 0, 8, 256, 0),
-               "whisper-large-v3": (2, 2, 8, 448, 1500)}
+               "whisper-large-v3": (1, 1, 8, 448, 1500)}
 #: the kernels each 14e path must launch
 _SSM_PATH = ("dfx_quantize", "bfp_matmul", "bfp_matmul_nt", "bfp_matmul_tn",
              "int_rmsnorm_fwd", "int_rmsnorm_bwd", "dfx_quantize_grouped")
@@ -5570,6 +5683,11 @@ def dist_worker(part: str, out_dir: str) -> int:
             gc.collect()
             torch.cuda.empty_cache()
             out["14d"] = dist_fsdp(torch, dev, check=True, model=2)
+            # the same step without sequence sharding, in the same ranks
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["14d_whole"] = dist_fsdp(torch, dev, check=False, model=2,
+                                         sequence=False)
             # 14e: the SSM, hybrid and enc-dec stacks split the same way
             for arch in SPLIT_CELLS:
                 gc.collect()
@@ -5702,43 +5820,64 @@ def dist_phase(torch, card: str) -> dict:
         print(f"[14c] in {time.perf_counter() - t0:.1f} s", flush=True)
         print(f"[14d] tensor-parallel compute: 14a's step on (data 1, model "
               f"2), 2 gloo ranks on one card (14a's processes), every "
-              f"product split over the model group, {B} x {S}, "
-              f"{DIST_STEPS} steps", flush=True)
-        d = ad["14d"]
-        rel = abs(d["losses"][0] - d["one_rank_loss"]) / abs(
-            d["one_rank_loss"])
-        if not rel <= 1e-5:
-            raise AssertionError(f"14d: first loss {d['losses'][0]} vs the "
-                                 f"one-rank loss {d['one_rank_loss']}")
-        st = d["stats"]
-        tp = {t: _stat(st, t) for t in ("tp_out", "tp_dx", "tp_ce",
-                                       "exponent_model", "exponent")}
-        # the split widths at model 2: q / k / v 16 x 64 / 2 = 512 columns,
-        # gate / up 2816 / 2 = 1408, the head's vocabulary half
-        nn = d["nn_by_width"]
-        split_nn = {w: nn.get(str(w), 0) for w in (512, 1408, V_HALF)}
-        if not all(split_nn.values()) or tp["tp_out"][0] <= 0:
-            raise AssertionError(f"14d: the products were not split: NN "
-                                 f"launches by width {nn}, stats {st}")
-        ratio = max(d["peak_gib"]) / c["peak_gib"][0]
-        if not ratio < 0.7:
-            raise AssertionError(f"14d: peak per rank {d['peak_gib']} GiB "
-                                 f"is {ratio:.2f} of 14c's "
-                                 f"{c['peak_gib'][0]:.2f}")
-        print(f"  [{card}] losses {d['losses']}; first loss "
-              f"{d['losses'][0]} vs one rank on the same image "
-              f"{d['one_rank_loss']} (rel {rel:.2e}, band 1e-5)")
-        print(f"  [{card}] step ms {[round(v, 1) for v in d['step_ms']]}; "
-              "per step: " + "; ".join(
-                  f"{t} {n:.0f} calls {b / 1e6:.3f} MB"
-                  for t, (n, b) in tp.items())
-              + f"; per-layer gathers "
-              f"{_stat(st, 'gather_layer_int8', 'gather_layer_f32')[1] / 1e9:.4f}"
-              f" GB; peak per rank {[round(v, 2) for v in d['peak_gib']]} "
-              f"GiB ({100 * ratio:.1f}% of 14c's one rank)", flush=True)
-        print(f"  [{card}] rank 0's NN launches by output width: {nn}; "
-              f"launches per rank in the run: {d['launches']}; its part "
-              f"took {d['part_s']:.1f} s of 14a's", flush=True)
+              f"product split over the model group, the residual stream "
+              f"sequence-sharded (SEQUENCE_SHARDING, the default), then the "
+              f"same step without it, {B} x {S}, {DIST_STEPS} steps",
+              flush=True)
+        d, w = ad["14d"], ad["14d_whole"]
+        one = d["one_rank_loss"]
+        ring = {}
+        for what, e in (("sequence-sharded", d), ("whole stream", w)):
+            rel = abs(e["losses"][0] - one) / abs(one)
+            if not rel <= 1e-5:
+                raise AssertionError(f"14d {what}: first loss "
+                                     f"{e['losses'][0]} vs the one-rank "
+                                     f"loss {one}")
+            st = e["stats"]
+            # the split widths at model 2: q / k / v 16 x 64 / 2 = 512
+            # columns, gate / up 2816 / 2 = 1408, the head's vocabulary half
+            nn = e["nn_by_width"]
+            split_nn = {x: nn.get(str(x), 0) for x in (512, 1408, V_HALF)}
+            if not all(split_nn.values()) or _stat(
+                    st, "tp_out", "sp_scatter")[0] <= 0:
+                raise AssertionError(f"14d {what}: the products were not "
+                                     f"split: NN launches by width {nn}, "
+                                     f"stats {st}")
+            sp = _stat(st, "sp_gather")[0] > 0
+            if sp != (e is d) or (sp and _stat(st, "tp_out")[0]):
+                raise AssertionError(f"14d {what}: the residual stream's "
+                                     f"collectives are not its layout's: {st}")
+            ratio = max(e["peak_gib"]) / c["peak_gib"][0]
+            if not ratio < 0.7:
+                raise AssertionError(f"14d {what}: peak per rank "
+                                     f"{e['peak_gib']} GiB is {ratio:.2f} of "
+                                     f"14c's {c['peak_gib'][0]:.2f}")
+            ring[what] = ring_bytes(st, 2)
+            print(f"  [{card}] {what}: losses {e['losses']}; first loss "
+                  f"{e['losses'][0]} vs one rank on the same image {one} ("
+                  + ("equal" if e["losses"][0] == one else f"rel {rel:.2e}")
+                  + ", band 1e-5)")
+            print(f"  [{card}] {what}: step ms "
+                  f"{[round(v, 1) for v in e['step_ms']]}; per step: "
+                  + "; ".join(f"{t} {n:.0f} calls {b_ / 1e6:.3f} MB"
+                              for t, (n, b_) in ((t, _stat(st, t))
+                                                 for t in SPLIT_TAGS) if n)
+                  + f"; the model axis's ring bytes {ring[what] / 1e9:.4f} "
+                  f"GB; per-layer gathers "
+                  f"{_stat(st, 'gather_layer_int8', 'gather_layer_f32')[1] / 1e9:.4f}"
+                  f" GB; peak per rank {[round(v, 2) for v in e['peak_gib']]}"
+                  f" GiB ({100 * ratio:.1f}% of 14c's one rank)", flush=True)
+            print(f"  [{card}] {what}: rank 0's NN launches by output width: "
+                  f"{nn}; launches per rank in the run: {e['launches']}; its "
+                  f"part took {e['part_s']:.1f} s of 14a's", flush=True)
+        r = ring["sequence-sharded"] / ring["whole stream"]
+        if not 0.75 <= r <= 1.25:
+            raise AssertionError(f"14d: the sequence-sharded step's ring "
+                                 f"bytes are {r:.3f} of the whole stream's")
+        print(f"  [{card}] the model axis's ring bytes a step, "
+              f"sequence-sharded against whole: {r:.4f}; the first losses "
+              + ("equal" if d["losses"][0] == w["losses"][0] else
+                 f"{d['losses'][0]} / {w['losses'][0]}"), flush=True)
         split = {arch: split_report(ad[arch], card) for arch in SPLIT_CELLS}
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
@@ -5748,9 +5887,25 @@ def dist_phase(torch, card: str) -> dict:
                for arch, launches in split.items()}}
 
 
-#: the model axis's collective tags 14e reports
-SPLIT_TAGS = ("tp_out", "tp_dx", "tp_ce", "tp_norm", "tp_heads", "tp_kv",
+#: the model axis's collective tags 14d and 14e report
+SPLIT_TAGS = ("sp_gather", "sp_scatter", "sp_rows", "sp_leaf", "tp_out",
+              "tp_dx", "tp_ce", "tp_norm", "tp_heads", "tp_kv",
               "exponent_model", "exponent")
+#: the model axis's collectives by kind: an all-reduce sends ``2 (n - 1) /
+#: n`` of its counted bytes per rank on a ring, an all-gather or a
+#: reduce-scatter (counted at the whole tensor) ``(n - 1) / n``
+MODEL_REDUCES = ("tp_out", "tp_dx", "tp_ce", "tp_kv", "sp_leaf",
+                 "exponent_model", "stat_model")
+MODEL_GATHERS = ("sp_gather", "sp_scatter", "sp_rows", "tp_norm",
+                 "tp_heads")
+
+
+def ring_bytes(stats: dict, n: int) -> float:
+    """The bytes a rank sends a step on a ring over the model axis of
+    ``n`` ranks (``stats``: ``_dist_stats``'s per-step tags)."""
+    share = (n - 1) / n
+    return (2 * share * _stat(stats, *MODEL_REDUCES)[1]
+            + share * _stat(stats, *MODEL_GATHERS)[1])
 
 
 def split_report(e: dict, card: str) -> dict:
@@ -5765,7 +5920,8 @@ def split_report(e: dict, card: str) -> dict:
              else f"{e['layers']} layers")
     print(f"[14e] {arch}, full width, {depth}, on (data 1, model 2): 2 gloo "
           f"ranks on one card (14a's processes), every product split over "
-          f"the model group, int8 gather + int8 moments, {B} x "
+          f"the model group, the residual stream sequence-sharded, int8 "
+          f"gather + int8 moments, {B} x "
           + (f"({T} frames + {S} tokens)" if T else f"{S}")
           + f", {DIST_STEPS} steps", flush=True)
     first, one = e["losses"][0], e["one_rank_loss"]
@@ -5776,9 +5932,13 @@ def split_report(e: dict, card: str) -> dict:
     nn = e["nn_by_width"]
     widths = {w: nn.get(str(w), 0) for w in _split_widths(cfg)}
     st = e["stats"]
-    if not all(widths.values()) or _stat(st, "tp_out")[0] <= 0:
+    if not all(widths.values()) or _stat(st, "tp_out", "sp_scatter")[0] \
+            <= 0:
         raise AssertionError(f"14e {arch}: the products were not split: NN "
                              f"launches by width {nn}, stats {st}")
+    if _stat(st, "sp_gather")[0] <= 0 or _stat(st, "tp_out")[0]:
+        raise AssertionError(f"14e {arch}: the residual stream is not "
+                             f"sequence-sharded: {st}")
     ratio = max(e["peak_gib"]) / e["one_rank_peak_gib"]
     if not ratio < 0.8:
         raise AssertionError(f"14e {arch}: peak per rank {e['peak_gib']} "
@@ -5796,7 +5956,8 @@ def split_report(e: dict, card: str) -> dict:
               f"{t} {n:.0f} calls {b_ / 1e6:.3f} MB (largest "
               f"{big.get(t, 0) / 1e6:.3f})"
               for t, (n, b_) in ((t, _stat(st, t)) for t in SPLIT_TAGS) if n)
-          + f"; per-layer gathers {gathers / 1e9:.4f} GB; peak per rank "
+          + f"; the model axis's ring bytes {ring_bytes(st, 2) / 1e9:.4f} "
+          f"GB; per-layer gathers {gathers / 1e9:.4f} GB; peak per rank "
           f"{[round(v, 2) for v in e['peak_gib']]} GiB, "
           f"{100 * ratio:.1f}% of the one-rank step's "
           f"{e['one_rank_peak_gib']:.2f}", flush=True)
@@ -6016,12 +6177,13 @@ def main() -> int:
     moe_fwd = ("dfx_quantize_grouped", "bfp_matmul_batched")
     gc.collect()
     torch.cuda.empty_cache()
-    print("[7] serve qwen2-moe-a2.7b, full width and depth (24 layers, 60 "
-          "experts top-4 + shared expert), int8; device memory allocated "
+    print(f"[7] serve qwen2-moe-a2.7b, full width, {MOE_SERVE_LAYERS} of 24 "
+          "layers (60 experts top-4 + shared expert), int8; device memory "
+          "allocated "
           f"before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB" + at(),
           flush=True)
-    moe_serve = serve_phase(torch, dev, registry.get_config(
-        "qwen2-moe-a2.7b"), kops.wrappers(*serve, *moe_fwd))
+    moe_serve = serve_phase(torch, dev, dataclasses.replace(
+        moe, n_layers=MOE_SERVE_LAYERS), kops.wrappers(*serve, *moe_fwd))
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[8] train qwen2-moe-a2.7b, full width, {MOE_TRAIN_LAYERS} layers, "
@@ -6045,7 +6207,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print("[10] mistral-nemo-12b, mixtral-8x7b and mistral-large-123b at full "
-          "width, int8: served (nemo at full depth) and trained (remat on); "
+          "width, int8: served and trained (remat on); "
           "nemo on the FP32 path at 1 x 4096 tokens; device memory "
           f"allocated before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     t10 = time.perf_counter()
@@ -6054,9 +6216,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print("[11] the state plane and the recovering training loop: "
-          "qwen1.5-0.5b at full width with FP32 / int8 moments / int8 "
-          "moments + int8 parameter image; smollm-135m clean, chaos, NaN "
-          "and escalation runs through launch.train")
+          "qwen1.5-0.5b at full width, 12 of 24 layers, with FP32 / int8 "
+          "moments / int8 moments + int8 parameter image; smollm-135m, 15 "
+          "of 30, clean, chaos, NaN and escalation runs through "
+          "launch.train")
     t11 = time.perf_counter()
     state_launches = state_plane_phase(torch, dev, kops)
     print(f"[11] phase took {time.perf_counter() - t11:.1f} s", flush=True)
@@ -6072,8 +6235,9 @@ def main() -> int:
           flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    print("[13] whisper-large-v3, the encoder-decoder, at full width and "
-          "depth: trained through launch.train and at 8 x (1500 + 448), "
+    print("[13] whisper-large-v3, the encoder-decoder, at full width, "
+          f"{WHISPER_LAYERS} + {WHISPER_LAYERS} of 32 + 32 layers: trained "
+          "through launch.train and at 8 x (1500 + 448), "
           "decoded over precomputed cross K/V; device memory allocated "
           f"before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB" + at(),
           flush=True)

@@ -28,10 +28,13 @@ parallelism, ``sharding.tensor_parallel``) also sets ``model``.  A tensor
 split over that group (a column-parallel output and its gradient, a
 row-parallel input, a weight's model shard, attention's q / k / v and its
 gradient) is quantized inside ``split()``: there ``sync`` reduces over the
-model ranks too, so its exponent is the logical tensor's.  A tensor the
-model ranks hold whole (the residual stream, the norms' inputs, the router
-logits) keeps the batch axes' reduction.  ``ranks`` counts the batch ranks
-in both.
+model ranks too, so its exponent is the logical tensor's.  So is a
+tensor the model ranks split by rows of the sequence (``model.sequence``,
+``int_ops.sequence_split``): a norm's input, the gradient reaching its
+output, the residual-stream probes.  A tensor the model ranks hold whole
+(the gathered sequence the products read, the router logits, or the
+residual stream of a step that does not shard the sequence) keeps the
+batch axes' reduction.  ``ranks`` counts the batch ranks in both.
 """
 from __future__ import annotations
 

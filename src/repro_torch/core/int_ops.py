@@ -69,6 +69,25 @@ norm over the whole inner row).  Every
 quantize of a split tensor takes the logical tensor's exponent
 (``dfx.split``); the SR noise of a split gradient is drawn at the rank's
 shape.
+
+Sequence parallelism (``dfx.model.sequence``, ``sequence_split``): the
+residual stream between the products is the rank's rows ``(B, S / M, D)``
+of the sequence, Megatron's two other conjugate operators move it:
+``gather_from_sequence`` (an all-gather into the column-parallel products;
+its backward reduce-scatters their dX partials, tag ``sp_gather``) and
+``reduce_scatter_to_sequence`` (the row-parallel partials summed, the rank
+keeping its rows; its backward all-gathers, tag ``sp_scatter``), in place
+of ``copy_to_model`` / ``reduce_from_model``; ``scatter_to_sequence`` takes
+the rank's rows of a tensor every rank holds whole (tag ``sp_rows``).  With
+``seq`` the norms, the row-parallel ``int_linear`` and the vocab-parallel
+``int_embedding`` work on the rank's rows: each quantize of such a tensor
+(a norm's input, the gradient reaching its output) takes the logical
+tensor's exponent, and its SR noise is the rank's rows of the logical
+tensor's draw, so the ranks' generators stay in step and every row gets
+the noise one device gives it.  A whole leaf applied to the rank's rows
+(a norm's gain and bias, a row-parallel bias) gets a partial gradient on
+each rank, SUMmed over the model group where it is used (tag
+``sp_leaf``).
 """
 from __future__ import annotations
 
@@ -87,27 +106,42 @@ def _kept_int(cfg: QuantConfig) -> bool:
     return cfg.enabled and cfg.kept_ops == "integer"
 
 
-def _act_noise(x: torch.Tensor, cfg: QuantConfig, key, stacked=False):
+def _noise_2d(key, x: torch.Tensor, seq: bool = False) -> torch.Tensor:
+    """Noise over the 2-D view of ``x``, as the reference draws it; with
+    ``seq`` (``x`` the rank's rows of a sequence-sharded tensor) the
+    rank's rows of the logical tensor's draw."""
+    D = x.shape[-1]
+    if not seq:
+        return dfx.uniform(key, (x.numel() // D, D), x.device)
+    u = dfx.uniform(key, (x.numel() * dfx.model.size // D, D), x.device)
+    return u.reshape(x.shape[0], dfx.model.size, -1)[:, dfx.model.index]
+
+
+def _act_noise(x: torch.Tensor, cfg: QuantConfig, key, stacked=False,
+               seq: bool = False):
     """Noise ``u`` for the activation's forward quantization when
     ``cfg.stochastic_fwd`` and a key is given (over the 2-D view, or the
-    whole (E, C, K) stack), else None."""
+    whole (E, C, K) stack; ``seq``: ``_noise_2d``'s rows), else None."""
     if not (cfg.stochastic_fwd and key is not None):
         return None
-    shape = tuple(x.shape) if stacked else (x.numel() // x.shape[-1],
-                                            x.shape[-1])
-    return dfx.uniform(key, shape, x.device)
+    if stacked:
+        return dfx.uniform(key, tuple(x.shape), x.device)
+    return _noise_2d(key, x, seq)
 
 
 def _quant_grad(g: torch.Tensor, cfg: QuantConfig, key,
-                limb_planes: bool = False) -> dfx.DfxTensor:
+                limb_planes: bool = False,
+                seq: bool = False) -> dfx.DfxTensor:
     """The upstream gradient at ``grad_bits``: stochastic rounding with
     noise from ``key`` when ``cfg.stochastic_grad`` and a key is given
-    (over the 2-D view, as the reference draws it), else to nearest."""
+    (over the 2-D view, as the reference draws it), else to nearest.
+    ``seq``: ``g`` is the rank's rows of a sequence-sharded gradient, its
+    exponent and noise the logical tensor's."""
     u = None
     if cfg.stochastic_grad and key is not None:
-        u = dfx.uniform(key, (g.numel() // g.shape[-1], g.shape[-1]),
-                        g.device)
-    return dfx.quantize(g, cfg.grad_bits, u=u, limb_planes=limb_planes)
+        u = _noise_2d(key, g, seq)
+    with dfx.split(seq):
+        return dfx.quantize(g, cfg.grad_bits, u=u, limb_planes=limb_planes)
 
 
 # =========================================================================
@@ -172,7 +206,8 @@ class _IntLinear(torch.autograd.Function):
 
 def int_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                key, cfg: QuantConfig, *, transposed_w: bool = False,
-               split: Optional[str] = None) -> torch.Tensor:
+               split: Optional[str] = None,
+               seq: bool = False) -> torch.Tensor:
     """``y = x @ w (+ b)`` with integer forward and backward.  x: (..., K),
     w: (K, N), b: (N,) or None.
 
@@ -188,7 +223,10 @@ def int_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     whole and entered through ``copy_to_model`` by the caller, once for
     every product that reads it; "row", ``x`` and ``w`` the rank's shard of
     the contraction, the partial outputs summed over the model group
-    (``reduce_from_model``) before ``b``, which is whole, is added."""
+    (``reduce_from_model``) before ``b``, which is whole, is added.  With
+    ``seq`` (sequence parallelism) a row-parallel output leaves through
+    ``reduce_scatter_to_sequence`` and ``b`` is added to the rank's rows
+    (its partial gradient SUMmed over the group)."""
     row = split == "row"
     if cfg.enabled:
         y = _IntLinear.apply(x, w, None if row else b, key, cfg,
@@ -197,7 +235,10 @@ def int_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
             return y
     else:
         y = torch.matmul(x, w.t() if transposed_w else w)
-    if row:
+    if row and seq:
+        y = reduce_scatter_to_sequence(y)
+        b = None if b is None else copy_to_model(b, "sp_leaf")
+    elif row:
         y = reduce_from_model(y)
     return y + b if b is not None else y
 
@@ -209,15 +250,16 @@ def int_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
 class _CopyToModel(torch.autograd.Function):
     """Megatron's ``f``: the identity; its backward SUMs the dX partials
     of the column-parallel products that read the input over the model
-    group, in f32."""
+    group, in f32 (under ``tag``)."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, tag):
+        ctx.tag = tag
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return dfx.model.sum(g, "tp_dx")
+        return dfx.model.sum(g, ctx.tag), None
 
 
 class _ReduceFromModel(torch.autograd.Function):
@@ -333,16 +375,133 @@ def tp_heads(t: torch.Tensor) -> torch.Tensor:
     return scatter_to_model(t, "tp_heads")
 
 
-def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+def copy_to_model(x: torch.Tensor, tag: str = "tp_dx") -> torch.Tensor:
     """``x``, whole on every rank of the model group, entering the
-    column-parallel products that read it."""
-    return _CopyToModel.apply(x)
+    column-parallel products that read it (or, tag ``sp_leaf``, a whole
+    leaf applied to the rank's rows of the sequence): the backward SUMs
+    the ranks' partial gradients."""
+    return _CopyToModel.apply(x, tag)
 
 
 def reduce_from_model(y: torch.Tensor) -> torch.Tensor:
     """The logical output of a row-parallel product from the rank's
     partial."""
     return _ReduceFromModel.apply(y)
+
+
+# =========================================================================
+# Sequence parallelism: the residual stream as the rank's rows
+# =========================================================================
+
+def sequence_split(length: int) -> bool:
+    """Whether a stream of ``length`` positions runs as the ranks' rows:
+    under a step that splits its products and shards the sequence
+    (``dfx.model.sequence``) when the model group divides ``length``; a
+    stream it does not divide stays whole, as the reference's
+    ``constrain`` leaves such a dim unsharded."""
+    tp = dfx.model
+    return tp is not None and tp.sequence and length % tp.size == 0
+
+
+def _seq_rows(t: torch.Tensor) -> torch.Tensor:
+    """The rank's block of dim 1 of ``t``."""
+    n = t.shape[1] // dfx.model.size
+    return t[:, dfx.model.index * n:(dfx.model.index + 1) * n]
+
+
+def _seq_gathered(t: torch.Tensor, tag: str) -> torch.Tensor:
+    """The ranks' blocks ``t`` of dim 1 side by side, in rank order."""
+    parts = dfx.model.gather(t.contiguous(), tag)    # (size, B, n, ...)
+    return parts.movedim(0, 1).reshape(
+        (t.shape[0], -1) + tuple(t.shape[2:]))
+
+
+def _seq_summed(t: torch.Tensor, tag: str) -> torch.Tensor:
+    """The SUM over the model group of ``t``'s rank block of dim 1."""
+    M = dfx.model.size
+    blocks = t.reshape((t.shape[0], M, -1) + tuple(t.shape[2:]))
+    return dfx.model.reduce_scatter(blocks.movedim(1, 0), tag)
+
+
+class _GatherFromSequence(torch.autograd.Function):
+    """Megatron's sequence-parallel all-gather: the whole (B, S, ...)
+    tensor from the ranks' rows (B, S / M, ...).  Two aliases of it: the
+    first for the column-parallel products, whose dX partials the backward
+    SUMs and scatters to the ranks' rows (one reduce-scatter), the second
+    for products every rank computes whole (the kv replication, Mamba2's
+    B / C, the MoE's router and dispatch), whose gradient is the logical
+    one on every rank: the rank keeps its rows of it, added after the
+    sum."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.set_materialize_grads(False)
+        full = _seq_gathered(x, "sp_gather")
+        return full, full.view_as(full)
+
+    @staticmethod
+    def backward(ctx, g, g_whole):
+        out = None if g is None else _seq_summed(g, "sp_gather")
+        if g_whole is not None:
+            rows = _seq_rows(g_whole)
+            out = rows.clone() if out is None else out + rows
+        return out
+
+
+class _ReduceScatterToSequence(torch.autograd.Function):
+    """Megatron's sequence-parallel reduce-scatter: the f32 SUM over the
+    model group of the row-parallel partial outputs (B, S, ...), the rank
+    keeping its rows.  Backward: the rows' gradients all-gathered."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return _seq_summed(y, "sp_scatter")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_gathered(g, "sp_scatter")
+
+
+class _ScatterToSequence(torch.autograd.Function):
+    """The rank's rows of a tensor every rank of the model group holds
+    whole.  Backward: the rows' gradients all-gathered, so every rank
+    holds the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return _seq_rows(t).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_gathered(g, "sp_rows")
+
+
+def gather_from_sequence(x: torch.Tensor):
+    """The whole sequence from the rank's rows ``x`` (B, S / M, ...) as two
+    aliases ``(split, whole)``: ``split`` for the column-parallel products
+    (their dX partials reduce-scattered in the backward), ``whole`` for
+    the products every rank computes whole."""
+    return _GatherFromSequence.apply(x)
+
+
+def into_split(x: torch.Tensor, seq: bool):
+    """``x`` as the column-parallel products read it, and as the products
+    every rank computes whole read it: ``(copy_to_model(x), x)``, or with
+    ``seq`` (``x`` the rank's rows) ``gather_from_sequence``'s two
+    aliases of the whole sequence."""
+    return gather_from_sequence(x) if seq else (copy_to_model(x), x)
+
+
+def reduce_scatter_to_sequence(y: torch.Tensor) -> torch.Tensor:
+    """The rank's rows of the logical output of a row-parallel product
+    from the rank's partial (B, S, ...)."""
+    return _ReduceScatterToSequence.apply(y)
+
+
+def scatter_to_sequence(t: torch.Tensor) -> torch.Tensor:
+    """The rank's rows of ``t`` (B, S, ...), whole on every rank of the
+    model group."""
+    return _ScatterToSequence.apply(t)
 
 
 def int_patch_embed(images: torch.Tensor, w: torch.Tensor,
@@ -603,7 +762,8 @@ class _IntEmbedding(torch.autograd.Function):
 
 def int_embedding(table: torch.Tensor, ids: torch.Tensor, key,
                   cfg: QuantConfig, *,
-                  vocab_start: Optional[int] = None) -> torch.Tensor:
+                  vocab_start: Optional[int] = None,
+                  seq: bool = False) -> torch.Tensor:
     """Embedding lookup from the b-bit quantized table: gather the integer
     mantissas, then the inverse mapping (no activation to round
     stochastically: ``stochastic_fwd`` leaves it as the reference does).
@@ -612,7 +772,8 @@ def int_embedding(table: torch.Tensor, ids: torch.Tensor, key,
     the vocabulary from that row, quantized at the logical table's
     exponent; each rank looks up the ids in its shard, zeros elsewhere,
     and the rows are SUMmed over the model group (one non-zero term: the
-    logical lookup exactly)."""
+    logical lookup exactly); with ``seq`` reduce-scattered, the rank
+    keeping its rows of the sequence."""
     if cfg.enabled and cfg.int_embedding:
         y = _IntEmbedding.apply(table, ids, key, cfg, vocab_start)
     elif vocab_start is None:
@@ -620,7 +781,9 @@ def int_embedding(table: torch.Tensor, ids: torch.Tensor, key,
     else:
         rows, inside = _vocab_rows(ids, vocab_start, table.shape[0])
         y = torch.where(inside[..., None], table[rows], 0.0)
-    return y if vocab_start is None else reduce_from_model(y)
+    if vocab_start is None:
+        return y
+    return reduce_scatter_to_sequence(y) if seq else reduce_from_model(y)
 
 
 # =========================================================================
@@ -634,33 +797,45 @@ class _IntLayerNorm(torch.autograd.Function):
     from them, so it differentiates exactly the forward that ran."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, key, cfg: QuantConfig, eps: float):
-        xq = dfx.quantize(x, cfg.act_bits, u=_act_noise(x, cfg, key))
+    def forward(ctx, x, gamma, beta, key, cfg: QuantConfig, eps: float,
+                seq: bool):
+        with dfx.split(seq):
+            xq = dfx.quantize(x, cfg.act_bits,
+                              u=_act_noise(x, cfg, key, seq=seq))
         gv = dfx.dequantize(dfx.quantize(gamma, cfg.weight_bits))
         D = x.shape[-1]
         xm = xq.m.reshape(-1, D)
         y, mu, rstd = int_norm.int_layernorm_fwd(
             xm, xq.exp, gv, beta, eps=eps, integer_rsqrt=_kept_int(cfg))
         ctx.save_for_backward(xm, xq.exp, gv, mu, rstd)
-        ctx.cfg, ctx.key = cfg, key
+        ctx.cfg, ctx.key, ctx.seq = cfg, key, seq
         return y.reshape(x.shape)
 
     @staticmethod
     def backward(ctx, g):
         xm, x_exp, gv, mu, rstd = ctx.saved_tensors
-        qg = _quant_grad(g, ctx.cfg, ctx.key)
+        qg = _quant_grad(g, ctx.cfg, ctx.key, seq=ctx.seq)
         dx, dgamma, dbeta = int_norm.int_layernorm_bwd(
             xm, qg.m.reshape(xm.shape), x_exp, qg.exp, gv, mu, rstd)
-        return dx.reshape(g.shape), dgamma, dbeta, None, None, None
+        return dx.reshape(g.shape), dgamma, dbeta, None, None, None, None
+
+
+def _seq_leaf(p: torch.Tensor, seq: bool) -> torch.Tensor:
+    """A whole leaf a norm applies to the rank's rows (``seq``): its
+    partial gradient SUMmed over the model group."""
+    return copy_to_model(p, "sp_leaf") if seq else p
 
 
 def int_layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                  key, cfg: QuantConfig, eps: float = 1e-5) -> torch.Tensor:
+                  key, cfg: QuantConfig, eps: float = 1e-5, *,
+                  seq: bool = False) -> torch.Tensor:
     """Layer-norm with integer statistics forward and backward (the
     weight-bit fake-quantized γ; β stays FP32, the rsqrt too unless
-    ``kept_ops="integer"``)."""
+    ``kept_ops="integer"``).  ``seq``: ``x`` is the rank's rows of a
+    sequence-sharded tensor (the module docstring)."""
+    gamma, beta = _seq_leaf(gamma, seq), _seq_leaf(beta, seq)
     if cfg.enabled and cfg.int_layernorm:
-        return _IntLayerNorm.apply(x, gamma, beta, key, cfg, eps)
+        return _IntLayerNorm.apply(x, gamma, beta, key, cfg, eps, seq)
     mu = torch.mean(x, dim=-1, keepdim=True)
     var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
     return (x - mu) * torch.rsqrt(var + eps) * gamma + beta
@@ -672,33 +847,38 @@ class _IntRmsNorm(torch.autograd.Function):
     the rstd the forward kernel normalised with."""
 
     @staticmethod
-    def forward(ctx, x, gamma, key, cfg: QuantConfig, eps: float):
-        xq = dfx.quantize(x, cfg.act_bits, u=_act_noise(x, cfg, key))
+    def forward(ctx, x, gamma, key, cfg: QuantConfig, eps: float,
+                seq: bool):
+        with dfx.split(seq):
+            xq = dfx.quantize(x, cfg.act_bits,
+                              u=_act_noise(x, cfg, key, seq=seq))
         gv = dfx.dequantize(dfx.quantize(gamma, cfg.weight_bits))
         D = x.shape[-1]
         xm = xq.m.reshape(-1, D)
         y, rstd = kops.rmsnorm(xm, xq.exp, gv, eps=eps,
                                integer_rsqrt=_kept_int(cfg))
         ctx.save_for_backward(xm, xq.exp, gv, rstd)
-        ctx.cfg, ctx.key = cfg, key
+        ctx.cfg, ctx.key, ctx.seq = cfg, key, seq
         return y.reshape(x.shape)
 
     @staticmethod
     def backward(ctx, g):
         xm, x_exp, gv, rstd = ctx.saved_tensors
-        qg = _quant_grad(g, ctx.cfg, ctx.key)
+        qg = _quant_grad(g, ctx.cfg, ctx.key, seq=ctx.seq)
         dx, dgamma = kops.rmsnorm_bwd(xm, x_exp, qg.m.reshape(xm.shape),
                                       qg.exp, gv, rstd)
-        return dx.reshape(g.shape), dgamma, None, None, None
+        return dx.reshape(g.shape), dgamma, None, None, None, None
 
 
 def int_rmsnorm(x: torch.Tensor, gamma: torch.Tensor, key, cfg: QuantConfig,
-                eps: float = 1e-6) -> torch.Tensor:
+                eps: float = 1e-6, *, seq: bool = False) -> torch.Tensor:
     """RMS-norm over the act-bit mantissas of ``x`` with the weight-bit
     fake-quantized ``gamma``, through the integer RMS-norm kernels forward
-    and backward."""
+    and backward.  ``seq``: ``x`` is the rank's rows of a sequence-sharded
+    tensor (the module docstring)."""
+    gamma = _seq_leaf(gamma, seq)
     if cfg.enabled and cfg.int_layernorm:
-        return _IntRmsNorm.apply(x, gamma, key, cfg, eps)
+        return _IntRmsNorm.apply(x, gamma, key, cfg, eps, seq)
     ms = torch.mean(torch.square(x), dim=-1, keepdim=True)
     return x * torch.rsqrt(ms + eps) * gamma
 

@@ -31,6 +31,14 @@ projecting all of them), the MLP and each expert on ``d_ff / M`` of their
 inner width; q / k / v and gate / up column-parallel behind one
 ``int_ops.copy_to_model``, o and down row-parallel.  The router, the
 capacity dispatch and the norms run whole on every rank of the group.
+With ``seq`` (sequence parallelism, ``int_ops.sequence_split``) a block's
+input and output are the rank's rows of the sequence: the norms run on
+them, attention and the MLP enter through ``int_ops.gather_from_sequence``
+and leave through the row-parallel product's reduce-scatter; the MoE
+gathers the sequence before its router (the capacity dispatch sees the
+logical batch's tokens), keeps the expert buffer's all-reduce and takes
+the rank's rows after the combine, the shared expert's down projection
+reduce-scattered onto them.
 """
 from __future__ import annotations
 
@@ -271,6 +279,7 @@ def attention_apply(
     cache_index=0,
     kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     use_rope: bool = True,
+    seq: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """GQA self-attention, causal with RoPE (the LM) or bidirectional
     without (``causal=False, use_rope=False``: the encoder).  Returns (out,
@@ -279,18 +288,21 @@ def attention_apply(
     reference returns an updated copy) and attention then runs over the
     whole cache.  ``kv_override`` (k, v), each (B, Sk, KV, hd), is
     cross-attention: only q is projected, and RoPE never touches the given
-    keys."""
-    B, S, D = x.shape
+    keys.  ``seq``: ``x`` and the output are the rank's rows of the
+    sequence (the module docstring)."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     sc = ensure_scope(qcfg)
-    health.probe(sc.path, x, sc.leaf("wq").act_bits)
     tp = dfx.model
     kv_head = replicated_kv_head(cfg)
     if tp is not None:
+        # the kv replication's k / v read x as products every rank
+        # computes whole
         H, KV = H // tp.size, KV // tp.size if kv_head is None else 1
-        xs, col = int_ops.copy_to_model(x), "col"
+        (xs, x), col = int_ops.into_split(x, seq), "col"
     else:
         xs, col = x, None
+    B, S, D = xs.shape
+    health.probe(sc.path, xs, sc.leaf("wq").act_bits)
     G = H // KV
     q = int_ops.int_linear(xs, p["wq"], p.get("bq"), key, sc.leaf("wq"),
                            split=col)
@@ -339,7 +351,7 @@ def attention_apply(
                             window=win)
     o = o.reshape(B, S, H * hd)
     out = int_ops.int_linear(o, p["wo"], None, key, sc.leaf("wo"),
-                             split=None if tp is None else "row")
+                             split=None if tp is None else "row", seq=seq)
     return out, new_cache
 
 
@@ -362,15 +374,21 @@ def mlp_init(gen: torch.Generator, cfg: ArchConfig, device,
 
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantLike,
-              key) -> torch.Tensor:
+              key, *, seq: bool = False,
+              gathered: bool = False) -> torch.Tensor:
     """SwiGLU ``wd(silu(wg x) * wu x)`` or GELU ``w2 gelu(w1 x + b1) + b2``
     (the activation a kept FP32 op); under tensor parallelism on the
-    rank's part of the inner width (column- then row-parallel)."""
+    rank's part of the inner width (column- then row-parallel).  ``seq``:
+    the output is the rank's rows of the sequence, and so is ``x`` unless
+    ``gathered`` (the whole sequence, already through
+    ``gather_from_sequence``: the MoE's shared expert)."""
     sc = ensure_scope(qcfg)
-    health.probe(sc.path, x, sc.leaf("wg" if "wg" in p else "w1").act_bits)
     col = row = None
     if dfx.model is not None:
-        x, col, row = int_ops.copy_to_model(x), "col", "row"
+        col, row = "col", "row"
+        if not (seq and gathered):
+            x = int_ops.into_split(x, seq)[0]
+    health.probe(sc.path, x, sc.leaf("wg" if "wg" in p else "w1").act_bits)
     if "wg" in p:
         g = int_ops.int_linear(x, p["wg"], None, key, sc.leaf("wg"),
                                split=col)
@@ -378,12 +396,12 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantLike,
                                split=col)
         h = int_ops.int_activation(g, sc.leaf("act"), "silu") * u
         return int_ops.int_linear(h, p["wd"], None, key, sc.leaf("wd"),
-                                  split=row)
+                                  split=row, seq=seq)
     h = int_ops.int_linear(x, p["w1"], p["b1"], key, sc.leaf("w1"),
                            split=col)
     h = int_ops.int_activation(h, sc.leaf("act"), "gelu")
     return int_ops.int_linear(h, p["w2"], p["b2"], key, sc.leaf("w2"),
-                              split=row)
+                              split=row, seq=seq)
 
 
 # =========================================================================
@@ -429,8 +447,9 @@ def capacity(cfg: ArchConfig, tokens: int, groups: int = 1) -> int:
 
 
 def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantLike,
-              key) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (out, aux_loss).  x: (B, S, D).
+              key, *, seq: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (out, aux_loss).  x: (B, S, D), with ``seq`` the rank's rows
+    (B, S / M, D), and so is the output.
 
     Router: ``int_linear`` (D -> E), FP32 softmax, top-k with the gates
     renormalised, the Switch-style load-balancing loss over each token's
@@ -448,6 +467,12 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantLike,
     gathers row ``min(pos, Cg - 1)`` of its expert, times ``keep · gate``.
     The shared expert's MLP is added without a gate, as in the
     reference."""
+    xg = None
+    if seq:
+        # the router and the dispatch read the whole sequence, every rank
+        # alike; the shared expert's column-parallel products the other
+        # alias
+        xg, x = int_ops.gather_from_sequence(x)
     B, S, D = x.shape
     E, K = cfg.moe_experts, cfg.moe_topk
     T = B * S
@@ -495,10 +520,14 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantLike,
     take = sel_f * Cg + torch.clamp(pos, max=Cg - 1)
     y = ex_out.reshape(E * Cg, D)[take]                          # (TK, D)
     y = y * (keep[:, None] * gate_f[:, None])
-    y = y.reshape(T, K, D).sum(dim=1)
+    y = y.reshape(T, K, D).sum(dim=1).reshape(B, S, D)
+    if seq:
+        y = int_ops.scatter_to_sequence(y)
     if "shared" in p:
-        y = y + mlp_apply(p["shared"], xf, cfg, sc.child("shared"), key)
-    return y.reshape(B, S, D), aux
+        y = y + mlp_apply(p["shared"], xf.reshape(B, S, D) if xg is None
+                          else xg, cfg, sc.child("shared"), key, seq=seq,
+                          gathered=True)
+    return y, aux
 
 
 # =========================================================================
@@ -513,10 +542,13 @@ def norm_init(cfg: ArchConfig, device, lead: Tuple[int, ...] = ()) -> Params:
 
 
 def norm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantLike,
-               key) -> torch.Tensor:
+               key, *, seq: bool = False) -> torch.Tensor:
+    """The layer- or RMS-norm of ``x``; ``seq``: of the rank's rows of the
+    sequence (their probe and quantizes the logical tensor's)."""
     sc = ensure_scope(qcfg)
     leaf = sc.cfg()                      # the scope path IS the norm's path
-    health.probe(sc.path, x, leaf.act_bits)
+    with dfx.split(seq):
+        health.probe(sc.path, x, leaf.act_bits)
     if "b" in p:
-        return int_ops.int_layernorm(x, p["g"], p["b"], key, leaf)
-    return int_ops.int_rmsnorm(x, p["g"], key, leaf)
+        return int_ops.int_layernorm(x, p["g"], p["b"], key, leaf, seq=seq)
+    return int_ops.int_rmsnorm(x, p["g"], key, leaf, seq=seq)

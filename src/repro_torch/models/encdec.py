@@ -33,7 +33,15 @@ whole); the cross K/V are column-parallel over the encoder's output,
 entered through ``copy_to_model`` once a step before the decoder loop,
 so one all-reduce sums the 32 layers' accumulated dX partials; the
 embedding, the tied head and the cross entropy are vocab-parallel, as
-``models/lm.py``'s.
+``models/lm.py``'s.  By default each stream whose length the group divides
+is also sequence-sharded (``int_ops.sequence_split``: the encoder's frames
+and the decoder's tokens apart): its norms and residual adds run on the
+rank's rows (the frames' taken after the sinusoid rows are added, the
+decoder's embedding reduce-scattered before its rows' sinusoids are), and
+the encoder's output after ``enc_ln`` is gathered once a step before the
+decoder loop, its backward one reduce-scatter of the cross K/V's
+accumulated input gradient (with the kv replication, the rank's rows of
+the whole gradient every rank computes).
 """
 from __future__ import annotations
 
@@ -116,23 +124,27 @@ def _remat_call(fn, x: torch.Tensor, key, remat: bool) -> torch.Tensor:
 
 
 def _enc_layer(bp: Params, x: torch.Tensor, cfg: ArchConfig, bsc,
-               key) -> torch.Tensor:
+               key, seq: bool = False) -> torch.Tensor:
     bp = sharding.gather_layer(bp)
-    h = blocks.norm_apply(bp["ln1"], x, cfg, bsc.child("ln1"), key)
+    h = blocks.norm_apply(bp["ln1"], x, cfg, bsc.child("ln1"), key, seq=seq)
     h, _ = blocks.attention_apply(bp["attn"], h, cfg, bsc.child("attn"), key,
-                                  causal=False, use_rope=False)
+                                  causal=False, use_rope=False, seq=seq)
     x = x + h
-    h = blocks.norm_apply(bp["ln2"], x, cfg, bsc.child("ln2"), key)
-    return x + blocks.mlp_apply(bp["mlp"], h, cfg, bsc.child("mlp"), key)
+    h = blocks.norm_apply(bp["ln2"], x, cfg, bsc.child("ln2"), key, seq=seq)
+    return x + blocks.mlp_apply(bp["mlp"], h, cfg, bsc.child("mlp"), key,
+                                seq=seq)
 
 
 def encode(params: Params, frames: torch.Tensor, cfg: ArchConfig,
-           qcfg: QuantLike, key) -> torch.Tensor:
+           qcfg: QuantLike, key, *, seq: bool = False) -> torch.Tensor:
     """frames: (B, T, D) precomputed frame embeddings (the conv frontend's
-    stub) -> the encoder's output (B, T, D), after ``enc_ln``."""
+    stub) -> the encoder's output (B, T, D), after ``enc_ln``; with
+    ``seq`` the rank's rows of it (B, T / M, D)."""
     sc = ensure_scope(qcfg)
     x = frames + _sinusoids(frames.shape[1], cfg.d_model,
                             device=frames.device)[None]
+    if seq:
+        x = int_ops.scatter_to_sequence(x)
     Le = cfg.n_enc_layers
     layers = blocks.unstack(params["enc_blocks"], Le)
     remat = torch.is_grad_enabled()
@@ -142,9 +154,9 @@ def encode(params: Params, frames: torch.Tensor, cfg: ArchConfig,
             for i in range(start, stop):
                 x = _remat_call(
                     lambda x, k, bp=layers[i], bsc=bsc: _enc_layer(
-                        bp, x, cfg, bsc, k), x, key, remat)
+                        bp, x, cfg, bsc, k, seq), x, key, remat)
     return blocks.norm_apply(params["enc_ln"], x, cfg, sc.child("enc_ln"),
-                             key)
+                             key, seq=seq)
 
 
 def _cross_kv(bp: Params, enc: torch.Tensor, cfg: ArchConfig,
@@ -169,35 +181,40 @@ def _cross_kv(bp: Params, enc: torch.Tensor, cfg: ArchConfig,
 
 
 def _dec_layer(bp: Params, x: torch.Tensor, enc, cfg: ArchConfig, bsc, key,
-               *, cache=None, cross=None, index=0) -> torch.Tensor:
+               *, cache=None, cross=None, index=0,
+               seq: bool = False) -> torch.Tensor:
     """One decoder layer: causal self-attention (over ``cache`` when given,
     updated in place), cross-attention over ``cross`` (or over the cross
-    K/V computed here from ``enc``), the MLP."""
+    K/V computed here from ``enc``, whole), the MLP.  ``seq``: ``x`` and
+    the output are the rank's rows of the sequence."""
     bp = sharding.gather_layer(bp)
-    h = blocks.norm_apply(bp["ln1"], x, cfg, bsc.child("ln1"), key)
+    h = blocks.norm_apply(bp["ln1"], x, cfg, bsc.child("ln1"), key, seq=seq)
     h, _ = blocks.attention_apply(bp["attn"], h, cfg, bsc.child("attn"), key,
                                   kv_cache=cache, cache_index=index,
-                                  use_rope=False)
+                                  use_rope=False, seq=seq)
     x = x + h
-    h = blocks.norm_apply(bp["ln_x"], x, cfg, bsc.child("ln_x"), key)
+    h = blocks.norm_apply(bp["ln_x"], x, cfg, bsc.child("ln_x"), key,
+                          seq=seq)
     if cross is None:
         cross = _cross_kv(bp["xattn"], enc, cfg, bsc.child("xattn"), key)
     h, _ = blocks.attention_apply(bp["xattn"], h, cfg, bsc.child("xattn"),
                                   key, causal=False, kv_override=cross,
-                                  use_rope=False)
+                                  use_rope=False, seq=seq)
     x = x + h
-    h = blocks.norm_apply(bp["ln2"], x, cfg, bsc.child("ln2"), key)
-    return x + blocks.mlp_apply(bp["mlp"], h, cfg, bsc.child("mlp"), key)
+    h = blocks.norm_apply(bp["ln2"], x, cfg, bsc.child("ln2"), key, seq=seq)
+    return x + blocks.mlp_apply(bp["mlp"], h, cfg, bsc.child("mlp"), key,
+                                seq=seq)
 
 
 def _decoder(params: Params, x: torch.Tensor, enc, cfg: ArchConfig,
-             qcfg: QuantLike, key, *, self_cache=None,
-             index=0) -> torch.Tensor:
+             qcfg: QuantLike, key, *, self_cache=None, index=0,
+             seq: bool = False, enc_seq: bool = False) -> torch.Tensor:
     """The decoder stack.  Training (``self_cache`` None): each layer's
-    cross K/V from ``enc``, each layer under remat while autograd records.
-    Decode: ``self_cache`` = (k, v, xk, xv), the (L, B, Smax, KV, hd) self
-    caches (written in place at ``index``) and the (L, B, T, KV, hd)
-    precomputed cross K/V."""
+    cross K/V from ``enc``, each layer under remat while autograd records;
+    ``seq`` / ``enc_seq``: ``x`` / ``enc`` are the rank's rows of their
+    sequences.  Decode: ``self_cache`` = (k, v, xk, xv), the (L, B, Smax,
+    KV, hd) self caches (written in place at ``index``) and the (L, B, T,
+    KV, hd) precomputed cross K/V."""
     sc = ensure_scope(qcfg)
     L = cfg.n_layers
     layers = blocks.unstack(params["dec_blocks"], L)
@@ -205,16 +222,18 @@ def _decoder(params: Params, x: torch.Tensor, enc, cfg: ArchConfig,
     with health.suspend():
         if self_cache is None:
             remat = torch.is_grad_enabled()
-            if dfx.model is not None and blocks.replicated_kv_head(
-                    cfg) is None:
-                # the cross K/V's column-parallel input, entered once a
-                # step: one SUM of the layers' accumulated dX partials
-                enc = int_ops.copy_to_model(enc)
+            if dfx.model is not None:
+                # the cross K/V's input, entered (or gathered) once a step:
+                # one SUM of the layers' accumulated dX partials, or with
+                # the kv replication the whole gradient every rank computes
+                split_kv = blocks.replicated_kv_head(cfg) is None
+                enc = int_ops.into_split(enc, enc_seq)[0 if split_kv else 1]
             for start, stop, bsc in groups:
                 for i in range(start, stop):
                     x = _remat_call(
                         lambda x, k, bp=layers[i], bsc=bsc: _dec_layer(
-                            bp, x, enc, cfg, bsc, k), x, key, remat)
+                            bp, x, enc, cfg, bsc, k, seq=seq), x, key,
+                        remat)
             return x
         ck, cv, xk, xv = self_cache
         for start, stop, bsc in groups:
@@ -226,32 +245,38 @@ def _decoder(params: Params, x: torch.Tensor, enc, cfg: ArchConfig,
 
 
 def _dec_embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
-               qcfg: QuantLike, key, index=0) -> torch.Tensor:
+               qcfg: QuantLike, key, index=0,
+               seq: bool = False) -> torch.Tensor:
     """The tokens' embeddings plus the sinusoid rows of their positions
     ``index .. index + S`` (the start clamped into the table, as the
-    reference's ``dynamic_slice`` clamps it)."""
+    reference's ``dynamic_slice`` clamps it); ``seq``: the rank's rows."""
     sc = ensure_scope(qcfg)
     table, tp = params["embed"], dfx.model
     x = int_ops.int_embedding(
         table, tokens, key, sc.leaf("embed"),
-        vocab_start=None if tp is None else tp.index * table.shape[0])
+        vocab_start=None if tp is None else tp.index * table.shape[0],
+        seq=seq)
     S = tokens.shape[1]
     start = torch.as_tensor(index, device=x.device).clamp(
         0, cfg.max_position_embeddings - S)
-    return x + _sinusoids(S, cfg.d_model, start, device=x.device)[None]
+    if seq:
+        start = start + tp.index * x.shape[1]
+    return x + _sinusoids(x.shape[1], cfg.d_model, start,
+                          device=x.device)[None]
 
 
 def _head(params: Params, x: torch.Tensor, cfg: ArchConfig,
-          qcfg: QuantLike, key) -> torch.Tensor:
+          qcfg: QuantLike, key, seq: bool = False) -> torch.Tensor:
     """``final_norm``, then the tied head: the (V, D) table read as its
-    transpose under the ``lm_head`` leaf."""
+    transpose under the ``lm_head`` leaf.  ``seq``: ``x`` is the rank's
+    rows of the sequence (``lm._logits``)."""
     sc = ensure_scope(qcfg)
     x = blocks.norm_apply(params["final_norm"], x, cfg,
-                          sc.child("final_norm"), key)
+                          sc.child("final_norm"), key, seq=seq)
     split = None
     if dfx.model is not None:
         # the rank's vocabulary columns: column-parallel over V
-        x, split = int_ops.copy_to_model(x), "col"
+        x, split = int_ops.into_split(x, seq)[0], "col"
     return int_ops.int_linear(x, params["embed"], None, key,
                               sc.leaf("lm_head"), transposed_w=True,
                               split=split)
@@ -263,11 +288,14 @@ def encdec_loss(params: Params, batch: Dict[str, torch.Tensor],
     """Next-token cross entropy over the padded vocabulary.  batch: frames
     (B, T, D) f32, tokens (B, S) and labels (B, S) integer tensors (label
     < 0: masked).  Returns ``(loss, {"ce": loss})``."""
-    enc = encode(params, batch["frames"], cfg, qcfg, key)
-    x = _dec_embed(params, batch["tokens"], cfg, qcfg, key)
-    x = _decoder(params, x, enc, cfg, qcfg, key)
+    frames, tokens = batch["frames"], batch["tokens"]
+    enc_seq = int_ops.sequence_split(frames.shape[1])
+    seq = int_ops.sequence_split(tokens.shape[1])
+    enc = encode(params, frames, cfg, qcfg, key, seq=enc_seq)
+    x = _dec_embed(params, tokens, cfg, qcfg, key, seq=seq)
+    x = _decoder(params, x, enc, cfg, qcfg, key, seq=seq, enc_seq=enc_seq)
     ce = lm.token_ce if dfx.model is None else lm.token_ce_vocab_parallel
-    loss = ce(_head(params, x, cfg, qcfg, key), batch["labels"])
+    loss = ce(_head(params, x, cfg, qcfg, key, seq=seq), batch["labels"])
     return loss, {"ce": loss.detach()}
 
 

@@ -34,6 +34,15 @@ says, the Mamba2 layers as ``models/ssm.py`` does, and the hybrid's shared
 block (one set of model shards, its gradient summed over its calls) as
 an attention block.
 
+By default such a step also shards the sequence (``sharding.
+SEQUENCE_SHARDING``, ``int_ops.sequence_split``): the embedding's lookup
+is reduce-scattered onto the rank's rows of the sequence (the VLM's rows
+taken after the patch prefix is put in front), every layer's residual
+stream, norms and residual adds are those rows, ``final_norm`` runs on
+them and the head reads them through ``int_ops.gather_from_sequence``
+(the VLM's text positions cut from the gathered sequence, its
+``final_norm`` whole, as without).
+
 A MoE block's ``moe`` sublayer (``blocks.moe_apply``) takes the MLP's
 place; its load-balancing loss is summed over the layers and ``lm_loss``
 adds ``0.01 · aux / n_layers``, as the reference does.
@@ -178,52 +187,68 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, device,
 
 
 def _attn_block(bp: Params, x: torch.Tensor, cfg: ArchConfig,
-                qcfg: QuantLike, key, *, cache=None, cache_index=0):
+                qcfg: QuantLike, key, *, cache=None, cache_index=0,
+                seq: bool = False):
+    """One attention block; ``seq``: ``x`` and the output are the rank's
+    rows of the sequence."""
     bp = sharding.gather_layer(bp)
     sc = ensure_scope(qcfg)
-    h = blocks.norm_apply(bp["ln1"], x, cfg, sc.child("ln1"), key)
+    h = blocks.norm_apply(bp["ln1"], x, cfg, sc.child("ln1"), key, seq=seq)
     h, new_cache = blocks.attention_apply(
         bp["attn"], h, cfg, sc.child("attn"), key,
-        kv_cache=cache, cache_index=cache_index)
+        kv_cache=cache, cache_index=cache_index, seq=seq)
     x = x + h
-    h = blocks.norm_apply(bp["ln2"], x, cfg, sc.child("ln2"), key)
+    h = blocks.norm_apply(bp["ln2"], x, cfg, sc.child("ln2"), key, seq=seq)
     aux = torch.zeros((), device=x.device)
     if "moe" in bp:
-        h, aux = blocks.moe_apply(bp["moe"], h, cfg, sc.child("moe"), key)
+        h, aux = blocks.moe_apply(bp["moe"], h, cfg, sc.child("moe"), key,
+                                  seq=seq)
     else:
-        h = blocks.mlp_apply(bp["mlp"], h, cfg, sc.child("mlp"), key)
+        h = blocks.mlp_apply(bp["mlp"], h, cfg, sc.child("mlp"), key,
+                             seq=seq)
     return x + h, aux, new_cache
 
 
 def _embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
-           qcfg: QuantLike, key, prefix_embeds=None) -> torch.Tensor:
+           qcfg: QuantLike, key, prefix_embeds=None,
+           seq: bool = False) -> torch.Tensor:
     """The tokens' embeddings; for the VLM, the projected patch embeddings
-    (``int_linear`` through ``mm_proj``) in front of them."""
+    (``int_linear`` through ``mm_proj``) in front of them.  ``seq``: the
+    rank's rows of the sequence."""
     sc = ensure_scope(qcfg)
     table, tp = params["embed"], dfx.model
+    vlm = prefix_embeds is not None
     x = int_ops.int_embedding(
         table, tokens, key, sc.leaf("embed"),
-        vocab_start=None if tp is None else tp.index * table.shape[0])
-    if prefix_embeds is not None:
+        vocab_start=None if tp is None else tp.index * table.shape[0],
+        seq=seq and not vlm)
+    if vlm:
         pe = int_ops.int_linear(prefix_embeds, params["mm_proj"], None, key,
                                 sc.leaf("mm_proj"))
         x = torch.cat([pe, x], dim=1)
-    health.probe(sc.path + ("embed",), x, sc.leaf("embed").act_bits)
+    with dfx.split(seq and not vlm):
+        health.probe(sc.path + ("embed",), x, sc.leaf("embed").act_bits)
+    if seq and vlm:
+        # the patch prefix every rank projects whole goes in front first
+        x = int_ops.scatter_to_sequence(x)
     return x
 
 
 def _logits(params: Params, x: torch.Tensor, cfg: ArchConfig,
-            qcfg: QuantLike, key) -> torch.Tensor:
+            qcfg: QuantLike, key, seq: bool = False) -> torch.Tensor:
+    """``final_norm`` and the head; ``seq``: ``x`` is the rank's rows of
+    the sequence, the logits the whole sequence's (the rank's vocabulary
+    columns)."""
     sc = ensure_scope(qcfg)
     x = blocks.norm_apply(params["final_norm"], x, cfg,
-                          sc.child("final_norm"), key)
+                          sc.child("final_norm"), key, seq=seq)
     tied = cfg.tie_embeddings
     head = params["embed"] if tied else params["lm_head"]
-    health.probe(sc.path + ("lm_head",), x, sc.leaf("lm_head").act_bits)
     split = None
     if dfx.model is not None:
         # the rank's vocabulary columns: column-parallel over V
-        x, split = int_ops.copy_to_model(x), "col"
+        x, split = int_ops.into_split(x, seq)[0], "col"
+    health.probe(sc.path + ("lm_head",), x, sc.leaf("lm_head").act_bits)
     # the head resolves under "lm_head" whether or not it is tied; a tied
     # head is the (V, D) table, read as its transpose
     return int_ops.int_linear(x, head, None, key, sc.leaf("lm_head"),
@@ -273,50 +298,54 @@ def _remat(fn, x: torch.Tensor, key):
 
 
 def _remat_layer(bp: Params, x: torch.Tensor, cfg: ArchConfig,
-                 bsc: QuantLike, key):
+                 bsc: QuantLike, key, seq: bool = False):
     """``_attn_block`` under ``_remat``: (x, aux)."""
-    return _remat(lambda x, k: _attn_block(bp, x, cfg, bsc, k)[:2], x, key)
+    return _remat(lambda x, k: _attn_block(bp, x, cfg, bsc, k,
+                                           seq=seq)[:2], x, key)
 
 
 def _mamba_layer(bp: Params, x: torch.Tensor, cfg: ArchConfig,
-                 bsc: QuantLike, key) -> torch.Tensor:
+                 bsc: QuantLike, key, seq: bool = False) -> torch.Tensor:
     """One residual Mamba2 layer of the training stack."""
     bp = sharding.gather_layer(bp)
-    h, _ = ssm.mamba2_apply(bp["mamba"], x, cfg, bsc.child("mamba"), key)
+    h, _ = ssm.mamba2_apply(bp["mamba"], x, cfg, bsc.child("mamba"), key,
+                            seq=seq)
     return x + h
 
 
 def _backbone_train(params: Params, x: torch.Tensor, cfg: ArchConfig,
-                    qcfg: QuantLike, key, *,
-                    remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                    qcfg: QuantLike, key, *, remat: bool = True,
+                    seq: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """All layers, no cache (training, and ``lm_prefill``): a Python loop
     over the stack, each run of identically resolved layers under its
     scope.  ``remat``: each layer under ``_remat`` while autograd
     records (the reference's per-layer remat; off only to compare the
     two).  Returns (x, the MoE aux losses summed over the layers).  The
     SSM and hybrid stacks run with probes suspended, as the reference
-    masks them (``_backbone_train_ssm``)."""
+    masks them (``_backbone_train_ssm``).  ``seq``: ``x`` and the output
+    are the rank's rows of the sequence."""
     sc = ensure_scope(qcfg)
     layers = blocks.unstack(params["blocks"], cfg.n_layers)
     remat = remat and torch.is_grad_enabled()
     if cfg.family in STATE_FAMILIES:
         with health.suspend():
             return _backbone_train_ssm(params, layers, x, cfg, sc, key,
-                                       remat)
+                                       remat, seq)
     aux = torch.zeros((), device=x.device)
     for start, stop, bsc in layer_groups(sc, cfg.n_layers,
                                          _block_leaves(cfg)):
         for i in range(start, stop):
             if remat:
-                x, a = _remat_layer(layers[i], x, cfg, bsc, key)
+                x, a = _remat_layer(layers[i], x, cfg, bsc, key, seq)
             else:
-                x, a, _ = _attn_block(layers[i], x, cfg, bsc, key)
+                x, a, _ = _attn_block(layers[i], x, cfg, bsc, key, seq=seq)
             aux = aux + a
     return x, aux
 
 
 def _backbone_train_ssm(params: Params, layers: list, x: torch.Tensor,
-                        cfg: ArchConfig, sc, key, remat: bool):
+                        cfg: ArchConfig, sc, key, remat: bool,
+                        seq: bool = False):
     """The SSM stack (runs of identically resolved layers), or the
     hybrid's ``L // every`` groups of ``every`` Mamba2 layers, each group
     followed by the shared attention block, under one scope (a policy
@@ -327,8 +356,8 @@ def _backbone_train_ssm(params: Params, layers: list, x: torch.Tensor,
     def mamba(i, bsc, x):
         if remat:
             return _remat(lambda x, k: _mamba_layer(layers[i], x, cfg, bsc,
-                                                    k), x, key)
-        return _mamba_layer(layers[i], x, cfg, bsc, key)
+                                                    k, seq), x, key)
+        return _mamba_layer(layers[i], x, cfg, bsc, key, seq)
 
     if cfg.family == "ssm":
         for start, stop, bsc in layer_groups(sc, L, _MAMBA_LEAVES):
@@ -343,10 +372,10 @@ def _backbone_train_ssm(params: Params, layers: list, x: torch.Tensor,
         for i in range(g * every, (g + 1) * every):
             x = mamba(i, bsc, x)
         if remat:
-            x, _ = _remat(lambda x, k: _attn_block(shared, x, cfg, ssc,
-                                                   k)[:2], x, key)
+            x, _ = _remat(lambda x, k: _attn_block(shared, x, cfg, ssc, k,
+                                                   seq=seq)[:2], x, key)
         else:
-            x, _, _ = _attn_block(shared, x, cfg, ssc, key)
+            x, _, _ = _attn_block(shared, x, cfg, ssc, key, seq=seq)
     return x, zero
 
 
@@ -421,13 +450,19 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     the other families); ``ce`` is the returned loss, as the reference
     reports it."""
     _require_ported(cfg)
-    tokens = batch["tokens"]
-    x = _embed(params, tokens, cfg, qcfg, key,
-               prefix_embeds=batch.get("patch_embeds"))
-    x, aux = _backbone_train(params, x, cfg, qcfg, key)
+    tokens, pe = batch["tokens"], batch.get("patch_embeds")
+    seq = int_ops.sequence_split(
+        tokens.shape[1] + (0 if pe is None else pe.shape[1]))
+    x = _embed(params, tokens, cfg, qcfg, key, prefix_embeds=pe, seq=seq)
+    x, aux = _backbone_train(params, x, cfg, qcfg, key, seq=seq)
     if cfg.vlm_prefix:
+        if seq:
+            # the whole sequence, as every rank then computes the head's
+            # input: the gradient of the rank's rows is its rows of it
+            x = int_ops.gather_from_sequence(x)[1]
+            seq = False
         x = x[:, -tokens.shape[1]:]          # the text positions only
-    logits = _logits(params, x, cfg, qcfg, key)
+    logits = _logits(params, x, cfg, qcfg, key, seq=seq)
     ce = token_ce if dfx.model is None else token_ce_vocab_parallel
     loss = ce(logits, batch["labels"])
     if cfg.moe_experts:

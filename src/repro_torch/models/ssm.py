@@ -150,6 +150,7 @@ def mamba2_apply(
     *,
     state: Optional[Tuple[torch.Tensor, ...]] = None,  # (ssm, conv_x, conv_BC)
     decode: bool = False,
+    seq: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Tuple]]:
     """x: (B, S, D) -> (out, new state).
 
@@ -161,8 +162,11 @@ def mamba2_apply(
     recurrence.  In training ``state`` may carry an initial SSM state and
     the new state is ``(final, None, None)``; in decode (S == 1) it is the
     layer's ``(ssm, conv_x, conv_BC)`` and so is the returned one (new
-    tensors: the caller writes them into its cache)."""
-    B_, S, D = x.shape
+    tensors: the caller writes them into its cache).  ``seq`` (training
+    under a model group): ``x`` and the output are the rank's rows of the
+    sequence; the conv and the scan need it whole, so it is gathered once,
+    before the projections, and ``out_proj`` reduce-scatters onto the
+    rows."""
     DI, N, NH, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
     sc = ensure_scope(qcfg)
     act = sc.child("act")
@@ -171,11 +175,13 @@ def mamba2_apply(
     xc, col = x, None
     if tp is not None:
         # the rank's NH / M heads end to end: z / x / dt column-parallel,
-        # the per-head leaves sliced (their gradient gathered back)
+        # the per-head leaves sliced (their gradient gathered back); wBC
+        # reads the whole sequence as a product every rank computes
         DI, NH = DI // tp.size, NH // tp.size
-        xc, col = int_ops.copy_to_model(x), "col"
+        (xc, x), col = int_ops.into_split(x, seq), "col"
         A_log, dt_bias, D_skip = int_ops.tp_heads(
             torch.stack([A_log, dt_bias, D_skip])).unbind(0)
+    B_, S, D = x.shape
     z = int_ops.int_linear(xc, p["wz"], None, key, sc.leaf("wz"), split=col)
     xi = int_ops.int_linear(xc, p["wx"], None, key, sc.leaf("wx"), split=col)
     # B / C are shared by every head: from the plain x, whole on each rank
@@ -236,7 +242,8 @@ def mamba2_apply(
                             p["norm_g"], key, sc.leaf("norm_g"))
     y = int_ops.scatter_to_model(y, "tp_norm")
     return int_ops.int_linear(y, p["out_proj"], None, key,
-                              sc.leaf("out_proj"), split="row"), new_state
+                              sc.leaf("out_proj"), split="row",
+                              seq=seq), new_state
 
 
 def mamba2_init_state(cfg: ArchConfig, batch: int, device,

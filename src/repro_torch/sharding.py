@@ -33,17 +33,23 @@ of each parameter: a spec is a plain tuple per leaf, one entry per
 dimension, an axis name or None (the reference's ``PartitionSpec``).
 
 The collectives live here (``all_reduce`` with SUM or MAX, ``all_gather``,
-``barrier``): what both gloo and NCCL offer.  Under gloo a
+``reduce_scatter``, ``barrier``): what both gloo and NCCL offer.  Under gloo a
 CUDA tensor is staged through the host explicitly (the compute stays on
 the card); under NCCL nothing is staged.  Each call is counted in
 ``STATS`` under a tag, with the bytes of its result, and the largest
 single result by tag in ``LARGEST``.
 
+Sequence sharding (``SEQUENCE_SHARDING``, the reference's default): under
+a step that splits its products, the ``(B, S, D)`` residual stream between
+the products is ``(B, S / M, D)`` on each model rank, as the reference's
+``constrain_tokens`` lays it out (Megatron's sequence parallelism;
+``core/int_ops.py``'s ``gather_from_sequence`` / ``reduce_scatter_to_
+sequence``).  A stream whose length the model axis does not divide stays
+whole, as ``constrain`` leaves such a dim unsharded.
+
 Not ported: ``constrain`` / ``constrain_batch`` / ``constrain_tokens``,
 ``make_mesh_compat`` and ``shard_map_compat`` — layout hints and version
-shims for XLA; the port places every tensor explicitly.  Still to port:
-``SEQUENCE_SHARDING`` (the residual stream split over ``model`` between
-the products; every model rank holds it whole).
+shims for XLA; the port places every tensor explicitly.
 """
 from __future__ import annotations
 
@@ -190,10 +196,13 @@ class _Sync:
 class _ModelGroup:
     """``dfx.model`` for a step that splits its products over the model
     group: the rank's place in it, the SUM / MAX over it, and the
-    reduction of a tensor split over the batch and model axes."""
+    reduction of a tensor split over the batch and model axes.
+    ``sequence``: the step shards its residual streams' sequence over the
+    group (``SEQUENCE_SHARDING``; a stream whose length ``size`` does not
+    divide stays whole, ``int_ops.sequence_split``)."""
 
-    def __init__(self, mesh: Mesh):
-        self.mesh = mesh
+    def __init__(self, mesh: Mesh, sequence: bool = False):
+        self.mesh, self.sequence = mesh, sequence
         self.size, self.index = mesh.count("model"), mesh.index("model")
         batch = mesh.axes(batch_axes(mesh))
         self.sync = _Sync(mesh, mesh.axes(batch + ("model",)),
@@ -209,20 +218,28 @@ class _ModelGroup:
         """``(size, *t.shape)``: every rank's ``t``, in rank order."""
         return all_gather(t, "model", self.mesh, tag=tag)
 
+    def reduce_scatter(self, t: torch.Tensor, tag: str) -> torch.Tensor:
+        """The SUM over the group of every rank's ``t[index]`` (``t``:
+        ``(size, *block)``, a block a rank, in rank order)."""
+        return reduce_scatter(t, "model", self.mesh, tag=tag)
+
 
 @contextlib.contextmanager
-def spmd(mesh: Mesh, axes=None, split: bool = False):
+def spmd(mesh: Mesh, axes=None, split: bool = False,
+         sequence: bool = False):
     """The body of a distributed step: every per-tensor exponent, and the
     statistics and batch means that decide one, are the logical tensor's
     (``dfx.sync``), as in the reference's jit'd SPMD step; off inside
     ``manual_axes_active``.  ``axes``: the axes the tensors are split
     over (default the batch axes; none: nothing to reduce).  ``split``:
-    the step splits its products over the model group (``dfx.model``)."""
+    the step splits its products over the model group (``dfx.model``);
+    ``sequence``: it also shards its residual streams' sequence there."""
     axes = mesh.axes(batch_axes(mesh) if axes is None else axes)
     prev, prev_model = dfx.sync, dfx.model
     dfx.sync = None if _MANUAL_AXES or not axes else _Sync(mesh, axes)
-    dfx.model = (_ModelGroup(mesh) if split and dfx.sync is not None
-                 and mesh.count("model") > 1 else None)
+    dfx.model = (_ModelGroup(mesh, sequence) if split
+                 and dfx.sync is not None and mesh.count("model") > 1
+                 else None)
     try:
         yield
     finally:
@@ -249,6 +266,14 @@ def manual_axes_active(axes):
 # Tensor-parallel compute
 # ---------------------------------------------------------------------------
 
+#: sequence-parallel residual sharding (the reference's Megatron-SP layout
+#: and default): under a step that splits its products over the model
+#: group, the residual stream between the products is split over the group
+#: along the sequence.  The reference's dry-run ``no_sp`` variant sets it
+#: False to measure what it costs; so do the tests that hold the layout
+#: without it.
+SEQUENCE_SHARDING = True
+
 #: the decoder-only families whose products split over the model group:
 #: the attention stacks (``lm._attn_block``), the SSM stack (Mamba2) and
 #: the hybrid (Mamba2 + the shared attention block); an enc-dec config
@@ -269,10 +294,12 @@ class TensorParallel:
     ranks.  ``kv_split``: the kv heads split whole over the group; else
     every rank computes all of them from the k / v leaves gathered over
     ``model`` too (Megatron's kv replication), and attends with the one
-    its query heads read."""
+    its query heads read.  ``sequence``: the residual streams between the
+    products are split over the group along the sequence
+    (``SEQUENCE_SHARDING``)."""
 
-    def __init__(self, size: int, kv_split: bool):
-        self.size, self.kv_split = size, kv_split
+    def __init__(self, size: int, kv_split: bool, sequence: bool = False):
+        self.size, self.kv_split, self.sequence = size, kv_split, sequence
 
     def keep(self, path: str) -> Tuple[str, ...]:
         """The axes a leaf's gather leaves sharded: ``model``, but for a
@@ -300,7 +327,8 @@ def tensor_parallel(cfg: Any, mesh: Mesh) -> Optional[TensorParallel]:
     heads and inner width (the hybrid's shared block and whisper's layers
     as the attention stacks').  Raises where the model axis divides one of
     them unevenly, or the kv heads when the ranks' query heads do not each
-    read one kv head."""
+    read one kv head.  The step shards the sequence as
+    ``SEQUENCE_SHARDING`` says when it is called."""
     M = mesh.shape.get("model", 1)
     family = getattr(cfg, "family", None)
     if M == 1 or not (getattr(cfg, "enc_dec", False)
@@ -320,7 +348,8 @@ def tensor_parallel(cfg: Any, mesh: Mesh) -> Optional[TensorParallel]:
     if bad:
         raise ValueError(f"{cfg.name}: a model axis of {M} ranks does not "
                          f"split {bad} (tensor-parallel compute)")
-    return TensorParallel(M, family == "ssm" or KV % M == 0)
+    return TensorParallel(M, family == "ssm" or KV % M == 0,
+                          SEQUENCE_SHARDING)
 
 
 # ---------------------------------------------------------------------------
@@ -382,6 +411,22 @@ def all_gather(t: torch.Tensor, axes, mesh: Mesh, *,
     dist.all_gather(parts, src, group=mesh.group(axes))
     out = torch.stack(parts)
     _count(tag, out)
+    return out.to(t.device)
+
+
+def reduce_scatter(t: torch.Tensor, axes, mesh: Mesh, *,
+                   tag: str = "reduce_scatter") -> torch.Tensor:
+    """The SUM over the ranks along ``axes`` of their blocks ``t[i]``,
+    where ``i`` is this rank's row-major index (``t``: ``(n, *block)``):
+    the rank's block of the reduced tensor (a new tensor).  Counted with
+    the bytes of ``t``, the whole tensor reduced, as ``all_gather`` counts
+    its whole result: both send ``(n - 1) / n`` of the counted bytes per
+    rank on a ring, an ``all_reduce`` twice that."""
+    src = _wire(t, mesh).contiguous()
+    out = torch.empty_like(src[0])
+    dist.reduce_scatter(out, list(src.unbind(0)), _OPS["sum"],
+                        group=mesh.group(axes))
+    _count(tag, src)
     return out.to(t.device)
 
 

@@ -26,7 +26,9 @@ Counterpart of ``repro/train/trainer.py``:
   aside) the gathers materialise the batch axes only and the ranks of one
   ``model`` group split every product (the model code's column- and
   row-parallel products, vocab-parallel embedding, head and loss; each
-  split tensor's exponent the logical one's).  The result is one device's
+  split tensor's exponent the logical one's), and by default the residual
+  stream between the products is the rank's rows of the sequence
+  (``sharding.SEQUENCE_SHARDING``).  The result is one device's
   up to the f32 sum order.  During the step a
   rank holds its blocks, the non-stacked leaves (whole, or their model
   shards) and one layer's tensors and gradients.  With microbatches each
@@ -236,7 +238,9 @@ class _Spmd:
         batch = local_rows(batch, self.mesh, self.microbatches, self.axes)
         self._packed = {}
         try:
-            with sharding.spmd(self.mesh, split=self.tp is not None):
+            with sharding.spmd(self.mesh, split=self.tp is not None,
+                               sequence=self.tp is not None
+                               and self.tp.sequence):
                 grads, metrics = grads_fn(params, batch, key)
         finally:
             self._packed = None

@@ -19,7 +19,9 @@ Stated tolerances:
   from the reference's weights, its products split over the model axis
   (tensor-parallel compute, ``sharding.tensor_parallel``): against the
   reference's one-device step and its own (2, 2) step, the loss within
-  1e-4 and every parameter within 2e-5 (the reference test's bounds).
+  1e-4 and every parameter within 2e-5 (the reference test's bounds);
+  its residual stream whole on every model rank (its worker case sets
+  ``sharding.SEQUENCE_SHARDING`` False: the test counts ``tp_out``).
 * The int8 round-to-nearest SPMD step on data 2 against the port's
   one-device step (batch 4, a power of two): the loss within 1e-6
   relative, every parameter within 1e-5 of its largest magnitude, and

@@ -35,6 +35,12 @@ Stated tolerances:
   the biases) within 1e-6 of its largest magnitude (measured 9.3e-8:
   the sum order of the batch halves on (2, 2), of the replicated kv
   head's two query-head halves on (1, 4)).
+* The same FP32 step of reduced qwen1.5-0.5b on (1, 2) under sequence
+  sharding (``sharding.SEQUENCE_SHARDING``, the default), within the same
+  bounds.  Every other case here holds the layout without it: their
+  worker cases set the constant False (``torch_dist_worker.
+  _no_sequence_sharding``); ``test_torch_sequence_parallel.py`` holds
+  the sharded step against them.
 * ``launch.train --model-parallel 2`` under ``torchrun`` on two gloo CPU
   ranks: the first loss within 1e-5 relative of the one-rank run's.
 * ``sharding.STATS``: the model-axis collectives under their own tags —
@@ -153,8 +159,18 @@ def world2(ref, tmp_path_factory):
     return spawn_group({"tp_ops": _op_inputs(),
                         "tp_fp32_step": _step_inputs(ref, (1, 2)),
                         "tp_int8": {"meshes": np.array([(1, 2)]),
-                                    "archs": np.array(ARCHS)}},
+                                    "archs": np.array(ARCHS)},
+                        "sp_fp32_step": dict(
+                            _step_inputs(ref, (1, 2)),
+                            archs=np.array(ARCHS[:1]))},
                        2, str(tmp_path_factory.mktemp("tp2")))
+
+
+@pytest.fixture(scope="module")
+def world2_sp(world2):
+    """The (1, 2) FP32 step under sequence sharding (``world2``'s
+    ``sp_fp32_step``)."""
+    return world2
 
 
 @pytest.fixture(scope="module")
@@ -329,11 +345,13 @@ def test_vocab_parallel_loss_bit_for_bit(world2):
 # Whole steps
 # =========================================================================
 
-@pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("world", ["world2", "world4"])
+@pytest.mark.parametrize("world,arch", [
+    ("world2", ARCHS[0]), ("world2", ARCHS[1]), ("world4", ARCHS[0]),
+    ("world4", ARCHS[1]), ("world2_sp", ARCHS[0])])
 def test_fp32_split_step_matches_reference(ref, arch, world, request):
     outs = request.getfixturevalue(world)
-    o = outs[0]["tp_fp32_step"][arch]
+    case = "sp_fp32_step" if world == "world2_sp" else "tp_fp32_step"
+    o = outs[0][case][arch]
     assert abs(o["loss"] - float(ref[f"{arch}/loss_one"])) < 1e-4
     want = {k[len(arch) + 5:]: v for k, v in ref.items()
             if k.startswith(f"{arch}/one/")}
@@ -343,10 +361,17 @@ def test_fp32_split_step_matches_reference(ref, arch, world, request):
                                    err_msg=k)
     # every rank of the model group ends on the same logical step
     for other in outs[1:]:
-        assert other["tp_fp32_step"][arch]["loss"] == o["loss"]
+        assert other[case][arch]["loss"] == o["loss"]
     # the products were split: row-parallel sums and dX sums on the wire
     L = registry.get_config(arch).reduced().n_layers
     st = o["stats"]
+    if case == "sp_fp32_step":
+        # under sequence sharding: the reduce-scatters and all-gathers of
+        # the residual stream, no all-reduce of it
+        assert ("tp_out", "calls") not in st and ("tp_dx", "calls") not in st
+        assert st[("sp_gather", "calls")] >= 4 * L + 2
+        assert st[("sp_scatter", "calls")] >= 4 * L + 2
+        return
     assert st[("tp_dx", "calls")] == 2 * L + 1
     assert 2 * L + 1 <= st[("tp_out", "calls")] <= 4 * L + 1
 

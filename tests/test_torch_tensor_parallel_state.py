@@ -43,6 +43,11 @@ Stated tolerances:
   one of the encoder output's B·T·D, not one a decoder layer).
 * A tensor whose part on one rank is all zero takes the other parts'
   exponent under a mesh (the all-zero part takes no part in the MAX).
+
+The steps here hold the layout without sequence sharding: their worker
+cases set ``sharding.SEQUENCE_SHARDING`` False
+(``torch_dist_worker._no_sequence_sharding``);
+``test_torch_sequence_parallel.py`` holds the sharded step against them.
 """
 import os
 import subprocess

@@ -9,7 +9,9 @@ No JAX here: the reference runs in a process of its own.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import os
 import socket
 import subprocess
@@ -84,6 +86,29 @@ def case_group(inp, mesh_of):
                if k.startswith(case + ":")}
         out[case] = globals()[f"case_{case}"](sub, mesh_of)
     return out
+
+
+@contextlib.contextmanager
+def _sequence_sharding(on: bool):
+    """``sharding.SEQUENCE_SHARDING`` set to ``on`` for the block."""
+    from repro_torch import sharding
+    prev = sharding.SEQUENCE_SHARDING
+    sharding.SEQUENCE_SHARDING = on
+    try:
+        yield
+    finally:
+        sharding.SEQUENCE_SHARDING = prev
+
+
+def _no_sequence_sharding(case):
+    """A case that holds the layout without sequence sharding (the
+    residual stream whole on every model rank), whose collectives its
+    tests count by tag."""
+    @functools.wraps(case)
+    def run(inp, mesh_of):
+        with _sequence_sharding(False):
+            return case(inp, mesh_of)
+    return run
 
 
 def _tree(flat: dict, prefix: str) -> dict:
@@ -167,6 +192,7 @@ def _qwen_step_inputs(inp):
     return cfg, _tree(inp, "init"), _batch(inp)
 
 
+@_no_sequence_sharding
 def case_fp32_step(inp, mesh_of):
     from repro_torch import sharding
     from repro_torch.core.qconfig import QuantConfig
@@ -697,11 +723,22 @@ def _tp_arch(name):
     return registry.get_config(name).reduced()
 
 
+@_no_sequence_sharding
 def case_tp_fp32_step(inp, mesh_of):
     """One FP32 AdamW step of each arch in ``inp["archs"]`` on the mesh
     ``inp["mesh"]`` from the reference's weights and batch
     (``<arch>/init/...``, ``<arch>/tokens``, ``<arch>/labels``): the loss,
     the logical parameters, the collectives by tag."""
+    return _tp_fp32_step(inp, mesh_of)
+
+
+def case_sp_fp32_step(inp, mesh_of):
+    """``case_tp_fp32_step`` under sequence sharding."""
+    with _sequence_sharding(True):
+        return _tp_fp32_step(inp, mesh_of)
+
+
+def _tp_fp32_step(inp, mesh_of):
     import torch
     from repro_torch import sharding
     from repro_torch.core.qconfig import QuantConfig
@@ -757,6 +794,7 @@ def _grads_and_exps(cfg, init, batch, mesh, rec, loss_fn=None):
     return out
 
 
+@_no_sequence_sharding
 def case_tp_int8(inp, mesh_of):
     """Reduced qwen1.5-0.5b and mixtral-8x7b (``inp["archs"]``), int8 round
     to nearest, from a seeded init: the gradients of one step on each mesh
@@ -795,6 +833,7 @@ def _tp_state_batch(inp, arch, cfg) -> dict:
     return {k: torch.from_numpy(np.array(inp[f"{arch}/{k}"])) for k in keys}
 
 
+@_no_sequence_sharding
 def case_tp_state_fp32(inp, mesh_of):
     """One FP32 AdamW step of each reduced arch in ``inp["archs"]`` on the
     mesh ``inp["mesh"]`` from the reference's weights and batch: the loss,
@@ -822,6 +861,7 @@ def case_tp_state_fp32(inp, mesh_of):
     return out
 
 
+@_no_sequence_sharding
 def case_tp_state_int8(inp, mesh_of):
     """The int8 round-to-nearest gradients of one step of each
     ``"<D>x<M>:<arch>"`` in ``inp["runs"]`` (a reduced arch from a seeded
@@ -847,6 +887,129 @@ def case_tp_state_int8(inp, mesh_of):
                                          loss_fn)
         out.setdefault(name, {})[arch] = got
     return out
+
+
+# -------------------------------------------------------------------------
+# Sequence parallelism (test_torch_sequence_parallel.py)
+# -------------------------------------------------------------------------
+
+def case_sp_ops(inp, mesh_of):
+    """The sequence-parallel operators and ops on a (1, 2) mesh from the
+    whole operands in ``inp`` (int8, round to nearest), each as the rank
+    holds it: the all-gather and the reduce-scatter forward and backward;
+    the row-parallel ``int_linear`` reduce-scattered and all-reduced;
+    ``int_rmsnorm`` / ``int_layernorm`` on the rank's rows (with the
+    mantissas and exponent of their input's quantize) and on the whole
+    rows."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.core import dfx, int_ops
+    mesh = mesh_of((1, 2), ("data", "model"))
+    r = mesh.index("model")
+    q = _rn_int8()
+    t = {k: torch.from_numpy(np.array(v)) for k, v in inp.items()}
+    S, K = t["x"].shape[1], t["x"].shape[-1]
+    rows, ks = slice(r * S // 2, (r + 1) * S // 2), slice(r * K // 2,
+                                                         (r + 1) * K // 2)
+
+    def leaf(x):
+        return x.clone().requires_grad_(True)
+    out = {}
+    sharding.reset_stats()
+    with sharding.spmd(mesh, split=True, sequence=True):
+        x = leaf(t["x"][:, rows])
+        full = int_ops.gather_from_sequence(x)[0]
+        full.backward(t["gfull"][r])
+        out["gather"] = {"y": full.detach(), "dx": x.grad}
+        y = leaf(t["gfull"][r])
+        part = int_ops.reduce_scatter_to_sequence(y)
+        part.backward(t["gnorm"][:, rows])
+        out["scatter"] = {"y": part.detach(), "dy": y.grad}
+        out["stats"] = dict(sharding.STATS)      # the two operators'
+        for seq in (True, False):
+            x, w, b = leaf(t["x"][..., ks]), leaf(t["w"][ks]), leaf(t["b"])
+            y = int_ops.int_linear(x, w, b, None, q, split="row", seq=seq)
+            y.backward(t["gy"][:, rows] if seq else t["gy"])
+            out[f"row_{seq}"] = {"y": y.detach(), "dx": x.grad,
+                                 "dw": w.grad, "db": b.grad}
+        for norm in ("rms", "ln"):
+            for seq in (True, False):
+                x = leaf(t["x"][:, rows] if seq else t["x"])
+                g, bias = leaf(t["gamma"]), leaf(t["beta"])
+                with dfx.split(seq):
+                    qx = dfx.quantize(x.detach(), q.act_bits)
+                if norm == "rms":
+                    y = int_ops.int_rmsnorm(x, g, None, q, seq=seq)
+                else:
+                    y = int_ops.int_layernorm(x, g, bias, None, q, seq=seq)
+                y.backward(t["gnorm"][:, rows] if seq else t["gnorm"])
+                out[f"{norm}_{seq}"] = {
+                    "y": y.detach(), "m": qx.m, "exp": int(qx.exp),
+                    "dx": x.grad, "dg": g.grad,
+                    "db": bias.grad if norm == "ln" else None}
+    return out
+
+
+def _sp_grads(cfg, init, batch, mesh, rec, loss_fn, q, seed):
+    """One step's loss, logical gradients, exponents (in order) and
+    collectives by tag on ``mesh`` at ``q``, every rank's generator seeded
+    with ``seed`` (None: no key)."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.train import trainer
+    params, _, pspecs = trainer.init_train_state(
+        lambda k: _to(init, None), None, mesh, fsdp=True)
+    where = trainer.placement(mesh, pspecs, cfg=cfg)
+    grads_fn = trainer.make_grads_fn(loss_fn, cfg, q, 1,
+                                     grad_scale=where.scale, view=where.view)
+    key = None if seed is None else torch.Generator().manual_seed(seed)
+    sharding.reset_stats()
+    rec.clear()
+    grads, metrics = where.grads(grads_fn, params, batch, key)
+    return {"loss": float(metrics["loss"]), "exps": list(rec),
+            "stats": dict(sharding.STATS), "largest": dict(sharding.LARGEST),
+            "grads": _flat(sharding.unshard(grads, pspecs, mesh))}
+
+
+def case_sp_step(inp, mesh_of):
+    """Each ``"<D>x<M>:<arch>[:<S>][:sr]"`` of ``inp["runs"]``: one step of
+    the reduced arch from a seeded init over a batch of 4 rows of ``S``
+    (default 32) positions, on that mesh under sequence sharding
+    (``"sp"``) and with ``sharding.SEQUENCE_SHARDING`` False (``"no"``),
+    int8 round to nearest, or with ``sr`` stochastic rounding forward and
+    backward from one seed.  ``{run: {"sp", "no"}}``."""
+    import torch
+    from repro_torch.core import dfx
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.launch import train as launch_train
+    rec = _record_exponents(dfx)
+    out = {}
+    for run in (str(r) for r in inp["runs"]):
+        name, arch, *rest = run.split(":")
+        mesh = mesh_of(tuple(int(v) for v in name.split("x")),
+                       ("data", "model"))
+        cfg = _tp_arch(arch)
+        sr = "sr" in rest
+        S = int(next((v for v in rest if v.isdigit()), 32))
+        q = (dataclasses.replace(QuantConfig.int8(), stochastic_fwd=True)
+             if sr else _rn_int8())
+        init_fn, loss_fn = launch_train._model(cfg)
+        init = init_fn(torch.Generator().manual_seed(0), cfg, device="cpu")
+        batch = _layer_batch(cfg, seq=S)
+        if cfg.enc_dec:
+            # the encoder's stream apart from the decoder's
+            batch["frames"] = torch.from_numpy(np.random.default_rng(1).normal(
+                size=(4, FRAMES, cfg.d_model)).astype(np.float32))
+        got = out[run] = {}
+        for mode, on in (("sp", True), ("no", False)):
+            with _sequence_sharding(on):
+                got[mode] = _sp_grads(cfg, init, batch, mesh, rec, loss_fn,
+                                      q, 3 if sr else None)
+    return out
+
+
+#: the encoder's frames of ``case_sp_step``'s enc-dec batch
+FRAMES = 48
 
 
 def case_zero_part_exponent(inp, mesh_of):

@@ -16,8 +16,14 @@ with each layer stack gathered one layer at a time inside the layer loop
   kv leaf and the Mamba2 gated norm's gain whole), as the port's step
   does.
 
-Activations, int8 planes and the moments are left out; the FP32 moments
-(two a parameter, on the blocks) are printed beside.
+Int8 planes are left out; the FP32 moments (two a parameter, on the
+blocks) are printed beside.  A second table gives the FP32 activations a
+rank holds in a step (``activations``) at a per-rank batch of 8 rows of
+``ROW_TOKENS`` tokens (the VLM's patch prefix in front; whisper's encoder
+over its 1500 frames), with the residual stream whole on every model rank
+and sequence-sharded (``sharding.SEQUENCE_SHARDING``): each layer's input,
+which its remat checkpoint keeps, and one layer's residual, norm input and
+norm output, in the recompute.
 
     PYTHONPATH=src python tools/fsdp_footprint.py
 """
@@ -98,6 +104,45 @@ def footprint(params: dict, cfg, shape, names) -> dict:
 FALLBACK = ((64, 4), ("data", "model"))
 
 
+#: the per-rank batch of the activation table: rows, tokens a row, and
+#: whisper's encoder frames a row (30 s of audio)
+ROWS, ROW_TOKENS, ENC_FRAMES = 8, 256, 1500
+#: the tensors of the stream's width one layer holds beside the
+#: checkpoints: its residual, a norm's input and its output
+LAYER_TENSORS = 3
+
+
+def _streams(cfg) -> list:
+    """(layer inputs checkpointed, positions a row) of each residual
+    stream of a step of ``cfg``: the decoder-only stack (the hybrid's
+    shared block checkpointed at each of its calls), or whisper's encoder
+    and decoder."""
+    if cfg.enc_dec:
+        return [(cfg.n_enc_layers, ENC_FRAMES),
+                (cfg.n_layers, ROW_TOKENS)]
+    calls = cfg.n_layers // cfg.hybrid_attn_every if (
+        cfg.family == "hybrid") else 0
+    return [(cfg.n_layers + calls, ROW_TOKENS + cfg.vlm_prefix)]
+
+
+def activations(cfg, model: int) -> dict:
+    """GB of FP32 activations a rank holds in a step of ``cfg`` over a
+    model axis of ``model`` ranks: ``ckpt`` the layer inputs, ``layer``
+    one layer's ``LAYER_TENSORS``, each whole on every model rank
+    (``*_whole``) and sequence-sharded (``*_sp``: a stream whose length
+    the axis does not divide stays whole, as in the step)."""
+    out = dict.fromkeys(("ckpt_whole", "ckpt_sp", "layer_whole",
+                         "layer_sp"), 0.0)
+    for layers, S in _streams(cfg):
+        t = ROWS * S * cfg.d_model * 4 / 1e9            # one stream tensor
+        sp = t / model if S % model == 0 else t
+        out["ckpt_whole"] += layers * t
+        out["ckpt_sp"] += layers * sp
+        out["layer_whole"] = max(out["layer_whole"], LAYER_TENSORS * t)
+        out["layer_sp"] = max(out["layer_sp"], LAYER_TENSORS * sp)
+    return out
+
+
 def main() -> None:
     print("| arch | parameters | mesh | whole model GB | per layer GB "
           "(one layer, non-stacked leaves) | split compute GB (the same) | "
@@ -118,6 +163,24 @@ def main() -> None:
                   f"{f['split']:.2f} ({f['layer_tp'] / 1e9:.3f} B, "
                   f"{f['whole_tp'] / 1e9:.3f} B){f.get('split_on', '')} | "
                   f"{f['moments']:.2f} |")
+    print()
+    print(f"| arch | mesh | layer inputs GB, whole → sequence-sharded | "
+          f"+ one layer's {LAYER_TENSORS} GB | total GB |")
+    print("|---|---|---|---|---|")
+    for arch in sorted(registry.FSDP_ARCHS):
+        cfg = registry.get_config(arch)
+        for label, (shape, names) in MESHES.items():
+            mesh, on = sharding.Mesh(shape, names), ""
+            try:
+                sharding.tensor_parallel(cfg, mesh)
+            except ValueError:
+                mesh, on = sharding.Mesh(*FALLBACK), " (on 64 x 4)"
+            a = activations(cfg, mesh.shape["model"])
+            print(f"| {arch} | {label}{on} | {a['ckpt_whole']:.2f} → "
+                  f"{a['ckpt_sp']:.2f} | {a['layer_whole']:.2f} → "
+                  f"{a['layer_sp']:.2f} | "
+                  f"{a['ckpt_whole'] + a['layer_whole']:.2f} → "
+                  f"{a['ckpt_sp'] + a['layer_sp']:.2f} |")
 
 
 if __name__ == "__main__":
