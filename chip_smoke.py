@@ -274,7 +274,22 @@ Phases (each raises on failure; nothing is caught):
    against one rank's on the same image and each peak per rank against a
    one-rank step's.
 15. The examples and the paper's Fig. 1 (``examples_phase``).
-16. Print the ``{"kernels": [...]}`` line, then the last line
+16. The ``"dots"`` checkpoint policy and the dry-run (``dots_phase``).
+   16a: qwen1.5-0.5b at full width on the FP32 path (``enabled=False``),
+   batch 8 x seq 256, ``DOTS_LAYERS`` deep, ``DOTS_STEPS`` AdamW steps
+   under full remat and as many under ``utils.CHECKPOINT_POLICY =
+   "dots"`` from the same init: the losses and the first step's gradients
+   equal (bit for bit, else within 4 ulp), each policy's median step ms and
+   peak printed; then one int8 step of phase 6's run under ``"dots"``,
+   whose launches per wrapper equal phase 6's last step's.  16b: the
+   dry-run (``launch/dryrun.py``, meta tensors, no card) of phase 6's
+   step on a one-rank dry mesh: its calls by wrapper equal phase 6's
+   launches per step, and its predicted peak (arguments + temp) over the
+   bytes phase 6 allocated at its peak lies in [0.9, 1.1].  16c: the
+   dry-run of 14d's step for rank 0 of (data 1, model 2): its collectives
+   by tag (calls and bytes) equal 14d's rank 0's a step, and its
+   predicted peak over 14d's rank-0 peak lies in [0.9, 1.1].
+17. Print the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available or when
@@ -3564,7 +3579,8 @@ def train_phase(torch, dev, wrappers, steps: int = 6,
     before the int8 run and read just after; every kernel of the path must
     have launched, every loss be finite and the first near ln 151936.  Then
     the same steps under FP32 from the same init, and one profiled int8
-    step.  Returns the int8 run's launches."""
+    step.  Returns the int8 run's launches and, for phase 16, its last
+    step's launches, its peak and the bytes allocated before it."""
     import math
     from repro_torch.launch import train as lt
     argv = ["--arch", "qwen1.5-0.5b", "--batch", "8", "--seq", "256",
@@ -3576,15 +3592,18 @@ def train_phase(torch, dev, wrappers, steps: int = 6,
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
         counts.append({n: w.launches for n, w in wrappers.items()})
+    gc.collect()                     # phase 16 counts what this run adds
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     for w in wrappers.values():
         w.launches = 0
     t_start = time.perf_counter()
     losses = lt.main(argv + ["--quant", "int8"], on_step=on_step)
     torch.cuda.synchronize()
     launches = {n: w.launches for n, w in wrappers.items()}
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak = peak_bytes / 2**30
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite qwen training loss: {losses}")
     if abs(losses[0] - math.log(151936)) > 1.5:
@@ -3609,7 +3628,8 @@ def train_phase(torch, dev, wrappers, steps: int = 6,
     run = lt.build(lt.parse_args(argv + ["--quant", "int8"]))
     run.step()
     profile_step(torch, run.step, "qwen1.5-0.5b training step (int8)")
-    return launches
+    return launches, {"step_launches": last, "peak_bytes": peak_bytes,
+                      "base_bytes": base, "argv": argv}
 
 
 def _step_stats(torch, stamps: list, t_start: float, tokens: int) -> dict:
@@ -5416,6 +5436,7 @@ def dist_fsdp(torch, dev, check: bool, model: int = 1,
     sharding.reset_stats()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     before = dict(sharding.STATS)
     stamps, losses = [time.perf_counter()], []
     try:
@@ -5438,7 +5459,11 @@ def dist_fsdp(torch, dev, check: bool, model: int = 1,
         torch.cuda.max_memory_allocated() / 2**30), mesh.axis_names, mesh)
     out.update(losses=losses, launches=launches, stats=stats,
                step_ms=[1e3 * (b - a) for a, b in zip(stamps, stamps[1:])],
-               peak_gib=[float(v) for v in peak],
+               peak_gib=[float(v) for v in peak], peak_bytes=[int(
+                   v) for v in sharding.all_gather(torch.tensor(
+                       torch.cuda.max_memory_allocated()), mesh.axis_names,
+                       mesh)],
+               base_bytes=base,
                nn_by_width={str(k): v for k, v in sorted(by_n.items())},
                part_s=time.perf_counter() - t_part)
     return out
@@ -5737,7 +5762,8 @@ def dist_phase(torch, card: str) -> dict:
     running 14a's step) and 14d (14a's step on (data 1, model 2): the
     first loss within 1e-5 relative of one rank's on the same image, the
     split widths among rank 0's NN launches, the peak per rank below 70%
-    of 14c's).  Returns {path: rank 0's launches}."""
+    of 14c's).  Returns {path: rank 0's launches} and 14d's report (rank
+    0's collectives by tag, every rank's peak; phase 16 predicts them)."""
     import shutil
     import tempfile
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
@@ -5884,7 +5910,7 @@ def dist_phase(torch, card: str) -> dict:
     return {"dist_fsdp": a["launches"], "dist_compressed": b["launches"],
             "dist_nccl": c["launches"], "dist_tp": d["launches"],
             **{f"dist_tp_{arch.split('-')[0]}": launches
-               for arch, launches in split.items()}}
+               for arch, launches in split.items()}}, d
 
 
 #: the model axis's collective tags 14d and 14e report
@@ -6034,6 +6060,213 @@ def examples_phase(torch, dev, kops) -> dict:
     return {"examples": launches}
 
 
+DOTS_LAYERS, DOTS_BATCH, DOTS_STEPS = 24, (8, 256), 3
+#: the widest gap 16a allows between the two policies' gradients, in f32
+#: units in the last place, where they are not bit for bit
+DOTS_ULPS = 4
+#: the band of a predicted peak over the measured one (16b, 16c)
+PEAK_BAND = (0.9, 1.1)
+
+
+def _ulp_gap(torch, a, b) -> int:
+    """The largest gap between two f32 tensors in units in the last place
+    (the IEEE bit patterns mapped onto one ordered integer line)."""
+    def ordered(t):
+        i = t.detach().contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def _peak_ratio(what: str, predicted: int, measured: int) -> float:
+    ratio = predicted / measured
+    if not PEAK_BAND[0] <= ratio <= PEAK_BAND[1]:
+        raise AssertionError(f"{what}: predicted peak {predicted} B over the "
+                             f"measured {measured} B is {ratio:.4f}, outside "
+                             f"{PEAK_BAND}")
+    return ratio
+
+
+def dots_on_card(torch, dev, wrappers, phase6: dict, card: str) -> dict:
+    """16a: FP32 qwen1.5-0.5b under full remat and ``"dots"`` (losses and
+    the first step's gradients equal, step ms and peaks printed), then one
+    int8 step of phase 6's run under ``"dots"``, whose launches equal
+    phase 6's a step.  Returns those launches."""
+    import dataclasses
+    from repro_torch import utils
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as lt
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt_lib, trainer
+    from repro_torch.train.finetune import to_device
+    B, S = DOTS_BATCH
+    cfg = dataclasses.replace(registry.get_config("qwen1.5-0.5b"),
+                              n_layers=DOTS_LAYERS)
+    fp32 = registry.get_quant("fp32")
+    init = _to(lm.lm_init(torch.Generator(device=dev).manual_seed(0), cfg,
+                          device=dev), "cpu")
+    data = SyntheticLM(DataConfig(batch_size=B, seq_len=S, vocab=cfg.vocab))
+    batches = [to_device(next(data), dev) for _ in range(DOTS_STEPS)]
+    opt_cfg = opt_lib.OptimizerConfig(lr=1e-4, total_steps=DOTS_STEPS)
+    step = trainer.make_train_step(lm.lm_loss, cfg, fp32, opt_cfg)
+    prev = utils.CHECKPOINT_POLICY
+    runs, grads = {}, {}
+    try:
+        for policy in (None, "dots"):
+            utils.CHECKPOINT_POLICY = policy
+            params = _to(init, dev)
+            opt = opt_lib.init(params, opt_cfg)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            losses, ms = [], []
+            for b in batches:
+                t = time.perf_counter()
+                params, opt, m = step(params, opt, b, gen)
+                losses.append(float(m["loss"]))
+                ms.append(1e3 * (time.perf_counter() - t))
+            runs[policy] = dict(losses=losses, ms=ms, base=base,
+                                peak=torch.cuda.max_memory_allocated())
+            del params, opt
+        for policy in (None, "dots"):
+            utils.CHECKPOINT_POLICY = policy
+            gen = torch.Generator(device=dev).manual_seed(1)
+            loss, _, g = trainer.loss_and_grads(lm.lm_loss, _to(init, dev),
+                                                batches[0], cfg, fp32, gen)
+            grads[policy] = (float(loss), opt_lib.tree_leaves(g))
+    finally:
+        utils.CHECKPOINT_POLICY = prev
+    full, dots = runs[None], runs["dots"]
+    gap = max(_ulp_gap(torch, a, b)
+              for a, b in zip(grads[None][1], grads["dots"][1]))
+    if (full["losses"] != dots["losses"] or grads[None][0] != grads["dots"][0]
+            or gap > DOTS_ULPS):
+        raise AssertionError(f"16a: full remat and \"dots\" differ: losses "
+                             f"{full['losses']} / {dots['losses']}, the "
+                             f"gradients by {gap} ulp")
+    del grads
+    for name, r in (("full remat", full), ('"dots"', dots)):
+        print(f"  [{card}] FP32 {name}: losses {r['losses']}; step ms "
+              f"{[round(v, 2) for v in r['ms']]}, median "
+              f"{statistics.median(r['ms']):.2f} ms; peak "
+              f"{r['peak'] / 2**30:.3f} GiB ("
+              f"{(r['peak'] - r['base']) / 2**30:.3f} above the "
+              f"{r['base'] / 2**30:.3f} GiB of parameters and moments)")
+    print(f"  [{card}] 16a: losses equal; the first step's gradients "
+          + ("bit for bit" if gap == 0 else f"within {gap} ulp (band "
+             f"{DOTS_ULPS})") + f"; \"dots\" peak / full remat's "
+          f"{dots['peak'] / full['peak']:.4f}", flush=True)
+
+    run = lt.build(lt.parse_args(phase6["argv"] + ["--quant", "int8"]))
+    for w in wrappers.values():
+        w.launches = 0
+    utils.CHECKPOINT_POLICY = "dots"
+    try:
+        run.step()
+    finally:
+        utils.CHECKPOINT_POLICY = prev
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    if launches != phase6["step_launches"]:
+        raise AssertionError(f"16a: int8 under \"dots\" launched "
+                             f"{launches}, phase 6 a step "
+                             f"{phase6['step_launches']}")
+    print(f"  [{card}] int8 step under \"dots\": launches {launches}, equal "
+          "to phase 6's a step", flush=True)
+    return launches
+
+
+def dry_phase6(phase6: dict, card: str) -> None:
+    """16b: the dry-run of phase 6's step on a one-rank dry mesh: its calls
+    by wrapper equal phase 6's launches a step, its predicted peak over
+    the bytes phase 6 allocated at its peak in ``PEAK_BAND``."""
+    from repro_torch import sharding
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.train import optimizer as opt_lib
+    rec = dryrun.run_cell(
+        "qwen1.5-0.5b", "train_4k",
+        sharding.dry_mesh((1, 1), ("data", "model")), "1x1",
+        registry.get_quant("int8"), None,
+        cfg=registry.get_config("qwen1.5-0.5b"), batch=(8, 256),
+        opt_cfg=opt_lib.OptimizerConfig(lr=1e-4, total_steps=6))
+    if rec["status"] != "ok":
+        raise AssertionError(f"16b: the dry-run failed: {rec}")
+    if rec["launches"] != phase6["step_launches"]:
+        raise AssertionError(f"16b: predicted calls {rec['launches']}, "
+                             f"phase 6 launched {phase6['step_launches']}")
+    mem = rec["memory"]
+    pred = mem["argument_bytes_per_device"] + mem["temp_bytes_per_device"]
+    own = phase6["peak_bytes"] - phase6["base_bytes"]
+    ratio = _peak_ratio("16b", pred, own)
+    print(f"  [{card}] 16b: phase 6's step traced on meta in "
+          f"{rec['trace_s']} s: calls equal phase 6's launches a step; "
+          f"predicted peak {pred / 2**30:.4f} GiB (arguments "
+          f"{mem['argument_bytes_per_device'] / 2**30:.4f} + temp "
+          f"{mem['temp_bytes_per_device'] / 2**30:.4f}); phase 6 allocated "
+          f"{own / 2**30:.4f} GiB at its peak (max_memory_allocated "
+          f"{phase6['peak_bytes'] / 2**30:.4f} less the "
+          f"{phase6['base_bytes'] / 2**30:.4f} allocated before it): "
+          f"ratio {ratio:.4f}; predicted flops {rec['cost']['flops']:.4e}",
+          flush=True)
+
+
+def dry_14d(d14: dict, card: str) -> None:
+    """16c: the dry-run of 14d's step for rank 0 of (data 1, model 2): its
+    collectives by tag equal 14d's rank 0's a step, calls and bytes, and
+    its predicted peak over 14d's rank-0 peak lies in ``PEAK_BAND``."""
+    from repro_torch import sharding
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.train import optimizer as opt_lib
+    rec = dryrun.run_cell(
+        "qwen1.5-0.5b", "train_4k",
+        sharding.dry_mesh((1, 2), ("data", "model"), rank=0), "1x2",
+        registry.get_quant("int8"), None, "q_gather", cfg=_dist_config(),
+        batch=DIST_BATCH, opt_cfg=opt_lib.OptimizerConfig(
+            lr=1e-4, state_bits=8, total_steps=DIST_STEPS), fsdp=True)
+    if rec["status"] != "ok":
+        raise AssertionError(f"16c: the dry-run failed: {rec}")
+    pred_tags = {t: [float(v["calls"]), float(v["bytes"])]
+                 for t, v in rec["collectives"]["by_tag"].items()}
+    seen = {t: [float(c), float(b)] for t, (c, b) in d14["stats"].items()}
+    if pred_tags != seen:
+        diff = {t: (pred_tags.get(t), seen.get(t))
+                for t in set(pred_tags) | set(seen)
+                if pred_tags.get(t) != seen.get(t)}
+        raise AssertionError(f"16c: predicted collectives differ from 14d's "
+                             f"rank 0 (predicted, measured): {diff}")
+    mem = rec["memory"]
+    pred = mem["argument_bytes_per_device"] + mem["temp_bytes_per_device"]
+    ratio = _peak_ratio("16c", pred, d14["peak_bytes"][0])
+    print(f"  [{card}] 16c: 14d's rank 0 traced on meta in {rec['trace_s']} "
+          f"s: its {sum(c for c, _ in pred_tags.values()):.0f} collectives "
+          f"a step equal 14d's rank 0's tag for tag, calls and bytes; "
+          f"predicted peak {pred / 2**30:.4f} GiB (arguments "
+          f"{mem['argument_bytes_per_device'] / 2**30:.4f} + temp "
+          f"{mem['temp_bytes_per_device'] / 2**30:.4f}); 14d's rank 0 "
+          f"peaked at {d14['peak_bytes'][0] / 2**30:.4f} GiB with "
+          f"{d14['base_bytes'] / 2**30:.4f} allocated before its steps: "
+          f"ratio {ratio:.4f}", flush=True)
+
+
+def dots_phase(torch, dev, wrappers, phase6: dict, d14: dict,
+               card: str) -> dict:
+    """Phase 16 (the module docstring): 16a the ``"dots"`` policy on the
+    card, 16b and 16c the dry-run's predictions of phase 6's step and of
+    14d's rank 0 against what those phases measured.  Returns the int8
+    ``"dots"`` step's launches."""
+    t0 = time.perf_counter()
+    launches = dots_on_card(torch, dev, wrappers, phase6, card)
+    gc.collect()
+    dry_phase6(phase6, card)
+    dry_14d(d14, card)
+    print(f"[16] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"train_dots_int8": launches}
+
+
 def _to(tree, device):
     """A copy of the tree on ``device`` (a copy on the CPU too: a training
     step updates its parameters in place)."""
@@ -6166,7 +6399,7 @@ def main() -> int:
         torch, dev, kops.wrappers(*paper), kops.wrappers(*paper, *attn))
     print("[6] train qwen1.5-0.5b, full width, int8, batch 8 x seq 256, "
           "through launch.train" + at(), flush=True)
-    tr_launches = train_phase(torch, dev, kops.wrappers(*lm_train))
+    tr_launches, phase6 = train_phase(torch, dev, kops.wrappers(*lm_train))
     print("[6b] kept_ops=\"integer\" at full width beside int8: bert-base "
           "cls (batch 32 x seq 128, 10 steps) and qwen1.5-0.5b training "
           "(batch 8 x seq 256, 6 steps)" + at(), flush=True)
@@ -6251,7 +6484,7 @@ def main() -> int:
           "gather, int8 moments, the compressed cross-pod mean, NCCL"
           + at(), flush=True)
     t14 = time.perf_counter()
-    dist_launches = dist_phase(torch, card)
+    dist_launches, d14 = dist_phase(torch, card)
     print(f"[14] phase took {time.perf_counter() - t14:.1f} s" + at(),
           flush=True)
     gc.collect()
@@ -6260,6 +6493,13 @@ def main() -> int:
           "serving, the layer-sensitivity sweep) and the paper's Fig. 1"
           + at(), flush=True)
     example_launches = examples_phase(torch, dev, kops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[16] the \"dots\" checkpoint policy (qwen1.5-0.5b FP32 and int8) "
+          "and the dry-run's predictions of phase 6's step and 14d's rank 0"
+          + at(), flush=True)
+    dots_launches = dots_phase(torch, dev, kops.wrappers(*lm_train), phase6,
+                               d14, card)
     for k in kernels:
         by_path = {"serve": launches.get(k["name"], 0),
                    "finetune": ft_launches.get(k["name"], 0),
@@ -6282,7 +6522,9 @@ def main() -> int:
                    **{path: ls.get(k["name"], 0)
                       for path, ls in dist_launches.items()},
                    **{path: ls.get(k["name"], 0)
-                      for path, ls in example_launches.items()}}
+                      for path, ls in example_launches.items()},
+                   **{path: ls.get(k["name"], 0)
+                      for path, ls in dots_launches.items()}}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         if "int_ms" in k:        # the kept-int paths run its integer body

@@ -754,8 +754,9 @@ class _IntEmbedding(torch.autograd.Function):
                          device=g.device)
         ids, gq = ids.reshape(-1), gq.reshape(-1, D)
         if inside is not None:
-            keep = inside.reshape(-1)
-            ids, gq = ids[keep], gq[keep]
+            # an id outside the shard (clamped into it) adds +0.0: the sums
+            # are those of the ids inside, and no shape depends on the data
+            gq = torch.where(inside.reshape(-1, 1), gq, 0.0)
         dt.index_add_(0, ids, gq)
         return dt, None, None, None, None
 

@@ -10,9 +10,16 @@ memory, spills) is kept beside it in ``build/``.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without ``nvcc``.
+
+A wrapper given ``meta`` tensors (the dry-run, ``launch/dryrun.py``) takes
+the shape-only path: it allocates on ``meta`` the outputs and any
+workspace its CUDA launch allocates, launches nothing, and counts the call
+and its integer products' flops in ``DRY_CALLS`` / ``DRY_FLOPS`` (a CUDA
+launch counts in the wrapper's ``.launches``).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -152,3 +159,44 @@ def stream_of(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
 
+
+
+#: wrapper name -> calls on meta tensors (the shape-only path)
+DRY_CALLS: collections.Counter = collections.Counter()
+#: wrapper name -> the integer products' flops of those calls: 2 x output
+#: elements x contraction a product, once whatever its limb count
+DRY_FLOPS: collections.Counter = collections.Counter()
+
+
+def reset_dry() -> None:
+    DRY_CALLS.clear()
+    DRY_FLOPS.clear()
+
+
+def launcher(t) -> tuple:
+    """``(library, stream)`` of a launch on ``t``'s device, or ``(None,
+    0)`` for a meta tensor: the shape-only path, whose launch functions
+    allocate what the launch would and call nothing."""
+    if t.device.type == "meta":
+        return None, 0
+    return load(), stream_of(t)
+
+
+def counted(wrapper, t, flops: int = 0) -> None:
+    """Count one call of ``wrapper`` on ``t``'s device: a CUDA launch in
+    ``wrapper.launches``, a meta call in ``DRY_CALLS`` / ``DRY_FLOPS``."""
+    if t.device.type == "meta":
+        DRY_CALLS[wrapper.__name__] += 1
+        DRY_FLOPS[wrapper.__name__] += int(flops)
+    else:
+        wrapper.launches += 1
+
+
+def device_kind(name: str, *ts) -> str:
+    """``"cpu"`` (the plain version runs), ``"cuda"`` or ``"meta"`` for
+    tensors that share one device; any other device, or a mix, raises."""
+    devs = {t.device for t in ts}
+    kind = next(iter(devs)).type
+    if len(devs) != 1 or kind not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{name}: unsupported devices {devs}")
+    return kind

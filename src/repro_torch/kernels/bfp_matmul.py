@@ -75,9 +75,12 @@ def _launch(lib, a: torch.Tensor, b: torch.Tensor, out_exp: torch.Tensor,
     """out (M, N) = A (M, K) · B (K, N), A and B stored as ``layout`` says
     (see ``bfp_matmul_launch``); with ``E`` experts out (E, M, N), out[e] =
     A[e] · B[e] at exponent ``out_exp[e]`` over plane-major (L, E, ...)
-    operands.  Allocates the output."""
+    operands.  Allocates the output (``lib`` None: only that,
+    ``_lib.launcher``)."""
     out = torch.empty((E, M, N) if E else (M, N), dtype=torch.float32,
                       device=a.device)
+    if lib is None:                  # meta: the shape-only path
+        return out
     err = lib.bfp_matmul_launch(a.data_ptr(), b.data_ptr(),
                                 out_exp.data_ptr(), out.data_ptr(), M, N, K,
                                 max(E, 1), a.shape[0], b.shape[0], layout,
@@ -87,7 +90,8 @@ def _launch(lib, a: torch.Tensor, b: torch.Tensor, out_exp: torch.Tensor,
 
 
 def _check(name: str, a: torch.Tensor, b: torch.Tensor, contract: tuple):
-    """Shared argument checks; True when the plain version should run."""
+    """Shared argument checks; True when the plain version should run (CPU
+    tensors; CUDA launches the kernel, meta takes the shape-only path)."""
     if a.dim() != 3 or b.dim() != 3 or (a.shape[contract[0]]
                                         != b.shape[contract[1]]):
         raise ValueError(f"{name} shapes {tuple(a.shape)} x "
@@ -96,12 +100,7 @@ def _check(name: str, a: torch.Tensor, b: torch.Tensor, contract: tuple):
         raise TypeError(f"{name} takes int8 limb planes")
     if not (1 <= a.shape[0] <= 3 and 1 <= b.shape[0] <= 3):
         raise ValueError(f"{name} supports 1..3 limb planes per operand")
-    if a.device.type == "cpu":
-        return True
-    if a.device.type != "cuda" or b.device != a.device:
-        raise ValueError(f"{name}: unsupported devices {a.device}, "
-                         f"{b.device}")
-    return False
+    return _lib.device_kind(name, a, b) == "cpu"
 
 
 def _exp(out_exp: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -123,10 +122,11 @@ def bfp_matmul(xm: torch.Tensor, wm: torch.Tensor,
     kmajor = _w_kmajor(wm)
     if not kmajor:
         wm = wm.contiguous()
-    out = _launch(_lib.load(), xm, wm, _exp(out_exp, xm), xm.shape[1],
-                  wm.shape[2], xm.shape[2], _B_KMAJOR if kmajor else _NN,
-                  _lib.stream_of(xm))
-    bfp_matmul.launches += 1
+    lib, stream = _lib.launcher(xm)
+    M, K, N = xm.shape[1], xm.shape[2], wm.shape[2]
+    out = _launch(lib, xm, wm, _exp(out_exp, xm), M, N, K,
+                  _B_KMAJOR if kmajor else _NN, stream)
+    _lib.counted(bfp_matmul, xm, 2 * M * N * K)
     return out
 
 
@@ -142,9 +142,11 @@ def bfp_matmul_nt(gm: torch.Tensor, wm: torch.Tensor,
     if _check("bfp_matmul_nt", gm, wm, (2, 2)):
         return bfp_matmul_nt_plain(gm, wm, out_exp)
     gm, wm = gm.contiguous(), wm.contiguous()
-    out = _launch(_lib.load(), gm, wm, _exp(out_exp, gm), gm.shape[1],
-                  wm.shape[1], gm.shape[2], _B_KMAJOR, _lib.stream_of(gm))
-    bfp_matmul_nt.launches += 1
+    lib, stream = _lib.launcher(gm)
+    M, K, N = gm.shape[1], wm.shape[1], gm.shape[2]
+    out = _launch(lib, gm, wm, _exp(out_exp, gm), M, K, N, _B_KMAJOR,
+                  stream)
+    _lib.counted(bfp_matmul_nt, gm, 2 * M * N * K)
     return out
 
 
@@ -160,9 +162,10 @@ def bfp_matmul_tn(xm: torch.Tensor, gm: torch.Tensor,
     if _check("bfp_matmul_tn", xm, gm, (1, 1)):
         return bfp_matmul_tn_plain(xm, gm, out_exp)
     xm, gm = xm.contiguous(), gm.contiguous()
-    out = _launch(_lib.load(), xm, gm, _exp(out_exp, xm), xm.shape[2],
-                  gm.shape[2], xm.shape[1], _TN, _lib.stream_of(xm))
-    bfp_matmul_tn.launches += 1
+    lib, stream = _lib.launcher(xm)
+    M, K, N = xm.shape[1], xm.shape[2], gm.shape[2]
+    out = _launch(lib, xm, gm, _exp(out_exp, xm), K, N, M, _TN, stream)
+    _lib.counted(bfp_matmul_tn, xm, 2 * M * N * K)
     return out
 
 
@@ -216,20 +219,19 @@ def _check_batched(name: str, a: torch.Tensor, b: torch.Tensor,
         raise TypeError(f"{name} takes int8 limb planes")
     if not (1 <= a.shape[0] <= 3 and 1 <= b.shape[0] <= 3):
         raise ValueError(f"{name} supports 1..3 limb planes per operand")
-    if a.device.type == "cpu":
-        return True
-    if a.device.type != "cuda" or b.device != a.device:
-        raise ValueError(f"{name}: unsupported devices {a.device}, "
-                         f"{b.device}")
-    return False
+    return _lib.device_kind(name, a, b) == "cpu"
 
 
-def _launch_batched(a: torch.Tensor, b: torch.Tensor, out_exp: torch.Tensor,
-                    M: int, N: int, K: int, layout: int) -> torch.Tensor:
+def _launch_batched(wrapper, a: torch.Tensor, b: torch.Tensor,
+                    out_exp: torch.Tensor, M: int, N: int, K: int,
+                    layout: int) -> torch.Tensor:
     a, b = a.contiguous(), b.contiguous()
     exp = out_exp.to(device=a.device, dtype=torch.int32).reshape(-1)
-    return _launch(_lib.load(), a, b, exp.contiguous(), M, N, K, layout,
-                   _lib.stream_of(a), E=a.shape[1])
+    lib, stream = _lib.launcher(a)
+    out = _launch(lib, a, b, exp.contiguous(), M, N, K, layout, stream,
+                  E=a.shape[1])
+    _lib.counted(wrapper, a, 2 * a.shape[1] * M * N * K)
+    return out
 
 
 def bfp_matmul_batched(xm: torch.Tensor, wm: torch.Tensor,
@@ -242,10 +244,8 @@ def bfp_matmul_batched(xm: torch.Tensor, wm: torch.Tensor,
     for CPU tensors."""
     if _check_batched("bfp_matmul_batched", xm, wm, (3, 2), out_exp):
         return bfp_matmul_batched_plain(xm, wm, out_exp)
-    out = _launch_batched(xm, wm, out_exp, xm.shape[2], wm.shape[3],
-                          xm.shape[3], _NN)
-    bfp_matmul_batched.launches += 1
-    return out
+    return _launch_batched(bfp_matmul_batched, xm, wm, out_exp, xm.shape[2],
+                           wm.shape[3], xm.shape[3], _NN)
 
 
 def bfp_matmul_batched_nt(gm: torch.Tensor, wm: torch.Tensor,
@@ -258,10 +258,8 @@ def bfp_matmul_batched_nt(gm: torch.Tensor, wm: torch.Tensor,
     staged as it is).  out_exp: (E,) g_exp + w_exp."""
     if _check_batched("bfp_matmul_batched_nt", gm, wm, (3, 3), out_exp):
         return bfp_matmul_batched_nt_plain(gm, wm, out_exp)
-    out = _launch_batched(gm, wm, out_exp, gm.shape[2], wm.shape[2],
-                          gm.shape[3], _B_KMAJOR)
-    bfp_matmul_batched_nt.launches += 1
-    return out
+    return _launch_batched(bfp_matmul_batched_nt, gm, wm, out_exp,
+                           gm.shape[2], wm.shape[2], gm.shape[3], _B_KMAJOR)
 
 
 def bfp_matmul_batched_tn(xm: torch.Tensor, gm: torch.Tensor,
@@ -274,10 +272,8 @@ def bfp_matmul_batched_tn(xm: torch.Tensor, gm: torch.Tensor,
     g_exp."""
     if _check_batched("bfp_matmul_batched_tn", xm, gm, (2, 2), out_exp):
         return bfp_matmul_batched_tn_plain(xm, gm, out_exp)
-    out = _launch_batched(xm, gm, out_exp, xm.shape[3], gm.shape[3],
-                          xm.shape[2], _TN)
-    bfp_matmul_batched_tn.launches += 1
-    return out
+    return _launch_batched(bfp_matmul_batched_tn, xm, gm, out_exp,
+                           xm.shape[3], gm.shape[3], xm.shape[2], _TN)
 
 
 bfp_matmul_batched.launches = 0

@@ -69,7 +69,7 @@ def _launch(lib, x: torch.Tensor, exp: torch.Tensor, bits: int,
             u: torch.Tensor | None, limb_planes: bool, stream: int):
     """Launch the kernel on a contiguous f32 ``x`` whose ``exp.numel()``
     leading slices take one exponent each (one for the per-tensor form);
-    allocates the output."""
+    allocates the output (``lib`` None: only that, ``_lib.launcher``)."""
     if limb_planes:
         out = torch.empty((n_limbs(bits),) + tuple(x.shape), dtype=torch.int8,
                           device=x.device)
@@ -78,6 +78,8 @@ def _launch(lib, x: torch.Tensor, exp: torch.Tensor, bits: int,
         out = torch.empty(x.shape, dtype=storage_dtype(bits), device=x.device)
         kind = {torch.int8: 0, torch.int16: 1, torch.int32: 2}[out.dtype]
     groups = exp.numel()
+    if lib is None:                  # meta: the shape-only path
+        return out
     err = lib.dfx_quantize_launch(
         x.data_ptr(), exp.data_ptr(), u.data_ptr() if u is not None else None,
         out.data_ptr(), groups, x.numel() // groups, bits, kind,
@@ -94,11 +96,9 @@ def dfx_quantize(x: torch.Tensor, exp: torch.Tensor, *, bits: int,
     mantissa, or with ``limb_planes`` the ``(L,) + x.shape`` int8 planes."""
     if not 1 <= bits <= 24:
         raise ValueError(f"bits={bits} outside [1, 24]")
-    if x.device.type == "cpu":
+    if _lib.device_kind("dfx_quantize", x) == "cpu":
         return dfx_quantize_plain(x, exp, bits=bits, u=u,
                                   limb_planes=limb_planes)
-    if x.device.type != "cuda":
-        raise ValueError(f"dfx_quantize: unsupported device {x.device}")
     if x.dtype != torch.float32:
         raise TypeError(f"dfx_quantize takes float32, got {x.dtype}")
     exp = exp.to(device=x.device, dtype=torch.int32).reshape(())
@@ -109,9 +109,9 @@ def dfx_quantize(x: torch.Tensor, exp: torch.Tensor, *, bits: int,
     x = x.contiguous()
     if u is not None:
         u = u.contiguous()
-    out = _launch(_lib.load(), x, exp, bits, u, limb_planes,
-                  _lib.stream_of(x))
-    dfx_quantize.launches += 1
+    lib, stream = _lib.launcher(x)
+    out = _launch(lib, x, exp, bits, u, limb_planes, stream)
+    _lib.counted(dfx_quantize, x)
     return out
 
 
@@ -143,12 +143,9 @@ def dfx_quantize_grouped(x: torch.Tensor, exp: torch.Tensor, *, bits: int,
                          f"{tuple(exp.shape)}")
     if u is not None and u.shape != x.shape:
         raise ValueError("u must have x's shape")
-    if x.device.type == "cpu":
+    if _lib.device_kind("dfx_quantize_grouped", x) == "cpu":
         return dfx_quantize_grouped_plain(x, exp, bits=bits, u=u,
                                           limb_planes=limb_planes)
-    if x.device.type != "cuda":
-        raise ValueError(f"dfx_quantize_grouped: unsupported device "
-                         f"{x.device}")
     if x.dtype != torch.float32 or (u is not None
                                     and u.dtype != torch.float32):
         raise TypeError("dfx_quantize_grouped takes float32 x and u")
@@ -156,9 +153,9 @@ def dfx_quantize_grouped(x: torch.Tensor, exp: torch.Tensor, *, bits: int,
     x = x.contiguous()
     if u is not None:
         u = u.to(x.device).contiguous()
-    out = _launch(_lib.load(), x, exp.contiguous(), bits, u, limb_planes,
-                  _lib.stream_of(x))
-    dfx_quantize_grouped.launches += 1
+    lib, stream = _lib.launcher(x)
+    out = _launch(lib, x, exp.contiguous(), bits, u, limb_planes, stream)
+    _lib.counted(dfx_quantize_grouped, x)
     return out
 
 

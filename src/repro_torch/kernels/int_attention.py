@@ -184,14 +184,16 @@ def _launch(lib, qm, km, vm, q_off, exps, p_bits, causal, window, sc,
     Sk = km.shape[2]
     o = torch.empty((B, Sq, KV, G, hd), dtype=torch.float32, device=qm.device)
     lse = torch.empty((B, KV, G, Sq), dtype=torch.float32, device=qm.device)
-    err = lib.int_attn_fwd_launch(
-        qm.data_ptr(), km.data_ptr(), vm.data_ptr(), q_off.data_ptr(),
-        exps.data_ptr(), o.data_ptr(), lse.data_ptr(), B, Sq, Sk, KV, G, hd,
-        Lq, vm.shape[0], p_bits, int(causal),
-        -1 if window is None else int(window), float(sc), int(integer_exp),
-        stream)
-    _lib.check(err, "int_attn_fwd")
-    int_attn_fwd.launches += 1
+    if lib is not None:              # meta: the shape-only path
+        err = lib.int_attn_fwd_launch(
+            qm.data_ptr(), km.data_ptr(), vm.data_ptr(), q_off.data_ptr(),
+            exps.data_ptr(), o.data_ptr(), lse.data_ptr(), B, Sq, Sk, KV, G,
+            hd, Lq, vm.shape[0], p_bits, int(causal),
+            -1 if window is None else int(window), float(sc),
+            int(integer_exp), stream)
+        _lib.check(err, "int_attn_fwd")
+    # S = QKᵀ and PV: 2 x (B KV G Sq Sk) x hd each
+    _lib.counted(int_attn_fwd, qm, 4 * B * KV * G * Sq * Sk * hd)
     return o, lse
 
 
@@ -212,18 +214,17 @@ def int_attn_fwd(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
                          "n_limbs(p_bits)")
     if not (1 <= Lq <= 3 and 1 <= vm.shape[0] <= 3):
         raise ValueError("int_attn_fwd supports 1..3 limb planes")
-    if qm.device.type == "cpu":
+    if _lib.device_kind("int_attn_fwd", qm, km, vm) == "cpu":
         return int_attn_fwd_plain(qm, km, vm, q_off, exps, p_bits=p_bits,
                                   causal=causal, window=window, sc=sc,
                                   integer_exp=integer_exp)
-    if qm.device.type != "cuda":
-        raise ValueError(f"int_attn_fwd: unsupported device {qm.device}")
     dev = qm.device
     q_off = q_off.to(device=dev, dtype=torch.int32).contiguous()
     exps = exps.to(device=dev, dtype=torch.int32).contiguous()
-    return _launch(_lib.load(), qm.contiguous(), km.contiguous(),
-                   vm.contiguous(), q_off, exps, p_bits, causal, window, sc,
-                   integer_exp, _lib.stream_of(qm))
+    lib, stream = _lib.launcher(qm)
+    return _launch(lib, qm.contiguous(), km.contiguous(), vm.contiguous(),
+                   q_off, exps, p_bits, causal, window, sc, integer_exp,
+                   stream)
 
 
 int_attn_fwd.launches = 0
@@ -325,12 +326,7 @@ def _check_bwd(name, qm, km, vm, gm, lse, delta, p_bits, ds_bits):
     for t in (qm, km, vm, gm):
         if t.dtype != torch.int8:
             raise TypeError(f"{name} takes int8 limb planes, got {t.dtype}")
-    devs = {t.device for t in (qm, km, vm, gm, lse, delta)}
-    if len(devs) != 1:
-        raise ValueError(f"{name}: tensors on several devices {devs}")
-    if qm.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {qm.device}")
-    return qm.device.type == "cpu"
+    return _lib.device_kind(name, qm, km, vm, gm, lse, delta) == "cpu"
 
 
 def _bwd_args(qm, km, vm, gm, lse, delta, q_off, exps):
@@ -346,15 +342,17 @@ def _launch_dq(lib, q, k, v, g, lse, delta, off, exps, ds_bits, causal,
                window, sc, integer_exp, stream):
     Lq, B, Sq, KV, G, hd = q.shape
     dq = torch.empty((B, Sq, KV, G, hd), dtype=torch.float32, device=q.device)
-    err = lib.int_attn_bwd_dq_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), off.data_ptr(), exps.data_ptr(),
-        dq.data_ptr(), B, Sq, k.shape[2], KV, G, hd, Lq, v.shape[0],
-        g.shape[0], n_limbs(ds_bits), ds_bits, int(causal),
-        -1 if window is None else int(window), float(sc), int(integer_exp),
-        stream)
-    _lib.check(err, "int_attn_bwd_dq")
-    int_attn_bwd_dq.launches += 1
+    if lib is not None:              # meta: the shape-only path
+        err = lib.int_attn_bwd_dq_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), off.data_ptr(),
+            exps.data_ptr(), dq.data_ptr(), B, Sq, k.shape[2], KV, G, hd, Lq,
+            v.shape[0], g.shape[0], n_limbs(ds_bits), ds_bits, int(causal),
+            -1 if window is None else int(window), float(sc),
+            int(integer_exp), stream)
+        _lib.check(err, "int_attn_bwd_dq")
+    # S = QKᵀ again, dP = dO Vᵀ and dQ = dS K: 2 x (B KV G Sq Sk) x hd each
+    _lib.counted(int_attn_bwd_dq, q, 6 * B * KV * G * Sq * k.shape[2] * hd)
     return dq
 
 
@@ -364,15 +362,18 @@ def _launch_dkv(lib, q, k, v, g, lse, delta, off, exps, p_bits, ds_bits,
     Sk = k.shape[2]
     dk = torch.empty((B, Sk, KV, hd), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
-    err = lib.int_attn_bwd_dkv_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), off.data_ptr(), exps.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, KV, G, hd, Lq, v.shape[0],
-        g.shape[0], n_limbs(ds_bits), p_bits, ds_bits, q_block(Sq),
-        int(causal), -1 if window is None else int(window), float(sc),
-        int(integer_exp), stream)
-    _lib.check(err, "int_attn_bwd_dkv")
-    int_attn_bwd_dkv.launches += 1
+    if lib is not None:              # meta: the shape-only path
+        err = lib.int_attn_bwd_dkv_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), off.data_ptr(),
+            exps.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, KV, G,
+            hd, Lq, v.shape[0], g.shape[0], n_limbs(ds_bits), p_bits,
+            ds_bits, q_block(Sq), int(causal),
+            -1 if window is None else int(window), float(sc),
+            int(integer_exp), stream)
+        _lib.check(err, "int_attn_bwd_dkv")
+    # S, dP, dV = Pᵀ dO and dK = dSᵀ Q: 2 x (B KV G Sq Sk) x hd each
+    _lib.counted(int_attn_bwd_dkv, q, 8 * B * KV * G * Sq * Sk * hd)
     return dk, dv
 
 
@@ -392,9 +393,10 @@ def int_attn_bwd_dq(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
                                      exps, ds_bits=ds_bits, causal=causal,
                                      window=window, sc=sc,
                                      integer_exp=integer_exp)
-    return _launch_dq(_lib.load(), *_bwd_args(qm, km, vm, gm, lse, delta,
-                                              q_off, exps), ds_bits, causal,
-                      window, sc, integer_exp, _lib.stream_of(qm))
+    lib, stream = _lib.launcher(qm)
+    return _launch_dq(lib, *_bwd_args(qm, km, vm, gm, lse, delta, q_off,
+                                      exps), ds_bits, causal, window, sc,
+                      integer_exp, stream)
 
 
 def int_attn_bwd_dkv(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
@@ -411,9 +413,10 @@ def int_attn_bwd_dkv(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
                                       exps, p_bits=p_bits, ds_bits=ds_bits,
                                       causal=causal, window=window, sc=sc,
                                       integer_exp=integer_exp)
-    return _launch_dkv(_lib.load(), *_bwd_args(qm, km, vm, gm, lse, delta,
-                                               q_off, exps), p_bits, ds_bits,
-                       causal, window, sc, integer_exp, _lib.stream_of(qm))
+    lib, stream = _lib.launcher(qm)
+    return _launch_dkv(lib, *_bwd_args(qm, km, vm, gm, lse, delta, q_off,
+                                       exps), p_bits, ds_bits, causal, window,
+                       sc, integer_exp, stream)
 
 
 int_attn_bwd_dq.launches = 0

@@ -107,6 +107,8 @@ def _launch(lib, xm: torch.Tensor, x_exp: torch.Tensor, gamma: torch.Tensor,
     R, D = xm.shape
     y = torch.empty((R, D), dtype=torch.float32, device=xm.device)
     rstd = torch.empty((R, 1), dtype=torch.float32, device=xm.device)
+    if lib is None:                  # meta: the shape-only path
+        return y, rstd
     wr, gpb, nb = _fwd_plan(xm, (gamma, y), wr)
     err = lib.int_rmsnorm_fwd_launch(xm.data_ptr(), xm.element_size(),
                                      x_exp.data_ptr(), gamma.data_ptr(),
@@ -129,16 +131,15 @@ def int_rmsnorm_fwd(xm: torch.Tensor, x_exp: torch.Tensor,
     if xm.dtype not in (torch.int8, torch.int16):
         raise TypeError(f"int_rmsnorm_fwd takes int8/int16 mantissas, got "
                         f"{xm.dtype}")
-    if xm.device.type == "cpu":
+    if _lib.device_kind("int_rmsnorm_fwd", xm) == "cpu":
         return int_rmsnorm_fwd_plain(xm, x_exp, gamma, eps=eps,
                                      integer_rsqrt=integer_rsqrt)
-    if xm.device.type != "cuda":
-        raise ValueError(f"int_rmsnorm_fwd: unsupported device {xm.device}")
     x_exp = x_exp.to(device=xm.device, dtype=torch.int32).reshape(())
     gamma = gamma.to(device=xm.device, dtype=torch.float32).contiguous()
-    out = _launch(_lib.load(), xm.contiguous(), x_exp, gamma, eps,
-                  integer_rsqrt, _lib.stream_of(xm))
-    int_rmsnorm_fwd.launches += 1
+    lib, stream = _lib.launcher(xm)
+    out = _launch(lib, xm.contiguous(), x_exp, gamma, eps, integer_rsqrt,
+                  stream)
+    _lib.counted(int_rmsnorm_fwd, xm)
     return out
 
 
@@ -146,7 +147,8 @@ int_rmsnorm_fwd.launches = 0
 
 
 def _check_ln(name: str, xm: torch.Tensor, *rows: torch.Tensor) -> bool:
-    """Shared argument checks; True when the plain version should run."""
+    """Shared argument checks; True when the plain version should run (CPU
+    tensors; CUDA launches the kernel, meta takes the shape-only path)."""
     if xm.dim() != 2 or any(r.shape != xm.shape for r in rows):
         raise ValueError(f"{name} shapes {tuple(xm.shape)}, "
                          f"{[tuple(r.shape) for r in rows]}")
@@ -154,11 +156,7 @@ def _check_ln(name: str, xm: torch.Tensor, *rows: torch.Tensor) -> bool:
         if t.dtype not in (torch.int8, torch.int16):
             raise TypeError(f"{name} takes int8/int16 mantissas, got "
                             f"{t.dtype}")
-    if xm.device.type == "cpu":
-        return True
-    if xm.device.type != "cuda" or any(r.device != xm.device for r in rows):
-        raise ValueError(f"{name}: unsupported device {xm.device}")
-    return False
+    return _lib.device_kind(name, xm, *rows) == "cpu"
 
 
 def _vec(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -177,6 +175,8 @@ def _launch_ln_fwd(lib, xm, x_exp, gamma, beta, eps, integer_rsqrt, stream,
     y = torch.empty((R, D), dtype=torch.float32, device=xm.device)
     mu = torch.empty((R, 1), dtype=torch.float32, device=xm.device)
     rstd = torch.empty((R, 1), dtype=torch.float32, device=xm.device)
+    if lib is None:                  # meta: the shape-only path
+        return y, mu, rstd
     wr, gpb, nb = _fwd_plan(xm, (gamma, beta, y), wr)
     err = lib.int_layernorm_fwd_launch(
         xm.data_ptr(), xm.element_size(), x_exp.data_ptr(), gamma.data_ptr(),
@@ -201,10 +201,11 @@ def int_layernorm_fwd(xm: torch.Tensor, x_exp: torch.Tensor,
     if _check_ln("int_layernorm_fwd", xm):
         return int_layernorm_fwd_plain(xm, x_exp, gamma, beta, eps=eps,
                                        integer_rsqrt=integer_rsqrt)
-    out = _launch_ln_fwd(_lib.load(), xm.contiguous(), _exp(x_exp, xm),
+    lib, stream = _lib.launcher(xm)
+    out = _launch_ln_fwd(lib, xm.contiguous(), _exp(x_exp, xm),
                          _vec(gamma, xm), _vec(beta, xm), eps, integer_rsqrt,
-                         _lib.stream_of(xm))
-    int_layernorm_fwd.launches += 1
+                         stream)
+    _lib.counted(int_layernorm_fwd, xm)
     return out
 
 
@@ -216,6 +217,11 @@ def int_layernorm_fwd(xm: torch.Tensor, x_exp: torch.Tensor,
 BWD_WARPS, BWD_VEC, BWD_WARP_COLS, BWD_MAX_WR = 8, 8, 512, 8
 
 _resident: dict = {}
+
+#: co-resident blocks the shape-only (meta) path assumes for the backward's
+#: cooperative grid, which sizes its (blocks, D) partial sums: an H100's
+#: 132 SMs at 4 blocks of 8 warps (the card asks the occupancy API)
+DRY_RESIDENT = 4 * 132
 
 
 def fwd_warps_per_row(D: int, aligned: bool) -> int:
@@ -292,10 +298,10 @@ def _launch_bwd(lib, ln, xm, gm, x_exp, g_exp, gamma, mu, rstd, stream):
     wr = bwd_warps_per_row(D, xp % (BWD_VEC * xb) == 0
                            and gp % (BWD_VEC * gb) == 0 and gap % 16 == 0
                            and dx.data_ptr() % 16 == 0)
-    key = (dev.index, xb, gb, ln, wr > 0)
+    key = (dev, xb, gb, ln, wr > 0)
     if key not in _resident:
-        n = lib.int_norm_bwd_resident(dev.index or 0, xb, gb, int(ln),
-                                      int(wr > 0))
+        n = DRY_RESIDENT if lib is None else lib.int_norm_bwd_resident(
+            dev.index or 0, xb, gb, int(ln), int(wr > 0))
         if n < 1:
             raise RuntimeError(f"int_norm_bwd_resident: {n} co-resident "
                                "blocks (a negative CUDA error)")
@@ -305,6 +311,8 @@ def _launch_bwd(lib, ln, xm, gm, x_exp, g_exp, gamma, mu, rstd, stream):
     if ln:
         dbeta = torch.empty((D,), dtype=torch.float32, device=dev)
         db_part = torch.empty((nb, D), dtype=torch.int32, device=dev)
+        if lib is None:
+            return dx, dgamma, dbeta
         err = lib.int_layernorm_bwd_launch(
             xp, xb, gp, gb, x_exp.data_ptr(), g_exp.data_ptr(), gap,
             mu.data_ptr(), rstd.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
@@ -312,6 +320,8 @@ def _launch_bwd(lib, ln, xm, gm, x_exp, g_exp, gamma, mu, rstd, stream):
             wr, nb, stream)
         _lib.check(err, "int_layernorm_bwd")
         return dx, dgamma, dbeta
+    if lib is None:
+        return dx, dgamma, None
     err = lib.int_rmsnorm_bwd_launch(
         xp, xb, gp, gb, x_exp.data_ptr(), g_exp.data_ptr(), gap,
         rstd.data_ptr(), dx.data_ptr(), dgamma.data_ptr(), dg_part.data_ptr(),
@@ -339,10 +349,11 @@ def int_layernorm_bwd(xm: torch.Tensor, gm: torch.Tensor,
                          "expected")
     if _check_ln("int_layernorm_bwd", xm, gm):
         return int_layernorm_bwd_plain(xm, gm, x_exp, g_exp, gamma, mu, rstd)
-    out = _launch_bwd(_lib.load(), True, xm.contiguous(), gm.contiguous(),
+    lib, stream = _lib.launcher(xm)
+    out = _launch_bwd(lib, True, xm.contiguous(), gm.contiguous(),
                       _exp(x_exp, xm), _exp(g_exp, xm), _vec(gamma, xm),
-                      _vec(mu, xm), _vec(rstd, xm), _lib.stream_of(xm))
-    int_layernorm_bwd.launches += 1
+                      _vec(mu, xm), _vec(rstd, xm), stream)
+    _lib.counted(int_layernorm_bwd, xm)
     return out
 
 
@@ -376,10 +387,11 @@ def int_rmsnorm_bwd(xm: torch.Tensor, gm: torch.Tensor, x_exp: torch.Tensor,
                          "expected")
     if _check_ln("int_rmsnorm_bwd", xm, gm):
         return int_rmsnorm_bwd_plain(xm, gm, x_exp, g_exp, gamma, rstd)
-    out = _launch_bwd(_lib.load(), False, xm.contiguous(), gm.contiguous(),
+    lib, stream = _lib.launcher(xm)
+    out = _launch_bwd(lib, False, xm.contiguous(), gm.contiguous(),
                       _exp(x_exp, xm), _exp(g_exp, xm), _vec(gamma, xm),
-                      None, _vec(rstd, xm), _lib.stream_of(xm))[:2]
-    int_rmsnorm_bwd.launches += 1
+                      None, _vec(rstd, xm), stream)[:2]
+    _lib.counted(int_rmsnorm_bwd, xm)
     return out
 
 

@@ -21,12 +21,16 @@ def production_mesh_shape(*, multi_pod: bool = False
     return (16, 16), ("data", "model")
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> sharding.Mesh:
+def make_production_mesh(*, multi_pod: bool = False, dry: bool = False,
+                         rank: int = 0) -> sharding.Mesh:
     """The production mesh over the world: ``pod`` spans pods, ``data`` is
     the intra-pod data / FSDP axis, ``model`` the tensor-parallel axis
     (innermost).  Its 256 or 512 ranks must all be there: a smaller world
-    raises."""
+    raises.  ``dry``: rank ``rank`` of it without a world
+    (``sharding.dry_mesh``, the dry-run's)."""
     shape, axes = production_mesh_shape(multi_pod=multi_pod)
+    if dry:
+        return sharding.dry_mesh(shape, axes, rank)
     world = dist.get_world_size() if dist.is_initialized() else 1
     n = 1
     for s in shape:

@@ -4,12 +4,13 @@ Counterpart of ``repro/models/config.py`` (pure Python, copied so the port
 imports nothing of the JAX package).  One ``ArchConfig`` fully describes an
 architecture; the files in ``repro_torch/configs/`` instantiate the
 published configs.  ``reduced()`` derives the tiny same-family variant the
-CPU tests run.
+CPU tests run.  ``SHAPES`` is the reference's grid of input shapes, which
+the dry-run (``launch/dryrun.py``) crosses with every arch.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,3 +144,20 @@ class ArchConfig:
         if self.vlm_prefix:
             changes.update(vlm_prefix=8)
         return dataclasses.replace(self, name=self.name + "-smoke", **changes)
+
+
+#: shape grid assigned to the LM family (brief): name -> (seq_len, global_batch, kind)
+SHAPES = {
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: str) -> Tuple[bool, str]:
+    """Skip rules recorded in DESIGN.md §4."""
+    if shape == "long_500k" and not cfg.subquadratic:
+        return False, ("pure full-attention arch: 500k-token decode has no "
+                       "sub-quadratic path (DESIGN.md §4)")
+    return True, ""

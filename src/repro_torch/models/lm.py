@@ -68,7 +68,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.utils.checkpoint
 
-from repro_torch import sharding
+from repro_torch import sharding, utils
 from repro_torch.core import dfx, health, int_ops
 from repro_torch.core.qpolicy import (PolicyScopeError, QuantLike,
                                       ensure_scope, layer_groups)
@@ -280,7 +280,11 @@ def _remat(fn, x: torch.Tensor, key):
     layer: the same noise, the same saved tensors (checkpoint checks their
     count, shapes and dtypes), and ``key`` left where the step without
     remat leaves it.  A callable key hands in noise that cannot be
-    replayed, so its layers run without remat."""
+    replayed, so its layers run without remat.
+
+    What the backward keeps of the layer is ``utils.CHECKPOINT_POLICY``'s:
+    its input (full remat), or under ``"dots"`` also the outputs of its
+    FP32 2-D products, which the recompute then takes as they are."""
     if key is not None and not isinstance(key, torch.Generator):
         return fn(x, key)
     state = key.get_state() if key is not None else None
@@ -292,9 +296,12 @@ def _remat(fn, x: torch.Tensor, key):
                 return fn(x, _replay_key(key, state))
         calls.append(1)
         return fn(x, key)
+    context = utils.checkpoint_context()
+    extra = {} if context is None else {"context_fn": context}
     # the layers draw from ``key`` only, never from the default generators
     return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False,
-                                             preserve_rng_state=False)
+                                             preserve_rng_state=False,
+                                             **extra)
 
 
 def _remat_layer(bp: Params, x: torch.Tensor, cfg: ArchConfig,

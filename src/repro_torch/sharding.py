@@ -39,6 +39,13 @@ the card); under NCCL nothing is staged.  Each call is counted in
 ``STATS`` under a tag, with the bytes of its result, and the largest
 single result by tag in ``LARGEST``.
 
+A dry mesh (``Mesh(shape, names, rank=r, backend="dry")``, no process
+group) is one rank of a mesh without a world, for the dry-run
+(``launch/dryrun.py``): its collectives take ``meta`` tensors (any other
+raises) and return ``meta`` tensors of the shapes a real group returns,
+counted in ``STATS`` / ``LARGEST`` as a real call is; its ``barrier``
+does nothing.
+
 Sequence sharding (``SEQUENCE_SHARDING``, the reference's default): under
 a step that splits its products, the ``(B, S, D)`` residual stream between
 the products is ``(B, S / M, D)`` on each model rank, as the reference's
@@ -74,7 +81,8 @@ class Mesh:
     """Axis names and sizes; with ``groups`` (``init_mesh``) also this
     rank's coordinates and a process group for every subset of the axes.
     Without them (``Mesh(shape, names)``) it only answers sizes, as the
-    partition rules need."""
+    partition rules need; with ``rank`` and ``backend="dry"`` it is that
+    rank of a mesh without a world (``dry_mesh``)."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *,
                  rank: Optional[int] = None,
@@ -116,6 +124,19 @@ class Mesh:
         """The process group of the ranks that differ from this one only
         along ``names``."""
         return self._groups[self.axes(names)]
+
+
+DRY = "dry"
+
+
+def dry_mesh(shape: Sequence[int], axis_names: Sequence[str],
+             rank: int = 0) -> Mesh:
+    """Rank ``rank`` of a ``shape`` mesh with no world: its collectives
+    return ``meta`` tensors of the shapes the group's would (the
+    dry-run)."""
+    if not 0 <= rank < math.prod(shape):
+        raise ValueError(f"rank {rank} outside a {tuple(shape)} mesh")
+    return Mesh(shape, axis_names, rank=rank, backend=DRY)
 
 
 def init_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
@@ -361,18 +382,24 @@ def tensor_parallel(cfg: Any, mesh: Mesh) -> Optional[TensorParallel]:
 STATS: collections.Counter = collections.Counter()
 #: tag -> the bytes of the largest single result under the tag
 LARGEST: collections.Counter = collections.Counter()
+#: (kind, "calls" | "bytes") -> count, as ``STATS`` by the collective's
+#: kind: ``all-reduce``, ``all-gather`` or ``reduce-scatter``
+KINDS: collections.Counter = collections.Counter()
 
 
 def reset_stats() -> None:
     STATS.clear()
     LARGEST.clear()
+    KINDS.clear()
 
 
-def _count(tag: str, t: torch.Tensor) -> None:
+def _count(tag: str, t: torch.Tensor, kind: str) -> None:
     n = t.numel() * t.element_size()
     STATS[(tag, "calls")] += 1
     STATS[(tag, "bytes")] += n
     LARGEST[tag] = max(LARGEST[tag], n)
+    KINDS[(kind, "calls")] += 1
+    KINDS[(kind, "bytes")] += n
 
 
 def _wire(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -391,13 +418,26 @@ def _wire(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
+def _dry(t: torch.Tensor, mesh: Mesh) -> bool:
+    """True on a dry mesh, whose collectives take ``meta`` tensors only."""
+    if mesh.backend != DRY:
+        return False
+    if t.device.type != "meta":
+        raise ValueError(f"a dry mesh's collectives take meta tensors, got "
+                         f"one on {t.device}")
+    return True
+
+
 def all_reduce(t: torch.Tensor, op: str, axes, mesh: Mesh, *,
                tag: str = "all_reduce") -> torch.Tensor:
     """SUM or MAX of ``t`` over the ranks along ``axes`` (a new tensor).
     Ring cost per rank: ``2 (n - 1) / n`` of its bytes sent."""
-    buf = _wire(t, mesh)
-    dist.all_reduce(buf, _OPS[op], group=mesh.group(axes))
-    _count(tag, buf)
+    if _dry(t, mesh):
+        buf = torch.empty_like(t)
+    else:
+        buf = _wire(t, mesh)
+        dist.all_reduce(buf, _OPS[op], group=mesh.group(axes))
+    _count(tag, buf, "all-reduce")
     return buf.to(t.device)
 
 
@@ -406,11 +446,14 @@ def all_gather(t: torch.Tensor, axes, mesh: Mesh, *,
     """``(n, *t.shape)``: every rank's ``t`` along ``axes``, in their
     row-major order.  Ring cost per rank: ``(n - 1)`` times its bytes
     sent."""
-    src = _wire(t, mesh).contiguous()
-    parts = [torch.empty_like(src) for _ in range(mesh.count(axes))]
-    dist.all_gather(parts, src, group=mesh.group(axes))
-    out = torch.stack(parts)
-    _count(tag, out)
+    if _dry(t, mesh):
+        out = t.new_empty((mesh.count(axes),) + tuple(t.shape))
+    else:
+        src = _wire(t, mesh).contiguous()
+        parts = [torch.empty_like(src) for _ in range(mesh.count(axes))]
+        dist.all_gather(parts, src, group=mesh.group(axes))
+        out = torch.stack(parts)
+    _count(tag, out, "all-gather")
     return out.to(t.device)
 
 
@@ -422,16 +465,20 @@ def reduce_scatter(t: torch.Tensor, axes, mesh: Mesh, *,
     the bytes of ``t``, the whole tensor reduced, as ``all_gather`` counts
     its whole result: both send ``(n - 1) / n`` of the counted bytes per
     rank on a ring, an ``all_reduce`` twice that."""
-    src = _wire(t, mesh).contiguous()
-    out = torch.empty_like(src[0])
-    dist.reduce_scatter(out, list(src.unbind(0)), _OPS["sum"],
-                        group=mesh.group(axes))
-    _count(tag, src)
+    if _dry(t, mesh):
+        src, out = t, t.new_empty(tuple(t.shape[1:]))
+    else:
+        src = _wire(t, mesh).contiguous()
+        out = torch.empty_like(src[0])
+        dist.reduce_scatter(out, list(src.unbind(0)), _OPS["sum"],
+                            group=mesh.group(axes))
+    _count(tag, src, "reduce-scatter")
     return out.to(t.device)
 
 
 def barrier(mesh: Mesh) -> None:
-    dist.barrier(group=mesh.group(mesh.axis_names))
+    if mesh.backend != DRY:
+        dist.barrier(group=mesh.group(mesh.axis_names))
 
 
 # ---------------------------------------------------------------------------

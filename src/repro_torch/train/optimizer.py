@@ -152,8 +152,18 @@ def moment_generator(seed: int, step: int, leaf: int, which: str,
     for one leading slice of a stacked leaf."""
     s = np.random.SeedSequence([seed, step, leaf, "mv".index(which)]
                                + ([] if layer is None else [layer]))
+    if torch.device(device).type == "meta":   # no meta generator: the CPU's
+        device = "cpu"
     return torch.Generator(device=device).manual_seed(
         int(s.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+
+
+def _host_step(step: torch.Tensor) -> int:
+    """The step counter's value on the host, which seeds the quantized
+    moments' noise (one read a step).  A meta step (the dry-run's) holds
+    no value: its draws take step 0's seeds, and only their shapes
+    count there."""
+    return 0 if step.device.type == "meta" else int(step)
 
 
 def moment_noise(seed: int, step: int, leaf: int, which: str, device,
@@ -239,7 +249,7 @@ def update(cfg: OptimizerConfig, grads: Any, state: OptState, params: Any,
     bc1 = 1 - torch.pow(torch.tensor(b1, device=sf.device), sf)
     bc2 = 1 - torch.pow(torch.tensor(b2, device=sf.device), sf)
     quantized = any(qtensor.is_qtensor(m) for m in tree_leaves(state.m))
-    at = int(state.step) if quantized else 0      # one read per step
+    at = _host_step(state.step) if quantized else 0
     if quantized and noise is None:
         stacked = [is_stacked(p) for p in tree_paths(params)]
         shapes = [p.shape for p in tree_leaves(params)]

@@ -1031,6 +1031,37 @@ def case_zero_part_exponent(inp, mesh_of):
                 "stack": dfx.slice_exponents(st).tolist()}
 
 
+def case_dry_stats(inp, mesh_of):
+    """The dry-run's reduced qwen1.5-0.5b train cell (``launch/dryrun.py
+    ::build_cell``: int8, ``OptimizerConfig()``, the arch's fsdp) on a real
+    (data 2, model 2) world, sequence-sharded and not: the rank's
+    ``sharding.STATS`` of one step each."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt_lib, trainer
+    mesh = mesh_of((2, 2), ("data", "model"))
+    cfg = registry.get_config("qwen1.5-0.5b").reduced()
+    toks = torch.from_numpy(inp["tokens"])
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    out = {}
+    for mode, on in (("baseline", True), ("no_sp", False)):
+        with _sequence_sharding(on):
+            params, opt, pspecs = trainer.init_train_state(
+                lambda g: lm.lm_init(g, cfg, device="cpu"),
+                torch.Generator().manual_seed(0), mesh,
+                fsdp=registry.use_fsdp("qwen1.5-0.5b"),
+                opt_cfg=opt_lib.OptimizerConfig())
+            step = trainer.jit_train_step(trainer.make_train_step(
+                lm.lm_loss, cfg, registry.get_quant("int8"),
+                opt_lib.OptimizerConfig()), mesh, pspecs)
+            sharding.reset_stats()
+            step(params, opt, batch, torch.Generator().manual_seed(1))
+            out[mode] = dict(sharding.STATS)
+    return out
+
+
 def main(argv) -> int:
     import torch
     import torch.distributed as dist

@@ -25,6 +25,12 @@ and sequence-sharded (``sharding.SEQUENCE_SHARDING``): each layer's input,
 which its remat checkpoint keeps, and one layer's residual, norm input and
 norm output, in the recompute.
 
+These figures are counted by hand from the rules.  The dry-run
+(``python -m repro_torch.launch.dryrun``) runs the step itself for one
+rank on meta tensors and reports what that rank holds at its peak and
+the collectives it runs; ``chip_smoke.py`` phase 16 holds its prediction
+against the card.
+
     PYTHONPATH=src python tools/fsdp_footprint.py
 """
 import functools
