@@ -289,7 +289,20 @@ Phases (each raises on failure; nothing is caught):
    dry-run of 14d's step for rank 0 of (data 1, model 2): its collectives
    by tag (calls and bytes) equal 14d's rank 0's a step, and its
    predicted peak over 14d's rank-0 peak lies in [0.9, 1.1].
-17. Print the ``{"kernels": [...]}`` line, then the last line
+17. quantlint on the card (``lint_phase``): the recorder
+   (``analysis/walker.py``) over one bert-base int8 cls step (phase 5's
+   task set-up, batch 32 x seq 128) and one qwen1.5-0.5b int8 step of
+   phase 6's run, each under ``record_resolutions``: the recorder's
+   kernel events by wrapper equal the wrappers' ``.launches`` over the
+   step (qwen's equal phase 6's launches a step), every kernel event
+   holds the ops of its body (the backward's too, which the autograd
+   engine runs on its own thread), and ``run_rules`` finds nothing; then
+   ``check_kept_ops`` over bert-base's inference forward under int8 +
+   ``kept_ops="integer"`` (phase 6b's config) finds nothing; each step's
+   wall with and without the recorder is printed.  Then ``python -m
+   repro_torch.analysis.lint --config bert_base --preset int8 --device
+   cuda`` must exit 0.
+18. Print the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available or when
@@ -6267,6 +6280,138 @@ def dots_phase(torch, dev, wrappers, phase6: dict, d14: dict,
     return {"train_dots_int8": launches}
 
 
+def _lint_step(torch, kops, what: str, step, card: str) -> tuple:
+    """One step under the recorder and ``record_resolutions`` (17a / 17b):
+    its kernel events by wrapper equal the wrappers' launches over the
+    step, every kernel event holds its body's ops, and the rules find
+    nothing.  Prints the walls with and without the recorder.  Returns
+    the launches and the trace."""
+    from repro_torch.analysis import rules, walker
+    from repro_torch.core import qpolicy
+    step()                           # warm: the timed call below is steady
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    for w in kops.WRAPPERS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    with qpolicy.record_resolutions() as recs:
+        _, tr = walker.record(step)
+    torch.cuda.synchronize()
+    rec_ms = 1e3 * (time.perf_counter() - t0)
+    launches = {n: w.launches for n, w in kops.WRAPPERS.items()
+                if w.launches}
+    events = walker.kernel_counts(tr)
+    if events != launches:
+        raise AssertionError(f"17 {what}: kernel events {events}, launches "
+                             f"{launches}")
+    bodiless = sorted({k.name for k in tr.kernels() if k.end <= k.index + 1})
+    if bodiless:
+        raise AssertionError(f"17 {what}: kernel events with no recorded "
+                             f"op of their body: {bodiless}")
+    policies = {pol for pol, _ in recs}
+    if len(policies) != 1:
+        raise AssertionError(f"17 {what}: {len(policies)} policies "
+                             "resolved, one expected")
+    (policy,) = policies
+    paths = [p for pol, p in recs if pol == policy]
+    t0 = time.perf_counter()
+    findings = rules.run_rules(tr, policy=policy, resolutions=paths,
+                               kept_ops=False)
+    rules_s = time.perf_counter() - t0
+    n_ops = sum(1 for _ in tr.ops())
+    inside = sum(1 for o in tr.ops() if o.inside_kernel)
+    print(f"  [{card}] 17 {what}: {len(tr.events)} events ({n_ops} ops, "
+          f"{inside} inside kernels; {sum(events.values())} kernel events, "
+          f"{sum(1 for _ in tr.draws())} draws, {len(paths)} resolutions); "
+          f"kernel events by wrapper {events} = the launches; findings "
+          f"{[str(f) for f in findings]}; step wall {plain_ms:.2f} ms, "
+          f"recorded {rec_ms:.2f} ms ({rec_ms / plain_ms:.1f}x); rules "
+          f"{rules_s:.2f} s", flush=True)
+    if findings:
+        raise AssertionError(f"17 {what}: quantlint findings "
+                             f"{[str(f) for f in findings]}")
+    return launches, tr
+
+
+def lint_phase(torch, dev, kops, phase6: dict, card: str) -> dict:
+    """Phase 17 (the module docstring).  Returns the two recorded steps'
+    launches by path."""
+    import dataclasses
+    from repro_torch.analysis import lint, rules, walker
+    from repro_torch.configs import bert_base
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.launch import train as lt
+    from repro_torch.models import paper_models as pm
+    from repro_torch.train import finetune as tf
+    from repro_torch.train import optimizer as topt
+    t_phase = time.perf_counter()
+    # the dispatch mode's first use sets itself up once (seconds): kept
+    # out of the steps' walls
+    walker.record(lambda: torch.ones(1, device=dev) + 1)
+    print(f"  17: the recorder's first use took "
+          f"{time.perf_counter() - t_phase:.2f} s", flush=True)
+    # 17a: phase 5's bert-base cls task under the plain int8 preset
+    ft = tf.FtConfig(steps=10, batch=32, seq=128, eval_n=32, lr=1e-4)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cfg, params, sampler, loss_fn, lr = tf._task_setup(
+        "cls", gen, ft, bert_base.CONFIG, dev)
+    ocfg = topt.OptimizerConfig(lr=lr, weight_decay=0.0)
+    state = {"p": params, "o": topt.init(params)}
+    b = tf.to_device(sampler(32, 0), dev)
+    int8 = QuantConfig.int8()
+
+    def bert_step():
+        state["p"], state["o"], _, _, _ = tf.train_step(
+            state["p"], state["o"], b, cfg, int8, loss_fn, ocfg, gen)
+    bert, _ = _lint_step(torch, kops, "bert-base int8 cls step "
+                         "(batch 32 x seq 128)", bert_step, card)
+    # 17c: the inference forward under phase 6b's int8 + kept-int
+    kept = dataclasses.replace(int8, kept_ops="integer")
+    with torch.no_grad():
+        _, ftr = walker.record(lambda: pm.bert_apply(
+            state["p"], b["tokens"], cfg, kept, None))
+    escaped = rules.check_kept_ops(ftr)
+    fwd_kernels = walker.kernel_counts(ftr)
+    print(f"  [{card}] 17c bert-base inference forward, int8 + "
+          f"kept_ops=\"integer\": {len(ftr.events)} events, kernel events "
+          f"{fwd_kernels}; kept-op escapes {[str(f) for f in escaped]}",
+          flush=True)
+    if escaped or not {"int_layernorm_fwd", "int_attn_fwd"} <= set(
+            fwd_kernels):
+        raise AssertionError("17c: kept-op escapes or the integer-body "
+                             "kernels did not run")
+    del state, params, ftr
+    gc.collect()
+    # 17b: phase 6's qwen1.5-0.5b int8 run, one step
+    run = lt.build(lt.parse_args(phase6["argv"] + ["--quant", "int8"]))
+    qwen, _ = _lint_step(torch, kops, "qwen1.5-0.5b int8 training step "
+                         "(batch 8 x seq 256, phase 6's run)", run.step,
+                         card)
+    want = {n: c for n, c in phase6["step_launches"].items() if c}
+    if qwen != want:
+        raise AssertionError(f"17b: kernel events {qwen}, phase 6 launched "
+                             f"{want} a step")
+    print(f"  17b: {sum(qwen.values())} kernel events = phase 6's "
+          "launches a step", flush=True)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 17d: the CLI on the card
+    t0 = time.perf_counter()
+    rc = lint.main(["--config", "bert_base", "--preset", "int8",
+                    "--device", "cuda"])
+    print(f"  17d: lint --config bert_base --preset int8 --device cuda "
+          f"exited {rc} in {time.perf_counter() - t0:.1f} s", flush=True)
+    if rc != 0:
+        raise AssertionError(f"17d: the lint exited {rc}")
+    print(f"[17] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"lint_bert_int8": bert, "lint_qwen_int8": qwen}
+
+
 def _to(tree, device):
     """A copy of the tree on ``device`` (a copy on the CPU too: a training
     step updates its parameters in place)."""
@@ -6500,6 +6645,12 @@ def main() -> int:
           + at(), flush=True)
     dots_launches = dots_phase(torch, dev, kops.wrappers(*lm_train), phase6,
                                d14, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[17] quantlint on the card: the recorder and the rules over a "
+          "bert-base and a qwen1.5-0.5b int8 step at full width, the "
+          "kept-int forward, the CLI" + at(), flush=True)
+    lint_launches = lint_phase(torch, dev, kops, phase6, card)
     for k in kernels:
         by_path = {"serve": launches.get(k["name"], 0),
                    "finetune": ft_launches.get(k["name"], 0),
@@ -6524,7 +6675,9 @@ def main() -> int:
                    **{path: ls.get(k["name"], 0)
                       for path, ls in example_launches.items()},
                    **{path: ls.get(k["name"], 0)
-                      for path, ls in dots_launches.items()}}
+                      for path, ls in dots_launches.items()},
+                   **{path: ls.get(k["name"], 0)
+                      for path, ls in lint_launches.items()}}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         if "int_ms" in k:        # the kept-int paths run its integer body

@@ -169,6 +169,13 @@ def slice_exponents(x: torch.Tensor) -> torch.Tensor:
     return _frexp_exponent(torch.maximum(-lo, hi))
 
 
+#: the active trace recorder (``analysis/walker.py``'s ``Recorder``), told
+#: of every draw from a generator and of every generator that replays an
+#: earlier stream (a layer's recompute under remat, ``models/lm.py``'s
+#: ``_replay_key``); None when nothing records
+observer = None
+
+
 def uniform(key, shape, device) -> torch.Tensor:
     """Noise ``u`` in [0, 1) for stochastic rounding, f32 of ``shape`` on
     ``device``.
@@ -180,8 +187,10 @@ def uniform(key, shape, device) -> torch.Tensor:
     reference's ``jax.random.uniform`` draws this way).
     """
     if isinstance(key, torch.Generator):
-        return torch.rand(shape, generator=key, device=device,
-                          dtype=torch.float32)
+        def draw():
+            return torch.rand(shape, generator=key, device=device,
+                              dtype=torch.float32)
+        return draw() if observer is None else observer.draw(key, draw)
     u = key(tuple(shape), device)
     return torch.as_tensor(u, dtype=torch.float32, device=device)
 

@@ -66,6 +66,39 @@ def specificity(pattern: str) -> Tuple[int, int]:
     return (lit_segs, lit_chars)
 
 
+#: when not None, every ``QuantPolicy.resolve`` call appends
+#: ``(policy, paths)`` here — see ``record_resolutions``
+_RESOLUTION_LOG: Optional[List[Tuple["QuantPolicy", Tuple[str, ...]]]] = None
+
+
+class record_resolutions:
+    """Record every ``QuantPolicy.resolve`` call made inside the block.
+
+    Yields a list of ``(policy, alias_paths)`` tuples, appended in call
+    order.  The hook lives in ``resolve`` itself (not the lru-cached
+    ``_resolve``), so repeated resolutions of the same path are all
+    recorded.  This is how the quantlint policy rules (QL003 dead/shadowed
+    rules, QL005 stability regime) learn which paths a recorded step
+    resolved::
+
+        with qpolicy.record_resolutions() as recs:
+            loss(params).backward()
+        paths = [p for pol, p in recs if pol == policy]
+    """
+
+    def __enter__(self):
+        global _RESOLUTION_LOG
+        self._prev = _RESOLUTION_LOG
+        self.records: List[Tuple["QuantPolicy", Tuple[str, ...]]] = []
+        _RESOLUTION_LOG = self.records
+        return self.records
+
+    def __exit__(self, *exc):
+        global _RESOLUTION_LOG
+        _RESOLUTION_LOG = self._prev
+        return False
+
+
 @functools.lru_cache(maxsize=8192)
 def _resolve(policy: "QuantPolicy", paths: Tuple[str, ...]) -> QuantConfig:
     matched = []
@@ -109,6 +142,8 @@ class QuantPolicy:
     def resolve(self, path: Union[str, Sequence[str]]) -> QuantConfig:
         """Resolved leaf config for ``path`` (or any of its alias paths)."""
         paths = (path,) if isinstance(path, str) else tuple(path)
+        if _RESOLUTION_LOG is not None:
+            _RESOLUTION_LOG.append((self, paths))
         leaf = _resolve(self, paths)
         if (leaf is not self.base
                 and leaf.warn_stability and stability_violated(leaf)):

@@ -11,15 +11,21 @@ memory, spills) is kept beside it in ``build/``.
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without ``nvcc``.
 
+Every wrapper enters one boundary, ``kernel_call``, on every device: a
+CPU tensor runs the plain version inside it, a CUDA tensor the launch.
 A wrapper given ``meta`` tensors (the dry-run, ``launch/dryrun.py``) takes
 the shape-only path: it allocates on ``meta`` the outputs and any
 workspace its CUDA launch allocates, launches nothing, and counts the call
 and its integer products' flops in ``DRY_CALLS`` / ``DRY_FLOPS`` (a CUDA
-launch counts in the wrapper's ``.launches``).
+launch counts in the wrapper's ``.launches``, a CPU call in
+``PLAIN_CALLS``).  A trace recorder (``analysis/walker.py``) set as
+``observer`` is told of each call, and marks the ops run inside it as the
+kernel's.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -171,6 +177,7 @@ DRY_FLOPS: collections.Counter = collections.Counter()
 def reset_dry() -> None:
     DRY_CALLS.clear()
     DRY_FLOPS.clear()
+    PLAIN_CALLS.clear()
 
 
 def launcher(t) -> tuple:
@@ -182,14 +189,39 @@ def launcher(t) -> tuple:
     return load(), stream_of(t)
 
 
-def counted(wrapper, t, flops: int = 0) -> None:
-    """Count one call of ``wrapper`` on ``t``'s device: a CUDA launch in
-    ``wrapper.launches``, a meta call in ``DRY_CALLS`` / ``DRY_FLOPS``."""
-    if t.device.type == "meta":
-        DRY_CALLS[wrapper.__name__] += 1
-        DRY_FLOPS[wrapper.__name__] += int(flops)
+#: wrapper name -> calls on CPU tensors (the plain version ran)
+PLAIN_CALLS: collections.Counter = collections.Counter()
+
+#: the active trace recorder (``analysis/walker.py``'s ``Recorder``), told
+#: of every kernel call; None when nothing records
+observer = None
+
+
+@contextlib.contextmanager
+def kernel_call(wrapper, kind: str, operands, *, flops: int = 0, **static):
+    """One call of ``wrapper`` on a ``kind`` device (``device_kind``); its
+    body runs inside: the plain version (``cpu``), the launch (``cuda``)
+    or the shape-only allocations (``meta``).  A call that returns is
+    counted: a CUDA launch in ``wrapper.launches``, a meta call and its
+    integer products' ``flops`` in ``DRY_CALLS`` / ``DRY_FLOPS``, a CPU
+    call in ``PLAIN_CALLS``.  An active ``observer`` is told the wrapper's
+    name, its ``operands`` (tensors, None where absent) and ``static``
+    (bits, limb counts, contraction extents), and sees the body's ops as
+    the kernel's."""
+    name = wrapper.__name__
+    obs = observer
+    if obs is None:
+        yield
     else:
+        with obs.kernel(name, operands, static):
+            yield
+    if kind == "meta":
+        DRY_CALLS[name] += 1
+        DRY_FLOPS[name] += int(flops)
+    elif kind == "cuda":
         wrapper.launches += 1
+    else:
+        PLAIN_CALLS[name] += 1
 
 
 def device_kind(name: str, *ts) -> str:

@@ -90,8 +90,9 @@ def _launch(lib, a: torch.Tensor, b: torch.Tensor, out_exp: torch.Tensor,
 
 
 def _check(name: str, a: torch.Tensor, b: torch.Tensor, contract: tuple):
-    """Shared argument checks; True when the plain version should run (CPU
-    tensors; CUDA launches the kernel, meta takes the shape-only path)."""
+    """Shared argument checks; the operands' device kind (``cpu`` runs the
+    plain version, ``cuda`` launches the kernel, ``meta`` takes the
+    shape-only path)."""
     if a.dim() != 3 or b.dim() != 3 or (a.shape[contract[0]]
                                         != b.shape[contract[1]]):
         raise ValueError(f"{name} shapes {tuple(a.shape)} x "
@@ -100,7 +101,7 @@ def _check(name: str, a: torch.Tensor, b: torch.Tensor, contract: tuple):
         raise TypeError(f"{name} takes int8 limb planes")
     if not (1 <= a.shape[0] <= 3 and 1 <= b.shape[0] <= 3):
         raise ValueError(f"{name} supports 1..3 limb planes per operand")
-    return _lib.device_kind(name, a, b) == "cpu"
+    return _lib.device_kind(name, a, b)
 
 
 def _exp(out_exp: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -116,18 +117,20 @@ def bfp_matmul(xm: torch.Tensor, wm: torch.Tensor,
     0-d tensor (x_exp + w_exp).  CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.
     """
-    if _check("bfp_matmul", xm, wm, (2, 1)):
-        return bfp_matmul_plain(xm, wm, out_exp)
-    xm = xm.contiguous()
-    kmajor = _w_kmajor(wm)
-    if not kmajor:
-        wm = wm.contiguous()
-    lib, stream = _lib.launcher(xm)
+    kind = _check("bfp_matmul", xm, wm, (2, 1))
     M, K, N = xm.shape[1], xm.shape[2], wm.shape[2]
-    out = _launch(lib, xm, wm, _exp(out_exp, xm), M, N, K,
-                  _B_KMAJOR if kmajor else _NN, stream)
-    _lib.counted(bfp_matmul, xm, 2 * M * N * K)
-    return out
+    with _lib.kernel_call(bfp_matmul, kind, (xm, wm, out_exp),
+                          flops=2 * M * N * K,
+                          limbs=(xm.shape[0], wm.shape[0]), K=K):
+        if kind == "cpu":
+            return bfp_matmul_plain(xm, wm, out_exp)
+        xm = xm.contiguous()
+        kmajor = _w_kmajor(wm)
+        if not kmajor:
+            wm = wm.contiguous()
+        lib, stream = _lib.launcher(xm)
+        return _launch(lib, xm, wm, _exp(out_exp, xm), M, N, K,
+                       _B_KMAJOR if kmajor else _NN, stream)
 
 
 def bfp_matmul_nt(gm: torch.Tensor, wm: torch.Tensor,
@@ -139,15 +142,17 @@ def bfp_matmul_nt(gm: torch.Tensor, wm: torch.Tensor,
     both operands and the kernel stages W as it is).  out_exp: g_exp +
     w_exp.  CUDA kernel for CUDA tensors, the plain version for CPU tensors.
     """
-    if _check("bfp_matmul_nt", gm, wm, (2, 2)):
-        return bfp_matmul_nt_plain(gm, wm, out_exp)
-    gm, wm = gm.contiguous(), wm.contiguous()
-    lib, stream = _lib.launcher(gm)
+    kind = _check("bfp_matmul_nt", gm, wm, (2, 2))
     M, K, N = gm.shape[1], wm.shape[1], gm.shape[2]
-    out = _launch(lib, gm, wm, _exp(out_exp, gm), M, K, N, _B_KMAJOR,
-                  stream)
-    _lib.counted(bfp_matmul_nt, gm, 2 * M * N * K)
-    return out
+    with _lib.kernel_call(bfp_matmul_nt, kind, (gm, wm, out_exp),
+                          flops=2 * M * N * K,
+                          limbs=(gm.shape[0], wm.shape[0]), K=N):
+        if kind == "cpu":
+            return bfp_matmul_nt_plain(gm, wm, out_exp)
+        gm, wm = gm.contiguous(), wm.contiguous()
+        lib, stream = _lib.launcher(gm)
+        return _launch(lib, gm, wm, _exp(out_exp, gm), M, K, N, _B_KMAJOR,
+                       stream)
 
 
 def bfp_matmul_tn(xm: torch.Tensor, gm: torch.Tensor,
@@ -159,14 +164,16 @@ def bfp_matmul_tn(xm: torch.Tensor, gm: torch.Tensor,
     kernel stages both operands transposed.  out_exp: x_exp + g_exp.  CUDA
     kernel for CUDA tensors, the plain version for CPU tensors.
     """
-    if _check("bfp_matmul_tn", xm, gm, (1, 1)):
-        return bfp_matmul_tn_plain(xm, gm, out_exp)
-    xm, gm = xm.contiguous(), gm.contiguous()
-    lib, stream = _lib.launcher(xm)
+    kind = _check("bfp_matmul_tn", xm, gm, (1, 1))
     M, K, N = xm.shape[1], xm.shape[2], gm.shape[2]
-    out = _launch(lib, xm, gm, _exp(out_exp, xm), K, N, M, _TN, stream)
-    _lib.counted(bfp_matmul_tn, xm, 2 * M * N * K)
-    return out
+    with _lib.kernel_call(bfp_matmul_tn, kind, (xm, gm, out_exp),
+                          flops=2 * M * N * K,
+                          limbs=(xm.shape[0], gm.shape[0]), K=M):
+        if kind == "cpu":
+            return bfp_matmul_tn_plain(xm, gm, out_exp)
+        xm, gm = xm.contiguous(), gm.contiguous()
+        lib, stream = _lib.launcher(xm)
+        return _launch(lib, xm, gm, _exp(out_exp, xm), K, N, M, _TN, stream)
 
 
 bfp_matmul.launches = 0
@@ -205,8 +212,8 @@ def bfp_matmul_batched_tn_plain(xm: torch.Tensor, gm: torch.Tensor,
 
 def _check_batched(name: str, a: torch.Tensor, b: torch.Tensor,
                    contract: tuple, out_exp: torch.Tensor) -> bool:
-    """Argument checks of the batched wrappers; True when the plain version
-    should run."""
+    """Argument checks of the batched wrappers; the operands' device kind
+    (as ``_check``)."""
     if (a.dim() != 4 or b.dim() != 4 or a.shape[1] != b.shape[1]
             or a.shape[contract[0]] != b.shape[contract[1]]
             or out_exp.numel() != a.shape[1]):
@@ -219,19 +226,25 @@ def _check_batched(name: str, a: torch.Tensor, b: torch.Tensor,
         raise TypeError(f"{name} takes int8 limb planes")
     if not (1 <= a.shape[0] <= 3 and 1 <= b.shape[0] <= 3):
         raise ValueError(f"{name} supports 1..3 limb planes per operand")
-    return _lib.device_kind(name, a, b) == "cpu"
+    return _lib.device_kind(name, a, b)
 
 
-def _launch_batched(wrapper, a: torch.Tensor, b: torch.Tensor,
-                    out_exp: torch.Tensor, M: int, N: int, K: int,
-                    layout: int) -> torch.Tensor:
-    a, b = a.contiguous(), b.contiguous()
-    exp = out_exp.to(device=a.device, dtype=torch.int32).reshape(-1)
-    lib, stream = _lib.launcher(a)
-    out = _launch(lib, a, b, exp.contiguous(), M, N, K, layout, stream,
-                  E=a.shape[1])
-    _lib.counted(wrapper, a, 2 * a.shape[1] * M * N * K)
-    return out
+def _call_batched(wrapper, plain, a: torch.Tensor, b: torch.Tensor,
+                  out_exp: torch.Tensor, contract: tuple, M: int, N: int,
+                  K: int, layout: int) -> torch.Tensor:
+    """One call of a batched wrapper: the plain version for CPU operands,
+    else the launch over every expert."""
+    kind = _check_batched(wrapper.__name__, a, b, contract, out_exp)
+    with _lib.kernel_call(wrapper, kind, (a, b, out_exp),
+                          flops=2 * a.shape[1] * M * N * K,
+                          limbs=(a.shape[0], b.shape[0]), K=K):
+        if kind == "cpu":
+            return plain(a, b, out_exp)
+        a, b = a.contiguous(), b.contiguous()
+        exp = out_exp.to(device=a.device, dtype=torch.int32).reshape(-1)
+        lib, stream = _lib.launcher(a)
+        return _launch(lib, a, b, exp.contiguous(), M, N, K, layout, stream,
+                       E=a.shape[1])
 
 
 def bfp_matmul_batched(xm: torch.Tensor, wm: torch.Tensor,
@@ -242,10 +255,9 @@ def bfp_matmul_batched(xm: torch.Tensor, wm: torch.Tensor,
     xm: (Lx, E, M, K) int8 planes; wm: (Lw, E, K, N); out_exp: (E,) int32
     (x_exp[e] + w_exp[e]).  CUDA kernel for CUDA tensors, the plain version
     for CPU tensors."""
-    if _check_batched("bfp_matmul_batched", xm, wm, (3, 2), out_exp):
-        return bfp_matmul_batched_plain(xm, wm, out_exp)
-    return _launch_batched(bfp_matmul_batched, xm, wm, out_exp, xm.shape[2],
-                           wm.shape[3], xm.shape[3], _NN)
+    return _call_batched(bfp_matmul_batched, bfp_matmul_batched_plain, xm, wm,
+                         out_exp, (3, 2), xm.shape[2], wm.shape[3],
+                         xm.shape[3], _NN)
 
 
 def bfp_matmul_batched_nt(gm: torch.Tensor, wm: torch.Tensor,
@@ -256,10 +268,9 @@ def bfp_matmul_batched_nt(gm: torch.Tensor, wm: torch.Tensor,
     gm: (Lg, E, M, N) gradient planes; wm: (Lw, E, K, N) weight planes in
     their forward layout (the contraction axis N contiguous in both, W
     staged as it is).  out_exp: (E,) g_exp + w_exp."""
-    if _check_batched("bfp_matmul_batched_nt", gm, wm, (3, 3), out_exp):
-        return bfp_matmul_batched_nt_plain(gm, wm, out_exp)
-    return _launch_batched(bfp_matmul_batched_nt, gm, wm, out_exp,
-                           gm.shape[2], wm.shape[2], gm.shape[3], _B_KMAJOR)
+    return _call_batched(bfp_matmul_batched_nt, bfp_matmul_batched_nt_plain,
+                         gm, wm, out_exp, (3, 3), gm.shape[2], wm.shape[2],
+                         gm.shape[3], _B_KMAJOR)
 
 
 def bfp_matmul_batched_tn(xm: torch.Tensor, gm: torch.Tensor,
@@ -270,10 +281,9 @@ def bfp_matmul_batched_tn(xm: torch.Tensor, gm: torch.Tensor,
     xm: (Lx, E, M, K) activation planes saved by the forward; gm: (Lg, E,
     M, N) gradient planes; both staged transposed.  out_exp: (E,) x_exp +
     g_exp."""
-    if _check_batched("bfp_matmul_batched_tn", xm, gm, (2, 2), out_exp):
-        return bfp_matmul_batched_tn_plain(xm, gm, out_exp)
-    return _launch_batched(bfp_matmul_batched_tn, xm, gm, out_exp,
-                           xm.shape[3], gm.shape[3], xm.shape[2], _TN)
+    return _call_batched(bfp_matmul_batched_tn, bfp_matmul_batched_tn_plain,
+                         xm, gm, out_exp, (2, 2), xm.shape[3], gm.shape[3],
+                         xm.shape[2], _TN)
 
 
 bfp_matmul_batched.launches = 0

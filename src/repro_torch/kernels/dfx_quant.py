@@ -96,23 +96,24 @@ def dfx_quantize(x: torch.Tensor, exp: torch.Tensor, *, bits: int,
     mantissa, or with ``limb_planes`` the ``(L,) + x.shape`` int8 planes."""
     if not 1 <= bits <= 24:
         raise ValueError(f"bits={bits} outside [1, 24]")
-    if _lib.device_kind("dfx_quantize", x) == "cpu":
-        return dfx_quantize_plain(x, exp, bits=bits, u=u,
-                                  limb_planes=limb_planes)
-    if x.dtype != torch.float32:
-        raise TypeError(f"dfx_quantize takes float32, got {x.dtype}")
-    exp = exp.to(device=x.device, dtype=torch.int32).reshape(())
-    if u is not None:
-        if u.shape != x.shape or u.dtype != torch.float32:
-            raise ValueError("u must be float32 of x's shape")
-        u = u.to(x.device)
-    x = x.contiguous()
-    if u is not None:
-        u = u.contiguous()
-    lib, stream = _lib.launcher(x)
-    out = _launch(lib, x, exp, bits, u, limb_planes, stream)
-    _lib.counted(dfx_quantize, x)
-    return out
+    kind = _lib.device_kind("dfx_quantize", x)
+    with _lib.kernel_call(dfx_quantize, kind, (x, exp, u), bits=bits,
+                          limbs=n_limbs(bits) if limb_planes else 0):
+        if kind == "cpu":
+            return dfx_quantize_plain(x, exp, bits=bits, u=u,
+                                      limb_planes=limb_planes)
+        if x.dtype != torch.float32:
+            raise TypeError(f"dfx_quantize takes float32, got {x.dtype}")
+        exp = exp.to(device=x.device, dtype=torch.int32).reshape(())
+        if u is not None:
+            if u.shape != x.shape or u.dtype != torch.float32:
+                raise ValueError("u must be float32 of x's shape")
+            u = u.to(x.device)
+        x = x.contiguous()
+        if u is not None:
+            u = u.contiguous()
+        lib, stream = _lib.launcher(x)
+        return _launch(lib, x, exp, bits, u, limb_planes, stream)
 
 
 dfx_quantize.launches = 0
@@ -143,20 +144,22 @@ def dfx_quantize_grouped(x: torch.Tensor, exp: torch.Tensor, *, bits: int,
                          f"{tuple(exp.shape)}")
     if u is not None and u.shape != x.shape:
         raise ValueError("u must have x's shape")
-    if _lib.device_kind("dfx_quantize_grouped", x) == "cpu":
-        return dfx_quantize_grouped_plain(x, exp, bits=bits, u=u,
-                                          limb_planes=limb_planes)
-    if x.dtype != torch.float32 or (u is not None
-                                    and u.dtype != torch.float32):
-        raise TypeError("dfx_quantize_grouped takes float32 x and u")
-    exp = exp.to(device=x.device, dtype=torch.int32).reshape(-1)
-    x = x.contiguous()
-    if u is not None:
-        u = u.to(x.device).contiguous()
-    lib, stream = _lib.launcher(x)
-    out = _launch(lib, x, exp.contiguous(), bits, u, limb_planes, stream)
-    _lib.counted(dfx_quantize_grouped, x)
-    return out
+    kind = _lib.device_kind("dfx_quantize_grouped", x)
+    with _lib.kernel_call(dfx_quantize_grouped, kind, (x, exp, u), bits=bits,
+                          limbs=n_limbs(bits) if limb_planes else 0):
+        if kind == "cpu":
+            return dfx_quantize_grouped_plain(x, exp, bits=bits, u=u,
+                                              limb_planes=limb_planes)
+        if x.dtype != torch.float32 or (u is not None
+                                        and u.dtype != torch.float32):
+            raise TypeError("dfx_quantize_grouped takes float32 x and u")
+        exp = exp.to(device=x.device, dtype=torch.int32).reshape(-1)
+        x = x.contiguous()
+        if u is not None:
+            u = u.to(x.device).contiguous()
+        lib, stream = _lib.launcher(x)
+        return _launch(lib, x, exp.contiguous(), bits, u, limb_planes,
+                       stream)
 
 
 dfx_quantize_grouped.launches = 0

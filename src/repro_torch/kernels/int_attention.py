@@ -192,8 +192,6 @@ def _launch(lib, qm, km, vm, q_off, exps, p_bits, causal, window, sc,
             -1 if window is None else int(window), float(sc),
             int(integer_exp), stream)
         _lib.check(err, "int_attn_fwd")
-    # S = QKᵀ and PV: 2 x (B KV G Sq Sk) x hd each
-    _lib.counted(int_attn_fwd, qm, 4 * B * KV * G * Sq * Sk * hd)
     return o, lse
 
 
@@ -214,17 +212,25 @@ def int_attn_fwd(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
                          "n_limbs(p_bits)")
     if not (1 <= Lq <= 3 and 1 <= vm.shape[0] <= 3):
         raise ValueError("int_attn_fwd supports 1..3 limb planes")
-    if _lib.device_kind("int_attn_fwd", qm, km, vm) == "cpu":
-        return int_attn_fwd_plain(qm, km, vm, q_off, exps, p_bits=p_bits,
-                                  causal=causal, window=window, sc=sc,
-                                  integer_exp=integer_exp)
-    dev = qm.device
-    q_off = q_off.to(device=dev, dtype=torch.int32).contiguous()
-    exps = exps.to(device=dev, dtype=torch.int32).contiguous()
-    lib, stream = _lib.launcher(qm)
-    return _launch(lib, qm.contiguous(), km.contiguous(), vm.contiguous(),
-                   q_off, exps, p_bits, causal, window, sc, integer_exp,
-                   stream)
+    kind = _lib.device_kind("int_attn_fwd", qm, km, vm)
+    Sk = km.shape[2]
+    # S = QKᵀ and PV: 2 x (B KV G Sq Sk) x hd each; the integer dots
+    # contract hd (QKᵀ) and a block of keys (PV)
+    with _lib.kernel_call(int_attn_fwd, kind, (qm, km, vm, q_off, exps),
+                          flops=4 * B * KV * G * Sq * Sk * hd, bits=p_bits,
+                          limbs=(Lq, vm.shape[0]),
+                          K=(hd, min(BLOCK_K, Sk))):
+        if kind == "cpu":
+            return int_attn_fwd_plain(qm, km, vm, q_off, exps, p_bits=p_bits,
+                                      causal=causal, window=window, sc=sc,
+                                      integer_exp=integer_exp)
+        dev = qm.device
+        q_off = q_off.to(device=dev, dtype=torch.int32).contiguous()
+        exps = exps.to(device=dev, dtype=torch.int32).contiguous()
+        lib, stream = _lib.launcher(qm)
+        return _launch(lib, qm.contiguous(), km.contiguous(),
+                       vm.contiguous(), q_off, exps, p_bits, causal, window,
+                       sc, integer_exp, stream)
 
 
 int_attn_fwd.launches = 0
@@ -326,7 +332,7 @@ def _check_bwd(name, qm, km, vm, gm, lse, delta, p_bits, ds_bits):
     for t in (qm, km, vm, gm):
         if t.dtype != torch.int8:
             raise TypeError(f"{name} takes int8 limb planes, got {t.dtype}")
-    return _lib.device_kind(name, qm, km, vm, gm, lse, delta) == "cpu"
+    return _lib.device_kind(name, qm, km, vm, gm, lse, delta)
 
 
 def _bwd_args(qm, km, vm, gm, lse, delta, q_off, exps):
@@ -351,8 +357,6 @@ def _launch_dq(lib, q, k, v, g, lse, delta, off, exps, ds_bits, causal,
             -1 if window is None else int(window), float(sc),
             int(integer_exp), stream)
         _lib.check(err, "int_attn_bwd_dq")
-    # S = QKᵀ again, dP = dO Vᵀ and dQ = dS K: 2 x (B KV G Sq Sk) x hd each
-    _lib.counted(int_attn_bwd_dq, q, 6 * B * KV * G * Sq * k.shape[2] * hd)
     return dq
 
 
@@ -372,8 +376,6 @@ def _launch_dkv(lib, q, k, v, g, lse, delta, off, exps, p_bits, ds_bits,
             -1 if window is None else int(window), float(sc),
             int(integer_exp), stream)
         _lib.check(err, "int_attn_bwd_dkv")
-    # S, dP, dV = Pᵀ dO and dK = dSᵀ Q: 2 x (B KV G Sq Sk) x hd each
-    _lib.counted(int_attn_bwd_dkv, q, 8 * B * KV * G * Sq * Sk * hd)
     return dk, dv
 
 
@@ -387,16 +389,27 @@ def int_attn_bwd_dq(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
     (B, Sq, KV, G) f32; q_off (B,) int32; exps (5,) int32 [q, k, v, g, dS]
     exponents; ``integer_exp`` the kept-int body.  CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
-    if _check_bwd("int_attn_bwd_dq", qm, km, vm, gm, lse, delta, p_bits,
-                  ds_bits):
-        return int_attn_bwd_dq_plain(qm, km, vm, gm, lse, delta, q_off,
-                                     exps, ds_bits=ds_bits, causal=causal,
-                                     window=window, sc=sc,
-                                     integer_exp=integer_exp)
-    lib, stream = _lib.launcher(qm)
-    return _launch_dq(lib, *_bwd_args(qm, km, vm, gm, lse, delta, q_off,
-                                      exps), ds_bits, causal, window, sc,
-                      integer_exp, stream)
+    kind = _check_bwd("int_attn_bwd_dq", qm, km, vm, gm, lse, delta, p_bits,
+                      ds_bits)
+    Lq, B, Sq, KV, G, hd = qm.shape
+    Sk = km.shape[2]
+    # S = QKᵀ again, dP = dO Vᵀ and dQ = dS K: 2 x (B KV G Sq Sk) x hd
+    # each; the integer dots contract hd and a block of keys (dS K)
+    with _lib.kernel_call(int_attn_bwd_dq, kind,
+                          (qm, km, vm, gm, lse, delta, q_off, exps),
+                          flops=6 * B * KV * G * Sq * Sk * hd, bits=ds_bits,
+                          limbs=(Lq, vm.shape[0], gm.shape[0],
+                                 n_limbs(ds_bits)),
+                          K=(hd, min(BLOCK_K, Sk))):
+        if kind == "cpu":
+            return int_attn_bwd_dq_plain(qm, km, vm, gm, lse, delta, q_off,
+                                         exps, ds_bits=ds_bits, causal=causal,
+                                         window=window, sc=sc,
+                                         integer_exp=integer_exp)
+        lib, stream = _lib.launcher(qm)
+        return _launch_dq(lib, *_bwd_args(qm, km, vm, gm, lse, delta, q_off,
+                                          exps), ds_bits, causal, window, sc,
+                          integer_exp, stream)
 
 
 def int_attn_bwd_dkv(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
@@ -407,16 +420,28 @@ def int_attn_bwd_dkv(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
     """Fused ``(dk, dv)``, each (B, Sk, KV, hd) f32, summed over the G
     query heads of each kv head.  Arguments as ``int_attn_bwd_dq``.  CUDA
     kernel for CUDA tensors, the plain version for CPU tensors."""
-    if _check_bwd("int_attn_bwd_dkv", qm, km, vm, gm, lse, delta, p_bits,
-                  ds_bits):
-        return int_attn_bwd_dkv_plain(qm, km, vm, gm, lse, delta, q_off,
-                                      exps, p_bits=p_bits, ds_bits=ds_bits,
-                                      causal=causal, window=window, sc=sc,
-                                      integer_exp=integer_exp)
-    lib, stream = _lib.launcher(qm)
-    return _launch_dkv(lib, *_bwd_args(qm, km, vm, gm, lse, delta, q_off,
-                                       exps), p_bits, ds_bits, causal, window,
-                       sc, integer_exp, stream)
+    kind = _check_bwd("int_attn_bwd_dkv", qm, km, vm, gm, lse, delta,
+                      p_bits, ds_bits)
+    Lq, B, Sq, KV, G, hd = qm.shape
+    Sk = km.shape[2]
+    # S, dP, dV = Pᵀ dO and dK = dSᵀ Q: 2 x (B KV G Sq Sk) x hd each; the
+    # integer dots contract hd and a block of query rows (Pᵀ dO, dSᵀ Q)
+    with _lib.kernel_call(int_attn_bwd_dkv, kind,
+                          (qm, km, vm, gm, lse, delta, q_off, exps),
+                          flops=8 * B * KV * G * Sq * Sk * hd, bits=ds_bits,
+                          limbs=(Lq, vm.shape[0], gm.shape[0],
+                                 n_limbs(ds_bits)),
+                          K=(hd, q_block(Sq))):
+        if kind == "cpu":
+            return int_attn_bwd_dkv_plain(qm, km, vm, gm, lse, delta, q_off,
+                                          exps, p_bits=p_bits,
+                                          ds_bits=ds_bits, causal=causal,
+                                          window=window, sc=sc,
+                                          integer_exp=integer_exp)
+        lib, stream = _lib.launcher(qm)
+        return _launch_dkv(lib, *_bwd_args(qm, km, vm, gm, lse, delta, q_off,
+                                           exps), p_bits, ds_bits, causal,
+                           window, sc, integer_exp, stream)
 
 
 int_attn_bwd_dq.launches = 0

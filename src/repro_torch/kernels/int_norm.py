@@ -131,24 +131,26 @@ def int_rmsnorm_fwd(xm: torch.Tensor, x_exp: torch.Tensor,
     if xm.dtype not in (torch.int8, torch.int16):
         raise TypeError(f"int_rmsnorm_fwd takes int8/int16 mantissas, got "
                         f"{xm.dtype}")
-    if _lib.device_kind("int_rmsnorm_fwd", xm) == "cpu":
-        return int_rmsnorm_fwd_plain(xm, x_exp, gamma, eps=eps,
-                                     integer_rsqrt=integer_rsqrt)
-    x_exp = x_exp.to(device=xm.device, dtype=torch.int32).reshape(())
-    gamma = gamma.to(device=xm.device, dtype=torch.float32).contiguous()
-    lib, stream = _lib.launcher(xm)
-    out = _launch(lib, xm.contiguous(), x_exp, gamma, eps, integer_rsqrt,
-                  stream)
-    _lib.counted(int_rmsnorm_fwd, xm)
-    return out
+    kind = _lib.device_kind("int_rmsnorm_fwd", xm)
+    with _lib.kernel_call(int_rmsnorm_fwd, kind, (xm, x_exp, gamma),
+                          bits=_bits(xm), D=xm.shape[1], R=xm.shape[0]):
+        if kind == "cpu":
+            return int_rmsnorm_fwd_plain(xm, x_exp, gamma, eps=eps,
+                                         integer_rsqrt=integer_rsqrt)
+        x_exp = x_exp.to(device=xm.device, dtype=torch.int32).reshape(())
+        gamma = gamma.to(device=xm.device, dtype=torch.float32).contiguous()
+        lib, stream = _lib.launcher(xm)
+        return _launch(lib, xm.contiguous(), x_exp, gamma, eps,
+                       integer_rsqrt, stream)
 
 
 int_rmsnorm_fwd.launches = 0
 
 
 def _check_ln(name: str, xm: torch.Tensor, *rows: torch.Tensor) -> bool:
-    """Shared argument checks; True when the plain version should run (CPU
-    tensors; CUDA launches the kernel, meta takes the shape-only path)."""
+    """Shared argument checks; the operands' device kind (``cpu`` runs the
+    plain version, ``cuda`` launches the kernel, ``meta`` takes the
+    shape-only path)."""
     if xm.dim() != 2 or any(r.shape != xm.shape for r in rows):
         raise ValueError(f"{name} shapes {tuple(xm.shape)}, "
                          f"{[tuple(r.shape) for r in rows]}")
@@ -156,7 +158,12 @@ def _check_ln(name: str, xm: torch.Tensor, *rows: torch.Tensor) -> bool:
         if t.dtype not in (torch.int8, torch.int16):
             raise TypeError(f"{name} takes int8/int16 mantissas, got "
                             f"{t.dtype}")
-    return _lib.device_kind(name, xm, *rows) == "cpu"
+    return _lib.device_kind(name, xm, *rows)
+
+
+def _bits(xm: torch.Tensor) -> int:
+    """Storage bits of a norm kernel's mantissas (8 or 16)."""
+    return 8 * xm.element_size()
 
 
 def _vec(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -198,15 +205,16 @@ def int_layernorm_fwd(xm: torch.Tensor, x_exp: torch.Tensor,
     if gamma.shape != (D,) or beta.shape != (D,):
         raise ValueError(f"int_layernorm_fwd gamma/beta {tuple(gamma.shape)}"
                          f", {tuple(beta.shape)} for D={D}")
-    if _check_ln("int_layernorm_fwd", xm):
-        return int_layernorm_fwd_plain(xm, x_exp, gamma, beta, eps=eps,
-                                       integer_rsqrt=integer_rsqrt)
-    lib, stream = _lib.launcher(xm)
-    out = _launch_ln_fwd(lib, xm.contiguous(), _exp(x_exp, xm),
-                         _vec(gamma, xm), _vec(beta, xm), eps, integer_rsqrt,
-                         stream)
-    _lib.counted(int_layernorm_fwd, xm)
-    return out
+    kind = _check_ln("int_layernorm_fwd", xm)
+    with _lib.kernel_call(int_layernorm_fwd, kind, (xm, x_exp, gamma, beta),
+                          bits=_bits(xm), D=D, R=xm.shape[0]):
+        if kind == "cpu":
+            return int_layernorm_fwd_plain(xm, x_exp, gamma, beta, eps=eps,
+                                           integer_rsqrt=integer_rsqrt)
+        lib, stream = _lib.launcher(xm)
+        return _launch_ln_fwd(lib, xm.contiguous(), _exp(x_exp, xm),
+                              _vec(gamma, xm), _vec(beta, xm), eps,
+                              integer_rsqrt, stream)
 
 
 #: the register paths' plan (``csrc/int_norm.cu``, forwards and
@@ -347,14 +355,17 @@ def int_layernorm_bwd(xm: torch.Tensor, gm: torch.Tensor,
     if gamma.shape != (D,) or mu.shape != (R, 1) or rstd.shape != (R, 1):
         raise ValueError("int_layernorm_bwd: gamma (D,), mu and rstd (R, 1) "
                          "expected")
-    if _check_ln("int_layernorm_bwd", xm, gm):
-        return int_layernorm_bwd_plain(xm, gm, x_exp, g_exp, gamma, mu, rstd)
-    lib, stream = _lib.launcher(xm)
-    out = _launch_bwd(lib, True, xm.contiguous(), gm.contiguous(),
-                      _exp(x_exp, xm), _exp(g_exp, xm), _vec(gamma, xm),
-                      _vec(mu, xm), _vec(rstd, xm), stream)
-    _lib.counted(int_layernorm_bwd, xm)
-    return out
+    kind = _check_ln("int_layernorm_bwd", xm, gm)
+    with _lib.kernel_call(int_layernorm_bwd, kind,
+                          (xm, gm, x_exp, g_exp, gamma, mu, rstd),
+                          bits=_bits(xm), D=D, R=R):
+        if kind == "cpu":
+            return int_layernorm_bwd_plain(xm, gm, x_exp, g_exp, gamma, mu,
+                                           rstd)
+        lib, stream = _lib.launcher(xm)
+        return _launch_bwd(lib, True, xm.contiguous(), gm.contiguous(),
+                           _exp(x_exp, xm), _exp(g_exp, xm), _vec(gamma, xm),
+                           _vec(mu, xm), _vec(rstd, xm), stream)
 
 
 def int_rmsnorm_bwd_plain(xm: torch.Tensor, gm: torch.Tensor,
@@ -385,14 +396,16 @@ def int_rmsnorm_bwd(xm: torch.Tensor, gm: torch.Tensor, x_exp: torch.Tensor,
     if gamma.shape != (D,) or rstd.shape != (R, 1):
         raise ValueError("int_rmsnorm_bwd: gamma (D,) and rstd (R, 1) "
                          "expected")
-    if _check_ln("int_rmsnorm_bwd", xm, gm):
-        return int_rmsnorm_bwd_plain(xm, gm, x_exp, g_exp, gamma, rstd)
-    lib, stream = _lib.launcher(xm)
-    out = _launch_bwd(lib, False, xm.contiguous(), gm.contiguous(),
-                      _exp(x_exp, xm), _exp(g_exp, xm), _vec(gamma, xm),
-                      None, _vec(rstd, xm), stream)[:2]
-    _lib.counted(int_rmsnorm_bwd, xm)
-    return out
+    kind = _check_ln("int_rmsnorm_bwd", xm, gm)
+    with _lib.kernel_call(int_rmsnorm_bwd, kind,
+                          (xm, gm, x_exp, g_exp, gamma, rstd),
+                          bits=_bits(xm), D=D, R=R):
+        if kind == "cpu":
+            return int_rmsnorm_bwd_plain(xm, gm, x_exp, g_exp, gamma, rstd)
+        lib, stream = _lib.launcher(xm)
+        return _launch_bwd(lib, False, xm.contiguous(), gm.contiguous(),
+                           _exp(x_exp, xm), _exp(g_exp, xm), _vec(gamma, xm),
+                           None, _vec(rstd, xm), stream)[:2]
 
 
 int_layernorm_fwd.launches = 0

@@ -263,6 +263,8 @@ def _replay_key(key, state):
         return key
     gen = torch.Generator(device=key.device)
     gen.set_state(state)
+    if dfx.observer is not None:
+        dfx.observer.replay(gen)
     return gen
 
 

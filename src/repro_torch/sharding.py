@@ -387,13 +387,23 @@ LARGEST: collections.Counter = collections.Counter()
 KINDS: collections.Counter = collections.Counter()
 
 
+#: the active trace recorder (``analysis/walker.py``'s ``Recorder``), told
+#: of every collective; None when nothing records
+observer = None
+
+
 def reset_stats() -> None:
     STATS.clear()
     LARGEST.clear()
     KINDS.clear()
 
 
-def _count(tag: str, t: torch.Tensor, kind: str) -> None:
+def _count(tag: str, t: torch.Tensor, kind: str,
+           src: torch.Tensor) -> None:
+    """Count one collective of ``kind`` under ``tag``: ``t`` its counted
+    result, ``src`` the rank's tensor it was called on."""
+    if observer is not None:
+        observer.collective(kind, tag, src, t)
     n = t.numel() * t.element_size()
     STATS[(tag, "calls")] += 1
     STATS[(tag, "bytes")] += n
@@ -437,7 +447,7 @@ def all_reduce(t: torch.Tensor, op: str, axes, mesh: Mesh, *,
     else:
         buf = _wire(t, mesh)
         dist.all_reduce(buf, _OPS[op], group=mesh.group(axes))
-    _count(tag, buf, "all-reduce")
+    _count(tag, buf, "all-reduce", t)
     return buf.to(t.device)
 
 
@@ -453,7 +463,7 @@ def all_gather(t: torch.Tensor, axes, mesh: Mesh, *,
         parts = [torch.empty_like(src) for _ in range(mesh.count(axes))]
         dist.all_gather(parts, src, group=mesh.group(axes))
         out = torch.stack(parts)
-    _count(tag, out, "all-gather")
+    _count(tag, out, "all-gather", t)
     return out.to(t.device)
 
 
@@ -472,7 +482,7 @@ def reduce_scatter(t: torch.Tensor, axes, mesh: Mesh, *,
         out = torch.empty_like(src[0])
         dist.reduce_scatter(out, list(src.unbind(0)), _OPS["sum"],
                             group=mesh.group(axes))
-    _count(tag, src, "reduce-scatter")
+    _count(tag, src, "reduce-scatter", t)
     return out.to(t.device)
 
 

@@ -66,6 +66,17 @@ from repro_torch.core.qconfig import QuantConfig  # noqa: E402
 from repro_torch.models import blocks, lm  # noqa: E402
 from repro_torch.train import trainer  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once, and
+    small ops on many threads oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ("mixtral-8x7b", "mistral-nemo-12b", "mistral-large-123b")
 #: published sizes (the reference's test_param_counts_match_published_scale)
 PUBLISHED = {"mixtral-8x7b": 46.7e9, "mistral-nemo-12b": 12.2e9,

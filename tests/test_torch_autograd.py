@@ -36,6 +36,17 @@ from repro.core.qconfig import QuantConfig as JQuantConfig  # noqa: E402
 from repro_torch.core import dfx, int_ops  # noqa: E402
 from repro_torch.core.qconfig import QuantConfig  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once, and
+    small ops on many threads oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ULP = 2.0 ** -23
 #: amplitude that puts a tensor's max-abs exponent at 3 (8-bit planes and
 #: a12 activations) or 10 (16 bits): every exponent in the exact window

@@ -25,6 +25,17 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import bfp_matmul as bm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once, and
+    small ops on many threads oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 _BITS = {1: 8, 2: 12, 3: 16}          # bit-width giving 1 / 2 / 3 limbs
 ULP = 2.0 ** -23
 

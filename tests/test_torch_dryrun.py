@@ -52,6 +52,17 @@ from repro_torch.train import optimizer as opt_lib, trainer  # noqa: E402
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_dist_worker  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once, and
+    small ops on many threads oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = list(registry.ARCH_IDS)
 INT8 = registry.get_quant("int8")
 ONE = sharding.dry_mesh((1, 1), ("data", "model"))

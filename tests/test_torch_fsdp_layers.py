@@ -33,6 +33,16 @@ from torch_dist_worker import LAYER_CASES, spawn  # noqa: E402
 import numpy as np  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once, and
+    small ops on many threads oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """Both ranks' outputs of the one ``fsdp_layers`` world."""

@@ -33,6 +33,17 @@ from repro.core import iapprox as jia  # noqa: E402
 from repro.kernels import ref  # noqa: E402
 from repro_torch.core import iapprox as tia  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once, and
+    small ops on many threads oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F = 14
 ULP = 2.0 ** -23
 #: DESIGN.md §10's bound table (the reference's tests/test_iapprox.py)

@@ -27,6 +27,17 @@ from repro_torch.core import int_ops  # noqa: E402
 from repro_torch.core.qconfig import QuantConfig  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once, and
+    small ops on many threads oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 _EXPS = (-5, -5, -6)            # q, k, v: q_exp + k_exp = -10, in window
 
 

@@ -36,6 +36,18 @@ from repro_torch.kernels import int_attention as ia  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 #: q, k, v, g, dS exponents: q+k = -10, g+v = -12, dS+k = dS+q = -11
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once, and
+    small ops on many threads oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 _EXPS = (-5, -5, -6, -6, -6)
 _G_BITS = 8
 

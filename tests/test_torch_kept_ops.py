@@ -57,6 +57,17 @@ from repro_torch.models import paper_models as pm  # noqa: E402
 from repro_torch.train import finetune as tf  # noqa: E402
 from repro_torch.train import trainer  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once, and
+    small ops on many threads oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ULP = 2.0 ** -23
 
 

@@ -65,6 +65,17 @@ from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import blocks, lm  # noqa: E402
 from repro_torch.train import trainer  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once, and
+    small ops on many threads oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "qwen2-moe-a2.7b"
 KEY = jax.random.PRNGKey(0)
 

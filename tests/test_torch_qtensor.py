@@ -23,6 +23,16 @@ from repro.core import qtensor as jq  # noqa: E402
 from repro_torch.core import dfx, qtensor  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once, and
+    small ops on many threads oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _exact_window(exps) -> None:
     """The reference's scales at these exponents are exact powers of 2."""
     for e in np.unique(np.asarray(exps)):

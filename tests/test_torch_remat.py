@@ -21,6 +21,17 @@ from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core.qconfig import QuantConfig  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once, and
+    small ops on many threads oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SEQ = {"qwen1.5-0.5b": 24, "mixtral-8x7b": 80}
 STOCHASTIC = dataclasses.replace(QuantConfig.int8(), stochastic_grad=True,
                                  stochastic_fwd=True)

@@ -47,6 +47,18 @@ from repro_torch.core.qconfig import QuantConfig  # noqa: E402
 from repro_torch.models import encdec, lm  # noqa: E402
 
 B, S = 2, 16
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once, and
+    small ops on many threads oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 QUANT = {"int8": dataclasses.replace(QuantConfig.int8(),
                                      stochastic_grad=True,
                                      stochastic_fwd=True),

@@ -31,6 +31,17 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.serve.engine import (ContinuousBatcher, Engine,  # noqa: E402
                                       QueueFull, ServeConfig)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once, and
+    small ops on many threads oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "qwen1.5-0.5b"
 
 

@@ -34,6 +34,17 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core.qconfig import QuantConfig  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once, and
+    small ops on many threads oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "smollm-135m"
 B, S, NEW, SMAX = 2, 7, 5, 32
 

@@ -32,6 +32,17 @@ from repro_torch.models import paper_models as pm  # noqa: E402
 from repro_torch.train import finetune as tf  # noqa: E402
 from repro_torch.train import optimizer as topt  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once, and
+    small ops on many threads oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SMALL = dict(n_layers=2, d_model=64, n_heads=4, d_ff=128, vocab=128,
              name="bert-2l-d64")
 TASKS = {"cls": (tf.make_cls_task(vocab=128, seq=16), jpm.bert_cls_loss,

@@ -38,6 +38,18 @@ from repro_torch.train import finetune as tf  # noqa: E402
 from repro_torch.train import optimizer as topt  # noqa: E402
 
 IMG, PATCH = 16, 8
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once, and
+    small ops on many threads oversubscribe the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SMALL = dict(n_layers=2, d_model=64, n_heads=4, d_ff=128, img=IMG,
              patch=PATCH, name="vit-2l-d64")
 SAMPLER = tf.make_img_task(img=IMG, patch=PATCH)
