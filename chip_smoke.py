@@ -64,7 +64,13 @@ Phases (each raises on failure; nothing is caught):
    sequence shards' (``check_sp_shapes``, ``SP_NORMS``): the norm
    forwards and backwards and the a12 quantize of their input at a
    rank's rows (qwen 1024 x 1024, zamba2's shared block 1024 x 2560,
-   whisper's encoder 6000 x 1280 and decoder 1792 x 1280).
+   whisper's encoder 6000 x 1280 and decoder 1792 x 1280); and at phase
+   14f's served shapes at model 2 (``check_serve_tp_shapes``,
+   ``SERVE_TP_ATTN``): 4 decode rows through qwen1.5-0.5b's, mamba2-370m's
+   and whisper-large-v3's split products (the heads' tied shards
+   included), their a12 quantizes, mamba2's gated norm over the gathered
+   row, whisper's cross K/V projection at 640 columns, and the attention
+   over the rank's heads of the caches.
 3. On reduced configurations (2 layers), from the same weights, the card
    against the port's CPU path: qwen1.5-0.5b's served logits; one BERT
    training step under the paper's integer scope (round to nearest), its
@@ -97,6 +103,10 @@ Phases (each raises on failure; nothing is caught):
    memory, the launches of one step and a profiled step's device-busy
    share.  Also cls under the plain int8 preset (integer attention forward
    and backward), its losses printed beside the paper-scope and FP32 ones.
+   And the encoder's per-layer remat (``encoder_remat_hold``): one cls
+   forward and backward with each layer under ``lm._remat`` and without,
+   the loss, every gradient and the generator's state bit for bit, the
+   recompute's launches counted.
 6. Train qwen1.5-0.5b at full width through the port's training launcher
    (``launch.train``): int8, batch 8 x seq 256, 6 AdamW steps at lr 1e-4,
    launch counters set to 0 just before and read just after; every kernel
@@ -272,7 +282,18 @@ Phases (each raises on failure; nothing is caught):
    (6 of 48 layers), zamba2-2.7b (6 of 54) and whisper-large-v3 (1 + 1
    of 32 + 32, 8 x (1500 + 448)) in 14a's processes, each first loss held
    against one rank's on the same image and each peak per rank against a
-   one-rank step's.
+   one-rank step's.  14f, in the same processes, serves on (data 1, model
+   2) as ``sharding.serving`` lays it out (``dist_serve``): qwen1.5-0.5b
+   at 14d's depth through ``Engine.generate``, 4 x (64 + 16) greedy,
+   mamba2-370m at 14e's depth, 4 x (16 teacher-forced + 8), and
+   whisper-large-v3 at 1 + 1 layers (encode 4 x 1500 frames, the cross
+   K/V of the rank's heads, 8 greedy decode steps), each held against the
+   same run on rank 0 alone: every step's logits rows within
+   ``SERVE_TP_TOL`` of the largest logit, the greedy tokens equal, each
+   rank's cache bytes half of one rank's where the layout splits them;
+   the launch counters set to 0 just before the split run and read just
+   after.  Prints the cache bytes, a decode step's collectives by tag,
+   decode-step ms, tok/s and the peak per rank.
 15. The examples and the paper's Fig. 1 (``examples_phase``).
 16. The ``"dots"`` checkpoint policy and the dry-run (``dots_phase``).
    16a: qwen1.5-0.5b at full width on the FP32 path (``enabled=False``),
@@ -992,6 +1013,16 @@ TP_WHISPER_CROSS = "whisper cross, model 2 (8 x 448 over 1500, 10 heads)"
 TP_WHISPER_SELF = "whisper decoder self, model 2 (8 x 448, 10 heads)"
 TP_ATTN = (TP_QWEN_ATTN, TP_MOE_ATTN, TP_WHISPER_ENC, TP_WHISPER_CROSS,
            TP_WHISPER_SELF)
+#: phase 14f's serving calls at model 2, forward only: qwen1.5-0.5b's
+#: prompt (4 x 64) and its decode rows over the rank's 8 kv heads of the
+#: 128-deep cache, whisper's decode rows over the rank's 10 heads of its
+#: 448-deep self cache and of the 1500 cross keys
+SERVE_QWEN_PREFILL = "qwen1.5-0.5b prefill, model 2 (4 x 64 over 128)"
+SERVE_QWEN_DECODE = "qwen1.5-0.5b decode, model 2 (4 rows over 128)"
+SERVE_WHISPER_SELF = "whisper decode self, model 2 (4 rows, 10 heads)"
+SERVE_WHISPER_CROSS = "whisper decode cross, model 2 (4 rows, 10 heads)"
+SERVE_TP_ATTN = (SERVE_QWEN_PREFILL, SERVE_QWEN_DECODE, SERVE_WHISPER_SELF,
+                 SERVE_WHISPER_CROSS)
 
 #: attention forward shapes held on the card: name -> (B, Sq, Sk, KV, G,
 #: hd, offsets, causal, window, act bits); q/k/v carry n_limbs(act bits)
@@ -1035,6 +1066,11 @@ ATTN_FWD_SHAPES = {
     TP_WHISPER_ENC: (8, 1500, 1500, 10, 1, 64, 0, False, None, 12),
     TP_WHISPER_CROSS: (8, 448, 1500, 10, 1, 64, 0, False, None, 12),
     TP_WHISPER_SELF: (8, 448, 448, 10, 1, 64, 0, True, None, 12),
+    SERVE_QWEN_PREFILL: (4, 64, 128, 8, 1, 64, 0, True, None, 12),
+    SERVE_QWEN_DECODE: (4, 1, 128, 8, 1, 64, [64, 65, 66, 67], True, None,
+                        12),
+    SERVE_WHISPER_SELF: (4, 1, 448, 10, 1, 64, 5, True, None, 12),
+    SERVE_WHISPER_CROSS: (4, 1, 1500, 10, 1, 64, 0, False, None, 12),
 }
 
 
@@ -1107,7 +1143,8 @@ def check_attention(torch, dev, gen, cfg):
                 raise AssertionError(
                     f"int_attn_fwd (integer_exp={iexp}) differs at {label}: "
                     f"o max|err| {e_o} of max {scale}, lse {e_l}")
-            if label in WHISPER_ATTN_FWD + TP_ATTN and e_o != 0:
+            if label in WHISPER_ATTN_FWD + TP_ATTN + SERVE_TP_ATTN \
+                    and e_o != 0:
                 raise AssertionError(
                     f"int_attn_fwd (integer_exp={iexp}) at {label}: o max "
                     f"|err| {e_o}, not bit for bit")
@@ -1191,7 +1228,7 @@ def check_attention(torch, dev, gen, cfg):
                     for lb in WHISPER_ATTN_FWD]
     tp_rows = [dict(label=lb, max_abs_err=runs[lb][-1],
                     **measure(lb, time_plain=lb != TP_WHISPER_ENC))
-               for lb in TP_ATTN]
+               for lb in TP_ATTN + SERVE_TP_ATTN]
     B, Sq, Sk, KV, G, hd = ATTN_FWD_SHAPES["decode"][:6]
     out = dict(name="int_attn_fwd", route="cuda",
                source="src/repro_torch/csrc/int_attention.cu",
@@ -1206,7 +1243,7 @@ def check_attention(torch, dev, gen, cfg):
                      "calls (ssm_rows) and phase 13's whisper calls, "
                      "bidirectional Sq != Sk and one bidirectional decode "
                      "row among them (whisper_rows, held bit for bit) "
-                     "and phase 14d's and 14e's heads at model 2 "
+                     "and phase 14d's, 14e's and 14f's heads at model 2 "
                      "(tp_rows, held bit for bit); "
                      "the kept-int body (int_*, train_int_*) "
                      "at decode and the training shape; both bodies held at "
@@ -2422,10 +2459,13 @@ def _tp_quant(torch, rows, name, label, x, bits, limbs, u=None):
 
 def _tp_mm(torch, rows, e, name, label, a, b, n_ops, out_n, pairs):
     """A split-shape limb-plane product held and timed (``_tp_row``) into
-    ``rows[name]``, beside ``torch._int_mm`` over its limb pairs."""
+    ``rows[name]``, beside ``torch._int_mm`` over its limb pairs (which
+    needs more than 16 rows: fewer, as 14f's decode rows, are zero-padded
+    to 17)."""
     from repro_torch.kernels import bfp_matmul as bm
     fn, plain = getattr(bm, name), getattr(bm, name + "_plain")
-    ps = [(p.contiguous(), q.contiguous()) for p, q in pairs]
+    ps = [(torch.nn.functional.pad(p, (0, 0, 0, max(0, 17 - p.shape[0])))
+           .contiguous(), q.contiguous()) for p, q in pairs]
     rows[name].append(_tp_row(
         torch, name, label, lambda: fn(a, b, e), lambda: plain(a, b, e),
         n_ops, nbytes(a, b) + 4 * out_n,
@@ -2644,9 +2684,92 @@ def check_sp_shapes(torch, dev, gen) -> dict:
     return rows
 
 
+#: phase 14f's decode rows (4) and the widths its products take at model 2
+SERVE_ROWS = 4
+
+
+def check_serve_tp_shapes(torch, dev, gen) -> dict:
+    """Phase 2's holds at the shapes phase 14f's served steps give the
+    kernels at model 2, 4 rows (each call held exactly against its plain
+    version and timed, ``_tp_row``): qwen1.5-0.5b's NN products (q / k /
+    v at 512 columns, o with K split, gate / up at 1408, down with K
+    split, the tied head over the rank's 76,032 vocabulary rows, W
+    K-major) and the a12 quantizes of their inputs; mamba2-370m's decode
+    (``wz`` / ``wx`` at 1024 of the 2048 inner columns, ``wdt`` at 16 of
+    32 heads, ``wBC`` whole, ``out_proj`` with K split) and its gated
+    norm over the gathered 2048-wide row; whisper-large-v3's decode (q at
+    640 of 1280 columns, o with K split, ``w1`` at 2560, ``w2`` with K
+    split, the tied head over 25,984 rows) and its cross K/V's projection
+    of the 4 x 1500 encoder rows at 640 columns.  Returns {kernel: [row,
+    ...]}."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    rows = {k: [] for k in ("dfx_quantize", "bfp_matmul",
+                            "int_rmsnorm_fwd")}
+    e = torch.tensor(-30, dtype=torch.int32, device=dev)
+    T = SERVE_ROWS
+
+    def nn(what, M, K, N, kmajor=False):
+        a, w = (_planes(torch, gen, dev, 2, M, K),
+                _planes(torch, gen, dev, 1, N, K) if kmajor
+                else _planes(torch, gen, dev, 1, K, N))
+        w = w.transpose(1, 2) if kmajor else w
+        _tp_mm(torch, rows, e, "bfp_matmul", f"{what} {M}x{K}x{N} 2x1"
+               + (" (W K-major)" if kmajor else ""), a, w,
+               2 * M * K * N * 2, M * N, [(aj, w[0]) for aj in a])
+
+    def act(what, K):
+        x = torch.randn((T, K), generator=gen, device=dev)
+        _tp_quant(torch, rows, "dfx_quantize", f"{what} ({T},{K}) a12 -> "
+                  "int16 planes", x, 12, True)
+
+    cfg = registry.get_config("qwen1.5-0.5b")
+    D, Q, F = cfg.d_model, cfg.n_heads * cfg.head_dim // 2, cfg.d_ff // 2
+    what = "qwen1.5-0.5b decode model 2"
+    nn(f"{what} q / k / v", T, D, Q)
+    nn(f"{what} o (K split)", T, Q, D)
+    nn(f"{what} gate / up", T, D, F)
+    nn(f"{what} down (K split)", T, F, D)
+    nn(f"{what} tied head", T, D, lm.padded_vocab(cfg) // 2, kmajor=True)
+    for K in (D, Q, F):
+        act(what, K)
+    cfg = registry.get_config("mamba2-370m")
+    D, DI, NH = cfg.d_model, cfg.d_inner // 2, cfg.ssm_nheads // 2
+    what = "mamba2-370m decode model 2"
+    nn(f"{what} wz / wx", T, D, DI)
+    nn(f"{what} wdt", T, D, NH)
+    nn(f"{what} wBC (whole)", T, D, 2 * cfg.ssm_state)
+    nn(f"{what} out_proj (K split)", T, DI, D)
+    act(what, DI)
+    c = norm_fwd_case(torch, dev, gen, False, T, 2 * DI)
+    b, by = c["bound"]
+    label = f"{what} gated norm over the gathered row ({T},{2 * DI})"
+    row = dict(label=label, max_abs_err=c["max_abs_err"], bound_ms=b,
+               bound_by=by, **timings(c["wrap"], c["plain"], c["library"]))
+    rows["int_rmsnorm_fwd"].append(row)
+    print(f"  int_rmsnorm_fwd {label}: held (max abs err "
+          f"{row['max_abs_err']:.3e}); call {row['ms']:.4f} ms, device "
+          f"{row['device_ms']:.4f} ms, bound {b:.4f} ms ({by}); plain "
+          f"{row['plain_ms']:.4f}; library {row['library_ms']:.4f} ms",
+          flush=True)
+    cfg = registry.get_config("whisper-large-v3")
+    D, Q, F = cfg.d_model, cfg.n_heads * cfg.head_dim // 2, cfg.d_ff // 2
+    what = "whisper decode model 2"
+    nn(f"{what} q", T, D, Q)
+    nn(f"{what} o (K split)", T, Q, D)
+    nn(f"{what} w1", T, D, F)
+    nn(f"{what} w2 (K split)", T, F, D)
+    nn(f"{what} tied head", T, D, lm.padded_vocab(cfg) // 2, kmajor=True)
+    nn(f"{what} cross K/V", T * 1500, D, Q)
+    for K in (D, F):
+        act(what, K)
+    return rows
+
+
 def tp_rows_worker(out_path: str) -> int:
-    """``--tp-rows OUT``: ``check_tp_shapes``, ``check_tp_state_shapes``
-    and ``check_sp_shapes`` on the card in a process of their own, their
+    """``--tp-rows OUT``: ``check_tp_shapes``, ``check_tp_state_shapes``,
+    ``check_sp_shapes`` and ``check_serve_tp_shapes`` on the card in a
+    process of their own, their
     rows written to ``OUT``
     as JSON.  Phase 2 runs them there: after some hundreds of profiler
     sessions in one process the profiler recorded a first window and then
@@ -2657,7 +2780,8 @@ def tp_rows_worker(out_path: str) -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = check_tp_shapes(torch, dev, gen)
-    for check in (check_tp_state_shapes, check_sp_shapes):
+    for check in (check_tp_state_shapes, check_sp_shapes,
+                  check_serve_tp_shapes):
         for name, more in check(torch, dev, gen).items():
             rows.setdefault(name, []).extend(more)
     Path(out_path).write_text(json.dumps(rows))
@@ -3483,6 +3607,56 @@ def profile_step(torch, fn, what: str) -> tuple:
     return busy_ms / wall_ms, launches
 
 
+def encoder_remat_hold(torch, dev, wrappers, arch, ft) -> None:
+    """Phase 5's hold of the BERT / ViT encoder's per-layer remat: one
+    bert-base cls forward and backward at full width under the paper's
+    scope, stochastic gradient rounding from one seeded generator, each
+    encoder layer under ``lm._remat`` and, for comparison, without
+    (``paper_models._encoder(remat=False)``): the loss, every gradient and
+    the generator's final state bit for bit; the recompute's launches
+    (the forward's, less each layer's last product) counted."""
+    import functools
+    from repro_torch.models import paper_models as pm
+    from repro_torch.train import finetune as tf
+    encoder, runs = pm._encoder, {}
+    for remat in (True, False):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        cfg, params, sampler, loss_fn, _ = tf._task_setup("cls", gen, ft,
+                                                          arch, dev)
+        b = tf.to_device(sampler(ft.batch, 0), dev)
+        for w in wrappers.values():
+            w.launches = 0
+        pm._encoder = functools.partial(encoder, remat=remat)
+        try:
+            loss, _, grads = tf.loss_and_grads(loss_fn, params, b, cfg,
+                                               tf.paper_scope(), gen)
+        finally:
+            pm._encoder = encoder
+        torch.cuda.synchronize()
+        runs[remat] = (loss, grads, gen.get_state(),
+                       {n: w.launches for n, w in wrappers.items()})
+        del params
+    (loss, grads, state, n1), (loss0, grads0, state0, n0) = runs[True], \
+        runs[False]
+    from repro_torch.train import optimizer as topt
+    same = [torch.equal(a, b) for a, b in zip(topt.tree_leaves(grads),
+                                              topt.tree_leaves(grads0))]
+    if not (torch.equal(loss, loss0) and all(same)
+            and torch.equal(state, state0)):
+        raise AssertionError(f"bert-base cls with per-layer remat: loss "
+                             f"{float(loss)} vs {float(loss0)} without, "
+                             f"{same.count(False)} of {len(same)} gradients "
+                             "differ")
+    extra = {n: n1[n] - n0[n] for n in n1}
+    if not extra.get("bfp_matmul", 0) > 0:
+        raise AssertionError(f"the encoder's recompute launched nothing: "
+                             f"{n1} with remat, {n0} without")
+    print(f"  cls with per-layer remat: loss {float(loss)} and all "
+          f"{len(same)} gradients bit for bit as without it, the "
+          f"generator's state too; launches with remat {n1}, without {n0} "
+          f"(the recompute's {extra})", flush=True)
+
+
 def finetune_phase(torch, dev, wrappers, int8_wrappers) -> tuple:
     """Fine-tune bert-base at full width through ``finetune`` (phase 5):
     cls and span under the paper's scope (``wrappers`` must all launch),
@@ -3579,6 +3753,8 @@ def finetune_phase(torch, dev, wrappers, int8_wrappers) -> tuple:
                     loss_fn, ocfg, gen)
             one_step()
             profile_step(torch, one_step, f"bert-base {task} training step")
+            del state
+            encoder_remat_hold(torch, dev, wrappers, arch, ft)
     return total, int8_launches
 
 
@@ -4157,6 +4333,9 @@ def arch_phase(torch, dev) -> dict:
 #: phase 9: the paper's presets, and the full-width cells (task, config
 #: module, batch, tokens per sample)
 SWEEP_PRESETS = ("fp32", "int16", "int12", "int10", "int8")
+#: the full-width sweep's depth: 6 of bert-base's and vit-base's 12
+#: layers, cut when their per-layer remat made each step dearer
+SWEEP_LAYERS = 6
 SWEEP_CELLS = (("cls", "bert_base", 32, 128), ("span", "bert_base", 12, 384),
                ("img", "vit_base", 32, 197))
 #: the kernels of phase 9's path: each launches at every integer preset
@@ -4166,7 +4345,8 @@ SWEEP_KERNELS = ("dfx_quantize", "bfp_matmul", "bfp_matmul_nt",
 
 
 def sweep_full_width(torch, dev, wrappers) -> dict:
-    """Phase 9, full width: bert-base cls and span and vit-base img through
+    """Phase 9, full width: bert-base cls and span and vit-base img
+    (``SWEEP_LAYERS`` of their 12 layers) through
     ``finetune`` at each of SWEEP_PRESETS (the plain presets, as the
     reference's ``sweep`` runs them: integer attention, stochastic gradient
     rounding from a seeded CUDA generator), lr 1e-4, 6 steps each.  The
@@ -4178,6 +4358,7 @@ def sweep_full_width(torch, dev, wrappers) -> dict:
     median of steps 1-5, tokens/s, the peak, the launches per step, and a
     profiled step's busy share at int16 and int8.  Returns each wrapper's
     launches over the integer runs."""
+    import dataclasses
     import importlib
     from repro_torch.core.qconfig import QuantConfig
     from repro_torch.train import finetune as tf
@@ -4185,7 +4366,7 @@ def sweep_full_width(torch, dev, wrappers) -> dict:
     total = dict.fromkeys(wrappers, 0)
     for task, module, batch, seq in SWEEP_CELLS:
         conf = importlib.import_module(f"repro_torch.configs.{module}")
-        arch = conf.CONFIG
+        arch = dataclasses.replace(conf.CONFIG, n_layers=SWEEP_LAYERS)
         ft = tf.FtConfig(steps=6, batch=batch, eval_n=batch, lr=1e-4,
                          **({"img": conf.IMG} if task == "img" else
                             {"seq": seq}))
@@ -5317,7 +5498,7 @@ def whisper_phase(torch, dev, kops) -> dict:
 DIST_LAYERS, DIST_BATCH, DIST_STEPS = 6, (8, 256), 3
 #: seconds each part may take (spawn, build load, init, steps); 14e's
 #: three cells add theirs to 14a's part
-DIST_TIMEOUT, SPLIT_TIMEOUT = 420, 300
+DIST_TIMEOUT, SPLIT_TIMEOUT, SERVE_TIMEOUT = 420, 300, 240
 #: 14d's vocabulary half: qwen's padded 152,064 rows over 2 model ranks;
 #: phase 2's split shapes (``check_tp_shapes``): qwen's tokens, d_model,
 #: q / k / v and gate / up widths at model 2; qwen2-moe's experts, capacity
@@ -5699,9 +5880,205 @@ def dist_split(torch, dev, arch: str) -> dict:
     return out
 
 
+#: phase 14f: arch -> (layers, encoder layers, prompt tokens, new
+#: tokens), ``SERVE_ROWS`` rows: full width, 14d's and 14e's depths
+SERVE_TP_CELLS = {"qwen1.5-0.5b": (DIST_LAYERS, 0, 64, 16),
+                  "mamba2-370m": (SPLIT_CELLS["mamba2-370m"][0], 0, 16, 8),
+                  "whisper-large-v3": (1, 1, 0, 8)}
+#: the kernels each 14f path must launch
+SERVE_TP_PATHS = {"qwen1.5-0.5b": ("dfx_quantize", "bfp_matmul",
+                                   "int_rmsnorm_fwd", "int_attn_fwd"),
+                  "mamba2-370m": ("dfx_quantize", "bfp_matmul",
+                                  "int_rmsnorm_fwd"),
+                  "whisper-large-v3": ("dfx_quantize", "bfp_matmul",
+                                       "int_layernorm_fwd", "int_attn_fwd")}
+#: 14f's hold: every step's logits rows within this share of the one-rank
+#: run's largest logit (the row-parallel products' f32 partials are
+#: added in another order than one rank's whole sums)
+SERVE_TP_TOL = 1e-3
+#: 14f's cache depths: the LM engine's, whisper's self cache
+SERVE_TP_SEQ = {"qwen1.5-0.5b": 128, "mamba2-370m": 128,
+                "whisper-large-v3": 448}
+
+
+def _serve_cfg(arch: str):
+    import dataclasses
+    from repro_torch.configs import registry
+    layers, enc, *_ = SERVE_TP_CELLS[arch]
+    cut = dict(n_layers=layers, **({"n_enc_layers": enc} if enc else {}))
+    return dataclasses.replace(registry.get_config(arch), **cut)
+
+
+def _serve_run(torch, dev, arch, cfg, params, prompts, frames, mesh):
+    """One 14f run of ``arch`` on ``mesh`` (None: this rank alone): the
+    LM archs through ``Engine.generate`` (greedy; mamba2's prompt
+    teacher-forced through decode steps), whisper through ``encode``,
+    ``encdec_precompute_cross`` and greedy ``encdec_decode_step``s.
+    Returns every step's whole logits rows (on the host), the tokens,
+    the cache's bytes by leaf (whisper's cross K/V too), each decode
+    step's ms and the last decode step's collectives by tag."""
+    import contextlib
+    from repro_torch import sharding
+    from repro_torch.configs import registry
+    from repro_torch.models import encdec
+    from repro_torch.serve.engine import Engine, ServeConfig
+    q = registry.get_quant("int8")
+    seen, stamps, stats = [], [], {}
+    B = SERVE_ROWS
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        before = dict(sharding.STATS)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        stamps.append(1e3 * (time.perf_counter() - t0))
+        stats.clear()
+        stats.update(_dist_stats(before, dict(sharding.STATS), 1))
+        return out
+
+    def nbytes_of(tree):
+        return {k: v.numel() * v.element_size() for k, v in tree.items()}
+    if not cfg.enc_dec:
+        _, _, _, new = SERVE_TP_CELLS[arch]
+        sharding.set_mesh(mesh)          # the engine reads it at its start
+        try:
+            eng = Engine(params, cfg, q, ServeConfig(
+                max_seq=SERVE_TP_SEQ[arch], batch_slots=B), device=dev)
+        finally:
+            sharding.set_mesh(None)
+        caches, sample, init, decode = ([], eng._sample, eng.init_cache,
+                                        eng._decode)
+
+        def rec(logits, g=None):
+            seen.append(logits[:, -1, :cfg.vocab].float().cpu())
+            return sample(logits, g)
+
+        def keep(batch):
+            caches.append(init(batch))
+            return caches[-1]
+        eng._sample, eng.init_cache = rec, keep
+        eng._decode = lambda *a: timed(decode, *a)
+        toks = eng.generate(prompts, new)
+        out = dict(tokens=toks.tolist(), cache=nbytes_of(caches[0]),
+                   decode_ms=stamps[-new:])
+        del eng, caches
+    else:
+        _, _, _, new = SERVE_TP_CELLS[arch]
+        with torch.no_grad():
+            if mesh is None:
+                blocks, ctx = params, contextlib.nullcontext(None)
+            else:
+                like = encdec.encdec_init(torch.Generator(), cfg,
+                                          device="meta")
+                blocks, specs = sharding.serve_blocks(params, like, mesh)
+                ctx = sharding.serving(mesh, specs, cfg, B)
+            with ctx as s:
+                rows = (lambda t: t) if s is None else s.rows
+                whole = (lambda z: z) if s is None else s.logits
+                v = blocks if s is None else s.view(blocks)
+                enc = encdec.encode(v, rows(frames), cfg, q, None)
+                cross = encdec.encdec_precompute_cross(v, enc, cfg, q)
+                cache = encdec.encdec_init_cache(
+                    cfg, B, SERVE_TP_SEQ[arch], device=dev, mesh=mesh)
+                tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+                toks = []
+
+                def step(tok, cache):
+                    logits, cache = encdec.encdec_decode_step(
+                        v, rows(tok), cache, cross, cfg, q)
+                    return whole(logits), cache
+                for _ in range(new):
+                    logits, cache = timed(step, tok, cache)
+                    z = logits[:, -1, :cfg.vocab]
+                    seen.append(z.float().cpu())
+                    tok = z.argmax(-1, keepdim=True).to(torch.int32)
+                    toks.append(tok[:, 0].tolist())
+                out = dict(tokens=toks, cache=dict(
+                    nbytes_of(cache), **nbytes_of(dict(zip(("xk", "xv"),
+                                                           cross)))),
+                    decode_ms=list(stamps))
+                del enc, cross, cache
+    out.update(logits=torch.stack(seen), stats=dict(stats))
+    return out
+
+
+def dist_serve(torch, dev, arch: str) -> dict:
+    """14f on every rank: ``arch`` at full width, cut in depth
+    (``SERVE_TP_CELLS``), served on (data 1, model 2) as
+    ``sharding.serving`` lays it out: the engine (or whisper's decode
+    entry points) under the mesh, the rank's blocks, the rank's cache,
+    every product split over the model group, the logits gathered whole
+    on every rank.  Rank 0 first runs the same steps alone (one rank, the
+    logical parameters); then the launch counters are set to 0, both
+    ranks serve, and the counters are read: every kernel of
+    ``SERVE_TP_PATHS[arch]`` must have launched.  Returns rank 0's
+    report: the largest gap of any step's logits rows against one rank's
+    (relative to its largest logit), whether the greedy tokens are
+    equal, each rank's and one rank's cache bytes by leaf, the decode
+    steps' ms and tok/s, the last decode step's collectives by tag and
+    every rank's peak."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch import sharding
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import encdec, lm
+    t_part = time.perf_counter()
+    mesh = sharding.init_mesh((1, 2), ("data", "model"))
+    cfg = _serve_cfg(arch)
+    _, _, prompt, new = SERVE_TP_CELLS[arch]
+    B = SERVE_ROWS
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = (encdec.encdec_init if cfg.enc_dec else lm.lm_init)(
+        gen, cfg, device=dev)
+    prompts = (np.random.default_rng(0).integers(0, cfg.vocab, (B, prompt))
+               .astype(np.int32) if prompt else None)
+    frames = (torch.randn((B, 1500, cfg.d_model), generator=gen, device=dev)
+              if cfg.enc_dec else None)
+    args = (torch, dev, arch, cfg, params, prompts, frames)
+    one = _serve_run(*args, None) if mesh.rank == 0 else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    wrappers = kops.wrappers(*SERVE_TP_PATHS[arch])
+    for w in wrappers.values():
+        w.launches = 0
+    sharding.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = _serve_run(*args, mesh)
+    launches = {n: w.launches for n, w in wrappers.items()}
+    for n, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"rank {mesh.rank}: {n} was not launched on "
+                                 f"the served {arch} path")
+    peak = sharding.all_gather(torch.tensor(
+        torch.cuda.max_memory_allocated() / 2**30), mesh.axis_names, mesh)
+    out = {"rank": mesh.rank, "arch": arch, "layers": cfg.n_layers,
+           "launches": launches, "peak_gib": [float(v) for v in peak]}
+    if one is not None:
+        a, b = got["logits"], one["logits"]
+        if a.shape != b.shape or not torch.isfinite(b).all():
+            raise AssertionError(f"14f {arch}: logits {tuple(a.shape)} vs "
+                                 f"{tuple(b.shape)} on one rank")
+        out.update(
+            rel_gap=float((a - b).abs().max() / b.abs().max()),
+            tokens_equal=got["tokens"] == one["tokens"],
+            cache=got["cache"], one_cache=one["cache"],
+            decode_ms=got["decode_ms"], one_decode_ms=one["decode_ms"],
+            tok_s=B * new * 1e3 / sum(got["decode_ms"]),
+            one_tok_s=B * new * 1e3 / sum(one["decode_ms"]),
+            stats=got["stats"], steps=int(a.shape[0]))
+    out["part_s"] = time.perf_counter() - t_part
+    del params, got, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def dist_worker(part: str, out_dir: str) -> int:
-    """One rank of phase 14's part ``part`` (``14ad``: 14a, then 14d and
-    14e; ``14b``; ``14c``) under ``torchrun``; rank 0 writes
+    """One rank of phase 14's part ``part`` (``14ad``: 14a, then 14d, 14e
+    and 14f; ``14b``; ``14c``) under ``torchrun``; rank 0 writes
     ``out_dir/<part>.json``."""
     import torch
     import torch.distributed as dist
@@ -5731,6 +6108,11 @@ def dist_worker(part: str, out_dir: str) -> int:
                 gc.collect()
                 torch.cuda.empty_cache()
                 out[arch] = dist_split(torch, dev, arch)
+            # 14f: serving on the same mesh
+            for arch in SERVE_TP_CELLS:
+                gc.collect()
+                torch.cuda.empty_cache()
+                out["14f " + arch] = dist_serve(torch, dev, arch)
         if dist.get_rank() == 0:
             Path(out_dir, f"{part}.json").write_text(json.dumps(out))
         dist.barrier()
@@ -5788,7 +6170,8 @@ def dist_phase(torch, card: str) -> dict:
               f"jit_train_step, int8 gather + int8 moments, {B} x {S}, "
               f"{DIST_STEPS} steps (and 14d's, printed after 14c, in the "
               "same two processes)", flush=True)
-        ad = _spawn_part("14ad", 2, out_dir, DIST_TIMEOUT + SPLIT_TIMEOUT)
+        ad = _spawn_part("14ad", 2, out_dir,
+                         DIST_TIMEOUT + SPLIT_TIMEOUT + SERVE_TIMEOUT)
         a = ad["14a"]
         rel = abs(a["losses"][0] - a["one_rank_loss"]) / abs(
             a["one_rank_loss"])
@@ -5918,12 +6301,66 @@ def dist_phase(torch, card: str) -> dict:
               + ("equal" if d["losses"][0] == w["losses"][0] else
                  f"{d['losses'][0]} / {w['losses'][0]}"), flush=True)
         split = {arch: split_report(ad[arch], card) for arch in SPLIT_CELLS}
+        print(f"[14f] serving on (data 1, model 2), 2 gloo ranks on one card "
+              f"(14a's processes), {SERVE_ROWS} rows: the engine (whisper: "
+              "its decode entry points) under the mesh, the rank's blocks "
+              "and cache, every product split, the logits gathered; each "
+              "held against the same run on one rank", flush=True)
+        served = {arch: serve_report(ad["14f " + arch], card)
+                  for arch in SERVE_TP_CELLS}
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     return {"dist_fsdp": a["launches"], "dist_compressed": b["launches"],
             "dist_nccl": c["launches"], "dist_tp": d["launches"],
             **{f"dist_tp_{arch.split('-')[0]}": launches
-               for arch, launches in split.items()}}, d
+               for arch, launches in split.items()},
+            **{f"serve_tp_{arch.split('-')[0]}": launches
+               for arch, launches in served.items()}}, d
+
+
+def serve_report(f: dict, card: str) -> dict:
+    """Print and hold one 14f run (rank 0's report): every step's logits
+    rows within ``SERVE_TP_TOL`` of one rank's, the greedy tokens equal,
+    each rank's cache half of one rank's where it splits (k / v, the SSD
+    state, the x conv state, the cross K/V) and whole where it does not
+    (the B / C conv state, the positions), the logits gathered.  Returns
+    rank 0's launches."""
+    arch = f["arch"]
+    if not f["rel_gap"] <= SERVE_TP_TOL:
+        raise AssertionError(f"14f {arch}: a step's logits rows are "
+                             f"{f['rel_gap']:.3e} of the largest logit from "
+                             f"one rank's (band {SERVE_TP_TOL})")
+    if not f["tokens_equal"]:
+        raise AssertionError(f"14f {arch}: the greedy tokens differ from "
+                             "one rank's")
+    whole = ("conv_BC", "index")
+    bad = {k: (v, f["one_cache"][k]) for k, v in f["cache"].items()
+           if v * (1 if k in whole else 2) != f["one_cache"][k]}
+    if bad:
+        raise AssertionError(f"14f {arch}: cache bytes (rank, one rank) not "
+                             f"as the layout gives them: {bad}")
+    st = f["stats"]
+    if _stat(st, "serve_logits")[0] != 1:
+        raise AssertionError(f"14f {arch}: a decode step gathered its "
+                             f"logits {st}")
+    mine, one = sum(f["cache"].values()), sum(f["one_cache"].values())
+    ms, ms1 = f["decode_ms"], f["one_decode_ms"]
+    print(f"  [{card}] {arch} ({f['layers']} layers): {f['steps']} steps; "
+          f"logits rows within {f['rel_gap']:.3e} of the largest logit "
+          f"(band {SERVE_TP_TOL}), greedy tokens equal; cache per rank "
+          f"{mine / 2**20:.3f} MiB against one rank's {one / 2**20:.3f} MiB "
+          f"({mine / one:.4f}; by leaf "
+          + ", ".join(f"{k} {v}/{f['one_cache'][k]}"
+                      for k, v in f["cache"].items())
+          + f"); decode step ms {statistics.median(ms):.2f} median "
+          f"(one rank {statistics.median(ms1):.2f}), {f['tok_s']:.1f} tok/s "
+          f"(one rank {f['one_tok_s']:.1f}); a decode step's collectives: "
+          + "; ".join(f"{t} {n:.0f} calls {b_ / 1e6:.4f} MB"
+                      for t, (n, b_) in sorted(st.items()) if n)
+          + f"; peak per rank {[round(v, 3) for v in f['peak_gib']]} GiB; "
+          f"launches per rank {f['launches']}; {f['part_s']:.1f} s",
+          flush=True)
+    return f["launches"]
 
 
 #: the model axis's collective tags 14d and 14e report

@@ -148,13 +148,20 @@ def _quant_grad(g: torch.Tensor, cfg: QuantConfig, key,
 # Linear
 # =========================================================================
 
+#: True inside a layer's recompute (``lm._remat``): a product marked
+#: ``tail`` there (a layer's last, whose output no saved tensor depends on)
+#: quantizes and saves its operands and skips its matmul, as the
+#: reference's recompute, dead-code eliminated by JAX, never computes it
+RECOMPUTING = False
+
+
 class _IntLinear(torch.autograd.Function):
     """Integer linear: residuals are the (L, M, K) activation planes and the
     weight planes, with their exponents."""
 
     @staticmethod
     def forward(ctx, x, w, b, key, cfg: QuantConfig, transposed_w: bool,
-                split: Optional[str] = None):
+                split: Optional[str] = None, tail: bool = False):
         with dfx.split(split == "row"):
             qx = dfx.quantize(x, cfg.act_bits, u=_act_noise(x, cfg, key),
                               limb_planes=True)
@@ -163,8 +170,13 @@ class _IntLinear(torch.autograd.Function):
         wm = qw.m.transpose(-1, -2) if transposed_w else qw.m
         K = x.shape[-1]
         xm = qx.m.reshape(qx.m.shape[0], -1, K)
-        y2 = kops.dfx_matmul_tiled(xm, qx.exp, cfg.act_bits, wm, qw.exp,
-                                   cfg.weight_bits)
+        if tail and RECOMPUTING:
+            # the recompute stops at this call's saved planes: its output
+            # is never read (torch.utils.checkpoint's early stop)
+            y2 = x.new_empty((xm.shape[1], wm.shape[-1]))
+        else:
+            y2 = kops.dfx_matmul_tiled(xm, qx.exp, cfg.act_bits, wm, qw.exp,
+                                       cfg.weight_bits)
         y = y2.reshape(tuple(x.shape[:-1]) + (wm.shape[-1],))
         ctx.save_for_backward(xm, qx.exp, qw.m, qw.exp)
         ctx.cfg, ctx.key, ctx.transposed_w = cfg, key, transposed_w
@@ -201,13 +213,13 @@ class _IntLinear(torch.autograd.Function):
             dx = dx.reshape(ctx.x_shape)
         if ctx.has_b and ctx.needs_input_grad[2]:
             db = g.reshape(-1, N).sum(0)
-        return dx, dw, db, None, None, None, None
+        return dx, dw, db, None, None, None, None, None
 
 
 def int_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                key, cfg: QuantConfig, *, transposed_w: bool = False,
-               split: Optional[str] = None,
-               seq: bool = False) -> torch.Tensor:
+               split: Optional[str] = None, seq: bool = False,
+               tail: bool = False) -> torch.Tensor:
     """``y = x @ w (+ b)`` with integer forward and backward.  x: (..., K),
     w: (K, N), b: (N,) or None.
 
@@ -226,11 +238,12 @@ def int_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     (``reduce_from_model``) before ``b``, which is whole, is added.  With
     ``seq`` (sequence parallelism) a row-parallel output leaves through
     ``reduce_scatter_to_sequence`` and ``b`` is added to the rank's rows
-    (its partial gradient SUMmed over the group)."""
+    (its partial gradient SUMmed over the group).  ``tail``: the layer's
+    last product, skipped in its recompute (``RECOMPUTING``)."""
     row = split == "row"
     if cfg.enabled:
         y = _IntLinear.apply(x, w, None if row else b, key, cfg,
-                             transposed_w, split)
+                             transposed_w, split, tail)
         if not row:
             return y
     else:

@@ -17,8 +17,12 @@ Counterpart of ``repro/core/qtensor.py``.  A ``QTensor`` holds
 ``quantize`` of a tensor is one launch of the existing quantize kernels:
 ``dfx_quantize`` with ``limb_planes=True`` for one exponent,
 ``dfx_quantize_grouped`` on the ``(E, M, N)`` view for one exponent per
-leading slice (``group_axis=0``; no caller groups along another axis, and
-asking for one raises).  The reference's pytree registration has no
+slice along ``group_axis`` (an axis other than 0 is moved to the front for
+the launch and back after it; the exponent keeps the reference's keep-dims
+shape, its size along ``group_axis``, 1 elsewhere).  As in the reference, a
+``group_axis`` outside ``[0, ndim)`` (a negative one included) names no
+axis: its keep-dims reduction runs over every axis, so it gives one
+exponent in the ``(1, ..., 1)`` shape.  The reference's pytree registration has no
 counterpart: the optimizer's ``tree_map`` / ``tree_leaves`` recurse into
 dicts only, so a ``QTensor`` is a leaf there.
 
@@ -77,11 +81,22 @@ def is_qtensor(x) -> bool:
     return isinstance(x, QTensor)
 
 
-def _check_axis(group_axis: Optional[int]) -> None:
-    if group_axis not in (None, 0):
-        raise NotImplementedError(
-            f"group_axis={group_axis}: only one exponent per tensor or per "
-            "leading slice (group_axis=0) is ported")
+def _axis(group_axis: Optional[int], ndim: int) -> Optional[int]:
+    """The axis the exponents vary along: ``group_axis`` where it is one of
+    ``x``'s axes, else None (the reference reduces over every axis ``a !=
+    group_axis``, so a negative or out-of-range one leaves one group)."""
+    if group_axis is None or not 0 <= group_axis < ndim:
+        return None
+    return group_axis
+
+
+def _eshape(shape: Tuple[int, ...], group_axis: Optional[int]
+            ) -> Tuple[int, ...]:
+    """The exponent's keep-dims shape: () for None, else the size along
+    the group axis and 1 elsewhere (all 1 where it names no axis)."""
+    if group_axis is None:
+        return ()
+    return tuple(s if a == group_axis else 1 for a, s in enumerate(shape))
 
 
 def step_exponent(x: torch.Tensor, bits: int,
@@ -89,12 +104,14 @@ def step_exponent(x: torch.Tensor, bits: int,
     """Step exponent ``e_max - (bits-1)`` per scale group (keep-dims): the
     frexp convention (``max|x| <= 2^e_max``), an all-zero group at
     ``-(bits-1)``."""
-    _check_axis(group_axis)
     x = x.to(torch.float32)
-    if group_axis is None:
-        return dfx.scale_exponent(x) - (bits - 1)
-    e = dfx.slice_exponents(x.reshape(x.shape[0], -1)) - (bits - 1)
-    return e.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
+    ax = _axis(group_axis, x.dim())
+    if ax is None:
+        e = dfx.scale_exponent(x) - (bits - 1)
+        return e.reshape(_eshape(tuple(x.shape), group_axis))
+    xt = x.movedim(ax, 0)
+    e = dfx.slice_exponents(xt.reshape(xt.shape[0], -1)) - (bits - 1)
+    return e.reshape(_eshape(tuple(x.shape), ax))
 
 
 def quantize(x: torch.Tensor, bits: int, *,
@@ -102,13 +119,13 @@ def quantize(x: torch.Tensor, bits: int, *,
              key=None, exp: Optional[torch.Tensor] = None) -> QTensor:
     """DFX linear mapping of ``x`` into a QTensor: one quantize launch for
     a CUDA tensor (its plain version for a CPU tensor).  ``group_axis``: None
-    (one exponent) or 0 (one per leading slice).  ``exp`` overrides the
-    derived step exponent (``step_exponent``'s shape): the collectives
-    quantize against a scale shared over ranks (``grad_compress``), the
-    optimizer its sharded moments against the logical tensor's."""
+    (one exponent) or the axis with one exponent per slice (the module
+    docstring).  ``exp`` overrides the derived step exponent
+    (``step_exponent``'s shape): the collectives quantize against a scale
+    shared over ranks (``grad_compress``), the optimizer its sharded
+    moments against the logical tensor's."""
     if stochastic and key is None:
         raise ValueError("stochastic rounding requires a key")
-    _check_axis(group_axis)
     from repro_torch.kernels import ops       # the kernels import dfx
     x = x.to(torch.float32)
     if exp is None:
@@ -116,16 +133,21 @@ def quantize(x: torch.Tensor, bits: int, *,
     else:
         exp = torch.as_tensor(exp, dtype=torch.int32, device=x.device)
     u = dfx.uniform(key, tuple(x.shape), x.device) if stochastic else None
-    if group_axis is None:
+    ax = _axis(group_axis, x.dim())
+    if ax is None:
         x2 = x.reshape(-1, x.shape[-1]) if x.dim() else x.reshape(1, 1)
-        m = ops.quantize(x2, exp, bits, u=None if u is None else
+        m = ops.quantize(x2, exp.reshape(()), bits, u=None if u is None else
                          u.reshape(x2.shape), limb_planes=True)
-    else:
-        x3 = x.reshape(x.shape[0], -1, x.shape[-1] if x.dim() > 1 else 1)
-        m = ops.quantize_batched(x3, exp, bits, u=None if u is None else
-                                 u.reshape(x3.shape), limb_planes=True)
-    return QTensor(m=m.reshape((m.shape[0],) + tuple(x.shape)), exp=exp,
-                   bits=bits)
+        return QTensor(m=m.reshape((m.shape[0],) + tuple(x.shape)), exp=exp,
+                       bits=bits)
+    # the group axis in front: one exponent per leading slice of the view
+    xt = x.movedim(ax, 0)
+    ut = None if u is None else u.movedim(ax, 0)
+    x3 = xt.reshape(xt.shape[0], -1, xt.shape[-1] if xt.dim() > 1 else 1)
+    m = ops.quantize_batched(x3, exp, bits, u=None if ut is None else
+                             ut.reshape(x3.shape), limb_planes=True)
+    m = m.reshape((m.shape[0],) + tuple(xt.shape)).movedim(1, 1 + ax)
+    return QTensor(m=m.contiguous(), exp=exp, bits=bits)
 
 
 def _combine_planes(m: torch.Tensor, dtype) -> torch.Tensor:
@@ -149,10 +171,8 @@ def dequantize(t: QTensor, dtype=torch.float32) -> torch.Tensor:
 def zeros(shape: Tuple[int, ...], bits: int,
           group_axis: Optional[int] = None, device="cpu") -> QTensor:
     """All-zero QTensor (mantissas 0, exponents at the zero-group value)."""
-    _check_axis(group_axis)
     shape = tuple(shape)
-    eshape = () if group_axis is None else (
-        (shape[0],) + (1,) * (len(shape) - 1))
+    eshape = _eshape(shape, group_axis)
     return QTensor(m=torch.zeros((n_limbs(bits),) + shape, dtype=torch.int8,
                                  device=device),
                    exp=torch.full(eshape, -(bits - 1), dtype=torch.int32,

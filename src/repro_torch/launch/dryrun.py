@@ -40,9 +40,16 @@ A record's keys are the reference's, ``trace_s`` in place of ``lower_s``
 * ``launches``: the kernel wrappers' calls by name;
 * ``model_params``, ``active_params``, ``status``, ``trace_s``.
 
-The port serves unsplit under a mesh (ROADMAP §1 item 14, serving under a
-mesh), so on a mesh of more than one rank a prefill or decode cell
-records ``status="not_ported"``; on a one-rank mesh it runs.
+A prefill or decode cell runs one rank's step under ``sharding.serving``
+as the reference lays it out: the parameters by ``param_pspecs(fsdp=
+registry.use_fsdp(arch))``, the batch over the batch axes where they
+divide it (else whole on every rank, the reference's ``_batch_sharding``),
+the decode cache by ``sharding.cache_pspecs`` (the rank's kv heads where
+the reference splits ``hd``; its docstring says why), the enc-dec's cross
+K/V the rank's rows and kv heads, every product split over ``model``; the
+rank's logits are its rows and vocabulary columns.  A cell whose model
+axis splits a head records ``not_ported`` (``UNEVEN_HEADS``), a serving
+cell too.
 
 Not ported: ``collective_bytes``, ``dot_flops``, ``extrapolated_costs``
 and ``analysis_configs`` (XLA's HLO text parsers and its loop-once
@@ -85,11 +92,7 @@ from repro_torch.train import trainer
 _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                 "collective-permute")
 
-#: the reason a prefill or decode cell over several ranks records
-NOT_PORTED = ("the port serves unsplit under a mesh: prefill and decode "
-              "over a mesh of more than one rank are ROADMAP §1 item 14, "
-              "serving under a mesh")
-#: the reason a train cell whose model axis splits a head records
+#: the reason a cell whose model axis splits a head records
 UNEVEN_HEADS = ("the port's tensor-parallel compute gives each model rank "
                 "whole heads (GSPMD splits a head's columns): ROADMAP §1 "
                 "item 15, uneven head splits")
@@ -210,10 +213,13 @@ def build_cell(arch: str, shape: str, mesh: sharding.Mesh, qcfg,
     rank's blocks, their optimizer state (``opt_cfg``, default
     ``OptimizerConfig()``), the global batch and a CPU generator (the
     draws land on ``meta``).  prefill: ``lm_prefill`` (enc-dec: ``encode``
-    + ``encdec_precompute_cross``).  decode: ``lm_decode_step`` (enc-dec:
-    ``encdec_decode_step`` over the bfloat16 cross K/V).  ``cfg`` /
-    ``batch`` (rows, seq) / ``train_cfg`` / ``fsdp`` override the arch's,
-    the shape's, ``TrainConfig()`` and ``registry.use_fsdp(arch)``."""
+    + ``encdec_precompute_cross``).  decode: ``lm_decode_step`` over the
+    rank's bfloat16 cache (enc-dec: ``encdec_decode_step`` over the
+    rank's bfloat16 cache and cross K/V).  Both under ``sharding.serving``
+    with the rank's blocks under the same specs, the global batch handed
+    in (the rank takes its rows).  ``cfg`` / ``batch`` (rows, seq) /
+    ``train_cfg`` / ``fsdp`` override the arch's, the shape's,
+    ``TrainConfig()`` and ``registry.use_fsdp(arch)``."""
     cfg = cfg or registry.get_config(arch)
     S, B, kind = SHAPES[shape]
     init_fn, loss_fn = ((encdec.encdec_init, encdec.encdec_loss)
@@ -234,41 +240,63 @@ def build_cell(arch: str, shape: str, mesh: sharding.Mesh, qcfg,
         rows = trainer.local_rows(b, mesh, step.train_cfg.microbatches)
         return Cell(fn, (params, opt, b, gen), (0, 1), rows, 2)
 
-    if mesh.count(mesh.axis_names) > 1:
-        raise NotImplementedError(NOT_PORTED)
-    params = init_fn(gen, cfg, device="meta")
+    logical = init_fn(gen, cfg, device="meta")
+    pspecs = sharding.param_pspecs(
+        logical, mesh, fsdp=registry.use_fsdp(arch) if fsdp is None else fsdp)
+    params = sharding.shard(logical, pspecs, mesh)
+    del logical
+
+    def serving(rows: int):
+        return sharding.serving(mesh, pspecs, cfg, rows)
 
     if kind == "prefill":
         b = _batch(specs_in, batch)
+        B = next(iter(b.values())).shape[0]
         if cfg.enc_dec:
             def fn(params, batch):
-                with torch.no_grad():
-                    enc = encdec.encode(params, batch["frames"], cfg, qcfg,
-                                        None)
+                with torch.no_grad(), serving(B) as s:
+                    view = s.view(params)
+                    enc = encdec.encode(view, s.rows(batch["frames"]), cfg,
+                                        qcfg, None)
                     return enc, encdec.encdec_precompute_cross(
-                        params, enc, cfg, qcfg)
+                        view, enc, cfg, qcfg)
         else:
             def fn(params, batch):
-                with torch.no_grad():
+                pe = batch.get("patch_embeds")
+                with torch.no_grad(), serving(B) as s:
                     return lm.lm_prefill(
-                        params, batch["tokens"], cfg, qcfg,
-                        prefix_embeds=batch.get("patch_embeds"))[0]
-        return Cell(fn, (params, b), (), b, 1)
+                        s.view(params), s.rows(batch["tokens"]), cfg, qcfg,
+                        prefix_embeds=None if pe is None else s.rows(pe))[0]
+        rows = sharding.Serving(mesh, pspecs, cfg, B)
+        return Cell(fn, (params, b), (), {k: rows.rows(v)
+                                          for k, v in b.items()}, 1)
 
-    # decode
+    # decode: the rank's cache (and the enc-dec's cross K/V, laid out as
+    # the cache's k)
+    token = specs_in["token"]
+    B = token.shape[0]
+    cspecs = sharding.cache_pspecs(specs_in["cache"], mesh, cfg)
+
+    def block(t, spec):
+        return t[sharding.cache_slices(t.shape, spec, mesh, cfg)].clone()
+    cache = {k: block(v, cspecs[k]) for k, v in specs_in["cache"].items()}
     if cfg.enc_dec:
+        cross = tuple(block(t, cspecs["k"]) for t in specs_in["cross_kv"])
+
         def fn(params, token, cache, cross):
-            with torch.no_grad():
-                return encdec.encdec_decode_step(params, token, cache, cross,
+            with torch.no_grad(), serving(B) as s:
+                return encdec.encdec_decode_step(s.view(params),
+                                                 s.rows(token), cache, cross,
                                                  cfg, qcfg)
-        args = (params, specs_in["token"], specs_in["cache"],
-                specs_in["cross_kv"])
+        args = (params, token, cache, cross)
     else:
         def fn(params, token, cache):
-            with torch.no_grad():
-                return lm.lm_decode_step(params, token, cache, cfg, qcfg)
-        args = (params, specs_in["token"], specs_in["cache"])
-    return Cell(fn, args, (2,), specs_in["token"], 1)
+            with torch.no_grad(), serving(B) as s:
+                return lm.lm_decode_step(s.view(params), s.rows(token), cache,
+                                         cfg, qcfg)
+        args = (params, token, cache)
+    rows = sharding.Serving(mesh, pspecs, cfg, B).rows(token)
+    return Cell(fn, args, (2,), rows, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -354,8 +382,7 @@ def run_cell(arch: str, shape: str, mesh: sharding.Mesh, mesh_name: str,
     """Trace one cell (``build_cell``'s overrides: ``cfg``, ``batch``,
     ``opt_cfg``, ``fsdp``) and write its record under ``outdir`` (None:
     return it only).  A cell the skip rule or the quantization policy
-    leaves out is ``skipped``; a prefill or decode cell over several
-    ranks, or a train cell whose model axis splits a head, is
+    leaves out is ``skipped``; a cell whose model axis splits a head is
     ``not_ported``; a failure is an ``error`` (the sweep goes on)."""
     cfg = cfg or registry.get_config(arch)
     ok, why = shape_applicable(cfg, shape)
@@ -363,9 +390,6 @@ def run_cell(arch: str, shape: str, mesh: sharding.Mesh, mesh_name: str,
                            "quant": dataclass_dict(qcfg), "variant": variant}
     if not ok:
         rec.update(status="skipped", reason=why)
-        return _write(rec, outdir)
-    if SHAPES[shape][2] != "train" and mesh.count(mesh.axis_names) > 1:
-        rec.update(status="not_ported", reason=NOT_PORTED)
         return _write(rec, outdir)
     try:
         sharding.tensor_parallel(cfg, mesh)

@@ -5,17 +5,33 @@
 
 Weights are random (normal · 0.02) from ``--seed``; prompts are random
 token ids from the same seed.  Runs on the card unless ``--device cpu``.
+
+Under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` set) every rank joins the
+world (gloo for the CPU, NCCL for the card) and installs the reference's
+host mesh, ``launch.mesh.make_host_mesh()``: the data axis over the world,
+a model axis of 1.  The engine reads that mesh: each rank serves its rows
+of the slots, and every rank prints the same results.  A model group is
+reached through ``Engine`` under a ``sharding.set_mesh`` of a mesh with a
+model axis, as in the reference (whose serving launcher has no model
+flag either)::
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 -m \
+        repro_torch.launch.serve --reduced --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import sharding
 from repro_torch.configs import registry
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import lm
 from repro_torch.serve.engine import ContinuousBatcher, Engine, ServeConfig
 
@@ -46,6 +62,14 @@ def main(argv=None) -> None:
                          "an enc-dec arch through models/encdec.py (encode, "
                          "encdec_precompute_cross, encdec_decode_step)")
     device = lm.resolve_device(args.device)
+    world = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if world:
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get(
+                "LOCAL_RANK", "0")) % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        sharding.set_mesh(make_host_mesh())
     params = lm.lm_init(torch.Generator(device=device).manual_seed(args.seed),
                         cfg, device=device)
     engine = Engine(params, cfg, registry.get_quant(args.quant),
@@ -69,6 +93,9 @@ def main(argv=None) -> None:
              else "cpu")
     for rid in ids[:3]:
         log.info("req %d -> %s", rid, results[rid][:16])
+    if world:
+        sharding.set_mesh(None)
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

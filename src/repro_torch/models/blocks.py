@@ -374,14 +374,15 @@ def mlp_init(gen: torch.Generator, cfg: ArchConfig, device,
 
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantLike,
-              key, *, seq: bool = False,
-              gathered: bool = False) -> torch.Tensor:
+              key, *, seq: bool = False, gathered: bool = False,
+              tail: bool = False) -> torch.Tensor:
     """SwiGLU ``wd(silu(wg x) * wu x)`` or GELU ``w2 gelu(w1 x + b1) + b2``
     (the activation a kept FP32 op); under tensor parallelism on the
     rank's part of the inner width (column- then row-parallel).  ``seq``:
     the output is the rank's rows of the sequence, and so is ``x`` unless
     ``gathered`` (the whole sequence, already through
-    ``gather_from_sequence``: the MoE's shared expert)."""
+    ``gather_from_sequence``: the MoE's shared expert).  ``tail``: the
+    down projection is its layer's last product (``int_ops.int_linear``)."""
     sc = ensure_scope(qcfg)
     col = row = None
     if dfx.model is not None:
@@ -396,12 +397,12 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, qcfg: QuantLike,
                                split=col)
         h = int_ops.int_activation(g, sc.leaf("act"), "silu") * u
         return int_ops.int_linear(h, p["wd"], None, key, sc.leaf("wd"),
-                                  split=row, seq=seq)
+                                  split=row, seq=seq, tail=tail)
     h = int_ops.int_linear(x, p["w1"], p["b1"], key, sc.leaf("w1"),
                            split=col)
     h = int_ops.int_activation(h, sc.leaf("act"), "gelu")
     return int_ops.int_linear(h, p["w2"], p["b2"], key, sc.leaf("w2"),
-                              split=row, seq=seq)
+                              split=row, seq=seq, tail=tail)
 
 
 # =========================================================================

@@ -42,6 +42,13 @@ the encoder's output after ``enc_ln`` is gathered once a step before the
 decoder loop, its backward one reduce-scatter of the cross K/V's
 accumulated input gradient (with the kv replication, the rank's rows of
 the whole gradient every rank computes).
+
+Decode runs under a serving mesh too (``sharding.serving``): ``encode``
+and ``encdec_precompute_cross`` give each rank the cross K/V of its kv
+heads (column-parallel over the whole encoder output; the reference keeps
+them whole over ``model``), ``encdec_init_cache(..., mesh=)`` the rank's
+self cache, and ``encdec_decode_step`` the rank's rows and vocabulary
+columns of the logits.
 """
 from __future__ import annotations
 
@@ -300,11 +307,16 @@ def encdec_loss(params: Params, batch: Dict[str, torch.Tensor],
 
 
 def encdec_init_cache(cfg: ArchConfig, batch: int, max_seq: int,
-                      dtype=torch.bfloat16, device="cuda") -> Params:
+                      dtype=torch.bfloat16, device="cuda",
+                      mesh=None) -> Params:
     """The decoder's self-attention cache: k / v (L, B, max_seq, KV, hd) of
     ``dtype`` (the reference's bfloat16 by default) and a scalar int32
-    ``index``."""
+    ``index``; with ``mesh`` the rank's block of each
+    (``sharding.cache_pspecs``)."""
     device = lm.resolve_device(device)
+    if mesh is not None:
+        return sharding.cache_zeros(encdec_init_cache(
+            cfg, batch, max_seq, dtype, "meta"), mesh, cfg, device)
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -317,19 +329,21 @@ def encdec_precompute_cross(params: Params, enc: torch.Tensor,
     """Every decoder layer's cross-attention K/V from the encoder's output,
     computed once before decoding (no key: rounding to nearest), so a
     decode step projects only its own token.  Returns (xk, xv), each (L,
-    B, T, KV, hd) f32."""
+    B, T, KV, hd) f32; under a model group the rank's kv heads (or the one
+    its query heads read)."""
     sc = ensure_scope(qcfg)
     L = cfg.n_layers
-    B, T, _ = enc.shape
     layers = blocks.unstack(params["dec_blocks"], L)
-    shape = (L, B, T, cfg.n_kv_heads, cfg.head_dim)
-    xk = torch.empty(shape, dtype=torch.float32, device=enc.device)
-    xv = torch.empty_like(xk)
+    xk = xv = None
     for start, stop, bsc in layer_groups(sc, L, ["xattn.wk", "xattn.wv"],
                                          stack="dec"):
         for i in range(start, stop):
-            k, v = _cross_kv(layers[i]["xattn"], enc, cfg, bsc.child("xattn"),
-                             None)
+            bp = sharding.gather_layer(layers[i]["xattn"])
+            k, v = _cross_kv(bp, enc, cfg, bsc.child("xattn"), None)
+            if xk is None:
+                xk = torch.empty((L,) + tuple(k.shape), dtype=torch.float32,
+                                 device=enc.device)
+                xv = torch.empty_like(xk)
             xk[i], xv[i] = k, v
     return xk, xv
 

@@ -60,6 +60,17 @@ cache.  The VLM family is the dense stack behind an ``mm_proj``
 projection of precomputed patch embeddings, put in front of the tokens
 (``prefix_embeds`` / the batch's ``patch_embeds``); its loss counts the
 text positions only.
+
+Serving runs under a mesh too (``sharding.serving``, the reference's
+dry-run layout): ``lm_prefill``, ``lm_prefill_cache`` and
+``lm_decode_step`` take the rank's ``view`` of its parameter blocks (each
+layer gathered inside the layer, as in training), the rank's rows of the
+batch and the rank's cache (``init_cache(..., mesh=)``: its rows, its kv
+heads, its SSD heads and conv channels), split every product over the
+model group as a training step does and return the rank's rows and
+vocabulary columns of the logits.  A prompt the model group divides runs
+sequence-sharded and is gathered before the head; a one-token decode
+stays whole (``int_ops.sequence_split``).
 """
 from __future__ import annotations
 
@@ -294,8 +305,12 @@ def _remat(fn, x: torch.Tensor, key):
 
     def run(x):
         if calls:                    # the recompute: probed once already
-            with health.suspend():
-                return fn(x, _replay_key(key, state))
+            prev, int_ops.RECOMPUTING = int_ops.RECOMPUTING, True
+            try:
+                with health.suspend():
+                    return fn(x, _replay_key(key, state))
+            finally:
+                int_ops.RECOMPUTING = prev
         calls.append(1)
         return fn(x, key)
     context = utils.checkpoint_context()
@@ -488,23 +503,36 @@ def lm_prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     D) projected in front of the tokens.  Returns (last-position logits
     (B, 1, V), the final hidden states (B, P + S, D))."""
     _require_ported(cfg)
-    x = _embed(params, tokens, cfg, qcfg, None, prefix_embeds=prefix_embeds)
-    x, _ = _backbone_train(params, x, cfg, qcfg, None)
+    seq = int_ops.sequence_split(tokens.shape[1] + (
+        0 if prefix_embeds is None else prefix_embeds.shape[1]))
+    x = _embed(params, tokens, cfg, qcfg, None, prefix_embeds=prefix_embeds,
+               seq=seq)
+    x, _ = _backbone_train(params, x, cfg, qcfg, None, seq=seq)
+    x = _whole(x, seq)
     logits = _logits(params, x[:, -1:], cfg, qcfg, None)
     return logits, x
 
 
+def _whole(x: torch.Tensor, seq: bool) -> torch.Tensor:
+    """The whole sequence of a stream that ran as the rank's rows."""
+    return int_ops.gather_from_sequence(x)[1] if seq else x
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
-               dtype=torch.float32, device="cuda") -> Params:
+               dtype=torch.float32, device="cuda", mesh=None) -> Params:
     """Decode cache and a per-row (B,) int32 ``index`` (continuous
     batching admits slots at different times).  Attention families: k / v
     (L, B, max_seq, KV, hd) of ``dtype``.  SSM and hybrid: the FP32 states
     ``ssm`` (L, B, H, P, N), ``conv_x`` (L, B, K-1, DI) and ``conv_BC``
     (L, B, K-1, 2N); the hybrid also k / v (G, B, max_seq, KV, hd), one
     per call of the shared block.  Batch is axis 1 of every stacked
-    tensor."""
+    tensor.  ``mesh``: the rank's block of each (``sharding.cache_pspecs``:
+    its rows and kv heads, its SSD heads and conv channels)."""
     _require_ported(cfg)
     device = resolve_device(device)
+    if mesh is not None:
+        return sharding.cache_zeros(init_cache(cfg, batch, max_seq, dtype,
+                                               "meta"), mesh, cfg, device)
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     index = torch.zeros((batch,), dtype=torch.int32, device=device)
     cache = {}
@@ -540,15 +568,16 @@ def lm_prefill_cache(params: Params, tokens: torch.Tensor, cache: Params,
     key = None                                   # no stochastic rounding
     index = cache["index"]
     sc = ensure_scope(qcfg)
-    x = _embed(params, tokens, cfg, sc, key)
+    seq = int_ops.sequence_split(tokens.shape[1])
+    x = _embed(params, tokens, cfg, sc, key, seq=seq)
     layers = blocks.unstack(params["blocks"], cfg.n_layers)
     groups = layer_groups(sc, cfg.n_layers, _block_leaves(cfg))
     for start, stop, bsc in groups:
         for i in range(start, stop):
             x, _, _ = _attn_block(layers[i], x, cfg, bsc, key,
                                   cache=(cache["k"][i], cache["v"][i]),
-                                  cache_index=index)
-    logits = _logits(params, x[:, -1:], cfg, sc, key)
+                                  cache_index=index, seq=seq)
+    logits = _logits(params, _whole(x, seq)[:, -1:], cfg, sc, key)
     return logits, {"k": cache["k"], "v": cache["v"],
                     "index": index + tokens.shape[1]}
 
@@ -570,7 +599,8 @@ def lm_decode_step(params: Params, token: torch.Tensor, cache: Params,
 
     def mamba(i, bsc, x):
         h, new = ssm.mamba2_apply(
-            layers[i]["mamba"], x, cfg, bsc.child("mamba"), key,
+            sharding.gather_layer(layers[i])["mamba"], x, cfg,
+            bsc.child("mamba"), key,
             state=tuple(cache[n][i] for n in ("ssm", "conv_x", "conv_BC")),
             decode=True)
         for n, t in zip(("ssm", "conv_x", "conv_BC"), new):

@@ -8,8 +8,14 @@ are the paper's kept FP32 ops (the iapprox integer forms under
 ``kept_ops="integer"``).  Parameters are a nested dict of tensors
 with the layer stack on a leading ``(L, ...)`` axis, as in the reference,
 so its params carry across one to one (``repro_torch.convert``).  The
-reference's ``lax.scan`` over the stack (under activation recompute) is a
-Python loop here, without recompute.
+reference's ``lax.scan`` over the stack is a Python loop here, each layer
+under its activation recompute (``utils.checkpoint``), which is
+``lm._remat``: ``torch.utils.checkpoint`` while autograd records, the
+recompute replaying the forward's noise from a copy of the generator, a
+callable key running without remat, ``utils.CHECKPOINT_POLICY`` deciding
+what the backward keeps.  Each layer gathers its own leaves of a sharded
+stack inside the checkpointed function (``sharding.gather_layer``), so the
+recompute gathers again.
 
 Quantization scope paths, as in the reference: ``embed``, ``type_embed``,
 ``embed_ln``, ``blocks.{i}.{ln1, attn.*, ln2, mlp.{w1,w2,act}}``,
@@ -25,7 +31,7 @@ import torch
 from repro_torch import sharding
 from repro_torch.core import int_ops
 from repro_torch.core.qpolicy import QuantLike, ensure_scope, layer_groups
-from repro_torch.models import blocks
+from repro_torch.models import blocks, lm
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.lm import resolve_device
 
@@ -62,24 +68,34 @@ def _enc_block_init(gen: torch.Generator, cfg: ArchConfig, device,
             "mlp": blocks.mlp_init(gen, cfg, device, lead)}
 
 
+def _enc_layer(bp: Params, x: torch.Tensor, cfg: ArchConfig, bsc,
+               key) -> torch.Tensor:
+    """One pre-LN encoder layer, bidirectional attention without RoPE."""
+    bp = sharding.gather_layer(bp)
+    h = blocks.norm_apply(bp["ln1"], x, cfg, bsc.child("ln1"), key)
+    h, _ = blocks.attention_apply(bp["attn"], h, cfg, bsc.child("attn"),
+                                  key, causal=False, use_rope=False)
+    x = x + h
+    h = blocks.norm_apply(bp["ln2"], x, cfg, bsc.child("ln2"), key)
+    return x + blocks.mlp_apply(bp["mlp"], h, cfg, bsc.child("mlp"), key,
+                                tail=True)
+
+
 def _encoder(params: Params, x: torch.Tensor, cfg: ArchConfig,
-             qcfg: QuantLike, key) -> torch.Tensor:
-    """Pre-LN encoder stack, bidirectional attention without RoPE; the
-    policy may resolve runs of layers differently (``layer_groups``)."""
+             qcfg: QuantLike, key, *, remat: bool = True) -> torch.Tensor:
+    """The encoder stack; the policy may resolve runs of layers
+    differently (``layer_groups``).  ``remat``: each layer under
+    ``lm._remat`` while autograd records (the reference's per-layer
+    remat; off only to compare the two)."""
     sc = ensure_scope(qcfg)
     L = cfg.n_layers
     layers = blocks.unstack(params["blocks"], L)
+    remat = remat and torch.is_grad_enabled()
     for start, stop, bsc in layer_groups(sc, L, _ENC_BLOCK_LEAVES):
         for bp in layers[start:stop]:
-            bp = sharding.gather_layer(bp)
-            h = blocks.norm_apply(bp["ln1"], x, cfg, bsc.child("ln1"), key)
-            h, _ = blocks.attention_apply(bp["attn"], h, cfg,
-                                          bsc.child("attn"), key,
-                                          causal=False, use_rope=False)
-            x = x + h
-            h = blocks.norm_apply(bp["ln2"], x, cfg, bsc.child("ln2"), key)
-            x = x + blocks.mlp_apply(bp["mlp"], h, cfg, bsc.child("mlp"),
-                                     key)
+            def layer(x, k, bp=bp, bsc=bsc):
+                return _enc_layer(bp, x, cfg, bsc, k)
+            x = lm._remat(layer, x, key) if remat else layer(x, key)
     return x
 
 

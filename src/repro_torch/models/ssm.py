@@ -31,7 +31,10 @@ inner row as the reference's Pallas norm does (a custom call XLA does
 not partition along the row): its input is all-gathered over the group
 (tag ``tp_norm``), normed at the logical width with ``norm_g`` whole,
 and the rank's columns go on (``int_ops.gather_from_model`` /
-``scatter_to_model``).  Decode under a mesh is not split.
+``scatter_to_model``).  A decode step under a serving mesh
+(``sharding.serving``) splits the same way: the rank's conv state holds
+its ``DI / M`` channels and its SSM state its heads, the B / C conv state
+is whole (``sharding.cache_pspecs``), and the new states are the rank's.
 """
 from __future__ import annotations
 
@@ -162,15 +165,17 @@ def mamba2_apply(
     recurrence.  In training ``state`` may carry an initial SSM state and
     the new state is ``(final, None, None)``; in decode (S == 1) it is the
     layer's ``(ssm, conv_x, conv_BC)`` and so is the returned one (new
-    tensors: the caller writes them into its cache).  ``seq`` (training
-    under a model group): ``x`` and the output are the rank's rows of the
+    tensors: the caller writes them into its cache; under a model group
+    the rank's heads and conv channels, the B / C conv state whole).
+    ``seq`` (under a model group): ``x`` and the output are the rank's rows
+    of the
     sequence; the conv and the scan need it whole, so it is gathered once,
     before the projections, and ``out_proj`` reduce-scatters onto the
     rows."""
     DI, N, NH, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
     sc = ensure_scope(qcfg)
     act = sc.child("act")
-    tp = None if decode else dfx.model
+    tp = dfx.model
     A_log, dt_bias, D_skip = p["A_log"], p["dt_bias"], p["D_skip"]
     xc, col = x, None
     if tp is not None:

@@ -9,6 +9,18 @@ immutable value.  The SSM and hybrid families have no cache-prefill form:
 ``generate`` and the batcher's admission teacher-force a prompt through
 decode steps, one per token, as the reference does.  The VLM serves text
 only, as there.
+
+Under the mesh ``sharding.set_mesh`` installed (the reference's engine
+runs under the mesh its launcher set), every step runs as
+``sharding.serving`` lays it out: the engine holds the rank's parameter
+blocks (``sharding.serve_blocks``; it cuts logical parameters to them) and
+the rank's cache, hands each step the rank's rows of the batch (all of
+them where the batch axes do not divide the slots) and gathers the whole
+logits back on every rank (tags ``serve_logits`` over ``model``,
+``serve_rows`` over the batch axes).  So every rank keeps the whole
+bookkeeping — slots, admission, deadlines, eviction, the non-finite
+check — and samples from the same rows: a sampling generator seeded the
+same on every rank draws the same tokens.
 """
 from __future__ import annotations
 
@@ -19,6 +31,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import sharding
 from repro_torch.core.qpolicy import QuantLike
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
@@ -56,19 +69,47 @@ class Engine:
 
     def __init__(self, params, cfg: ArchConfig, qcfg: QuantLike,
                  scfg: ServeConfig, device="cuda"):
-        self.params = params
         self.cfg = cfg
         self.qcfg = qcfg
         self.scfg = scfg
         self.device = lm.resolve_device(device)
+        #: the installed mesh (``sharding.set_mesh``), None on one device
+        self.mesh = sharding.get_mesh()
+        self.pspecs = None
+        #: the batch slots whose cache rows this rank holds, in order
+        self._slots = list(range(scfg.batch_slots))
+        if self.mesh is not None:
+            like = lm.lm_init(torch.Generator(), cfg, device="meta")
+            params, self.pspecs = sharding.serve_blocks(params, like,
+                                                        self.mesh)
+            self._slots = sharding.Serving(
+                self.mesh, self.pspecs, cfg, scfg.batch_slots).rows(
+                    torch.arange(scfg.batch_slots)).tolist()
+        self.params = params
+
+    def _step(self, fn, params, tokens: torch.Tensor, cache):
+        """``fn(params, tokens, cache, cfg, qcfg)``, under the mesh on the
+        rank's rows, with the whole logits gathered back."""
+        if self.mesh is None:
+            return fn(params, tokens, cache, self.cfg, self.qcfg)
+        with sharding.serving(self.mesh, self.pspecs, self.cfg,
+                              tokens.shape[0]) as s:
+            logits, cache = fn(s.view(params), s.rows(tokens), cache,
+                               self.cfg, self.qcfg)
+            return s.logits(logits), cache
 
     @torch.no_grad()
     def _prefill(self, params, tokens: torch.Tensor, cache):
-        return lm.lm_prefill_cache(params, tokens, cache, self.cfg, self.qcfg)
+        return self._step(lm.lm_prefill_cache, params, tokens, cache)
 
     @torch.no_grad()
     def _decode(self, params, token: torch.Tensor, cache):
-        return lm.lm_decode_step(params, token, cache, self.cfg, self.qcfg)
+        return self._step(lm.lm_decode_step, params, token, cache)
+
+    def local_slot(self, slot: int) -> Optional[int]:
+        """The rank's cache row of batch slot ``slot``, None where another
+        rank holds it (the slots split over the batch axes)."""
+        return self._slots.index(slot) if slot in self._slots else None
 
     @property
     def steps_prompts(self) -> bool:
@@ -77,8 +118,10 @@ class Engine:
         return self.cfg.family in lm.STATE_FAMILIES
 
     def init_cache(self, batch: int):
+        """The cache of ``batch`` rows (under a mesh the rank's block)."""
         return lm.init_cache(self.cfg, batch, self.scfg.max_seq,
-                             dtype=self.scfg.cache_dtype, device=self.device)
+                             dtype=self.scfg.cache_dtype, device=self.device,
+                             mesh=self.mesh)
 
     def generate(self, prompts: np.ndarray, max_new_tokens: int,
                  gen: Optional[torch.Generator] = None) -> np.ndarray:
@@ -87,7 +130,8 @@ class Engine:
         hybrid families), then ``max_new_tokens`` decode steps.  Returns (B, max_new_tokens) int32.  ``gen`` (a generator on
         the engine's device) draws the samples when the temperature is
         positive; each step takes the next numbers of its stream, where the
-        reference folds the step index into its key."""
+        reference folds the step index into its key (under a mesh, seed it
+        alike on every rank)."""
         prompts = np.asarray(prompts, dtype=np.int32)
         cache = self.init_cache(prompts.shape[0])
         toks = torch.as_tensor(prompts, device=self.device)
@@ -128,10 +172,13 @@ class _Slot:
 
 
 def _copy_slot(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor],
-               slot: int) -> None:
-    """In place: ``dst``'s ``slot``-th batch entry := ``src``'s.  Batch is
-    axis 1 for every layer-stacked tensor (k / v, the SSM and conv
-    states), axis 0 for ``index``."""
+               slot: Optional[int]) -> None:
+    """In place: ``dst``'s ``slot``-th batch entry := ``src``'s (``slot``:
+    a cache row, ``Engine.local_slot``; None: another rank's, nothing to
+    do).  Batch is axis 1 for every layer-stacked tensor (k / v, the SSM
+    and conv states), axis 0 for ``index``."""
+    if slot is None:
+        return
     for name, d in dst.items():
         if name == "index":
             d[slot] = src[name][slot]
@@ -199,7 +246,8 @@ class ContinuousBatcher:
         row is reset so a poisoned row cannot linger in the batch."""
         s = self.slots[slot_id]
         self._fail(s.request_id, s.tokens, reason)
-        _copy_slot(self.cache, self._fresh_cache, slot_id)
+        _copy_slot(self.cache, self._fresh_cache,
+                   self.engine.local_slot(slot_id))
         self.slots[slot_id] = _Slot()
 
     def _pop_live(self):
@@ -223,7 +271,8 @@ class ContinuousBatcher:
                 return
             rid, prompt, budget, deadline = nxt
             snap = {k: v.clone() for k, v in self.cache.items()}
-            _copy_slot(self.cache, self._fresh_cache, slot_id)
+            row = eng.local_slot(slot_id)
+            _copy_slot(self.cache, self._fresh_cache, row)
             if eng.steps_prompts:
                 # teacher-forced: the prompt's tokens in the admitted row
                 # step by step; the other rows are restored below
@@ -241,7 +290,7 @@ class ContinuousBatcher:
                 logits, self.cache = eng._prefill(
                     eng.params, torch.as_tensor(toks, device=eng.device),
                     self.cache)
-            _copy_slot(snap, self.cache, slot_id)
+            _copy_slot(snap, self.cache, row)
             self.cache = snap
             if self._logits is not None:
                 merged = self._logits.clone()

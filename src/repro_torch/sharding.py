@@ -206,10 +206,14 @@ class _Sync:
         self.ranks = mesh.count(axes) if ranks is None else ranks
 
     def max(self, t: torch.Tensor) -> torch.Tensor:
+        if not self.axes:            # every rank holds the whole tensor
+            return t
         return all_reduce(t, "max", self.axes, self.mesh,
                           tag="exponent" + self.suffix)
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
+        if not self.axes:
+            return t
         return all_reduce(t, "sum", self.axes, self.mesh,
                           tag="stat" + self.suffix)
 
@@ -220,12 +224,16 @@ class _ModelGroup:
     reduction of a tensor split over the batch and model axes.
     ``sequence``: the step shards its residual streams' sequence over the
     group (``SEQUENCE_SHARDING``; a stream whose length ``size`` does not
-    divide stays whole, ``int_ops.sequence_split``)."""
+    divide stays whole, ``int_ops.sequence_split``).  ``batch``: the axes
+    the rows are split over (default the batch axes; none where every rank
+    holds the whole batch, as a served batch the batch axes do not
+    divide)."""
 
-    def __init__(self, mesh: Mesh, sequence: bool = False):
+    def __init__(self, mesh: Mesh, sequence: bool = False,
+                 batch: Optional[Tuple[str, ...]] = None):
         self.mesh, self.sequence = mesh, sequence
         self.size, self.index = mesh.count("model"), mesh.index("model")
-        batch = mesh.axes(batch_axes(mesh))
+        batch = mesh.axes(batch_axes(mesh) if batch is None else batch)
         self.sync = _Sync(mesh, mesh.axes(batch + ("model",)),
                           ranks=mesh.count(batch), suffix="_model")
 
@@ -252,15 +260,17 @@ def spmd(mesh: Mesh, axes=None, split: bool = False,
     statistics and batch means that decide one, are the logical tensor's
     (``dfx.sync``), as in the reference's jit'd SPMD step; off inside
     ``manual_axes_active``.  ``axes``: the axes the tensors are split
-    over (default the batch axes; none: nothing to reduce).  ``split``:
-    the step splits its products over the model group (``dfx.model``);
-    ``sequence``: it also shards its residual streams' sequence there."""
+    over (default the batch axes; none: nothing to reduce, unless the
+    products split, whose split tensors still reduce over the model
+    group).  ``split``: the step splits its products over the model group
+    (``dfx.model``); ``sequence``: it also shards its residual streams'
+    sequence there."""
     axes = mesh.axes(batch_axes(mesh) if axes is None else axes)
     prev, prev_model = dfx.sync, dfx.model
-    dfx.sync = None if _MANUAL_AXES or not axes else _Sync(mesh, axes)
-    dfx.model = (_ModelGroup(mesh, sequence) if split
-                 and dfx.sync is not None and mesh.count("model") > 1
-                 else None)
+    tp = split and not _MANUAL_AXES and mesh.count("model") > 1
+    dfx.sync = (None if _MANUAL_AXES or not (axes or tp)
+                else _Sync(mesh, axes))
+    dfx.model = _ModelGroup(mesh, sequence, axes) if tp else None
     try:
         yield
     finally:
@@ -942,3 +952,181 @@ def quantized_all_gather(params: Any, mesh: Mesh, *, bits: int,
     if pspecs is None:
         raise TypeError("quantized_all_gather needs the blocks' pspecs")
     return gather_params(params, pspecs, mesh, bits)
+
+
+# ---------------------------------------------------------------------------
+# Serving under a mesh: the decode cache's layout and the serving step
+# ---------------------------------------------------------------------------
+
+#: a cache spec's entry for the kv head axis where the model axis does not
+#: split the kv heads whole: the rank keeps the one kv head its query heads
+#: read (``blocks.replicated_kv_head``), not an even block
+KV_HEAD = "kv_head"
+
+
+def kv_head_index(cfg: Any, mesh: Mesh) -> int:
+    """The kv head the rank's ``H / M`` query heads read under the kv
+    replication (``blocks.replicated_kv_head`` at this mesh's model
+    index)."""
+    H, M = cfg.n_heads, mesh.count("model")
+    return mesh.index("model") * (H // M) // (H // cfg.n_kv_heads)
+
+
+def cache_pspecs(cache: Dict[str, Any], mesh: Mesh, cfg: Any) -> Dict[str,
+                                                                      Spec]:
+    """The spec of each decode-cache leaf (the counterpart of the
+    reference's ``dryrun._cache_shardings`` / ``lm._constrain_cache``):
+
+    * ``k`` / ``v`` (L, B, S, KV, hd): the batch over the batch axes, the
+      **kv heads** over ``model``, or, where the model axis does not split
+      them whole, ``KV_HEAD``: the rank's one head.  The reference splits
+      ``hd`` over ``model`` instead (kv counts like 8 do not divide a
+      16-way axis; ``hd`` does).  The port's tensor-parallel attention
+      gives each rank whole heads (``models/blocks.py``), so a cache split
+      on ``hd`` would need an all-to-all of the whole cache every step;
+      the rank's heads are what it computes with.  Where KV < M that
+      cache is ``M / KV`` times the reference's per rank.
+    * ``ssm`` (L, B, H, P, N): the SSD heads over ``model``.
+    * ``conv_x`` (L, B, K-1, DI): the channels over ``model``.
+    * ``conv_BC`` (L, B, K-1, 2N): whole over ``model`` (the reference
+      splits its channels): the port's split Mamba2 layer projects and
+      convolves B / C whole on every rank (``models/ssm.py``).
+    * ``index``: the per-row (B,) positions as the rank's rows (the
+      reference replicates the vector and each device reads its rows);
+      the enc-dec's scalar whole.
+
+    A dim the named axes do not divide stays whole, as in the reference's
+    ``clean`` loop (a batch of 1 is every rank's)."""
+    batch = batch_axes(mesh)
+    tp = tensor_parallel(cfg, mesh)
+    heads = "model" if tp is None or tp.kv_split else KV_HEAD
+    raw = {"k": (None, batch, None, heads, None),
+           "v": (None, batch, None, heads, None),
+           "ssm": (None, batch, "model", None, None),
+           "conv_x": (None, batch, None, "model"),
+           "conv_BC": (None, batch, None, None),
+           "index": (batch,)}
+
+    def clean(name, leaf):
+        if leaf.dim() == 0:
+            return ()
+        out = []
+        for dim, want in zip(leaf.shape, raw[name]):
+            if want == KV_HEAD:
+                out.append(want)
+                continue
+            names = mesh.axes(want)
+            out.append((names[0] if len(names) == 1 else names)
+                       if names and dim % mesh.count(names) == 0 else None)
+        return tuple(out)
+    return {name: clean(name, leaf) for name, leaf in cache.items()}
+
+
+def cache_slices(shape, spec: Spec, mesh: Mesh, cfg: Any
+                 ) -> Tuple[slice, ...]:
+    """The rank's block of a logical cache leaf of ``shape``: its
+    ``local_slices``, the kv head axis at ``KV_HEAD`` the one head
+    ``kv_head_index`` names."""
+    out = list(local_slices(shape, tuple(None if s == KV_HEAD else s
+                                         for s in spec), mesh))
+    for d, s in enumerate(spec):
+        if s == KV_HEAD:
+            h = kv_head_index(cfg, mesh)
+            out[d] = slice(h, h + 1)
+    return tuple(out)
+
+
+def cache_block_shape(shape, spec: Spec, mesh: Mesh) -> Tuple[int, ...]:
+    """The shape of the rank's block of a cache leaf of ``shape``."""
+    return tuple(1 if s == KV_HEAD else d // mesh.count(s)
+                 for d, s in zip(shape, tuple(spec) + (None,) * len(shape)))
+
+
+def cache_zeros(like: Dict[str, Any], mesh: Mesh, cfg: Any,
+                device) -> Dict[str, torch.Tensor]:
+    """The rank's cache: zeros of the block of each leaf of the logical
+    cache ``like`` (meta tensors), on ``device``."""
+    specs = cache_pspecs(like, mesh, cfg)
+    return {k: torch.zeros(cache_block_shape(v.shape, specs[k], mesh),
+                           dtype=v.dtype, device=device)
+            for k, v in like.items()}
+
+
+def serve_blocks(params: Any, like: Any, mesh: Mesh) -> Tuple[Any, Any]:
+    """``(blocks, specs)`` of the parameters a server holds on ``mesh``:
+    ``params`` as given where they are the rank's blocks under the rules
+    without FSDP or with it (``param_pspecs``), or, where they are the
+    logical tensors (``like``'s shapes: every rank holds them whole), the
+    rank's blocks of them under the rules without FSDP."""
+    for fsdp in (False, True):
+        specs = param_pspecs(like, mesh, fsdp=fsdp)
+        shapes = [tuple(local_slices(l.shape, sp, mesh))
+                  for l, sp in zip(opt_lib.tree_leaves(like),
+                                   opt_lib.tree_leaves(specs))]
+        if all(tuple(p.shape) == tuple(s.stop - s.start for s in sl)
+               for p, sl in zip(opt_lib.tree_leaves(params), shapes)):
+            return params, specs
+    if all(tuple(p.shape) == tuple(l.shape) for p, l in zip(
+            opt_lib.tree_leaves(params), opt_lib.tree_leaves(like))):
+        specs = param_pspecs(like, mesh, fsdp=False)
+        return shard(params, specs, mesh), specs
+    raise ValueError("the parameters are neither the logical tensors nor "
+                     "the rank's blocks of them on this mesh")
+
+
+class Serving:
+    """A prefill or decode step of ``cfg`` on ``mesh`` over a batch of
+    ``batch`` rows, the reference's serving layout: the parameters the
+    rank's blocks (``pspecs``), gathered as a training step gathers them
+    (``view``: ``layer_view``, a layer stack's leaves a layer at a time
+    inside the layer, to their model shards under tensor-parallel
+    compute); the rows split over the batch axes where they divide
+    ``batch`` (``rows``), else whole on every rank; the cache the rank's
+    (``cache_pspecs``); every product split over the model group as a
+    training step splits it (``tensor_parallel``), a stream the group
+    divides sequence-sharded (``SEQUENCE_SHARDING``); the logits the
+    rank's rows and vocabulary columns, ``logits`` the whole ones."""
+
+    def __init__(self, mesh: Mesh, pspecs: Any, cfg: Any, batch: int):
+        self.mesh, self.pspecs, self.cfg = mesh, pspecs, cfg
+        self.tp = tensor_parallel(cfg, mesh)
+        axes = mesh.axes(batch_axes(mesh))
+        self.batch = axes if batch % mesh.count(axes) == 0 else ()
+
+    def view(self, params: Any) -> Any:
+        return layer_view(params, self.pspecs, self.mesh, tp=self.tp)
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The rank's rows of ``t`` (dim 0 the batch)."""
+        n, i = self.mesh.count(self.batch), self.mesh.index(self.batch)
+        step = t.shape[0] // n
+        return t[i * step:(i + 1) * step]
+
+    def logits(self, z: torch.Tensor) -> torch.Tensor:
+        """The whole (B, S, V) logits on every rank from the rank's rows
+        and vocabulary columns: gathered over ``model`` (tag
+        ``serve_logits``), then over the batch axes (tag ``serve_rows``)."""
+        if self.tp is not None:
+            parts = all_gather(z.contiguous(), "model", self.mesh,
+                               tag="serve_logits")
+            z = parts.movedim(0, -2).reshape(tuple(z.shape[:-1]) + (-1,))
+        if self.mesh.count(self.batch) > 1:
+            z = all_gather(z.contiguous(), self.batch, self.mesh,
+                           tag="serve_rows").flatten(0, 1)
+        return z
+
+
+@contextlib.contextmanager
+def serving(mesh: Mesh, pspecs: Any, cfg: Any, batch: int):
+    """The body of a prefill or decode step over ``mesh`` (``Serving``):
+    every per-tensor exponent the logical batch's (``spmd`` over the axes
+    the rows are split over), every product split over the model group.
+    Yields the ``Serving``; the entry points (``lm.lm_prefill``,
+    ``lm_prefill_cache``, ``lm_decode_step``, ``encdec.encode``,
+    ``encdec_precompute_cross``, ``encdec_decode_step``) take its
+    ``view`` of the rank's blocks, its ``rows`` of the batch and the
+    rank's cache (``lm.init_cache(..., mesh=)``)."""
+    s = Serving(mesh, pspecs, cfg, batch)
+    with spmd(mesh, axes=s.batch, split=s.tp is not None,
+              sequence=s.tp is not None and s.tp.sequence):
+        yield s

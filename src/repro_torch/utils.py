@@ -17,9 +17,8 @@ layer between its forward and its backward.
   on its Pallas route, where the integer products are ``pallas_call``s.
 
 The remat sites are ``lm._remat``'s callers (the dense, MoE, VLM, SSM and
-hybrid stacks) and ``encdec._remat_call`` (whisper's two stacks).  The
-BERT / ViT encoder (``models/paper_models.py``) runs without recompute,
-so the policy has nothing to act on there.
+hybrid stacks, the BERT / ViT encoder of ``models/paper_models.py``) and
+``encdec._remat_call`` (whisper's two stacks).
 
 Not ported (the port's layer loops are Python loops): ``scan`` and its
 ``ANALYSIS_UNROLL`` switch, ``analysis_unroll``, ``count_eqns`` and

@@ -358,9 +358,55 @@ def test_cli_full_size_on_the_production_mesh(cli):
         3 * blocks + 4 + rows                     # + m, v and the step
     assert rec["collectives"]["total"] > 0
     assert rec["collectives"]["by_tag"]["sp_gather"]["calls"] > 0
-    assert _record(cli, "prefill_32k")["status"] == "not_ported"
-    assert "item 14" in _record(cli, "decode_32k")["reason"]
+    # the serving cells: the rank's parameter blocks (FP32, no moments),
+    # its rows of the prompts, and a decode cell's cache as cache_pspecs
+    # lays it out
+    pre, dec = _record(cli, "prefill_32k"), _record(cli, "decode_32k")
+    assert pre["status"] == dec["status"] == "ok"
+    S, B, _ = SHAPES["prefill_32k"]
+    assert pre["memory"]["argument_bytes_per_device"] == \
+        blocks + 4 * (B // 16) * S
+    assert pre["collectives"]["by_tag"]["sp_gather"]["calls"] > 0
+    assert dec["memory"]["argument_bytes_per_device"] == \
+        blocks + _cache_bytes(cfg, "decode_32k", mesh) + 4 * (128 // 16)
+    assert dec["collectives"]["by_tag"]["exponent_model"]["calls"] > 0
+    assert dec["launches"]["int_attn_fwd"] == cfg.n_layers
     assert _record(cli, "long_500k")["status"] == "skipped"
+
+
+def _cache_bytes(cfg, shape, mesh):
+    """The rank's decode cache by ``cache_pspecs``: each leaf's block."""
+    cache = registry.input_specs(cfg, shape)["cache"]
+    specs = sharding.cache_pspecs(cache, mesh, cfg)
+    return sum(math.prod(sharding.cache_block_shape(v.shape, specs[k], mesh))
+               * v.element_size() for k, v in cache.items())
+
+
+def test_kv_replicated_decode_cell_holds_one_kv_head():
+    """mistral-nemo-12b's 8 kv heads over a model axis of 16: each rank
+    computes with, and caches, the one kv head its query heads read."""
+    cfg = registry.get_config("mistral-nemo-12b")
+    mesh = sharding.dry_mesh((16, 16), ("data", "model"), rank=5)
+    cache = registry.input_specs(cfg, "decode_32k")["cache"]
+    specs = sharding.cache_pspecs(cache, mesh, cfg)
+    assert specs["k"] == (None, "data", None, sharding.KV_HEAD, None)
+    S, B, _ = SHAPES["decode_32k"]
+    kv = cfg.n_layers * (B // 16) * S * cfg.head_dim * 2
+    assert _cache_bytes(cfg, "decode_32k", mesh) == 2 * kv + 4 * (B // 16)
+    assert sharding.kv_head_index(cfg, mesh) == 5 * (32 // 16) // (32 // 8)
+    rec = dryrun.run_cell("mistral-nemo-12b", "decode_32k", mesh, "16x16",
+                          INT8, None)
+    assert rec["status"] == "ok", rec.get("traceback")
+    params = lm.lm_init(torch.Generator(), cfg, device="meta")
+    pspecs = sharding.param_pspecs(params, mesh, fsdp=registry.use_fsdp(
+        "mistral-nemo-12b"))
+    blocks = sum(4 * math.prod(sharding.cache_block_shape(p.shape, s, mesh))
+                 for p, s in zip(opt_lib.tree_leaves(params),
+                                 opt_lib.tree_leaves(pspecs)))
+    assert rec["memory"]["argument_bytes_per_device"] == \
+        blocks + 2 * kv + 4 * (B // 16) + 4 * (B // 16)
+    # every rank projects all 8 kv heads: k / v gathered whole over model
+    assert rec["collectives"]["by_tag"]["gather_layer_kv_f32"]["calls"] > 0
 
 
 def test_cli_resume_and_analysis_only(cli, capsys):

@@ -19,7 +19,6 @@ jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 
-from repro import utils as ref_utils  # noqa: E402
 from repro.analysis import budget as ref_budget  # noqa: E402
 from repro.analysis import lint as ref_lint  # noqa: E402
 from repro.analysis import rules as ref_rules  # noqa: E402
@@ -145,11 +144,10 @@ def test_layer_dispatch_equals_the_reference(current, preset):
     assert {k: current[preset][k] for k in ref} == ref
 
 
-def test_model_dispatch_equals_the_reference(current, monkeypatch):
+def test_model_dispatch_equals_the_reference(current):
     """The serve path's prompt admission launches the reference's
-    effective count.  The bert step does too once the reference's
-    per-layer remat is off: the port's bert encoder runs without remat
-    (ROADMAP §3), so its step has no recompute's calls."""
+    effective count, and so does the bert step, each encoder layer under
+    per-layer remat on both sides (its recompute's calls included)."""
     from repro.configs import registry
     from repro.models import lm as ref_lm
     from repro.models import paper_models as pm
@@ -164,7 +162,6 @@ def test_model_dispatch_equals_the_reference(current, monkeypatch):
                                                 _ref_cfg("int8")),
         params, tokens, cache)
 
-    monkeypatch.setattr(ref_utils, "checkpoint", lambda f: f)
     bcfg = pm.bert_config(n_layers=4, d_model=64, n_heads=4, d_ff=128,
                           vocab=128, name="bert-gate")
     bparams = pm.bert_init(key, bcfg, num_labels=4)

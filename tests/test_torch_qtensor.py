@@ -108,6 +108,42 @@ def test_quantize_matches_reference(bits, group_axis, stochastic, shape):
 
 
 @pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("group_axis", [1, -1, "last"])
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("shape", [(6, 5, 33), (7, 40)])
+def test_other_group_axes_match_reference(bits, group_axis, stochastic,
+                                          shape):
+    """``group_axis`` 1, the last axis and -1, which the reference's
+    keep-dims reduction (over every axis ``a != group_axis``) reads as one
+    exponent in the ``(1, ..., 1)`` shape: planes, exponents (their
+    keep-dims shape too), mantissas and dequantized values bit for bit."""
+    if group_axis == "last":
+        group_axis = len(shape) - 1
+    x = _inputs(shape, seed=3 * bits + len(shape))
+    u = (np.asarray(jax.random.uniform(jax.random.PRNGKey(7), shape,
+                                       jnp.float32))
+         if stochastic else None)
+    r = _jq(x, bits, group_axis, u)
+    _exact_window(np.asarray(r.exp))
+    t = qtensor.quantize(torch.from_numpy(x), bits, group_axis=group_axis,
+                         stochastic=stochastic,
+                         key=_fed(u) if stochastic else None)
+    _same(t, r)
+    assert tuple(t.exp.shape) == tuple(r.exp.shape)
+    assert t.group_axis == r.group_axis
+    assert t.n_limbs == r.n_limbs and t.nbytes == r.nbytes
+    np.testing.assert_array_equal(qtensor.int_mantissa(t).numpy(),
+                                  np.asarray(jq.int_mantissa(r)))
+    np.testing.assert_array_equal(qtensor.dequantize(t).numpy(),
+                                  np.asarray(jq.dequantize(r)))
+    np.testing.assert_array_equal(
+        qtensor.step_exponent(torch.from_numpy(x), bits, group_axis).numpy(),
+        np.asarray(jq.step_exponent(jnp.asarray(x), bits, group_axis)))
+    z = qtensor.zeros(shape, bits, group_axis)
+    _same(z, jq.zeros(shape, bits, group_axis))
+
+
+@pytest.mark.parametrize("bits", [8, 16])
 @pytest.mark.parametrize("group_axis", [None, 0])
 def test_zeros_match_reference_and_quantize_of_zeros(bits, group_axis):
     shape = (4, 3, 5)
@@ -168,8 +204,9 @@ def test_wire_bytes_and_group_axes():
     t = qtensor.quantize(torch.ones(6, 4), 8, group_axis=0)
     assert t.nbytes == qtensor.wire_bytes(24, 8, 6)
     assert qtensor.is_qtensor(t) and not qtensor.is_qtensor(t.m)
-    with pytest.raises(NotImplementedError):
-        qtensor.quantize(torch.ones(6, 4), 8, group_axis=1)
+    t1 = qtensor.quantize(torch.ones(6, 4), 8, group_axis=1)
+    assert t1.group_axis == 1 and tuple(t1.exp.shape) == (1, 4)
+    assert t1.nbytes == qtensor.wire_bytes(24, 8, 4)
     with pytest.raises(ValueError):
         qtensor.quantize(torch.ones(6, 4), 8, stochastic=True)
 

@@ -8,7 +8,11 @@ without, and leaves the generator in the same state.  A recompute that drew
 from the shared generator instead (emulated by patching ``_replay_key``)
 breaks both, so the test sees the hazard.  Reduced qwen1.5-0.5b (dense,
 QKV bias, tied head) and reduced mixtral-8x7b (MoE, a window of 64 keys
-over 80 tokens), int8, on the CPU.
+over 80 tokens), int8, on the CPU.  The BERT / ViT encoder
+(``paper_models._encoder``) runs each layer under the same remat: its
+step with remat equals the one without bit for bit, and its recompute's
+kernel calls are counted (the layer's forward less its last product, which
+the recompute skips as the reference's dead-code eliminated one does).
 """
 import dataclasses
 import functools
@@ -19,7 +23,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core.qconfig import QuantConfig  # noqa: E402
+from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import paper_models as pm  # noqa: E402
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -118,3 +124,69 @@ def test_a_callable_key_runs_without_remat(monkeypatch):
     assert calls == registry.get_config("qwen1.5-0.5b").reduced().n_layers
     assert torch.equal(loss, loss0)
     assert all(torch.equal(g, grads0[n]) for n, g in grads.items())
+
+
+def _enc_step(monkeypatch, which, remat):
+    """One bert cls / vit img forward and backward (2 layers, stochastic
+    forward and gradient rounding) with ``_encoder``'s remat set as given;
+    returns (loss, {name: gradient}, the generator's state, kernel calls by
+    wrapper, encoder layer calls)."""
+    g = torch.Generator().manual_seed(0)
+    if which == "bert":
+        cfg = pm.bert_config(n_layers=2, d_model=64, n_heads=4, d_ff=128,
+                             vocab=96, name="bert-remat")
+        params = pm.bert_init(g, cfg, num_labels=3, device="cpu")
+        batch = {"tokens": torch.randint(0, 96, (2, 16), generator=g),
+                 "segment": torch.randint(0, 2, (2, 16), generator=g),
+                 "labels": torch.tensor([0, 2])}
+        loss_fn = pm.bert_cls_loss
+    else:
+        cfg = pm.vit_config(n_layers=2, d_model=64, n_heads=4, d_ff=128,
+                            img=32, patch=8, name="vit-remat")
+        params = pm.vit_init(g, cfg, num_classes=3, img=32, patch=8,
+                             device="cpu")
+        batch = {"images": torch.randn((2, 32, 32, 3), generator=g),
+                 "labels": torch.tensor([1, 2])}
+        loss_fn = functools.partial(pm.vit_cls_loss, patch=8)
+    leaves = dict(_leaves(params))
+    for t in leaves.values():
+        t.requires_grad_(True)
+    gen = torch.Generator().manual_seed(2)
+    calls, layer = [], pm._enc_layer
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return layer(*a, **kw)
+    monkeypatch.setattr(pm, "_enc_layer", counted)
+    monkeypatch.setattr(pm, "_encoder", functools.partial(pm._encoder,
+                                                          remat=remat))
+    _lib.PLAIN_CALLS.clear()
+    loss, _ = loss_fn(params, batch, cfg, STOCHASTIC, gen)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    monkeypatch.undo()
+    return (loss.detach(), dict(zip(leaves, grads)), gen.get_state(),
+            dict(_lib.PLAIN_CALLS), len(calls))
+
+
+@pytest.mark.parametrize("which", ["bert", "vit"])
+def test_encoder_remat_is_bit_for_bit_and_recomputes(monkeypatch, which):
+    loss, grads, state, kern, calls = _enc_step(monkeypatch, which, True)
+    loss0, grads0, state0, kern0, calls0 = _enc_step(monkeypatch, which,
+                                                     False)
+    assert (calls, calls0) == (4, 2)               # each layer recomputed
+    assert torch.equal(loss, loss0)
+    assert sorted(grads) == sorted(grads0)
+    for name, g in grads.items():
+        assert torch.isfinite(g).all(), name
+        assert torch.equal(g, grads0[name]), name
+    assert torch.equal(state, state0)
+    # the recompute's calls: per layer the forward's 19 quantizes, its two
+    # norms, its attention and the q / k / v / o and w1 matmuls; w2's
+    # matmul, the layer's last product, is not run again, and no backward
+    # kernel is
+    extra = {n: kern.get(n, 0) - kern0.get(n, 0) for n in kern}
+    assert extra == {"dfx_quantize": 2 * 19, "bfp_matmul": 2 * 5,
+                     "int_layernorm_fwd": 2 * 2, "int_attn_fwd": 2,
+                     **{n: 0 for n in kern if n not in (
+                         "dfx_quantize", "bfp_matmul", "int_layernorm_fwd",
+                         "int_attn_fwd")}}, extra

@@ -1062,6 +1062,238 @@ def case_dry_stats(inp, mesh_of):
     return out
 
 
+# -------------------------------------------------------------------------
+# Serving under a mesh (test_torch_serve_mesh.py)
+# -------------------------------------------------------------------------
+
+#: the reduced archs the 2-rank world serves: name -> (arch, replace)
+SERVE_ARCHS = {"qwen": ("qwen1.5-0.5b", {}),
+               "qwen_kv1": ("qwen1.5-0.5b", {"n_kv_heads": 1}),
+               "moe": ("qwen2-moe-a2.7b", {}),
+               "mamba2": ("mamba2-370m", {}),
+               "zamba2": ("zamba2-2.7b", {}),
+               "llava": ("llava-next-mistral-7b", {}),
+               "whisper": ("whisper-large-v3", {})}
+
+
+def _serve_cfg(name):
+    from repro_torch.configs import registry
+    arch, repl = SERVE_ARCHS[name]
+    return dataclasses.replace(registry.get_config(arch).reduced(), **repl)
+
+
+def _serve_generate(cfg, params, q, prompts, new, mesh):
+    """``Engine.generate`` under ``mesh`` (``sharding.set_mesh``; None: one
+    device): the tokens, the whole logits of every step, the engine's
+    cache (updated in place) and the collectives by tag."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.serve.engine import Engine, ServeConfig
+    sharding.reset_stats()
+    sharding.set_mesh(mesh)
+    try:
+        eng = Engine(params, cfg, q, ServeConfig(max_seq=32, batch_slots=2),
+                     device="cpu")
+        seen, caches = [], []
+        sample, init = eng._sample, eng.init_cache
+
+        def recorded(logits, gen=None):
+            seen.append(logits[:, -1].clone())
+            return sample(logits, gen)
+
+        def kept(batch):
+            caches.append(init(batch))
+            return caches[-1]
+        eng._sample, eng.init_cache = recorded, kept
+        toks = eng.generate(prompts, new)
+    finally:
+        sharding.set_mesh(None)
+    return {"tokens": torch.from_numpy(toks), "logits": torch.stack(seen),
+            "cache": caches[0], "stats": dict(sharding.STATS)}
+
+
+def _serve_llava(cfg, params, q, tokens, pe, mesh):
+    """``lm_prefill`` with the patch prefix, on one device or under
+    ``sharding.serving``: the whole last-position logits and hidden
+    states (the rank's rows of them under the mesh)."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.models import lm
+    with torch.no_grad():
+        if mesh is None:
+            logits, x = lm.lm_prefill(params, tokens, cfg, q,
+                                      prefix_embeds=pe)
+            return {"logits": logits[:, -1][None], "x": x}
+        like = lm.lm_init(torch.Generator(), cfg, device="meta")
+        blocks, specs = sharding.serve_blocks(params, like, mesh)
+        with sharding.serving(mesh, specs, cfg, tokens.shape[0]) as s:
+            logits, x = lm.lm_prefill(s.view(blocks), s.rows(tokens), cfg, q,
+                                      prefix_embeds=s.rows(pe))
+            return {"logits": s.logits(logits)[:, -1][None], "x": x}
+
+
+def _serve_whisper(cfg, params, q, frames, toks, mesh):
+    """``encode``, ``encdec_precompute_cross`` and one decode step per row
+    of ``toks`` (steps, B, 1), on one device or under
+    ``sharding.serving``: the whole logits of every step, the (rank's)
+    cross K/V and self cache."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.models import encdec
+    B = frames.shape[0]
+
+    def run(view, rows, logits_of, m):
+        enc = encdec.encode(view, rows(frames), cfg, q, None)
+        cross = encdec.encdec_precompute_cross(view, enc, cfg, q)
+        cache = encdec.encdec_init_cache(cfg, B, 16, dtype=torch.float32,
+                                         device="cpu", mesh=m)
+        seen = []
+        for t in toks:
+            logits, cache = encdec.encdec_decode_step(
+                view, rows(t), cache, cross, cfg, q)
+            seen.append(logits_of(logits)[:, -1])
+        return {"logits": torch.stack(seen), "cache": cache,
+                "cross": dict(zip(("xk", "xv"), cross))}
+    with torch.no_grad():
+        if mesh is None:
+            return run(params, lambda t: t, lambda z: z, None)
+        like = encdec.encdec_init(torch.Generator(), cfg, device="meta")
+        blocks, specs = sharding.serve_blocks(params, like, mesh)
+        with sharding.serving(mesh, specs, cfg, B) as s:
+            return run(s.view(blocks), s.rows, s.logits, mesh)
+
+
+def _serve_block(one, like, mesh, cfg):
+    """The rank's block of each one-device cache leaf (``cache_slices``
+    over ``cache_pspecs``)."""
+    from repro_torch import sharding
+    specs = sharding.cache_pspecs(like, mesh, cfg)
+    return {k: v[sharding.cache_slices(v.shape, specs[k], mesh, cfg)]
+            for k, v in one.items()}
+
+
+def case_serve_mesh(inp, mesh_of):
+    """Each reduced arch of ``inp["names"]`` served on a (1, 2) mesh and on
+    one device (both on every rank, the one-device run with the mesh
+    uninstalled), int8 round to nearest, every exponent recorded: the
+    dense, MoE, SSM and hybrid archs through ``Engine.generate`` (the qwen
+    weights ``inp["qwen/init/..."]`` where given), llava's ``lm_prefill``
+    with its patch prefix, whisper's decode.  ``{name: {"mesh", "one",
+    "block"}}``: the runs, and the one-device run's cache cut to the
+    rank's block."""
+    import torch
+    from repro_torch.core import dfx
+    from repro_torch.launch import train as launch_train
+    rec = _record_exponents(dfx)
+    mesh = mesh_of((1, 2), ("data", "model"))
+    q = _rn_int8()
+    t = {k: torch.from_numpy(np.array(v)) for k, v in inp.items()
+         if "/init/" not in k and k != "names"}
+    out = {}
+    for name in (str(n) for n in inp["names"]):
+        cfg = _serve_cfg(name)
+        init_fn = launch_train._model(cfg)[0]
+        params = (_tree(inp, "qwen/init") if name == "qwen"
+                  and any(k.startswith("qwen/init/") for k in inp) else
+                  init_fn(torch.Generator().manual_seed(0), cfg,
+                          device="cpu"))
+        got = {}
+        for where, m in (("one", None), ("mesh", mesh)):
+            rec.clear()
+            if cfg.enc_dec:
+                r = _serve_whisper(cfg, params, q, t["frames"],
+                                   t["dec"][..., None], m)
+            elif cfg.vlm_prefix:
+                r = _serve_llava(cfg, params, q, t["prompts"],
+                                 t["patches"], m)
+            else:
+                r = _serve_generate(cfg, params, q, inp["prompts"],
+                                    int(inp["new"]), m)
+            got[where] = dict(r, exps=list(rec))
+        if "cache" in got["one"]:
+            like = {k: v.to("meta") for k, v in got["one"]["cache"].items()}
+            got["block"] = _serve_block(got["one"]["cache"], like, mesh, cfg)
+        out[name] = got
+    return out
+
+
+def _batcher_run(engine, cfg, requests):
+    """A ``ContinuousBatcher`` over ``requests`` (prompt, budget, the step
+    it arrives at): each request's per-step logits rows, and the
+    results."""
+    from repro_torch.serve.engine import ContinuousBatcher
+    b = ContinuousBatcher(engine)
+    pending = sorted(requests, key=lambda r: r[2])
+    order, traj, steps = [], {}, 0
+    while pending or b.queue or any(s.active for s in b.slots):
+        while pending and pending[0][2] <= steps:
+            p, n, _ = pending.pop(0)
+            order.append(b.submit(p, n))
+        b.step()
+        steps += 1
+        for i, s in enumerate(b.slots):
+            if s.active:
+                traj.setdefault(s.request_id, []).append(
+                    b._logits[i, 0, :cfg.vocab].clone())
+        assert steps < 200
+    return {rid: {"logits": traj.get(rid, []), "tokens": b.results[rid]}
+            for rid in order}
+
+
+def case_serve_batcher(inp, mesh_of):
+    """Reduced qwen1.5-0.5b through ``ContinuousBatcher`` on a (2, 2) mesh
+    with staggered admissions (``inp["arrive"]``): under FP32 each request
+    also alone on one device, under int8 round to nearest the same
+    schedule on one device, every exponent recorded; and one prompt
+    through ``Engine.generate``, a row every rank holds, and four from
+    the rank's FSDP blocks.  ``{"fp32": {"mesh", "solo"}, "int8":
+    {"mesh", "one"}, "one_row" / "fsdp": {"mesh", "one"}}``."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.core import dfx
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig
+    rec = _record_exponents(dfx)
+    mesh = mesh_of((2, 2), ("data", "model"))
+    cfg = _serve_cfg("qwen")
+    params = lm.lm_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    reqs = [(np.array(p), int(n), int(a)) for p, n, a in zip(
+        inp["prompts"], inp["budgets"], inp["arrive"])]
+
+    def run(q, m, requests):
+        rec.clear()
+        sharding.reset_stats()
+        sharding.set_mesh(m)           # the engine reads it at its start
+        try:
+            eng = Engine(params, cfg, q, ServeConfig(max_seq=48,
+                                                     batch_slots=4),
+                         device="cpu")
+        finally:
+            sharding.set_mesh(None)
+        return dict(runs=_batcher_run(eng, cfg, requests), exps=list(rec),
+                    stats=dict(sharding.STATS))
+    fp32, int8 = QuantConfig.fp32(), _rn_int8()
+    # one prompt, which the data axis does not split: every rank holds the
+    # row, the products still split over the model group
+    one_row = {where: _serve_generate(cfg, params, int8, inp["prompts"][:1],
+                                      3, m)
+               for where, m in (("one", None), ("mesh", mesh))}
+    # the rank's FSDP blocks (a trained model's layout) handed to the
+    # engine: each layer gathered over data as it runs
+    specs = sharding.param_pspecs(params, mesh, fsdp=True)
+    fsdp = {"one": _serve_generate(cfg, params, int8, inp["prompts"][:4], 3,
+                                   None),
+            "mesh": _serve_generate(cfg, sharding.shard(params, specs, mesh),
+                                    int8, inp["prompts"][:4], 3, mesh)}
+    return {"fp32": {"mesh": run(fp32, mesh, reqs),
+                     "solo": [run(fp32, None, [(p, n, 0)])
+                              for p, n, _ in reqs]},
+            "int8": {"mesh": run(int8, mesh, reqs),
+                     "one": run(int8, None, reqs)},
+            "one_row": one_row, "fsdp": fsdp}
+
+
 def main(argv) -> int:
     import torch
     import torch.distributed as dist
